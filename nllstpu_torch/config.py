@@ -2,8 +2,8 @@
 
 Unlike the JAX package, nothing global is switched on at import: PyTorch
 keeps float64 available everywhere, and every :class:`Problem` names its own
-``dtype`` and ``device``.  Tests solve in float64 on the CPU; the card solves
-in float32.
+``dtype`` and ``device``.  The device defaults to the card: a caller who
+wants the CPU (the tests) asks for it with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,5 +25,13 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CPU; anything else is passed to ``torch.device``."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """``None`` means the card (``cuda``); anything else is passed to
+    ``torch.device``.  A CUDA device on a host without one raises: the port
+    never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested (the default) but no CUDA device "
+            "is available; pass device=\"cpu\" to run on the CPU"
+        )
+    return dev

@@ -16,12 +16,33 @@ import torch
 
 def cholesky_solve(a, b):
     """Solve ``a x = b`` (``b`` a vector) by Cholesky, or by LU when ``a``
-    is not positive definite."""
+    is not positive definite.
+
+    A float32 ``a`` is first scaled to a unit diagonal (x = D y with
+    D = |diag a|^-½, (D a D) y = D b).  The reduced camera system of
+    Snavely BAL problems has a diagonal spanning eight decades (focal
+    length against rotation) and BA's near-null gauge directions: in
+    float32 it rounds to an indefinite matrix, the Cholesky fails, and LU
+    with partial pivoting on the unscaled rows returns a step off by 3 to
+    1000 times its size, which LM rejects again and again.  On the scaled
+    matrix the LU step matches an exact solve of the same float32 system.
+    Float64 factors unscaled, as the JAX package does: scaled, the
+    last-bit differences at the cost's rounding floor change which damped
+    trials LM accepts, and the float64 LM trace no longer matches the JAX
+    package's (16 cameras, 256 landmarks, Huber: 10 damped solves against
+    5)."""
+    d = None
+    if a.dtype == torch.float32:
+        diag = torch.diagonal(a).abs()
+        d = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))
+        a = a * d[:, None] * d[None, :]
+        b = b * d
     chol, info = torch.linalg.cholesky_ex(a)
     if int(info) == 0:
-        return torch.cholesky_solve(b[:, None], chol)[:, 0]
-    x, _ = torch.linalg.solve_ex(a, b)
-    return x
+        x = torch.cholesky_solve(b[:, None], chol)[:, 0]
+    else:
+        x, _ = torch.linalg.solve_ex(a, b)
+    return x if d is None else d * x
 
 
 def batched_inv_spd_cm(h):

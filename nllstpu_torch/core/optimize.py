@@ -32,19 +32,24 @@ DENSE_W_BYTE_LIMIT = 4 << 30
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The two kernel entry points of the main path."""
+    """The kernel entry points of the direct-Schur path."""
 
-    assemble: Any  # kernel B1 contract (ops/fused_obs.py)
+    assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
+    assemble_into: Any  # kernel B2 contract, one launch per degree bucket
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py)
 
 
 #: Dispatchers: the hand-written kernels on CUDA tensors, their plain
 #: versions on CPU tensors.
-KERNELS = Kernels(fused_obs.fused_obs_all, schur_reduce.reduce_s_damped)
+KERNELS = Kernels(
+    fused_obs.fused_obs_all, fused_obs.fused_obs_all_into,
+    schur_reduce.reduce_s_damped,
+)
 #: The plain PyTorch versions on any device — for measuring the kernels
 #: against, never chosen implicitly.
 PLAIN = Kernels(
-    fused_obs.fused_obs_all_reference, schur_reduce.reduce_s_damped_reference
+    fused_obs.fused_obs_all_reference, fused_obs.fused_obs_all_into_reference,
+    schur_reduce.reduce_s_damped_reference,
 )
 
 
@@ -72,6 +77,7 @@ class CompiledProblem:
         return schur.assemble_schur(
             self.batches, variables, self.schur_info, self.dtype,
             assemble_kernel=self.kernels.assemble,
+            assemble_into_kernel=self.kernels.assemble_into,
         )
 
     def apply(self, variables, x):
@@ -107,7 +113,7 @@ def compile_problem(problem: Problem, solver: str = "schur",
     """Lower a problem onto its device for the direct Schur solve
     (``solver="schur"``, or ``"auto"`` with a ``schur_family``).  Skewed
     degree distributions get the JAX package's degree relabel and bucketed
-    layout, which this slice rejects (see :func:`schur_layout`).
+    layout (see :func:`schur_layout`), assembled by kernel B2.
     ``plain=True`` runs the kernels' plain PyTorch versions on every
     device (a baseline to measure the kernels against)."""
     if solver == "auto" and schur_family is not None:

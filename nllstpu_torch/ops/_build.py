@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``.  No PyTorch header is included, so a cold build takes seconds
-rather than minutes, and no ``ninja`` is needed.  The library lands in
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``.  No PyTorch header is included, so a cold build
+takes seconds rather than minutes, and no ``ninja`` is needed.  The library lands in
 ``.torch_ext/`` at the repository root under a name that hashes the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  The build runs at first use, never at import; a failed build
@@ -25,7 +26,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # e_start, stream
     "fused_obs_all_f32": [_P] * 9 + [_I] * 8 + [_P],
     "fused_obs_all_f64": [_P] * 9 + [_I] * 8 + [_P],
+    # the same, then n, s, k, l, l_total, l_base, n_r, dr_s, dl, e_start
+    "fused_obs_all_into_f32": [_P] * 9 + [_I] * 10 + [_P],
+    "fused_obs_all_into_f64": [_P] * 9 + [_I] * 10 + [_P],
     # w, h_ll, g_l, lam, s_part, r_part, s_sum, rhs_sum, h_inv, l, dl, wc,
     # splits, stream
     "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
@@ -62,6 +66,11 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _check_nvcc(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
+
+
 def library():
     """The loaded kernel library, built on first call."""
     global _lib, BUILD_LOG
@@ -76,13 +85,25 @@ def library():
     if not so.exists():
         _OUT.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{BUILD_LOG}"
-            )
+        nvcc = _nvcc()
+        objs = [so.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
+        jobs = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in jobs
+        ]
+        logs = [pr.communicate()[0] for pr in procs]
+        BUILD_LOG = "".join(logs)
+        for cmd, pr, log in zip(jobs, procs, logs):
+            _check_nvcc(cmd, pr.returncode, log)
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+        pr = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, pr.returncode, pr.stdout + pr.stderr)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -1,26 +1,38 @@
-// Kernel B1: whole-Schur-system assembly in one pass over the obs-major
-// Jacobian of a bundle-adjustment batch.
+// Kernels B1 and B2: whole-Schur-system assembly in one pass over the
+// obs-major Jacobian of a bundle-adjustment batch.
 //
-// Replaces the TPU kernel nllstpu/ops/pallas/fused_obs.py:fused_obs_all_pm
-// (body _kernel_all).  Same math, not the same layout: the TPU kernel keeps
+// B1 replaces the TPU kernel nllstpu/ops/pallas/fused_obs.py:
+// fused_obs_all_pm (body _kernel_all) and takes a uniform layout: one
+// bucket covering every landmark.  B2 replaces fused_obs_all_pm_into (body
+// _kernel_all_accum) and takes one degree bucket of a skewed layout: the
+// same pass over the bucket's L_b landmarks, whose h_ll, g_l and W rows are
+// ADDED into full-size buffers at landmark l_base + l.  Chunk buckets
+// revisit the heavy landmarks of a later bucket, so B2 never overwrites.
+// Launches of one assembly run in order on one stream; within a launch each
+// thread owns distinct landmarks, so the read-modify-write of h_ll, g_l and
+// W needs no atomics.  The TPU kernel's tile-aligned left shift,
+// input/output aliasing and NRp padding have no counterpart here.
+//
+// Same math, not the same layout: the TPU kernels keep
 // W p-major and landmark-minor because of Mosaic's tiling; here W is stored
 // in the standard basis, landmark-major [L, dl, n_r*dr_s], so that one
 // landmark's coupling row is contiguous and owned by one thread.
 //
-// Inputs (K run slots per landmark, L landmarks, row-major):
+// Inputs (K run slots per landmark, L landmarks of the bucket, row-major):
 //   jac [n, S, K, L]   residual Jacobian, S = dr_s + dl tangent columns
 //   g0  [S, K, L]      unweighted gradient J^T r
 //   d1  [K, L]         rho' * mask
 //   d2  [K, L]         2 * rho'' * mask  (pre-doubled by the caller)
 //   vc  [K, L] int32   camera id per slot; n_r (the dustbin) for pad slots
-// Outputs:
-//   h_ll [dl, dl, L]   sum_k rho' Je^T Je + 2 rho'' g0e g0e^T
-//   g_l  [dl, L]       sum_k rho' g0e
-//   w    [L, dl, n_r*dr_s]  rho' Jr^T Je + 2 rho'' g0r g0e^T added at the
-//                      slot's camera column (zero on entry; a landmark seen
-//                      twice by one camera adds twice)
+// Outputs (B1: L_total = L, l_base = 0, h_ll and g_l written; B2: every
+// output added into):
+//   h_ll [dl, dl, L_total]  sum_k rho' Je^T Je + 2 rho'' g0e g0e^T
+//   g_l  [dl, L_total]      sum_k rho' g0e
+//   w    [L_total, dl, n_r*dr_s]  rho' Jr^T Je + 2 rho'' g0r g0e^T added at the
+//                      slot's camera column (B1: zero on entry; a landmark
+//                      seen twice by one camera adds twice)
 //   ab   [npairs + dr_s, n_r]  per-camera a_rr upper triangle (row
-//                      idx(p, q), p <= q) then b_r (zero on entry)
+//                      idx(p, q), p <= q) then b_r (B1: zero on entry)
 //
 // Design: one thread per landmark.  The thread walks the landmark's K slots
 // and keeps h_ll and g_l in registers; it owns its W row, so the W update
@@ -45,13 +57,13 @@
 
 namespace {
 
-template <typename T, int N, int DR, int DL>
+template <typename T, int N, int DR, int DL, bool ACCUM>
 __global__ void fused_obs_all_kernel(
     const T* __restrict__ jac, const T* __restrict__ g0,
     const T* __restrict__ d1, const T* __restrict__ d2,
     const int* __restrict__ vc, T* __restrict__ h_ll, T* __restrict__ g_l,
-    T* __restrict__ w, T* __restrict__ ab, int K, int L, int n_r,
-    int e_start, bool smem_ab) {
+    T* __restrict__ w, T* __restrict__ ab, int K, int L, int L_total,
+    int l_base, int n_r, int e_start, bool smem_ab) {
   constexpr int S = DR + DL;
   constexpr int NP = DR * (DR + 1) / 2;
   constexpr int NAB = NP + DR;
@@ -74,7 +86,8 @@ __global__ void fused_obs_all_kernel(
 #pragma unroll
       for (int b = 0; b < DL; ++b) h[a][b] = T(0);
     }
-    T* wrow = w + static_cast<size_t>(l) * DL * wc;
+    const size_t lg = static_cast<size_t>(l_base) + l;  // row in the buffers
+    T* wrow = w + lg * DL * wc;
     for (int k = 0; k < K; ++k) {
       const size_t o = static_cast<size_t>(k) * L + l;
       const T dd1 = d1[o];
@@ -136,13 +149,17 @@ __global__ void fused_obs_all_kernel(
           atomicAdd(&ab_acc[(NP + p) * n_r + v], gr[p] * dd1);
       }
     }
+    const size_t lt = static_cast<size_t>(L_total);
 #pragma unroll
     for (int e1 = 0; e1 < DL; ++e1) {
-      g_l[static_cast<size_t>(e1) * L + l] = g[e1];
+      const size_t ig = e1 * lt + lg;
+      g_l[ig] = ACCUM ? g_l[ig] + g[e1] : g[e1];
 #pragma unroll
       for (int e2 = e1; e2 < DL; ++e2) {
-        h_ll[static_cast<size_t>(e1 * DL + e2) * L + l] = h[e1][e2];
-        h_ll[static_cast<size_t>(e2 * DL + e1) * L + l] = h[e1][e2];
+        const size_t i12 = (e1 * DL + e2) * lt + lg;
+        const T hv = ACCUM ? h_ll[i12] + h[e1][e2] : h[e1][e2];
+        h_ll[i12] = hv;
+        h_ll[(e2 * DL + e1) * lt + lg] = hv;
       }
     }
   }
@@ -155,12 +172,12 @@ __global__ void fused_obs_all_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool ACCUM>
 int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
                          const void* d2, const void* vc, void* h_ll, void* g_l,
                          void* w, void* ab, int n, int s, int k, int l,
-                         int n_r, int dr_s, int dl, int e_start,
-                         void* stream) {
+                         int l_total, int l_base, int n_r, int dr_s, int dl,
+                         int e_start, void* stream) {
   if (l == 0) return 0;
   constexpr int kThreads = 64;
   const int blocks = (l + kThreads - 1) / kThreads;
@@ -179,13 +196,13 @@ int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
   T* w_t = static_cast<T*>(w);
   T* ab_t = static_cast<T*>(ab);
   if (n == 2 && dr_s == 6 && dl == 3 && s == 9) {
-    fused_obs_all_kernel<T, 2, 6, 3><<<blocks, kThreads, smem, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, n_r,
-        e_start, smem_ab);
+    fused_obs_all_kernel<T, 2, 6, 3, ACCUM><<<blocks, kThreads, smem, st>>>(
+        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
+        l_base, n_r, e_start, smem_ab);
   } else if (n == 2 && dr_s == 9 && dl == 3 && s == 12) {
-    fused_obs_all_kernel<T, 2, 9, 3><<<blocks, kThreads, smem, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, n_r,
-        e_start, smem_ab);
+    fused_obs_all_kernel<T, 2, 9, 3, ACCUM><<<blocks, kThreads, smem, st>>>(
+        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
+        l_base, n_r, e_start, smem_ab);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -200,16 +217,38 @@ int fused_obs_all_f32(const void* jac, const void* g0, const void* d1,
                       const void* d2, const void* vc, void* h_ll, void* g_l,
                       void* w, void* ab, int n, int s, int k, int l, int n_r,
                       int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float>(jac, g0, d1, d2, vc, h_ll, g_l, w, ab, n,
-                                     s, k, l, n_r, dr_s, dl, e_start, stream);
+  return launch_fused_obs_all<float, false>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+                                            ab, n, s, k, l, l, 0, n_r, dr_s,
+                                            dl, e_start, stream);
 }
 
 int fused_obs_all_f64(const void* jac, const void* g0, const void* d1,
                       const void* d2, const void* vc, void* h_ll, void* g_l,
                       void* w, void* ab, int n, int s, int k, int l, int n_r,
                       int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double>(jac, g0, d1, d2, vc, h_ll, g_l, w, ab, n,
-                                      s, k, l, n_r, dr_s, dl, e_start, stream);
+  return launch_fused_obs_all<double, false>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+                                             ab, n, s, k, l, l, 0, n_r, dr_s,
+                                             dl, e_start, stream);
+}
+
+int fused_obs_all_into_f32(const void* jac, const void* g0, const void* d1,
+                           const void* d2, const void* vc, void* h_ll,
+                           void* g_l, void* w, void* ab, int n, int s, int k,
+                           int l, int l_total, int l_base, int n_r, int dr_s,
+                           int dl, int e_start, void* stream) {
+  return launch_fused_obs_all<float, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+                                           ab, n, s, k, l, l_total, l_base,
+                                           n_r, dr_s, dl, e_start, stream);
+}
+
+int fused_obs_all_into_f64(const void* jac, const void* g0, const void* d1,
+                           const void* d2, const void* vc, void* h_ll,
+                           void* g_l, void* w, void* ab, int n, int s, int k,
+                           int l, int l_total, int l_base, int n_r, int dr_s,
+                           int dl, int e_start, void* stream) {
+  return launch_fused_obs_all<double, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+                                            ab, n, s, k, l, l_total, l_base,
+                                            n_r, dr_s, dl, e_start, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -15,9 +15,10 @@ standard basis (camera ``v`` owns columns ``v·dr_s .. v·dr_s + dr_s − 1``).
 The flat step vector is variable-major, as in the JAX package.
 
 The host-side layout code (obs-major repack, bucket plan, degree counts)
-is copied from the JAX package, which cannot be imported without jax.
-This slice runs the uniform single-bucket layout; a degree-bucketed
-layout raises ``NotImplementedError`` at compile time.
+is copied from the JAX package, which cannot be imported without jax.  A
+uniform layout (one bucket) is assembled by kernel B1; a degree-bucketed
+layout (skewed track lengths, as in real BAL data) by one launch of kernel
+B2 per bucket, adding into buffers zeroed once per assembly.
 """
 
 from __future__ import annotations
@@ -196,7 +197,7 @@ class _FastBatch:
     rvid: np.ndarray  # [B] reduced var id (n_r = dustbin for masked costs)
     row_base: np.ndarray  # [n_r] global tangent offset per reduced var
     buckets: tuple  # ((l_base, L_b, k_b, col_base), ...)
-    vc: Any = None  # device int32 [K, L] camera id per run slot (uniform)
+    vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera id per slot
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
 
 
@@ -261,8 +262,8 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
 
 
 def check_slice(info: SchurInfo, batches) -> None:
-    """Raise ``NotImplementedError`` unless every batch takes the slice's
-    path: an obs-major BA batch in the uniform single-bucket layout whose
+    """Raise ``NotImplementedError`` unless every batch takes the port's
+    path: an obs-major BA batch (any number of degree buckets) whose
     cameras fill the reduced space in order."""
     for bi, b in enumerate(batches):
         f = info.fast[bi] if bi < len(info.fast) else None
@@ -271,13 +272,6 @@ def check_slice(info: SchurInfo, batches) -> None:
                 f"cost batch {bi} is not a two-slot camera/landmark batch in "
                 "obs-major order; other batch shapes take the generic Schur "
                 "assembly of a later slice of the port"
-            )
-        if len(f.buckets) != 1:
-            raise NotImplementedError(
-                f"cost batch {bi} has a degree-bucketed layout "
-                f"({len(f.buckets)} buckets): the bucketed assembly (kernel "
-                "B2, fused_obs_all_pm_into) belongs to the second slice of "
-                "the port"
             )
         dr_s = sum(m.dof for m in b.manifolds) - info.dof_elim
         if f.n_r * dr_s != info.dim_reduced or not np.array_equal(
@@ -290,13 +284,17 @@ def check_slice(info: SchurInfo, batches) -> None:
 
 
 def upload_fast(info: SchurInfo, device) -> None:
-    """Place each batch's ``[K, L]`` camera-id table and the a_rr pair
-    index of kernel B1's ``ab`` rows (upper triangle, row-major) on the
-    device."""
+    """Place each batch's per-bucket ``[k_b, L_b]`` camera-id tables and
+    the a_rr pair index of the kernels' ``ab`` rows (upper triangle,
+    row-major) on the device."""
     for f in info.fast:
-        (_, lb, kb, c0), = f.buckets
-        vc = f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T
-        f.vc = torch.as_tensor(np.ascontiguousarray(vc), device=device)
+        f.vc = tuple(
+            torch.as_tensor(
+                np.ascontiguousarray(f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T),
+                device=device,
+            )
+            for (_, lb, kb, c0) in f.buckets
+        )
         dr_s = info.dim_reduced // f.n_r
         pi, qi = np.triu_indices(dr_s)
         pair_of = np.zeros((dr_s, dr_s), dtype=np.int64)
@@ -306,9 +304,10 @@ def upload_fast(info: SchurInfo, device) -> None:
 
 
 def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
-    """``(cost, args)``: the batch's masked cost and the arguments of kernel
-    B1 — the K-major run tiles ``jac [n, S, K, L]``, ``g0``, ``ρ′·mask``,
-    ``2ρ″·mask`` and the camera ids, then ``(n_r, dr_s, dl, e_start)``."""
+    """``(cost, args)``: the batch's masked cost and, per bucket, the
+    arguments of kernels B1/B2 — the K-major run tiles ``jac [n, S, k_b,
+    L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera ids, then
+    ``(n_r, dr_s, dl, e_start)``."""
     e = fast.e_slot
     cost, _, jac, g0, d1, d2 = engine.batch_res_jac_cm(
         batch, variables, runs=(e, fast.buckets)
@@ -318,27 +317,31 @@ def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     d2m = 2.0 * d2 * mval
     dofs = [m.dof for m in batch.manifolds]
     nres, stot = jac.shape[0], jac.shape[1]
-    (_, lb, kb, c0), = fast.buckets
-    sl = slice(c0, c0 + lb * kb)
-    return cost, (
-        jac[:, :, sl].reshape(nres, stot, lb, kb).transpose(2, 3),
-        g0[:, sl].reshape(stot, lb, kb).transpose(1, 2),
-        d1m[sl].reshape(lb, kb).T,
-        d2m[sl].reshape(lb, kb).T,
-        fast.vc,
-        fast.n_r,
-        sum(dofs) - info.dof_elim,
-        info.dof_elim,
-        sum(dofs[:e]),
-    )
+    args = []
+    for (_, lb, kb, c0), vc in zip(fast.buckets, fast.vc):
+        sl = slice(c0, c0 + lb * kb)
+        args.append((
+            jac[:, :, sl].reshape(nres, stot, lb, kb).transpose(2, 3),
+            g0[:, sl].reshape(stot, lb, kb).transpose(1, 2),
+            d1m[sl].reshape(lb, kb).T,
+            d2m[sl].reshape(lb, kb).T,
+            vc,
+            fast.n_r,
+            sum(dofs) - info.dof_elim,
+            info.dof_elim,
+            sum(dofs[:e]),
+        ))
+    return cost, args
 
 
 def assemble_schur(batches, variables, info: SchurInfo, dtype,
-                   assemble_kernel: Callable = fused_obs.fused_obs_all):
+                   assemble_kernel: Callable = fused_obs.fused_obs_all,
+                   assemble_into_kernel: Callable = fused_obs.fused_obs_all_into):
     """``(cost, (a_rr, b_r, h_ll, g_l, w))`` through the whole-system
-    assembly kernel (one pass per batch over its obs-major Jacobian).
-    ``batches`` are the compiled device batches; :func:`check_slice` has
-    vetted them."""
+    assembly kernels, one pass per batch over its obs-major Jacobian: kernel
+    B1 for a single-bucket batch, one launch of kernel B2 per bucket, in
+    plan order, for a degree-bucketed one.  ``batches`` are the compiled
+    device batches; :func:`check_slice` has vetted them."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
     dev = next(iter(variables.values())).device
     total = torch.zeros((), dtype=dtype, device=dev)
@@ -350,14 +353,21 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
     for batch, fast in zip(batches, info.fast):
         cost, args = fused_inputs(batch, variables, info, fast, dtype)
         total = total + cost
-        dr_s = args[6]
-        h_add, g_add, w_b, ab = assemble_kernel(*args)
-        h_ll = h_ll + h_add
-        g_l = g_l + g_add
-        w = w_b if w is None else w + w_b
+        n_r, dr_s = fast.n_r, args[0][6]
+        if len(args) == 1:
+            h_add, g_add, w_b, ab = assemble_kernel(*args[0])
+            h_ll = h_ll + h_add
+            g_l = g_l + g_add
+            w = w_b if w is None else w + w_b
+        else:
+            # B2 adds into h_ll, g_l, W and ab in place; W is zeroed once.
+            if w is None:
+                w = torch.zeros(L, dl, n_r * dr_s, dtype=dtype, device=dev)
+            ab = torch.zeros(dr_s * (dr_s + 3) // 2, n_r, dtype=dtype, device=dev)
+            for (l0, _, _, _), a in zip(fast.buckets, args):
+                assemble_into_kernel(*a[:5], h_ll, g_l, w, ab, l0, *a[5:])
         # ab rows: the upper-triangle a_rr pairs, then b_r; camera v's block
         # lands on the diagonal at v·dr_s (check_slice).
-        n_r = fast.n_r
         npairs = dr_s * (dr_s + 1) // 2
         a_blocks = ab[fast.pair_of].reshape(dr_s, dr_s, n_r).permute(2, 0, 1)
         a4 = a_rr.view(n_r, dr_s, n_r, dr_s)

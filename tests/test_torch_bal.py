@@ -1,0 +1,198 @@
+"""The port's Snavely BAL path against the JAX package, on the CPU in
+float64: the generators, the BAL text format, the Snavely residual and its
+hand Jacobian, and the degree-bucketed direct-Schur slice (kernel B2's
+plain version, then B3's) — the assembled system, the damped solve and the
+Levenberg-Marquardt cost trace (held to 1e-9 relative)."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import nllstpu as nt
+from nllstpu.core.optimize import compile_problem as jax_compile
+from nllstpu.models import bal as jbal
+from nllstpu.models.ba import perturb_ba as jax_perturb_ba
+import nllstpu_torch as pt
+from nllstpu_torch.core import linearsolver
+from nllstpu_torch.core.optimize import run_loop
+from nllstpu_torch.models import bal as tbal
+from nllstpu_torch.models.ba import perturb_ba
+from nllstpu_torch.ops import schur, schur_reduce
+
+#: ``make_realistic_bal`` arguments of the two test shapes: four degree
+#: classes; and seven buckets led by a chunk bucket over the heavy prefix,
+#: which the next bucket covers again.
+SHAPES = {
+    "4 buckets": ((12, 160), dict(seed=3, noise=1e-3)),
+    "chunk bucket": ((80, 160), dict(seed=3, noise=1e-3, track_alpha=1.0, max_track=80)),
+}
+
+
+def _pair(shape, robust_width=None):
+    args, kw = SHAPES[shape]
+    jp, _, jpts = jbal.make_bal_problem(
+        jbal.make_realistic_bal(*args, **kw), dtype=jnp.float64,
+        robust_width=robust_width,
+    )
+    jax_perturb_ba(jp, jpts, 0.05, seed=5)
+    tp, _, tpts = tbal.make_bal_problem(
+        tbal.make_realistic_bal(*args, **kw), dtype=torch.float64,
+        device="cpu", robust_width=robust_width,
+    )
+    perturb_ba(tp, tpts, 0.05, seed=5)
+    return jp, tp
+
+
+@pytest.mark.parametrize("gen,args", [
+    ("make_synthetic_bal", dict(ncameras=16, npoints=64, obs_per_point=4, seed=2, noise=1e-3)),
+    ("make_realistic_bal", dict(zip(("ncameras", "npoints"), SHAPES["4 buckets"][0]),
+                                **SHAPES["4 buckets"][1])),
+    ("make_realistic_bal", dict(zip(("ncameras", "npoints"), SHAPES["chunk bucket"][0]),
+                                **SHAPES["chunk bucket"][1])),
+])
+def test_bal_generators_identical(gen, args):
+    dj = getattr(jbal, gen)(**args)
+    dt = getattr(tbal, gen)(**args)
+    assert dj.keys() == dt.keys()
+    for k in dj:
+        assert dj[k].dtype == dt[k].dtype and np.array_equal(dj[k], dt[k]), k
+
+
+def test_bal_text_round_trip(tmp_path):
+    data = tbal.make_realistic_bal(7, 20, seed=4, noise=1e-3)
+    tbal.write_bal(tmp_path / "port.txt", data)
+    jbal.write_bal(tmp_path / "jax.txt", data)
+    assert (tmp_path / "port.txt").read_bytes() == (tmp_path / "jax.txt").read_bytes()
+    back = tbal.load_bal(str(tmp_path / "port.txt"))
+    for k in data:
+        assert np.array_equal(back[k], data[k]), k
+    assert back["cam_idx"].dtype == np.int32 and back["pt_idx"].dtype == np.int32
+
+
+def _snavely_inputs(n=40, seed=0):
+    """Cameras and points of the generators' geometry, with the rotation of
+    the first cameras exactly zero or inside the small-angle series."""
+    rng = np.random.default_rng(seed)
+    data = tbal.make_realistic_bal(8, n, seed=seed, noise=1e-3)
+    cam = data["cameras"][data["cam_idx"][:n]].copy()
+    cam[:, 7:9] = rng.standard_normal((n, 2)) * 1e-3  # visible distortion
+    cam[0, :3] = 0.0
+    cam[1, :3] = [3e-8, -2e-8, 1e-8]  # θ² = 1.4e-15 < 1e-14
+    cam[2, :3] = [2e-7, 0.0, 0.0]  # θ² = 4e-14: the closed form
+    pts = data["points"][data["pt_idx"][:n]]
+    meas = data["observations"][:n]
+    return meas, cam.T.copy(), pts.T.copy()
+
+
+def test_snavely_residual_and_jacobian_match_jax():
+    meas, cam, pts = _snavely_inputs()
+    r_j = np.asarray(jbal.snavely_residual_cm(*(jnp.asarray(x) for x in (meas, cam, pts))))
+    rr_j, jac_j = (np.asarray(x) for x in jbal.snavely_jacobian_cm(
+        *(jnp.asarray(x) for x in (meas, cam, pts))
+    ))
+    t_in = [torch.from_numpy(x) for x in (meas, cam, pts)]
+    r_t = tbal.snavely_residual_cm(*t_in).numpy()
+    rr_t, jac_t = (x.numpy() for x in tbal.snavely_jacobian_cm(*t_in))
+    assert jac_t.shape == (2, 12, meas.shape[0])
+    for got, ref in ((r_t, r_j), (rr_t, rr_j), (rr_t, r_t)):
+        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+    np.testing.assert_allclose(jac_t, jac_j, rtol=1e-12, atol=1e-12 * np.abs(jac_j).max())
+    # The w = 0 column is the series' limit: the rotation block is X×q.
+    assert np.isfinite(jac_t[:, :, :3]).all()
+
+
+def test_make_bal_problem_rejects_unported_forms():
+    data = tbal.make_synthetic_bal(4, 8)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tbal.make_bal_problem(data, device="cpu", batched=False)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tbal.make_bal_problem(data, device="cpu", hand_jacobian=False)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tbal.make_bal_problem(data, device="cpu", kernel=nt.ContaminatedGaussian(),
+                              kernel_params=np.ones(3))
+    p, _, _ = tbal.make_bal_problem(data, device="cpu", robust_width=2.0)
+    (b,) = p.batches()
+    assert b.kernel == pt.Huber(2.0) and b.jacobian is tbal.snavely_jacobian_cm
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bucketed_assembly_and_solve_match_jax(shape):
+    """The degree-bucketed system (one B2 plain-version call per bucket)
+    and the damped solve against the JAX package's one-hot assembly."""
+    jp, tp = _pair(shape)
+    jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
+    tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)
+    (meta_j,) = jc.obs_meta
+    (fast,) = tc.schur_info.fast
+    assert fast.buckets == meta_j.buckets
+    if shape == "chunk bucket":
+        counts = np.sort(np.bincount(jp.batches()[0].idx[1][: jp.batches()[0].n]))[::-1]
+        assert (0, 7, 16, 64) in schur._plan_obs_buckets(counts)
+        assert len(fast.buckets) == 7 and fast.buckets[:2] == ((0, 7, 16, 0), (0, 32, 64, 112))
+    else:
+        assert len(fast.buckets) == 4
+    cost_j, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
+    cost_t, sys_t = tc.assemble(tp.stacked_variables())
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-12)
+    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_t[:4], sys_j[:4]):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, err_msg=name, rtol=1e-10,
+                                   atol=1e-12 * np.abs(b).max())
+    w_j = np.asarray(sys_j[4]).transpose(1, 0, 2)
+    np.testing.assert_allclose(sys_t[4].numpy(), w_j, rtol=1e-10, atol=1e-12 * np.abs(w_j).max())
+    # Both solves on the JAX package's system.  S spans seven decades on its
+    # diagonal (focal length against rotation) and has BA's gauge freedom,
+    # so at λ = 1e-3 rounding differences grow by ~1e7 (measured 2.2e-9 of
+    # the largest entry; 1.3e-12 at λ = 1).
+    sys_jt = [torch.tensor(np.asarray(x)) for x in sys_j]
+    sys_jt[4] = sys_jt[4].permute(1, 0, 2).contiguous()
+    for lam, tol in ((1e-3, 1e-7), (1.0, 1e-10)):
+        x_j = np.asarray(jc.schur_info.ops().solve(sys_j, jnp.asarray(lam)))
+        x_t = tc.ctx().linops.solve(tuple(sys_jt), lam).numpy()
+        np.testing.assert_allclose(x_t, x_j, rtol=0, atol=tol * np.abs(x_j).max())
+
+
+@pytest.mark.parametrize("robust_width", [None, 5.0])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bucketed_lm_trace_matches_jax(shape, robust_width):
+    """LM on the bucketed layout: same iterations, linear solves and
+    termination, a cost trace within 1e-9 relative.  ``rel_dcost`` ends
+    both runs before the float64 rounding floor, where a step that changes
+    the cost by 1e-16 relative is accepted or rejected by rounding alone."""
+    jp, tp = _pair(shape, robust_width)
+    r_j = nt.optimize(jp, nt.Options(
+        solver="schur", schur_family=jbal.PT, rel_dcost=1e-6,
+        store_trajectory="jit",
+    ))
+    r_t = pt.optimize(tp, pt.Options(solver="schur", schur_family=tbal.PT, rel_dcost=1e-6))
+    assert r_t.num_iterations == r_j.num_iterations
+    assert r_t.linear_solves == r_j.linear_solves
+    assert r_t.termination == r_j.termination
+    np.testing.assert_allclose(r_t.start_cost, r_j.start_cost, rtol=1e-12)
+    np.testing.assert_allclose(r_t.costs, np.asarray(r_j.trajectory.costs), rtol=1e-9)
+    assert r_t.best_cost < 1e-3 * r_t.start_cost
+
+
+def test_float32_reduced_solve_is_equilibrated():
+    """After three float64 LM iterations on the chunk-bucket shape, the
+    float32 reduced system is indefinite by rounding; the port's solve
+    (scaled to a unit diagonal) matches an exact solve of that float32
+    system to a few percent, where unscaled LU is off by ~20 times the
+    step."""
+    _, tp = _pair("chunk bucket")
+    tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)
+    st = run_loop(tc.assemble, tc.cost, tc.ctx(), pt.Options(
+        schur_family=tbal.PT, max_iters=3, rel_dcost=0.0, abs_dcost=0.0,
+    ), tp.stacked_variables())
+    lam = float(st["itdata"]["lm_lambda"])
+    a_rr, b_r, h_ll, g_l, w = (t.float() for t in tc.assemble(st["variables"])[1])
+    s_sum, rhs_sum, _ = schur_reduce.reduce_s_damped_reference(w, h_ll, g_l, lam)
+    s = a_rr + lam * torch.eye(a_rr.shape[0]) - s_sum
+    rhs = b_r - rhs_sum
+    assert int(torch.linalg.cholesky_ex(s)[1]) > 0
+    exact = np.linalg.solve(s.double().numpy(), rhs.double().numpy())
+    got = linearsolver.cholesky_solve(s, rhs)
+    assert got.dtype == torch.float32
+    assert np.abs(got.double().numpy() - exact).max() <= 0.1 * np.abs(exact).max()

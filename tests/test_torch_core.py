@@ -17,7 +17,9 @@ import nllstpu_torch as pt
 from nllstpu_torch.core import linearsolver
 from nllstpu_torch.core.optimize import schur_layout
 from nllstpu_torch.interop import problem_from_arrays
+from nllstpu_torch import config
 from nllstpu_torch.models import ba as tba
+from nllstpu_torch.models import bal as tbal
 from nllstpu.models import ba as jba
 
 
@@ -91,10 +93,12 @@ def _skewed_arrays():
     return vars_, ci, li, meas
 
 
-def test_skewed_layout_matches_jax_and_is_rejected():
+def test_skewed_layout_matches_jax_and_is_rejected(monkeypatch):
     """Degree relabel + bucketed obs-major repack equal the JAX package's
-    (same buckets, same column permutation); compiling it raises, since
-    the bucketed assembly belongs to the next slice."""
+    (same buckets, same column permutation), and the bucketed assembly
+    (kernel B2's plain version, an SE(3) camera: dr_s = 6) gives the JAX
+    package's system.  The same problem without ``device="cpu"`` is
+    rejected on a host without a card."""
     vars_, ci, li, meas = _skewed_arrays()
     jp = nt.Problem(dtype=jnp.float64)
     cams = jp.add_variables(nt.SE3(), vars_["SE3()"])
@@ -106,13 +110,12 @@ def test_skewed_layout_matches_jax_and_is_rejected():
     )
     jc = jax_compile(jp, solver="schur", schur_family=nt.Euclidean(3))
     (jb,) = jp.batches()
-    tp = problem_from_arrays(
-        vars_,
-        [dict(fn=tba.pinhole_project_cm, jacobian=tba.pinhole_project_jacobian_cm,
-              manifolds=(pt.SE3(), pt.Euclidean(3)), idx=jb.idx,
-              params=np.asarray(jb.params), mask=np.asarray(jb.mask))],
-        dtype=torch.float64,
-    )
+    batch_arrays = [dict(
+        fn=tba.pinhole_project_cm, jacobian=tba.pinhole_project_jacobian_cm,
+        manifolds=(pt.SE3(), pt.Euclidean(3)), idx=jb.idx,
+        params=np.asarray(jb.params), mask=np.asarray(jb.mask),
+    )]
+    tp = problem_from_arrays(vars_, batch_arrays, dtype=torch.float64, device="cpu")
     layout, info, batches = schur_layout(tp, pt.Euclidean(3))
     (meta_j,) = jc.obs_meta
     assert len(info.fast[0].buckets) > 1
@@ -124,13 +127,42 @@ def test_skewed_layout_matches_jax_and_is_rejected():
     for a, b in zip(tb.idx, jb2.idx):
         assert np.array_equal(np.asarray(a), np.asarray(b))
     assert np.array_equal(tb.mask, np.asarray(jb2.mask))
-    with pytest.raises(NotImplementedError, match="second slice"):
-        pt.compile_problem(tp, solver="schur", schur_family=pt.Euclidean(3))
+    tc = pt.compile_problem(tp, solver="schur", schur_family=pt.Euclidean(3))
+    _, sys_t = tc.assemble(tp.stacked_variables())
+    _, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
+    tol = dict(rtol=1e-10, atol=1e-12)
+    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_t[:4], sys_j[:4]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **tol)
+    np.testing.assert_allclose(
+        sys_t[4].numpy(), np.asarray(sys_j[4]).transpose(1, 0, 2), **tol
+    )
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        problem_from_arrays(vars_, batch_arrays, dtype=torch.float64)
 
 
 def test_compile_rejects_other_solvers():
-    tp, _, _ = tba.make_pinhole_ba(4, 16, dtype=torch.float64)
+    tp, _, _ = tba.make_pinhole_ba(4, 16, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):
         pt.compile_problem(tp, solver="dense")
     with pytest.raises(NotImplementedError):
         pt.optimize(tp, pt.Options(schur_family=pt.Euclidean(3), iterator="dogleg"))
+
+
+def test_device_defaults_to_the_card(monkeypatch):
+    """No ``device=`` means ``cuda``; on a host without a card every entry
+    point raises and says how to ask for the CPU, never falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert config.resolve_device(None) == torch.device("cuda")
+    assert config.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+        lambda: pt.Problem(),
+        lambda: pt.Problem(device="cuda"),
+        lambda: tba.make_pinhole_ba(4, 16),
+        lambda: tbal.make_bal_problem(tbal.make_synthetic_bal(4, 8)),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    assert pt.Problem(device="cpu").device == torch.device("cpu")
+    assert pt.Problem(device="cpu").dtype == torch.float64

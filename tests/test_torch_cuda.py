@@ -1,12 +1,13 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  These tests skip without a CUDA device.  This file imports neither
-jax nor the JAX package, so on a machine with a card and no jax it runs
-with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+"""The port's CUDA kernels (B1, B2, B3) against their plain PyTorch
+versions, on the card.  These tests skip without a CUDA device.  This file
+imports neither jax nor the JAX package, so on a machine with a card and no
+jax it runs with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
 Tolerances: in float64 the kernels differ from the plain versions only by
-summation order (1e-12 of the largest entry).  In float32, B1's per-camera
-sums are float atomics and B3 sums over L·dl terms in another order than
-the float64 yardstick: both are held to 1e-5 of the largest entry.
+summation order (1e-12 of the largest entry).  In float32, B1's and B2's
+per-camera sums are float atomics and B3 sums over L·dl terms in another
+order than the float64 yardstick: all are held to 1e-5 of the largest
+entry.
 """
 
 import numpy as np
@@ -70,7 +71,49 @@ def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("wc,lam", [(128, 0.0), (768, 1e-2), (1152, 0.0), (100, 0.5)])
+@pytest.mark.parametrize(
+    "dr_s,e_start,n_r",
+    # n_r = 300 at dr_s = 9 takes the device-memory atomics path.
+    [(9, 9, 37), (6, 0, 37), (9, 9, 300)],
+)
+def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
+    """B2 over a degree-bucketed plan: a chunk bucket over the heavy prefix,
+    the class bucket that covers it again, and a class bucket at an
+    unaligned l_base, all adding into buffers that start non-zero."""
+    gen = torch.Generator().manual_seed(13)
+    L, dl = 1000, 3
+    calls = [(16, 0, 57), (14, 0, 300), (4, 337, 600)]  # (K, l_base, L_b)
+    npairs = dr_s * (dr_s + 1) // 2
+    init = [
+        torch.randn(shape, generator=gen, dtype=torch.float64)
+        for shape in ((dl, dl, L), (dl, L), (L, dl, n_r * dr_s), (npairs + dr_s, n_r))
+    ]
+    init[0] = init[0] + init[0].transpose(0, 1)
+    got = [t.to(device=cuda, dtype=dtype) for t in init]
+    ref = [t.to(device=cuda) for t in init]
+    before, before_b1 = fused_obs.INTO_LAUNCHES, fused_obs.LAUNCHES
+    for K, l_base, lb in calls:
+        inputs = _b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype)
+        fused_obs.fused_obs_all_into(*inputs, *got, l_base, n_r, dr_s, dl, e_start)
+        fused_obs.fused_obs_all_into_reference(
+            *[t.double() if t.is_floating_point() else t for t in inputs], *ref,
+            l_base, n_r, dr_s, dl, e_start,
+        )
+    torch.cuda.synchronize()
+    assert fused_obs.INTO_LAUNCHES == before + len(calls)
+    assert fused_obs.LAUNCHES == before_b1
+    for name, a, b, c in zip(("h_ll", "g_l", "w", "ab"), got, ref, init):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+        assert _rel_err(b, c.to(cuda)) > 1e-3, name  # every buffer was added to
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+# wc = 441 is Ladybug-49's W (49 Snavely cameras), not a multiple of the
+# kernel's 64-wide tile.
+@pytest.mark.parametrize(
+    "wc,lam", [(128, 0.0), (768, 1e-2), (1152, 0.0), (100, 0.5), (441, 1e-2)]
+)
 def test_reduce_s_damped_kernel_matches_plain(cuda, dtype, tol, wc, lam):
     gen = torch.Generator().manual_seed(5)
     L, dl = 777, 3

@@ -1,9 +1,9 @@
 """Kernel twins of the PyTorch port against the JAX package's Pallas
 kernels (run in interpret mode on the CPU).
 
-Both sides get the same numpy inputs.  B1 (``fused_obs_all``) is compared
-in float64 at rtol 1e-10 with W taken from the p-major layout to the
-standard basis.  B3 (``reduce_s_damped``) is compared in float32: the JAX
+Both sides get the same numpy inputs.  B1 (``fused_obs_all``) and B2
+(``fused_obs_all_into``) are compared in float64 at rtol 1e-10 with W taken
+from the p-major layout to the standard basis.  B3 (``reduce_s_damped``) is compared in float32: the JAX
 kernel's S contraction is bf16x3 (~1e-6 relative), so s_sum and rhs_sum
 are held to 1e-5 of their largest entry.
 """
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from nllstpu.ops.pallas.fused_obs import fused_obs_all_pm
+from nllstpu.ops.pallas.fused_obs import fused_obs_all_pm, fused_obs_all_pm_into
 from nllstpu.ops.pallas.schur_reduce import reduce_s_lm_damped
 from nllstpu_torch.ops import fused_obs, schur_reduce
 
@@ -78,6 +78,68 @@ def test_fused_obs_dispatch_cpu_runs_twin():
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert fused_obs.LAUNCHES == before
+
+
+#: B2 cases: (dr_s, e_start, n_r, L_total, calls), each call (K, l_base,
+#: L_b).  The second case chains a chunk bucket over the heavy prefix and
+#: the class bucket that covers the same landmarks, through one set of
+#: buffers.  Few calls with short runs: each interpret-mode call of the
+#: Pallas kernel compiles for seconds.
+INTO_CASES = {
+    "l_base 37, dr_s 6": (6, 0, 7, 120, [(2, 37, 50)]),
+    "chunk + class, dr_s 9": (9, 9, 11, 64, [(2, 0, 7), (2, 0, 30)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INTO_CASES))
+def test_fused_obs_into_twin_matches_pallas(case):
+    dr_s, e_start, n_r, l_total, calls = INTO_CASES[case]
+    dl = 3
+    nrp = -(-n_r // 128) * 128
+    w_pm = jnp.zeros((dl, dr_s * nrp, l_total), dtype=jnp.float64)
+    h_j = np.zeros((dl, dl, l_total))
+    g_j = np.zeros((dl, l_total))
+    ab_j = 0.0
+    h_t, g_t, w_t, ab_t = fused_obs.zero_buffers(
+        l_total, n_r, dr_s, dl, torch.float64, "cpu"
+    )
+    for i, (K, l_base, lb) in enumerate(calls):
+        inputs = _b1_inputs(10 + i, K, lb, n_r, e_start, dr_s=dr_s)
+        h, g, w_pm, ab, la = fused_obs_all_pm_into(
+            *(jnp.asarray(x) for x in inputs), w_pm, l_base, n_r, dr_s, dl,
+            e_start, interpret=True,
+        )
+        h_j[:, :, la : la + h.shape[-1]] += np.asarray(h)
+        g_j[:, la : la + g.shape[-1]] += np.asarray(g)
+        ab_j = ab_j + np.asarray(ab)[:, :n_r]
+        fused_obs.fused_obs_all_into_reference(
+            *(torch.from_numpy(x) for x in inputs), h_t, g_t, w_t, ab_t,
+            l_base, n_r, dr_s, dl, e_start,
+        )
+    tol = dict(rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(h_t.numpy(), h_j, **tol)
+    np.testing.assert_allclose(g_t.numpy(), g_j, **tol)
+    np.testing.assert_allclose(w_t.numpy(), _pm_to_std(w_pm, n_r, dr_s, dl), **tol)
+    np.testing.assert_allclose(ab_t.numpy(), ab_j, **tol)
+    # Landmarks outside every call's range stay exactly zero.
+    covered = np.zeros(l_total, dtype=bool)
+    for _, l_base, lb in calls:
+        covered[l_base : l_base + lb] = True
+    assert not w_t.numpy()[~covered].any() and not h_t.numpy()[..., ~covered].any()
+    assert w_t.numpy()[covered].any()
+
+
+def test_fused_obs_into_dispatch_cpu_runs_twin():
+    """On CPU tensors B2's dispatcher runs the plain version and launches
+    nothing; into zeroed buffers at l_base 0 it is B1."""
+    inputs = [torch.from_numpy(x) for x in _b1_inputs(2, 3, 9, 5, 0, dr_s=9)]
+    ref = fused_obs.fused_obs_all_reference(*inputs, 5, 9, 3, 0)
+    bufs = fused_obs.zero_buffers(9, 5, 9, 3, torch.float64, "cpu")
+    before = fused_obs.INTO_LAUNCHES
+    assert fused_obs.fused_obs_all_into(*inputs, *bufs, 0, 5, 9, 3, 0) is None
+    for a, b in zip(bufs, ref):
+        assert torch.equal(a, b)
+    assert fused_obs.INTO_LAUNCHES == before
 
 
 def _b3_inputs(seed, L, wc, dl=3):

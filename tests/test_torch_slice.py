@@ -45,7 +45,8 @@ def _pair(ncam, nlmk, vis, noise, robust, perturb=0.01):
     )
     jax_perturb_ba(jp, jl, perturb, seed=5)
     tp, _, tl = make_pinhole_ba(
-        ncam, nlmk, vis, noise=noise, robust_width=robust, dtype=torch.float64
+        ncam, nlmk, vis, noise=noise, robust_width=robust, dtype=torch.float64,
+        device="cpu",
     )
     perturb_ba(tp, tl, perturb, seed=5)
     return jp, tp
@@ -83,7 +84,7 @@ def test_problem_from_arrays_round_trips():
             manifolds=(pt.SE3(), pt.Euclidean(3)), idx=jidx, params=jpar,
             mask=jmask,
         )],
-        dtype=torch.float64,
+        dtype=torch.float64, device="cpu",
     )
     rv, ridx, rpar, rmask = _arrays(rp)
     tv, tidx, tpar, tmask = _arrays(tp)
@@ -151,6 +152,7 @@ def test_port_does_not_import_jax():
     code = (
         "import sys\n"
         "import nllstpu_torch, nllstpu_torch.interop, nllstpu_torch.models.ba\n"
+        "import nllstpu_torch.models.bal\n"
         "import nllstpu_torch.ops.schur, nllstpu_torch.ops._build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'nllstpu' not in sys.modules\n"
