@@ -23,13 +23,32 @@ Phases, one line each or more; any failure raises and exits non-zero:
    read just after: the pinhole bench problem (B1 and B3), Ladybug-49 and
    bench-realistic (B2 and B3, no B1), each checked against the JAX
    package's CPU float32 reference costs (constants below).
-7. timed loops — 10 iterations of the pinhole and Ladybug-49 loops,
-   through the kernels and through their plain versions in turns, once
-   more of each with CUDA events around every phase, and once through the
-   kernels under ``torch.profiler`` (device busy time and idle share).  The cost reaches the
-   float32 floor early; later iterations spend a varying number of damped
-   trials on rounding noise, so compare per-call phase times, not
-   single-run rates.
+7. B6      — kernel ``segment_block_sum`` against its plain version on
+   the real inputs of the two implicit problems (every D the path uses:
+   3 for Wᵀv, 9 for W u, 12 for h_ll + g_l, 54 for a_rr + b_r and 81 for
+   the preconditioner's correction, over landmark and camera runs,
+   recorded from one assembly and one damped solve), and on a synthetic
+   case with empty runs and one run of 100,000 rows; beside each
+   main-path shape its time, its byte bound and the time of
+   ``torch.segment_reduce``, one PyTorch call for the same function.
+8. implicit main paths — LM through ``nt.optimize`` in float32 with
+   ``linear_tol=1e-2``: bench-realistic through ``solver="schur_cg"`` (30
+   iterations), and a Dubrovnik-356-class problem (356 cameras, 226,730
+   points, 1,253,547 observations) through ``solver="schur"``, whose dense
+   W (~8.7 GB) passes the 4 GiB limit so that the compile switches to the
+   implicit backend; each launches B6 and never B1, B2 or B3, and meets
+   the JAX package's CPU float32 start and best cost (constants below).
+   The Dubrovnik-class run prints the peak device memory.
+9. timed loops — 10 iterations of the pinhole, Ladybug-49 and
+   bench-realistic implicit loops, through the kernels and through their
+   plain versions in turns, once more of each with CUDA events around
+   every phase (the implicit loops also print PCG iterations per damped
+   solve and the time of one reduced matvec), and once through the
+   kernels under ``torch.profiler`` (device busy time and idle share);
+   the Dubrovnik-class loop once with phase events and once profiled.
+   The cost reaches the float32 floor early; later iterations spend a
+   varying number of damped trials on rounding noise, so compare per-call
+   phase times, not single-run rates.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -42,7 +61,9 @@ spans seven decades on the BAL problems, are held as tightly as the
 largest.  Each output is held to 1e-4, or to ten times the plain
 version's own float32 error on that same output where that is larger (a
 float32 closed-form inverse of an ill-conditioned 3x3 block loses digits
-in either version).  The last lines are the card's name and power limit,
+in either version).  B6 sums each run in a fixed order: float64 within
+1e-10 and float32 within 1e-5 of the largest entry.  The last lines are
+the card's name and power limit,
 a JSON record of the kernels (one row per kernel and main-path shape,
 with that path's launches) and the device JSON.
 """
@@ -80,6 +101,25 @@ BAL = {
         dict(ncameras=128, npoints=8192, seed=1, noise=1e-3, track_alpha=1.6,
              max_track=96),
         937386.25, 0.07579956948757172, 1e-2,
+    ),
+}
+#: Implicit backend, ``linear_tol=1e-2``: ``make_realistic_bal``
+#: arguments, the solver asked for, the JAX package's CPU float32 start and
+#: best cost after 30 LM iterations, and the slack on the best cost.
+#: bench-realistic: ``JAX_PLATFORMS=cpu NLLSTPU_PLATFORM=cpu python
+#: scripts/bal_realistic.py bench implicit 30`` (it stops after 25
+#: iterations on a small step).  Dubrovnik-class: the JAX package's
+#: ``nt.optimize`` on the same perturbed problem with ``solver="schur"``
+#: (auto-switched to implicit), the options of ``implicit_options`` and
+#: ``store_trajectory=True``, in float32 on the CPU (the command is in
+#: PERF.md).
+IMPLICIT = {
+    "bench-realistic implicit": (
+        BAL["bench-realistic"][0], "schur_cg", 937386.25, 0.07557877153158188, 1e-2,
+    ),
+    "Dubrovnik-class": (
+        dict(ncameras=356, npoints=226730, seed=1, noise=1e-3, track_alpha=2.0),
+        "schur", 13210936.0, 0.9113152027130127, 1e-2,
     ),
 }
 TOL_F64 = 1e-10
@@ -196,8 +236,9 @@ def bal_problem(name, device):
     from nllstpu_torch.models.ba import perturb_ba
     from nllstpu_torch.models.bal import make_bal_problem, make_realistic_bal
 
+    args = BAL[name][0] if name in BAL else IMPLICIT[name][0]
     problem, _, points = make_bal_problem(
-        make_realistic_bal(**BAL[name][0]), dtype=torch.float32, device=device
+        make_realistic_bal(**args), dtype=torch.float32, device=device
     )
     perturb_ba(problem, points, 0.05, seed=5)
     return problem
@@ -211,6 +252,12 @@ def bench_options():
         max_fails=1 << 30, max_time=float("inf"), solver="schur",
         schur_family=nt.Euclidean(3),
     )
+
+
+def implicit_options(name):
+    """The bench options with the implicit problem's solver and
+    ``linear_tol=1e-2``, as ``scripts/bal_realistic.py`` runs it."""
+    return dataclasses.replace(bench_options(), solver=IMPLICIT[name][1], linear_tol=1e-2)
 
 
 def phase_device():
@@ -409,37 +456,117 @@ def phase_b3(device, systems):
     return records
 
 
+def phase_b6(device):
+    """B6 against its plain version on the inputs the implicit path gives
+    it: each problem is compiled through its user-facing solver (the
+    Dubrovnik-class one must switch to implicit), then one assembly and one
+    damped solve run with a recorder in place of the kernel that keeps the
+    first input of each (D, runs).  Plus a synthetic case.  Returns a
+    record per main-path shape."""
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.ops import segment_sum
+
+    kern, plain = segment_sum.segment_block_sum, segment_sum.segment_block_sum_reference
+    gen = torch.Generator().manual_seed(3)
+    lengths = torch.randint(0, 50, (4096,), generator=gen)
+    lengths[::5] = 0
+    lengths[1000] = 100_000
+    starts = torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)])
+    cases = {"synthetic 100k run + empty runs": (
+        torch.randn(int(starts[-1]), 12, generator=gen, dtype=torch.float64).to(device),
+        starts.to(device),
+    )}
+    for name in IMPLICIT:
+        problem = bal_problem(name, device)
+        opts = implicit_options(name)
+        comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+        if not comp.schur_info.implicit:
+            raise AssertionError(f"{name}: solver={opts.solver!r} did not compile implicit")
+        L = comp.schur_info.num_elim
+        seen = {}
+
+        def record(data, st, seen=seen, L=L):
+            key = f"{name} D={data.shape[1]} {'landmark' if st.shape[0] == L + 1 else 'camera'} runs"
+            seen.setdefault(key, (data.clone(), st))
+            return kern(data, st)
+
+        comp.kernels = dataclasses.replace(comp.kernels, segment_sum=record)
+        _, sys_ = comp.assemble(problem.stacked_variables())
+        ctx = comp.ctx(opts)
+        ctx.linops.solve(sys_, 1e-2 * ctx.linops.diag_max(sys_).item())
+        cases.update(seen)
+        del comp, sys_, ctx
+    records = {}
+    for label, (data, st) in cases.items():
+        ref = plain(data.double(), st)
+        out64, out32 = kern(data.double(), st), kern(data.float(), st)
+        torch.cuda.synchronize()
+        e64 = check(f"B6 f64 {label}", [out64], [ref], TOL_F64)[0]
+        e32 = check(f"B6 f32 {label}", [out32], [ref], TOL_B1_F32)[0]
+        line = (f"B6 {label} (N {data.shape[0]}, L {st.shape[0] - 1}): rel err f64 "
+                f"{e64:.2e} f32 {e32:.2e}")
+        if label.startswith("synthetic"):
+            print(line, flush=True)
+            continue
+        f32 = data.float()
+        n_run = int(st[-1])
+        lib_in, lib_off = f32[:n_run], st.long()
+        ms = time_ms(lambda: kern(f32, st))
+        plain_ms = time_ms(lambda: plain(f32, st))
+        library_ms = time_ms(lambda: torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0))
+        lib = torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0)
+        if rel_err(lib, ref) > TOL_B1_F32:
+            raise AssertionError(f"B6 {label}: torch.segment_reduce disagrees")
+        b = bound(nbytes(lib_in, st, out32), lib_in.numel())
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.segment_reduce {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
+              f" ({b['bound_by']})", flush=True)
+        records[label] = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms,
+                              **b, library_ms=library_ms)
+    return records
+
+
 def _reset_counts():
-    from nllstpu_torch.ops import fused_obs, schur_reduce
+    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
 
     fused_obs.LAUNCHES = 0
     fused_obs.INTO_LAUNCHES = 0
     schur_reduce.LAUNCHES = 0
+    segment_sum.LAUNCHES = 0
 
 
 def _read_counts():
-    from nllstpu_torch.ops import fused_obs, schur_reduce
+    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
 
     return {
         "fused_obs_all": fused_obs.LAUNCHES,
         "fused_obs_all_into": fused_obs.INTO_LAUNCHES,
         "reduce_s_damped": schur_reduce.LAUNCHES,
+        "segment_block_sum": segment_sum.LAUNCHES,
     }
 
 
-def phase_main(label, problem, start_ref, best_ref, slack, needs, never=()):
+def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
+               options=None):
     """The user's entry point on one problem, with the launch counts set to
     0 just before and read just after.  ``needs`` are the kernels the path
-    must launch, ``never`` those it must not."""
+    must launch, ``never`` those it must not.  A run that ends on a NaN
+    cost or step fails."""
     import nllstpu_torch as nt
+    from nllstpu_torch.core import structs
 
     _reset_counts()
-    result = nt.optimize(problem, bench_options())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = nt.optimize(problem, options or bench_options())
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = _read_counts()
-    print(f"main path {label}: {result.num_iterations} iterations, start cost "
-          f"{result.start_cost!r}, best cost {result.best_cost!r}, "
-          f"{result.linear_solves} damped solves, launches {launches}", flush=True)
+    print(f"main path {label}: {result.num_iterations} iterations in {wall:.3f} s, "
+          f"start cost {result.start_cost!r}, best cost {result.best_cost!r}, "
+          f"{result.linear_solves} damped solves, launches {launches}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ended: "
+          f"{' '.join(result.termination_reasons())}", flush=True)
     if not all(launches[k] > 0 for k in needs) or any(launches[k] for k in never):
         raise AssertionError(
             f"{label}: launches {launches}; needed {needs}, never {never}"
@@ -453,22 +580,27 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=()):
     final = problem.stacked_variables()
     if not all(torch.isfinite(v).all() for v in final.values()):
         raise AssertionError(f"{label}: non-finite final variables")
+    if result.termination & (structs.TERM_COST_NAN | structs.TERM_STEP_NAN):
+        raise AssertionError(f"{label}: the run ended on a NaN cost or step")
     return launches
 
 
-def phase_timed(label, problem, plain: bool, phases: bool):
+def phase_timed(label, problem, plain: bool, phases: bool, options=None):
     """The same loop for ``TIMED_ITERS`` iterations, through the kernels or
     their plain versions; with ``phases``, CUDA events around every
-    phase."""
+    phase, and on the implicit path the PCG iterations per damped solve and
+    one reduced matvec's time."""
     from nllstpu_torch.core.optimize import compile_problem, run_loop
 
-    opts = dataclasses.replace(bench_options(), max_iters=TIMED_ITERS)
-    comp = compile_problem(problem, schur_family=opts.schur_family, plain=plain)
+    opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
+    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family,
+                           plain=plain)
     vars0 = problem.stacked_variables()
     timer = PhaseTimer() if phases else None
+    ctx = comp.ctx(opts, phase=timer)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final = run_loop(comp.assemble, comp.cost, comp.ctx(phase=timer), opts, vars0)
+    final = run_loop(comp.assemble, comp.cost, ctx, opts, vars0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rate = final["iternum"] / wall
@@ -483,11 +615,21 @@ def phase_timed(label, problem, plain: bool, phases: bool):
         line += " | " + ", ".join(
             f"{k} {n}x {ms / n:.4f} ms/call" for k, (n, ms) in timer.totals().items()
         )
+    if phases and comp.schur_info.implicit:
+        ops = ctx.linops
+        _, sys_ = comp.assemble(final["variables"])
+        lam = 1e-2 * ops.diag_max(sys_).item()
+        h_inv = ops.damped_inverse(sys_[2], lam)
+        v = torch.randn(comp.schur_info.dim_reduced, device=h_inv.device)
+        matvec_ms = time_ms(lambda: ops.s_matvec(sys_, h_inv, lam, v))
+        line += (f" | PCG iterations per damped solve {ops.cg_iters} (mean "
+                 f"{sum(ops.cg_iters) / len(ops.cg_iters):.2f}), reduced matvec "
+                 f"{matvec_ms:.4f} ms/call")
     print(line, flush=True)
     return rate
 
 
-def phase_profile(label, problem):
+def phase_profile(label, problem, options=None):
     """The 10-iteration loop through the kernels under ``torch.profiler``:
     wall time, the summed device time of every kernel, the device's idle
     share, and the kernels that took the most device time."""
@@ -495,13 +637,13 @@ def phase_profile(label, problem):
 
     from nllstpu_torch.core.optimize import compile_problem, run_loop
 
-    opts = dataclasses.replace(bench_options(), max_iters=TIMED_ITERS)
-    comp = compile_problem(problem, schur_family=opts.schur_family)
+    opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
+    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
     vars0 = problem.stacked_variables()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_loop(comp.assemble, comp.cost, comp.ctx(), opts, vars0)
+        run_loop(comp.assemble, comp.cost, comp.ctx(opts), opts, vars0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [
@@ -525,6 +667,7 @@ def main():
     b2, bal_systems = phase_b2(device)
     b3 = phase_b3(device, {"pinhole bench": bench_sys, **bal_systems})
     del bench_sys, bal_systems
+    b6 = phase_b6(device)
     launches = {"pinhole bench": phase_main(
         "pinhole bench", bench_problem(device), REF_START_COST, REF_BEST_COST, 1e-3,
         needs=("fused_obs_all", "reduce_s_damped"),
@@ -534,26 +677,47 @@ def main():
             name, bal_problem(name, device), start_ref, best_ref, slack,
             needs=("fused_obs_all_into", "reduce_s_damped"), never=("fused_obs_all",),
         )
+    for name, (_, _, start_ref, best_ref, slack) in IMPLICIT.items():
+        launches[name] = phase_main(
+            name, bal_problem(name, device), start_ref, best_ref, slack,
+            needs=("segment_block_sum",),
+            never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped"),
+            options=implicit_options(name),
+        )
+        print(f"{name} main path: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {smi}", flush=True)
     # Kernels and plain versions in turns, then one run of each with
     # per-phase events (the events cost host time, so rates come from the
     # runs without them).
-    for label, make in (("pinhole bench", bench_problem),
-                        ("Ladybug-49", lambda d: bal_problem("Ladybug-49", d))):
+    implicit = "bench-realistic implicit"
+    for label, make, opts in (
+        ("pinhole bench", bench_problem, None),
+        ("Ladybug-49", lambda d: bal_problem("Ladybug-49", d), None),
+        (implicit, lambda d: bal_problem(implicit, d), implicit_options(implicit)),
+    ):
         for plain in (False, True, True, False):
-            phase_timed(label, make(device), plain=plain, phases=False)
+            phase_timed(label, make(device), plain=plain, phases=False, options=opts)
         for plain in (False, True):
-            phase_timed(label, make(device), plain=plain, phases=True)
-        phase_profile(label, make(device))
+            phase_timed(label, make(device), plain=plain, phases=True, options=opts)
+        phase_profile(label, make(device), options=opts)
+    # The Dubrovnik-class loop once, through the kernels: its phase split,
+    # PCG iterations and matvec time, then its idle share.
+    big = "Dubrovnik-class"
+    phase_timed(big, bal_problem(big, device), plain=False, phases=True,
+                options=implicit_options(big))
+    phase_profile(big, bal_problem(big, device), options=implicit_options(big))
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"
     rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264", {"pinhole bench": b1}),
             ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397", b2),
-            ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505", b3)]
+            ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505", b3),
+            ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6)]
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,
-             launches=launches[shape][name], **record, library_ms=None)
+             launches=launches[shape.split(" D=")[0]][name],
+             **{"library_ms": None, **record})
         for name, source, replaces, records in rows
         for shape, record in records.items()
     ]

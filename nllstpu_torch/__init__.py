@@ -3,10 +3,11 @@
 The JAX package ``nllstpu`` is the reference; this package solves the same
 problems with PyTorch, and runs its hot path through CUDA kernels written
 by hand for NVIDIA Hopper (``ops/csrc``).  It covers Levenberg-Marquardt
-on components-major bundle-adjustment batches through the direct Schur
-solve: SE(3)+pinhole problems (``models.ba``) and Snavely BAL problems
+on components-major bundle-adjustment batches through the Schur solves:
+SE(3)+pinhole problems (``models.ba``) and Snavely BAL problems
 (``models.bal``), whose skewed track lengths take the degree-bucketed
-layout.  Problems live on the card unless the caller passes
+layout in the direct solve; the implicit solve (``solver="schur_cg"``,
+and ``solver="schur"`` past the dense-W limit) takes any size.  Problems live on the card unless the caller passes
 ``device="cpu"``.  The package never imports ``jax``.
 """
 

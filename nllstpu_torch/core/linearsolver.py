@@ -4,9 +4,11 @@
 ``cholesky_solve`` falls back to an LU solve when the matrix is not
 positive definite (reference ``try_cholesky!``).  The JAX package detects a
 failed factorization by a NaN diagonal inside ``lax.cond``; here
-``cholesky_ex``'s ``info`` says so, and reading it is one host sync.  The
+``cholesky_ex``'s ``info`` or a non-finite solution says so, and reading
+both is one host sync.  The
 fallback is numerics, not a device fallback: both branches run wherever
-the matrix lives.
+the matrix lives.  ``batched_inv_spd`` inverts the implicit backend's
+preconditioner blocks.
 """
 
 from __future__ import annotations
@@ -30,7 +32,15 @@ def cholesky_solve(a, b):
     last-bit differences at the cost's rounding floor change which damped
     trials LM accepts, and the float64 LM trace no longer matches the JAX
     package's (16 cameras, 256 landmarks, Huber: 10 damped solves against
-    5)."""
+    5).
+
+    A factorization counts as failed when ``info`` says so or when the
+    solution it gives is not finite — the JAX package's test (a NaN on
+    the factor's diagonal) reaches the same cases.  ``info`` alone is not
+    enough: on the H100 a float32 reduced system at λ ≈ 1e-10·max diag
+    (the pinhole bench at its rounding floor, in a rare run) factored with
+    ``info`` 0 into a non-finite solution, and the step came out NaN.
+    Both tests are read back in one host sync."""
     d = None
     if a.dtype == torch.float32:
         diag = torch.diagonal(a).abs()
@@ -38,11 +48,26 @@ def cholesky_solve(a, b):
         a = a * d[:, None] * d[None, :]
         b = b * d
     chol, info = torch.linalg.cholesky_ex(a)
-    if int(info) == 0:
-        x = torch.cholesky_solve(b[:, None], chol)[:, 0]
-    else:
+    x = torch.cholesky_solve(b[:, None], chol)[:, 0]
+    if bool((info != 0) | ~torch.isfinite(x).all()):
         x, _ = torch.linalg.solve_ex(a, b)
     return x if d is None else d * x
+
+
+def batched_inv_spd(h):
+    """Inverse of small symmetric blocks ``[n, d, d]``: the closed form of
+    :func:`batched_inv_spd_cm` for d ≤ 3; beyond, a batched Cholesky
+    inverse, with an LU inverse for the blocks whose factorization fails
+    (the JAX package's per-block ``cholesky_solve`` falls back the same
+    way).  Both run on the whole batch and the choice is a ``where``, so
+    no host sync is needed; a singular block comes out non-finite."""
+    d = h.shape[-1]
+    if d <= 3:
+        return batched_inv_spd_cm(h.permute(1, 2, 0)).permute(2, 0, 1)
+    chol, info = torch.linalg.cholesky_ex(h)
+    inv = torch.cholesky_inverse(chol)
+    lu_inv, _ = torch.linalg.inv_ex(h)
+    return torch.where((info > 0)[:, None, None], lu_inv, inv)
 
 
 def batched_inv_spd_cm(h):

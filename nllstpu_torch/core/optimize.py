@@ -1,6 +1,8 @@
 """Optimizer entry points: ``compile_problem``, ``run_loop`` and
-``optimize`` (port of the direct-Schur Levenberg-Marquardt path of
-``nllstpu/core/optimize.py``).
+``optimize`` (port of the Schur Levenberg-Marquardt paths of
+``nllstpu/core/optimize.py``: the direct solve, and the implicit one that
+``solver="schur_cg"`` asks for and ``solver="schur"`` switches to past the
+dense-W limit).
 
 The JAX package compiles the whole outer optimization into one
 ``lax.while_loop``.  Here the solver state stays on the device and the host
@@ -20,36 +22,38 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops import fused_obs, schur, schur_reduce
+from ..ops import fused_obs, schur, schur_reduce, segment_sum
 from . import engine, iterators, structs
 from .problem import Problem, family_name
 from .structs import Options, Result
 
-#: Direct elimination stores W densely; the JAX package switches to the
-#: implicit solve past this size, which the port does not have yet.
+#: Direct elimination stores W densely; past this size ``solver="schur"``
+#: compiles the implicit solve instead, as the JAX package does.
 DENSE_W_BYTE_LIMIT = 4 << 30
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The kernel entry points of the direct-Schur path."""
+    """The kernel entry points of the Schur paths."""
 
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree bucket
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py)
+    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py), implicit path
 
 
 #: Dispatchers: the hand-written kernels on CUDA tensors, their plain
 #: versions on CPU tensors.
 KERNELS = Kernels(
     fused_obs.fused_obs_all, fused_obs.fused_obs_all_into,
-    schur_reduce.reduce_s_damped,
+    schur_reduce.reduce_s_damped, segment_sum.segment_block_sum,
 )
 #: The plain PyTorch versions on any device — for measuring the kernels
 #: against, never chosen implicitly.
 PLAIN = Kernels(
     fused_obs.fused_obs_all_reference, fused_obs.fused_obs_all_into_reference,
     schur_reduce.reduce_s_damped_reference,
+    segment_sum.segment_block_sum_reference,
 )
 
 
@@ -68,12 +72,19 @@ class CompiledProblem:
 
     def __post_init__(self):
         self._step_index = engine.step_index(self.layout, self.manifolds, self.device)
-        self._runs = [(f.e_slot, f.buckets) for f in self.schur_info.fast]
+        self._runs = None if self.schur_info.implicit else [
+            (f.e_slot, f.buckets) for f in self.schur_info.fast
+        ]
 
     def cost(self, variables):
         return engine.total_cost(self.batches, variables, runs_list=self._runs)
 
     def assemble(self, variables):
+        if self.schur_info.implicit:
+            return schur.assemble_implicit(
+                self.batches, variables, self.schur_info, self.dtype,
+                segment_sum=self.kernels.segment_sum,
+            )
         return schur.assemble_schur(
             self.batches, variables, self.schur_info, self.dtype,
             assemble_kernel=self.kernels.assemble,
@@ -85,9 +96,18 @@ class CompiledProblem:
             self.manifolds, self._step_index, self.layout.pad, variables, x
         )
 
-    def ctx(self, phase=None) -> iterators.IterCtx:
+    def ctx(self, options: Options = None, phase=None) -> iterators.IterCtx:
+        """The iterators' context; ``options.linear_tol`` sets the implicit
+        solve's PCG tolerance."""
         si = self.schur_info
-        linops = schur.SchurOps(si.dim_reduced, reduce=self.kernels.reduce)
+        if si.implicit:
+            linops = schur.SchurCGOps(
+                si.dim_reduced, si.num_elim, si.dof_elim, si.fam_offsets,
+                tol=None if options is None else options.linear_tol,
+                segment_sum=self.kernels.segment_sum,
+            )
+        else:
+            linops = schur.SchurOps(si.dim_reduced, reduce=self.kernels.reduce)
         extra = {} if phase is None else {"phase": phase}
         return iterators.IterCtx(
             cost=self.cost,
@@ -110,23 +130,28 @@ def _device_batch(batch, device, dtype):
 
 def compile_problem(problem: Problem, solver: str = "schur",
                     schur_family=None, plain: bool = False) -> CompiledProblem:
-    """Lower a problem onto its device for the direct Schur solve
-    (``solver="schur"``, or ``"auto"`` with a ``schur_family``).  Skewed
-    degree distributions get the JAX package's degree relabel and bucketed
-    layout (see :func:`schur_layout`), assembled by kernel B2.
+    """Lower a problem onto its device for a Schur solve: direct
+    (``solver="schur"``, or ``"auto"`` with a ``schur_family``) unless its
+    dense W would pass :data:`DENSE_W_BYTE_LIMIT`, implicit for
+    ``solver="schur_cg"`` or past the limit.  Skewed degree distributions
+    get the JAX package's degree relabel (see :func:`schur_layout`); the
+    direct path then takes the bucketed layout, assembled by kernel B2.
     ``plain=True`` runs the kernels' plain PyTorch versions on every
     device (a baseline to measure the kernels against)."""
     if solver == "auto" and schur_family is not None:
         solver = "schur"
-    if solver != "schur":
+    if solver not in ("schur", "schur_cg"):
         raise NotImplementedError(
-            f"solver={solver!r}: the port has the direct Schur backend only"
+            f"solver={solver!r}: the port has the Schur backends only"
         )
     if schur_family is None:
-        raise ValueError("solver='schur' requires schur_family")
-    layout, info, batches = schur_layout(problem, schur_family)
+        raise ValueError(f"solver={solver!r} requires schur_family")
+    layout, info, batches = schur_layout(problem, schur_family, solver == "schur_cg")
     schur.check_slice(info, batches)
-    schur.upload_fast(info, problem.device)
+    if info.implicit:
+        schur.upload_implicit(info, problem.device)
+    else:
+        schur.upload_fast(info, problem.device)
     return CompiledProblem(
         manifolds={n: problem.manifold_of(n) for n in problem.family_names()},
         layout=layout,
@@ -138,10 +163,12 @@ def compile_problem(problem: Problem, solver: str = "schur",
     )
 
 
-def schur_layout(problem: Problem, schur_family):
-    """Host half of the Schur compile: ``(layout, info, repacked_batches)``.
-    Skewed degree distributions get the degree relabel (``order_key``) and
-    the bucketed obs-major layout, exactly as in the JAX package."""
+def schur_layout(problem: Problem, schur_family, implicit: bool = False):
+    """Host half of the Schur compile: ``(layout, info, batches)``.  Skewed
+    degree distributions get the degree relabel (``order_key``), exactly
+    as in the JAX package.  The direct solve takes the bucketed obs-major
+    repack; the implicit one (``implicit``, or a dense W past
+    :data:`DENSE_W_BYTE_LIMIT`) batches sorted by landmark."""
     batches = problem.batches()
     counts = schur.elim_degree_counts(batches, problem, schur_family)
     order_key = None
@@ -153,18 +180,19 @@ def schur_layout(problem: Problem, schur_family):
         order_key=order_key,
     )
     pre = schur.build_schur_info(problem, layout, schur_family)
+    # The JAX package's dense-W size, pad column block included.
     w_bytes = (
-        pre.num_elim * pre.dim_reduced * pre.dof_elim
+        pre.num_elim * (pre.dim_reduced + layout.pad) * pre.dof_elim
         * torch.empty((), dtype=problem.dtype).element_size()
     )
-    if w_bytes > DENSE_W_BYTE_LIMIT:
-        raise NotImplementedError(
-            f"dense W of {w_bytes} bytes: the implicit Schur solve is not "
-            "ported yet"
-        )
-    batches, buckets = schur.repack_batches_for_schur(batches, pre)
+    implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
+    if implicit:
+        batches, buckets = [schur.sort_for_implicit(b, pre) for b in batches], None
+    else:
+        batches, buckets = schur.repack_batches_for_schur(batches, pre)
     info = schur.build_schur_info(
-        problem, layout, schur_family, batches=batches, buckets=buckets
+        problem, layout, schur_family, batches=batches, buckets=buckets,
+        implicit=implicit,
     )
     return layout, info, batches
 
@@ -245,7 +273,7 @@ def optimize(problem: Problem, options: Options = None) -> Result:
     vars0 = problem.stacked_variables()
     t1 = time.perf_counter()
     final = run_loop(
-        compiled.assemble, compiled.cost, compiled.ctx(), options, vars0
+        compiled.assemble, compiled.cost, compiled.ctx(options), options, vars0
     )
     problem.set_values(final["variables"])
     nan = float("nan")

@@ -44,7 +44,9 @@ _TERM_MESSAGES = (
 class Options:
     """Solver options (reference ``NLLSOptions``).  The port runs
     ``iterator=LEVENBERG_MARQUARDT`` with ``solver="schur"`` (or "auto"
-    with a ``schur_family``); ``max_time`` is checked every iteration."""
+    with a ``schur_family``), which switches to the implicit backend past
+    the dense-W limit, or ``solver="schur_cg"`` (implicit always);
+    ``max_time`` is checked every iteration."""
 
     rel_dcost: float = 1e-15
     abs_dcost: float = 1e-15
@@ -56,6 +58,11 @@ class Options:
     solver: str = "auto"
     schur_family: Any = None  # Manifold of the eliminated (landmark) family
     init_lm_lambda: float = 0.0
+    # Implicit backend only: relative residual tolerance of the reduced
+    # PCG (the Ceres ``eta`` analogue).  None = 1e-5 in float32, 1e-12 in
+    # float64.  LM tolerates inexact steps, so 1e-2 trades inner
+    # iterations for outer ones.
+    linear_tol: Optional[float] = None
 
     def __post_init__(self):
         if self.iterator not in ITERATORS:

@@ -33,7 +33,9 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-#: argtypes of every exported launcher (the suffix names the float type).
+_LL = ctypes.c_longlong
+#: argtypes of every exported launcher (the suffix names the float type,
+#: then, for B6, the index type of ``starts``).
 _SIGNATURES = {
     # jac, g0, d1, d2, vc, h_ll, g_l, w, ab, n, s, k, l, n_r, dr_s, dl,
     # e_start, stream
@@ -46,6 +48,11 @@ _SIGNATURES = {
     # splits, stream
     "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
     "reduce_s_damped_f64": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
+    # data, starts, out, n, l, d, stream
+    **{
+        f"segment_block_sum_{f}_{i}": [_P] * 3 + [_LL, _I, _I, _P]
+        for f in ("f32", "f64") for i in ("i32", "i64")
+    },
 }
 
 _lib = None

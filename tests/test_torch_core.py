@@ -75,6 +75,31 @@ def test_cholesky_solve_falls_back_to_lu():
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_solve_falls_back_on_a_non_finite_factor(monkeypatch, dtype):
+    """A factorization whose ``info`` reports success but whose factor
+    carries a NaN (as the card's float32 factorization of a numerically
+    singular reduced system did) is a failed one: the LU solve answers,
+    to 1e-5 (float32) or 1e-12 (float64) relative."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((6, 6))
+    a = a @ a.T + np.eye(6)
+    b = rng.standard_normal(6)
+    real = torch.linalg.cholesky_ex
+
+    def poisoned(m):
+        chol, info = real(m)
+        chol = chol.clone()
+        chol[3, 3] = float("nan")
+        return chol, torch.zeros_like(info)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", poisoned)
+    got = linearsolver.cholesky_solve(torch.from_numpy(a).to(dtype),
+                                      torch.from_numpy(b).to(dtype))
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    np.testing.assert_allclose(got.double().numpy(), np.linalg.solve(a, b), rtol=rtol)
+
+
 def _skewed_arrays():
     """A BA problem whose track lengths are long-tailed: a few landmarks
     seen by every camera, most by one or two."""

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1, B2, B3) against their plain PyTorch
+"""The port's CUDA kernels (B1, B2, B3, B6) against their plain PyTorch
 versions, on the card.  These tests skip without a CUDA device.  This file
 imports neither jax nor the JAX package, so on a machine with a card and no
 jax it runs with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -7,14 +7,15 @@ Tolerances: in float64 the kernels differ from the plain versions only by
 summation order (1e-12 of the largest entry).  In float32, B1's and B2's
 per-camera sums are float atomics and B3 sums over L·dl terms in another
 order than the float64 yardstick: all are held to 1e-5 of the largest
-entry.
+entry.  B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5
+(float32) of the largest entry against the float64 plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nllstpu_torch.ops import fused_obs, schur_reduce
+from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
 
 
 @pytest.fixture
@@ -138,6 +139,40 @@ def test_reduce_s_damped_kernel_matches_plain(cuda, dtype, tol, wc, lam):
     assert float((s - s.T).abs().max() / s.abs().max()) <= 10 * tol
 
 
+def _b6_case(gen, n_runs, d, long_run):
+    """Skewed runs: empty ones, one of ``long_run`` rows, and rows before
+    the first and after the last run that must be ignored."""
+    lengths = torch.randint(0, 40, (n_runs,), generator=gen)
+    lengths[::7] = 0
+    lengths[n_runs // 2] = long_run
+    starts = 5 + torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)])
+    data = torch.randn(int(starts[-1]) + 9, d, generator=gen, dtype=torch.float64)
+    return data, starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+# D of the implicit path: Wᵀv, W u, h_ll + g_l, a_rr + b_r, the
+# preconditioner's correction; one run of 100,000 rows.
+@pytest.mark.parametrize("d", [3, 9, 12, 54, 81])
+def test_segment_block_sum_kernel_matches_plain(cuda, dtype, tol, index, d):
+    gen = torch.Generator().manual_seed(d)
+    data, starts = _b6_case(gen, 300, d, 100_000)
+    before = segment_sum.LAUNCHES
+    out = segment_sum.segment_block_sum(data.to(cuda, dtype), starts.to(cuda, index))
+    torch.cuda.synchronize()
+    assert segment_sum.LAUNCHES == before + 1
+    ref = segment_sum.segment_block_sum_reference(data, starts)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert _rel_err(out.cpu(), ref) <= tol
+    empty = (starts[1:] == starts[:-1]).nonzero()[:, 0]
+    assert len(empty) and not out[empty.to(cuda)].any()
+    # Deterministic: the same bits on a second launch.
+    again = segment_sum.segment_block_sum(data.to(cuda, dtype), starts.to(cuda, index))
+    assert torch.equal(out, again)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_bad_inputs(cuda):
     w = torch.zeros(4, 5, 6, device=cuda)
@@ -150,6 +185,10 @@ def test_kernels_reject_bad_inputs(cuda):
             torch.zeros(2, 4, device=cuda), torch.zeros(2, 4, dtype=torch.int32, device=cuda),
             5, 6, 3, 6,
         )
+    with pytest.raises(ValueError):
+        segment_sum.segment_block_sum(w, torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        segment_sum.segment_block_sum(w[0], torch.zeros(3, device=cuda))
 
 
 def test_plain_versions_run_on_cpu():
@@ -165,3 +204,8 @@ def test_plain_versions_run_on_cpu():
     s, r, hi = schur_reduce.reduce_s_damped(w, h + 5 * torch.eye(3, dtype=h.dtype)[:, :, None], g, 0.1)
     assert (s.shape, r.shape, hi.shape) == ((24, 24), (24,), (3, 3, 10))
     assert np.isfinite(s.numpy()).all()
+    data, starts = _b6_case(gen, 12, 5, 70)
+    out = segment_sum.segment_block_sum(data, starts)
+    assert out.shape == (12, 5)
+    for i in range(12):
+        assert torch.allclose(out[i], data[starts[i]:starts[i + 1]].sum(0), rtol=1e-14, atol=1e-14)
