@@ -27,9 +27,11 @@ Phases, one line each or more; any failure raises and exits non-zero:
    the real inputs of the two implicit problems (every D the path uses:
    3 for Wᵀv, 9 for W u, 12 for h_ll + g_l, 54 for a_rr + b_r and 81 for
    the preconditioner's correction, over landmark and camera runs,
-   recorded from one assembly and one damped solve), and on a synthetic
-   case with empty runs and one run of 100,000 rows; beside each
-   main-path shape its time, its byte bound and the time of
+   recorded from one assembly and one damped solve) and of the adaptive
+   direct problem (21 over landmark runs: h_ll, g_l and the kernel–point
+   cross; 81 over camera runs: a_rr, b_r and the kernel–camera cross),
+   and on a synthetic case with empty runs and one run of 100,000 rows;
+   beside each main-path shape its time, its byte bound and the time of
    ``torch.segment_reduce``, one PyTorch call for the same function.
 8. implicit main paths — LM through ``nt.optimize`` in float32 with
    ``linear_tol=1e-2``: bench-realistic through ``solver="schur_cg"`` (30
@@ -39,16 +41,33 @@ Phases, one line each or more; any failure raises and exits non-zero:
    implicit backend; each launches B6 and never B1, B2 or B3, and meets
    the JAX package's CPU float32 start and best cost (constants below).
    The Dubrovnik-class run prints the peak device memory.
-9. timed loops — 10 iterations of the pinhole, Ladybug-49 and
-   bench-realistic implicit loops, through the kernels and through their
-   plain versions in turns, once more of each with CUDA events around
-   every phase (the implicit loops also print PCG iterations per damped
-   solve and the time of one reduced matvec), and once through the
-   kernels under ``torch.profiler`` (device busy time and idle share);
-   the Dubrovnik-class loop once with phase events and once profiled.
-   The cost reaches the float32 floor early; later iterations spend a
-   varying number of damped trials on rounding noise, so compare per-call
-   phase times, not single-run rates.
+9. B7 and B5 — kernels ``place_w`` and ``reduce_s`` against their plain
+   versions on the inputs the adaptive main path gives them (recorded
+   from one assembly and one damped solve: W [8192, 3, 1155]), B7 also on
+   a synthetic case with empty runs, repeated cameras, dropped costs and a
+   row past 48 KB of shared memory, B5 also at dl = 5 on a synthetic
+   input; beside each main-path shape its time, its bound, the plain
+   version's time and, for B7, ``index_add_`` into a zeroed W.
+10. adaptive main path — LM through ``nt.optimize`` in float32 for 60
+   iterations on bench-realistic with 10% of its observations moved by 50
+   pixels, one shared ContaminatedGaussian kernel
+   (``make_bal_problem(data, kernel=..., kernel_params=...)``) and the
+   points perturbed by 0.01: the generic direct assembly through B6 and
+   B7 and the solve through B5, never B1, B2 or B3.  Its cost is ½Σρ with
+   ρ = −log of a mixture density, negative once σ1 nears the noise: the
+   gate holds the start cost within 1e-4 of |reference| and the best cost
+   below reference + 1e-2·|reference|, and the recovered (σ1, σ2, w)
+   against the JAX package's CPU float32 run (constants below).
+11. timed loops — 10 iterations of the pinhole, Ladybug-49,
+   bench-realistic implicit and adaptive bench-realistic loops, through
+   the kernels and through their plain versions in turns, once more of
+   each with CUDA events around every phase (the implicit loops also
+   print PCG iterations per damped solve and the time of one reduced
+   matvec), and once through the kernels under ``torch.profiler`` (device
+   busy time and idle share); the Dubrovnik-class loop once with phase
+   events and once profiled.  The cost reaches the float32 floor early;
+   later iterations spend a varying number of damped trials on rounding
+   noise, so compare per-call phase times, not single-run rates.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -62,10 +81,14 @@ largest.  Each output is held to 1e-4, or to ten times the plain
 version's own float32 error on that same output where that is larger (a
 float32 closed-form inverse of an ill-conditioned 3x3 block loses digits
 in either version).  B6 sums each run in a fixed order: float64 within
-1e-10 and float32 within 1e-5 of the largest entry.  The last lines are
-the card's name and power limit,
-a JSON record of the kernels (one row per kernel and main-path shape,
-with that path's launches) and the device JSON.
+1e-10 and float32 within 1e-5 of the largest entry.  B7 adds at most a
+few values per entry, in run order: float64 within 1e-12 and float32
+within 1e-6 of the largest entry, and two launches give the same bits.
+B5: float64 within 1e-12 of the largest entry; float32 within 1e-6, or
+ten times the plain version's own float32 error where that is larger.
+The last lines are the card's name and power limit, a JSON record of the
+kernels (one row per kernel and main-path shape, with that path's
+launches) and the device JSON.
 """
 
 from __future__ import annotations
@@ -122,9 +145,27 @@ IMPLICIT = {
         "schur", 13210936.0, 0.9113152027130127, 1e-2,
     ),
 }
+#: Adaptive bench-realistic: bench-realistic's data with 10% of its
+#: observations moved by 50 pixels, one shared ContaminatedGaussian kernel,
+#: the points perturbed by 0.01, 60 LM iterations; the JAX package's CPU
+#: float32 start and best cost and recovered (σ1, σ2, w) (it stops after
+#: 59 iterations on a small step; command in PERF.md), and the relative
+#: tolerance of each parameter.  σ2 (the outliers' width) and w are
+#: weakly determined at the float32 floor: the JAX run itself, its inputs
+#: scaled by 1 − 1e-7, 1 + 1e-7 or 1 + 2e-7, gives σ2 67.57–69.28 and w
+#: 0.881–0.894 (2.2% and 1.1% from the constants); σ1 stays within 0.2%.
+ADAPTIVE = "adaptive bench-realistic"
+ADAPTIVE_ITERS = 60
+ADAPTIVE_REF = dict(
+    start=152114.40625, best=-207109.46875,
+    sigmas_weight=(0.0012996768346056342, 69.10763549804688, 0.8913242220878601),
+    tol=(1e-2, 5e-2, 5e-2),
+)
 TOL_F64 = 1e-10
 TOL_B1_F32 = 1e-5
 TOL_B3_F32 = 1e-4
+TOL_B57_F64 = 1e-12
+TOL_B57_F32 = 1e-6
 #: Published H100 SXM peaks at 700 W: HBM bytes/s and float32 FLOP/s
 #: outside the tensor cores (the kernels' arithmetic).
 HBM_BYTES_PER_S = 3.35e12
@@ -194,8 +235,8 @@ def assembly_flops(n_obs: int, dr_s: int, dl: int = 3, n: int = 2) -> int:
 
 
 def reduce_flops(L: int, dl: int, wc: int) -> int:
-    """Operations of B3: Y = H⁻¹W, the upper triangle of S = YᵀW (diagonal
-    included) and rhs = Yᵀg."""
+    """Operations of B3 and B5: Y = H⁻¹W, the upper triangle of S = YᵀW
+    (diagonal included) and rhs = Yᵀg (B3's inverses not counted)."""
     return 2 * dl * dl * L * wc + L * dl * wc * (wc + 1) + 2 * L * dl * wc
 
 
@@ -244,6 +285,26 @@ def bal_problem(name, device):
     return problem
 
 
+def adaptive_problem(device):
+    """``(problem, kernel_handle)``: the adaptive main path's problem."""
+    import numpy as np
+
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import make_bal_problem, make_realistic_bal
+
+    data = make_realistic_bal(**BAL["bench-realistic"][0])
+    rng = np.random.default_rng(3)
+    out = rng.choice(len(data["pt_idx"]), size=len(data["pt_idx"]) // 10, replace=False)
+    data["observations"][out] += 50.0
+    problem, _, points, kh = make_bal_problem(
+        data, dtype=torch.float32, device=device, kernel=nt.ContaminatedGaussian(),
+        kernel_params=nt.ContaminatedGaussian.make_params(1.0, 10.0, 0.8),
+    )
+    perturb_ba(problem, points, 0.01, seed=5)
+    return problem, kh
+
+
 def bench_options():
     import nllstpu_torch as nt
 
@@ -252,6 +313,10 @@ def bench_options():
         max_fails=1 << 30, max_time=float("inf"), solver="schur",
         schur_family=nt.Euclidean(3),
     )
+
+
+def adaptive_options():
+    return dataclasses.replace(bench_options(), max_iters=ADAPTIVE_ITERS)
 
 
 def implicit_options(name):
@@ -457,12 +522,13 @@ def phase_b3(device, systems):
 
 
 def phase_b6(device):
-    """B6 against its plain version on the inputs the implicit path gives
-    it: each problem is compiled through its user-facing solver (the
-    Dubrovnik-class one must switch to implicit), then one assembly and one
-    damped solve run with a recorder in place of the kernel that keeps the
-    first input of each (D, runs).  Plus a synthetic case.  Returns a
-    record per main-path shape."""
+    """B6 against its plain version on the inputs the implicit paths and
+    the adaptive direct path give it: each problem is compiled through its
+    user-facing solver (the Dubrovnik-class one must switch to implicit,
+    the adaptive one stay direct), then one assembly and one damped solve
+    run with a recorder in place of the kernel that keeps the first input
+    of each (D, runs).  Plus a synthetic case.  Returns a record per
+    main-path shape."""
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import segment_sum
 
@@ -476,12 +542,14 @@ def phase_b6(device):
         torch.randn(int(starts[-1]), 12, generator=gen, dtype=torch.float64).to(device),
         starts.to(device),
     )}
-    for name in IMPLICIT:
-        problem = bal_problem(name, device)
-        opts = implicit_options(name)
+    paths = [(name, lambda name=name: bal_problem(name, device), implicit_options(name))
+             for name in IMPLICIT]
+    paths.append((ADAPTIVE, lambda: adaptive_problem(device)[0], adaptive_options()))
+    for name, make, opts in paths:
+        problem = make()
         comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
-        if not comp.schur_info.implicit:
-            raise AssertionError(f"{name}: solver={opts.solver!r} did not compile implicit")
+        if comp.schur_info.implicit != (name in IMPLICIT):
+            raise AssertionError(f"{name}: solver={opts.solver!r} compiled the wrong backend")
         L = comp.schur_info.num_elim
         seen = {}
 
@@ -526,23 +594,184 @@ def phase_b6(device):
     return records
 
 
+def adaptive_inputs(device):
+    """The inputs B7 and B5 receive on the adaptive main path: one
+    assembly and one damped solve of its compiled problem, with recorders
+    in place of the two kernels that keep a copy of what they are given."""
+    from nllstpu_torch.core.optimize import compile_problem
+
+    problem, _ = adaptive_problem(device)
+    opts = adaptive_options()
+    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+    kern, seen = comp.kernels, {}
+
+    def place(we, lstarts, colbase, wc):
+        seen["place_w"] = (we.clone(), lstarts, colbase, wc)
+        return kern.place_w(we, lstarts, colbase, wc)
+
+    def reduce(w, h_inv, g_l):
+        seen["reduce_s"] = (w.clone(), h_inv.clone(), g_l.clone())
+        return kern.reduce_external(w, h_inv, g_l)
+
+    comp.kernels = dataclasses.replace(kern, place_w=place, reduce_external=reduce)
+    _, sys_ = comp.assemble(problem.stacked_variables())
+    ctx = comp.ctx(opts)
+    ctx.linops.solve(sys_, 1e-2 * ctx.linops.diag_max(sys_).item())
+    return seen["place_w"], seen["reduce_s"]
+
+
+def phase_b7(device, main_inputs):
+    """B7 against its plain version on the adaptive main path's input and
+    on a synthetic case: empty runs, cameras seen twice in a run, dropped
+    costs (a negative column and one past W's columns), and a float64 row
+    of 72 KB (past the 48 KB of static shared memory).  A record for the
+    main path."""
+    from nllstpu_torch.ops import w_place
+
+    kern, plain = w_place.place_w, w_place.place_w_reference
+    gen = torch.Generator().manual_seed(7)
+    L, dl, dr_s, n_r = 300, 3, 9, 333
+    lengths = torch.randint(0, 40, (L,), generator=gen)
+    lengths[::7] = 0
+    lstarts = torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)]).int()
+    n = int(lstarts[-1])
+    wc = n_r * dr_s + 3
+    colbase = (torch.randint(0, n_r, (n,), generator=gen) * dr_s).int()
+    colbase[::11] = -1
+    colbase[5::13] = wc - dr_s + 1
+    cases = {
+        ADAPTIVE: main_inputs,
+        "synthetic": (torch.randn(n, dl, dr_s, generator=gen, dtype=torch.float64),
+                      lstarts, colbase, wc),
+    }
+    record = None
+    for label, (we, lst, cb, wc) in cases.items():
+        we, lst, cb = we.to(device), lst.to(device), cb.to(device)
+        ref = plain(we.double(), lst, cb, wc)
+        out64, out32 = kern(we.double(), lst, cb, wc), kern(we.float(), lst, cb, wc)
+        again = kern(we.float(), lst, cb, wc)
+        torch.cuda.synchronize()
+        e64 = check(f"B7 f64 {label}", [out64], [ref], TOL_B57_F64)[0]
+        e32 = check(f"B7 f32 {label}", [out32], [ref], TOL_B57_F32)[0]
+        if not torch.equal(out32, again):
+            raise AssertionError(f"B7 {label}: two launches differ")
+        line = (f"B7 {label} (B {we.shape[0]}, W {tuple(out32.shape)}): rel err f64 "
+                f"{e64:.2e} f32 {e32:.2e}, deterministic")
+        if label != ADAPTIVE:
+            print(line, flush=True)
+            continue
+        f32 = we.float()
+        keep, idx = w_place.flat_index(lst, cb, *f32.shape[1:], wc)
+        vals = torch.where(keep, f32.reshape(-1), 0)
+        wz = torch.zeros(out32.numel(), dtype=torch.float32, device=device)
+        lib = wz.clone().index_add_(0, idx, vals).view(out32.shape)
+        if rel_err(lib, ref) > TOL_B57_F32:
+            raise AssertionError(f"B7 {label}: index_add_ disagrees")
+        ms = time_ms(lambda: kern(f32, lst, cb, wc))
+        plain_ms = time_ms(lambda: plain(f32, lst, cb, wc))
+        library_ms = time_ms(lambda: wz.index_add_(0, idx, vals))
+        b = bound(nbytes(f32, lst, cb, out32), int(keep.sum()))
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ into a "
+              f"zeroed W {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+              flush=True)
+        record = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms, **b,
+                      library_ms=library_ms)
+    return {ADAPTIVE: record}
+
+
+def phase_b5(device, main_inputs):
+    """B5 against its plain version on the adaptive main path's input (dl
+    = 3, wc = 1155) and at dl = 5 on a synthetic input.  A record for the
+    main path."""
+    from nllstpu_torch.ops import schur_reduce
+
+    kern, plain = schur_reduce.reduce_s, schur_reduce.reduce_s_reference
+    gen = torch.Generator().manual_seed(5)
+    L, dl, wc = 2048, 5, 400
+    a = torch.randn(L, dl, dl, generator=gen, dtype=torch.float64)
+    h = a @ a.transpose(1, 2) + 2.0 * torch.eye(dl, dtype=torch.float64)
+    cases = {
+        ADAPTIVE: main_inputs,
+        "dl=5 synthetic": (torch.randn(L, dl, wc, generator=gen, dtype=torch.float64),
+                           torch.linalg.inv(h).permute(1, 2, 0).contiguous(),
+                           torch.randn(dl, L, generator=gen, dtype=torch.float64)),
+    }
+    record = None
+    for label, inputs in cases.items():
+        inputs = [t.to(device) for t in inputs]
+        ref = plain(*[t.double() for t in inputs])
+        plain32 = plain(*[t.float() for t in inputs])
+        out64, out32 = kern(*[t.double() for t in inputs]), kern(*[t.float() for t in inputs])
+        torch.cuda.synchronize()
+        e64 = check(f"B5 f64 {label}", out64, ref, TOL_B57_F64)
+        e32 = [rel_err(x, y) for x, y in zip(out32, ref)]
+        p32 = [rel_err(x, y) for x, y in zip(plain32, ref)]
+        tol32 = [max(TOL_B57_F32, 10 * p) for p in p32]
+        if not all(e <= t for e, t in zip(e32, tol32)):
+            raise AssertionError(f"B5 f32 {label}: errors s_sum/rhs {e32} exceed {tol32}")
+        line = (f"B5 {label} (W {tuple(inputs[0].shape)}): rel err s_sum/rhs f64 "
+                f"{['%.2e' % e for e in e64]}; f32 kernel {['%.2e' % e for e in e32]} "
+                f"plain {['%.2e' % e for e in p32]} tolerance {['%.2e' % t for t in tol32]}")
+        if label != ADAPTIVE:
+            print(line, flush=True)
+            continue
+        f32 = [t.float() for t in inputs]
+        ms = time_ms(lambda: kern(*f32))
+        plain_ms = time_ms(lambda: plain(*f32))
+        b = bound(nbytes(*f32, *out32), reduce_flops(*f32[0].shape))
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out32, ref)),
+                      ms=ms, plain_ms=plain_ms, **b)
+    return {ADAPTIVE: record}
+
+
+def phase_adaptive_main(device, smi):
+    """The adaptive main path through ``nt.optimize``: B5, B6 and B7, never
+    B1, B2 or B3; the JAX package's start and best cost (sign-safe gate)
+    and its recovered kernel parameters."""
+    import nllstpu_torch as nt
+
+    problem, kh = adaptive_problem(device)
+    launches, result = phase_main(
+        ADAPTIVE, problem, ADAPTIVE_REF["start"], ADAPTIVE_REF["best"], 1e-2,
+        needs=("segment_block_sum", "place_w", "reduce_s"),
+        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped"),
+        options=adaptive_options(),
+    )
+    sw = nt.ContaminatedGaussian.sigmas_weight(problem.get_value(kh)).double()
+    ref = torch.tensor(ADAPTIVE_REF["sigmas_weight"], dtype=torch.float64)
+    err = ((sw - ref).abs() / ref.abs()).tolist()
+    print(f"{ADAPTIVE} main path: (sigma1, sigma2, w) {sw.tolist()} against the JAX "
+          f"package's {ref.tolist()}, rel err {['%.2e' % e for e in err]} (tolerance "
+          f"{ADAPTIVE_REF['tol']}); cost every 10th iteration {result.costs[9::10]} | {smi}",
+          flush=True)
+    if not all(e <= t for e, t in zip(err, ADAPTIVE_REF["tol"])):
+        raise AssertionError(f"{ADAPTIVE}: kernel parameters {sw.tolist()} != {ref.tolist()}")
+    return launches
+
+
 def _reset_counts():
-    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
+    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum, w_place
 
     fused_obs.LAUNCHES = 0
     fused_obs.INTO_LAUNCHES = 0
     schur_reduce.LAUNCHES = 0
+    schur_reduce.EXTERNAL_LAUNCHES = 0
     segment_sum.LAUNCHES = 0
+    w_place.LAUNCHES = 0
 
 
 def _read_counts():
-    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
+    from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum, w_place
 
     return {
         "fused_obs_all": fused_obs.LAUNCHES,
         "fused_obs_all_into": fused_obs.INTO_LAUNCHES,
         "reduce_s_damped": schur_reduce.LAUNCHES,
+        "reduce_s": schur_reduce.EXTERNAL_LAUNCHES,
         "segment_block_sum": segment_sum.LAUNCHES,
+        "place_w": w_place.LAUNCHES,
     }
 
 
@@ -551,7 +780,7 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
     """The user's entry point on one problem, with the launch counts set to
     0 just before and read just after.  ``needs`` are the kernels the path
     must launch, ``never`` those it must not.  A run that ends on a NaN
-    cost or step fails."""
+    cost or step fails.  Returns the launch counts and the result."""
     import nllstpu_torch as nt
     from nllstpu_torch.core import structs
 
@@ -571,18 +800,19 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
         raise AssertionError(
             f"{label}: launches {launches}; needed {needs}, never {never}"
         )
-    if abs(result.start_cost - start_ref) > 1e-4 * start_ref:
+    # Sign-safe: an adaptive kernel's cost may be negative.
+    if not abs(result.start_cost - start_ref) <= 1e-4 * abs(start_ref):
         raise AssertionError(f"{label}: start cost {result.start_cost} != {start_ref}")
-    if not result.best_cost <= best_ref * (1 + slack):
+    if not result.best_cost <= best_ref + slack * abs(best_ref):
         raise AssertionError(
-            f"{label}: best cost {result.best_cost} > {best_ref}·(1+{slack})"
+            f"{label}: best cost {result.best_cost} > {best_ref} + {slack}·|{best_ref}|"
         )
     final = problem.stacked_variables()
     if not all(torch.isfinite(v).all() for v in final.values()):
         raise AssertionError(f"{label}: non-finite final variables")
     if result.termination & (structs.TERM_COST_NAN | structs.TERM_STEP_NAN):
         raise AssertionError(f"{label}: the run ended on a NaN cost or step")
-    return launches
+    return launches, result
 
 
 def phase_timed(label, problem, plain: bool, phases: bool, options=None):
@@ -668,24 +898,31 @@ def main():
     b3 = phase_b3(device, {"pinhole bench": bench_sys, **bal_systems})
     del bench_sys, bal_systems
     b6 = phase_b6(device)
+    place_in, reduce_in = adaptive_inputs(device)
+    b7 = phase_b7(device, place_in)
+    b5 = phase_b5(device, reduce_in)
+    del place_in, reduce_in
+    generic = ("place_w", "reduce_s")
     launches = {"pinhole bench": phase_main(
         "pinhole bench", bench_problem(device), REF_START_COST, REF_BEST_COST, 1e-3,
-        needs=("fused_obs_all", "reduce_s_damped"),
-    )}
+        needs=("fused_obs_all", "reduce_s_damped"), never=generic,
+    )[0]}
     for name, (_, start_ref, best_ref, slack) in BAL.items():
         launches[name] = phase_main(
             name, bal_problem(name, device), start_ref, best_ref, slack,
-            needs=("fused_obs_all_into", "reduce_s_damped"), never=("fused_obs_all",),
-        )
+            needs=("fused_obs_all_into", "reduce_s_damped"),
+            never=("fused_obs_all", *generic),
+        )[0]
     for name, (_, _, start_ref, best_ref, slack) in IMPLICIT.items():
         launches[name] = phase_main(
             name, bal_problem(name, device), start_ref, best_ref, slack,
             needs=("segment_block_sum",),
-            never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped"),
+            never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped", *generic),
             options=implicit_options(name),
-        )
+        )[0]
         print(f"{name} main path: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {smi}", flush=True)
+    launches[ADAPTIVE] = phase_adaptive_main(device, smi)
     # Kernels and plain versions in turns, then one run of each with
     # per-phase events (the events cost host time, so rates come from the
     # runs without them).
@@ -694,6 +931,7 @@ def main():
         ("pinhole bench", bench_problem, None),
         ("Ladybug-49", lambda d: bal_problem("Ladybug-49", d), None),
         (implicit, lambda d: bal_problem(implicit, d), implicit_options(implicit)),
+        (ADAPTIVE, lambda d: adaptive_problem(d)[0], None),
     ):
         for plain in (False, True, True, False):
             phase_timed(label, make(device), plain=plain, phases=False, options=opts)
@@ -712,7 +950,9 @@ def main():
     rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264", {"pinhole bench": b1}),
             ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397", b2),
             ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505", b3),
-            ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6)]
+            ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568", b5),
+            ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
+            ("place_w", "w_place.cu", "w_place.py:98", b7)]
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

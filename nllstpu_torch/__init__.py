@@ -7,14 +7,23 @@ on components-major bundle-adjustment batches through the Schur solves:
 SE(3)+pinhole problems (``models.ba``) and Snavely BAL problems
 (``models.bal``), whose skewed track lengths take the degree-bucketed
 layout in the direct solve; the implicit solve (``solver="schur_cg"``,
-and ``solver="schur"`` past the dense-W limit) takes any size.  Problems live on the card unless the caller passes
+and ``solver="schur"`` past the dense-W limit) takes any size.  A BAL
+batch may carry one shared adaptive robust kernel (ContaminatedGaussian,
+Barron) whose parameters are fitted with the cameras and points, through
+the direct solve.  Problems live on the card unless the caller passes
 ``device="cpu"``.  The package never imports ``jax``.
 """
 
-from .core.manifolds import SE3, Euclidean, Manifold, so3_exp
+from .core.manifolds import (
+    SE3, BarronManifold, ContaminatedGaussianManifold, Euclidean, Manifold,
+    Scalar, ZeroToInf, ZeroToOne, so3_exp,
+)
 from .core.optimize import CompiledProblem, compile_problem, optimize, run_loop
 from .core.problem import Problem, VarHandle, family_name
-from .core.robust import Huber, Huber2o, NoRobust, Robustifier
+from .core.robust import (
+    AdaptiveRobustifier, Barron, ContaminatedGaussian, Huber, Huber2o,
+    NoRobust, Robustifier, Scaled, ScaledAdaptive, em_fit,
+)
 from .core.structs import LEVENBERG_MARQUARDT, Options, Result
 
 __version__ = "0.1.0"
@@ -24,10 +33,21 @@ __all__ = [
     "Euclidean",
     "SE3",
     "so3_exp",
+    "Scalar",
+    "ZeroToInf",
+    "ZeroToOne",
+    "ContaminatedGaussianManifold",
+    "BarronManifold",
     "Robustifier",
     "NoRobust",
     "Huber",
     "Huber2o",
+    "Scaled",
+    "AdaptiveRobustifier",
+    "ScaledAdaptive",
+    "ContaminatedGaussian",
+    "Barron",
+    "em_fit",
     "Problem",
     "VarHandle",
     "family_name",

@@ -1,9 +1,10 @@
 """Cost / residual-Jacobian engine over components-major cost batches.
 
-Port of the parts of ``nllstpu/core/engine.py`` on the solver's main path:
+Port of the parts of ``nllstpu/core/engine.py`` on the solver's paths:
 the tangent :class:`Layout`, the components-major gathers (with the
 landmark-run broadcast of obs-major batches), the raw residual data the
-Schur assembly consumes, the masked cost, and the manifold step.
+Schur assembly consumes (with an adaptive kernel's derivative blocks), the
+masked cost, and the manifold step.
 
 The batches passed here are the compiled problem's device copies: ``idx``
 entries are int64 tensors, ``mask`` a bool tensor, ``params`` a tensor.
@@ -99,8 +100,13 @@ def _masked_sum(batch, costs):
 
 
 def batch_cost(batch, variables: dict, runs=None):
-    """Masked total cost ½·Σρ(‖r‖²) of one batch."""
-    r = batch.fn(batch.params, *_gather_vals_cm(batch, variables, runs=runs))
+    """Masked total cost ½·Σρ(‖r‖²) of one batch; an adaptive kernel takes
+    its parameters from slot 0."""
+    gath = _gather_vals_cm(batch, variables, runs=runs)
+    if batch.adaptive:
+        r = batch.fn(batch.params, *gath[1:])
+        return _masked_sum(batch, 0.5 * batch.kernel.rho(gath[0], (r * r).sum(dim=0)))
+    r = batch.fn(batch.params, *gath)
     return _masked_sum(batch, 0.5 * batch.kernel.rho((r * r).sum(dim=0)))
 
 
@@ -114,15 +120,25 @@ def total_cost(batches, variables: dict, runs_list=None):
 
 def batch_res_jac_cm(batch, variables: dict, runs=None):
     """Raw components-major residual data of a batch:
-    ``(cost_sum, r [n, B], jac [n, S, B], g0 [S, B], d1 [B], d2 [B])`` with
-    ``g0 = Jᵀr`` unweighted and (d1, d2) = (ρ′, ρ″).  The assembly composes
-    the robustified blocks itself."""
+    ``(cost_sum, r [n, B], jac [n, S, B], g0 [S, B], d1 [B], d2 [B], kern)``
+    with ``g0 = Jᵀr`` unweighted and (d1, d2) = (ρ′, ρ″).  The assembly
+    composes the robustified blocks itself.
+
+    ``kern`` is None for a fixed kernel.  For an adaptive batch the
+    Jacobian covers the non-kernel slots only, and ``kern = (dgrad [k+1, B],
+    dhess [k+1, k+1, B])`` are ρ's derivatives in [kernel tangent, s]
+    (``rho_dkernel_cm``), whose last entries are ρ′ and ρ″."""
     gath = _gather_vals_cm(batch, variables, runs=runs)
-    r, jac = batch.jacobian(batch.params, *gath)
-    sq = (r * r).sum(dim=0)
-    rho, d1, d2 = batch.kernel.rho_dc(sq)
+    if batch.adaptive:
+        r, jac = batch.jacobian(batch.params, *gath[1:])
+        rho, dgrad, dhess = batch.kernel.rho_dkernel_cm(gath[0], (r * r).sum(dim=0))
+        d1, d2, kern = dgrad[-1], dhess[-1, -1], (dgrad, dhess)
+    else:
+        r, jac = batch.jacobian(batch.params, *gath)
+        rho, d1, d2 = batch.kernel.rho_dc((r * r).sum(dim=0))
+        kern = None
     g0 = torch.einsum("nsb,nb->sb", jac, r)
-    return _masked_sum(batch, 0.5 * rho), r, jac, g0, d1, d2
+    return _masked_sum(batch, 0.5 * rho), r, jac, g0, d1, d2, kern
 
 
 def step_index(layout: Layout, manifolds: dict, device) -> dict:

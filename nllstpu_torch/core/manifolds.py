@@ -1,10 +1,14 @@
 """Variable-block manifolds: tangent dimension + batched retraction.
 
-Port of ``nllstpu/core/manifolds.py`` for the slice the solver's main path
-needs: ``Euclidean`` and ``SE3`` (with ``so3_exp``).  A manifold's
-``retract`` takes a whole stacked family at once — ``xs [n, *shape]`` and
-``deltas [n, dof]`` — which is what the JAX package obtains by vmapping its
-per-variable retraction.
+Port of ``nllstpu/core/manifolds.py`` for the slices the solver's paths
+need: ``Euclidean`` and ``SE3`` (with ``so3_exp``), and the scalar and
+kernel-parameter manifolds of the adaptive robust kernels (``Scalar``,
+``ZeroToInf``, ``ZeroToOne``, ``ContaminatedGaussianManifold``,
+``BarronManifold``).  A manifold's ``retract`` takes a whole stacked family
+at once — ``xs [n, *shape]`` and ``deltas [n, dof]`` — which is what the
+JAX package obtains by vmapping its per-variable retraction; ``retract_cm``
+takes components-major ``x_cm [ambient, B]`` and ``delta_cm [dof, B]``, the
+form an adaptive kernel's derivatives are pushed through.
 
 Invariant: ``retract(x, 0) == x``.
 """
@@ -34,6 +38,18 @@ class Manifold:
         """``xs [n, *shape]`` ⊞ ``deltas [n, dof]``."""
         raise NotImplementedError
 
+    def retract_cm(self, x_cm, delta_cm):
+        """Components-major ``x_cm [ambient, B]`` ⊞ ``delta_cm [dof, B]``."""
+        raise NotImplementedError
+
+    @property
+    def ambient(self) -> int:
+        """Number of scalars in the stored representation."""
+        size = 1
+        for s in self.shape:
+            size *= s
+        return size
+
 
 @dataclasses.dataclass(frozen=True)
 class Euclidean(Manifold):
@@ -51,6 +67,137 @@ class Euclidean(Manifold):
 
     def retract(self, xs, deltas):
         return xs + deltas
+
+    def retract_cm(self, x_cm, delta_cm):
+        return x_cm + delta_cm
+
+
+@dataclasses.dataclass(frozen=True)
+class Scalar(Manifold):
+    """Scalar variable (reference ``Number``), stored with shape ()."""
+
+    @property
+    def dof(self):
+        return 1
+
+    @property
+    def shape(self):
+        return ()
+
+    def retract(self, xs, deltas):
+        return xs + deltas[:, 0]
+
+    def retract_cm(self, x_cm, delta_cm):
+        return x_cm + delta_cm
+
+
+def _positive_scale(val, delta):
+    """max(val, tiny)·exp(delta), floored at the smallest normal number so
+    that a flush of subnormals to zero cannot break positivity (the JAX
+    package's ``_positive_scale``)."""
+    tiny = torch.finfo(val.dtype).tiny
+    return torch.clamp(torch.where(val > 0, val, tiny) * torch.exp(delta), min=tiny)
+
+
+def _zero_to_one_update(val, delta):
+    """v' = v·eᵈ / (1 + v·eᵈ − v), and 1 where v·eᵈ overflows (reference
+    src/variable.jl:29-32)."""
+    scaled = _positive_scale(val, delta)
+    out = scaled / (1 + (scaled - val))
+    return torch.where(torch.isinf(scaled), torch.ones_like(out), out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroToInf(Manifold):
+    """Strictly positive scalar with a multiplicative-exponential update
+    (reference ``ZeroToInfScalar``)."""
+
+    @property
+    def dof(self):
+        return 1
+
+    @property
+    def shape(self):
+        return ()
+
+    def retract(self, xs, deltas):
+        return _positive_scale(xs, deltas[:, 0])
+
+    def retract_cm(self, x_cm, delta_cm):
+        return _positive_scale(x_cm, delta_cm)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroToOne(Manifold):
+    """Scalar constrained to (0, 1) (reference ``ZeroToOneScalar``)."""
+
+    @property
+    def dof(self):
+        return 1
+
+    @property
+    def shape(self):
+        return ()
+
+    def retract(self, xs, deltas):
+        return _zero_to_one_update(xs, deltas[:, 0])
+
+    def retract_cm(self, x_cm, delta_cm):
+        return _zero_to_one_update(x_cm, delta_cm)
+
+
+def _contaminated_gaussian_update(is1, is2, w, d1, d2, d3):
+    """The inverse sigmas on ZeroToInf, the weight on ZeroToOne, then the
+    sigmas sorted so that the first component stays the narrowest; the
+    weight is not swapped with them, as in the reference."""
+    a = _positive_scale(is1, d1)
+    b = _positive_scale(is2, d2)
+    return torch.maximum(a, b), torch.minimum(a, b), _zero_to_one_update(w, d3)
+
+
+@dataclasses.dataclass(frozen=True)
+class ContaminatedGaussianManifold(Manifold):
+    """Parameters ``[inv_sigma1, inv_sigma2, w]`` of the two-component
+    Gaussian-mixture kernel (reference ``ContaminatedGaussian``,
+    src/robustadaptive.jl:3-23)."""
+
+    @property
+    def dof(self):
+        return 3
+
+    @property
+    def shape(self):
+        return (3,)
+
+    def retract(self, xs, deltas):
+        return torch.stack(_contaminated_gaussian_update(*xs.T, *deltas.T), dim=1)
+
+    def retract_cm(self, x_cm, delta_cm):
+        return torch.stack(_contaminated_gaussian_update(*x_cm, *delta_cm))
+
+
+def _barron_update(alpha, c, d1, d2):
+    """Shape α ∈ (0, 2) by the ZeroToOne update of α/2, scale c ∈ (0, ∞)."""
+    return 2.0 * _zero_to_one_update(alpha * 0.5, d1), _positive_scale(c, d2)
+
+
+@dataclasses.dataclass(frozen=True)
+class BarronManifold(Manifold):
+    """Parameters ``[alpha, c]`` of the adaptive Barron kernel."""
+
+    @property
+    def dof(self):
+        return 2
+
+    @property
+    def shape(self):
+        return (2,)
+
+    def retract(self, xs, deltas):
+        return torch.stack(_barron_update(*xs.T, *deltas.T), dim=1)
+
+    def retract_cm(self, x_cm, delta_cm):
+        return torch.stack(_barron_update(*x_cm, *delta_cm))
 
 
 def _skew(w):

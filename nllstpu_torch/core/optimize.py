@@ -1,8 +1,8 @@
 """Optimizer entry points: ``compile_problem``, ``run_loop`` and
 ``optimize`` (port of the Schur Levenberg-Marquardt paths of
-``nllstpu/core/optimize.py``: the direct solve, and the implicit one that
-``solver="schur_cg"`` asks for and ``solver="schur"`` switches to past the
-dense-W limit).
+``nllstpu/core/optimize.py``: the direct solve, with or without a shared
+adaptive robust kernel, and the implicit one that ``solver="schur_cg"``
+asks for and ``solver="schur"`` switches to past the dense-W limit).
 
 The JAX package compiles the whole outer optimization into one
 ``lax.while_loop``.  Here the solver state stays on the device and the host
@@ -22,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops import fused_obs, schur, schur_reduce, segment_sum
+from ..ops import fused_obs, schur, schur_reduce, segment_sum, w_place
 from . import engine, iterators, structs
 from .problem import Problem, family_name
 from .structs import Options, Result
@@ -39,21 +39,24 @@ class Kernels:
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree bucket
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py)
-    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py), implicit path
+    reduce_external: Any  # kernel B5 contract (ops/schur_reduce.py), generic direct path
+    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py), implicit and generic paths
+    place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
 
 #: Dispatchers: the hand-written kernels on CUDA tensors, their plain
 #: versions on CPU tensors.
 KERNELS = Kernels(
     fused_obs.fused_obs_all, fused_obs.fused_obs_all_into,
-    schur_reduce.reduce_s_damped, segment_sum.segment_block_sum,
+    schur_reduce.reduce_s_damped, schur_reduce.reduce_s,
+    segment_sum.segment_block_sum, w_place.place_w,
 )
 #: The plain PyTorch versions on any device — for measuring the kernels
 #: against, never chosen implicitly.
 PLAIN = Kernels(
     fused_obs.fused_obs_all_reference, fused_obs.fused_obs_all_into_reference,
-    schur_reduce.reduce_s_damped_reference,
-    segment_sum.segment_block_sum_reference,
+    schur_reduce.reduce_s_damped_reference, schur_reduce.reduce_s_reference,
+    segment_sum.segment_block_sum_reference, w_place.place_w_reference,
 )
 
 
@@ -72,8 +75,9 @@ class CompiledProblem:
 
     def __post_init__(self):
         self._step_index = engine.step_index(self.layout, self.manifolds, self.device)
-        self._runs = None if self.schur_info.implicit else [
-            (f.e_slot, f.buckets) for f in self.schur_info.fast
+        self._runs = [
+            (f.e_slot, f.buckets) if isinstance(f, schur._FastBatch) else None
+            for f in self.schur_info.fast
         ]
 
     def cost(self, variables):
@@ -89,6 +93,8 @@ class CompiledProblem:
             self.batches, variables, self.schur_info, self.dtype,
             assemble_kernel=self.kernels.assemble,
             assemble_into_kernel=self.kernels.assemble_into,
+            segment_sum=self.kernels.segment_sum,
+            place_w=self.kernels.place_w,
         )
 
     def apply(self, variables, x):
@@ -107,7 +113,11 @@ class CompiledProblem:
                 segment_sum=self.kernels.segment_sum,
             )
         else:
-            linops = schur.SchurOps(si.dim_reduced, reduce=self.kernels.reduce)
+            linops = schur.SchurOps(
+                si.dim_reduced, reduce=self.kernels.reduce,
+                reduce_external=self.kernels.reduce_external,
+                external_inverse=any(isinstance(f, schur._RunBatch) for f in si.fast),
+            )
         extra = {} if phase is None else {"phase": phase}
         return iterators.IterCtx(
             cost=self.cost,
@@ -135,9 +145,12 @@ def compile_problem(problem: Problem, solver: str = "schur",
     dense W would pass :data:`DENSE_W_BYTE_LIMIT`, implicit for
     ``solver="schur_cg"`` or past the limit.  Skewed degree distributions
     get the JAX package's degree relabel (see :func:`schur_layout`); the
-    direct path then takes the bucketed layout, assembled by kernel B2.
-    ``plain=True`` runs the kernels' plain PyTorch versions on every
-    device (a baseline to measure the kernels against)."""
+    direct path then takes the bucketed layout, assembled by kernel B2.  A
+    batch with an adaptive kernel takes the direct path's generic assembly
+    (landmark-sorted; kernels B6 and B7, the solve through B5) and is
+    refused by the implicit one.  ``plain=True`` runs the kernels' plain
+    PyTorch versions on every device (a baseline to measure the kernels
+    against)."""
     if solver == "auto" and schur_family is not None:
         solver = "schur"
     if solver not in ("schur", "schur_cg"):
@@ -148,10 +161,7 @@ def compile_problem(problem: Problem, solver: str = "schur",
         raise ValueError(f"solver={solver!r} requires schur_family")
     layout, info, batches = schur_layout(problem, schur_family, solver == "schur_cg")
     schur.check_slice(info, batches)
-    if info.implicit:
-        schur.upload_implicit(info, problem.device)
-    else:
-        schur.upload_fast(info, problem.device)
+    schur.upload_tables(info, problem.device)
     return CompiledProblem(
         manifolds={n: problem.manifold_of(n) for n in problem.family_names()},
         layout=layout,
@@ -167,8 +177,9 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False):
     """Host half of the Schur compile: ``(layout, info, batches)``.  Skewed
     degree distributions get the degree relabel (``order_key``), exactly
     as in the JAX package.  The direct solve takes the bucketed obs-major
-    repack; the implicit one (``implicit``, or a dense W past
-    :data:`DENSE_W_BYTE_LIMIT`) batches sorted by landmark."""
+    repack (an adaptive batch: sorted by landmark); the implicit one
+    (``implicit``, or a dense W past :data:`DENSE_W_BYTE_LIMIT`) batches
+    sorted by landmark."""
     batches = problem.batches()
     counts = schur.elim_degree_counts(batches, problem, schur_family)
     order_key = None

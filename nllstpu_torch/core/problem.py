@@ -21,7 +21,7 @@ import torch
 
 from .. import config
 from .manifolds import Manifold
-from .robust import NoRobust
+from .robust import AdaptiveRobustifier, NoRobust, Robustifier
 
 #: Batch padding granularity (as in the JAX package, so padded batches are
 #: identical between the two).
@@ -104,7 +104,15 @@ class CostBatch:
 
     @property
     def block_dof(self) -> int:
+        """Tangent size of one cost's variables, the kernel slot of an
+        adaptive batch included."""
         return sum(m.dof for m in self.manifolds)
+
+    @property
+    def adaptive(self) -> bool:
+        """Slot 0 holds the parameters of an adaptive kernel; ``fn`` and
+        ``jacobian`` take the other slots."""
+        return isinstance(self.kernel, AdaptiveRobustifier)
 
 
 class Problem:
@@ -127,6 +135,20 @@ class Problem:
             fam = _Family(manifold, self._np_dtype)
             self._families[name] = fam
         return fam
+
+    def add_variable(self, manifold: Manifold, value) -> VarHandle:
+        """Add one variable block; returns its handle (reference
+        ``addvariable!``)."""
+        value = np.asarray(value, dtype=self._np_dtype)
+        if value.shape != manifold.shape:
+            raise ValueError(
+                f"variable value shape {value.shape} != manifold shape {manifold.shape}"
+            )
+        return self.add_variables(manifold, value[None])[0]
+
+    def get_value(self, handle: VarHandle) -> np.ndarray:
+        """A copy of one variable's value from the host store."""
+        return self._families[handle.family].values[handle.index].copy()
 
     def add_variables(self, manifold: Manifold, values) -> list:
         """Bulk-add ``k`` variables from a stacked ``[k, *shape]`` array;
@@ -178,7 +200,12 @@ class Problem:
         dimension ``k``.  ``fn(params, *vals_cm)`` returns the residual
         ``[nres, B]`` of components-major slot values ``[ambient, B]`` and
         ``jacobian`` returns ``(r, J [nres, S, B])`` in tangent coordinates.
-        The port takes components-major batches with a hand Jacobian only."""
+        The port takes components-major batches with a hand Jacobian only.
+
+        ``kernel`` is a fixed :class:`Robustifier` or an
+        :class:`AdaptiveRobustifier`; for the latter, slot 0 is the kernel's
+        parameter variable and ``fn``/``jacobian`` take the other slots
+        (reference convention, src/residual.jl:46-47)."""
         if batched != "cm":
             raise NotImplementedError(
                 "the port takes components-major batches (batched='cm') only"
@@ -202,6 +229,14 @@ class Problem:
                     f"variable index out of range for family {family_name(man)}"
                 )
         kernel = NoRobust() if kernel is None else kernel
+        if isinstance(kernel, AdaptiveRobustifier):
+            if manifolds[0] != kernel.manifold or len(slots) < 2:
+                raise ValueError(
+                    "first slot of an adaptive cost must be the kernel variable "
+                    f"({kernel.manifold}), followed by the residual's variables"
+                )
+        elif not isinstance(kernel, Robustifier):
+            raise TypeError(f"kernel {kernel!r} is not a robust kernel of the port")
         key = (fn, kernel, manifolds, jacobian, params is None)
         group = self._groups.get(key)
         if group is None:

@@ -12,14 +12,25 @@ import re
 
 import numpy as np
 
-from .core.manifolds import SE3, Euclidean, Manifold
+from .core import manifolds
+from .core.manifolds import Euclidean, Manifold
 from .core.problem import Problem
+
+#: Ported manifolds whose family key is their class name and ``()``.
+_NO_ARGS = {
+    f"{cls.__name__}()": cls
+    for cls in (
+        manifolds.SE3, manifolds.Scalar, manifolds.ZeroToInf, manifolds.ZeroToOne,
+        manifolds.ContaminatedGaussianManifold, manifolds.BarronManifold,
+    )
+}
 
 
 def manifold_from_name(name: str) -> Manifold:
-    """The port manifold of a family key (``"SE3()"``, ``"Euclidean(n=3)"``)."""
-    if name == "SE3()":
-        return SE3()
+    """The port manifold of a family key (``"SE3()"``, ``"Euclidean(n=3)"``,
+    ``"ContaminatedGaussianManifold()"``, ...)."""
+    if name in _NO_ARGS:
+        return _NO_ARGS[name]()
     m = re.fullmatch(r"Euclidean\(n=(\d+)\)", name)
     if m:
         return Euclidean(int(m.group(1)))
@@ -31,8 +42,10 @@ def problem_from_arrays(variables: dict, batches: list, dtype, device=None) -> P
     each entry of ``batches`` is a dict with ``fn`` and ``jacobian`` (the
     port's residual and hand Jacobian), ``manifolds`` (port manifolds per
     slot), ``idx`` (per-slot index arrays), ``params``, ``mask`` (padded
-    as the JAX package pads) and optionally ``kernel``.  The real (masked)
-    costs are added in order, so the port pads them back identically."""
+    as the JAX package pads) and optionally ``kernel``, a port kernel: an
+    adaptive one with its parameter variable's family in ``variables`` and
+    its slot first.  The real (masked) costs are added in order, so the
+    port pads them back identically."""
     p = Problem(dtype=dtype, device=device)
     for name, values in variables.items():
         p.add_variables(manifold_from_name(name), np.asarray(values))

@@ -16,7 +16,7 @@ import torch
 
 from ..core.manifolds import Euclidean
 from ..core.problem import Problem
-from ..core.robust import Huber, Robustifier
+from ..core.robust import AdaptiveRobustifier, Huber
 
 CAM = Euclidean(9)
 PT = Euclidean(3)
@@ -155,35 +155,45 @@ def make_bal_problem(data: dict, dtype=None, device=None, robust_width=None,
                      batched="cm", hand_jacobian=True, kernel=None,
                      kernel_params=None) -> tuple:
     """Build a Problem from parsed BAL arrays; returns ``(problem,
-    camera_handles, point_handles)``.  One components-major batch with the
-    hand Jacobian; ``robust_width`` builds a :class:`Huber`, ``kernel``
-    overrides it with another fixed kernel of the port."""
+    camera_handles, point_handles)`` — or, with an adaptive ``kernel``,
+    ``(problem, camera_handles, point_handles, kernel_handle)``.  One
+    components-major batch with the hand Jacobian; ``robust_width`` builds
+    a :class:`Huber`, ``kernel`` overrides it with another kernel of the
+    port.  An :class:`AdaptiveRobustifier` (ContaminatedGaussian, Barron)
+    adds ONE kernel-parameter variable, initialised from ``kernel_params``
+    and shared by every observation, optimized jointly with the cameras and
+    points."""
     if batched != "cm" or not hand_jacobian:
         raise NotImplementedError(
             "the port builds the components-major batch with the hand "
             "Jacobian only; per-cost batches and autodiff Jacobians come "
             "with the dense path (ROADMAP Queue 1 item 11)"
         )
-    if kernel_params is not None or (
-        kernel is not None and not isinstance(kernel, Robustifier)
-    ):
-        raise NotImplementedError(
-            "adaptive robust kernels are not ported yet (ROADMAP Queue 1 "
-            "item 13)"
-        )
     p = Problem(dtype=dtype, device=device)
     cameras = p.add_variables(CAM, data["cameras"])
     points = p.add_variables(PT, data["points"])
     if kernel is None:
         kernel = Huber(robust_width) if robust_width else None
+    slots = [(CAM, data["cam_idx"]), (PT, data["pt_idx"])]
+    kh = None
+    if isinstance(kernel, AdaptiveRobustifier):
+        if kernel_params is None:
+            raise ValueError("adaptive kernel requires kernel_params")
+        kh = p.add_variable(kernel.manifold, kernel_params)
+        n = len(np.asarray(data["pt_idx"]))
+        slots = [(kernel.manifold, np.full(n, kh.index, np.int32))] + slots
     p.add_cost_batch(
         snavely_residual_cm,
-        slots=[(CAM, data["cam_idx"]), (PT, data["pt_idx"])],
+        slots=slots,
         params=np.asarray(data["observations"]),
         kernel=kernel,
+        # The hand Jacobian covers the non-kernel slots, the adaptive
+        # contract: the kernel's blocks come from rho_dkernel_cm.
         jacobian=snavely_jacobian_cm,
         batched="cm",
     )
+    if kh is not None:
+        return p, cameras, points, kh
     return p, cameras, points
 
 

@@ -48,6 +48,13 @@ _SIGNATURES = {
     # splits, stream
     "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
     "reduce_s_damped_f64": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
+    # w, h_inv, g_l, s_part, r_part, s_sum, rhs_sum, l, dl, wc, splits,
+    # stream
+    "reduce_s_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "reduce_s_f64": [_P] * 7 + [_I] * 4 + [_P],
+    # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream
+    "place_w_f32": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
+    "place_w_f64": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
     # data, starts, out, n, l, d, stream
     **{
         f"segment_block_sum_{f}_{i}": [_P] * 3 + [_LL, _I, _I, _P]

@@ -1,17 +1,24 @@
-// Kernel B3: fused damped Schur reduction for the direct solve.
+// Kernels B3 and B5: the Schur reductions of the direct solve.
 //
-// Replaces the TPU kernel
+// B3 replaces the TPU kernel
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm_damped (body
 // _kernel_lm_damped -> _lm_reduce_body / _lm_reduce_body_panels).  One
 // kernel covers every reduced width: the TPU split into a narrow and a
 // column-panel body existed only to fit its scoped VMEM.
+// B5 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel):
+// the same body in its external mode, which reads the inverses instead of
+// forming them, for dl = 1 .. 6.  The TPU kernel's components-major W, its
+// bf16x3 products and its landmark padding are not carried over; rhs is
+// full precision in both modes, as there.
 //
 // Inputs:  w [L, dl, wc] (landmark-major coupling, standard basis),
-//          h_ll [dl, dl, L] (undamped), g_l [dl, L], lambda.
+//          B3: h_ll [dl, dl, L] (undamped) and lambda;
+//          B5: h_inv [dl, dl, L] (the damped inverses, formed outside);
+//          g_l [dl, L].
 // Outputs: s_sum [wc, wc] = sum_l W_l^T (h_ll,l + lambda I)^-1 W_l
 //          rhs   [wc]     = sum_l W_l^T (h_ll,l + lambda I)^-1 g_l,l
-//          h_inv [dl, dl, L], the damped inverses the back-substitution
-//          needs.
+//          B3 only: h_inv [dl, dl, L], the damped inverses the
+//          back-substitution needs.
 //
 // With Y = H^-1 W (never stored), s_sum = Y^T W is a [wc, K] x [K, wc]
 // product over K = L * dl, both operands being the row-major [K, wc]
@@ -20,12 +27,17 @@
 //   * a block owns one 64 x 64 tile of s_sum and one slice of the
 //     landmarks (split-K); only tiles on or above the diagonal run, and
 //     the lower triangle is mirrored when the partials are reduced;
-//   * per step it stages LB landmarks: their closed-form damped inverses
-//     (the cofactor arithmetic of the JAX package), the W rows at the
-//     tile's row and column ranges, and Y for the row range, in shared
-//     memory; 256 threads then each accumulate a 4 x 4 register tile;
-//   * diagonal tiles also accumulate rhs in full precision, and the
-//     (0, 0) tiles write h_inv once per landmark;
+//   * per step it stages LB landmarks (8, or 24 / dl past dl = 3, so the
+//     staged depth never passes 24 rows): their closed-form damped
+//     inverses (the cofactor arithmetic of the JAX package) or the
+//     external ones, the W rows at the tile's row and column ranges, and
+//     Y for the row range, in shared memory; 256 threads then each
+//     accumulate a 4 x 4 register tile;
+//   * each step adds into a partial register tile that folds into the
+//     tile's sum every 8 steps (two-level sums: no float32 chain runs
+//     past 8 * 24 products plus one add per 64 landmarks);
+//   * diagonal tiles also accumulate rhs, its products in double, and
+//     the (0, 0) tiles write h_inv once per landmark;
 //   * a second small kernel sums the split-K partials in a fixed order,
 //     so the result is deterministic.
 // Bound: the FMA rate out of shared memory - about 2 FMAs per shared load
@@ -41,7 +53,8 @@ namespace {
 constexpr int kBM = 64;       // s_sum tile edge
 constexpr int kTile = 16;     // threads per tile edge (16 x 16 = 256)
 constexpr int kT = kBM / kTile;  // register tile edge (4)
-constexpr int kLB = 8;        // landmarks staged per step
+constexpr int kFlush = 8;     // steps summed in a partial tile
+
 
 template <typename T, int DL>
 __device__ void damped_inverse(const T* __restrict__ h_ll, int L, int l,
@@ -78,15 +91,21 @@ __device__ void damped_inverse(const T* __restrict__ h_ll, int L, int l,
   }
 }
 
-template <typename T, int DL>
-__global__ void __launch_bounds__(kTile * kTile) reduce_s_damped_kernel(
-    const T* __restrict__ w, const T* __restrict__ h_ll,
+// EXTERNAL = false: B3, h_in holds h_ll and the damped inverses are formed
+// here (and written to h_inv by the (0, 0) tiles).  EXTERNAL = true: B5,
+// h_in holds the inverses; lam and h_inv are unused.
+template <typename T, int DL, bool EXTERNAL>
+__global__ void __launch_bounds__(kTile * kTile) reduce_s_kernel(
+    const T* __restrict__ w, const T* __restrict__ h_in,
     const T* __restrict__ g_l, T lam, T* __restrict__ s_part,
     T* __restrict__ r_part, T* __restrict__ h_inv, int L, int wc,
     int l_per_split) {
   const int bj = blockIdx.x;  // column tile
   const int bi = blockIdx.y;  // row tile
   if (bi > bj) return;        // lower tiles are mirrored afterwards
+  // Landmarks staged per step: 8 up to dl = 3, then as many as keep the
+  // staged depth dl * LB at most 24 (the shared memory of the dl = 3 body).
+  constexpr int kLB = DL <= 3 ? 8 : 24 / DL;
   constexpr int BK = DL * kLB;
   __shared__ T hs[kLB][DL * DL];
   __shared__ T gs[BK];
@@ -99,24 +118,33 @@ __global__ void __launch_bounds__(kTile * kTile) reduce_s_damped_kernel(
   const int r0 = bi * kBM;
   const int s0 = bj * kBM;
   const bool diag = bi == bj;
-  const bool write_hinv = bi == 0 && bj == 0;
+  const bool write_hinv = !EXTERNAL && bi == 0 && bj == 0;
   const int tid = threadIdx.x;
   const int tx = tid % kTile;
   const int ty = tid / kTile;
-  T acc[kT][kT];
+  // Two-level sums: a step's products add into part, which folds into acc
+  // every kFlush steps, so no float32 chain runs past a few hundred terms.
+  T acc[kT][kT], part[kT][kT];
 #pragma unroll
   for (int i = 0; i < kT; ++i)
 #pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = T(0);
-  T racc = T(0);
+    for (int j = 0; j < kT; ++j) acc[i][j] = part[i][j] = T(0);
+  double racc = 0.0;  // rhs: exact products, a double chain
+  int step = 0;
   const T (*bmat)[kBM] = diag ? wr : ws;
 
   for (int lc = l_begin; lc < l_end; lc += kLB) {
-    if (tid < kLB) {
+    if constexpr (EXTERNAL) {
+      for (int i = tid; i < kLB * DL * DL; i += kTile * kTile) {
+        const int l = lc + i / (DL * DL);
+        const int c = i % (DL * DL);
+        hs[i / (DL * DL)][c] = l < l_end ? h_in[static_cast<size_t>(c) * L + l] : T(0);
+      }
+    } else if (tid < kLB) {
       const int l = lc + tid;
       T inv[DL * DL];
       if (l < l_end) {
-        damped_inverse<T, DL>(h_ll, L, l, lam, inv);
+        damped_inverse<T, DL>(h_in, L, l, lam, inv);
         if (write_hinv) {
 #pragma unroll
           for (int c = 0; c < DL * DL; ++c)
@@ -164,13 +192,28 @@ __global__ void __launch_bounds__(kTile * kTile) reduce_s_damped_kernel(
 #pragma unroll
       for (int i = 0; i < kT; ++i)
 #pragma unroll
-        for (int j = 0; j < kT; ++j) acc[i][j] += a[i] * b[j];
+        for (int j = 0; j < kT; ++j) part[i][j] += a[i] * b[j];
     }
     if (diag && tid < kBM) {
-      for (int kk = 0; kk < BK; ++kk) racc += ys[kk][tid] * gs[kk];
+      for (int kk = 0; kk < BK; ++kk)
+        racc += static_cast<double>(ys[kk][tid]) * static_cast<double>(gs[kk]);
+    }
+    if (++step == kFlush) {
+      step = 0;
+#pragma unroll
+      for (int i = 0; i < kT; ++i)
+#pragma unroll
+        for (int j = 0; j < kT; ++j) {
+          acc[i][j] += part[i][j];
+          part[i][j] = T(0);
+        }
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < kT; ++i)
+#pragma unroll
+    for (int j = 0; j < kT; ++j) acc[i][j] += part[i][j];
 
   T* sp = s_part + static_cast<size_t>(split) * wc * wc;
 #pragma unroll
@@ -183,7 +226,7 @@ __global__ void __launch_bounds__(kTile * kTile) reduce_s_damped_kernel(
     }
   }
   if (diag && tid < kBM && r0 + tid < wc)
-    r_part[static_cast<size_t>(split) * wc + r0 + tid] = racc;
+    r_part[static_cast<size_t>(split) * wc + r0 + tid] = static_cast<T>(racc);
 }
 
 // s_sum[r, s] = sum over splits of the partial tile that holds (r, s) or,
@@ -209,39 +252,47 @@ __global__ void sum_partials_kernel(const T* __restrict__ s_part,
   }
 }
 
-template <typename T>
-int launch_reduce_s_damped(const void* w, const void* h_ll, const void* g_l,
-                           double lam, void* s_part, void* r_part, void* s_sum,
-                           void* rhs, void* h_inv, int l, int dl, int wc,
-                           int splits, void* stream) {
+template <typename T, int DL, bool EXTERNAL>
+void launch_body(dim3 grid, cudaStream_t st, const T* w, const T* h_in,
+                 const T* g_l, T lam, T* s_part, T* r_part, T* h_inv, int l,
+                 int wc, int l_per_split) {
+  reduce_s_kernel<T, DL, EXTERNAL><<<grid, kTile * kTile, 0, st>>>(
+      w, h_in, g_l, lam, s_part, r_part, h_inv, l, wc, l_per_split);
+}
+
+template <typename T, bool EXTERNAL>
+int launch_reduce_s(const void* w, const void* h_in, const void* g_l,
+                    double lam, void* s_part, void* r_part, void* s_sum,
+                    void* rhs, void* h_inv, int l, int dl, int wc, int splits,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = (wc + kBM - 1) / kBM;
   const int l_per_split = (l + splits - 1) / splits;
   const dim3 grid(nt, nt, splits);
-  const dim3 block(kTile * kTile);
   const T* w_t = static_cast<const T*>(w);
-  const T* h_t = static_cast<const T*>(h_ll);
+  const T* h_t = static_cast<const T*>(h_in);
   const T* g_t = static_cast<const T*>(g_l);
   T* sp_t = static_cast<T*>(s_part);
   T* rp_t = static_cast<T*>(r_part);
   T* hi_t = static_cast<T*>(h_inv);
   const T lam_t = static_cast<T>(lam);
+#define NLLSTPU_BODY(D)                                                      \
+  launch_body<T, D, EXTERNAL>(grid, st, w_t, h_t, g_t, lam_t, sp_t, rp_t, \
+                              hi_t, l, wc, l_per_split)
+  // B3 forms the closed-form inverse, dl <= 3; B5 takes dl up to 6.
   switch (dl) {
-    case 1:
-      reduce_s_damped_kernel<T, 1><<<grid, block, 0, st>>>(
-          w_t, h_t, g_t, lam_t, sp_t, rp_t, hi_t, l, wc, l_per_split);
-      break;
-    case 2:
-      reduce_s_damped_kernel<T, 2><<<grid, block, 0, st>>>(
-          w_t, h_t, g_t, lam_t, sp_t, rp_t, hi_t, l, wc, l_per_split);
-      break;
-    case 3:
-      reduce_s_damped_kernel<T, 3><<<grid, block, 0, st>>>(
-          w_t, h_t, g_t, lam_t, sp_t, rp_t, hi_t, l, wc, l_per_split);
-      break;
+    case 1: NLLSTPU_BODY(1); break;
+    case 2: NLLSTPU_BODY(2); break;
+    case 3: NLLSTPU_BODY(3); break;
     default:
+      if constexpr (EXTERNAL) {
+        if (dl == 4) { NLLSTPU_BODY(4); break; }
+        if (dl == 5) { NLLSTPU_BODY(5); break; }
+        if (dl == 6) { NLLSTPU_BODY(6); break; }
+      }
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef NLLSTPU_BODY
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(wc) * wc;
@@ -260,7 +311,7 @@ int reduce_s_damped_f32(const void* w, const void* h_ll, const void* g_l,
                         double lam, void* s_part, void* r_part, void* s_sum,
                         void* rhs, void* h_inv, int l, int dl, int wc,
                         int splits, void* stream) {
-  return launch_reduce_s_damped<float>(w, h_ll, g_l, lam, s_part, r_part,
+  return launch_reduce_s<float, false>(w, h_ll, g_l, lam, s_part, r_part,
                                        s_sum, rhs, h_inv, l, dl, wc, splits,
                                        stream);
 }
@@ -269,9 +320,25 @@ int reduce_s_damped_f64(const void* w, const void* h_ll, const void* g_l,
                         double lam, void* s_part, void* r_part, void* s_sum,
                         void* rhs, void* h_inv, int l, int dl, int wc,
                         int splits, void* stream) {
-  return launch_reduce_s_damped<double>(w, h_ll, g_l, lam, s_part, r_part,
+  return launch_reduce_s<double, false>(w, h_ll, g_l, lam, s_part, r_part,
                                         s_sum, rhs, h_inv, l, dl, wc, splits,
                                         stream);
+}
+
+int reduce_s_f32(const void* w, const void* h_inv, const void* g_l,
+                 void* s_part, void* r_part, void* s_sum, void* rhs, int l,
+                 int dl, int wc, int splits, void* stream) {
+  return launch_reduce_s<float, true>(w, h_inv, g_l, 0.0, s_part, r_part,
+                                      s_sum, rhs, nullptr, l, dl, wc, splits,
+                                      stream);
+}
+
+int reduce_s_f64(const void* w, const void* h_inv, const void* g_l,
+                 void* s_part, void* r_part, void* s_sum, void* rhs, int l,
+                 int dl, int wc, int splits, void* stream) {
+  return launch_reduce_s<double, true>(w, h_inv, g_l, 0.0, s_part, r_part,
+                                       s_sum, rhs, nullptr, l, dl, wc, splits,
+                                       stream);
 }
 
 }  // extern "C"

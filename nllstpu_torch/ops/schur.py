@@ -1,7 +1,10 @@
 """Schur-complement (landmark-eliminated) solves: host layout, the direct
 path (assembly through kernels B1/B2, the damped reduced solve through
-kernel B3) and the implicit path (every keyed reduction through kernel B6,
-the reduced system solved by PCG without forming S).  Port of
+kernel B3), the direct path of batches whose coupling rows come from
+outside B1/B2 (the adaptive kernel's three-slot batch: keyed sums through
+kernel B6, W placed by kernel B7, the reduced solve through kernel B5 over
+an external inverse) and the implicit path (every keyed reduction through
+kernel B6, the reduced system solved by PCG without forming S).  Port of
 ``nllstpu/ops/schur.py``.
 
 Block structure, with r = reduced (camera) and l = eliminated (landmark)
@@ -43,7 +46,7 @@ import torch
 from ..core import engine
 from ..core.linearsolver import batched_inv_spd, batched_inv_spd_cm, cholesky_solve
 from ..core.problem import family_name
-from . import fused_obs, schur_reduce
+from . import fused_obs, schur_reduce, w_place
 from .segment_sum import segment_block_sum
 
 #: Reduced-PCG iterations between host reads of the convergence flag.
@@ -116,6 +119,21 @@ def _elim_slots(batch, info):
     ]
 
 
+def _coupling_slots(batch, info):
+    """``(e, r)``, the eliminated and the reduced slot of a camera/landmark
+    batch — two slots, or three with an adaptive kernel's variable in slot
+    0 (the JAX package's ``adaptive3``) — or None."""
+    elim = _elim_slots(batch, info)
+    if len(elim) != 1 or info.num_elim == 0:
+        return None
+    e = elim[0]
+    if len(batch.manifolds) == 2:
+        return e, 1 - e
+    if len(batch.manifolds) == 3 and batch.adaptive and e != 0:
+        return e, 3 - e
+    return None
+
+
 def _apply_take(batch, take, newmask):
     return dataclasses.replace(
         batch,
@@ -179,11 +197,13 @@ def obs_major_repack(batch, info: "SchurInfo"):
 
 
 def repack_batches_for_schur(batches, info: "SchurInfo"):
-    """:func:`obs_major_repack` where it qualifies; ``(batches,
-    buckets_per_batch)`` (``None`` for a batch left as it was)."""
+    """The direct solve's batch order: an adaptive batch sorted by landmark
+    for the generic assembly (:func:`sort_for_implicit`), any other
+    :func:`obs_major_repack` where it qualifies.  ``(batches,
+    buckets_per_batch)``, ``None`` for a batch that is not obs-major."""
     out, buckets = [], []
     for b in batches:
-        nb, bk = obs_major_repack(b, info)
+        nb, bk = (sort_for_implicit(b, info), None) if b.adaptive else obs_major_repack(b, info)
         out.append(nb if nb is not None else b)
         buckets.append(bk)
     return out, buckets
@@ -217,6 +237,7 @@ class _FastBatch:
     buckets: tuple  # ((l_base, L_b, k_b, col_base), ...)
     vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera id per slot
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
+    rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera
 
 
 def _fast_batch_data(batch, layout, info, buckets=None):
@@ -244,7 +265,7 @@ def _fast_batch_data(batch, layout, info, buckets=None):
 class WPart(NamedTuple):
     """Per-batch coupling part of the implicit system: the per-cost
     coupling blocks in landmark-sorted order and the device tables that
-    key them."""
+    key them (without ``w_blk``, the keys of any landmark-sorted batch)."""
 
     w_blk: Any  # [B, dr_s, dl] coupling block of each cost (zero when masked)
     rows_r: Any  # [B, dr_s] reduced row of each block row (Dr = dustbin)
@@ -256,19 +277,27 @@ class WPart(NamedTuple):
 
 @dataclasses.dataclass
 class _RunBatch:
-    """Host tables of a landmark-sorted BA batch (one reduced slot, one
-    eliminated slot) for the implicit backend."""
+    """Host tables of a landmark-sorted camera/landmark batch: the implicit
+    backend's, and the direct path's generic assembly (with an adaptive
+    kernel's rows)."""
 
-    e_slot: int  # eliminated dependency slot
+    e_start: int  # offset of the eliminated slot in the Jacobian's tangent
     n_r: int  # reduced family size
+    dr_s: int  # reduced (camera) dof
     row_base: np.ndarray  # [n_r] global tangent offset per reduced var
     lid: np.ndarray  # [B] landmark id per sorted cost (L for masked ones)
     rvid: np.ndarray  # [B] camera id per sorted cost (n_r for masked ones)
     lstarts: np.ndarray  # int32 [L+1]
     cperm: np.ndarray  # [Nc] sorted rows of the real costs, camera-stable order
     cstarts: np.ndarray  # int32 [n_r+1]
-    keys: Any = None  # device WPart without w_blk (upload_implicit)
+    # Reduced rows of the shared adaptive kernel's parameters (the JAX
+    # package's ``kernel_rows``), or None for a fixed kernel.
+    kernel_rows: Optional[np.ndarray] = None
+    keys: Any = None  # device WPart without w_blk (upload_tables)
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
+    rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera
+    colbase: Any = None  # device int32 [B]: W column of each cost's camera, −1 dropped
+    kr: Any = None  # device [k]: kernel_rows
 
 
 @dataclasses.dataclass
@@ -276,7 +305,8 @@ class SchurInfo:
     """Static structure of the Schur system.  ``implicit`` selects the
     matrix-free solve (:class:`SchurCGOps`), whose per-batch tables in
     ``fast`` are :class:`_RunBatch`; otherwise the direct solve over a
-    dense W (:class:`SchurOps`, tables :class:`_FastBatch`)."""
+    dense W (:class:`SchurOps`), whose tables are :class:`_FastBatch` for
+    an obs-major batch and :class:`_RunBatch` for an adaptive one."""
 
     elim_family: str
     dim_reduced: int  # Dr
@@ -318,7 +348,8 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
         else:
             per_batch = buckets if buckets is not None else [None] * len(batches)
             info.fast = tuple(
-                _fast_batch_data(b, layout, info, buckets=bk)
+                _run_batch_data(b, layout, info) if b.adaptive
+                else _fast_batch_data(b, layout, info, buckets=bk)
                 for b, bk in zip(batches, per_batch)
             )
     return info
@@ -333,28 +364,37 @@ def _landmark_ids(batch, info, e):
 def sort_for_implicit(batch, info: SchurInfo):
     """The batch with its costs sorted by landmark id, masked costs last
     (the JAX package's ``_elim_sort_data``, the reference's
-    ``reordercostsforschur!``); a batch that is not one camera slot plus
-    one landmark slot is returned as it is."""
-    elim = _elim_slots(batch, info)
-    if len(elim) != 1 or len(batch.manifolds) != 2 or info.num_elim == 0:
+    ``reordercostsforschur!``); a batch that is not a camera/landmark
+    batch (:func:`_coupling_slots`) is returned as it is."""
+    slots = _coupling_slots(batch, info)
+    if slots is None:
         return batch
-    perm = np.argsort(_landmark_ids(batch, info, elim[0]), kind="stable")
+    perm = np.argsort(_landmark_ids(batch, info, slots[0]), kind="stable")
     return _apply_take(batch, perm, np.asarray(batch.mask)[perm])
 
 
 def _run_batch_data(batch, layout, info):
-    """Run tables of a landmark-sorted two-slot batch, or None."""
-    elim = _elim_slots(batch, info)
-    if len(elim) != 1 or len(batch.manifolds) != 2 or info.num_elim == 0:
+    """Run tables of a landmark-sorted camera/landmark batch, or None.  An
+    adaptive batch's kernel rows are those of its first real cost's kernel
+    variable (:func:`check_slice` refuses more than one)."""
+    slots = _coupling_slots(batch, info)
+    if slots is None:
         return None
-    e = elim[0]
+    e, r = slots
     L = info.num_elim
     lid = _landmark_ids(batch, info, e)
     if np.any(np.diff(lid) < 0):
         return None  # not sorted by sort_for_implicit
-    rfam = family_name(batch.manifolds[1 - e])
+    mask = np.asarray(batch.mask)
+    kernel_rows = None
+    if batch.adaptive and mask.any():
+        kman = batch.manifolds[0]
+        kvar = np.asarray(batch.idx[0])[mask][0]
+        koff = int(np.asarray(layout.offsets[family_name(kman)])[kvar])
+        kernel_rows = koff + np.arange(kman.dof, dtype=np.int64)
+    rfam = family_name(batch.manifolds[r])
     n_r = int(layout.unfixed[rfam].shape[0])
-    rvid = np.asarray(batch.idx[1 - e]).astype(np.int64)
+    rvid = np.asarray(batch.idx[r]).astype(np.int64)
     rvid[~np.asarray(batch.mask)] = n_r
     real = np.nonzero(rvid < n_r)[0]
     cperm = real[np.argsort(rvid[real], kind="stable")]
@@ -364,54 +404,110 @@ def _run_batch_data(batch, layout, info):
         return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
     return _RunBatch(
-        e_slot=e,
+        # The Jacobian's tangent leaves out an adaptive kernel's slot 0.
+        e_start=sum(m.dof for m in batch.manifolds[int(batch.adaptive) : e]),
         n_r=n_r,
+        dr_s=batch.manifolds[r].dof,
         row_base=np.minimum(np.asarray(layout.offsets[rfam]), info.dim_reduced).astype(np.int32),
         lid=lid,
         rvid=rvid,
         lstarts=runs(lid[lid < L], L),
         cperm=cperm,
         cstarts=runs(rvid[real], n_r),
+        kernel_rows=kernel_rows,
     )
 
 
 def check_slice(info: SchurInfo, batches) -> None:
-    """Raise ``NotImplementedError`` unless every batch takes the port's
-    path: a BA batch — obs-major (any number of degree buckets) for the
-    direct solve, landmark-sorted for the implicit one — whose cameras
-    fill the reduced space in order."""
+    """Raise ``NotImplementedError`` unless every batch takes one of the
+    port's paths: a camera/landmark batch — obs-major (any number of degree
+    buckets, kernels B1/B2) or, with one shared adaptive kernel,
+    landmark-sorted (the generic assembly) for the direct solve;
+    landmark-sorted without an adaptive kernel for the implicit one — whose
+    cameras (and kernel parameters) fill the reduced space."""
     order = "landmark-sorted" if info.implicit else "obs-major"
     for bi, b in enumerate(batches):
         f = info.fast[bi] if bi < len(info.fast) else None
+        if b.adaptive:
+            if info.implicit:
+                raise NotImplementedError(
+                    f"cost batch {bi} has an adaptive kernel: the implicit "
+                    "backend does not take adaptive batches yet (the JAX "
+                    "package's generic wpart; ROADMAP Queue 1 item 13)"
+                )
+            nk = np.unique(np.asarray(b.idx[0])[np.asarray(b.mask)]).size
+            if nk != 1:
+                raise NotImplementedError(
+                    f"cost batch {bi} has {nk} adaptive kernel variables: the "
+                    "port takes one kernel variable shared by the whole batch; "
+                    "per-cost kernels are ROADMAP Queue 1 item 13"
+                )
         if f is None:
             raise NotImplementedError(
-                f"cost batch {bi} is not a two-slot camera/landmark batch in "
-                f"{order} order; other batch shapes take the generic Schur "
-                "assembly of a later slice of the port"
+                f"cost batch {bi} is not a camera/landmark batch in {order} "
+                "order; other batch shapes (priors, pose-graph edges) take "
+                "the generic Schur assembly of a later slice of the port "
+                "(ROADMAP Queue 1 items 7 and 14)"
             )
-        dr_s = sum(m.dof for m in b.manifolds) - info.dof_elim
-        if f.n_r * dr_s != info.dim_reduced or not np.array_equal(
-            f.row_base, np.arange(f.n_r, dtype=np.int32) * dr_s
+        dr_s = sum(m.dof for m in b.manifolds[int(b.adaptive):]) - info.dof_elim
+        cams = (np.asarray(f.row_base)[:, None] + np.arange(dr_s)).reshape(-1)
+        kern = getattr(f, "kernel_rows", None)
+        rows = cams if kern is None else np.concatenate([cams, kern])
+        generic = isinstance(f, _RunBatch) and not info.implicit
+        in_order = np.array_equal(cams, np.arange(f.n_r * dr_s))
+        if not np.array_equal(np.sort(rows), np.arange(info.dim_reduced)) or not (
+            generic or in_order
         ):
             raise NotImplementedError(
-                "the reduced space must be exactly the batch's cameras in "
-                "order (no other reduced families, no fixed cameras)"
+                "the reduced space must be exactly the batch's cameras, in "
+                "order, and an adaptive kernel's parameters: other reduced "
+                "families are ROADMAP Queue 1 items 7 and 14, fixed variables "
+                "item 5"
             )
 
 
-def upload_fast(info: SchurInfo, device) -> None:
-    """Place each batch's per-bucket ``[k_b, L_b]`` camera-id tables and
-    the a_rr pair index of the kernels' ``ab`` rows (upper triangle,
-    row-major) on the device."""
+def upload_tables(info: SchurInfo, device) -> None:
+    """Place each batch's tables on the device: per bucket the ``[k_b,
+    L_b]`` camera ids of an obs-major batch; the run tables
+    (``_RunBatch.keys``) of a landmark-sorted one, with, on the direct
+    path, each cost's W column and the kernel rows; for both, each
+    camera's reduced rows and the a_rr pair index of the ``ab`` rows
+    (upper triangle, row-major)."""
     for f in info.fast:
-        f.vc = tuple(
-            torch.as_tensor(
-                np.ascontiguousarray(f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T),
-                device=device,
+        if isinstance(f, _FastBatch):
+            dr_s = info.dim_reduced // f.n_r
+            f.vc = tuple(
+                torch.as_tensor(
+                    np.ascontiguousarray(f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T),
+                    device=device,
+                )
+                for (_, lb, kb, c0) in f.buckets
             )
-            for (_, lb, kb, c0) in f.buckets
+        else:
+            dr_s = f.dr_s
+            rb = np.concatenate([f.row_base, [info.dim_reduced]])[f.rvid]
+            real = f.rvid[:, None] < f.n_r
+            f.keys = WPart(
+                w_blk=None,
+                rows_r=torch.as_tensor(
+                    np.where(real, rb[:, None] + np.arange(dr_s), info.dim_reduced),
+                    dtype=torch.long, device=device,
+                ),
+                lid=torch.as_tensor(f.lid, dtype=torch.long, device=device),
+                lstarts=torch.as_tensor(f.lstarts, device=device),
+                cperm=torch.as_tensor(f.cperm, dtype=torch.long, device=device),
+                cstarts=torch.as_tensor(f.cstarts, device=device),
+            )
+            if not info.implicit:
+                f.colbase = torch.as_tensor(
+                    np.where(real[:, 0], rb, -1), dtype=torch.int32, device=device
+                )
+                if f.kernel_rows is not None:
+                    f.kr = torch.as_tensor(f.kernel_rows, dtype=torch.long, device=device)
+        f.rows = torch.as_tensor(
+            np.asarray(f.row_base)[:, None] + np.arange(dr_s), dtype=torch.long, device=device
         )
-        f.pair_of = _pair_of(info.dim_reduced // f.n_r, device)
+        f.pair_of = _pair_of(dr_s, device)
 
 
 def _pair_of(dr_s: int, device):
@@ -424,30 +520,13 @@ def _pair_of(dr_s: int, device):
     return torch.as_tensor(pair_of.reshape(-1), device=device)
 
 
-def upload_implicit(info: SchurInfo, device) -> None:
-    """Place each batch's run tables on the device (``_RunBatch.keys``)."""
-    for f in info.fast:
-        dr_s = info.dim_reduced // f.n_r
-        rows = np.concatenate([f.row_base, [info.dim_reduced]])[f.rvid]
-        rows = np.where(f.rvid[:, None] < f.n_r, rows[:, None] + np.arange(dr_s), info.dim_reduced)
-        f.keys = WPart(
-            w_blk=None,
-            rows_r=torch.as_tensor(rows, dtype=torch.long, device=device),
-            lid=torch.as_tensor(f.lid, dtype=torch.long, device=device),
-            lstarts=torch.as_tensor(f.lstarts, device=device),
-            cperm=torch.as_tensor(f.cperm, dtype=torch.long, device=device),
-            cstarts=torch.as_tensor(f.cstarts, device=device),
-        )
-        f.pair_of = _pair_of(dr_s, device)
-
-
 def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     """``(cost, args)``: the batch's masked cost and, per bucket, the
     arguments of kernels B1/B2 — the K-major run tiles ``jac [n, S, k_b,
     L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera ids, then
     ``(n_r, dr_s, dl, e_start)``."""
     e = fast.e_slot
-    cost, _, jac, g0, d1, d2 = engine.batch_res_jac_cm(
+    cost, _, jac, g0, d1, d2, _ = engine.batch_res_jac_cm(
         batch, variables, runs=(e, fast.buckets)
     )
     mval = batch.mask.to(dtype)
@@ -474,12 +553,16 @@ def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
 
 def assemble_schur(batches, variables, info: SchurInfo, dtype,
                    assemble_kernel: Callable = fused_obs.fused_obs_all,
-                   assemble_into_kernel: Callable = fused_obs.fused_obs_all_into):
-    """``(cost, (a_rr, b_r, h_ll, g_l, w))`` through the whole-system
-    assembly kernels, one pass per batch over its obs-major Jacobian: kernel
-    B1 for a single-bucket batch, one launch of kernel B2 per bucket, in
-    plan order, for a degree-bucketed one.  ``batches`` are the compiled
-    device batches; :func:`check_slice` has vetted them."""
+                   assemble_into_kernel: Callable = fused_obs.fused_obs_all_into,
+                   segment_sum: Callable = segment_block_sum,
+                   place_w: Callable = w_place.place_w):
+    """``(cost, (a_rr, b_r, h_ll, g_l, w))`` for the direct solve.  An
+    obs-major batch goes through the whole-system assembly kernels, one
+    pass over its obs-major Jacobian: kernel B1 for a single bucket, one
+    launch of kernel B2 per bucket, in plan order, for a degree-bucketed
+    batch.  A landmark-sorted (adaptive) batch goes through
+    :func:`_assemble_generic`.  ``batches`` are the compiled device
+    batches; :func:`check_slice` has vetted them."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
     dev = next(iter(variables.values())).device
     total = torch.zeros((), dtype=dtype, device=dev)
@@ -489,13 +572,21 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
     g_l = torch.zeros(dl, L, dtype=dtype, device=dev)
     w = None
     for batch, fast in zip(batches, info.fast):
+        if isinstance(fast, _RunBatch):
+            cost, w_b = _assemble_generic(
+                batch, variables, info, fast, dtype, segment_sum, place_w,
+                a_rr, b_r, h_ll, g_l,
+            )
+            total = total + cost
+            w = w_b if w is None else w + w_b
+            continue
         cost, args = fused_inputs(batch, variables, info, fast, dtype)
         total = total + cost
         n_r, dr_s = fast.n_r, args[0][6]
         if len(args) == 1:
             h_add, g_add, w_b, ab = assemble_kernel(*args[0])
-            h_ll = h_ll + h_add
-            g_l = g_l + g_add
+            h_ll += h_add
+            g_l += g_add
             w = w_b if w is None else w + w_b
         else:
             # B2 adds into h_ll, g_l, W and ab in place; W is zeroed once.
@@ -504,33 +595,109 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             ab = torch.zeros(dr_s * (dr_s + 3) // 2, n_r, dtype=dtype, device=dev)
             for (l0, _, _, _), a in zip(fast.buckets, args):
                 assemble_into_kernel(*a[:5], h_ll, g_l, w, ab, l0, *a[5:])
-        b_r = _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, n_r, dr_s)
+        _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, fast.rows)
     return total, (a_rr, b_r, h_ll, g_l, w)
 
 
-def _add_camera_blocks(a_rr, b_r, ab, pair_of, n_r: int, dr_s: int):
+def _add_camera_blocks(a_rr, b_r, ab, pair_of, rows):
     """Add the per-camera rows ``ab [npairs + dr_s, n_r]`` (the
-    upper-triangle a_rr pairs, then b_r) into a_rr in place, camera v's
-    block on the diagonal at v·dr_s (check_slice); returns b_r plus its
-    part."""
+    upper-triangle a_rr pairs, then b_r) into a_rr and b_r in place, camera
+    v's block at its reduced rows ``rows [n_r, dr_s]``."""
+    n_r, dr_s = rows.shape
     npairs = dr_s * (dr_s + 1) // 2
-    a_blocks = ab[pair_of].reshape(dr_s, dr_s, n_r).permute(2, 0, 1)
-    a4 = a_rr.view(n_r, dr_s, n_r, dr_s)
-    ar = torch.arange(n_r, device=a_rr.device)
-    a4[ar, :, ar, :] += a_blocks
-    return b_r + ab[npairs:].T.reshape(-1)
+    a_rr[rows[:, :, None], rows[:, None, :]] += (
+        ab[pair_of].reshape(dr_s, dr_s, n_r).permute(2, 0, 1)
+    )
+    b_r[rows] += ab[npairs:].T
+
+
+def _run_blocks(batch, variables, runs: _RunBatch, dl: int, dtype):
+    """The per-cost blocks of a landmark-sorted batch, composed per output
+    from its raw residual data.  Returns ``(cost, lrows, crows, parts,
+    kk)``: ``lrows [B, dl² + dl (+ dl·k)]`` the landmark side (h_ll block,
+    g_l, then an adaptive kernel's kernel–point cross), ``crows [Nc,
+    npairs + dr_s (+ dr_s·k)]`` the camera side in camera order (a_rr upper
+    triangle, b_r, kernel–camera cross), ``parts = (jr, je, gr, ge, d1m,
+    d2m)`` for the coupling blocks, and ``kk`` the kernel's own block and
+    gradient summed over the batch (None for a fixed kernel).  The kernel
+    blocks follow the reference's layout (src/residual.jl:85-107): unhalved,
+    the cross terms on the unweighted gradient.  Masked costs contribute
+    exactly zero."""
+    cost, _, jac, g0, d1, d2, kern = engine.batch_res_jac_cm(batch, variables)
+    mval = batch.mask.to(dtype)
+    d1m = d1 * mval
+    d2m = 2.0 * d2 * mval
+    e0, dr_s = runs.e_start, runs.dr_s
+    r_rows = [i for i in range(dr_s + dl) if not e0 <= i < e0 + dl]
+    je, jr = jac[:, e0 : e0 + dl], jac[:, r_rows]  # [n, dl | dr_s, B]
+    ge, gr = g0[e0 : e0 + dl], g0[r_rows]
+    n_b = jac.shape[-1]
+    he = torch.einsum("nab,ncb->acb", je, je) * d1m + d2m * ge[:, None] * ge[None]
+    pi, qi = np.triu_indices(dr_s)
+    ha = (jr[:, pi] * jr[:, qi]).sum(0) * d1m + d2m * gr[pi] * gr[qi]
+    lcols, ccols, kk = [he.reshape(dl * dl, n_b), ge * d1m], [ha, gr * d1m], None
+    if kern is not None:
+        dgrad, dhess = kern
+        k = dgrad.shape[0] - 1
+        dcross = dhess[:k, k] * mval  # [k, B]
+        lcols.append((ge[:, None] * dcross[None]).reshape(dl * k, n_b))
+        ccols.append((gr[:, None] * dcross[None]).reshape(dr_s * k, n_b))
+        kk = ((dhess[:k, :k] * mval).sum(-1), (dgrad[:k] * mval).sum(-1))
+    lrows = torch.cat(lcols).T.contiguous()
+    crows = torch.cat(ccols).T.index_select(0, runs.keys.cperm)
+    return cost, lrows, crows, (jr, je, gr, ge, d1m, d2m), kk
+
+
+def _assemble_generic(batch, variables, info: SchurInfo, runs: _RunBatch, dtype,
+                      segment_sum, place_w, a_rr, b_r, h_ll, g_l):
+    """Direct assembly of a landmark-sorted batch whose coupling rows come
+    from outside kernels B1/B2 (today the adaptive kernel's three-slot
+    batch): the port's counterpart of the standard-layout fall-through of
+    the JAX package's ``_assemble_fast_dual``.  h_ll, g_l and the
+    kernel–point cross sum over landmark runs and a_rr, b_r and the
+    kernel–camera cross over camera runs, each side in one call of
+    ``segment_sum`` (kernel B6); ``place_w`` (kernel B7) writes W from the
+    per-cost coupling blocks; the kernel's own block is a plain sum.  Adds
+    into a_rr, b_r, h_ll and g_l in place; returns ``(cost, W [L, dl,
+    Dr])``."""
+    L, dl, dr_s = info.num_elim, info.dof_elim, runs.dr_s
+    cost, lrows, crows, (jr, je, gr, ge, d1m, d2m), kk = _run_blocks(
+        batch, variables, runs, dl, dtype
+    )
+    lsum = segment_sum(lrows, runs.keys.lstarts)  # [L, dl² + dl (+ dl·k)]
+    h_ll += lsum[:, : dl * dl].T.reshape(dl, dl, L)
+    g_l += lsum[:, dl * dl : dl * (dl + 1)].T
+    csum = segment_sum(crows, runs.keys.cstarts)  # [n_r, npairs + dr_s (+ dr_s·k)]
+    cam = dr_s * (dr_s + 3) // 2
+    _add_camera_blocks(a_rr, b_r, csum[:, :cam].T, runs.pair_of, runs.rows)
+    # Coupling blocks [B, dl, dr_s], in landmark order; masked ones are zero.
+    w_blk = (
+        torch.einsum("ndb,npb->bdp", je, jr) * d1m[:, None, None]
+        + d2m[:, None, None] * ge.T[:, :, None] * gr.T[:, None, :]
+    )
+    w = place_w(w_blk, runs.keys.lstarts, runs.colbase, info.dim_reduced)
+    if kk is not None:
+        kr = runs.kr
+        a_kk, g_k = kk
+        a_rr[kr[:, None], kr[None, :]] += a_kk
+        b_r[kr] += g_k
+        cr = csum[:, cam:].reshape(runs.n_r, dr_s, -1)  # [n_r, dr_s, k]
+        a_rr[runs.rows[:, :, None], kr] += cr
+        a_rr[kr, runs.rows[:, :, None]] += cr
+        w[:, :, kr] += lsum[:, dl * (dl + 1) :].reshape(L, dl, -1)
+    return cost, w
 
 
 def assemble_implicit(batches, variables, info: SchurInfo, dtype,
                       segment_sum: Callable = segment_block_sum):
     """``(cost, (a_rr, b_r, h_ll, g_l, wparts))`` for the implicit solve:
-    the per-cost blocks of each landmark-sorted batch, composed per output
-    from its raw residual data, and every keyed sum through ``segment_sum``
-    (kernel B6's contract): h_ll and g_l (D = dl² + dl) over the landmark
-    runs, the a_rr upper triangle and b_r (D = dr_s(dr_s+1)/2 + dr_s) over
-    the camera runs.  The coupling blocks stay per cost in ``wparts``;
-    no dense W is formed.  ``batches`` are the compiled device batches,
-    vetted by :func:`check_slice`."""
+    the per-cost blocks of each landmark-sorted batch (:func:`_run_blocks`)
+    and every keyed sum through ``segment_sum`` (kernel B6's contract):
+    h_ll and g_l (D = dl² + dl) over the landmark runs, the a_rr upper
+    triangle and b_r (D = dr_s(dr_s+1)/2 + dr_s) over the camera runs.  The
+    coupling blocks stay per cost in ``wparts``; no dense W is formed.
+    ``batches`` are the compiled device batches, vetted by
+    :func:`check_slice`."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
     dev = next(iter(variables.values())).device
     total = torch.zeros((), dtype=dtype, device=dev)
@@ -540,30 +707,15 @@ def assemble_implicit(batches, variables, info: SchurInfo, dtype,
     g_l = torch.zeros(dl, L, dtype=dtype, device=dev)
     wparts = []
     for batch, runs in zip(batches, info.fast):
-        cost, _, jac, g0, d1, d2 = engine.batch_res_jac_cm(batch, variables)
+        cost, lrows, crows, (jr, je, gr, ge, d1m, d2m), _ = _run_blocks(
+            batch, variables, runs, dl, dtype
+        )
         total = total + cost
-        mval = batch.mask.to(dtype)
-        d1m = d1 * mval
-        d2m = 2.0 * d2 * mval
-        dofs = [m.dof for m in batch.manifolds]
-        e0 = sum(dofs[: runs.e_slot])
-        r_rows = [i for i in range(sum(dofs)) if not e0 <= i < e0 + dl]
-        dr_s = len(r_rows)
-        je, jr = jac[:, e0 : e0 + dl], jac[:, r_rows]  # [n, dl | dr_s, B]
-        ge, gr = g0[e0 : e0 + dl], g0[r_rows]
-        n_b = jac.shape[-1]
-        # Landmark side: the full dl×dl block and g_l per cost.
-        he = torch.einsum("nab,ncb->acb", je, je) * d1m + d2m * ge[:, None] * ge[None]
-        lrows = torch.cat([he.reshape(dl * dl, n_b), ge * d1m]).T.contiguous()
         lsum = segment_sum(lrows, runs.keys.lstarts)  # [L, dl² + dl]
-        h_ll = h_ll + lsum[:, : dl * dl].T.reshape(dl, dl, L)
-        g_l = g_l + lsum[:, dl * dl :].T
-        # Camera side: the a_rr upper triangle and b_r, in camera order.
-        pi, qi = np.triu_indices(dr_s)
-        ha = (jr[:, pi] * jr[:, qi]).sum(0) * d1m + d2m * gr[pi] * gr[qi]
-        crows = torch.cat([ha, gr * d1m]).T.index_select(0, runs.keys.cperm)
+        h_ll += lsum[:, : dl * dl].T.reshape(dl, dl, L)
+        g_l += lsum[:, dl * dl :].T
         ab = segment_sum(crows, runs.keys.cstarts)  # [n_r, npairs + dr_s]
-        b_r = _add_camera_blocks(a_rr, b_r, ab.T, runs.pair_of, runs.n_r, dr_s)
+        _add_camera_blocks(a_rr, b_r, ab.T, runs.pair_of, runs.rows)
         # Coupling blocks, batch-major: masked costs are exactly zero.
         w_blk = (
             torch.einsum("npb,ndb->bpd", jr, je) * d1m[:, None, None]
@@ -588,20 +740,44 @@ class _SchurSystem:
         m_l = torch.diagonal(h_ll, dim1=0, dim2=1).abs().max()
         return torch.maximum(m_r, m_l)
 
+    @staticmethod
+    def damped_inverse(h_ll, lam):
+        """(h_ll + λI)⁻¹ components-major, by the closed form computed in
+        float64 and returned in h_ll's dtype.  On a float32 BAL problem
+        some landmark blocks are singular to working precision (the
+        Dubrovnik-class problem at its eighth iteration: eigenvalues ~1e4
+        and ~1e-4 against λ ~3e-4), and the float32 determinant rounds to
+        zero: an infinite inverse, then a NaN step.  The JAX package forms
+        it in float32 and passes that point by rounding luck."""
+        eye = torch.eye(h_ll.shape[0], dtype=torch.float64, device=h_ll.device)
+        return batched_inv_spd_cm(h_ll.double() + lam * eye[:, :, None]).to(h_ll.dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class SchurOps(_SchurSystem):
-    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``."""
+    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``.  With
+    ``external_inverse`` (W from the generic assembly, the JAX package's
+    standard-layout route) the damped inverses are formed in float64
+    (:meth:`damped_inverse`) and ``reduce_external`` (kernel B5) reduces
+    over them; otherwise ``reduce`` (kernel B3) forms them itself."""
 
     dim_reduced: int
     #: damped reduction: kernel B3's dispatcher, or its plain version.
     reduce: Callable = schur_reduce.reduce_s_damped
+    #: reduction over external inverses: kernel B5's dispatcher, or its
+    #: plain version.
+    reduce_external: Callable = schur_reduce.reduce_s
+    external_inverse: bool = False
 
     def solve(self, sys, lam):
         """x with (H + λI) x = g, through the damped reduction."""
         a_rr, b_r, h_ll, g_l, w = sys
         L, dl, wc = w.shape
-        s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam)
+        if self.external_inverse:
+            h_inv = self.damped_inverse(h_ll, lam)
+            s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l)
+        else:
+            s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam)
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
         xr = cholesky_solve(a_rr + lam * eye - s_sum, b_r - rhs_sum)
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]
@@ -702,18 +878,6 @@ class SchurCGOps(_SchurSystem):
         inv = batched_inv_spd(blocks)
         bad = ~torch.isfinite(inv).flatten(1).all(1)
         return torch.where(bad[:, None, None], batched_inv_spd(a_blocks), inv)
-
-    @staticmethod
-    def damped_inverse(h_ll, lam):
-        """(h_ll + λI)⁻¹ components-major, by the closed form computed in
-        float64 and returned in h_ll's dtype.  On a float32 BAL problem
-        some landmark blocks are singular to working precision (the
-        Dubrovnik-class problem at its eighth iteration: eigenvalues ~1e4
-        and ~1e-4 against λ ~3e-4), and the float32 determinant rounds to
-        zero: an infinite inverse, then a NaN step.  The JAX package forms
-        it in float32 and passes that point by rounding luck."""
-        eye = torch.eye(h_ll.shape[0], dtype=torch.float64, device=h_ll.device)
-        return batched_inv_spd_cm(h_ll.double() + lam * eye[:, :, None]).to(h_ll.dtype)
 
     def _finalize(self, xr, xl):
         """The full step from the reduced part and the components-major

@@ -109,9 +109,13 @@ def test_make_bal_problem_rejects_unported_forms():
         tbal.make_bal_problem(data, device="cpu", batched=False)
     with pytest.raises(NotImplementedError, match="item 11"):
         tbal.make_bal_problem(data, device="cpu", hand_jacobian=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # Adaptive kernels are ported: the JAX package's kernel object is not
+    # one, and the port's needs its parameters.
+    with pytest.raises(TypeError, match="not a robust kernel of the port"):
         tbal.make_bal_problem(data, device="cpu", kernel=nt.ContaminatedGaussian(),
                               kernel_params=np.ones(3))
+    with pytest.raises(ValueError, match="kernel_params"):
+        tbal.make_bal_problem(data, device="cpu", kernel=pt.ContaminatedGaussian())
     p, _, _ = tbal.make_bal_problem(data, device="cpu", robust_width=2.0)
     (b,) = p.batches()
     assert b.kernel == pt.Huber(2.0) and b.jacobian is tbal.snavely_jacobian_cm

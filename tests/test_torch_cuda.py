@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1, B2, B3, B6) against their plain PyTorch
-versions, on the card.  These tests skip without a CUDA device.  This file
+"""The port's CUDA kernels (B1, B2, B3, B5, B6, B7) against their plain
+PyTorch versions, on the card.  These tests skip without a CUDA device.  This file
 imports neither jax nor the JAX package, so on a machine with a card and no
 jax it runs with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
@@ -8,14 +8,17 @@ summation order (1e-12 of the largest entry).  In float32, B1's and B2's
 per-camera sums are float atomics and B3 sums over L·dl terms in another
 order than the float64 yardstick: all are held to 1e-5 of the largest
 entry.  B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5
-(float32) of the largest entry against the float64 plain version.
+(float32) of the largest entry against the float64 plain version.  B5 is
+B3's body over external inverses: held as B3.  B7 adds a few values per
+entry in run order: 1e-12 (float64) and 1e-6 (float32) of the largest
+entry, the same bits on a second launch.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
+from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum, w_place
 
 
 @pytest.fixture
@@ -139,6 +142,70 @@ def test_reduce_s_damped_kernel_matches_plain(cuda, dtype, tol, wc, lam):
     assert float((s - s.T).abs().max() / s.abs().max()) <= 10 * tol
 
 
+def _spd_inverses(gen, dl, L):
+    a = torch.randn(L, dl, dl, generator=gen, dtype=torch.float64)
+    h = a @ a.transpose(1, 2) + 2.0 * torch.eye(dl, dtype=torch.float64)
+    return torch.linalg.inv(h).permute(1, 2, 0).contiguous()  # [dl, dl, L]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+# dl = 3 at the adaptive BAL width (1152 camera + 3 kernel columns); dl up
+# to 6, past B3's closed form, at widths off the kernel's 64-wide tile.
+@pytest.mark.parametrize("dl,wc", [(3, 1155), (5, 100), (1, 64), (6, 441)])
+def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, wc):
+    gen = torch.Generator().manual_seed(dl)
+    L = 777
+    w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
+    h_inv = _spd_inverses(gen, dl, L)
+    g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    before, before_b3 = schur_reduce.EXTERNAL_LAUNCHES, schur_reduce.LAUNCHES
+    out = schur_reduce.reduce_s(*(t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)))
+    torch.cuda.synchronize()
+    assert schur_reduce.EXTERNAL_LAUNCHES == before + 1 and schur_reduce.LAUNCHES == before_b3
+    ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
+    for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
+        assert x.shape == y.shape, name
+        assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+
+
+def _b7_case(gen, L, dl, dr_s, n_r, extra):
+    """Runs of 0-39 costs (empty ones included) with repeated cameras,
+    dropped costs (a negative column, one past W's columns) and ``extra``
+    columns no cost reaches."""
+    lengths = torch.randint(0, 40, (L,), generator=gen)
+    lengths[::7] = 0
+    lstarts = torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)]).int()
+    n = int(lstarts[-1])
+    wc = n_r * dr_s + extra
+    colbase = (torch.randint(0, n_r, (n,), generator=gen) * dr_s).int()
+    colbase[::11] = -1
+    colbase[5::13] = wc - dr_s + 1
+    return torch.randn(n, dl, dr_s, generator=gen, dtype=torch.float64), lstarts, colbase, wc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-6)])
+# Snavely cameras with a 3-dof kernel; a float64 row of 3·3000·8 = 72 KB
+# takes the dynamic shared memory past 48 KB.
+@pytest.mark.parametrize("dl,dr_s,n_r,extra", [(3, 9, 37, 3), (3, 9, 333, 3), (2, 6, 5, 0)])
+def test_place_w_kernel_matches_plain(cuda, dtype, tol, dl, dr_s, n_r, extra):
+    gen = torch.Generator().manual_seed(n_r)
+    we, lstarts, colbase, wc = _b7_case(gen, 300, dl, dr_s, n_r, extra)
+    before = w_place.LAUNCHES
+    args = (lstarts.to(cuda), colbase.to(cuda), wc)
+    out = w_place.place_w(we.to(cuda, dtype), *args)
+    torch.cuda.synchronize()
+    assert w_place.LAUNCHES == before + 1
+    ref = w_place.place_w_reference(we, lstarts, colbase, wc)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert _rel_err(out.cpu(), ref) <= tol
+    assert not out[:, :, n_r * dr_s :].any()
+    empty = (lstarts[1:] == lstarts[:-1]).nonzero()[:, 0]
+    assert len(empty) and not out[empty.to(cuda)].any()
+    assert torch.equal(out, w_place.place_w(we.to(cuda, dtype), *args))
+
+
 def _b6_case(gen, n_runs, d, long_run):
     """Skewed runs: empty ones, one of ``long_run`` rows, and rows before
     the first and after the last run that must be ignored."""
@@ -189,6 +256,16 @@ def test_kernels_reject_bad_inputs(cuda):
         segment_sum.segment_block_sum(w, torch.zeros(3, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w[0], torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):  # dl = 7
+        schur_reduce.reduce_s(
+            torch.zeros(4, 7, 6, device=cuda), torch.zeros(7, 7, 4, device=cuda),
+            torch.zeros(7, 4, device=cuda),
+        )
+    starts = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # int64 columns
+        w_place.place_w(w, starts, torch.zeros(4, dtype=torch.long, device=cuda), 12)
+    with pytest.raises(ValueError):  # a camera wider than W
+        w_place.place_w(w, starts, torch.zeros(4, dtype=torch.int32, device=cuda), 5)
 
 
 def test_plain_versions_run_on_cpu():
@@ -209,3 +286,15 @@ def test_plain_versions_run_on_cpu():
     assert out.shape == (12, 5)
     for i in range(12):
         assert torch.allclose(out[i], data[starts[i]:starts[i + 1]].sum(0), rtol=1e-14, atol=1e-14)
+    s5, r5 = schur_reduce.reduce_s(w, hi, g)
+    assert torch.allclose(s5, s, rtol=1e-12, atol=1e-12 * s.abs().max().item())
+    assert torch.allclose(r5, r, rtol=1e-12, atol=1e-12 * r.abs().max().item())
+    we, lstarts, colbase, wc = _b7_case(gen, 20, 3, 6, 4, 3)
+    placed = w_place.place_w(we, lstarts, colbase, wc)
+    assert placed.shape == (20, 3, wc)
+    for i in range(20):
+        expect = torch.zeros(3, wc, dtype=we.dtype)
+        for b in range(int(lstarts[i]), int(lstarts[i + 1])):
+            if 0 <= colbase[b] <= wc - 6:
+                expect[:, colbase[b] : colbase[b] + 6] += we[b]
+        assert torch.allclose(placed[i], expect, rtol=1e-14, atol=1e-14)
