@@ -48,7 +48,21 @@ Phases, one line each or more; any failure raises and exits non-zero:
    row past 48 KB of shared memory, B5 also at dl = 5 on a synthetic
    input; beside each main-path shape its time, its bound, the plain
    version's time and, for B7, ``index_add_`` into a zeroed W.
-10. adaptive main path — LM through ``nt.optimize`` in float32 for 60
+10. B8 and B4 — kernel ``fused_obs_leg`` against its plain version on the
+   inputs of both dual-sorted paths (one assembly's obs-major tiles of the
+   gauge-fixed float64 problem and of the float32 pinhole bench problem)
+   and on a small case with duplicate cameras and dustbin slots, beside
+   its time B1's on the same inputs; kernel ``reduce_s_lm`` (``reduce_s``
+   on an obs-major W, counted apart from B5) against its plain version on
+   the gauge-fixed path's input (float64, wc = 756, recorded from one
+   damped solve) and on the pinhole bench system (float32 and float64,
+   wc = 768); on the gauge-fixed system, the float64 solve's two routes
+   timed against each other (B3 in float64, and the float64 inverses then
+   B4, which the solve takes).  Then two assemblies of each
+   dual-sorted path must give the same bits in all five outputs; for
+   information, whether B1's a_rr differs between two assemblies and
+   whether two float32 LM runs repeat their cost trace through each route.
+11. adaptive main path — LM through ``nt.optimize`` in float32 for 60
    iterations on bench-realistic with 10% of its observations moved by 50
    pixels, one shared ContaminatedGaussian kernel
    (``make_bal_problem(data, kernel=..., kernel_params=...)``) and the
@@ -58,8 +72,16 @@ Phases, one line each or more; any failure raises and exits non-zero:
    gate holds the start cost within 1e-4 of |reference| and the best cost
    below reference + 1e-2·|reference|, and the recovered (σ1, σ2, w)
    against the JAX package's CPU float32 run (constants below).
-11. timed loops — 10 iterations of the pinhole, Ladybug-49,
-   bench-realistic implicit and adaptive bench-realistic loops, through
+12. dual-sorted main paths — LM through ``nt.optimize(..., w_impl="fused")``:
+   the pinhole bench problem in float64 with its first two cameras fixed
+   (``unfixed=cams[2:] + lmks``), B8 and B4 and never B1, B2, B3, B5 or B7,
+   held to the JAX package's CPU float64 trace (start cost 1e-12, the
+   iterations both runs made and the best cost 1e-9, constants below); and
+   in float32 with every variable free, B8 and B3, held to the pinhole
+   reference as the B1 path is.
+13. timed loops — 10 iterations of the pinhole (through B1 and through
+   the dual-sorted route), gauge-fixed, Ladybug-49, bench-realistic
+   implicit and adaptive bench-realistic loops, through
    the kernels and through their plain versions in turns, once more of
    each with CUDA events around every phase (the implicit loops also
    print PCG iterations per damped solve and the time of one reduced
@@ -86,6 +108,9 @@ few values per entry, in run order: float64 within 1e-12 and float32
 within 1e-6 of the largest entry, and two launches give the same bits.
 B5: float64 within 1e-12 of the largest entry; float32 within 1e-6, or
 ten times the plain version's own float32 error where that is larger.
+B8 is held as B1 (it has no atomics, and two dual-sorted assemblies must
+give the same bits); B4 (B5's body) within 1e-12 of the largest entry in
+float64 and 1e-6 in float32.
 The last lines are the card's name and power limit, a JSON record of the
 kernels (one row per kernel and main-path shape, with that path's
 launches) and the device JSON.
@@ -161,15 +186,39 @@ ADAPTIVE_REF = dict(
     sigmas_weight=(0.0012996768346056342, 69.10763549804688, 0.8913242220878601),
     tol=(1e-2, 5e-2, 5e-2),
 )
+#: The dual-sorted paths (``w_impl="fused"``: kernel B8 and the
+#: camera-major leg): the pinhole bench problem in float64 with its first
+#: two cameras fixed (BA's gauge removed; the solve through B4), and the
+#: same problem in float32 with every variable free (the solve through
+#: B3), by dtype and number of fixed cameras.
+GAUGE = "gauge-fixed pinhole f64"
+FUSED = "pinhole bench fused"
+DUAL = {GAUGE: (torch.float64, 2), FUSED: (torch.float32, 0)}
+#: The JAX package's CPU float64 run of the gauge-fixed problem through its
+#: default direct path (``JAX_PLATFORMS=cpu python
+#: scripts_torch/gauge_fixed_reference.py``): start cost, the cost after each
+#: iteration and the best cost.  It stops after 9 iterations on the step
+#: threshold (1e-12) at the float64 rounding floor, so the gate compares the
+#: iterations both runs made, at least the 8 before that floor.
+GAUGE_REF = dict(
+    start=67.33655986736173,
+    costs=(0.14520334765711815, 0.09210745183726589, 0.09210129529273842,
+           0.09210109263701328, 0.09210109187234562, 0.0921010918722942,
+           0.0921010918722942, 0.09210109187229418, 0.09210109187229419),
+    best=0.09210109187229418,
+)
 TOL_F64 = 1e-10
 TOL_B1_F32 = 1e-5
 TOL_B3_F32 = 1e-4
 TOL_B57_F64 = 1e-12
 TOL_B57_F32 = 1e-6
-#: Published H100 SXM peaks at 700 W: HBM bytes/s and float32 FLOP/s
-#: outside the tensor cores (the kernels' arithmetic).
+#: Published H100 SXM peaks at 700 W: HBM bytes/s; float32 FLOP/s outside
+#: the tensor cores (the kernels' arithmetic; TF32 is not float32); float64
+#: FLOP/s of the float64 tensor cores (DMMA, full IEEE float64, which cuBLAS
+#: uses), the card's float64 peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 67e12
 
 
 def rel_err(a, b) -> float:
@@ -213,11 +262,12 @@ def time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, dtype=torch.float32) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the float32 rate."""
+    memory rate and the operations over the rate of their float type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    rate = FP64_FLOP_PER_S if dtype == torch.float64 else FP32_FLOP_PER_S
+    t_ops = flops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -226,12 +276,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def assembly_flops(n_obs: int, dr_s: int, dl: int = 3, n: int = 2) -> int:
+def assembly_flops(n_obs: int, dr_s: int, dl: int = 3, n: int = 2,
+                   camera_side: bool = True) -> int:
     """Operations of B1/B2 per real observation: g_l, the h_ll upper
     triangle, the W block, the a_rr upper triangle and b_r, each entry a
-    length-n product, then ρ′· and + 2ρ″·g·g (2n + 5 operations)."""
-    entries = dl * (dl + 1) // 2 + dl * dr_s + dr_s * (dr_s + 1) // 2
-    return n_obs * (2 * dl + entries * (2 * n + 5) + 2 * dr_s)
+    length-n product, then ρ′· and + 2ρ″·g·g (2n + 5 operations); B8's
+    without the camera side (a_rr and b_r)."""
+    cam = camera_side * dr_s
+    entries = dl * (dl + 1) // 2 + dl * dr_s + cam * (dr_s + 1) // 2
+    return n_obs * (2 * dl + entries * (2 * n + 5) + 2 * cam)
 
 
 def reduce_flops(L: int, dl: int, wc: int) -> int:
@@ -271,6 +324,20 @@ def bench_problem(device):
     )
     perturb_ba(problem, lmks, 0.05, seed=5)
     return problem
+
+
+def dual_problem(name, device):
+    """``(problem, route)``: a dual-sorted path's problem and the keyword
+    arguments of ``nt.optimize`` that select its variables and route."""
+    from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
+
+    dtype, n_fixed = DUAL[name]
+    problem, cams, lmks = make_pinhole_ba(
+        ncameras=NCAM, nlandmarks=NLMK, prop_visible=VIS, noise=NOISE,
+        dtype=dtype, device=device,
+    )
+    perturb_ba(problem, lmks, 0.05, seed=5)
+    return problem, dict(unfixed=cams[n_fixed:] + lmks if n_fixed else None, w_impl="fused")
 
 
 def bal_problem(name, device):
@@ -357,6 +424,26 @@ def check(name, got, ref, tol):
     return errs
 
 
+def small_assembly_case(seed, e_start):
+    """A small B1/B8 input, ``(floats, ints)``: 5 slots of 37 landmarks
+    over 11 cameras, every run seeing a camera twice, dustbin slots with
+    zero weights."""
+    gen = torch.Generator().manual_seed(seed)
+    K, L, n_r = 5, 37, 11
+    small = [
+        torch.randn(2, 9, K, L, generator=gen, dtype=torch.float64),
+        torch.randn(9, K, L, generator=gen, dtype=torch.float64),
+        torch.rand(K, L, generator=gen, dtype=torch.float64) + 0.05,
+        -0.2 * torch.rand(K, L, generator=gen, dtype=torch.float64),
+    ]
+    vc = torch.randint(0, n_r, (K, L), generator=gen, dtype=torch.int32)
+    vc[1] = vc[0]
+    vc[K - 1, ::3] = n_r
+    small[2][K - 1, ::3] = 0.0
+    small[3][K - 1, ::3] = 0.0
+    return small, (vc, n_r, 6, 3, e_start)
+
+
 def phase_b1(device):
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import fused_obs, schur
@@ -368,22 +455,9 @@ def phase_b1(device):
         batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
     )
     floats, ints = args[:4], args[4:]
-    gen = torch.Generator().manual_seed(0)
-    K, L, n_r = 5, 37, 11
-    small = [
-        torch.randn(2, 9, K, L, generator=gen, dtype=torch.float64),
-        torch.randn(9, K, L, generator=gen, dtype=torch.float64),
-        torch.rand(K, L, generator=gen, dtype=torch.float64) + 0.05,
-        -0.2 * torch.rand(K, L, generator=gen, dtype=torch.float64),
-    ]
-    vc = torch.randint(0, n_r, (K, L), generator=gen, dtype=torch.int32)
-    vc[1] = vc[0]  # duplicate cameras within every run
-    vc[K - 1, ::3] = n_r  # dustbin slots with zero weights
-    small[2][K - 1, ::3] = 0.0
-    small[3][K - 1, ::3] = 0.0
     cases = {
         f"bench K={args[0].shape[2]} L={args[0].shape[3]}": (floats, ints),
-        "small dup+dustbin": (small, (vc, n_r, 6, 3, 6)),
+        "small dup+dustbin": small_assembly_case(0, e_start=6),
     }
     main_abs = None
     for label, (fl, it) in cases.items():
@@ -609,9 +683,9 @@ def adaptive_inputs(device):
         seen["place_w"] = (we.clone(), lstarts, colbase, wc)
         return kern.place_w(we, lstarts, colbase, wc)
 
-    def reduce(w, h_inv, g_l):
+    def reduce(w, h_inv, g_l, obs_major=False):
         seen["reduce_s"] = (w.clone(), h_inv.clone(), g_l.clone())
-        return kern.reduce_external(w, h_inv, g_l)
+        return kern.reduce_external(w, h_inv, g_l, obs_major=obs_major)
 
     comp.kernels = dataclasses.replace(kern, place_w=place, reduce_external=reduce)
     _, sys_ = comp.assemble(problem.stacked_variables())
@@ -726,6 +800,217 @@ def phase_b5(device, main_inputs):
     return {ADAPTIVE: record}
 
 
+def dual_compile(name, device, w_impl="fused"):
+    """``(problem, compiled, route)`` of a dual-sorted path, compiled
+    through ``w_impl`` (``"fused_all"``: the same problem through B1)."""
+    from nllstpu_torch.core.optimize import compile_problem
+
+    problem, route = dual_problem(name, device)
+    comp = compile_problem(problem, route["unfixed"], schur_family=bench_options().schur_family,
+                           w_impl=w_impl)
+    return problem, comp, route
+
+
+def phase_b8(device):
+    """B8 against its plain version on both dual-sorted paths' inputs (the
+    obs-major tiles of one assembly) and on a small case with duplicate
+    cameras and dustbin slots; beside each path's shape its time, its
+    bound, the plain version's and B1's on the same inputs.  A record per
+    path."""
+    from nllstpu_torch.ops import fused_obs, schur
+
+    kern, plain = fused_obs.fused_obs_leg, fused_obs.fused_obs_leg_reference
+    cases = {}
+    for name in DUAL:
+        problem, comp, _ = dual_compile(name, device)
+        (batch,), (fast,) = comp.batches, comp.schur_info.fast
+        _, (args,) = schur.fused_inputs(
+            batch, problem.stacked_variables(), comp.schur_info, fast, comp.dtype
+        )
+        cases[name] = (args[:4], args[4:], comp.dtype, batch.n)
+    cases["small dup+dustbin"] = (*small_assembly_case(8, e_start=0), None, None)
+    records = {}
+    for label, (fl, it, dtype, n_obs) in cases.items():
+        fl = [t.to(device) for t in fl]
+        it = (it[0].to(device),) + tuple(it[1:])
+        ref = plain(*[t.double() for t in fl], *it)
+        out64 = kern(*[t.double() for t in fl], *it)
+        out32 = kern(*[t.float() for t in fl], *it)
+        torch.cuda.synchronize()
+        e64 = check(f"B8 f64 {label}", out64, ref, TOL_F64)
+        e32 = check(f"B8 f32 {label}", out32, ref, TOL_B1_F32)
+        line = (f"B8 {label} (K {fl[0].shape[2]}, L {fl[0].shape[3]}, W "
+                f"{tuple(out64[2].shape)}): rel err h_ll/g_l/w f64 "
+                f"{['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}")
+        if dtype is None:
+            print(line, flush=True)
+            continue
+        own = [t.to(dtype) for t in fl]
+        out = kern(*own, *it)
+        ms = time_ms(lambda: kern(*own, *it))
+        plain_ms = time_ms(lambda: plain(*own, *it))
+        b1_ms = time_ms(lambda: fused_obs.fused_obs_all(*own, *it))
+        n_r, dr_s, dl = it[1:4]
+        b = bound(nbytes(*own, it[0], *out), assembly_flops(n_obs, dr_s, dl, camera_side=False),
+                  dtype)
+        print(f"{line} | {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"B1 on the same inputs {b1_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})", flush=True)
+        err = out64 if dtype == torch.float64 else out32
+        records[label] = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(err, ref)),
+                              ms=ms, plain_ms=plain_ms, **b)
+    return records
+
+
+def phase_determinism(device):
+    """Two assemblies of each dual-sorted path through ``w_impl="fused"``
+    must give the same bits in all five outputs (no atomics on that
+    route).  For information: whether two assemblies through B1 give
+    different a_rr (its camera side adds with float atomics), and whether
+    two LM runs of the float32 path give the same cost trace through each
+    route."""
+    for name in DUAL:
+        problem, comp, _ = dual_compile(name, device)
+        variables = problem.stacked_variables()
+        first, second = comp.assemble(variables)[1], comp.assemble(variables)[1]
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        if not all(same):
+            raise AssertionError(f"{name}: two dual-sorted assemblies differ: {same}")
+        _, b1, _ = dual_compile(name, device, w_impl="fused_all")
+        a_rr = [b1.assemble(variables)[1][0] for _ in range(2)]
+        diff = float((a_rr[0] - a_rr[1]).abs().max())
+        print(f"determinism {name}: two dual-sorted assemblies bit-identical in a_rr, b_r, "
+              f"h_ll, g_l and W; through B1, a_rr of two assemblies "
+              f"{'differs (max ' + repr(diff) + ')' if diff else 'is bit-identical'}",
+              flush=True)
+        del comp, b1, first, second
+    # For information: whether two LM runs of the float32 path give the
+    # same cost trace, through each route (at the rounding floor a last-bit
+    # change in the system changes which damping trials are accepted).
+    import nllstpu_torch as nt
+
+    for w_impl in ("fused", "fused_all"):
+        traces = []
+        for _ in range(2):
+            problem, route = dual_problem(FUSED, device)
+            traces.append(nt.optimize(problem, bench_options(), **{**route, "w_impl": w_impl}))
+        same = traces[0].costs == traces[1].costs
+        print(f"determinism {FUSED}: two LM runs through w_impl={w_impl!r} give "
+              f"{'the same' if same else 'different'} cost traces ({len(traces[0].costs)} and "
+              f"{len(traces[1].costs)} iterations, best {traces[0].best_cost!r} and "
+              f"{traces[1].best_cost!r})", flush=True)
+
+
+def b4_inputs(device):
+    """B4's inputs: what the gauge-fixed float64 main path gives it in one
+    damped solve (recorded, with that solve's h_ll and λ for the route
+    comparison), and the float32 pinhole bench system (W [8192, 3, 768])
+    with inverses formed in float64 at the same relative damping, which
+    the float32 route itself sends to B3."""
+    from nllstpu_torch.ops import schur
+
+    problem, comp, _ = dual_compile(GAUGE, device)
+    kern, seen = comp.kernels.reduce_external, {}
+
+    def record(w, h_inv, g_l, obs_major=False):
+        seen[GAUGE] = (w.clone(), h_inv.clone(), g_l.clone())
+        return kern(w, h_inv, g_l, obs_major=obs_major)
+
+    comp.kernels = dataclasses.replace(comp.kernels, reduce_external=record)
+    _, sys_ = comp.assemble(problem.stacked_variables())
+    ops = comp.ctx().linops
+    lam = 1e-2 * ops.diag_max(sys_).item()
+    ops.solve(sys_, lam)
+    damped = (sys_[4], sys_[2], sys_[3], lam)
+    problem, comp, _ = dual_compile(FUSED, device)
+    _, sys_ = comp.assemble(problem.stacked_variables())
+    lam = 1e-2 * comp.ctx().linops.diag_max(sys_).item()
+    seen["pinhole bench f32"] = (sys_[4], schur.SchurOps.damped_inverse(sys_[2], lam), sys_[3])
+    return seen, damped
+
+
+def phase_b4(device, inputs, damped):
+    """B4 against its plain version: in float64 on the gauge-fixed path's
+    input (wc = 756, 1e-12) and in float32 and float64 on the pinhole bench
+    system (wc = 768; float32 within 1e-6 of the largest entry); beside the
+    main path's shape its time, its bound (float64 operations) and the
+    plain version's.  Then the float64 solve's two routes on the same
+    system (``damped``: W, h_ll, g_l, λ): B3 in float64, one launch that
+    forms the inverses itself, against the float64 ``damped_inverse`` then
+    B4, which the solve takes; they must agree to 1e-12.  A record for the
+    main path."""
+    from nllstpu_torch.ops import schur, schur_reduce
+
+    plain = schur_reduce.reduce_s_reference
+
+    def kern(*args):
+        return schur_reduce.reduce_s(*args, obs_major=True)
+
+    record = None
+    for label, inputs in inputs.items():
+        ref = plain(*[t.double() for t in inputs])
+        out64 = kern(*[t.double() for t in inputs])
+        torch.cuda.synchronize()
+        e64 = check(f"B4 f64 {label}", out64, ref, TOL_B57_F64)
+        line = (f"B4 {label} (W {tuple(inputs[0].shape)}): rel err s_sum/rhs f64 "
+                f"{['%.2e' % e for e in e64]}")
+        if label != GAUGE:
+            out32 = kern(*[t.float() for t in inputs])
+            p32 = [rel_err(x, y) for x, y in zip(plain(*[t.float() for t in inputs]), ref)]
+            e32 = check(f"B4 f32 {label}", out32, ref, TOL_B57_F32)
+            print(f"{line}; f32 kernel {['%.2e' % e for e in e32]} plain (cuBLAS) "
+                  f"{['%.2e' % e for e in p32]}", flush=True)
+            continue
+        f64 = [t.double() for t in inputs]
+        ms = time_ms(lambda: kern(*f64))
+        plain_ms = time_ms(lambda: plain(*f64))
+        b = bound(nbytes(*f64, *out64), reduce_flops(*f64[0].shape), torch.float64)
+        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out64, ref)),
+                      ms=ms, plain_ms=plain_ms, **b)
+    w, h_ll, g_l, lam = damped
+
+    def via_b4():
+        h_inv = schur.SchurOps.damped_inverse(h_ll, lam)
+        return (*kern(w, h_inv, g_l), h_inv)
+
+    b3 = schur_reduce.reduce_s_damped(w, h_ll, g_l, lam)
+    check(f"B3 f64 against damped_inverse + B4 {GAUGE}", b3, via_b4(), TOL_B57_F64)
+    b3_ms = time_ms(lambda: schur_reduce.reduce_s_damped(w, h_ll, g_l, lam))
+    b4_ms = time_ms(via_b4)
+    inv_ms = time_ms(lambda: schur.SchurOps.damped_inverse(h_ll, lam))
+    print(f"f64 solve routes {GAUGE} (W {tuple(w.shape)}): B3 f64 {b3_ms:.4f} ms; "
+          f"damped_inverse + B4 {b4_ms:.4f} ms (damped_inverse alone {inv_ms:.4f} ms)",
+          flush=True)
+    return {GAUGE: record}
+
+
+def phase_gauge_main(device, smi):
+    """The gauge-fixed float64 main path through ``nt.optimize(...,
+    unfixed=cams[2:] + lmks, w_impl="fused")``: B8 and B4, never B1, B2,
+    B3, B5 or B7; held to the JAX package's CPU float64 trace (start cost
+    1e-12, each iteration both runs made and the best cost 1e-9)."""
+    problem, route = dual_problem(GAUGE, device)
+    launches, result = phase_main(
+        GAUGE, problem, GAUGE_REF["start"], GAUGE_REF["best"], 1e-9,
+        needs=("fused_obs_leg", "reduce_s_lm"),
+        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped", "place_w", "reduce_s"),
+        **route,
+    )
+    ref = GAUGE_REF["costs"]
+    n = min(len(ref), len(result.costs), 10)
+    errs = [abs(a - b) / abs(b) for a, b in zip(result.costs[:n], ref)]
+    best = abs(result.best_cost - GAUGE_REF["best"]) / GAUGE_REF["best"]
+    start = abs(result.start_cost - GAUGE_REF["start"]) / GAUGE_REF["start"]
+    print(f"{GAUGE} main path: costs {result.costs!r} against the JAX package's CPU float64 "
+          f"{list(ref)!r}; rel err start {start:.2e}, per iteration "
+          f"{['%.2e' % e for e in errs]}, best {best:.2e} | {smi}", flush=True)
+    if not (start <= 1e-12 and n >= len(ref) - 1 and max(errs) <= 1e-9 and best <= 1e-9):
+        raise AssertionError(f"{GAUGE}: the trace departs from the JAX package's")
+    return launches
+
+
 def phase_adaptive_main(device, smi):
     """The adaptive main path through ``nt.optimize``: B5, B6 and B7, never
     B1, B2 or B3; the JAX package's start and best cost (sign-safe gate)
@@ -756,7 +1041,9 @@ def _reset_counts():
 
     fused_obs.LAUNCHES = 0
     fused_obs.INTO_LAUNCHES = 0
+    fused_obs.LEG_LAUNCHES = 0
     schur_reduce.LAUNCHES = 0
+    schur_reduce.LM_LAUNCHES = 0
     schur_reduce.EXTERNAL_LAUNCHES = 0
     segment_sum.LAUNCHES = 0
     w_place.LAUNCHES = 0
@@ -768,7 +1055,9 @@ def _read_counts():
     return {
         "fused_obs_all": fused_obs.LAUNCHES,
         "fused_obs_all_into": fused_obs.INTO_LAUNCHES,
+        "fused_obs_leg": fused_obs.LEG_LAUNCHES,
         "reduce_s_damped": schur_reduce.LAUNCHES,
+        "reduce_s_lm": schur_reduce.LM_LAUNCHES,
         "reduce_s": schur_reduce.EXTERNAL_LAUNCHES,
         "segment_block_sum": segment_sum.LAUNCHES,
         "place_w": w_place.LAUNCHES,
@@ -776,18 +1065,19 @@ def _read_counts():
 
 
 def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
-               options=None):
+               options=None, **route):
     """The user's entry point on one problem, with the launch counts set to
-    0 just before and read just after.  ``needs`` are the kernels the path
-    must launch, ``never`` those it must not.  A run that ends on a NaN
-    cost or step fails.  Returns the launch counts and the result."""
+    0 just before and read just after; ``route`` (``unfixed``, ``w_impl``)
+    goes to ``nt.optimize``.  ``needs`` are the kernels the path must
+    launch, ``never`` those it must not.  A run that ends on a NaN cost or
+    step fails.  Returns the launch counts and the result."""
     import nllstpu_torch as nt
     from nllstpu_torch.core import structs
 
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = nt.optimize(problem, options or bench_options())
+    result = nt.optimize(problem, options or bench_options(), **route)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_counts()
@@ -815,7 +1105,8 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
     return launches, result
 
 
-def phase_timed(label, problem, plain: bool, phases: bool, options=None):
+def phase_timed(label, problem, plain: bool, phases: bool, options=None, unfixed=None,
+                w_impl="fused_all"):
     """The same loop for ``TIMED_ITERS`` iterations, through the kernels or
     their plain versions; with ``phases``, CUDA events around every
     phase, and on the implicit path the PCG iterations per damped solve and
@@ -823,8 +1114,8 @@ def phase_timed(label, problem, plain: bool, phases: bool, options=None):
     from nllstpu_torch.core.optimize import compile_problem, run_loop
 
     opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
-    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family,
-                           plain=plain)
+    comp = compile_problem(problem, unfixed, solver=opts.solver,
+                           schur_family=opts.schur_family, plain=plain, w_impl=w_impl)
     vars0 = problem.stacked_variables()
     timer = PhaseTimer() if phases else None
     ctx = comp.ctx(opts, phase=timer)
@@ -859,7 +1150,7 @@ def phase_timed(label, problem, plain: bool, phases: bool, options=None):
     return rate
 
 
-def phase_profile(label, problem, options=None):
+def phase_profile(label, problem, options=None, unfixed=None, w_impl="fused_all"):
     """The 10-iteration loop through the kernels under ``torch.profiler``:
     wall time, the summed device time of every kernel, the device's idle
     share, and the kernels that took the most device time."""
@@ -868,7 +1159,8 @@ def phase_profile(label, problem, options=None):
     from nllstpu_torch.core.optimize import compile_problem, run_loop
 
     opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
-    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+    comp = compile_problem(problem, unfixed, solver=opts.solver,
+                           schur_family=opts.schur_family, w_impl=w_impl)
     vars0 = problem.stacked_variables()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -902,7 +1194,10 @@ def main():
     b7 = phase_b7(device, place_in)
     b5 = phase_b5(device, reduce_in)
     del place_in, reduce_in
-    generic = ("place_w", "reduce_s")
+    b8 = phase_b8(device)
+    b4 = phase_b4(device, *b4_inputs(device))
+    phase_determinism(device)
+    generic = ("place_w", "reduce_s", "fused_obs_leg", "reduce_s_lm")
     launches = {"pinhole bench": phase_main(
         "pinhole bench", bench_problem(device), REF_START_COST, REF_BEST_COST, 1e-3,
         needs=("fused_obs_all", "reduce_s_damped"), never=generic,
@@ -923,21 +1218,32 @@ def main():
         print(f"{name} main path: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {smi}", flush=True)
     launches[ADAPTIVE] = phase_adaptive_main(device, smi)
+    launches[GAUGE] = phase_gauge_main(device, smi)
+    problem, route = dual_problem(FUSED, device)
+    launches[FUSED] = phase_main(
+        FUSED, problem, REF_START_COST, REF_BEST_COST, 1e-3,
+        needs=("fused_obs_leg", "reduce_s_damped"),
+        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_lm", "place_w", "reduce_s"),
+        **route,
+    )[0]
     # Kernels and plain versions in turns, then one run of each with
     # per-phase events (the events cost host time, so rates come from the
     # runs without them).
     implicit = "bench-realistic implicit"
     for label, make, opts in (
-        ("pinhole bench", bench_problem, None),
-        ("Ladybug-49", lambda d: bal_problem("Ladybug-49", d), None),
-        (implicit, lambda d: bal_problem(implicit, d), implicit_options(implicit)),
-        (ADAPTIVE, lambda d: adaptive_problem(d)[0], None),
+        ("pinhole bench", lambda d: (bench_problem(d), {}), None),
+        (FUSED, lambda d: dual_problem(FUSED, d), None),
+        (GAUGE, lambda d: dual_problem(GAUGE, d), None),
+        ("Ladybug-49", lambda d: (bal_problem("Ladybug-49", d), {}), None),
+        (implicit, lambda d: (bal_problem(implicit, d), {}), implicit_options(implicit)),
+        (ADAPTIVE, lambda d: (adaptive_problem(d)[0], {}), None),
     ):
-        for plain in (False, True, True, False):
-            phase_timed(label, make(device), plain=plain, phases=False, options=opts)
-        for plain in (False, True):
-            phase_timed(label, make(device), plain=plain, phases=True, options=opts)
-        phase_profile(label, make(device), options=opts)
+        for plain, phases in ((False, False), (True, False), (True, False), (False, False),
+                              (False, True), (True, True)):
+            problem, route = make(device)
+            phase_timed(label, problem, plain=plain, phases=phases, options=opts, **route)
+        problem, route = make(device)
+        phase_profile(label, problem, options=opts, **route)
     # The Dubrovnik-class loop once, through the kernels: its phase split,
     # PCG iterations and matvec time, then its idle share.
     big = "Dubrovnik-class"
@@ -950,9 +1256,11 @@ def main():
     rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264", {"pinhole bench": b1}),
             ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397", b2),
             ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505", b3),
+            ("reduce_s_lm", "schur_reduce.cu", "schur_reduce.py:375", b4),
             ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568", b5),
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
-            ("place_w", "w_place.cu", "w_place.py:98", b7)]
+            ("place_w", "w_place.cu", "w_place.py:98", b7),
+            ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482", b8)]
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

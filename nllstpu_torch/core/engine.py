@@ -17,7 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .problem import Problem, family_name
+from .manifolds import Manifold
+from .problem import Problem, VarHandle, family_name
 
 
 @dataclasses.dataclass
@@ -32,35 +33,73 @@ class Layout:
     pad: int
 
 
-def build_layout(problem: Problem, batches=None, order_last=None,
+def resolve_unfixed(problem: Problem, unfixed) -> dict:
+    """Per-family boolean masks of the variables to optimize (the JAX
+    package's ``resolve_unfixed``, reference ``convertunfixed``).  Accepts
+    ``None`` (all free), a :class:`Manifold` (that family only), one
+    :class:`VarHandle`, an iterable of handles, or a dict of masks."""
+    masks = {name: np.zeros(fam.n, dtype=bool) for name, fam in problem._families.items()}
+    if unfixed is None:
+        for m in masks.values():
+            m[:] = True
+    elif isinstance(unfixed, Manifold):
+        masks[family_name(unfixed)][:] = True
+    elif isinstance(unfixed, VarHandle):
+        masks[unfixed.family][unfixed.index] = True
+    elif isinstance(unfixed, dict):
+        for name, m in unfixed.items():
+            masks[name][:] = np.asarray(m, dtype=bool)
+    else:
+        for h in unfixed:
+            masks[h.family][h.index] = True
+    return masks
+
+
+def build_layout(problem: Problem, unfixed=None, batches=None, order_last=None,
                  order_key=None) -> Layout:
-    """Offsets of every variable in the global tangent vector (all variables
-    free: fixed variables are not part of the port yet).  ``order_last``
+    """Offsets of the unfixed variables (:func:`resolve_unfixed`) in the
+    global tangent vector; a fixed variable's offset is ``dof_total``, the
+    dustbin that :func:`apply_step`'s zero pad answers.  ``order_last``
     forces a family's block to the end (the Schur backend's eliminated
-    family); ``order_key`` lays a family out in DESCENDING key order
-    (stable), the Schur backend's degree relabel of skewed problems."""
-    offsets, masks = {}, {}
+    family); ``order_key`` lays a family's unfixed variables out in
+    DESCENDING key order (stable), the Schur backend's degree relabel of
+    skewed problems."""
+    masks = resolve_unfixed(problem, unfixed)
+    offsets = {}
     running = 0
     names = problem.family_names()
     if order_last is not None:
         names = [n for n in names if n != order_last] + [order_last]
     for name in names:
         man = problem.manifold_of(name)
-        n = problem._families[name].n
-        masks[name] = np.ones(n, dtype=bool)
+        mask = masks[name]
         key = None if order_key is None else order_key.get(name)
         if key is not None:
             order = np.argsort(-np.asarray(key), kind="stable")
-            off = np.empty(n, dtype=np.int32)
-            off[order] = running + np.arange(n, dtype=np.int32) * man.dof
+            order = order[mask[order]]
         else:
-            off = (running + np.arange(n) * man.dof).astype(np.int32)
+            order = np.nonzero(mask)[0]
+        off = np.full(mask.shape[0], -1, dtype=np.int32)
+        off[order] = running + np.arange(order.shape[0], dtype=np.int32) * man.dof
         offsets[name] = off
-        running += n * man.dof
+        running += int(order.shape[0]) * man.dof
     pad = max([1] + [problem.manifold_of(n).dof for n in names])
     for b in problem.batches() if batches is None else batches:
         pad = max(pad, b.block_dof)
+    for off in offsets.values():
+        off[off < 0] = running
     return Layout(offsets=offsets, unfixed=masks, dof_total=running, pad=pad)
+
+
+def device_batch(batch, device, dtype):
+    """The batch with its index, parameter and mask arrays on the device."""
+    return dataclasses.replace(
+        batch,
+        idx=tuple(torch.as_tensor(i, dtype=torch.long, device=device) for i in batch.idx),
+        params=None if batch.params is None
+        else torch.as_tensor(batch.params, dtype=dtype, device=device),
+        mask=torch.as_tensor(batch.mask, device=device),
+    )
 
 
 def _gather_vals_cm(batch, variables: dict, runs=None):

@@ -1,8 +1,10 @@
 """Optimizer entry points: ``compile_problem``, ``run_loop`` and
 ``optimize`` (port of the Schur Levenberg-Marquardt paths of
 ``nllstpu/core/optimize.py``: the direct solve, with or without a shared
-adaptive robust kernel, and the implicit one that ``solver="schur_cg"``
-asks for and ``solver="schur"`` switches to past the dense-W limit).
+adaptive robust kernel, through either assembly route of its obs-major
+batches, and the implicit one that ``solver="schur_cg"`` asks for and
+``solver="schur"`` switches to past the dense-W limit; ``unfixed`` picks
+the variables to optimize).
 
 The JAX package compiles the whole outer optimization into one
 ``lax.while_loop``.  Here the solver state stays on the device and the host
@@ -30,6 +32,11 @@ from .structs import Options, Result
 #: Direct elimination stores W densely; past this size ``solver="schur"``
 #: compiles the implicit solve instead, as the JAX package does.
 DENSE_W_BYTE_LIMIT = 4 << 30
+#: Assembly routes of the direct solve's obs-major batches (the JAX
+#: package's ``NLLSTPU_W_IMPL``): "fused_all", one pass through kernel B1
+#: (or B2 per degree bucket) that writes the whole system; "fused", the
+#: dual-sorted route, kernel B8 over landmark runs and a camera-major leg.
+W_IMPLS = ("fused_all", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +45,9 @@ class Kernels:
 
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree bucket
-    reduce: Any  # kernel B3 contract (ops/schur_reduce.py)
-    reduce_external: Any  # kernel B5 contract (ops/schur_reduce.py), generic direct path
+    assemble_leg: Any  # kernel B8 contract, the dual-sorted route
+    reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32
+    reduce_external: Any  # kernels B4/B5 contract (ops/schur_reduce.py), f64-formed inverses
     segment_sum: Any  # kernel B6 contract (ops/segment_sum.py), implicit and generic paths
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
@@ -47,7 +55,7 @@ class Kernels:
 #: Dispatchers: the hand-written kernels on CUDA tensors, their plain
 #: versions on CPU tensors.
 KERNELS = Kernels(
-    fused_obs.fused_obs_all, fused_obs.fused_obs_all_into,
+    fused_obs.fused_obs_all, fused_obs.fused_obs_all_into, fused_obs.fused_obs_leg,
     schur_reduce.reduce_s_damped, schur_reduce.reduce_s,
     segment_sum.segment_block_sum, w_place.place_w,
 )
@@ -55,6 +63,7 @@ KERNELS = Kernels(
 #: against, never chosen implicitly.
 PLAIN = Kernels(
     fused_obs.fused_obs_all_reference, fused_obs.fused_obs_all_into_reference,
+    fused_obs.fused_obs_leg_reference,
     schur_reduce.reduce_s_damped_reference, schur_reduce.reduce_s_reference,
     segment_sum.segment_block_sum_reference, w_place.place_w_reference,
 )
@@ -95,6 +104,7 @@ class CompiledProblem:
             assemble_into_kernel=self.kernels.assemble_into,
             segment_sum=self.kernels.segment_sum,
             place_w=self.kernels.place_w,
+            assemble_leg=self.kernels.assemble_leg,
         )
 
     def apply(self, variables, x):
@@ -128,29 +138,24 @@ class CompiledProblem:
         )
 
 
-def _device_batch(batch, device, dtype):
-    return dataclasses.replace(
-        batch,
-        idx=tuple(torch.as_tensor(i, dtype=torch.long, device=device) for i in batch.idx),
-        params=None if batch.params is None
-        else torch.as_tensor(batch.params, dtype=dtype, device=device),
-        mask=torch.as_tensor(batch.mask, device=device),
-    )
-
-
-def compile_problem(problem: Problem, solver: str = "schur",
-                    schur_family=None, plain: bool = False) -> CompiledProblem:
+def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
+                    schur_family=None, plain: bool = False,
+                    w_impl: str = "fused_all") -> CompiledProblem:
     """Lower a problem onto its device for a Schur solve: direct
     (``solver="schur"``, or ``"auto"`` with a ``schur_family``) unless its
     dense W would pass :data:`DENSE_W_BYTE_LIMIT`, implicit for
-    ``solver="schur_cg"`` or past the limit.  Skewed degree distributions
-    get the JAX package's degree relabel (see :func:`schur_layout`); the
-    direct path then takes the bucketed layout, assembled by kernel B2.  A
-    batch with an adaptive kernel takes the direct path's generic assembly
-    (landmark-sorted; kernels B6 and B7, the solve through B5) and is
-    refused by the implicit one.  ``plain=True`` runs the kernels' plain
-    PyTorch versions on every device (a baseline to measure the kernels
-    against)."""
+    ``solver="schur_cg"`` or past the limit.  ``unfixed`` selects the
+    variables to optimize (:func:`engine.resolve_unfixed`; fixed cameras
+    on the obs-major direct path only, fixed landmarks not yet).  Skewed
+    degree distributions get the JAX package's degree relabel (see
+    :func:`schur_layout`); the direct path then takes the bucketed layout,
+    assembled by kernel B2.  ``w_impl`` picks the direct assembly's route
+    (:data:`W_IMPLS`); ``"fused"`` on a batch that does not qualify
+    raises.  A batch with an adaptive kernel takes the direct path's
+    generic assembly (landmark-sorted; kernels B6 and B7, the solve through
+    B5) and is refused by the implicit one.  ``plain=True`` runs the
+    kernels' plain PyTorch versions on every device (a baseline to measure
+    the kernels against)."""
     if solver == "auto" and schur_family is not None:
         solver = "schur"
     if solver not in ("schur", "schur_cg"):
@@ -159,13 +164,17 @@ def compile_problem(problem: Problem, solver: str = "schur",
         )
     if schur_family is None:
         raise ValueError(f"solver={solver!r} requires schur_family")
-    layout, info, batches = schur_layout(problem, schur_family, solver == "schur_cg")
+    if w_impl not in W_IMPLS:
+        raise ValueError(f"w_impl={w_impl!r}: the direct assembly's routes are {W_IMPLS}")
+    layout, info, batches = schur_layout(
+        problem, schur_family, solver == "schur_cg", unfixed=unfixed, w_impl=w_impl
+    )
     schur.check_slice(info, batches)
-    schur.upload_tables(info, problem.device)
+    schur.upload_tables(info, problem.device, problem.dtype)
     return CompiledProblem(
         manifolds={n: problem.manifold_of(n) for n in problem.family_names()},
         layout=layout,
-        batches=[_device_batch(b, problem.device, problem.dtype) for b in batches],
+        batches=[engine.device_batch(b, problem.device, problem.dtype) for b in batches],
         dtype=problem.dtype,
         device=problem.device,
         schur_info=info,
@@ -173,13 +182,15 @@ def compile_problem(problem: Problem, solver: str = "schur",
     )
 
 
-def schur_layout(problem: Problem, schur_family, implicit: bool = False):
-    """Host half of the Schur compile: ``(layout, info, batches)``.  Skewed
-    degree distributions get the degree relabel (``order_key``), exactly
-    as in the JAX package.  The direct solve takes the bucketed obs-major
-    repack (an adaptive batch: sorted by landmark); the implicit one
-    (``implicit``, or a dense W past :data:`DENSE_W_BYTE_LIMIT`) batches
-    sorted by landmark."""
+def schur_layout(problem: Problem, schur_family, implicit: bool = False,
+                 unfixed=None, w_impl: str = "fused_all"):
+    """Host half of the Schur compile: ``(layout, info, batches)`` of the
+    ``unfixed`` variables.  Skewed degree distributions get the degree
+    relabel (``order_key``), exactly as in the JAX package.  The direct
+    solve takes the bucketed obs-major repack (an adaptive batch: sorted by
+    landmark; on the dual-sorted route, ``w_impl="fused"``, a camera repack
+    beside it); the implicit one (``implicit``, or a dense W past
+    :data:`DENSE_W_BYTE_LIMIT`) batches sorted by landmark."""
     batches = problem.batches()
     counts = schur.elim_degree_counts(batches, problem, schur_family)
     order_key = None
@@ -187,7 +198,7 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False):
         if counts.size * counts.max() > schur._OBS_MAJOR_MAX_RATIO * counts.sum():
             order_key = {family_name(schur_family): counts}
     layout = engine.build_layout(
-        problem, batches=batches, order_last=family_name(schur_family),
+        problem, unfixed, batches=batches, order_last=family_name(schur_family),
         order_key=order_key,
     )
     pre = schur.build_schur_info(problem, layout, schur_family)
@@ -203,7 +214,7 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False):
         batches, buckets = schur.repack_batches_for_schur(batches, pre)
     info = schur.build_schur_info(
         problem, layout, schur_family, batches=batches, buckets=buckets,
-        implicit=implicit,
+        implicit=implicit, w_impl=w_impl,
     )
     return layout, info, batches
 
@@ -273,13 +284,19 @@ def run_loop(assemble_fn, cost_fn, ctx: iterators.IterCtx, opts: Options,
     return st
 
 
-def optimize(problem: Problem, options: Options = None) -> Result:
-    """Optimize the problem in place on its device and return a
-    :class:`Result` (reference ``optimize!``)."""
+def optimize(problem: Problem, options: Options = None, unfixed=None,
+             w_impl: str = "fused_all") -> Result:
+    """Optimize the ``unfixed`` variables (all by default; see
+    :func:`engine.resolve_unfixed`) in place on the problem's device and
+    return a :class:`Result` (reference ``optimize!``).  ``w_impl`` picks
+    the direct assembly's route (:data:`W_IMPLS`)."""
     options = options or Options()
+    if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
+        raise ValueError("no unfixed variables to optimize")
     t0 = time.perf_counter()
     compiled = compile_problem(
-        problem, solver=options.solver, schur_family=options.schur_family
+        problem, unfixed, solver=options.solver,
+        schur_family=options.schur_family, w_impl=w_impl,
     )
     vars0 = problem.stacked_variables()
     t1 = time.perf_counter()

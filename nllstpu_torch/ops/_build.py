@@ -44,12 +44,16 @@ _SIGNATURES = {
     # the same, then n, s, k, l, l_total, l_base, n_r, dr_s, dl, e_start
     "fused_obs_all_into_f32": [_P] * 9 + [_I] * 10 + [_P],
     "fused_obs_all_into_f64": [_P] * 9 + [_I] * 10 + [_P],
+    # jac, g0, d1, d2, vc, h_ll, g_l, w, n, s, k, l, n_r, dr_s, dl,
+    # e_start, stream
+    "fused_obs_leg_f32": [_P] * 8 + [_I] * 8 + [_P],
+    "fused_obs_leg_f64": [_P] * 8 + [_I] * 8 + [_P],
     # w, h_ll, g_l, lam, s_part, r_part, s_sum, rhs_sum, h_inv, l, dl, wc,
     # splits, stream
     "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
     "reduce_s_damped_f64": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
     # w, h_inv, g_l, s_part, r_part, s_sum, rhs_sum, l, dl, wc, splits,
-    # stream
+    # stream (B5, and B4 on an obs-major W)
     "reduce_s_f32": [_P] * 7 + [_I] * 4 + [_P],
     "reduce_s_f64": [_P] * 7 + [_I] * 4 + [_P],
     # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream

@@ -1,4 +1,4 @@
-// Kernels B1 and B2: whole-Schur-system assembly in one pass over the
+// Kernels B1, B2 and B8: Schur-system assembly in one pass over the
 // obs-major Jacobian of a bundle-adjustment batch.
 //
 // B1 replaces the TPU kernel nllstpu/ops/pallas/fused_obs.py:
@@ -8,6 +8,12 @@
 // same pass over the bucket's L_b landmarks, whose h_ll, g_l and W rows are
 // ADDED into full-size buffers at landmark l_base + l.  Chunk buckets
 // revisit the heavy landmarks of a later bucket, so B2 never overwrites.
+// B8 replaces fused_obs_leg_pm (body _kernel): B1 with the camera side
+// compiled out (CAM = false), for the dual-sorted route, whose
+// camera-major leg sums a_rr and b_r over camera runs in plain PyTorch.
+// B8 has no ab buffer, no shared memory and no atomics: every output entry
+// is written by the one thread that owns its landmark, so B8 gives the
+// same bits on every launch.
 // Launches of one assembly run in order on one stream; within a launch each
 // thread owns distinct landmarks, so the read-modify-write of h_ll, g_l and
 // W needs no atomics.  The TPU kernel's tile-aligned left shift,
@@ -23,7 +29,8 @@
 //   g0  [S, K, L]      unweighted gradient J^T r
 //   d1  [K, L]         rho' * mask
 //   d2  [K, L]         2 * rho'' * mask  (pre-doubled by the caller)
-//   vc  [K, L] int32   camera id per slot; n_r (the dustbin) for pad slots
+//   vc  [K, L] int32   camera column per slot; n_r (the dustbin) for pad
+//                      slots and fixed cameras
 // Outputs (B1: L_total = L, l_base = 0, h_ll and g_l written; B2: every
 // output added into):
 //   h_ll [dl, dl, L_total]  sum_k rho' Je^T Je + 2 rho'' g0e g0e^T
@@ -40,10 +47,9 @@
 // many landmarks: each block accumulates it in shared memory with atomics
 // and flushes the non-zero entries to device memory with one atomic add
 // each.  Float atomics make a_rr/b_r's summation order vary from run to run
-// (last-bit differences in f32); h_ll, g_l and W are deterministic.  A
-// camera-sorted segmented reduction would be deterministic at the price of
-// a second pass over the Jacobian; the solver does not need bitwise
-// reproducibility, so the single pass was chosen.
+// (last-bit differences in f32); h_ll, g_l and W are deterministic.  The
+// dual-sorted route (B8 and a camera-major leg) is deterministic at the
+// price of a second Jacobian evaluation.
 //
 // Bound: device-memory traffic (the Jacobian read once, W's touched rows
 // written once) and, at the bench shape, latency - one thread per landmark
@@ -57,7 +63,7 @@
 
 namespace {
 
-template <typename T, int N, int DR, int DL, bool ACCUM>
+template <typename T, int N, int DR, int DL, bool ACCUM, bool CAM>
 __global__ void fused_obs_all_kernel(
     const T* __restrict__ jac, const T* __restrict__ g0,
     const T* __restrict__ d1, const T* __restrict__ d2,
@@ -132,21 +138,23 @@ __global__ void fused_obs_all_kernel(
             wv[d * wc + p] += jj * dd1 + dd2 * gr[p] * ge[d];
           }
         }
-        int idx = 0;
+        if constexpr (CAM) {
+          int idx = 0;
 #pragma unroll
-        for (int p = 0; p < DR; ++p) {
+          for (int p = 0; p < DR; ++p) {
 #pragma unroll
-          for (int q = p; q < DR; ++q) {
-            T jj = T(0);
+            for (int q = p; q < DR; ++q) {
+              T jj = T(0);
 #pragma unroll
-            for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
-            atomicAdd(&ab_acc[idx * n_r + v], jj * dd1 + dd2 * gr[p] * gr[q]);
-            ++idx;
+              for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
+              atomicAdd(&ab_acc[idx * n_r + v], jj * dd1 + dd2 * gr[p] * gr[q]);
+              ++idx;
+            }
           }
-        }
 #pragma unroll
-        for (int p = 0; p < DR; ++p)
-          atomicAdd(&ab_acc[(NP + p) * n_r + v], gr[p] * dd1);
+          for (int p = 0; p < DR; ++p)
+            atomicAdd(&ab_acc[(NP + p) * n_r + v], gr[p] * dd1);
+        }
       }
     }
     const size_t lt = static_cast<size_t>(L_total);
@@ -172,7 +180,7 @@ __global__ void fused_obs_all_kernel(
   }
 }
 
-template <typename T, bool ACCUM>
+template <typename T, bool ACCUM, bool CAM>
 int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
                          const void* d2, const void* vc, void* h_ll, void* g_l,
                          void* w, void* ab, int n, int s, int k, int l,
@@ -183,7 +191,7 @@ int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
   const int blocks = (l + kThreads - 1) / kThreads;
   const int nab = dr_s * (dr_s + 1) / 2 + dr_s;
   size_t smem = static_cast<size_t>(nab) * n_r * sizeof(T);
-  const bool smem_ab = smem <= 48 * 1024;
+  const bool smem_ab = CAM && smem <= 48 * 1024;
   if (!smem_ab) smem = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* jac_t = static_cast<const T*>(jac);
@@ -196,11 +204,11 @@ int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
   T* w_t = static_cast<T*>(w);
   T* ab_t = static_cast<T*>(ab);
   if (n == 2 && dr_s == 6 && dl == 3 && s == 9) {
-    fused_obs_all_kernel<T, 2, 6, 3, ACCUM><<<blocks, kThreads, smem, st>>>(
+    fused_obs_all_kernel<T, 2, 6, 3, ACCUM, CAM><<<blocks, kThreads, smem, st>>>(
         jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
         l_base, n_r, e_start, smem_ab);
   } else if (n == 2 && dr_s == 9 && dl == 3 && s == 12) {
-    fused_obs_all_kernel<T, 2, 9, 3, ACCUM><<<blocks, kThreads, smem, st>>>(
+    fused_obs_all_kernel<T, 2, 9, 3, ACCUM, CAM><<<blocks, kThreads, smem, st>>>(
         jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
         l_base, n_r, e_start, smem_ab);
   } else {
@@ -217,7 +225,7 @@ int fused_obs_all_f32(const void* jac, const void* g0, const void* d1,
                       const void* d2, const void* vc, void* h_ll, void* g_l,
                       void* w, void* ab, int n, int s, int k, int l, int n_r,
                       int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float, false>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+  return launch_fused_obs_all<float, false, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
                                             ab, n, s, k, l, l, 0, n_r, dr_s,
                                             dl, e_start, stream);
 }
@@ -226,7 +234,7 @@ int fused_obs_all_f64(const void* jac, const void* g0, const void* d1,
                       const void* d2, const void* vc, void* h_ll, void* g_l,
                       void* w, void* ab, int n, int s, int k, int l, int n_r,
                       int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double, false>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+  return launch_fused_obs_all<double, false, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
                                              ab, n, s, k, l, l, 0, n_r, dr_s,
                                              dl, e_start, stream);
 }
@@ -236,7 +244,7 @@ int fused_obs_all_into_f32(const void* jac, const void* g0, const void* d1,
                            void* g_l, void* w, void* ab, int n, int s, int k,
                            int l, int l_total, int l_base, int n_r, int dr_s,
                            int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+  return launch_fused_obs_all<float, true, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
                                            ab, n, s, k, l, l_total, l_base,
                                            n_r, dr_s, dl, e_start, stream);
 }
@@ -246,9 +254,27 @@ int fused_obs_all_into_f64(const void* jac, const void* g0, const void* d1,
                            void* g_l, void* w, void* ab, int n, int s, int k,
                            int l, int l_total, int l_base, int n_r, int dr_s,
                            int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
+  return launch_fused_obs_all<double, true, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
                                             ab, n, s, k, l, l_total, l_base,
                                             n_r, dr_s, dl, e_start, stream);
+}
+
+int fused_obs_leg_f32(const void* jac, const void* g0, const void* d1,
+                      const void* d2, const void* vc, void* h_ll, void* g_l,
+                      void* w, int n, int s, int k, int l, int n_r, int dr_s,
+                      int dl, int e_start, void* stream) {
+  return launch_fused_obs_all<float, false, false>(
+      jac, g0, d1, d2, vc, h_ll, g_l, w, nullptr, n, s, k, l, l, 0, n_r, dr_s,
+      dl, e_start, stream);
+}
+
+int fused_obs_leg_f64(const void* jac, const void* g0, const void* d1,
+                      const void* d2, const void* vc, void* h_ll, void* g_l,
+                      void* w, int n, int s, int k, int l, int n_r, int dr_s,
+                      int dl, int e_start, void* stream) {
+  return launch_fused_obs_all<double, false, false>(
+      jac, g0, d1, d2, vc, h_ll, g_l, w, nullptr, n, s, k, l, l, 0, n_r, dr_s,
+      dl, e_start, stream);
 }
 
 const char* kernel_error_string(int code) {

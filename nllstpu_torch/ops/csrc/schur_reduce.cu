@@ -1,4 +1,4 @@
-// Kernels B3 and B5: the Schur reductions of the direct solve.
+// Kernels B3, B4 and B5: the Schur reductions of the direct solve.
 //
 // B3 replaces the TPU kernel
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm_damped (body
@@ -10,6 +10,11 @@
 // forming them, for dl = 1 .. 6.  The TPU kernel's components-major W, its
 // bf16x3 products and its landmark padding are not carried over; rhs is
 // full precision in both modes, as there.
+// B4 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body
+// _kernel_lm), B5's function for the TPU's p-major W of the obs-major
+// assemblies.  Here that W has the same landmark-major layout as B5's, so
+// B4 is B5's entry point called on an obs-major W (the wrapper counts the
+// two routes apart): the float64 direct solve runs through it.
 //
 // Inputs:  w [L, dl, wc] (landmark-major coupling, standard basis),
 //          B3: h_ll [dl, dl, L] (undamped) and lambda;

@@ -1,14 +1,14 @@
-"""Kernels B1 and B2: whole-Schur-system assembly in one pass over the
+"""Kernels B1, B2 and B8: Schur-system assembly in one pass over the
 obs-major Jacobian (ports of ``nllstpu/ops/pallas/fused_obs.py:
-fused_obs_all_pm`` and ``fused_obs_all_pm_into``).
+fused_obs_all_pm``, ``fused_obs_all_pm_into`` and ``fused_obs_leg_pm``).
 
 Both take one bucket of a bundle-adjustment batch, K-major like the TPU
 kernels:
 
     jac [n, S, K, L]   g0 [S, K, L]   d1m, d2m [K, L]   vc [K, L] int32
 
-with ``d1m = ρ′·mask``, ``d2m = 2ρ″·mask`` and ``vc`` the slot's camera id
-(``n_r``, the dustbin, for pad slots and fixed cameras).  B1
+with ``d1m = ρ′·mask``, ``d2m = 2ρ″·mask`` and ``vc`` the slot's camera
+column (``n_r``, the dustbin, for pad slots and fixed cameras).  B1
 (``fused_obs_all``) takes the uniform single-bucket layout and returns
 
     h_ll [dl, dl, L]                 Σ ρ′JₑᵀJₑ + 2ρ″g₀ₑg₀ₑᵀ
@@ -21,6 +21,11 @@ ADDS the same four contributions in place into full-size buffers, the
 bucket's landmark ``l`` going to row ``l_base + l`` of h_ll, g_l and W.
 Chunk buckets revisit the heavy landmarks of a later bucket, so nothing is
 overwritten, and W is zeroed once per assembly by the caller.
+
+B8 (``fused_obs_leg``) is B1 without the camera side: it returns h_ll,
+g_l and W only, for the dual-sorted route, whose camera-major leg sums
+a_rr and b_r over camera runs.  With no shared camera sums it needs no
+atomics, and its outputs have the same bits on every launch.
 
 W is in the standard basis, landmark-major — not the TPU kernels' p-major
 layout, which existed for Mosaic's tiling.  On CUDA tensors the wrappers
@@ -42,6 +47,8 @@ CUDA_SHAPES = ((2, 6, 3), (2, 9, 3))
 LAUNCHES = 0
 #: Number of kernel launches made by :func:`fused_obs_all_into_cuda` (B2).
 INTO_LAUNCHES = 0
+#: Number of kernel launches made by :func:`fused_obs_leg_cuda` (B8).
+LEG_LAUNCHES = 0
 
 
 def zero_buffers(L: int, n_r: int, dr_s: int, dl: int, dtype, device):
@@ -60,7 +67,8 @@ def fused_obs_all_into_reference(jac, g0, d1m, d2m, vc, h_ll, g_l, w, ab,
                                  l_base: int, n_r: int, dr_s: int, dl: int,
                                  e_start: int):
     """Plain PyTorch version of kernel B2 (same contract): adds one
-    bucket's h_ll, g_l, W and ab contributions in place."""
+    bucket's h_ll, g_l, W and ab contributions in place (no camera side
+    when ``ab`` is None, B8's)."""
     n, s, k, L = jac.shape
     dev = jac.device
     r_rows = [r for r in range(s) if not (e_start <= r < e_start + dl)]
@@ -87,6 +95,8 @@ def fused_obs_all_into_reference(jac, g0, d1m, d2m, vc, h_ll, g_l, w, ab,
         + col
     )  # [dr_s, dl, K, L]
     w.view(-1).index_add_(0, flat.reshape(-1), torch.where(valid, we, 0.0).reshape(-1))
+    if ab is None:
+        return
     pi, qi = np.triu_indices(dr_s)  # the kernel's a_rr row order
     a_rows = (
         torch.einsum("npkl,nqkl->pqkl", jr, jr) * d1m
@@ -105,6 +115,21 @@ def fused_obs_all_reference(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int,
         jac, g0, d1m, d2m, vc, h_ll, g_l, w, ab, 0, n_r, dr_s, dl, e_start
     )
     return h_ll, g_l, w, ab
+
+
+def fused_obs_leg_reference(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int,
+                            dl: int, e_start: int):
+    """Plain PyTorch version of kernel B8: ``(h_ll [dl, dl, L], g_l [dl,
+    L], w [L, dl, n_r·dr_s])``, B1's plain version without the camera
+    side."""
+    L = jac.shape[3]
+    h_ll = torch.zeros(dl, dl, L, dtype=jac.dtype, device=jac.device)
+    g_l = torch.zeros(dl, L, dtype=jac.dtype, device=jac.device)
+    w = torch.zeros(L, dl, n_r * dr_s, dtype=jac.dtype, device=jac.device)
+    fused_obs_all_into_reference(
+        jac, g0, d1m, d2m, vc, h_ll, g_l, w, None, 0, n_r, dr_s, dl, e_start
+    )
+    return h_ll, g_l, w
 
 
 def _checked_inputs(name, jac, g0, d1m, d2m, vc, dr_s, dl):
@@ -197,6 +222,38 @@ def fused_obs_all_into_cuda(jac, g0, d1m, d2m, vc, h_ll, g_l, w, ab,
     )
     _build.check(code, "fused_obs_all_into launch")
     INTO_LAUNCHES += 1
+
+
+def fused_obs_leg_cuda(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int, dl: int,
+                       e_start: int):
+    """Launch kernel B8 on CUDA tensors (same contract as the reference)."""
+    global LEG_LAUNCHES
+    jac, g0, d1m, d2m, vc = _checked_inputs(
+        "fused_obs_leg", jac, g0, d1m, d2m, vc, dr_s, dl
+    )
+    n, s, k, L = jac.shape
+    dt, dev = jac.dtype, jac.device
+    h_ll = torch.empty(dl, dl, L, dtype=dt, device=dev)
+    g_l = torch.empty(dl, L, dtype=dt, device=dev)
+    w = torch.zeros(L, dl, n_r * dr_s, dtype=dt, device=dev)
+    code = _lib_fn("fused_obs_leg", dt)(
+        jac.data_ptr(), g0.data_ptr(), d1m.data_ptr(), d2m.data_ptr(),
+        vc.data_ptr(), h_ll.data_ptr(), g_l.data_ptr(), w.data_ptr(),
+        n, s, k, L, n_r, dr_s, dl, e_start, _build.stream_ptr(dev),
+    )
+    _build.check(code, "fused_obs_leg launch")
+    LEG_LAUNCHES += 1
+    return h_ll, g_l, w
+
+
+def fused_obs_leg(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int, dl: int,
+                  e_start: int):
+    """Kernel B8 on CUDA tensors, its plain version on CPU tensors."""
+    if jac.is_cuda:
+        return fused_obs_leg_cuda(jac, g0, d1m, d2m, vc, n_r, dr_s, dl, e_start)
+    if jac.device.type != "cpu":
+        raise ValueError(f"fused_obs_leg: unsupported device {jac.device}")
+    return fused_obs_leg_reference(jac, g0, d1m, d2m, vc, n_r, dr_s, dl, e_start)
 
 
 def fused_obs_all(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int, dl: int,

@@ -1,6 +1,8 @@
 """Schur-complement (landmark-eliminated) solves: host layout, the direct
-path (assembly through kernels B1/B2, the damped reduced solve through
-kernel B3), the direct path of batches whose coupling rows come from
+path (assembly through kernels B1/B2, or on the dual-sorted route through
+kernel B8 and a camera-major leg; the damped reduced solve through kernel
+B3 in float32, through kernel B4 over float64-formed inverses otherwise),
+the direct path of batches whose coupling rows come from
 outside B1/B2 (the adaptive kernel's three-slot batch: keyed sums through
 kernel B6, W placed by kernel B7, the reduced solve through kernel B5 over
 an external inverse) and the implicit path (every keyed reduction through
@@ -16,14 +18,19 @@ tangent dims:
 
 ``h_ll [dl, dl, L]`` and ``g_l [dl, L]`` keep the JAX package's
 components-major layout; W is landmark-major ``[L, dl, Dr]`` in the
-standard basis (camera ``v`` owns columns ``v·dr_s .. v·dr_s + dr_s − 1``).
+standard basis (the c-th unfixed camera owns columns ``c·dr_s .. c·dr_s +
+dr_s − 1``; fixed cameras have none).
 The flat step vector is variable-major, as in the JAX package.
 
 The host-side layout code (obs-major repack, bucket plan, degree counts)
 is copied from the JAX package, which cannot be imported without jax.  A
 uniform layout (one bucket) is assembled by kernel B1; a degree-bucketed
 layout (skewed track lengths, as in real BAL data) by one launch of kernel
-B2 per bucket, adding into buffers zeroed once per assembly.
+B2 per bucket, adding into buffers zeroed once per assembly.  The
+dual-sorted route (``w_impl="fused"``, uniform layouts only) replaces B1
+by kernel B8, which writes h_ll, g_l and W, and a second Jacobian
+evaluation over the batch repacked into camera runs, whose plain sums
+give a_rr and b_r.
 
 The implicit path (:class:`SchurCGOps`) never stores W.  Its batches are
 sorted by landmark at compile time (the reference's
@@ -58,8 +65,10 @@ CG_CHECK_EVERY = 8
 CG_MAX_ITERS = 500
 
 #: Obs-major repack guards (as in the JAX package): largest uniform run
-#: length, and the largest padded-columns-to-real-costs ratio.
+#: length, largest camera run of the camera repack, and the largest
+#: padded-columns-to-real-costs ratio.
 _FAST_MAX_K = 512
+_FAST_MAX_CAM_K = 8192
 _OBS_MAJOR_MAX_RATIO = 2.5
 #: Per-bucket run-length cap of the bucketed layout.
 _OBS_BUCKET_K_CAP = 64
@@ -228,38 +237,82 @@ def elim_degree_counts(batches, problem, elim_manifold):
 @dataclasses.dataclass
 class _FastBatch:
     """Host tables of an obs-major BA batch (one reduced slot, one
-    eliminated slot)."""
+    eliminated slot).  W's column blocks and the camera rows are keyed by
+    the UNFIXED cameras in layout order (camera column ``c`` owns W
+    columns ``c·dr_s .. c·dr_s + dr_s − 1``), so W spans the reduced space
+    exactly: the JAX package's p-major layout and its ``pm_of_std`` basis
+    gather were a TPU workaround."""
 
     e_slot: int  # eliminated dependency slot
-    n_r: int  # reduced family size
-    rvid: np.ndarray  # [B] reduced var id (n_r = dustbin for masked costs)
-    row_base: np.ndarray  # [n_r] global tangent offset per reduced var
+    r_slot: int  # reduced (camera) dependency slot
+    n_r: int  # unfixed cameras: W's column blocks
+    dr_s: int  # camera dof
+    rvid: np.ndarray  # [B] camera column (n_r = dustbin: masked cost, fixed camera)
+    row_base: np.ndarray  # [n_r] global tangent offset per camera column
     buckets: tuple  # ((l_base, L_b, k_b, col_base), ...)
-    vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera id per slot
+    # Dual-sorted route (``w_impl="fused"``): the batch repacked into camera
+    # runs (:func:`_cam_major_repack`; host until upload_tables places it on
+    # the device) and its run length, or None.
+    cam_batch: Any = None
+    cam_k: Optional[int] = None
+    vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera column per slot
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
-    rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera
+    rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera column
 
 
 def _fast_batch_data(batch, layout, info, buckets=None):
     """Fast-path tables of one repacked batch, or None when the batch is
-    not an obs-major two-slot BA batch."""
+    not an obs-major two-slot BA batch.  The costs of fixed cameras go to
+    the dustbin column: they add to h_ll and g_l only.  On the dual-sorted
+    route (``info.w_impl == "fused"``) a single-bucket batch also gets its
+    camera repack."""
     elim = _elim_slots(batch, info)
     if buckets is None or len(elim) != 1 or len(batch.manifolds) != 2:
         return None
     e = elim[0]
     r_slot = 1 - e
     rfam = family_name(batch.manifolds[r_slot])
-    n_r = int(layout.unfixed[rfam].shape[0])
-    off_r = np.asarray(layout.offsets[rfam])
-    rvid = np.asarray(batch.idx[r_slot]).astype(np.int32).copy()
+    unfixed = layout.unfixed[rfam]
+    n_r = int(unfixed.sum())
+    col_of = np.full(unfixed.shape[0], n_r, dtype=np.int32)
+    col_of[unfixed] = np.arange(n_r, dtype=np.int32)
+    rvid = col_of[np.asarray(batch.idx[r_slot])]
     rvid[~np.asarray(batch.mask)] = n_r
+    cam_batch = cam_k = None
+    if info.w_impl == "fused" and len(buckets) == 1:
+        cam_batch, cam_k = _cam_major_repack(batch, rvid, n_r)
     return _FastBatch(
         e_slot=e,
+        r_slot=r_slot,
         n_r=n_r,
+        dr_s=batch.manifolds[r_slot].dof,
         rvid=rvid,
-        row_base=np.minimum(off_r, info.dim_reduced).astype(np.int32),
+        row_base=np.asarray(layout.offsets[rfam])[unfixed].astype(np.int32),
         buckets=buckets,
+        cam_batch=cam_batch,
+        cam_k=cam_k,
     )
+
+
+def _cam_major_repack(batch, rvid, n_r):
+    """Camera-run repack of an obs-major batch (the JAX package's
+    ``_cam_major_repack``): column ``c·Kc + j`` holds the j-th cost of
+    camera column ``c``; costs with a dustbin ``rvid`` (masked, or a fixed
+    camera: no a_rr contribution) are dropped.  Returns ``(batch, Kc)``,
+    or ``(None, None)`` past the skew limits.  Fixed cameras have no run
+    here (the JAX package pads them with empty ones), so the padded ratio
+    counts only the unfixed cameras' runs."""
+    if n_r == 0:
+        return None, None
+    rows_sorted, skey, _, pos, kc = _group_rows(rvid, n_r)
+    if kc > _FAST_MAX_CAM_K or n_r * kc > _OBS_MAJOR_MAX_RATIO * max(len(rows_sorted), 1):
+        return None, None
+    cols = skey * kc + pos
+    take = np.zeros(-(-(n_r * kc) // 8) * 8, dtype=np.int64)
+    newmask = np.zeros(take.shape[0], dtype=bool)
+    take[cols] = rows_sorted
+    newmask[cols] = True
+    return _apply_take(batch, take, newmask), kc
 
 
 class WPart(NamedTuple):
@@ -312,24 +365,32 @@ class SchurInfo:
     dim_reduced: int  # Dr
     num_elim: int  # L
     dof_elim: int  # dl
-    elim_ids: dict  # family name -> [n] landmark ids
+    elim_ids: dict  # family name -> [n] landmark ids (num_elim: fixed)
     fast: tuple = ()  # per-batch _FastBatch / _RunBatch or None
     implicit: bool = False
+    # Direct assembly route of the obs-major batches: "fused_all" (kernels
+    # B1/B2) or "fused" (the dual-sorted route: kernel B8 and the
+    # camera-major leg).
+    w_impl: str = "fused_all"
     # Reduced families (name, offsets [n], dof), for the preconditioner.
     fam_offsets: tuple = ()
 
 
 def build_schur_info(problem, layout, elim_manifold, batches=None,
-                     buckets=None, implicit: bool = False) -> SchurInfo:
+                     buckets=None, implicit: bool = False,
+                     w_impl: str = "fused_all") -> SchurInfo:
     """Reduced/eliminated split of a layout built with the eliminated family
-    ordered last; with ``batches``, also the per-batch tables (for
-    ``implicit``, of batches already sorted by :func:`sort_for_implicit`)."""
+    ordered last (a fixed landmark's id is ``num_elim``, the dustbin); with
+    ``batches``, also the per-batch tables (for ``implicit``, of batches
+    already sorted by :func:`sort_for_implicit`)."""
     elim_fam = family_name(elim_manifold)
     dl = elim_manifold.dof
     offs = np.asarray(layout.offsets[elim_fam])
-    num_elim = offs.shape[0]
+    unfixed = layout.unfixed[elim_fam]
+    num_elim = int(unfixed.sum())
     dim_reduced = layout.dof_total - num_elim * dl
-    ids = ((offs - dim_reduced) // dl).astype(np.int32)
+    ids = np.full(offs.shape[0], num_elim, dtype=np.int32)
+    ids[unfixed] = (offs[unfixed] - dim_reduced) // dl
     info = SchurInfo(
         elim_family=elim_fam,
         dim_reduced=dim_reduced,
@@ -337,6 +398,7 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
         dof_elim=dl,
         elim_ids={elim_fam: ids},
         implicit=implicit,
+        w_impl=w_impl,
         fam_offsets=tuple(
             (name, np.asarray(layout.offsets[name]), problem.manifold_of(name).dof)
             for name in problem.family_names() if name != elim_fam
@@ -421,10 +483,24 @@ def _run_batch_data(batch, layout, info):
 def check_slice(info: SchurInfo, batches) -> None:
     """Raise ``NotImplementedError`` unless every batch takes one of the
     port's paths: a camera/landmark batch — obs-major (any number of degree
-    buckets, kernels B1/B2) or, with one shared adaptive kernel,
+    buckets, kernels B1/B2; one bucket with a camera repack on the
+    dual-sorted route, kernel B8) or, with one shared adaptive kernel,
     landmark-sorted (the generic assembly) for the direct solve;
     landmark-sorted without an adaptive kernel for the implicit one — whose
-    cameras (and kernel parameters) fill the reduced space."""
+    unfixed cameras (and kernel parameters) fill the reduced space.  Fixed
+    cameras are taken by the obs-major batches only, fixed landmarks by
+    none."""
+    if np.any(info.elim_ids[info.elim_family] == info.num_elim):
+        raise NotImplementedError(
+            "a fixed landmark (eliminated variable): its costs form the JAX "
+            "package's extras region (_onehot_reduced_tail), ROADMAP Queue 1 "
+            "item 7"
+        )
+    if info.w_impl == "fused" and info.implicit:
+        raise NotImplementedError(
+            "w_impl='fused' is a route of the direct solve's assembly; this "
+            "problem compiled the implicit backend"
+        )
     order = "landmark-sorted" if info.implicit else "obs-major"
     for bi, b in enumerate(batches):
         f = info.fast[bi] if bi < len(info.fast) else None
@@ -449,33 +525,54 @@ def check_slice(info: SchurInfo, batches) -> None:
                 "the generic Schur assembly of a later slice of the port "
                 "(ROADMAP Queue 1 items 7 and 14)"
             )
+        if info.w_impl == "fused":
+            _check_dual_route(bi, f)
         dr_s = sum(m.dof for m in b.manifolds[int(b.adaptive):]) - info.dof_elim
         cams = (np.asarray(f.row_base)[:, None] + np.arange(dr_s)).reshape(-1)
         kern = getattr(f, "kernel_rows", None)
         rows = cams if kern is None else np.concatenate([cams, kern])
         generic = isinstance(f, _RunBatch) and not info.implicit
         in_order = np.array_equal(cams, np.arange(f.n_r * dr_s))
-        if not np.array_equal(np.sort(rows), np.arange(info.dim_reduced)) or not (
-            generic or in_order
-        ):
+        if info.dim_reduced == 0 or not np.array_equal(
+            np.sort(rows), np.arange(info.dim_reduced)
+        ) or not (generic or in_order):
             raise NotImplementedError(
-                "the reduced space must be exactly the batch's cameras, in "
-                "order, and an adaptive kernel's parameters: other reduced "
-                "families are ROADMAP Queue 1 items 7 and 14, fixed variables "
-                "item 5"
+                "the reduced space must be exactly the batch's unfixed "
+                "cameras, in order, and an adaptive kernel's parameters (fixed "
+                "cameras: obs-major batches only): other reduced families are "
+                "ROADMAP Queue 1 items 7 and 14, fixed cameras on the implicit "
+                "and adaptive paths item 5"
             )
 
 
-def upload_tables(info: SchurInfo, device) -> None:
+def _check_dual_route(bi: int, f) -> None:
+    """Raise unless batch ``bi`` qualifies for the dual-sorted route: one
+    obs-major bucket and a camera repack within the skew limits."""
+    if not isinstance(f, _FastBatch):
+        why = "it is not obs-major"
+    elif len(f.buckets) != 1:
+        why = f"its layout has {len(f.buckets)} degree buckets"
+    elif f.cam_batch is None:
+        why = "its camera repack passes the skew limits (_FAST_MAX_CAM_K, _OBS_MAJOR_MAX_RATIO)"
+    else:
+        return
+    raise NotImplementedError(
+        f"w_impl='fused': cost batch {bi} does not qualify for the dual-sorted "
+        f"route, {why}; w_impl='fused_all' takes it"
+    )
+
+
+def upload_tables(info: SchurInfo, device, dtype) -> None:
     """Place each batch's tables on the device: per bucket the ``[k_b,
-    L_b]`` camera ids of an obs-major batch; the run tables
+    L_b]`` camera columns of an obs-major batch, and its camera repack as
+    a device batch on the dual-sorted route; the run tables
     (``_RunBatch.keys``) of a landmark-sorted one, with, on the direct
     path, each cost's W column and the kernel rows; for both, each
     camera's reduced rows and the a_rr pair index of the ``ab`` rows
     (upper triangle, row-major)."""
     for f in info.fast:
+        dr_s = f.dr_s
         if isinstance(f, _FastBatch):
-            dr_s = info.dim_reduced // f.n_r
             f.vc = tuple(
                 torch.as_tensor(
                     np.ascontiguousarray(f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T),
@@ -483,8 +580,9 @@ def upload_tables(info: SchurInfo, device) -> None:
                 )
                 for (_, lb, kb, c0) in f.buckets
             )
+            if f.cam_batch is not None:
+                f.cam_batch = engine.device_batch(f.cam_batch, device, dtype)
         else:
-            dr_s = f.dr_s
             rb = np.concatenate([f.row_base, [info.dim_reduced]])[f.rvid]
             real = f.rvid[:, None] < f.n_r
             f.keys = WPart(
@@ -522,9 +620,9 @@ def _pair_of(dr_s: int, device):
 
 def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     """``(cost, args)``: the batch's masked cost and, per bucket, the
-    arguments of kernels B1/B2 — the K-major run tiles ``jac [n, S, k_b,
-    L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera ids, then
-    ``(n_r, dr_s, dl, e_start)``."""
+    arguments of kernels B1/B2/B8 — the K-major run tiles ``jac [n, S,
+    k_b, L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera columns,
+    then ``(n_r, dr_s, dl, e_start)``."""
     e = fast.e_slot
     cost, _, jac, g0, d1, d2, _ = engine.batch_res_jac_cm(
         batch, variables, runs=(e, fast.buckets)
@@ -532,7 +630,6 @@ def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     mval = batch.mask.to(dtype)
     d1m = d1 * mval
     d2m = 2.0 * d2 * mval
-    dofs = [m.dof for m in batch.manifolds]
     nres, stot = jac.shape[0], jac.shape[1]
     args = []
     for (_, lb, kb, c0), vc in zip(fast.buckets, fast.vc):
@@ -544,9 +641,9 @@ def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
             d2m[sl].reshape(lb, kb).T,
             vc,
             fast.n_r,
-            sum(dofs) - info.dof_elim,
+            fast.dr_s,
             info.dof_elim,
-            sum(dofs[:e]),
+            sum(m.dof for m in batch.manifolds[:e]),
         ))
     return cost, args
 
@@ -555,12 +652,17 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
                    assemble_kernel: Callable = fused_obs.fused_obs_all,
                    assemble_into_kernel: Callable = fused_obs.fused_obs_all_into,
                    segment_sum: Callable = segment_block_sum,
-                   place_w: Callable = w_place.place_w):
+                   place_w: Callable = w_place.place_w,
+                   assemble_leg: Callable = fused_obs.fused_obs_leg):
     """``(cost, (a_rr, b_r, h_ll, g_l, w))`` for the direct solve.  An
     obs-major batch goes through the whole-system assembly kernels, one
     pass over its obs-major Jacobian: kernel B1 for a single bucket, one
     launch of kernel B2 per bucket, in plan order, for a degree-bucketed
-    batch.  A landmark-sorted (adaptive) batch goes through
+    batch.  On the dual-sorted route (``info.w_impl == "fused"``) kernel
+    B8 makes that pass without the camera side, and the camera-major leg
+    (:func:`_fast_dual_cam_leg`) sums a_rr and b_r over camera runs: no
+    atomics anywhere, so the system is bitwise reproducible.  A
+    landmark-sorted (adaptive) batch goes through
     :func:`_assemble_generic`.  ``batches`` are the compiled device
     batches; :func:`check_slice` has vetted them."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
@@ -582,7 +684,14 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             continue
         cost, args = fused_inputs(batch, variables, info, fast, dtype)
         total = total + cost
-        n_r, dr_s = fast.n_r, args[0][6]
+        n_r, dr_s = fast.n_r, fast.dr_s
+        if info.w_impl == "fused":
+            h_add, g_add, w_b = assemble_leg(*args[0])
+            h_ll += h_add
+            g_l += g_add
+            w = w_b if w is None else w + w_b
+            _fast_dual_cam_leg(fast, variables, info.dof_elim, dtype, a_rr, b_r)
+            continue
         if len(args) == 1:
             h_add, g_add, w_b, ab = assemble_kernel(*args[0])
             h_ll += h_add
@@ -609,6 +718,31 @@ def _add_camera_blocks(a_rr, b_r, ab, pair_of, rows):
         ab[pair_of].reshape(dr_s, dr_s, n_r).permute(2, 0, 1)
     )
     b_r[rows] += ab[npairs:].T
+
+
+def _fast_dual_cam_leg(fast: _FastBatch, variables, dl: int, dtype, a_rr, b_r):
+    """Camera-major leg of the dual-sorted assembly (the JAX package's
+    ``_fast_dual_cam_leg``): the Jacobian evaluated a second time over the
+    camera repack, the camera slot gathered once per camera run, then
+    a_rr and b_r as plain reshape-sums over the ``[n_r, cam_k]`` runs (the
+    cost is not counted again), added in place at each camera's rows."""
+    cb, n_r, kc, dr_s = fast.cam_batch, fast.n_r, fast.cam_k, fast.dr_s
+    _, _, jac, g0, d1, d2, _ = engine.batch_res_jac_cm(
+        cb, variables, runs=(fast.r_slot, ((0, n_r, kc, 0),))
+    )
+    mval = cb.mask.to(dtype)
+    d1m = d1 * mval
+    d2m = 2.0 * d2 * mval
+    e0 = sum(m.dof for m in cb.manifolds[: fast.e_slot])
+    r_rows = [i for i in range(dr_s + dl) if not e0 <= i < e0 + dl]
+    jr, gr = jac[:, r_rows, : n_r * kc], g0[r_rows, : n_r * kc]
+    d1m, d2m = d1m[: n_r * kc], d2m[: n_r * kc]
+    ha = torch.einsum("npb,nqb->pqb", jr, jr) * d1m + d2m * gr[:, None] * gr[None]
+    a_blocks = ha.reshape(dr_s, dr_s, n_r, kc).sum(-1)
+    b_blocks = (gr * d1m).reshape(dr_s, n_r, kc).sum(-1)
+    rows = fast.rows
+    a_rr[rows[:, :, None], rows[:, None, :]] += a_blocks.permute(2, 0, 1)
+    b_r[rows] += b_blocks.T
 
 
 def _run_blocks(batch, variables, runs: _RunBatch, dl: int, dtype):
@@ -755,17 +889,20 @@ class _SchurSystem:
 
 @dataclasses.dataclass(frozen=True)
 class SchurOps(_SchurSystem):
-    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``.  With
-    ``external_inverse`` (W from the generic assembly, the JAX package's
-    standard-layout route) the damped inverses are formed in float64
-    (:meth:`damped_inverse`) and ``reduce_external`` (kernel B5) reduces
-    over them; otherwise ``reduce`` (kernel B3) forms them itself."""
+    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``, routed as
+    the JAX package routes it (``SchurOps._solve``).  An obs-major W
+    (kernels B1, B2, B8) in float32 with dl ≤ 3 goes to ``reduce`` (kernel
+    B3), which forms the damped inverses itself.  Every other W has its
+    inverses formed in float64 (:meth:`damped_inverse`) and reduced over by
+    ``reduce_external``: kernel B4 for an obs-major W — every float64
+    solve —, kernel B5 with ``external_inverse`` (W from the generic
+    assembly, the JAX package's standard-layout route)."""
 
     dim_reduced: int
     #: damped reduction: kernel B3's dispatcher, or its plain version.
     reduce: Callable = schur_reduce.reduce_s_damped
-    #: reduction over external inverses: kernel B5's dispatcher, or its
-    #: plain version.
+    #: reduction over external inverses: the dispatcher of kernels B4
+    #: (``obs_major=True``) and B5, or their plain version.
     reduce_external: Callable = schur_reduce.reduce_s
     external_inverse: bool = False
 
@@ -773,11 +910,13 @@ class SchurOps(_SchurSystem):
         """x with (H + λI) x = g, through the damped reduction."""
         a_rr, b_r, h_ll, g_l, w = sys
         L, dl, wc = w.shape
-        if self.external_inverse:
-            h_inv = self.damped_inverse(h_ll, lam)
-            s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l)
-        else:
+        if not self.external_inverse and w.dtype == torch.float32 and dl <= 3:
             s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam)
+        else:
+            h_inv = self.damped_inverse(h_ll, lam)
+            s_sum, rhs_sum = self.reduce_external(
+                w, h_inv, g_l, obs_major=not self.external_inverse
+            )
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
         xr = cholesky_solve(a_rr + lam * eye - s_sum, b_r - rhs_sum)
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]

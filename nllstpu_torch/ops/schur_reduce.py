@@ -1,6 +1,6 @@
-"""Kernels B3 and B5: the Schur reductions of the direct solve (ports of
-``nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm_damped`` and
-``:reduce_s``).
+"""Kernels B3, B4 and B5: the Schur reductions of the direct solve (ports
+of ``nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm_damped``,
+``:reduce_s_lm`` and ``:reduce_s``).
 
 ``reduce_s_damped(w [L, dl, wc], h_ll [dl, dl, L], g_l [dl, L], lam)``
 forms the closed-form damped inverses H⁻¹ = (h_ll + λI)⁻¹ per landmark and
@@ -13,9 +13,16 @@ returns
 Y = H⁻¹W is never stored.  The caller forms S = A_rr + λI − s_sum and
 rhs = b_r − rhs_sum.
 
-``reduce_s(w [L, dl, wc], h_inv [dl, dl, L], g_l [dl, L])`` (kernel B5) is
-the same reduction over inverses formed outside, for any dl from 1 to 6,
-and returns ``(s_sum, rhs_sum)``.
+``reduce_s(w [L, dl, wc], h_inv [dl, dl, L], g_l [dl, L], obs_major=False)``
+is the same reduction over inverses formed outside, for any dl from 1 to
+6, and returns ``(s_sum, rhs_sum)``: kernel B5 on the generic assembly's
+W, kernel B4 (``obs_major=True``) on the W of the obs-major assemblies
+(B1, B2, B8).  The JAX package keeps that W p-major for the TPU and gives
+it a kernel of its own; here both W are the same landmark-major layout,
+so one entry point serves both and the route only picks the launch count
+(``EXTERNAL_LAUNCHES`` or ``LM_LAUNCHES``).  The solve takes B4 wherever
+B3 does not apply: every float64 solve, after the inverses are formed in
+float64.
 
 On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/schur_reduce.cu``, one kernel body in two modes): a tiled FMA
@@ -36,16 +43,21 @@ TILE = 64
 
 #: Number of kernel launches made by :func:`reduce_s_damped_cuda` (B3).
 LAUNCHES = 0
-#: Number of kernel launches made by :func:`reduce_s_cuda` (B5).
+#: Number of kernel launches made by :func:`reduce_s_cuda` on the generic
+#: W (B5).
 EXTERNAL_LAUNCHES = 0
+#: Number of kernel launches made by :func:`reduce_s_cuda` on an obs-major
+#: W (B4).
+LM_LAUNCHES = 0
 #: Widest landmark block B5 takes.
 MAX_DL = 6
 
 
-def reduce_s_reference(w, h_inv, g_l):
-    """Plain PyTorch version of kernel B5 (same contract).  The S product
-    runs in the input dtype at full precision (float32 matmuls on the card
-    default to full float32, not TF32)."""
+def reduce_s_reference(w, h_inv, g_l, obs_major=False):
+    """Plain PyTorch version of kernels B4 and B5 (same contract; the route
+    does not change the function).  The S product runs in the input dtype
+    at full precision (float32 matmuls on the card default to full
+    float32, not TF32)."""
     L, dl, wc = w.shape
     y = torch.einsum("edl,ldr->ler", h_inv, w)  # [L, dl, wc]
     s_sum = y.reshape(L * dl, wc).T @ w.reshape(L * dl, wc)
@@ -119,9 +131,10 @@ def reduce_s_damped_cuda(w, h_ll, g_l, lam):
     return bufs[2], bufs[3], h_inv
 
 
-def reduce_s_cuda(w, h_inv, g_l):
-    """Launch kernel B5 on CUDA tensors (same contract as the reference)."""
-    global EXTERNAL_LAUNCHES
+def reduce_s_cuda(w, h_inv, g_l, obs_major=False):
+    """Launch kernel B5, or B4 with ``obs_major``, on CUDA tensors (same
+    contract as the reference)."""
+    global EXTERNAL_LAUNCHES, LM_LAUNCHES
     w, h_inv, g_l = _checked("reduce_s", w, h_inv, g_l, MAX_DL)
     L, dl, wc = w.shape
     splits, bufs = _partials(w)
@@ -132,14 +145,18 @@ def reduce_s_cuda(w, h_inv, g_l):
         *(b.data_ptr() for b in bufs), L, dl, wc, splits, _build.stream_ptr(w.device),
     )
     _build.check(code, "reduce_s launch")
-    EXTERNAL_LAUNCHES += 1
+    if obs_major:
+        LM_LAUNCHES += 1
+    else:
+        EXTERNAL_LAUNCHES += 1
     return bufs[2], bufs[3]
 
 
-def reduce_s(w, h_inv, g_l):
-    """Kernel B5 on CUDA tensors, its plain version on CPU tensors."""
+def reduce_s(w, h_inv, g_l, obs_major=False):
+    """Kernel B5, or B4 with ``obs_major``, on CUDA tensors; the plain
+    version on CPU tensors."""
     if w.is_cuda:
-        return reduce_s_cuda(w, h_inv, g_l)
+        return reduce_s_cuda(w, h_inv, g_l, obs_major)
     if w.device.type != "cpu":
         raise ValueError(f"reduce_s: unsupported device {w.device}")
     return reduce_s_reference(w, h_inv, g_l)

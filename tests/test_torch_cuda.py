@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1, B2, B3, B5, B6, B7) against their plain
+"""The port's CUDA kernels (B1–B8) against their plain
 PyTorch versions, on the card.  These tests skip without a CUDA device.  This file
 imports neither jax nor the JAX package, so on a machine with a card and no
 jax it runs with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -11,7 +11,9 @@ entry.  B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5
 (float32) of the largest entry against the float64 plain version.  B5 is
 B3's body over external inverses: held as B3.  B7 adds a few values per
 entry in run order: 1e-12 (float64) and 1e-6 (float32) of the largest
-entry, the same bits on a second launch.
+entry, the same bits on a second launch.  B8 is B1 without the camera
+side and without atomics: held as B1, and the same bits on a second
+launch.  B4 launches B5's body: held as B5.
 """
 
 import numpy as np
@@ -71,6 +73,28 @@ def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
     for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+# The pinhole camera before and after the landmark, a Snavely camera.
+@pytest.mark.parametrize("dr_s,e_start,n_r", [(6, 6, 37), (6, 0, 37), (9, 9, 300)])
+def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
+    gen = torch.Generator().manual_seed(13)
+    inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype)
+    before, before_b1 = fused_obs.LEG_LAUNCHES, fused_obs.LAUNCHES
+    out = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, 3, e_start)
+    torch.cuda.synchronize()
+    assert fused_obs.LEG_LAUNCHES == before + 1 and fused_obs.LAUNCHES == before_b1
+    ref = fused_obs.fused_obs_leg_reference(
+        *[t.double() if t.is_floating_point() else t for t in inputs],
+        n_r, dr_s, 3, e_start,
+    )
+    for name, a, b in zip(("h_ll", "g_l", "w"), out, ref):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    again = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, 3, e_start)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.cuda
@@ -163,6 +187,29 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, wc):
     out = schur_reduce.reduce_s(*(t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)))
     torch.cuda.synchronize()
     assert schur_reduce.EXTERNAL_LAUNCHES == before + 1 and schur_reduce.LAUNCHES == before_b3
+    ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
+    for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
+        assert x.shape == y.shape, name
+        assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+# The gauge-fixed pinhole width (126 cameras) and the pinhole bench's.
+@pytest.mark.parametrize("wc", [756, 768])
+def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, wc):
+    gen = torch.Generator().manual_seed(wc)
+    L, dl = 777, 3
+    w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
+    h_inv = _spd_inverses(gen, dl, L)
+    g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    before, before_b5 = schur_reduce.LM_LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES
+    out = schur_reduce.reduce_s(
+        *(t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)), obs_major=True
+    )
+    torch.cuda.synchronize()
+    assert schur_reduce.LM_LAUNCHES == before + 1
+    assert schur_reduce.EXTERNAL_LAUNCHES == before_b5
     ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
     for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
         assert x.shape == y.shape, name
@@ -289,6 +336,10 @@ def test_plain_versions_run_on_cpu():
     s5, r5 = schur_reduce.reduce_s(w, hi, g)
     assert torch.allclose(s5, s, rtol=1e-12, atol=1e-12 * s.abs().max().item())
     assert torch.allclose(r5, r, rtol=1e-12, atol=1e-12 * r.abs().max().item())
+    s4, r4 = schur_reduce.reduce_s(w, hi, g, obs_major=True)
+    assert torch.equal(s4, s5) and torch.equal(r4, r5)
+    h8, g8, w8 = fused_obs.fused_obs_leg(*inputs, 4, 6, 3, 6)
+    assert torch.equal(h8, h) and torch.equal(g8, g) and torch.equal(w8, w)
     we, lstarts, colbase, wc = _b7_case(gen, 20, 3, 6, 4, 3)
     placed = w_place.place_w(we, lstarts, colbase, wc)
     assert placed.shape == (20, 3, wc)
