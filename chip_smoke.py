@@ -6,33 +6,44 @@ Phases, one line each or more; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); no CUDA
    device is a failure.
-2. build   — compiles the port's CUDA kernels (``nllstpu_torch/ops/csrc``)
-   with nvcc, one process per source, into ``.torch_ext/``.
-3. B1      — kernel ``fused_obs_all`` against its plain PyTorch version on
-   the pinhole bench problem's own inputs (128 cameras, 8192 landmarks, run
-   length 14) and on a small case with duplicate cameras and dustbin slots.
+2. build   — one LM iteration of a small pinhole problem through
+   ``nt.optimize``, whose ``compile_problem`` compiles the port's CUDA
+   kernels (``nllstpu_torch/ops/csrc``) with nvcc, one process per source,
+   into ``.torch_ext/``: the build must fall in ``Result.time_init``, before
+   the loop's budget clock.
+3. B1      — kernel ``fused_obs_all`` (with kernel B6 over its per-slot
+   camera rows, which the wrapper launches) against its plain PyTorch
+   version on the pinhole bench problem's own inputs (128 cameras, 8192
+   landmarks, run length 14) and on a small case with duplicate cameras
+   and dustbin slots; two launches must give the same bits.
 4. B2      — kernel ``fused_obs_all_into`` against its plain version over
    every degree bucket of the two Snavely BAL problems (Ladybug-49 and
    bench-realistic, whose plan starts with a chunk bucket that the next
-   bucket covers again): one whole assembly into zeroed buffers.
+   bucket covers again): one whole assembly into zeroed buffers, then B6
+   over the camera runs (its plain version for the plain side).
 5. B3      — kernel ``reduce_s_damped`` against its plain version at
    wc = 768 (the pinhole bench W), wc = 441 (Ladybug-49's W), wc = 1152
    (bench-realistic's W) and wc = 1152 random, λ ∈ {0, 1e-2}.
 6. main paths — Levenberg-Marquardt through ``nt.optimize`` in float32
    for 30 iterations, each with the launch counts set to 0 just before and
-   read just after: the pinhole bench problem (B1 and B3), Ladybug-49 and
-   bench-realistic (B2 and B3, no B1), each checked against the JAX
-   package's CPU float32 reference costs (constants below).
+   read just after: the pinhole bench problem (B1, B6 and B3), Ladybug-49
+   and bench-realistic (B2, B6 and B3, no B1), each checked against the
+   JAX package's CPU float32 reference costs (constants below).
 7. B6      — kernel ``segment_block_sum`` against its plain version on
    the real inputs of the two implicit problems (every D the path uses:
    3 for Wᵀv, 9 for W u, 12 for h_ll + g_l, 54 for a_rr + b_r and 81 for
    the preconditioner's correction, over landmark and camera runs,
-   recorded from one assembly and one damped solve) and of the adaptive
+   recorded from one assembly and one damped solve), of the adaptive
    direct problem (21 over landmark runs: h_ll, g_l and the kernel–point
-   cross; 81 over camera runs: a_rr, b_r and the kernel–camera cross),
-   and on a synthetic case with empty runs and one run of 100,000 rows;
-   beside each main-path shape its time, its byte bound and the time of
-   ``torch.segment_reduce``, one PyTorch call for the same function.
+   cross; 81 over camera runs: a_rr, b_r and the kernel–camera cross) and
+   of the camera side of B1 and B2 (27 on the pinhole bench, 54 on
+   Ladybug-49 and bench-realistic: the per-slot camera rows, made here by
+   B2's plain version), and on a synthetic case with empty runs and one
+   run of 100,000 rows; two launches must give the same bits on every
+   input; beside each main-path shape its time, its byte bound and the
+   time of ``torch.segment_reduce``, one PyTorch call for the same
+   function, each also replayed from a CUDA graph (the device's time
+   without the host's rate of launching).
 8. implicit main paths — LM through ``nt.optimize`` in float32 with
    ``linear_tol=1e-2``: bench-realistic through ``solver="schur_cg"`` (30
    iterations), and a Dubrovnik-356-class problem (356 cameras, 226,730
@@ -47,7 +58,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
    a synthetic case with empty runs, repeated cameras, dropped costs and a
    row past 48 KB of shared memory, B5 also at dl = 5 on a synthetic
    input; beside each main-path shape its time, its bound, the plain
-   version's time and, for B7, ``index_add_`` into a zeroed W.
+   version's time and, for B7, ``index_add_`` into a zeroed W, alone and
+   with the zero fill (``torch.zeros`` + ``index_add_``, B7's output).
 10. B8 and B4 — kernel ``fused_obs_leg`` against its plain version on the
    inputs of both dual-sorted paths (one assembly's obs-major tiles of the
    gauge-fixed float64 problem and of the float32 pinhole bench problem)
@@ -58,10 +70,12 @@ Phases, one line each or more; any failure raises and exits non-zero:
    damped solve) and on the pinhole bench system (float32 and float64,
    wc = 768); on the gauge-fixed system, the float64 solve's two routes
    timed against each other (B3 in float64, and the float64 inverses then
-   B4, which the solve takes).  Then two assemblies of each
-   dual-sorted path must give the same bits in all five outputs; for
-   information, whether B1's a_rr differs between two assemblies and
-   whether two float32 LM runs repeat their cost trace through each route.
+   B4, which the solve takes).  Then the determinism gates: two
+   assemblies must give the same bits in all five outputs through B1 (the
+   pinhole bench), through B2 (Ladybug-49 and bench-realistic) and
+   through each dual-sorted path, and two float32 LM runs of the pinhole
+   bench must give the same cost trace through B1 and through the
+   dual-sorted route.
 11. adaptive main path — LM through ``nt.optimize`` in float32 for 60
    iterations on bench-realistic with 10% of its observations moved by 50
    pixels, one shared ContaminatedGaussian kernel
@@ -74,10 +88,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
    against the JAX package's CPU float32 run (constants below).
 12. dual-sorted main paths — LM through ``nt.optimize(..., w_impl="fused")``:
    the pinhole bench problem in float64 with its first two cameras fixed
-   (``unfixed=cams[2:] + lmks``), B8 and B4 and never B1, B2, B3, B5 or B7,
+   (``unfixed=cams[2:] + lmks``), B8 and B4 and never B1–B3 or B5–B7,
    held to the JAX package's CPU float64 trace (start cost 1e-12, the
    iterations both runs made and the best cost 1e-9, constants below); and
-   in float32 with every variable free, B8 and B3, held to the pinhole
+   in float32 with every variable free, B8 and B3 (never B6), held to the pinhole
    reference as the B1 path is.
 13. timed loops — 10 iterations of the pinhole (through B1 and through
    the dual-sorted route), gauge-fixed, Ladybug-49, bench-realistic
@@ -94,9 +108,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
 of the largest entry (the arithmetic is the same, only the summation order
-differs); the float32 instance to 1e-5 for B1 and B2 (float atomics, short
-sums).  B3's float32 outputs are compared after scaling by the float64
-reference's diagonal (D S D and D rhs with D = diag(S)^-½, and each h_inv
+differs); the float32 instance to 1e-5 for B1 and B2 (float32 sums of up
+to a few thousand terms per camera through B6, in a fixed order).  B3's
+float32 outputs are compared after scaling by the float64 reference's
+diagonal (D S D and D rhs with D = diag(S)^-½, and each h_inv
 block by its own diagonal), so that the small blocks of S, whose diagonal
 spans seven decades on the BAL problems, are held as tightly as the
 largest.  Each output is held to 1e-4, or to ten times the plain
@@ -108,9 +123,10 @@ few values per entry, in run order: float64 within 1e-12 and float32
 within 1e-6 of the largest entry, and two launches give the same bits.
 B5: float64 within 1e-12 of the largest entry; float32 within 1e-6, or
 ten times the plain version's own float32 error where that is larger.
-B8 is held as B1 (it has no atomics, and two dual-sorted assemblies must
-give the same bits); B4 (B5's body) within 1e-12 of the largest entry in
-float64 and 1e-6 in float32.
+B8 is held as B1; B4 (B5's body) within 1e-12 of the largest entry in
+float64 and 1e-6 in float32.  No kernel uses atomics: B1, B2, B6, B7 and
+B8 must give the same bits on a second launch, and the assembled systems
+on a second assembly.
 The last lines are the card's name and power limit, a JSON record of the
 kernels (one row per kernel and main-path shape, with that path's
 launches) and the device JSON.
@@ -262,6 +278,25 @@ def time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20) -> float:
+    """Mean device time of ``fn()`` with the host taken out: ``reps`` calls
+    captured in one CUDA graph, replayed between CUDA events (a small
+    kernel's event time above is the host's rate of launching it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: float, flops: float, dtype=torch.float32) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the rate of their float type."""
@@ -406,15 +441,27 @@ def phase_device():
     return torch.device("cuda", 0), smi
 
 
-def phase_build():
+def phase_build(device):
+    """The first use of the kernels: one LM iteration of a small pinhole
+    problem through ``nt.optimize``, whose compile builds and loads the
+    library; the build must count in ``Result.time_init``."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import make_pinhole_ba
     from nllstpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.library()
-    dt = time.perf_counter() - t0
+    problem, _, _ = make_pinhole_ba(8, 64, 0.8, noise=NOISE, dtype=torch.float32, device=device)
+    opts = dataclasses.replace(bench_options(), max_iters=1)
+    result = nt.optimize(problem, opts)
+    if _build._lib is None:
+        raise AssertionError("build: compile_problem did not load the kernel library")
+    if not result.time_init >= _build.BUILD_SECONDS:
+        raise AssertionError(f"build: time_init {result.time_init} s misses the "
+                             f"{_build.BUILD_SECONDS} s build")
     regs = [ln.strip() for ln in _build.BUILD_LOG.splitlines() if "registers" in ln]
     how = "compiled" if _build.BUILD_LOG else "reused the library in .torch_ext/"
-    print(f"build: {dt:.2f} s, {how} | " + " ; ".join(regs), flush=True)
+    print(f"build: {_build.BUILD_SECONDS:.2f} s ({how}) inside compile_problem; the first "
+          f"nt.optimize: time_init {result.time_init:.2f} s, its loop "
+          f"{result.time_total - result.time_init:.3f} s | " + " ; ".join(regs), flush=True)
 
 
 def check(name, got, ref, tol):
@@ -425,9 +472,9 @@ def check(name, got, ref, tol):
 
 
 def small_assembly_case(seed, e_start):
-    """A small B1/B8 input, ``(floats, ints)``: 5 slots of 37 landmarks
-    over 11 cameras, every run seeing a camera twice, dustbin slots with
-    zero weights."""
+    """A small B8 input, ``(floats, ints)``: 5 slots of 37 landmarks over
+    11 cameras, every run seeing a camera twice, dustbin slots with zero
+    weights (:func:`with_tables` makes it B1's)."""
     gen = torch.Generator().manual_seed(seed)
     K, L, n_r = 5, 37, 11
     small = [
@@ -444,7 +491,35 @@ def small_assembly_case(seed, e_start):
     return small, (vc, n_r, 6, 3, e_start)
 
 
+def with_tables(it):
+    """B8's ``(vc, n_r, dr_s, dl, e_start)`` with B1's camera tables of
+    that one bucket after ``vc``."""
+    from nllstpu_torch.ops import fused_obs
+
+    return (it[0], *fused_obs.camera_tables(it[0], it[1]), *it[1:])
+
+
+def camera_rows(args, cpos_list, n_rows, dtype):
+    """The per-slot camera rows ``[n_rows, npairs + dr_s]`` that B1/B2
+    write for a batch's buckets (here by B2's plain version): kernel B6's
+    input on the camera side of the direct path."""
+    from nllstpu_torch.ops import fused_obs
+
+    jac, _, _, _, _, n_r, dr_s, dl, _ = args[0]
+    L = sum(a[0].shape[3] for a in args)
+    bufs = fused_obs.zero_buffers(L, n_r, dr_s, dl, n_rows, dtype, jac.device)
+    l0 = 0
+    for a, cpos in zip(args, cpos_list):
+        fused_obs.fused_obs_all_into_reference(
+            *[t.to(dtype) for t in a[:4]], a[4], cpos, *bufs, l0, *a[5:]
+        )
+        l0 += a[0].shape[3]
+    return bufs[3]
+
+
 def phase_b1(device):
+    """B1 against its plain version; returns its record, the bench system
+    (for B3) and B6's camera-side input (D = 27)."""
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import fused_obs, schur
 
@@ -454,58 +529,68 @@ def phase_b1(device):
     _, (args,) = schur.fused_inputs(
         batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
     )
-    floats, ints = args[:4], args[4:]
+    floats, ints = args[:4], (args[4], fast.cpos[0], fast.cstarts, *args[5:])
+    small_fl, small_it = small_assembly_case(0, e_start=6)
     cases = {
         f"bench K={args[0].shape[2]} L={args[0].shape[3]}": (floats, ints),
-        "small dup+dustbin": small_assembly_case(0, e_start=6),
+        "small dup+dustbin": (small_fl, with_tables((small_it[0].to(device), *small_it[1:]))),
     }
     main_abs = None
     for label, (fl, it) in cases.items():
         fl = [t.to(device) for t in fl]
-        it = (it[0].to(device),) + tuple(it[1:])
         ref = fused_obs.fused_obs_all_reference(*[t.double() for t in fl], *it)
         out64 = fused_obs.fused_obs_all(*[t.double() for t in fl], *it)
         out32 = fused_obs.fused_obs_all(*[t.float() for t in fl], *it)
+        again = fused_obs.fused_obs_all(*[t.float() for t in fl], *it)
         torch.cuda.synchronize()
         e64 = check(f"B1 f64 {label}", out64, ref, TOL_F64)
         e32 = check(f"B1 f32 {label}", out32, ref, TOL_B1_F32)
+        if not all(torch.equal(a, b) for a, b in zip(out32, again)):
+            raise AssertionError(f"B1 {label}: two launches differ")
         if main_abs is None:
             main_abs = max(abs_err(a, b) for a, b in zip(out32, ref))
         print(f"B1 {label}: rel err h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]}"
-              f" f32 {['%.2e' % e for e in e32]}", flush=True)
+              f" f32 {['%.2e' % e for e in e32]}, two launches bit-identical", flush=True)
     f32 = [t.float() for t in floats]
     ms = time_ms(lambda: fused_obs.fused_obs_all(*f32, *ints))
     plain_ms = time_ms(lambda: fused_obs.fused_obs_all_reference(*f32, *ints))
-    n_r, dr_s, dl = ints[1:4]
+    dr_s, dl = ints[4:6]
     outs = fused_obs.fused_obs_all(*f32, *ints)
-    b = bound(nbytes(*f32, ints[0], *outs), assembly_flops(batch.n, dr_s, dl))
-    print(f"B1 bench time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound"
-          f" {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    b = bound(nbytes(*f32, *ints[:3], *outs), assembly_flops(batch.n, dr_s, dl))
+    print(f"B1 bench time (kernel and B6 over the camera runs): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
     sys_ = comp.assemble(problem.stacked_variables())[1]
-    return dict(max_abs_err=main_abs, ms=ms, plain_ms=plain_ms, **b), sys_
+    cam = {f"pinhole bench D={dr_s * (dr_s + 3) // 2} camera runs": (
+        camera_rows([args], fast.cpos, int(fast.cam_starts[-1]), torch.float32),
+        fast.cstarts,
+    )}
+    return dict(max_abs_err=main_abs, ms=ms, plain_ms=plain_ms, **b), sys_, cam
 
 
-def _assemble_buckets(fn, buckets, args, dtype, L):
-    """One bucketed assembly of ``L`` landmarks through ``fn`` (B2 or its
-    plain version): buffers zeroed once, one call per bucket in plan
-    order."""
+def _assemble_buckets(fns, fast, args, dtype, L):
+    """One bucketed assembly of ``L`` landmarks through ``fns`` (B2 and
+    B6, or their plain versions): buffers zeroed once, one B2 call per
+    bucket in plan order, then the camera runs' sums: ``(h_ll, g_l, w,
+    ab)``."""
     from nllstpu_torch.ops import fused_obs
 
+    into, camera_sum = fns
     jac, _, _, _, _, n_r, dr_s, dl, _ = args[0]
-    bufs = fused_obs.zero_buffers(L, n_r, dr_s, dl, dtype, jac.device)
-    for (l0, _, _, _), a in zip(buckets, args):
-        fn(*[t.to(dtype) for t in a[:4]], a[4], *bufs, l0, *a[5:])
-    return bufs
+    bufs = fused_obs.zero_buffers(L, n_r, dr_s, dl, int(fast.cam_starts[-1]), dtype, jac.device)
+    for (l0, _, _, _), a, cpos in zip(fast.buckets, args, fast.cpos):
+        into(*[t.to(dtype) for t in a[:4]], a[4], cpos, *bufs, l0, *a[5:])
+    return (*bufs[:3], camera_sum(bufs[3], fast.cstarts))
 
 
 def phase_b2(device):
-    """B2 against its plain version over every bucket of both BAL problems;
-    times per whole assembly.  Returns a record per problem and the float32
-    systems for B3."""
+    """B2 (with B6 over the camera runs) against its plain version over
+    every bucket of both BAL problems; times per whole assembly.  Returns a
+    record per problem, the float32 systems for B3 and B6's camera-side
+    inputs (D = 54)."""
     from nllstpu_torch.core.optimize import compile_problem
-    from nllstpu_torch.ops import fused_obs, schur
+    from nllstpu_torch.ops import fused_obs, schur, segment_sum
 
-    records, systems = {}, {}
+    records, systems, cam = {}, {}, {}
     for name in BAL:
         problem = bal_problem(name, device)
         comp = compile_problem(problem, schur_family=bench_options().schur_family)
@@ -514,32 +599,39 @@ def phase_b2(device):
             batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
         )
         buckets, L = fast.buckets, comp.schur_info.num_elim
-        kern, plain = fused_obs.fused_obs_all_into, fused_obs.fused_obs_all_into_reference
-        ref = _assemble_buckets(plain, buckets, args, torch.float64, L)
-        out64 = _assemble_buckets(kern, buckets, args, torch.float64, L)
-        out32 = _assemble_buckets(kern, buckets, args, torch.float32, L)
+        kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
+        plain = (fused_obs.fused_obs_all_into_reference, segment_sum.segment_block_sum_reference)
+        ref = _assemble_buckets(plain, fast, args, torch.float64, L)
+        out64 = _assemble_buckets(kern, fast, args, torch.float64, L)
+        out32 = _assemble_buckets(kern, fast, args, torch.float32, L)
+        again = _assemble_buckets(kern, fast, args, torch.float32, L)
         torch.cuda.synchronize()
         e64 = check(f"B2 f64 {name}", out64, ref, TOL_F64)
         e32 = check(f"B2 f32 {name}", out32, ref, TOL_B1_F32)
+        if not all(torch.equal(a, b) for a, b in zip(out32, again)):
+            raise AssertionError(f"B2 {name}: two assemblies differ")
         print(f"B2 {name} ({len(buckets)} buckets {list(buckets)}): rel err "
               f"h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 "
-              f"{['%.2e' % e for e in e32]}", flush=True)
-        ms = time_ms(lambda: _assemble_buckets(kern, buckets, args, torch.float32, L))
-        plain_ms = time_ms(lambda: _assemble_buckets(plain, buckets, args, torch.float32, L))
+              f"{['%.2e' % e for e in e32]}, two assemblies bit-identical", flush=True)
+        ms = time_ms(lambda: _assemble_buckets(kern, fast, args, torch.float32, L))
+        plain_ms = time_ms(lambda: _assemble_buckets(plain, fast, args, torch.float32, L))
         dr_s, dl = args[0][6], args[0][7]
         b = bound(
-            nbytes(*(t for a in args for t in a[:5]), *out32),
+            nbytes(*(t for a in args for t in a[:5]), *fast.cpos, fast.cstarts, *out32),
             assembly_flops(batch.n, dr_s, dl),
         )
-        print(f"B2 {name} time per assembly ({batch.n} observations, W "
-              f"{tuple(out32[2].shape)}): kernel {ms:.4f} ms, plain "
+        print(f"B2 {name} time per assembly, B6 over the camera runs included ({batch.n} "
+              f"observations, W {tuple(out32[2].shape)}): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
               flush=True)
         records[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)),
                              ms=ms, plain_ms=plain_ms, **b)
         systems[name] = comp.assemble(problem.stacked_variables())[1]
-        del ref, out64, out32, args
-    return records, systems
+        cam[f"{name} D={dr_s * (dr_s + 3) // 2} camera runs"] = (
+            camera_rows(args, fast.cpos, int(fast.cam_starts[-1]), torch.float32), fast.cstarts,
+        )
+        del ref, out64, out32, again, args
+    return records, systems, cam
 
 
 def phase_b3(device, systems):
@@ -595,14 +687,15 @@ def phase_b3(device, systems):
     return records
 
 
-def phase_b6(device):
+def phase_b6(device, camera_cases):
     """B6 against its plain version on the inputs the implicit paths and
     the adaptive direct path give it: each problem is compiled through its
     user-facing solver (the Dubrovnik-class one must switch to implicit,
     the adaptive one stay direct), then one assembly and one damped solve
     run with a recorder in place of the kernel that keeps the first input
-    of each (D, runs).  Plus a synthetic case.  Returns a record per
-    main-path shape."""
+    of each (D, runs); on ``camera_cases``, the camera side of B1 and B2;
+    and on a synthetic case.  Two launches must give the same bits.
+    Returns a record per main-path shape."""
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import segment_sum
 
@@ -615,7 +708,7 @@ def phase_b6(device):
     cases = {"synthetic 100k run + empty runs": (
         torch.randn(int(starts[-1]), 12, generator=gen, dtype=torch.float64).to(device),
         starts.to(device),
-    )}
+    ), **camera_cases}
     paths = [(name, lambda name=name: bal_problem(name, device), implicit_options(name))
              for name in IMPLICIT]
     paths.append((ADAPTIVE, lambda: adaptive_problem(device)[0], adaptive_options()))
@@ -642,11 +735,14 @@ def phase_b6(device):
     for label, (data, st) in cases.items():
         ref = plain(data.double(), st)
         out64, out32 = kern(data.double(), st), kern(data.float(), st)
+        again64, again32 = kern(data.double(), st), kern(data.float(), st)
         torch.cuda.synchronize()
         e64 = check(f"B6 f64 {label}", [out64], [ref], TOL_F64)[0]
         e32 = check(f"B6 f32 {label}", [out32], [ref], TOL_B1_F32)[0]
+        if not (torch.equal(out64, again64) and torch.equal(out32, again32)):
+            raise AssertionError(f"B6 {label}: two launches differ")
         line = (f"B6 {label} (N {data.shape[0]}, L {st.shape[0] - 1}): rel err f64 "
-                f"{e64:.2e} f32 {e32:.2e}")
+                f"{e64:.2e} f32 {e32:.2e}, two launches bit-identical")
         if label.startswith("synthetic"):
             print(line, flush=True)
             continue
@@ -656,15 +752,20 @@ def phase_b6(device):
         ms = time_ms(lambda: kern(f32, st))
         plain_ms = time_ms(lambda: plain(f32, st))
         library_ms = time_ms(lambda: torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0))
+        device_ms = graph_ms(lambda: kern(f32, st))
+        library_device_ms = graph_ms(
+            lambda: torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0))
         lib = torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0)
         if rel_err(lib, ref) > TOL_B1_F32:
             raise AssertionError(f"B6 {label}: torch.segment_reduce disagrees")
         b = bound(nbytes(lib_in, st, out32), lib_in.numel())
         print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"torch.segment_reduce {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
-              f" ({b['bound_by']})", flush=True)
+              f" ({b['bound_by']}); in a CUDA graph: kernel {device_ms:.4f} ms, "
+              f"torch.segment_reduce {library_device_ms:.4f} ms", flush=True)
         records[label] = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms,
-                              **b, library_ms=library_ms)
+                              **b, library_ms=library_ms, graph_ms=device_ms,
+                              library_graph_ms=library_device_ms)
     return records
 
 
@@ -744,12 +845,14 @@ def phase_b7(device, main_inputs):
         ms = time_ms(lambda: kern(f32, lst, cb, wc))
         plain_ms = time_ms(lambda: plain(f32, lst, cb, wc))
         library_ms = time_ms(lambda: wz.index_add_(0, idx, vals))
+        zeros_ms = time_ms(lambda: torch.zeros(
+            out32.numel(), dtype=torch.float32, device=device).index_add_(0, idx, vals))
         b = bound(nbytes(f32, lst, cb, out32), int(keep.sum()))
         print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ into a "
-              f"zeroed W {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
-              flush=True)
+              f"zeroed W {library_ms:.4f} ms, torch.zeros + index_add_ {zeros_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
         record = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms, **b,
-                      library_ms=library_ms)
+                      library_ms=library_ms, zeros_library_ms=zeros_ms)
     return {ADAPTIVE: record}
 
 
@@ -815,8 +918,8 @@ def phase_b8(device):
     """B8 against its plain version on both dual-sorted paths' inputs (the
     obs-major tiles of one assembly) and on a small case with duplicate
     cameras and dustbin slots; beside each path's shape its time, its
-    bound, the plain version's and B1's on the same inputs.  A record per
-    path."""
+    bound, the plain version's and B1's on the same inputs (with B6 over
+    B1's camera rows: the whole function).  A record per path."""
     from nllstpu_torch.ops import fused_obs, schur
 
     kern, plain = fused_obs.fused_obs_leg, fused_obs.fused_obs_leg_reference
@@ -827,10 +930,10 @@ def phase_b8(device):
         _, (args,) = schur.fused_inputs(
             batch, problem.stacked_variables(), comp.schur_info, fast, comp.dtype
         )
-        cases[name] = (args[:4], args[4:], comp.dtype, batch.n)
-    cases["small dup+dustbin"] = (*small_assembly_case(8, e_start=0), None, None)
+        cases[name] = (args[:4], args[4:], comp.dtype, batch.n, (fast.cpos[0], fast.cstarts))
+    cases["small dup+dustbin"] = (*small_assembly_case(8, e_start=0), None, None, None)
     records = {}
-    for label, (fl, it, dtype, n_obs) in cases.items():
+    for label, (fl, it, dtype, n_obs, tables) in cases.items():
         fl = [t.to(device) for t in fl]
         it = (it[0].to(device),) + tuple(it[1:])
         ref = plain(*[t.double() for t in fl], *it)
@@ -849,7 +952,7 @@ def phase_b8(device):
         out = kern(*own, *it)
         ms = time_ms(lambda: kern(*own, *it))
         plain_ms = time_ms(lambda: plain(*own, *it))
-        b1_ms = time_ms(lambda: fused_obs.fused_obs_all(*own, *it))
+        b1_ms = time_ms(lambda: fused_obs.fused_obs_all(*own, it[0], *tables, *it[1:]))
         n_r, dr_s, dl = it[1:4]
         b = bound(nbytes(*own, it[0], *out), assembly_flops(n_obs, dr_s, dl, camera_side=False),
                   dtype)
@@ -863,42 +966,47 @@ def phase_b8(device):
 
 
 def phase_determinism(device):
-    """Two assemblies of each dual-sorted path through ``w_impl="fused"``
-    must give the same bits in all five outputs (no atomics on that
-    route).  For information: whether two assemblies through B1 give
-    different a_rr (its camera side adds with float atomics), and whether
-    two LM runs of the float32 path give the same cost trace through each
-    route."""
-    for name in DUAL:
-        problem, comp, _ = dual_compile(name, device)
+    """Gates: two assemblies must give the same bits in all five outputs
+    through B1 (the pinhole bench), through B2 (Ladybug-49 and
+    bench-realistic) and through the dual-sorted route (both of its
+    paths); two float32 LM runs of the pinhole bench must give the same
+    cost trace through B1 and through the dual-sorted route."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+
+    def twice(label, problem, comp):
         variables = problem.stacked_variables()
         first, second = comp.assemble(variables)[1], comp.assemble(variables)[1]
         same = [torch.equal(a, b) for a, b in zip(first, second)]
         if not all(same):
-            raise AssertionError(f"{name}: two dual-sorted assemblies differ: {same}")
-        _, b1, _ = dual_compile(name, device, w_impl="fused_all")
-        a_rr = [b1.assemble(variables)[1][0] for _ in range(2)]
-        diff = float((a_rr[0] - a_rr[1]).abs().max())
-        print(f"determinism {name}: two dual-sorted assemblies bit-identical in a_rr, b_r, "
-              f"h_ll, g_l and W; through B1, a_rr of two assemblies "
-              f"{'differs (max ' + repr(diff) + ')' if diff else 'is bit-identical'}",
-              flush=True)
-        del comp, b1, first, second
-    # For information: whether two LM runs of the float32 path give the
-    # same cost trace, through each route (at the rounding floor a last-bit
-    # change in the system changes which damping trials are accepted).
-    import nllstpu_torch as nt
+            raise AssertionError(f"determinism {label}: two assemblies differ in "
+                                 f"(a_rr, b_r, h_ll, g_l, W): {same}")
+        print(f"determinism {label}: two assemblies bit-identical in a_rr, b_r, h_ll, g_l "
+              f"and W", flush=True)
 
-    for w_impl in ("fused", "fused_all"):
+    for name in DUAL:
+        problem, comp, _ = dual_compile(name, device)
+        twice(f"{name} (dual-sorted, B8)", problem, comp)
+    problem = bench_problem(device)
+    twice("pinhole bench (B1)", problem,
+          compile_problem(problem, schur_family=bench_options().schur_family))
+    for name in BAL:
+        problem = bal_problem(name, device)
+        twice(f"{name} (B2)", problem,
+              compile_problem(problem, schur_family=bench_options().schur_family))
+    # At the rounding floor a last-bit change in the system changes which
+    # damped trials pass, so equal traces show that nothing varies.
+    for w_impl in ("fused_all", "fused"):
         traces = []
         for _ in range(2):
             problem, route = dual_problem(FUSED, device)
             traces.append(nt.optimize(problem, bench_options(), **{**route, "w_impl": w_impl}))
-        same = traces[0].costs == traces[1].costs
-        print(f"determinism {FUSED}: two LM runs through w_impl={w_impl!r} give "
-              f"{'the same' if same else 'different'} cost traces ({len(traces[0].costs)} and "
-              f"{len(traces[1].costs)} iterations, best {traces[0].best_cost!r} and "
-              f"{traces[1].best_cost!r})", flush=True)
+        print(f"determinism pinhole bench: two float32 LM runs through w_impl={w_impl!r}: "
+              f"{len(traces[0].costs)} and {len(traces[1].costs)} iterations, best "
+              f"{traces[0].best_cost!r} and {traces[1].best_cost!r}", flush=True)
+        if traces[0].costs != traces[1].costs:
+            raise AssertionError(f"determinism: two LM runs through w_impl={w_impl!r} "
+                                 "give different cost traces")
 
 
 def b4_inputs(device):
@@ -989,13 +1097,14 @@ def phase_b4(device, inputs, damped):
 def phase_gauge_main(device, smi):
     """The gauge-fixed float64 main path through ``nt.optimize(...,
     unfixed=cams[2:] + lmks, w_impl="fused")``: B8 and B4, never B1, B2,
-    B3, B5 or B7; held to the JAX package's CPU float64 trace (start cost
+    B3, B5, B6 or B7; held to the JAX package's CPU float64 trace (start cost
     1e-12, each iteration both runs made and the best cost 1e-9)."""
     problem, route = dual_problem(GAUGE, device)
     launches, result = phase_main(
         GAUGE, problem, GAUGE_REF["start"], GAUGE_REF["best"], 1e-9,
         needs=("fused_obs_leg", "reduce_s_lm"),
-        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped", "place_w", "reduce_s"),
+        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_damped", "place_w", "reduce_s",
+               "segment_block_sum"),
         **route,
     )
     ref = GAUGE_REF["costs"]
@@ -1184,12 +1293,13 @@ def phase_profile(label, problem, options=None, unfixed=None, w_impl="fused_all"
 
 def main():
     device, smi = phase_device()
-    phase_build()
-    b1, bench_sys = phase_b1(device)
-    b2, bal_systems = phase_b2(device)
+    phase_build(device)
+    b1, bench_sys, cam1 = phase_b1(device)
+    b2, bal_systems, cam2 = phase_b2(device)
     b3 = phase_b3(device, {"pinhole bench": bench_sys, **bal_systems})
     del bench_sys, bal_systems
-    b6 = phase_b6(device)
+    b6 = phase_b6(device, {**cam1, **cam2})
+    del cam1, cam2
     place_in, reduce_in = adaptive_inputs(device)
     b7 = phase_b7(device, place_in)
     b5 = phase_b5(device, reduce_in)
@@ -1200,12 +1310,12 @@ def main():
     generic = ("place_w", "reduce_s", "fused_obs_leg", "reduce_s_lm")
     launches = {"pinhole bench": phase_main(
         "pinhole bench", bench_problem(device), REF_START_COST, REF_BEST_COST, 1e-3,
-        needs=("fused_obs_all", "reduce_s_damped"), never=generic,
+        needs=("fused_obs_all", "segment_block_sum", "reduce_s_damped"), never=generic,
     )[0]}
     for name, (_, start_ref, best_ref, slack) in BAL.items():
         launches[name] = phase_main(
             name, bal_problem(name, device), start_ref, best_ref, slack,
-            needs=("fused_obs_all_into", "reduce_s_damped"),
+            needs=("fused_obs_all_into", "segment_block_sum", "reduce_s_damped"),
             never=("fused_obs_all", *generic),
         )[0]
     for name, (_, _, start_ref, best_ref, slack) in IMPLICIT.items():
@@ -1223,7 +1333,8 @@ def main():
     launches[FUSED] = phase_main(
         FUSED, problem, REF_START_COST, REF_BEST_COST, 1e-3,
         needs=("fused_obs_leg", "reduce_s_damped"),
-        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_lm", "place_w", "reduce_s"),
+        never=("fused_obs_all", "fused_obs_all_into", "reduce_s_lm", "place_w", "reduce_s",
+               "segment_block_sum"),
         **route,
     )[0]
     # Kernels and plain versions in turns, then one run of each with

@@ -24,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops import fused_obs, schur, schur_reduce, segment_sum, w_place
+from ..ops import _build, fused_obs, schur, schur_reduce, segment_sum, w_place
 from . import engine, iterators, structs
 from .problem import Problem, family_name
 from .structs import Options, Result
@@ -48,7 +48,7 @@ class Kernels:
     assemble_leg: Any  # kernel B8 contract, the dual-sorted route
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32
     reduce_external: Any  # kernels B4/B5 contract (ops/schur_reduce.py), f64-formed inverses
-    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py), implicit and generic paths
+    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, B2's camera sum
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
 
@@ -155,7 +155,11 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
     generic assembly (landmark-sorted; kernels B6 and B7, the solve through
     B5) and is refused by the implicit one.  ``plain=True`` runs the
     kernels' plain PyTorch versions on every device (a baseline to measure
-    the kernels against)."""
+    the kernels against).  On a CUDA device with the kernels on, the
+    kernel library is built (nvcc, at first use) and loaded here, so that
+    the build counts as set-up (``Result.time_init``) and never against
+    ``Options.max_time``, as the JAX package compiles before its budget
+    clock starts; a failed build raises."""
     if solver == "auto" and schur_family is not None:
         solver = "schur"
     if solver not in ("schur", "schur_cg"):
@@ -170,6 +174,8 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
         problem, schur_family, solver == "schur_cg", unfixed=unfixed, w_impl=w_impl
     )
     schur.check_slice(info, batches)
+    if problem.device.type == "cuda" and not plain:
+        _build.library()
     schur.upload_tables(info, problem.device, problem.dtype)
     return CompiledProblem(
         manifolds={n: problem.manifold_of(n) for n in problem.family_names()},

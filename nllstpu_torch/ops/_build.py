@@ -21,6 +21,7 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import time
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext"
@@ -37,13 +38,14 @@ _LL = ctypes.c_longlong
 #: argtypes of every exported launcher (the suffix names the float type,
 #: then, for B6, the index type of ``starts``).
 _SIGNATURES = {
-    # jac, g0, d1, d2, vc, h_ll, g_l, w, ab, n, s, k, l, n_r, dr_s, dl,
-    # e_start, stream
-    "fused_obs_all_f32": [_P] * 9 + [_I] * 8 + [_P],
-    "fused_obs_all_f64": [_P] * 9 + [_I] * 8 + [_P],
-    # the same, then n, s, k, l, l_total, l_base, n_r, dr_s, dl, e_start
-    "fused_obs_all_into_f32": [_P] * 9 + [_I] * 10 + [_P],
-    "fused_obs_all_into_f64": [_P] * 9 + [_I] * 10 + [_P],
+    # jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, n_r,
+    # n_rows, dr_s, dl, e_start, stream
+    "fused_obs_all_f32": [_P] * 10 + [_I] * 9 + [_P],
+    "fused_obs_all_f64": [_P] * 10 + [_I] * 9 + [_P],
+    # the same, then n, s, k, l, l_total, l_base, n_r, n_rows, dr_s, dl,
+    # e_start
+    "fused_obs_all_into_f32": [_P] * 10 + [_I] * 11 + [_P],
+    "fused_obs_all_into_f64": [_P] * 10 + [_I] * 11 + [_P],
     # jac, g0, d1, d2, vc, h_ll, g_l, w, n, s, k, l, n_r, dr_s, dl,
     # e_start, stream
     "fused_obs_leg_f32": [_P] * 8 + [_I] * 8 + [_P],
@@ -59,9 +61,9 @@ _SIGNATURES = {
     # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream
     "place_w_f32": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
     "place_w_f64": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
-    # data, starts, out, n, l, d, stream
+    # data, starts, out, part, n, l, d, rows per chunk, stream
     **{
-        f"segment_block_sum_{f}_{i}": [_P] * 3 + [_LL, _I, _I, _P]
+        f"segment_block_sum_{f}_{i}": [_P] * 4 + [_LL, _I, _I, _I, _P]
         for f in ("f32", "f64") for i in ("i32", "i64")
     },
 }
@@ -70,6 +72,9 @@ _lib = None
 #: nvcc's output of the build this process ran (``-Xptxas -v``: registers,
 #: shared memory and spills per kernel); empty when the library was reused.
 BUILD_LOG = ""
+#: Seconds the build this process ran took (nvcc and link), 0.0 when the
+#: library was reused.
+BUILD_SECONDS = 0.0
 
 
 def _nvcc() -> str:
@@ -91,9 +96,10 @@ def _check_nvcc(cmd, returncode: int, log: str) -> None:
 
 def library():
     """The loaded kernel library, built on first call."""
-    global _lib, BUILD_LOG
+    global _lib, BUILD_LOG, BUILD_SECONDS
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(_CSRC.glob("*.cuh")):
@@ -123,6 +129,7 @@ def library():
         for obj in objs:
             obj.unlink()
         os.replace(tmp, so)
+        BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,9 +11,9 @@
 // B8 replaces fused_obs_leg_pm (body _kernel): B1 with the camera side
 // compiled out (CAM = false), for the dual-sorted route, whose
 // camera-major leg sums a_rr and b_r over camera runs in plain PyTorch.
-// B8 has no ab buffer, no shared memory and no atomics: every output entry
-// is written by the one thread that owns its landmark, so B8 gives the
-// same bits on every launch.
+// None of the three uses shared memory or atomics: every output entry is
+// written by the one thread that owns its landmark or its slot, so each
+// gives the same bits on every launch.
 // Launches of one assembly run in order on one stream; within a launch each
 // thread owns distinct landmarks, so the read-modify-write of h_ll, g_l and
 // W needs no atomics.  The TPU kernel's tile-aligned left shift,
@@ -31,6 +31,8 @@
 //   d2  [K, L]         2 * rho'' * mask  (pre-doubled by the caller)
 //   vc  [K, L] int32   camera column per slot; n_r (the dustbin) for pad
 //                      slots and fixed cameras
+//   cpos [K, L] int32  (B1/B2) the slot's row in the camera-sorted order of
+//                      the batch's non-dustbin slots, -1 for a dustbin slot
 // Outputs (B1: L_total = L, l_base = 0, h_ll and g_l written; B2: every
 // output added into):
 //   h_ll [dl, dl, L_total]  sum_k rho' Je^T Je + 2 rho'' g0e g0e^T
@@ -38,24 +40,24 @@
 //   w    [L_total, dl, n_r*dr_s]  rho' Jr^T Je + 2 rho'' g0r g0e^T added at the
 //                      slot's camera column (B1: zero on entry; a landmark
 //                      seen twice by one camera adds twice)
-//   ab   [npairs + dr_s, n_r]  per-camera a_rr upper triangle (row
-//                      idx(p, q), p <= q) then b_r (B1: zero on entry)
+//   rows [n_rows, npairs + dr_s]  (B1/B2) row cpos of each non-dustbin
+//                      slot: its a_rr upper triangle (entry idx(p, q), p <=
+//                      q) then its b_r, written once (not added)
 //
 // Design: one thread per landmark.  The thread walks the landmark's K slots
 // and keeps h_ll and g_l in registers; it owns its W row, so the W update
 // is a plain read-modify-write.  The camera side (a_rr, b_r) is shared by
-// many landmarks: each block accumulates it in shared memory with atomics
-// and flushes the non-zero entries to device memory with one atomic add
-// each.  Float atomics make a_rr/b_r's summation order vary from run to run
-// (last-bit differences in f32); h_ll, g_l and W are deterministic.  The
-// dual-sorted route (B8 and a camera-major leg) is deterministic at the
-// price of a second Jacobian evaluation.
+// many landmarks: the thread writes each slot's npairs + dr_s camera
+// values to the slot's own row of `rows`, and the wrapper sums the camera
+// runs of `rows` with kernel B6 (segment_sum.cu), every addition in a
+// fixed order, as the TPU kernel adds its per-tile contributions in grid
+// order.  So B1 and B2 give the same bits on every launch.
 //
 // Bound: device-memory traffic (the Jacobian read once, W's touched rows
-// written once) and, at the bench shape, latency - one thread per landmark
-// gives few warps per SM.  Slots of a dustbin camera (fixed camera or pad)
-// still add to h_ll and g_l, whose weights are masked by the caller, but
-// never to W or the camera side.
+// and the camera rows written once) and, at the bench shape, latency - one
+// thread per landmark gives few warps per SM.  Slots of a dustbin camera
+// (fixed camera or pad) still add to h_ll and g_l, whose weights are
+// masked by the caller, but never to W or the camera side.
 
 #include <cuda_runtime.h>
 
@@ -67,19 +69,13 @@ template <typename T, int N, int DR, int DL, bool ACCUM, bool CAM>
 __global__ void fused_obs_all_kernel(
     const T* __restrict__ jac, const T* __restrict__ g0,
     const T* __restrict__ d1, const T* __restrict__ d2,
-    const int* __restrict__ vc, T* __restrict__ h_ll, T* __restrict__ g_l,
-    T* __restrict__ w, T* __restrict__ ab, int K, int L, int L_total,
-    int l_base, int n_r, int e_start, bool smem_ab) {
+    const int* __restrict__ vc, const int* __restrict__ cpos,
+    T* __restrict__ h_ll, T* __restrict__ g_l, T* __restrict__ w,
+    T* __restrict__ rows, int K, int L, int L_total, int l_base, int n_r,
+    int n_rows, int e_start) {
   constexpr int S = DR + DL;
   constexpr int NP = DR * (DR + 1) / 2;
   constexpr int NAB = NP + DR;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ab_s = reinterpret_cast<T*>(smem_raw);
-  if (smem_ab) {
-    for (int i = threadIdx.x; i < NAB * n_r; i += blockDim.x) ab_s[i] = T(0);
-    __syncthreads();
-  }
-  T* ab_acc = smem_ab ? ab_s : ab;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l < L) {
     const size_t kl = static_cast<size_t>(K) * L;
@@ -138,7 +134,11 @@ __global__ void fused_obs_all_kernel(
             wv[d * wc + p] += jj * dd1 + dd2 * gr[p] * ge[d];
           }
         }
-        if constexpr (CAM) {
+      }
+      if constexpr (CAM) {
+        const int cp = cpos[o];
+        if (cp >= 0 && cp < n_rows) {
+          T* crow = rows + static_cast<size_t>(cp) * NAB;
           int idx = 0;
 #pragma unroll
           for (int p = 0; p < DR; ++p) {
@@ -147,13 +147,12 @@ __global__ void fused_obs_all_kernel(
               T jj = T(0);
 #pragma unroll
               for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
-              atomicAdd(&ab_acc[idx * n_r + v], jj * dd1 + dd2 * gr[p] * gr[q]);
+              crow[idx] = jj * dd1 + dd2 * gr[p] * gr[q];
               ++idx;
             }
           }
 #pragma unroll
-          for (int p = 0; p < DR; ++p)
-            atomicAdd(&ab_acc[(NP + p) * n_r + v], gr[p] * dd1);
+          for (int p = 0; p < DR; ++p) crow[NP + p] = gr[p] * dd1;
         }
       }
     }
@@ -171,46 +170,37 @@ __global__ void fused_obs_all_kernel(
       }
     }
   }
-  if (smem_ab) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < NAB * n_r; i += blockDim.x) {
-      const T val = ab_s[i];
-      if (val != T(0)) atomicAdd(&ab[i], val);
-    }
-  }
 }
 
 template <typename T, bool ACCUM, bool CAM>
 int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
-                         const void* d2, const void* vc, void* h_ll, void* g_l,
-                         void* w, void* ab, int n, int s, int k, int l,
-                         int l_total, int l_base, int n_r, int dr_s, int dl,
-                         int e_start, void* stream) {
+                         const void* d2, const void* vc, const void* cpos,
+                         void* h_ll, void* g_l, void* w, void* rows, int n,
+                         int s, int k, int l, int l_total, int l_base, int n_r,
+                         int n_rows, int dr_s, int dl, int e_start,
+                         void* stream) {
   if (l == 0) return 0;
   constexpr int kThreads = 64;
   const int blocks = (l + kThreads - 1) / kThreads;
-  const int nab = dr_s * (dr_s + 1) / 2 + dr_s;
-  size_t smem = static_cast<size_t>(nab) * n_r * sizeof(T);
-  const bool smem_ab = CAM && smem <= 48 * 1024;
-  if (!smem_ab) smem = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* jac_t = static_cast<const T*>(jac);
   const T* g0_t = static_cast<const T*>(g0);
   const T* d1_t = static_cast<const T*>(d1);
   const T* d2_t = static_cast<const T*>(d2);
   const int* vc_t = static_cast<const int*>(vc);
+  const int* cp_t = static_cast<const int*>(cpos);
   T* h_t = static_cast<T*>(h_ll);
   T* g_t = static_cast<T*>(g_l);
   T* w_t = static_cast<T*>(w);
-  T* ab_t = static_cast<T*>(ab);
+  T* r_t = static_cast<T*>(rows);
   if (n == 2 && dr_s == 6 && dl == 3 && s == 9) {
-    fused_obs_all_kernel<T, 2, 6, 3, ACCUM, CAM><<<blocks, kThreads, smem, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
-        l_base, n_r, e_start, smem_ab);
+    fused_obs_all_kernel<T, 2, 6, 3, ACCUM, CAM><<<blocks, kThreads, 0, st>>>(
+        jac_t, g0_t, d1_t, d2_t, vc_t, cp_t, h_t, g_t, w_t, r_t, k, l, l_total,
+        l_base, n_r, n_rows, e_start);
   } else if (n == 2 && dr_s == 9 && dl == 3 && s == 12) {
-    fused_obs_all_kernel<T, 2, 9, 3, ACCUM, CAM><<<blocks, kThreads, smem, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, h_t, g_t, w_t, ab_t, k, l, l_total,
-        l_base, n_r, e_start, smem_ab);
+    fused_obs_all_kernel<T, 2, 9, 3, ACCUM, CAM><<<blocks, kThreads, 0, st>>>(
+        jac_t, g0_t, d1_t, d2_t, vc_t, cp_t, h_t, g_t, w_t, r_t, k, l, l_total,
+        l_base, n_r, n_rows, e_start);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -222,41 +212,45 @@ int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
 extern "C" {
 
 int fused_obs_all_f32(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, void* h_ll, void* g_l,
-                      void* w, void* ab, int n, int s, int k, int l, int n_r,
-                      int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float, false, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
-                                            ab, n, s, k, l, l, 0, n_r, dr_s,
-                                            dl, e_start, stream);
+                      const void* d2, const void* vc, const void* cpos,
+                      void* h_ll, void* g_l, void* w, void* rows, int n, int s,
+                      int k, int l, int n_r, int n_rows, int dr_s, int dl,
+                      int e_start, void* stream) {
+  return launch_fused_obs_all<float, false, true>(
+      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l, 0, n_r,
+      n_rows, dr_s, dl, e_start, stream);
 }
 
 int fused_obs_all_f64(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, void* h_ll, void* g_l,
-                      void* w, void* ab, int n, int s, int k, int l, int n_r,
-                      int dr_s, int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double, false, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
-                                             ab, n, s, k, l, l, 0, n_r, dr_s,
-                                             dl, e_start, stream);
+                      const void* d2, const void* vc, const void* cpos,
+                      void* h_ll, void* g_l, void* w, void* rows, int n, int s,
+                      int k, int l, int n_r, int n_rows, int dr_s, int dl,
+                      int e_start, void* stream) {
+  return launch_fused_obs_all<double, false, true>(
+      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l, 0, n_r,
+      n_rows, dr_s, dl, e_start, stream);
 }
 
 int fused_obs_all_into_f32(const void* jac, const void* g0, const void* d1,
-                           const void* d2, const void* vc, void* h_ll,
-                           void* g_l, void* w, void* ab, int n, int s, int k,
-                           int l, int l_total, int l_base, int n_r, int dr_s,
-                           int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float, true, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
-                                           ab, n, s, k, l, l_total, l_base,
-                                           n_r, dr_s, dl, e_start, stream);
+                           const void* d2, const void* vc, const void* cpos,
+                           void* h_ll, void* g_l, void* w, void* rows, int n,
+                           int s, int k, int l, int l_total, int l_base,
+                           int n_r, int n_rows, int dr_s, int dl, int e_start,
+                           void* stream) {
+  return launch_fused_obs_all<float, true, true>(
+      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l_total,
+      l_base, n_r, n_rows, dr_s, dl, e_start, stream);
 }
 
 int fused_obs_all_into_f64(const void* jac, const void* g0, const void* d1,
-                           const void* d2, const void* vc, void* h_ll,
-                           void* g_l, void* w, void* ab, int n, int s, int k,
-                           int l, int l_total, int l_base, int n_r, int dr_s,
-                           int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double, true, true>(jac, g0, d1, d2, vc, h_ll, g_l, w,
-                                            ab, n, s, k, l, l_total, l_base,
-                                            n_r, dr_s, dl, e_start, stream);
+                           const void* d2, const void* vc, const void* cpos,
+                           void* h_ll, void* g_l, void* w, void* rows, int n,
+                           int s, int k, int l, int l_total, int l_base,
+                           int n_r, int n_rows, int dr_s, int dl, int e_start,
+                           void* stream) {
+  return launch_fused_obs_all<double, true, true>(
+      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l_total,
+      l_base, n_r, n_rows, dr_s, dl, e_start, stream);
 }
 
 int fused_obs_leg_f32(const void* jac, const void* g0, const void* d1,
@@ -264,8 +258,8 @@ int fused_obs_leg_f32(const void* jac, const void* g0, const void* d1,
                       void* w, int n, int s, int k, int l, int n_r, int dr_s,
                       int dl, int e_start, void* stream) {
   return launch_fused_obs_all<float, false, false>(
-      jac, g0, d1, d2, vc, h_ll, g_l, w, nullptr, n, s, k, l, l, 0, n_r, dr_s,
-      dl, e_start, stream);
+      jac, g0, d1, d2, vc, nullptr, h_ll, g_l, w, nullptr, n, s, k, l, l, 0,
+      n_r, 0, dr_s, dl, e_start, stream);
 }
 
 int fused_obs_leg_f64(const void* jac, const void* g0, const void* d1,
@@ -273,8 +267,8 @@ int fused_obs_leg_f64(const void* jac, const void* g0, const void* d1,
                       void* w, int n, int s, int k, int l, int n_r, int dr_s,
                       int dl, int e_start, void* stream) {
   return launch_fused_obs_all<double, false, false>(
-      jac, g0, d1, d2, vc, h_ll, g_l, w, nullptr, n, s, k, l, l, 0, n_r, dr_s,
-      dl, e_start, stream);
+      jac, g0, d1, d2, vc, nullptr, h_ll, g_l, w, nullptr, n, s, k, l, l, 0,
+      n_r, 0, dr_s, dl, e_start, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -15,15 +15,31 @@
 // a negative colbase among them, is dropped), w [L, dl, wc].  Run ends
 // are clamped to [0, B], so a bad table cannot read out of bounds.
 //
-// Design: one block per landmark.  It zeroes the landmark's [dl, wc] row
-// in shared memory, walks the landmark's costs in order (thread i adds
-// entry i of every cost, so two costs of one camera add in the same thread
-// and in run order), and writes the whole row once, zeros included: no
-// memset pass, no atomics, the same bits on every run.  An empty run
-// writes a zero row.  Camera column blocks must not overlap, as the
-// reduced layout guarantees.
+// Design: a block of 128 threads builds the rows of LPB consecutive
+// landmarks (LPB = 16 KB / row bytes, at least 1: one float32 row of the
+// bench-realistic adaptive W) in shared memory and writes them once, zeros
+// included, as one contiguous span of W with 16-byte stores: no memset
+// pass.  The launch bounds hold a thread to 64 registers, so that eight
+// blocks share an SM and one block's adds (latency-bound) overlap the
+// others' stores: 256 threads without the register cap ran a third
+// slower, and a persistent variant whose spans leave by double-buffered
+// TMA bulk stores was no faster.  Three phases:
+//   1. zero the span in shared memory (16-byte stores); the span starts
+//      at W's element offset modulo 16 bytes, so the 16-byte global
+//      stores read 16-byte-aligned shared words;
+//   2. item (landmark, d, p) -- one thread each -- walks its landmark's
+//      costs in run order, eight at a time: the eight colbase values and
+//      the eight coupling values are loaded together (coalesced across
+//      the item's neighbours, no chain of dependent loads), then added in
+//      order into the shared row.  Two costs of one camera land on the
+//      same item, so they add in run order in one thread;
+//   3. write the span: a scalar head up to the first 16-byte boundary,
+//      16-byte stores, a scalar tail.
+// No atomics: the same bits on every run.  An empty run writes a zero
+// row.  Camera column blocks must not overlap, as the reduced layout
+// guarantees.
 //
-// Bound: bytes.  W is written once (dl * wc values per landmark, ~114 MB
+// Bound: bytes.  W is written once (dl * wc values per landmark, 113.5 MB
 // in float32 on the bench-realistic adaptive problem) and each coupling
 // block read once; there is one add per input value.
 
@@ -33,36 +49,85 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 8;           // blocks per SM: at most 64 registers
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kSpanBytes = 16 * 1024;  // target shared span per block
+constexpr int kUnroll = 8;              // costs loaded together
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) place_w_kernel(
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) place_w_kernel(
     const T* __restrict__ we, const int32_t* __restrict__ lstarts,
-    const int32_t* __restrict__ colbase, T* __restrict__ w, long long n,
-    int dl, int dr_s, int wc) {
+    const int32_t* __restrict__ colbase, T* __restrict__ w, long long n, int L,
+    int dl, int dr_s, int wc, int lpb) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* row = reinterpret_cast<T*>(smem_raw);
-  const int width = dl * wc;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  const long long width = static_cast<long long>(dl) * wc;
   const int x = dl * dr_s;
-  const long long l = blockIdx.x;
-  for (int i = threadIdx.x; i < width; i += kThreads) row[i] = T(0);
-  long long s = lstarts[l];
-  long long e = lstarts[l + 1];
-  s = s < 0 ? 0 : (s > n ? n : s);
-  e = e > n ? n : e;
+  const long long l0 = static_cast<long long>(blockIdx.x) * lpb;
+  const int nl = static_cast<int>(L - l0 < lpb ? L - l0 : lpb);
+  const long long g0 = l0 * width;              // W's span [g0, g1)
+  const long long g1 = g0 + nl * width;
+  const int shift = static_cast<int>(g0 % kV);  // buf[shift] holds w[g0]
+  const int len = static_cast<int>((shift + nl * width + kV - 1) / kV);
+  // 1. zero the span.
+  const V zero = {};
+  for (int i = threadIdx.x; i < len; i += kThreads) reinterpret_cast<V*>(buf)[i] = zero;
   __syncthreads();
-  for (long long b = s; b < e; ++b) {
-    const int c = colbase[b];
-    if (c < 0 || c > wc - dr_s) continue;  // the same for every thread
-    for (int i = threadIdx.x; i < x; i += kThreads) {
-      const int d = i / dr_s;
-      row[d * wc + c + i % dr_s] += we[b * x + i];
+  // 2. add each landmark's costs in run order, one thread per (l, d, p).
+  for (int it = threadIdx.x; it < nl * x; it += kThreads) {
+    const int jl = it / x;
+    const int i = it % x;
+    const int d = i / dr_s;
+    const int p = i % dr_s;
+    long long s = lstarts[l0 + jl];
+    long long e = lstarts[l0 + jl + 1];
+    s = s < 0 ? 0 : (s > n ? n : s);
+    e = e > n ? n : e;
+    T* row = buf + shift + jl * width + static_cast<long long>(d) * wc + p;
+    for (long long b0 = s; b0 < e; b0 += kUnroll) {
+      int cb[kUnroll];
+      T v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long b = b0 + u;
+        cb[u] = b < e ? colbase[b] : -1;
+        v[u] = b < e ? we[b * x + i] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int c = cb[u];
+        if (c >= 0 && c <= wc - dr_s) row[c] += v[u];
+      }
     }
   }
   __syncthreads();
-  T* out = w + l * width;
-  for (int i = threadIdx.x; i < width; i += kThreads) out[i] = row[i];
+  // 3. write the span: scalar head and tail, 16-byte stores between.
+  const long long a = (g0 + kV - 1) / kV * kV;
+  const long long z = g1 / kV * kV;
+  if (a >= z) {
+    for (long long g = g0 + threadIdx.x; g < g1; g += kThreads) w[g] = buf[g - g0 + shift];
+    return;
+  }
+  if (threadIdx.x < a - g0) w[g0 + threadIdx.x] = buf[shift + threadIdx.x];
+  if (threadIdx.x < g1 - z) w[z + threadIdx.x] = buf[z - g0 + shift + threadIdx.x];
+  const V* src = reinterpret_cast<const V*>(buf + (a - g0 + shift));
+  V* dst = reinterpret_cast<V*>(w + a);
+  const long long nv = (z - a) / kV;
+  for (long long i = threadIdx.x; i < nv; i += kThreads) dst[i] = src[i];
 }
 
 template <typename T>
@@ -70,7 +135,10 @@ int launch_place_w(const void* we, const void* lstarts, const void* colbase,
                    void* w, long long n, int L, int dl, int dr_s, int wc,
                    void* stream) {
   if (L <= 0) return 0;
-  const size_t smem = sizeof(T) * static_cast<size_t>(dl) * wc;
+  const size_t row = sizeof(T) * static_cast<size_t>(dl) * wc;
+  long long lpb = row > 0 ? static_cast<long long>(kSpanBytes / row) : L;
+  lpb = lpb < 1 ? 1 : (lpb > L ? L : lpb);
+  const size_t smem = row * lpb + 32;  // + the shift and the last 16 bytes
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -78,10 +146,11 @@ int launch_place_w(const void* we, const void* lstarts, const void* colbase,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  place_w_kernel<T><<<L, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>((L + lpb - 1) / lpb);
+  place_w_kernel<T><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(we), static_cast<const int32_t*>(lstarts),
-      static_cast<const int32_t*>(colbase), static_cast<T*>(w), n, dl, dr_s,
-      wc);
+      static_cast<const int32_t*>(colbase), static_cast<T*>(w), n, L, dl, dr_s,
+      wc, static_cast<int>(lpb));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,9 @@ The host-side layout code (obs-major repack, bucket plan, degree counts)
 is copied from the JAX package, which cannot be imported without jax.  A
 uniform layout (one bucket) is assembled by kernel B1; a degree-bucketed
 layout (skewed track lengths, as in real BAL data) by one launch of kernel
-B2 per bucket, adding into buffers zeroed once per assembly.  The
+B2 per bucket, adding into buffers zeroed once per assembly.  Both write
+each observation's camera terms to its own row in camera order, and kernel
+B6 sums the camera runs, so the system repeats its bits.  The
 dual-sorted route (``w_impl="fused"``, uniform layouts only) replaces B1
 by kernel B8, which writes h_ll, g_l and W, and a second Jacobian
 evaluation over the batch repacked into camera runs, whose plain sums
@@ -250,12 +252,19 @@ class _FastBatch:
     rvid: np.ndarray  # [B] camera column (n_r = dustbin: masked cost, fixed camera)
     row_base: np.ndarray  # [n_r] global tangent offset per camera column
     buckets: tuple  # ((l_base, L_b, k_b, col_base), ...)
+    # The camera side of B1/B2 (fused_obs.camera_order over ``rvid``): each
+    # column's row in the camera-sorted order of the non-dustbin columns
+    # (−1 for the dustbin) and each camera's run of that order.
+    cam_pos: np.ndarray  # [B] int32
+    cam_starts: np.ndarray  # [n_r+1] int32
     # Dual-sorted route (``w_impl="fused"``): the batch repacked into camera
     # runs (:func:`_cam_major_repack`; host until upload_tables places it on
     # the device) and its run length, or None.
     cam_batch: Any = None
     cam_k: Optional[int] = None
     vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera column per slot
+    cpos: tuple = ()  # per bucket: device int32 [k_b, L_b] cam_pos per slot
+    cstarts: Any = None  # device int32 [n_r+1]: cam_starts
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
     rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera column
 
@@ -281,6 +290,7 @@ def _fast_batch_data(batch, layout, info, buckets=None):
     cam_batch = cam_k = None
     if info.w_impl == "fused" and len(buckets) == 1:
         cam_batch, cam_k = _cam_major_repack(batch, rvid, n_r)
+    cam_pos, cam_starts = fused_obs.camera_order(rvid, n_r)
     return _FastBatch(
         e_slot=e,
         r_slot=r_slot,
@@ -289,6 +299,8 @@ def _fast_batch_data(batch, layout, info, buckets=None):
         rvid=rvid,
         row_base=np.asarray(layout.offsets[rfam])[unfixed].astype(np.int32),
         buckets=buckets,
+        cam_pos=cam_pos,
+        cam_starts=cam_starts,
         cam_batch=cam_batch,
         cam_k=cam_k,
     )
@@ -564,8 +576,9 @@ def _check_dual_route(bi: int, f) -> None:
 
 def upload_tables(info: SchurInfo, device, dtype) -> None:
     """Place each batch's tables on the device: per bucket the ``[k_b,
-    L_b]`` camera columns of an obs-major batch, and its camera repack as
-    a device batch on the dual-sorted route; the run tables
+    L_b]`` camera columns and camera-order rows of an obs-major batch, its
+    camera runs, and its camera repack as a device batch on the
+    dual-sorted route; the run tables
     (``_RunBatch.keys``) of a landmark-sorted one, with, on the direct
     path, each cost's W column and the kernel rows; for both, each
     camera's reduced rows and the a_rr pair index of the ``ab`` rows
@@ -573,13 +586,17 @@ def upload_tables(info: SchurInfo, device, dtype) -> None:
     for f in info.fast:
         dr_s = f.dr_s
         if isinstance(f, _FastBatch):
-            f.vc = tuple(
-                torch.as_tensor(
-                    np.ascontiguousarray(f.rvid[c0 : c0 + lb * kb].reshape(lb, kb).T),
-                    device=device,
+            f.vc, f.cpos = (
+                tuple(
+                    torch.as_tensor(
+                        np.ascontiguousarray(col[c0 : c0 + lb * kb].reshape(lb, kb).T),
+                        device=device,
+                    )
+                    for (_, lb, kb, c0) in f.buckets
                 )
-                for (_, lb, kb, c0) in f.buckets
+                for col in (f.rvid, f.cam_pos)
             )
+            f.cstarts = torch.as_tensor(f.cam_starts, device=device)
             if f.cam_batch is not None:
                 f.cam_batch = engine.device_batch(f.cam_batch, device, dtype)
         else:
@@ -620,9 +637,11 @@ def _pair_of(dr_s: int, device):
 
 def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     """``(cost, args)``: the batch's masked cost and, per bucket, the
-    arguments of kernels B1/B2/B8 — the K-major run tiles ``jac [n, S,
-    k_b, L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera columns,
-    then ``(n_r, dr_s, dl, e_start)``."""
+    arguments of kernel B8 — the K-major run tiles ``jac [n, S, k_b,
+    L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera columns, then
+    ``(n_r, dr_s, dl, e_start)``; B1 and B2 take the bucket's camera-order
+    rows (``fast.cpos``) after the camera columns, and B1 the camera runs
+    (``fast.cstarts``)."""
     e = fast.e_slot
     cost, _, jac, g0, d1, d2, _ = engine.batch_res_jac_cm(
         batch, variables, runs=(e, fast.buckets)
@@ -658,11 +677,13 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
     obs-major batch goes through the whole-system assembly kernels, one
     pass over its obs-major Jacobian: kernel B1 for a single bucket, one
     launch of kernel B2 per bucket, in plan order, for a degree-bucketed
-    batch.  On the dual-sorted route (``info.w_impl == "fused"``) kernel
-    B8 makes that pass without the camera side, and the camera-major leg
-    (:func:`_fast_dual_cam_leg`) sums a_rr and b_r over camera runs: no
-    atomics anywhere, so the system is bitwise reproducible.  A
-    landmark-sorted (adaptive) batch goes through
+    batch, then one ``segment_sum`` (kernel B6) over the camera runs of
+    the per-slot camera rows that B2 wrote (B1 makes that sum itself): the
+    system has the same bits on every assembly.  On the dual-sorted route
+    (``info.w_impl == "fused"``) kernel B8 makes that pass without the
+    camera side, and the camera-major leg (:func:`_fast_dual_cam_leg`)
+    sums a_rr and b_r over camera runs.  A landmark-sorted (adaptive)
+    batch goes through
     :func:`_assemble_generic`.  ``batches`` are the compiled device
     batches; :func:`check_slice` has vetted them."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
@@ -693,31 +714,33 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             _fast_dual_cam_leg(fast, variables, info.dof_elim, dtype, a_rr, b_r)
             continue
         if len(args) == 1:
-            h_add, g_add, w_b, ab = assemble_kernel(*args[0])
+            a = args[0]
+            h_add, g_add, w_b, ab = assemble_kernel(*a[:5], fast.cpos[0], fast.cstarts, *a[5:])
             h_ll += h_add
             g_l += g_add
             w = w_b if w is None else w + w_b
         else:
-            # B2 adds into h_ll, g_l, W and ab in place; W is zeroed once.
+            # B2 adds into h_ll, g_l and W in place (W zeroed once) and
+            # writes each real slot's camera row once.
             if w is None:
                 w = torch.zeros(L, dl, n_r * dr_s, dtype=dtype, device=dev)
-            ab = torch.zeros(dr_s * (dr_s + 3) // 2, n_r, dtype=dtype, device=dev)
-            for (l0, _, _, _), a in zip(fast.buckets, args):
-                assemble_into_kernel(*a[:5], h_ll, g_l, w, ab, l0, *a[5:])
+            rows = torch.empty(int(fast.cam_starts[-1]), dr_s * (dr_s + 3) // 2,
+                               dtype=dtype, device=dev)
+            for (l0, _, _, _), a, cpos in zip(fast.buckets, args, fast.cpos):
+                assemble_into_kernel(*a[:5], cpos, h_ll, g_l, w, rows, l0, *a[5:])
+            ab = segment_sum(rows, fast.cstarts)
         _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, fast.rows)
     return total, (a_rr, b_r, h_ll, g_l, w)
 
 
 def _add_camera_blocks(a_rr, b_r, ab, pair_of, rows):
-    """Add the per-camera rows ``ab [npairs + dr_s, n_r]`` (the
+    """Add the per-camera sums ``ab [n_r, npairs + dr_s]`` (the
     upper-triangle a_rr pairs, then b_r) into a_rr and b_r in place, camera
     v's block at its reduced rows ``rows [n_r, dr_s]``."""
     n_r, dr_s = rows.shape
     npairs = dr_s * (dr_s + 1) // 2
-    a_rr[rows[:, :, None], rows[:, None, :]] += (
-        ab[pair_of].reshape(dr_s, dr_s, n_r).permute(2, 0, 1)
-    )
-    b_r[rows] += ab[npairs:].T
+    a_rr[rows[:, :, None], rows[:, None, :]] += ab[:, pair_of].reshape(n_r, dr_s, dr_s)
+    b_r[rows] += ab[:, npairs:]
 
 
 def _fast_dual_cam_leg(fast: _FastBatch, variables, dl: int, dtype, a_rr, b_r):
@@ -803,7 +826,7 @@ def _assemble_generic(batch, variables, info: SchurInfo, runs: _RunBatch, dtype,
     g_l += lsum[:, dl * dl : dl * (dl + 1)].T
     csum = segment_sum(crows, runs.keys.cstarts)  # [n_r, npairs + dr_s (+ dr_s·k)]
     cam = dr_s * (dr_s + 3) // 2
-    _add_camera_blocks(a_rr, b_r, csum[:, :cam].T, runs.pair_of, runs.rows)
+    _add_camera_blocks(a_rr, b_r, csum[:, :cam], runs.pair_of, runs.rows)
     # Coupling blocks [B, dl, dr_s], in landmark order; masked ones are zero.
     w_blk = (
         torch.einsum("ndb,npb->bdp", je, jr) * d1m[:, None, None]
@@ -849,7 +872,7 @@ def assemble_implicit(batches, variables, info: SchurInfo, dtype,
         h_ll += lsum[:, : dl * dl].T.reshape(dl, dl, L)
         g_l += lsum[:, dl * dl :].T
         ab = segment_sum(crows, runs.keys.cstarts)  # [n_r, npairs + dr_s]
-        _add_camera_blocks(a_rr, b_r, ab.T, runs.pair_of, runs.rows)
+        _add_camera_blocks(a_rr, b_r, ab, runs.pair_of, runs.rows)
         # Coupling blocks, batch-major: masked costs are exactly zero.
         w_blk = (
             torch.einsum("npb,ndb->bpd", jr, je) * d1m[:, None, None]

@@ -17,9 +17,10 @@ its one-hot over padded camera ids were Mosaic layout workarounds and are
 not carried over: W is the port's standard landmark-major basis.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/w_place.cu``: one block per landmark, which builds the landmark's
-``[dl, wc]`` row in shared memory, walks its run in order and writes the
-row once; deterministic, no atomics); on a CPU tensor it runs
+(``csrc/w_place.cu``: a block builds the ``[dl, wc]`` rows of a few
+landmarks in shared memory, one thread per (landmark, entry) adding the
+landmark's costs in run order, and writes them once with 16-byte stores;
+deterministic, no atomics); on a CPU tensor it runs
 :func:`place_w_reference`.
 """
 

@@ -3,9 +3,11 @@ how each run ended.
 
     python3 scripts_torch/repeat_main_paths.py [--reps 300] [--bal-reps 20]
 
-Float32 LM at its rounding floor takes a different damping path from run
-to run (kernel B1's float atomics), so a fault that needs one unlucky
-damped system shows in a fraction of runs.  The pinhole bench path runs
+Float32 LM at its rounding floor is sensitive to the last bits of the
+system.  Until kernel B1 summed its camera side in a fixed order, each run
+took a different damping path, so a fault that needs one unlucky damped
+system showed in a fraction of runs; now every run repeats the first
+(chip_smoke.py's determinism gates), and the counts show that.  The pinhole bench path runs
 ``--reps`` times twice: with the port's reduced solve, and with its
 earlier failure test (``cholesky_ex``'s ``info`` alone, no check of the
 solution), in turns.  Ladybug-49 and bench-realistic run ``--bal-reps``

@@ -5,22 +5,23 @@ jax it runs with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
 Tolerances: in float64 the kernels differ from the plain versions only by
 summation order (1e-12 of the largest entry).  In float32, B1's and B2's
-per-camera sums are float atomics and B3 sums over L·dl terms in another
-order than the float64 yardstick: all are held to 1e-5 of the largest
-entry.  B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5
-(float32) of the largest entry against the float64 plain version.  B5 is
-B3's body over external inverses: held as B3.  B7 adds a few values per
-entry in run order: 1e-12 (float64) and 1e-6 (float32) of the largest
-entry, the same bits on a second launch.  B8 is B1 without the camera
-side and without atomics: held as B1, and the same bits on a second
-launch.  B4 launches B5's body: held as B5.
+per-camera sums (kernel B6 over the camera runs of their per-slot rows)
+run over hundreds of terms and B3 sums over L·dl terms in another order
+than the float64 yardstick: all are held to 1e-5 of the largest entry.
+B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5 (float32) of
+the largest entry against the float64 plain version, and in float64 the
+same bits as its plain mirror of the chunk order.  B5 is B3's body over
+external inverses: held as B3.  B7 adds a few values per entry in run
+order: 1e-12 (float64) and 1e-6 (float32) of the largest entry.  B4
+launches B5's body: held as B5.  B1, B2, B6, B7 and B8 use no atomics:
+each gives the same bits on a second launch.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum, w_place
+from nllstpu_torch.ops import _build, fused_obs, schur_reduce, segment_sum, w_place
 
 
 @pytest.fixture
@@ -55,17 +56,17 @@ def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize(
     "dr_s,e_start,n_r",
-    # n_r = 300 at dr_s = 9 overflows the shared-memory camera accumulator
-    # and takes the device-memory atomics path.
+    # n_r = 300 at dr_s = 9: many short camera runs (~47 slots each).
     [(6, 6, 37), (6, 0, 37), (9, 9, 300)],
 )
 def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
     gen = torch.Generator().manual_seed(11)
     inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype)
-    before = fused_obs.LAUNCHES
+    inputs += fused_obs.camera_tables(inputs[4], n_r)
+    before, before_b6 = fused_obs.LAUNCHES, segment_sum.LAUNCHES
     out = fused_obs.fused_obs_all(*inputs, n_r, dr_s, 3, e_start)
     torch.cuda.synchronize()
-    assert fused_obs.LAUNCHES == before + 1
+    assert fused_obs.LAUNCHES == before + 1 and segment_sum.LAUNCHES == before_b6 + 1
     ref = fused_obs.fused_obs_all_reference(
         *[t.double() if t.is_floating_point() else t for t in inputs],
         n_r, dr_s, 3, e_start,
@@ -73,6 +74,8 @@ def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
     for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    again = fused_obs.fused_obs_all(*inputs, n_r, dr_s, 3, e_start)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.cuda
@@ -101,38 +104,55 @@ def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize(
     "dr_s,e_start,n_r",
-    # n_r = 300 at dr_s = 9 takes the device-memory atomics path.
+    # n_r = 300 at dr_s = 9: many short camera runs.
     [(9, 9, 37), (6, 0, 37), (9, 9, 300)],
 )
 def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
     """B2 over a degree-bucketed plan: a chunk bucket over the heavy prefix,
     the class bucket that covers it again, and a class bucket at an
-    unaligned l_base, all adding into buffers that start non-zero."""
+    unaligned l_base, all adding into buffers that start non-zero and
+    writing their slots' camera rows, whose camera runs (one order over
+    the three calls' slots) B6 then sums.  Twice: the same bits."""
     gen = torch.Generator().manual_seed(13)
     L, dl = 1000, 3
     calls = [(16, 0, 57), (14, 0, 300), (4, 337, 600)]  # (K, l_base, L_b)
-    npairs = dr_s * (dr_s + 1) // 2
     init = [
         torch.randn(shape, generator=gen, dtype=torch.float64)
-        for shape in ((dl, dl, L), (dl, L), (L, dl, n_r * dr_s), (npairs + dr_s, n_r))
+        for shape in ((dl, dl, L), (dl, L), (L, dl, n_r * dr_s))
     ]
     init[0] = init[0] + init[0].transpose(0, 1)
-    got = [t.to(device=cuda, dtype=dtype) for t in init]
-    ref = [t.to(device=cuda) for t in init]
+    inputs = [_b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype) for K, _, lb in calls]
+    cols = np.concatenate([x[4].T.reshape(-1).cpu().numpy() for x in inputs])
+    cpos_all, cstarts = fused_obs.camera_order(cols, n_r)
+    cpos, c0 = [], 0
+    for (K, _, lb), x in zip(calls, inputs):
+        tile = cpos_all[c0 : c0 + K * lb].reshape(lb, K).T.copy()
+        cpos.append(torch.as_tensor(tile, device=cuda))
+        c0 += K * lb
+    cstarts = torch.as_tensor(cstarts, device=cuda)
+    n_rows, nab = int(cstarts[-1]), dr_s * (dr_s + 3) // 2
+
+    def assemble(kernel, dt):
+        bufs = [t.to(device=cuda, dtype=dt) for t in init]
+        rows = torch.zeros(n_rows, nab, dtype=dt, device=cuda)
+        for (_, l_base, _), x, cp in zip(calls, inputs, cpos):
+            x = [t.to(dt) if t.is_floating_point() else t for t in x]
+            kernel(*x, cp, *bufs, rows, l_base, n_r, dr_s, dl, e_start)
+        sums = segment_sum.segment_block_sum(rows, cstarts)
+        return bufs + [sums]
+
     before, before_b1 = fused_obs.INTO_LAUNCHES, fused_obs.LAUNCHES
-    for K, l_base, lb in calls:
-        inputs = _b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype)
-        fused_obs.fused_obs_all_into(*inputs, *got, l_base, n_r, dr_s, dl, e_start)
-        fused_obs.fused_obs_all_into_reference(
-            *[t.double() if t.is_floating_point() else t for t in inputs], *ref,
-            l_base, n_r, dr_s, dl, e_start,
-        )
+    got = assemble(fused_obs.fused_obs_all_into, dtype)
     torch.cuda.synchronize()
     assert fused_obs.INTO_LAUNCHES == before + len(calls)
     assert fused_obs.LAUNCHES == before_b1
-    for name, a, b, c in zip(("h_ll", "g_l", "w", "ab"), got, ref, init):
+    ref = assemble(fused_obs.fused_obs_all_into_reference, torch.float64)
+    for name, a, b, c in zip(("h_ll", "g_l", "w"), got, ref, init):
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
         assert _rel_err(b, c.to(cuda)) > 1e-3, name  # every buffer was added to
+    assert got[3].shape == (n_r, nab) and _rel_err(got[3], ref[3]) <= tol
+    again = assemble(fused_obs.fused_obs_all_into, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -267,9 +287,10 @@ def _b6_case(gen, n_runs, d, long_run):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("index", [torch.int32, torch.int64])
-# D of the implicit path: Wᵀv, W u, h_ll + g_l, a_rr + b_r, the
-# preconditioner's correction; one run of 100,000 rows.
-@pytest.mark.parametrize("d", [3, 9, 12, 54, 81])
+# D of the implicit path: Wᵀv, W u, h_ll + g_l, a_rr + b_r (and B2's camera
+# side), the preconditioner's correction; B1's camera side (27); one run
+# of 100,000 rows.
+@pytest.mark.parametrize("d", [3, 9, 12, 27, 54, 81])
 def test_segment_block_sum_kernel_matches_plain(cuda, dtype, tol, index, d):
     gen = torch.Generator().manual_seed(d)
     data, starts = _b6_case(gen, 300, d, 100_000)
@@ -288,16 +309,51 @@ def test_segment_block_sum_kernel_matches_plain(cuda, dtype, tol, index, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 27, 81])
+def test_segment_block_sum_long_run_beside_one_row_runs(cuda, d):
+    """One run of 100,000 rows next to 10,000 one-row runs, empty runs
+    between them and ignored rows around them: float64 against the plain
+    version (1e-12) and, bit for bit, against the plain mirror of the
+    kernel's chunk order; the same bits on a second launch."""
+    gen = torch.Generator().manual_seed(100 + d)
+    lengths = torch.ones(10_001, dtype=torch.long)
+    lengths[::97] = 0
+    lengths[5000] = 100_000
+    starts = 3 + torch.cat([torch.zeros(1, dtype=torch.long), lengths.cumsum(0)])
+    data = torch.randn(int(starts[-1]) + 4, d, generator=gen, dtype=torch.float64)
+    out = segment_sum.segment_block_sum(data.to(cuda), starts.to(cuda))
+    again = segment_sum.segment_block_sum(data.to(cuda), starts.to(cuda))
+    torch.cuda.synchronize()
+    assert _rel_err(out.cpu(), segment_sum.segment_block_sum_reference(data, starts)) <= 1e-12
+    assert torch.equal(out.cpu(), segment_sum.segment_block_sum_chunked(data, starts))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_compile_problem_builds_the_library(cuda):
+    """compile_problem on the card loads the kernel library before the
+    optimization's clock starts; the plain baseline does not need it."""
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.core.manifolds import Euclidean
+    from nllstpu_torch.models.ba import make_pinhole_ba
+
+    problem, _, _ = make_pinhole_ba(4, 32, 0.8, noise=1e-3, dtype=torch.float32, device=cuda)
+    compile_problem(problem, schur_family=Euclidean(3))
+    assert _build._lib is not None
+
+
+@pytest.mark.cuda
 def test_kernels_reject_bad_inputs(cuda):
     w = torch.zeros(4, 5, 6, device=cuda)
     with pytest.raises(ValueError):
         schur_reduce.reduce_s_damped(w, torch.zeros(3, 3, 4, device=cuda), torch.zeros(3, 4, device=cuda), 0.0)
     jac = torch.zeros(3, 9, 2, 4, device=cuda)
+    idx = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         fused_obs.fused_obs_all(
             jac, torch.zeros(9, 2, 4, device=cuda), torch.zeros(2, 4, device=cuda),
-            torch.zeros(2, 4, device=cuda), torch.zeros(2, 4, dtype=torch.int32, device=cuda),
-            5, 6, 3, 6,
+            torch.zeros(2, 4, device=cuda), idx, idx,
+            torch.zeros(6, dtype=torch.int32, device=cuda), 5, 6, 3, 6,
         )
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w, torch.zeros(3, dtype=torch.int32, device=cuda))
@@ -320,9 +376,10 @@ def test_plain_versions_run_on_cpu():
     the kernels promise."""
     gen = torch.Generator().manual_seed(2)
     inputs = _b1_inputs(gen, 3, 10, 4, 6, "cpu", torch.float64)
-    h, g, w, ab = fused_obs.fused_obs_all(*inputs, 4, 6, 3, 6)
+    tables = fused_obs.camera_tables(inputs[4], 4)
+    h, g, w, ab = fused_obs.fused_obs_all(*inputs, *tables, 4, 6, 3, 6)
     assert (h.shape, g.shape, w.shape, ab.shape) == (
-        (3, 3, 10), (3, 10), (10, 3, 24), (27, 4)
+        (3, 3, 10), (3, 10), (10, 3, 24), (4, 27)
     )
     assert torch.allclose(h, h.transpose(0, 1), rtol=1e-14, atol=0)
     s, r, hi = schur_reduce.reduce_s_damped(w, h + 5 * torch.eye(3, dtype=h.dtype)[:, :, None], g, 0.1)

@@ -3,9 +3,11 @@ kernels (run in interpret mode on the CPU).
 
 Both sides get the same numpy inputs.  B1 (``fused_obs_all``) and B2
 (``fused_obs_all_into``) are compared in float64 at rtol 1e-10 with W taken
-from the p-major layout to the standard basis.  B3 (``reduce_s_damped``) is compared in float32: the JAX
-kernel's S contraction is bf16x3 (~1e-6 relative), so s_sum and rhs_sum
-are held to 1e-5 of their largest entry.
+from the p-major layout to the standard basis; their camera sums, made
+from per-slot rows in camera order, against the JAX kernels' ``ab``.  B3
+(``reduce_s_damped``) is compared in float32: the JAX kernel's S
+contraction is bf16x3 (~1e-6 relative), so s_sum and rhs_sum are held to
+1e-5 of their largest entry.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import torch
 
 from nllstpu.ops.pallas.fused_obs import fused_obs_all_pm, fused_obs_all_pm_into
 from nllstpu.ops.pallas.schur_reduce import reduce_s_lm_damped
-from nllstpu_torch.ops import fused_obs, schur_reduce
+from nllstpu_torch.ops import fused_obs, schur_reduce, segment_sum
 
 
 def _b1_inputs(seed, K, L, n_r, e_start, n=2, dr_s=6, dl=3):
@@ -54,8 +56,9 @@ def test_fused_obs_twin_matches_pallas(K, L, n_r, e_start):
         *(jnp.asarray(x) for x in inputs), n_r, dr_s, dl, e_start,
         interpret=True,
     )
+    t_in = [torch.from_numpy(x) for x in inputs]
     h2, g2, w2, ab2 = fused_obs.fused_obs_all_reference(
-        *(torch.from_numpy(x) for x in inputs), n_r, dr_s, dl, e_start
+        *t_in, *fused_obs.camera_tables(t_in[4], n_r), n_r, dr_s, dl, e_start
     )
     tol = dict(rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(h2.numpy(), np.asarray(h), **tol)
@@ -63,7 +66,7 @@ def test_fused_obs_twin_matches_pallas(K, L, n_r, e_start):
     np.testing.assert_allclose(
         w2.numpy(), _pm_to_std(w_pm, n_r, dr_s, dl), **tol
     )
-    np.testing.assert_allclose(ab2.numpy(), np.asarray(ab)[:, :n_r], **tol)
+    np.testing.assert_allclose(ab2.numpy().T, np.asarray(ab)[:, :n_r], **tol)
     # The duplicated camera really was added twice somewhere.
     assert np.abs(w2.numpy()).max() > 0
 
@@ -72,12 +75,13 @@ def test_fused_obs_dispatch_cpu_runs_twin():
     """On CPU tensors the dispatcher runs the plain version and launches
     nothing."""
     inputs = [torch.from_numpy(x) for x in _b1_inputs(1, 3, 9, 5, 6)]
-    before = fused_obs.LAUNCHES
+    inputs += fused_obs.camera_tables(inputs[4], 5)
+    before, before_b6 = fused_obs.LAUNCHES, segment_sum.LAUNCHES
     out = fused_obs.fused_obs_all(*inputs, 5, 6, 3, 6)
     ref = fused_obs.fused_obs_all_reference(*inputs, 5, 6, 3, 6)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert fused_obs.LAUNCHES == before
+    assert fused_obs.LAUNCHES == before and segment_sum.LAUNCHES == before_b6
 
 
 #: B2 cases: (dr_s, e_start, n_r, L_total, calls), each call (K, l_base,
@@ -100,22 +104,31 @@ def test_fused_obs_into_twin_matches_pallas(case):
     h_j = np.zeros((dl, dl, l_total))
     g_j = np.zeros((dl, l_total))
     ab_j = 0.0
-    h_t, g_t, w_t, ab_t = fused_obs.zero_buffers(
-        l_total, n_r, dr_s, dl, torch.float64, "cpu"
+    inputs = [_b1_inputs(10 + i, K, lb, n_r, e_start, dr_s=dr_s)
+              for i, (K, _, lb) in enumerate(calls)]
+    # One camera order over every call's slots, as over a batch's buckets.
+    cpos_all, cstarts = fused_obs.camera_order(
+        np.concatenate([x[4].T.reshape(-1) for x in inputs]), n_r
     )
-    for i, (K, l_base, lb) in enumerate(calls):
-        inputs = _b1_inputs(10 + i, K, lb, n_r, e_start, dr_s=dr_s)
+    h_t, g_t, w_t, rows_t = fused_obs.zero_buffers(
+        l_total, n_r, dr_s, dl, int(cstarts[-1]), torch.float64, "cpu"
+    )
+    c0 = 0
+    for (K, l_base, lb), x in zip(calls, inputs):
         h, g, w_pm, ab, la = fused_obs_all_pm_into(
-            *(jnp.asarray(x) for x in inputs), w_pm, l_base, n_r, dr_s, dl,
+            *(jnp.asarray(a) for a in x), w_pm, l_base, n_r, dr_s, dl,
             e_start, interpret=True,
         )
         h_j[:, :, la : la + h.shape[-1]] += np.asarray(h)
         g_j[:, la : la + g.shape[-1]] += np.asarray(g)
         ab_j = ab_j + np.asarray(ab)[:, :n_r]
+        cpos = torch.from_numpy(cpos_all[c0 : c0 + K * lb].reshape(lb, K).T.copy())
+        c0 += K * lb
         fused_obs.fused_obs_all_into_reference(
-            *(torch.from_numpy(x) for x in inputs), h_t, g_t, w_t, ab_t,
+            *(torch.from_numpy(a) for a in x), cpos, h_t, g_t, w_t, rows_t,
             l_base, n_r, dr_s, dl, e_start,
         )
+    ab_t = segment_sum.segment_block_sum_reference(rows_t, torch.from_numpy(cstarts)).T
     tol = dict(rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(h_t.numpy(), h_j, **tol)
     np.testing.assert_allclose(g_t.numpy(), g_j, **tol)
@@ -131,13 +144,16 @@ def test_fused_obs_into_twin_matches_pallas(case):
 
 def test_fused_obs_into_dispatch_cpu_runs_twin():
     """On CPU tensors B2's dispatcher runs the plain version and launches
-    nothing; into zeroed buffers at l_base 0 it is B1."""
+    nothing; into zeroed buffers at l_base 0, then B6 over the camera
+    runs, it is B1."""
     inputs = [torch.from_numpy(x) for x in _b1_inputs(2, 3, 9, 5, 0, dr_s=9)]
-    ref = fused_obs.fused_obs_all_reference(*inputs, 5, 9, 3, 0)
-    bufs = fused_obs.zero_buffers(9, 5, 9, 3, torch.float64, "cpu")
+    cpos, cstarts = fused_obs.camera_tables(inputs[4], 5)
+    ref = fused_obs.fused_obs_all_reference(*inputs, cpos, cstarts, 5, 9, 3, 0)
+    bufs = fused_obs.zero_buffers(9, 5, 9, 3, int(cstarts[-1]), torch.float64, "cpu")
     before = fused_obs.INTO_LAUNCHES
-    assert fused_obs.fused_obs_all_into(*inputs, *bufs, 0, 5, 9, 3, 0) is None
-    for a, b in zip(bufs, ref):
+    assert fused_obs.fused_obs_all_into(*inputs, cpos, *bufs, 0, 5, 9, 3, 0) is None
+    got = (*bufs[:3], segment_sum.segment_block_sum(bufs[3], cstarts))
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert fused_obs.INTO_LAUNCHES == before
 
