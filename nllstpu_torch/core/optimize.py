@@ -34,7 +34,7 @@ from .structs import Options, Result
 DENSE_W_BYTE_LIMIT = 4 << 30
 #: Assembly routes of the direct solve's obs-major batches (the JAX
 #: package's ``NLLSTPU_W_IMPL``): "fused_all", one pass through kernel B1
-#: (or B2 per degree bucket) that writes the whole system; "fused", the
+#: (or B2 over every degree bucket) that writes the whole system; "fused", the
 #: dual-sorted route, kernel B8 over landmark runs and a camera-major leg.
 W_IMPLS = ("fused_all", "fused")
 
@@ -44,10 +44,11 @@ class Kernels:
     """The kernel entry points of the Schur paths."""
 
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
-    assemble_into: Any  # kernel B2 contract, one launch per degree bucket
+    assemble_into: Any  # kernel B2 contract, one launch per degree-bucketed batch
     assemble_leg: Any  # kernel B8 contract, the dual-sorted route
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32
-    reduce_external: Any  # kernels B4/B5 contract (ops/schur_reduce.py), f64-formed inverses
+    reduce_lm: Any  # kernel B4 contract (ops/schur_reduce.py), f64-formed inverses, obs-major W
+    reduce_external: Any  # kernel B5 contract, f64-formed inverses, over W's structure
     segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, B2's camera sum
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
@@ -56,7 +57,7 @@ class Kernels:
 #: versions on CPU tensors.
 KERNELS = Kernels(
     fused_obs.fused_obs_all, fused_obs.fused_obs_all_into, fused_obs.fused_obs_leg,
-    schur_reduce.reduce_s_damped, schur_reduce.reduce_s,
+    schur_reduce.reduce_s_damped, schur_reduce.reduce_s_lm, schur_reduce.reduce_s,
     segment_sum.segment_block_sum, w_place.place_w,
 )
 #: The plain PyTorch versions on any device — for measuring the kernels
@@ -65,7 +66,8 @@ PLAIN = Kernels(
     fused_obs.fused_obs_all_reference, fused_obs.fused_obs_all_into_reference,
     fused_obs.fused_obs_leg_reference,
     schur_reduce.reduce_s_damped_reference, schur_reduce.reduce_s_reference,
-    segment_sum.segment_block_sum_reference, w_place.place_w_reference,
+    schur_reduce.reduce_s_reference, segment_sum.segment_block_sum_reference,
+    w_place.place_w_reference,
 )
 
 
@@ -124,9 +126,8 @@ class CompiledProblem:
             )
         else:
             linops = schur.SchurOps(
-                si.dim_reduced, reduce=self.kernels.reduce,
-                reduce_external=self.kernels.reduce_external,
-                external_inverse=any(isinstance(f, schur._RunBatch) for f in si.fast),
+                si.dim_reduced, reduce=self.kernels.reduce, reduce_lm=self.kernels.reduce_lm,
+                reduce_external=self.kernels.reduce_external, pairs=si.w_pairs,
             )
         extra = {} if phase is None else {"phase": phase}
         return iterators.IterCtx(
@@ -149,7 +150,9 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
     on the obs-major direct path only, fixed landmarks not yet).  Skewed
     degree distributions get the JAX package's degree relabel (see
     :func:`schur_layout`); the direct path then takes the bucketed layout,
-    assembled by kernel B2.  ``w_impl`` picks the direct assembly's route
+    assembled by kernel B2.  The host tables of kernels B2 and B5 are
+    built here (``schur_info.table_seconds``), inside
+    ``Result.time_init``.  ``w_impl`` picks the direct assembly's route
     (:data:`W_IMPLS`); ``"fused"`` on a batch that does not qualify
     raises.  A batch with an adaptive kernel takes the direct path's
     generic assembly (landmark-sorted; kernels B6 and B7, the solve through

@@ -38,26 +38,31 @@ _LL = ctypes.c_longlong
 #: argtypes of every exported launcher (the suffix names the float type,
 #: then, for B6, the index type of ``starts``).
 _SIGNATURES = {
-    # jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, n_r,
-    # n_rows, dr_s, dl, e_start, stream
-    "fused_obs_all_f32": [_P] * 10 + [_I] * 9 + [_P],
-    "fused_obs_all_f64": [_P] * 10 + [_I] * 9 + [_P],
-    # the same, then n, s, k, l, l_total, l_base, n_r, n_rows, dr_s, dl,
-    # e_start
-    "fused_obs_all_into_f32": [_P] * 10 + [_I] * 11 + [_P],
-    "fused_obs_all_into_f64": [_P] * 10 + [_I] * 11 + [_P],
-    # jac, g0, d1, d2, vc, h_ll, g_l, w, n, s, k, l, n_r, dr_s, dl,
-    # e_start, stream
-    "fused_obs_leg_f32": [_P] * 8 + [_I] * 8 + [_P],
-    "fused_obs_leg_f64": [_P] * 8 + [_I] * 8 + [_P],
+    # B1 and B8 (cpos and rows NULL): jac, g0, d1, d2, vc, cpos, h_ll, g_l,
+    # w, rows, n, s, k, l, n_r, n_rows, dr_s, dl, e_start, then the element
+    # strides jsn, jss, gss, sk, sl, gk, gl, stream
+    **{
+        f"{base}_{f}": [_P] * 10 + [_I] * 9 + [_LL] * 7 + [_P]
+        for base in ("fused_obs_all", "fused_obs_leg") for f in ("f32", "f64")
+    },
+    # B2: jac, g0, d1, d2, vc, cpos, slots, starts, work, h_ll, g_l, w,
+    # rows, n, s, n_work, l_total, n_r, n_rows, dr_s, dl, e_start, then the
+    # element strides jsn, jss, gss, gk, stream
+    "fused_obs_all_into_f32": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
+    "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     # w, h_ll, g_l, lam, s_part, r_part, s_sum, rhs_sum, h_inv, l, dl, wc,
     # splits, stream
     "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
     "reduce_s_damped_f64": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
-    # w, h_inv, g_l, s_part, r_part, s_sum, rhs_sum, l, dl, wc, splits,
-    # stream (B5, and B4 on an obs-major W)
-    "reduce_s_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "reduce_s_f64": [_P] * 7 + [_I] * 4 + [_P],
+    # B4: w, h_inv, g_l, s_part, r_part, s_sum, rhs_sum, l, dl, wc, splits,
+    # stream
+    "reduce_s_lm_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "reduce_s_lm_f64": [_P] * 7 + [_I] * 4 + [_P],
+    # B5: w, h_inv [L, dl²], g_l [L, dl], items, pairs, bcol, bwidth, lmk,
+    # istarts, part, rpart, s_sum, rhs_sum, dl, wc, n_items, n_pairs,
+    # max width, stream
+    "reduce_s_pairs_f32": [_P] * 13 + [_I] * 5 + [_P],
+    "reduce_s_pairs_f64": [_P] * 13 + [_I] * 5 + [_P],
     # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream
     "place_w_f32": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
     "place_w_f64": [_P] * 4 + [_LL] + [_I] * 4 + [_P],

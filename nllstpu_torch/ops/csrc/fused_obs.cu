@@ -3,59 +3,72 @@
 //
 // B1 replaces the TPU kernel nllstpu/ops/pallas/fused_obs.py:
 // fused_obs_all_pm (body _kernel_all) and takes a uniform layout: one
-// bucket covering every landmark.  B2 replaces fused_obs_all_pm_into (body
-// _kernel_all_accum) and takes one degree bucket of a skewed layout: the
-// same pass over the bucket's L_b landmarks, whose h_ll, g_l and W rows are
-// ADDED into full-size buffers at landmark l_base + l.  Chunk buckets
-// revisit the heavy landmarks of a later bucket, so B2 never overwrites.
-// B8 replaces fused_obs_leg_pm (body _kernel): B1 with the camera side
-// compiled out (CAM = false), for the dual-sorted route, whose
-// camera-major leg sums a_rr and b_r over camera runs in plain PyTorch.
-// None of the three uses shared memory or atomics: every output entry is
-// written by the one thread that owns its landmark or its slot, so each
-// gives the same bits on every launch.
-// Launches of one assembly run in order on one stream; within a launch each
-// thread owns distinct landmarks, so the read-modify-write of h_ll, g_l and
-// W needs no atomics.  The TPU kernel's tile-aligned left shift,
+// bucket covering every landmark, K slots each.  B2 replaces
+// fused_obs_all_pm_into (body _kernel_all_accum), which the TPU launches
+// once per degree bucket of a skewed layout; here ONE launch covers the
+// whole batch: a compile-time list gives each landmark its real slots,
+// the chunk bucket's and its class bucket's together, so no two work
+// items of the launch touch one landmark.  B2 adds h_ll and g_l into
+// full-size buffers.  B8 replaces fused_obs_leg_pm (body _kernel): B1 with
+// the camera side compiled out (CAM = false), for the dual-sorted route,
+// whose camera-major leg sums a_rr and b_r over camera runs in plain
+// PyTorch.  None of the three uses atomics, so each gives the same bits
+// on every launch.  The TPU kernel's tile-aligned left shift,
 // input/output aliasing and NRp padding have no counterpart here.
 //
 // Same math, not the same layout: the TPU kernels keep
 // W p-major and landmark-minor because of Mosaic's tiling; here W is stored
-// in the standard basis, landmark-major [L, dl, n_r*dr_s], so that one
-// landmark's coupling row is contiguous and owned by one thread.
+// in the standard basis, landmark-major [L, dl, n_r*dr_s].
 //
-// Inputs (K run slots per landmark, L landmarks of the bucket, row-major):
-//   jac [n, S, K, L]   residual Jacobian, S = dr_s + dl tangent columns
-//   g0  [S, K, L]      unweighted gradient J^T r
-//   d1  [K, L]         rho' * mask
-//   d2  [K, L]         2 * rho'' * mask  (pre-doubled by the caller)
-//   vc  [K, L] int32   camera column per slot; n_r (the dustbin) for pad
-//                      slots and fixed cameras
-//   cpos [K, L] int32  (B1/B2) the slot's row in the camera-sorted order of
-//                      the batch's non-dustbin slots, -1 for a dustbin slot
-// Outputs (B1: L_total = L, l_base = 0, h_ll and g_l written; B2: every
-// output added into):
-//   h_ll [dl, dl, L_total]  sum_k rho' Je^T Je + 2 rho'' g0e g0e^T
-//   g_l  [dl, L_total]      sum_k rho' g0e
-//   w    [L_total, dl, n_r*dr_s]  rho' Jr^T Je + 2 rho'' g0r g0e^T added at the
-//                      slot's camera column (B1: zero on entry; a landmark
-//                      seen twice by one camera adds twice)
+// Inputs (element offset o of a slot, og in g0; o indexes every input
+// but g0):
+//   jac  [n, S, .]  residual Jacobian, S = dr_s + dl tangent columns, at
+//                   o + ni*jsn + row*jss
+//   g0   [S, .]     unweighted gradient J^T r, at og + row*gss
+//   d1, d2          rho' * mask and 2 * rho'' * mask (pre-doubled)
+//   vc   int32      camera column; n_r (the dustbin) for pad slots and
+//                   fixed cameras
+//   cpos int32      (B1/B2) the slot's row in the camera-sorted order of
+//                   the batch's non-dustbin slots, -1 for a dustbin slot
+// B1/B8 (UNIFORM): slot k of landmark l of a [K, L] tile sits at o = k*sk
+// + l*sl and og = k*gk + l*gl, the strides of the caller's tensors
+// (K-major from the tests, landmark-major views of the batch on the main
+// path).  B2 (TABLE): landmark l owns slots starts[l] .. starts[l+1]-1 of
+// `slots`, each the batch column o of one real observation (og = o*gk),
+// or ~o when the slot's camera already appeared earlier in the
+// landmark's list.
+// Outputs:
+//   h_ll [dl, dl, L_total]  sum rho' Je^T Je + 2 rho'' g0e g0e^T (B2: added)
+//   g_l  [dl, L_total]      sum rho' g0e (B2: added)
+//   w    [L_total, dl, n_r*dr_s]  each (landmark, camera) block written
+//                   once with the sum of its slots' rho' Jr^T Je + 2 rho''
+//                   g0r g0e^T; B1/B8 write the rest of W as zeros, B2's
+//                   caller zeroes W
 //   rows [n_rows, npairs + dr_s]  (B1/B2) row cpos of each non-dustbin
-//                      slot: its a_rr upper triangle (entry idx(p, q), p <=
-//                      q) then its b_r, written once (not added)
+//                   slot: its a_rr upper triangle (entry idx(p, q), p <=
+//                   q) then its b_r, written once
 //
-// Design: one thread per landmark.  The thread walks the landmark's K slots
-// and keeps h_ll and g_l in registers; it owns its W row, so the W update
-// is a plain read-modify-write.  The camera side (a_rr, b_r) is shared by
-// many landmarks: the thread writes each slot's npairs + dr_s camera
-// values to the slot's own row of `rows`, and the wrapper sums the camera
-// runs of `rows` with kernel B6 (segment_sum.cu), every addition in a
-// fixed order, as the TPU kernel adds its per-tile contributions in grid
-// order.  So B1 and B2 give the same bits on every launch.
+// Design: slots in parallel.  A warp takes 32 / G landmarks and gives
+// each a group of G lanes (G the power of two at or above its slot count,
+// at most 32; B2's work list groups landmarks of one G, B1/B8 take G from
+// K); a lane takes slots j, j + G, ... of its landmark, keeping h_ll and
+// g_l terms in registers, and the group sums them by a fixed xor
+// butterfly.  The W block (dl x dr_s) and the camera row of each slot go
+// through shared memory and are written slot by slot with neighbouring
+// columns on neighbouring lanes, so lane i always writes entry i of a
+// block: a slot whose camera repeats one of an earlier slot adds to the
+// block after that slot stored it (the same lane, in program order), and
+// every other slot stores.  B2 takes the repeats from its table; B1/B8
+// find them in the warp (__match_any_sync) when the tile's K fits one
+// group, and otherwise add every slot into the W rows the warp zeroed
+// first.  The camera side
+// (a_rr, b_r) is shared by many landmarks: each slot writes its row of
+// `rows`, and kernel B6 (segment_sum.cu) sums the camera runs, every
+// addition in a fixed order, as the TPU kernel adds its per-tile
+// contributions in grid order.
 //
-// Bound: device-memory traffic (the Jacobian read once, W's touched rows
-// and the camera rows written once) and, at the bench shape, latency - one
-// thread per landmark gives few warps per SM.  Slots of a dustbin camera
+// Bound: device-memory traffic (the Jacobian read once, W's touched
+// blocks and the camera rows written once).  Slots of a dustbin camera
 // (fixed camera or pad) still add to h_ll and g_l, whose weights are
 // masked by the caller, but never to W or the camera side.
 
@@ -65,52 +78,150 @@
 
 namespace {
 
-template <typename T, int N, int DR, int DL, bool ACCUM, bool CAM>
-__global__ void fused_obs_all_kernel(
-    const T* __restrict__ jac, const T* __restrict__ g0,
-    const T* __restrict__ d1, const T* __restrict__ d2,
-    const int* __restrict__ vc, const int* __restrict__ cpos,
-    T* __restrict__ h_ll, T* __restrict__ g_l, T* __restrict__ w,
-    T* __restrict__ rows, int K, int L, int L_total, int l_base, int n_r,
-    int n_rows, int e_start) {
-  constexpr int S = DR + DL;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Warps per block: the shared staging is 32 rows of up to 55 values per
+// warp, about 28 KB a block in either float type.
+template <typename T>
+__host__ __device__ constexpr int warps_per_block() {
+  return sizeof(T) == 8 ? 2 : 4;
+}
+
+template <typename T>
+struct AsmArgs {
+  const T* jac;
+  const T* g0;
+  const T* d1;
+  const T* d2;
+  const int* vc;
+  const int* cpos;
+  const int* slots;   // TABLE
+  const int* starts;  // TABLE: [L_total + 1]
+  const int* work;    // TABLE: [n_work, 3] (first landmark, landmarks, log2 G)
+  T* h_ll;
+  T* g_l;
+  T* w;
+  T* rows;
+  long long jsn, jss, gss;  // strides of jac's n and S axes, g0's S axis
+  long long sk, sl;         // UNIFORM: slot and landmark strides of the tile
+  long long gk, gl;         // g0's slot and landmark strides (TABLE: gk only)
+  int K, L, lg2;            // UNIFORM: slots per landmark, landmarks, log2 G
+  int n_work;               // TABLE
+  int L_total, n_r, n_rows, e_start;
+};
+
+template <typename T, int N, int DR, int DL, bool ACCUM, bool CAM, bool TABLE>
+__global__ void __launch_bounds__(warps_per_block<T>() * 32)
+    assemble_kernel(const AsmArgs<T> a) {
   constexpr int NP = DR * (DR + 1) / 2;
   constexpr int NAB = NP + DR;
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < L) {
-    const size_t kl = static_cast<size_t>(K) * L;
-    const size_t wc = static_cast<size_t>(n_r) * DR;
-    T h[DL][DL];
-    T g[DL];
-#pragma unroll
-    for (int a = 0; a < DL; ++a) {
-      g[a] = T(0);
-#pragma unroll
-      for (int b = 0; b < DL; ++b) h[a][b] = T(0);
+  constexpr int NW = DL * DR;
+  constexpr int NH = DL * (DL + 1) / 2;
+  // Odd row stride: lanes writing their own rows hit distinct banks.
+  constexpr int BUF = ((CAM && NAB > NW) ? NAB : NW) | 1;
+  constexpr int WARPS = warps_per_block<T>();
+  __shared__ T buf[WARPS][32][BUF];
+  __shared__ long long dst[WARPS][32];  // W: block offset; camera: row; -1 none
+  __shared__ int rep[WARPS][32];        // W: the slot repeats a camera
+  const int wib = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * WARPS + wib;
+  int l_first, n_l, lg2;
+  if constexpr (TABLE) {
+    if (warp >= a.n_work) return;
+    l_first = a.work[3 * warp];
+    n_l = a.work[3 * warp + 1];
+    lg2 = a.work[3 * warp + 2];
+  } else {
+    lg2 = a.lg2;
+    l_first = warp << (5 - lg2);
+    if (l_first >= a.L) return;
+    n_l = min(32 >> lg2, a.L - l_first);
+  }
+  const long long wc = static_cast<long long>(a.n_r) * DR;
+  if constexpr (!TABLE) {
+    // B1/B8 write W whole: the warp zeroes its landmarks' rows (contiguous)
+    // before any block lands in them.
+    T* rows0 = a.w + static_cast<long long>(l_first) * DL * wc;
+    const long long n_zero = static_cast<long long>(n_l) * DL * wc;
+    for (long long i = lane; i < n_zero; i += 32) rows0[i] = T(0);
+    __syncwarp();
+  }
+  const int G = 1 << lg2;
+  const int grp = lane >> lg2;
+  const int j = lane & (G - 1);
+  const bool live = grp < n_l;
+  const int l = l_first + grp;
+  int s0 = 0, ns = 0;
+  if (live) {
+    if constexpr (TABLE) {
+      s0 = a.starts[l];
+      ns = a.starts[l + 1] - s0;
+    } else {
+      ns = a.K;
     }
-    const size_t lg = static_cast<size_t>(l_base) + l;  // row in the buffers
-    T* wrow = w + lg * DL * wc;
-    for (int k = 0; k < K; ++k) {
-      const size_t o = static_cast<size_t>(k) * L + l;
-      const T dd1 = d1[o];
-      const T dd2 = d2[o];
-      const int v = vc[o];
-      T je[N][DL], jr[N][DR], ge[DL], gr[DR];
+  }
+  int rounds = (ns + G - 1) >> lg2;
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    rounds = max(rounds, __shfl_xor_sync(kFull, rounds, off));
+  T h[NH];
+  T g[DL];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) h[i] = T(0);
+#pragma unroll
+  for (int i = 0; i < DL; ++i) g[i] = T(0);
+
+  for (int r = 0; r < rounds; ++r) {
+    const int k = (r << lg2) + j;
+    const bool has = live && k < ns;
+    long long o = 0, og = 0;
+    bool repeat = false;
+    if (has) {
+      if constexpr (TABLE) {
+        const int e = a.slots[s0 + k];
+        repeat = e < 0;
+        o = repeat ? ~e : e;
+        og = o * a.gk;
+      } else {
+        o = k * a.sk + l * a.sl;
+        og = k * a.gk + l * a.gl;
+      }
+    }
+    T dd1 = T(0), dd2 = T(0);
+    int v = a.n_r;
+    T je[N][DL], jr[N][DR], ge[DL], gr[DR];
+#pragma unroll
+    for (int d = 0; d < DL; ++d) {
+      ge[d] = T(0);
+#pragma unroll
+      for (int ni = 0; ni < N; ++ni) je[ni][d] = T(0);
+    }
+#pragma unroll
+    for (int p = 0; p < DR; ++p) {
+      gr[p] = T(0);
+#pragma unroll
+      for (int ni = 0; ni < N; ++ni) jr[ni][p] = T(0);
+    }
+    if (has) {
+      dd1 = a.d1[o];
+      dd2 = a.d2[o];
+      v = a.vc[o];
 #pragma unroll
       for (int d = 0; d < DL; ++d) {
-        ge[d] = g0[static_cast<size_t>(e_start + d) * kl + o];
+        const int row = a.e_start + d;
+        ge[d] = a.g0[og + row * a.gss];
 #pragma unroll
-        for (int ni = 0; ni < N; ++ni)
-          je[ni][d] = jac[(static_cast<size_t>(ni) * S + e_start + d) * kl + o];
+        for (int ni = 0; ni < N; ++ni) je[ni][d] = a.jac[o + ni * a.jsn + row * a.jss];
       }
 #pragma unroll
       for (int p = 0; p < DR; ++p) {
-        const int row = p < e_start ? p : p + DL;
-        gr[p] = g0[static_cast<size_t>(row) * kl + o];
+        const int row = p < a.e_start ? p : p + DL;
+        gr[p] = a.g0[og + row * a.gss];
 #pragma unroll
-        for (int ni = 0; ni < N; ++ni)
-          jr[ni][p] = jac[(static_cast<size_t>(ni) * S + row) * kl + o];
+        for (int ni = 0; ni < N; ++ni) jr[ni][p] = a.jac[o + ni * a.jsn + row * a.jss];
       }
+      int idx = 0;
 #pragma unroll
       for (int e1 = 0; e1 < DL; ++e1) {
         g[e1] += ge[e1] * dd1;
@@ -119,156 +230,252 @@ __global__ void fused_obs_all_kernel(
           T jj = T(0);
 #pragma unroll
           for (int ni = 0; ni < N; ++ni) jj += je[ni][e1] * je[ni][e2];
-          h[e1][e2] += jj * dd1 + dd2 * ge[e1] * ge[e2];
-        }
-      }
-      if (v >= 0 && v < n_r) {
-        T* wv = wrow + static_cast<size_t>(v) * DR;
-#pragma unroll
-        for (int d = 0; d < DL; ++d) {
-#pragma unroll
-          for (int p = 0; p < DR; ++p) {
-            T jj = T(0);
-#pragma unroll
-            for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * je[ni][d];
-            wv[d * wc + p] += jj * dd1 + dd2 * gr[p] * ge[d];
-          }
-        }
-      }
-      if constexpr (CAM) {
-        const int cp = cpos[o];
-        if (cp >= 0 && cp < n_rows) {
-          T* crow = rows + static_cast<size_t>(cp) * NAB;
-          int idx = 0;
-#pragma unroll
-          for (int p = 0; p < DR; ++p) {
-#pragma unroll
-            for (int q = p; q < DR; ++q) {
-              T jj = T(0);
-#pragma unroll
-              for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
-              crow[idx] = jj * dd1 + dd2 * gr[p] * gr[q];
-              ++idx;
-            }
-          }
-#pragma unroll
-          for (int p = 0; p < DR; ++p) crow[NP + p] = gr[p] * dd1;
+          h[idx] += jj * dd1 + dd2 * ge[e1] * ge[e2];
+          ++idx;
         }
       }
     }
-    const size_t lt = static_cast<size_t>(L_total);
+    const bool wv = has && v >= 0 && v < a.n_r;
+    if constexpr (!TABLE) {
+      if (a.K <= 32) {
+        // One round: the earlier slots of the landmark are the lower lanes
+        // of its group.
+        const unsigned long long key =
+            wv ? (static_cast<unsigned long long>(v) << 6) | grp
+               : ~static_cast<unsigned long long>(lane);
+        repeat = (__match_any_sync(kFull, key) & ((1u << lane) - 1u)) != 0u;
+      } else {
+        repeat = true;  // several rounds: every slot adds into the zeroed W
+      }
+    }
+    if (wv) {
+#pragma unroll
+      for (int d = 0; d < DL; ++d) {
+#pragma unroll
+        for (int p = 0; p < DR; ++p) {
+          T jj = T(0);
+#pragma unroll
+          for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * je[ni][d];
+          buf[wib][lane][d * DR + p] = jj * dd1 + dd2 * gr[p] * ge[d];
+        }
+      }
+    }
+    dst[wib][lane] = wv ? (static_cast<long long>(l) * DL * wc + static_cast<long long>(v) * DR) : -1;
+    rep[wib][lane] = repeat;
+    __syncwarp();
+    if (lane < NW) {
+      const long long off = (lane / DR) * wc + lane % DR;
+      for (int src = 0; src < 32; ++src) {
+        const long long base = dst[wib][src];
+        if (base < 0) continue;
+        T* dp = a.w + base + off;
+        const T val = buf[wib][src][lane];
+        if (rep[wib][src]) {
+          *dp += val;
+        } else {
+          *dp = val;
+        }
+      }
+    }
+    __syncwarp();
+    if constexpr (CAM) {
+      const int cp = has ? a.cpos[o] : -1;
+      const bool cv = cp >= 0 && cp < a.n_rows;
+      if (cv) {
+        int idx = 0;
+#pragma unroll
+        for (int p = 0; p < DR; ++p) {
+#pragma unroll
+          for (int q = p; q < DR; ++q) {
+            T jj = T(0);
+#pragma unroll
+            for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
+            buf[wib][lane][idx] = jj * dd1 + dd2 * gr[p] * gr[q];
+            ++idx;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < DR; ++p) buf[wib][lane][NP + p] = gr[p] * dd1;
+      }
+      dst[wib][lane] = cv ? cp : -1;
+      __syncwarp();
+      for (int src = 0; src < 32; ++src) {
+        const long long row = dst[wib][src];
+        if (row < 0) continue;
+        T* rp = a.rows + row * NAB;
+        for (int i = lane; i < NAB; i += 32) rp[i] = buf[wib][src][i];
+      }
+      __syncwarp();
+    }
+  }
+  // The group's sums, by a fixed butterfly: every lane of the group ends
+  // with the same bits.
+  for (int off = G >> 1; off; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NH; ++i) h[i] += __shfl_xor_sync(kFull, h[i], off);
+#pragma unroll
+    for (int i = 0; i < DL; ++i) g[i] += __shfl_xor_sync(kFull, g[i], off);
+  }
+  if (live && j == 0) {
+    const long long lt = a.L_total;
+    int idx = 0;
 #pragma unroll
     for (int e1 = 0; e1 < DL; ++e1) {
-      const size_t ig = e1 * lt + lg;
-      g_l[ig] = ACCUM ? g_l[ig] + g[e1] : g[e1];
+      const long long ig = e1 * lt + l;
+      a.g_l[ig] = ACCUM ? a.g_l[ig] + g[e1] : g[e1];
 #pragma unroll
       for (int e2 = e1; e2 < DL; ++e2) {
-        const size_t i12 = (e1 * DL + e2) * lt + lg;
-        const T hv = ACCUM ? h_ll[i12] + h[e1][e2] : h[e1][e2];
-        h_ll[i12] = hv;
-        h_ll[(e2 * DL + e1) * lt + lg] = hv;
+        const long long i12 = (e1 * DL + e2) * lt + l;
+        const T hv = ACCUM ? a.h_ll[i12] + h[idx] : h[idx];
+        a.h_ll[i12] = hv;
+        a.h_ll[(e2 * DL + e1) * lt + l] = hv;
+        ++idx;
       }
     }
   }
 }
 
-template <typename T, bool ACCUM, bool CAM>
-int launch_fused_obs_all(const void* jac, const void* g0, const void* d1,
-                         const void* d2, const void* vc, const void* cpos,
-                         void* h_ll, void* g_l, void* w, void* rows, int n,
-                         int s, int k, int l, int l_total, int l_base, int n_r,
-                         int n_rows, int dr_s, int dl, int e_start,
-                         void* stream) {
-  if (l == 0) return 0;
-  constexpr int kThreads = 64;
-  const int blocks = (l + kThreads - 1) / kThreads;
+template <typename T, bool ACCUM, bool CAM, bool TABLE>
+int launch(const AsmArgs<T>& args, int n, int s, int dr_s, int dl, int n_warps,
+           void* stream) {
+  if (n_warps <= 0) return 0;
+  constexpr int W = warps_per_block<T>();
+  const int blocks = (n_warps + W - 1) / W;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* jac_t = static_cast<const T*>(jac);
-  const T* g0_t = static_cast<const T*>(g0);
-  const T* d1_t = static_cast<const T*>(d1);
-  const T* d2_t = static_cast<const T*>(d2);
-  const int* vc_t = static_cast<const int*>(vc);
-  const int* cp_t = static_cast<const int*>(cpos);
-  T* h_t = static_cast<T*>(h_ll);
-  T* g_t = static_cast<T*>(g_l);
-  T* w_t = static_cast<T*>(w);
-  T* r_t = static_cast<T*>(rows);
   if (n == 2 && dr_s == 6 && dl == 3 && s == 9) {
-    fused_obs_all_kernel<T, 2, 6, 3, ACCUM, CAM><<<blocks, kThreads, 0, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, cp_t, h_t, g_t, w_t, r_t, k, l, l_total,
-        l_base, n_r, n_rows, e_start);
+    assemble_kernel<T, 2, 6, 3, ACCUM, CAM, TABLE><<<blocks, W * 32, 0, st>>>(args);
   } else if (n == 2 && dr_s == 9 && dl == 3 && s == 12) {
-    fused_obs_all_kernel<T, 2, 9, 3, ACCUM, CAM><<<blocks, kThreads, 0, st>>>(
-        jac_t, g0_t, d1_t, d2_t, vc_t, cp_t, h_t, g_t, w_t, r_t, k, l, l_total,
-        l_base, n_r, n_rows, e_start);
+    assemble_kernel<T, 2, 9, 3, ACCUM, CAM, TABLE><<<blocks, W * 32, 0, st>>>(args);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// B1 and B8: one [K, L] tile, G from K.
+template <typename T, bool CAM>
+int launch_uniform(const void* jac, const void* g0, const void* d1,
+                   const void* d2, const void* vc, const void* cpos,
+                   void* h_ll, void* g_l, void* w, void* rows, int n, int s,
+                   int k, int l, int n_r, int n_rows, int dr_s, int dl,
+                   int e_start, long long jsn, long long jss, long long gss,
+                   long long sk, long long sl, long long gk, long long gl,
+                   void* stream) {
+  if (l == 0) return 0;
+  int lg2 = 0;
+  while (lg2 < 5 && (1 << lg2) < k) ++lg2;
+  AsmArgs<T> a{};
+  a.jac = static_cast<const T*>(jac);
+  a.g0 = static_cast<const T*>(g0);
+  a.d1 = static_cast<const T*>(d1);
+  a.d2 = static_cast<const T*>(d2);
+  a.vc = static_cast<const int*>(vc);
+  a.cpos = static_cast<const int*>(cpos);
+  a.h_ll = static_cast<T*>(h_ll);
+  a.g_l = static_cast<T*>(g_l);
+  a.w = static_cast<T*>(w);
+  a.rows = static_cast<T*>(rows);
+  a.jsn = jsn;
+  a.jss = jss;
+  a.gss = gss;
+  a.sk = sk;
+  a.sl = sl;
+  a.gk = gk;
+  a.gl = gl;
+  a.K = k;
+  a.L = l;
+  a.lg2 = lg2;
+  a.L_total = l;
+  a.n_r = n_r;
+  a.n_rows = n_rows;
+  a.e_start = e_start;
+  const int per = 32 >> lg2;
+  return launch<T, false, CAM, false>(a, n, s, dr_s, dl, (l + per - 1) / per, stream);
+}
+
+// B2: the whole batch, one launch over the work list.
+template <typename T>
+int launch_table(const void* jac, const void* g0, const void* d1,
+                 const void* d2, const void* vc, const void* cpos,
+                 const void* slots, const void* starts, const void* work,
+                 void* h_ll, void* g_l, void* w, void* rows, int n, int s,
+                 int n_work, int l_total, int n_r, int n_rows, int dr_s,
+                 int dl, int e_start, long long jsn, long long jss,
+                 long long gss, long long gk, void* stream) {
+  AsmArgs<T> a{};
+  a.jac = static_cast<const T*>(jac);
+  a.g0 = static_cast<const T*>(g0);
+  a.d1 = static_cast<const T*>(d1);
+  a.d2 = static_cast<const T*>(d2);
+  a.vc = static_cast<const int*>(vc);
+  a.cpos = static_cast<const int*>(cpos);
+  a.slots = static_cast<const int*>(slots);
+  a.starts = static_cast<const int*>(starts);
+  a.work = static_cast<const int*>(work);
+  a.h_ll = static_cast<T*>(h_ll);
+  a.g_l = static_cast<T*>(g_l);
+  a.w = static_cast<T*>(w);
+  a.rows = static_cast<T*>(rows);
+  a.jsn = jsn;
+  a.jss = jss;
+  a.gss = gss;
+  a.gk = gk;
+  a.n_work = n_work;
+  a.L_total = l_total;
+  a.n_r = n_r;
+  a.n_rows = n_rows;
+  a.e_start = e_start;
+  return launch<T, true, true, true>(a, n, s, dr_s, dl, n_work, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-int fused_obs_all_f32(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, const void* cpos,
-                      void* h_ll, void* g_l, void* w, void* rows, int n, int s,
-                      int k, int l, int n_r, int n_rows, int dr_s, int dl,
-                      int e_start, void* stream) {
-  return launch_fused_obs_all<float, false, true>(
-      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l, 0, n_r,
-      n_rows, dr_s, dl, e_start, stream);
-}
-
-int fused_obs_all_f64(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, const void* cpos,
-                      void* h_ll, void* g_l, void* w, void* rows, int n, int s,
-                      int k, int l, int n_r, int n_rows, int dr_s, int dl,
-                      int e_start, void* stream) {
-  return launch_fused_obs_all<double, false, true>(
-      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l, 0, n_r,
-      n_rows, dr_s, dl, e_start, stream);
-}
+#define NLLSTPU_UNIFORM(NAME, T, CAM)                                          \
+  int NAME(const void* jac, const void* g0, const void* d1, const void* d2,    \
+           const void* vc, const void* cpos, void* h_ll, void* g_l, void* w,   \
+           void* rows, int n, int s, int k, int l, int n_r, int n_rows,        \
+           int dr_s, int dl, int e_start, long long jsn, long long jss,        \
+           long long gss, long long sk, long long sl, long long gk,            \
+           long long gl, void* stream) {                                       \
+    return launch_uniform<T, CAM>(jac, g0, d1, d2, vc, cpos, h_ll, g_l, w,     \
+                                  rows, n, s, k, l, n_r, n_rows, dr_s, dl,     \
+                                  e_start, jsn, jss, gss, sk, sl, gk, gl,      \
+                                  stream);                                     \
+  }
+NLLSTPU_UNIFORM(fused_obs_all_f32, float, true)
+NLLSTPU_UNIFORM(fused_obs_all_f64, double, true)
+NLLSTPU_UNIFORM(fused_obs_leg_f32, float, false)
+NLLSTPU_UNIFORM(fused_obs_leg_f64, double, false)
+#undef NLLSTPU_UNIFORM
 
 int fused_obs_all_into_f32(const void* jac, const void* g0, const void* d1,
                            const void* d2, const void* vc, const void* cpos,
-                           void* h_ll, void* g_l, void* w, void* rows, int n,
-                           int s, int k, int l, int l_total, int l_base,
+                           const void* slots, const void* starts,
+                           const void* work, void* h_ll, void* g_l, void* w,
+                           void* rows, int n, int s, int n_work, int l_total,
                            int n_r, int n_rows, int dr_s, int dl, int e_start,
-                           void* stream) {
-  return launch_fused_obs_all<float, true, true>(
-      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l_total,
-      l_base, n_r, n_rows, dr_s, dl, e_start, stream);
+                           long long jsn, long long jss, long long gss,
+                           long long gk, void* stream) {
+  return launch_table<float>(jac, g0, d1, d2, vc, cpos, slots, starts, work,
+                             h_ll, g_l, w, rows, n, s, n_work, l_total, n_r,
+                             n_rows, dr_s, dl, e_start, jsn, jss, gss, gk,
+                             stream);
 }
 
 int fused_obs_all_into_f64(const void* jac, const void* g0, const void* d1,
                            const void* d2, const void* vc, const void* cpos,
-                           void* h_ll, void* g_l, void* w, void* rows, int n,
-                           int s, int k, int l, int l_total, int l_base,
+                           const void* slots, const void* starts,
+                           const void* work, void* h_ll, void* g_l, void* w,
+                           void* rows, int n, int s, int n_work, int l_total,
                            int n_r, int n_rows, int dr_s, int dl, int e_start,
-                           void* stream) {
-  return launch_fused_obs_all<double, true, true>(
-      jac, g0, d1, d2, vc, cpos, h_ll, g_l, w, rows, n, s, k, l, l_total,
-      l_base, n_r, n_rows, dr_s, dl, e_start, stream);
-}
-
-int fused_obs_leg_f32(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, void* h_ll, void* g_l,
-                      void* w, int n, int s, int k, int l, int n_r, int dr_s,
-                      int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<float, false, false>(
-      jac, g0, d1, d2, vc, nullptr, h_ll, g_l, w, nullptr, n, s, k, l, l, 0,
-      n_r, 0, dr_s, dl, e_start, stream);
-}
-
-int fused_obs_leg_f64(const void* jac, const void* g0, const void* d1,
-                      const void* d2, const void* vc, void* h_ll, void* g_l,
-                      void* w, int n, int s, int k, int l, int n_r, int dr_s,
-                      int dl, int e_start, void* stream) {
-  return launch_fused_obs_all<double, false, false>(
-      jac, g0, d1, d2, vc, nullptr, h_ll, g_l, w, nullptr, n, s, k, l, l, 0,
-      n_r, 0, dr_s, dl, e_start, stream);
+                           long long jsn, long long jss, long long gss,
+                           long long gk, void* stream) {
+  return launch_table<double>(jac, g0, d1, d2, vc, cpos, slots, starts, work,
+                              h_ll, g_l, w, rows, n, s, n_work, l_total, n_r,
+                              n_rows, dr_s, dl, e_start, jsn, jss, gss, gk,
+                              stream);
 }
 
 const char* kernel_error_string(int code) {

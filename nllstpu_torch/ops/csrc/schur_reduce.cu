@@ -5,30 +5,34 @@
 // _kernel_lm_damped -> _lm_reduce_body / _lm_reduce_body_panels).  One
 // kernel covers every reduced width: the TPU split into a narrow and a
 // column-panel body existed only to fit its scoped VMEM.
-// B5 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel):
-// the same body in its external mode, which reads the inverses instead of
-// forming them, for dl = 1 .. 6.  The TPU kernel's components-major W, its
-// bf16x3 products and its landmark padding are not carried over; rhs is
-// full precision in both modes, as there.
 // B4 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body
-// _kernel_lm), B5's function for the TPU's p-major W of the obs-major
-// assemblies.  Here that W has the same landmark-major layout as B5's, so
-// B4 is B5's entry point called on an obs-major W (the wrapper counts the
-// two routes apart): the float64 direct solve runs through it.
+// _kernel_lm), the reduction over external inverses for the TPU's p-major
+// W of the obs-major assemblies.  Here that W is landmark-major, and B4 is
+// B3's dense body in its external mode, for dl = 1 .. 6: the float64
+// direct solve runs through it.
+// B5 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel),
+// the same reduction over the generic assembly's W (the adaptive kernel's
+// batch).  Its W is sparse by structure - a landmark's row holds its
+// cameras' column blocks and the kernel block, ~100 of 1155 columns on the
+// adaptive BAL path - so B5 reduces over the structure instead (below).
+// The TPU kernels' components-major W, bf16x3 products and landmark
+// padding are not carried over; rhs is full precision, as there.
 //
 // Inputs:  w [L, dl, wc] (landmark-major coupling, standard basis),
 //          B3: h_ll [dl, dl, L] (undamped) and lambda;
-//          B5: h_inv [dl, dl, L] (the damped inverses, formed outside);
+//          B4: h_inv [dl, dl, L] (the damped inverses, formed outside);
+//          B5: h_inv [L, dl, dl] and g_l [L, dl] (landmark-major) and the
+//          structure tables;
 //          g_l [dl, L].
 // Outputs: s_sum [wc, wc] = sum_l W_l^T (h_ll,l + lambda I)^-1 W_l
 //          rhs   [wc]     = sum_l W_l^T (h_ll,l + lambda I)^-1 g_l,l
 //          B3 only: h_inv [dl, dl, L], the damped inverses the
 //          back-substitution needs.
 //
-// With Y = H^-1 W (never stored), s_sum = Y^T W is a [wc, K] x [K, wc]
-// product over K = L * dl, both operands being the row-major [K, wc]
-// matrices Y and W.  The contraction is this kernel's own tiled FP32 (or
-// FP64) FMA loop:
+// B3 and B4, the dense body.  With Y = H^-1 W (never stored), s_sum =
+// Y^T W is a [wc, K] x [K, wc] product over K = L * dl, both operands
+// being the row-major [K, wc] matrices Y and W.  The contraction is this
+// kernel's own tiled FP32 (or FP64) FMA loop:
 //   * a block owns one 64 x 64 tile of s_sum and one slice of the
 //     landmarks (split-K); only tiles on or above the diagonal run, and
 //     the lower triangle is mirrored when the partials are reduced;
@@ -46,9 +50,23 @@
 //   * a second small kernel sums the split-K partials in a fixed order,
 //     so the result is deterministic.
 // Bound: the FMA rate out of shared memory - about 2 FMAs per shared load
-// with this register tile.  wgmma, TMA, 3xTF32 and skipping the ~90% of
-// W that is structurally zero are later work.
-
+// with this register tile.  wgmma, TMA and 3xTF32 are later work.
+//
+// B5, the structured body.  W's columns fall into blocks (a camera's
+// dr_s columns, the kernel's k columns); the tables list, for every block
+// pair i <= j that some landmark holds both of, those landmarks in
+// ascending order, cut into items of at most a few dozen landmarks.  One
+// warp takes one item: lane a of a group of w_i lanes owns row a of the
+// output block, forms Y_l[:, a] = H_l^-1 W_l[:, i_a] from the landmark's
+// inverse, and adds Y_l[:, a] . W_l[:, j_b] for every column b of block j;
+// 32 / w_i groups take interleaved landmarks of the item, and the groups'
+// partials are added in group order.  Diagonal items (i = j) also sum rhs
+// in double.  A second kernel adds each pair's item partials in item order
+// and writes the block and, below the diagonal, its mirror; every other
+// entry of s_sum stays zero.  No atomics: two launches give the same bits.
+// It reads only W's nonzero blocks (about 10 MB on the adaptive path, which
+// stays in L2 across the pairs that reread them) and does the structural
+// work, ~40x less than the dense product.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -97,7 +115,7 @@ __device__ void damped_inverse(const T* __restrict__ h_ll, int L, int l,
 }
 
 // EXTERNAL = false: B3, h_in holds h_ll and the damped inverses are formed
-// here (and written to h_inv by the (0, 0) tiles).  EXTERNAL = true: B5,
+// here (and written to h_inv by the (0, 0) tiles).  EXTERNAL = true: B4,
 // h_in holds the inverses; lam and h_inv are unused.
 template <typename T, int DL, bool EXTERNAL>
 __global__ void __launch_bounds__(kTile * kTile) reduce_s_kernel(
@@ -284,7 +302,7 @@ int launch_reduce_s(const void* w, const void* h_in, const void* g_l,
 #define NLLSTPU_BODY(D)                                                      \
   launch_body<T, D, EXTERNAL>(grid, st, w_t, h_t, g_t, lam_t, sp_t, rp_t, \
                               hi_t, l, wc, l_per_split)
-  // B3 forms the closed-form inverse, dl <= 3; B5 takes dl up to 6.
+  // B3 forms the closed-form inverse, dl <= 3; B4 takes dl up to 6.
   switch (dl) {
     case 1: NLLSTPU_BODY(1); break;
     case 2: NLLSTPU_BODY(2); break;
@@ -305,6 +323,167 @@ int launch_reduce_s(const void* w, const void* h_in, const void* g_l,
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   sum_partials_kernel<T><<<blocks, threads, 0, st>>>(
       sp_t, rp_t, static_cast<T*>(s_sum), static_cast<T*>(rhs), wc, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5: one warp per item of the pair tables (see the header).
+constexpr int kPairWarps = 4;
+constexpr int kMaxWidth = 16;  // widest column block
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <typename T, int DL>
+__global__ void __launch_bounds__(kPairWarps * 32) reduce_pairs_kernel(
+    const T* __restrict__ w, const T* __restrict__ h_inv,
+    const T* __restrict__ g_l, const int* __restrict__ items,
+    const int* __restrict__ pairs, const int* __restrict__ bcol,
+    const int* __restrict__ bwidth, const int* __restrict__ lmk,
+    T* __restrict__ part, double* __restrict__ rpart, int wc, int n_items,
+    int mw) {
+  const int it = blockIdx.x * kPairWarps + (threadIdx.x >> 5);
+  if (it >= n_items) return;
+  const int lane = threadIdx.x & 31;
+  const int pr = items[3 * it];
+  const int p0 = items[3 * it + 1];
+  const int p1 = items[3 * it + 2];
+  const int bi = pairs[2 * pr];
+  const int bj = pairs[2 * pr + 1];
+  const int ci = bcol[bi], wi = bwidth[bi];
+  const int cj = bcol[bj], wj = bwidth[bj];
+  const bool diag = bi == bj;
+  const int groups = 32 / wi;
+  const int grp = lane / wi;
+  const int a = lane - grp * wi;
+  T acc[kMaxWidth];
+#pragma unroll
+  for (int b = 0; b < kMaxWidth; ++b) acc[b] = T(0);
+  double racc = 0.0;
+  if (grp < groups) {
+    for (int p = p0 + grp; p < p1; p += groups) {
+      const long long l = lmk[p];
+      const T* wl = w + l * DL * wc;
+      const T* hl = h_inv + l * DL * DL;
+      T wa[DL], y[DL];
+#pragma unroll
+      for (int d = 0; d < DL; ++d) wa[d] = wl[d * static_cast<long long>(wc) + ci + a];
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        T t = T(0);
+#pragma unroll
+        for (int d = 0; d < DL; ++d) t += hl[e * DL + d] * wa[d];
+        y[e] = t;
+      }
+#pragma unroll
+      for (int b = 0; b < kMaxWidth; ++b) {
+        if (b < wj) {
+          T t = T(0);
+#pragma unroll
+          for (int e = 0; e < DL; ++e) t += y[e] * wl[e * static_cast<long long>(wc) + cj + b];
+          acc[b] += t;
+        }
+      }
+      if (diag) {
+#pragma unroll
+        for (int e = 0; e < DL; ++e)
+          racc += static_cast<double>(y[e]) * static_cast<double>(g_l[l * DL + e]);
+      }
+    }
+  }
+  // The groups' partials, added in group order into group 0.
+  for (int g = 1; g < groups; ++g) {
+    const int src = g * wi + a;
+#pragma unroll
+    for (int b = 0; b < kMaxWidth; ++b) {
+      if (b < wj) {
+        const T v = __shfl_sync(kFullMask, acc[b], src & 31);
+        if (grp == 0) acc[b] += v;
+      }
+    }
+    const double r = __shfl_sync(kFullMask, racc, src & 31);
+    if (grp == 0) racc += r;
+  }
+  if (grp == 0) {
+    T* out = part + static_cast<long long>(it) * mw * mw + a * wj;
+#pragma unroll
+    for (int b = 0; b < kMaxWidth; ++b)
+      if (b < wj) out[b] = acc[b];
+    if (diag) rpart[static_cast<long long>(it) * mw + a] = racc;
+  }
+}
+
+// Each pair's block: its items' partials in item order, written at (i, j)
+// and mirrored at (j, i); rhs from the diagonal pairs, in double.
+template <typename T>
+__global__ void sum_pairs_kernel(const T* __restrict__ part,
+                                 const double* __restrict__ rpart,
+                                 const int* __restrict__ pairs,
+                                 const int* __restrict__ istarts,
+                                 const int* __restrict__ bcol,
+                                 const int* __restrict__ bwidth,
+                                 T* __restrict__ s_sum, T* __restrict__ rhs,
+                                 int wc, int n_pairs, int mw) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int mw2 = mw * mw;
+  const long long pr = idx / mw2;
+  if (pr >= n_pairs) return;
+  const int e = static_cast<int>(idx - pr * mw2);
+  const int bi = pairs[2 * pr], bj = pairs[2 * pr + 1];
+  const int wi = bwidth[bi], wj = bwidth[bj];
+  if (e >= wi * wj) return;
+  const int a = e / wj, b = e % wj;
+  const long long r = bcol[bi] + a, c = bcol[bj] + b;
+  const int i0 = istarts[pr], i1 = istarts[pr + 1];
+  T acc = T(0);
+  for (int it = i0; it < i1; ++it) acc += part[static_cast<long long>(it) * mw2 + e];
+  s_sum[r * wc + c] = acc;
+  if (bi != bj) s_sum[c * wc + r] = acc;
+  if (bi == bj && e < wi) {
+    double racc = 0.0;
+    for (int it = i0; it < i1; ++it) racc += rpart[static_cast<long long>(it) * mw + e];
+    rhs[bcol[bi] + e] = static_cast<T>(racc);
+  }
+}
+
+template <typename T>
+int launch_reduce_pairs(const void* w, const void* h_inv, const void* g_l,
+                        const void* items, const void* pairs, const void* bcol,
+                        const void* bwidth, const void* lmk,
+                        const void* istarts, void* part, void* rpart,
+                        void* s_sum, void* rhs, int dl, int wc, int n_items,
+                        int n_pairs, int mw, void* stream) {
+  if (mw > kMaxWidth || mw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pairs == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* w_t = static_cast<const T*>(w);
+  const T* h_t = static_cast<const T*>(h_inv);
+  const T* g_t = static_cast<const T*>(g_l);
+  const int* it_t = static_cast<const int*>(items);
+  const int* pr_t = static_cast<const int*>(pairs);
+  const int* bc_t = static_cast<const int*>(bcol);
+  const int* bw_t = static_cast<const int*>(bwidth);
+  const int* lm_t = static_cast<const int*>(lmk);
+  T* part_t = static_cast<T*>(part);
+  double* rp_t = static_cast<double*>(rpart);
+  const int blocks = (n_items + kPairWarps - 1) / kPairWarps;
+#define NLLSTPU_PAIRS(D)                                                     \
+  reduce_pairs_kernel<T, D><<<blocks, kPairWarps * 32, 0, st>>>(            \
+      w_t, h_t, g_t, it_t, pr_t, bc_t, bw_t, lm_t, part_t, rp_t, wc, n_items, mw)
+  switch (dl) {
+    case 1: NLLSTPU_PAIRS(1); break;
+    case 2: NLLSTPU_PAIRS(2); break;
+    case 3: NLLSTPU_PAIRS(3); break;
+    case 4: NLLSTPU_PAIRS(4); break;
+    case 5: NLLSTPU_PAIRS(5); break;
+    case 6: NLLSTPU_PAIRS(6); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef NLLSTPU_PAIRS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(n_pairs) * mw * mw;
+  const int threads = 256;
+  sum_pairs_kernel<T><<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, st>>>(
+      part_t, rp_t, pr_t, static_cast<const int*>(istarts), bc_t, bw_t,
+      static_cast<T*>(s_sum), static_cast<T*>(rhs), wc, n_pairs, mw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,20 +509,34 @@ int reduce_s_damped_f64(const void* w, const void* h_ll, const void* g_l,
                                         stream);
 }
 
-int reduce_s_f32(const void* w, const void* h_inv, const void* g_l,
-                 void* s_part, void* r_part, void* s_sum, void* rhs, int l,
-                 int dl, int wc, int splits, void* stream) {
+int reduce_s_lm_f32(const void* w, const void* h_inv, const void* g_l,
+                    void* s_part, void* r_part, void* s_sum, void* rhs, int l,
+                    int dl, int wc, int splits, void* stream) {
   return launch_reduce_s<float, true>(w, h_inv, g_l, 0.0, s_part, r_part,
                                       s_sum, rhs, nullptr, l, dl, wc, splits,
                                       stream);
 }
 
-int reduce_s_f64(const void* w, const void* h_inv, const void* g_l,
-                 void* s_part, void* r_part, void* s_sum, void* rhs, int l,
-                 int dl, int wc, int splits, void* stream) {
+int reduce_s_lm_f64(const void* w, const void* h_inv, const void* g_l,
+                    void* s_part, void* r_part, void* s_sum, void* rhs, int l,
+                    int dl, int wc, int splits, void* stream) {
   return launch_reduce_s<double, true>(w, h_inv, g_l, 0.0, s_part, r_part,
                                        s_sum, rhs, nullptr, l, dl, wc, splits,
                                        stream);
 }
+
+#define NLLSTPU_PAIRS_EXPORT(NAME, T)                                          \
+  int NAME(const void* w, const void* h_inv, const void* g_l,                  \
+           const void* items, const void* pairs, const void* bcol,             \
+           const void* bwidth, const void* lmk, const void* istarts,           \
+           void* part, void* rpart, void* s_sum, void* rhs, int dl, int wc,    \
+           int n_items, int n_pairs, int mw, void* stream) {                   \
+    return launch_reduce_pairs<T>(w, h_inv, g_l, items, pairs, bcol, bwidth,   \
+                                  lmk, istarts, part, rpart, s_sum, rhs, dl,   \
+                                  wc, n_items, n_pairs, mw, stream);           \
+  }
+NLLSTPU_PAIRS_EXPORT(reduce_s_pairs_f32, float)
+NLLSTPU_PAIRS_EXPORT(reduce_s_pairs_f64, double)
+#undef NLLSTPU_PAIRS_EXPORT
 
 }  // extern "C"

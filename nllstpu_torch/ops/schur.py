@@ -26,9 +26,10 @@ The host-side layout code (obs-major repack, bucket plan, degree counts)
 is copied from the JAX package, which cannot be imported without jax.  A
 uniform layout (one bucket) is assembled by kernel B1; a degree-bucketed
 layout (skewed track lengths, as in real BAL data) by one launch of kernel
-B2 per bucket, adding into buffers zeroed once per assembly.  Both write
-each observation's camera terms to its own row in camera order, and kernel
-B6 sums the camera runs, so the system repeats its bits.  The
+B2 over the whole batch, which takes each landmark's slots from every
+bucket through compile-time tables.  Both write each observation's camera
+terms to its own row in camera order, and kernel B6 sums the camera runs,
+so the system repeats its bits.  The
 dual-sorted route (``w_impl="fused"``, uniform layouts only) replaces B1
 by kernel B8, which writes h_ll, g_l and W, and a second Jacobian
 evaluation over the batch repacked into camera runs, whose plain sums
@@ -47,6 +48,7 @@ lane-axis gathers are slow on the TPU and is not carried over.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -257,13 +259,19 @@ class _FastBatch:
     # (−1 for the dustbin) and each camera's run of that order.
     cam_pos: np.ndarray  # [B] int32
     cam_starts: np.ndarray  # [n_r+1] int32
+    lid: np.ndarray  # [B] landmark of each column (L = pad)
+    # Kernel B2's work list over the columns (fused_obs.slot_tables; host
+    # until upload_tables places it on the device), for a bucketed layout.
+    slots: Any = None
     # Dual-sorted route (``w_impl="fused"``): the batch repacked into camera
     # runs (:func:`_cam_major_repack`; host until upload_tables places it on
     # the device) and its run length, or None.
     cam_batch: Any = None
     cam_k: Optional[int] = None
-    vc: tuple = ()  # per bucket: device int32 [k_b, L_b] camera column per slot
-    cpos: tuple = ()  # per bucket: device int32 [k_b, L_b] cam_pos per slot
+    vc_all: Any = None  # device int32 [B]: rvid (kernel B2's)
+    cpos_all: Any = None  # device int32 [B]: cam_pos (kernel B2's)
+    vc: Any = None  # one bucket: device int32 [K, L] view of vc_all (B1's, B8's tile)
+    cpos: Any = None  # one bucket: device int32 [K, L] view of cpos_all (B1's)
     cstarts: Any = None  # device int32 [n_r+1]: cam_starts
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
     rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera column
@@ -291,6 +299,12 @@ def _fast_batch_data(batch, layout, info, buckets=None):
     if info.w_impl == "fused" and len(buckets) == 1:
         cam_batch, cam_k = _cam_major_repack(batch, rvid, n_r)
     cam_pos, cam_starts = fused_obs.camera_order(rvid, n_r)
+    lid = _landmark_ids(batch, info, e)
+    slots = None
+    if len(buckets) > 1 and info.w_impl == "fused_all":
+        t0 = time.perf_counter()
+        slots = fused_obs.slot_tables(lid, rvid, info.num_elim, n_r)
+        info.table_seconds += time.perf_counter() - t0
     return _FastBatch(
         e_slot=e,
         r_slot=r_slot,
@@ -301,6 +315,8 @@ def _fast_batch_data(batch, layout, info, buckets=None):
         buckets=buckets,
         cam_pos=cam_pos,
         cam_starts=cam_starts,
+        lid=lid,
+        slots=slots,
         cam_batch=cam_batch,
         cam_k=cam_k,
     )
@@ -386,6 +402,12 @@ class SchurInfo:
     w_impl: str = "fused_all"
     # Reduced families (name, offsets [n], dof), for the preconditioner.
     fam_offsets: tuple = ()
+    # Kernel B5's structure of the direct W when a batch is landmark-sorted
+    # (schur_reduce.PairTables; host until upload_tables places it on the
+    # device), else None.
+    w_pairs: Any = None
+    # Host seconds spent building kernel B2's and B5's tables.
+    table_seconds: float = 0.0
 
 
 def build_schur_info(problem, layout, elim_manifold, batches=None,
@@ -426,7 +448,46 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
                 else _fast_batch_data(b, layout, info, buckets=bk)
                 for b, bk in zip(batches, per_batch)
             )
+            if any(isinstance(f, _RunBatch) for f in info.fast):
+                t0 = time.perf_counter()
+                info.w_pairs = w_structure(info)
+                info.table_seconds += time.perf_counter() - t0
     return info
+
+
+def w_structure(info: SchurInfo) -> schur_reduce.PairTables:
+    """Kernel B5's tables of the direct W (:func:`schur_reduce.pair_tables`):
+    its column blocks are the cameras' (``dr_s`` columns at each camera's
+    reduced rows) and an adaptive kernel's (its rows); a landmark holds
+    the blocks of the cameras its real costs see and, in a batch with an
+    adaptive kernel, the kernel's.  Every batch of ``info.fast`` adds its
+    incidences."""
+    L = info.num_elim
+    lmk, col, width = [], [], []
+    for f in info.fast:
+        if f is None:
+            continue
+        real = (f.lid < L) & (f.rvid < f.n_r)
+        lmk.append(f.lid[real])
+        if isinstance(f, _FastBatch):
+            col.append(f.rvid[real].astype(np.int64) * f.dr_s)  # compact camera columns
+        else:
+            col.append(np.asarray(f.row_base, dtype=np.int64)[f.rvid[real]])
+        width.append(np.full(lmk[-1].shape[0], f.dr_s))
+        kr = getattr(f, "kernel_rows", None)
+        if kr is not None:
+            if not np.array_equal(kr, kr[0] + np.arange(kr.shape[0])):
+                raise NotImplementedError("the adaptive kernel's reduced rows are not contiguous")
+            held = np.unique(f.lid[f.lid < L])
+            lmk.append(held)
+            col.append(np.full(held.shape[0], kr[0], dtype=np.int64))
+            width.append(np.full(held.shape[0], kr.shape[0]))
+    col, width = np.concatenate(col), np.concatenate(width)
+    bcol, first, blk = np.unique(col, return_index=True, return_inverse=True)
+    bwidth = width[first]
+    if np.any(width != bwidth[blk]):
+        raise NotImplementedError("two column blocks of W start at one column")
+    return schur_reduce.pair_tables(np.concatenate(lmk), blk, bcol, bwidth)
 
 
 def _landmark_ids(batch, info, e):
@@ -575,27 +636,32 @@ def _check_dual_route(bi: int, f) -> None:
 
 
 def upload_tables(info: SchurInfo, device, dtype) -> None:
-    """Place each batch's tables on the device: per bucket the ``[k_b,
-    L_b]`` camera columns and camera-order rows of an obs-major batch, its
-    camera runs, and its camera repack as a device batch on the
-    dual-sorted route; the run tables
-    (``_RunBatch.keys``) of a landmark-sorted one, with, on the direct
-    path, each cost's W column and the kernel rows; for both, each
+    """Place each batch's tables on the device: an obs-major batch's camera
+    columns and camera-order rows, whole (kernel B2's) and, for a uniform
+    batch, as ``[K, L]`` views (B1's and B8's, strided like its Jacobian
+    tile), kernel B2's work list, its camera runs, and its
+    camera repack as a device batch on the dual-sorted route; the run
+    tables (``_RunBatch.keys``) of a landmark-sorted one, with, on the
+    direct path, each cost's W column and the kernel rows; for both, each
     camera's reduced rows and the a_rr pair index of the ``ab`` rows
-    (upper triangle, row-major)."""
+    (upper triangle, row-major); and kernel B5's tables of W."""
+    if info.w_pairs is not None:
+        info.w_pairs = schur_reduce.upload_pairs(info.w_pairs, device)
     for f in info.fast:
         dr_s = f.dr_s
         if isinstance(f, _FastBatch):
-            f.vc, f.cpos = (
-                tuple(
-                    torch.as_tensor(
-                        np.ascontiguousarray(col[c0 : c0 + lb * kb].reshape(lb, kb).T),
-                        device=device,
-                    )
-                    for (_, lb, kb, c0) in f.buckets
-                )
+            f.vc_all, f.cpos_all = (
+                torch.as_tensor(col, dtype=torch.int32, device=device)
                 for col in (f.rvid, f.cam_pos)
             )
+            if len(f.buckets) == 1:
+                ((_, lb, kb, c0),) = f.buckets
+                f.vc, f.cpos = (col[c0 : c0 + lb * kb].view(lb, kb).T
+                                for col in (f.vc_all, f.cpos_all))
+            if f.slots is not None:
+                f.slots = fused_obs.SlotTables(
+                    *(torch.as_tensor(t, device=device) for t in f.slots)
+                )
             f.cstarts = torch.as_tensor(f.cam_starts, device=device)
             if f.cam_batch is not None:
                 f.cam_batch = engine.device_batch(f.cam_batch, device, dtype)
@@ -635,36 +701,51 @@ def _pair_of(dr_s: int, device):
     return torch.as_tensor(pair_of.reshape(-1), device=device)
 
 
-def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
-    """``(cost, args)``: the batch's masked cost and, per bucket, the
-    arguments of kernel B8 — the K-major run tiles ``jac [n, S, k_b,
-    L_b]``, ``g0``, ``ρ′·mask``, ``2ρ″·mask`` and the camera columns, then
-    ``(n_r, dr_s, dl, e_start)``; B1 and B2 take the bucket's camera-order
-    rows (``fast.cpos``) after the camera columns, and B1 the camera runs
-    (``fast.cstarts``)."""
-    e = fast.e_slot
+def _weighted(batch, variables, fast: _FastBatch, dtype):
+    """``(cost, jac [n, S, B], g0 [S, B], ρ′·mask, 2ρ″·mask)`` of an
+    obs-major batch."""
     cost, _, jac, g0, d1, d2, _ = engine.batch_res_jac_cm(
-        batch, variables, runs=(e, fast.buckets)
+        batch, variables, runs=(fast.e_slot, fast.buckets)
     )
     mval = batch.mask.to(dtype)
-    d1m = d1 * mval
-    d2m = 2.0 * d2 * mval
+    return cost, jac, g0, d1 * mval, 2.0 * d2 * mval
+
+
+def batch_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
+    """``(cost, head, tail)``: the batch's masked cost and kernel B2's
+    arguments around its buffers — ``head = (jac [n, S, B], g0 [S, B],
+    ρ′·mask, 2ρ″·mask, camera columns, camera-order rows, slot tables)``,
+    ``tail = (n_r, dr_s, dl, e_start)``."""
+    cost, jac, g0, d1m, d2m = _weighted(batch, variables, fast, dtype)
+    e0 = sum(m.dof for m in batch.manifolds[: fast.e_slot])
+    return cost, (jac, g0, d1m, d2m, fast.vc_all, fast.cpos_all, fast.slots), (
+        fast.n_r, fast.dr_s, info.dof_elim, e0)
+
+
+def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
+    """``(cost, args)``: a uniform batch's masked cost and the arguments of
+    kernel B8 — the tile ``jac [n, S, K, L]``, ``g0``, ``ρ′·mask``,
+    ``2ρ″·mask`` and the camera columns (views of the batch,
+    landmark-major in memory), then ``(n_r, dr_s, dl, e_start)``; B1 takes
+    the camera-order rows (``fast.cpos``) after the camera columns, and
+    the camera runs (``fast.cstarts``)."""
+    if len(fast.buckets) != 1:
+        raise ValueError(f"fused_inputs: {len(fast.buckets)} buckets; B1 and B8 take one")
+    ((_, lb, kb, c0),) = fast.buckets
+    cost, jac, g0, d1m, d2m = _weighted(batch, variables, fast, dtype)
     nres, stot = jac.shape[0], jac.shape[1]
-    args = []
-    for (_, lb, kb, c0), vc in zip(fast.buckets, fast.vc):
-        sl = slice(c0, c0 + lb * kb)
-        args.append((
-            jac[:, :, sl].reshape(nres, stot, lb, kb).transpose(2, 3),
-            g0[:, sl].reshape(stot, lb, kb).transpose(1, 2),
-            d1m[sl].reshape(lb, kb).T,
-            d2m[sl].reshape(lb, kb).T,
-            vc,
-            fast.n_r,
-            fast.dr_s,
-            info.dof_elim,
-            sum(m.dof for m in batch.manifolds[:e]),
-        ))
-    return cost, args
+    sl = slice(c0, c0 + lb * kb)
+    return cost, (
+        jac[:, :, sl].reshape(nres, stot, lb, kb).transpose(2, 3),
+        g0[:, sl].reshape(stot, lb, kb).transpose(1, 2),
+        d1m[sl].reshape(lb, kb).T,
+        d2m[sl].reshape(lb, kb).T,
+        fast.vc,
+        fast.n_r,
+        fast.dr_s,
+        info.dof_elim,
+        sum(m.dof for m in batch.manifolds[: fast.e_slot]),
+    )
 
 
 def assemble_schur(batches, variables, info: SchurInfo, dtype,
@@ -676,10 +757,10 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
     """``(cost, (a_rr, b_r, h_ll, g_l, w))`` for the direct solve.  An
     obs-major batch goes through the whole-system assembly kernels, one
     pass over its obs-major Jacobian: kernel B1 for a single bucket, one
-    launch of kernel B2 per bucket, in plan order, for a degree-bucketed
-    batch, then one ``segment_sum`` (kernel B6) over the camera runs of
-    the per-slot camera rows that B2 wrote (B1 makes that sum itself): the
-    system has the same bits on every assembly.  On the dual-sorted route
+    launch of kernel B2 over every bucket of a degree-bucketed batch, then
+    one ``segment_sum`` (kernel B6) over the camera runs of the per-slot
+    camera rows that B2 wrote (B1 makes that sum itself): the system has
+    the same bits on every assembly.  On the dual-sorted route
     (``info.w_impl == "fused"``) kernel B8 makes that pass without the
     camera side, and the camera-major leg (:func:`_fast_dual_cam_leg`)
     sums a_rr and b_r over camera runs.  A landmark-sorted (adaptive)
@@ -703,32 +784,33 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             total = total + cost
             w = w_b if w is None else w + w_b
             continue
+        n_r, dr_s = fast.n_r, fast.dr_s
+        if fast.slots is not None:
+            # B2 adds into h_ll and g_l, writes W's blocks into a zeroed W
+            # and each real slot's camera row once.
+            cost, head, tail = batch_inputs(batch, variables, info, fast, dtype)
+            total = total + cost
+            w_b = torch.zeros(L, dl, n_r * dr_s, dtype=dtype, device=dev)
+            rows = torch.empty(int(fast.cam_starts[-1]), dr_s * (dr_s + 3) // 2,
+                               dtype=dtype, device=dev)
+            assemble_into_kernel(*head, h_ll, g_l, w_b, rows, *tail)
+            w = w_b if w is None else w + w_b
+            _add_camera_blocks(a_rr, b_r, segment_sum(rows, fast.cstarts), fast.pair_of,
+                               fast.rows)
+            continue
         cost, args = fused_inputs(batch, variables, info, fast, dtype)
         total = total + cost
-        n_r, dr_s = fast.n_r, fast.dr_s
         if info.w_impl == "fused":
-            h_add, g_add, w_b = assemble_leg(*args[0])
+            h_add, g_add, w_b = assemble_leg(*args)
             h_ll += h_add
             g_l += g_add
             w = w_b if w is None else w + w_b
             _fast_dual_cam_leg(fast, variables, info.dof_elim, dtype, a_rr, b_r)
             continue
-        if len(args) == 1:
-            a = args[0]
-            h_add, g_add, w_b, ab = assemble_kernel(*a[:5], fast.cpos[0], fast.cstarts, *a[5:])
-            h_ll += h_add
-            g_l += g_add
-            w = w_b if w is None else w + w_b
-        else:
-            # B2 adds into h_ll, g_l and W in place (W zeroed once) and
-            # writes each real slot's camera row once.
-            if w is None:
-                w = torch.zeros(L, dl, n_r * dr_s, dtype=dtype, device=dev)
-            rows = torch.empty(int(fast.cam_starts[-1]), dr_s * (dr_s + 3) // 2,
-                               dtype=dtype, device=dev)
-            for (l0, _, _, _), a, cpos in zip(fast.buckets, args, fast.cpos):
-                assemble_into_kernel(*a[:5], cpos, h_ll, g_l, w, rows, l0, *a[5:])
-            ab = segment_sum(rows, fast.cstarts)
+        h_add, g_add, w_b, ab = assemble_kernel(*args[:5], fast.cpos, fast.cstarts, *args[5:])
+        h_ll += h_add
+        g_l += g_add
+        w = w_b if w is None else w + w_b
         _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, fast.rows)
     return total, (a_rr, b_r, h_ll, g_l, w)
 
@@ -913,33 +995,40 @@ class _SchurSystem:
 @dataclasses.dataclass(frozen=True)
 class SchurOps(_SchurSystem):
     """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``, routed as
-    the JAX package routes it (``SchurOps._solve``).  An obs-major W
-    (kernels B1, B2, B8) in float32 with dl ≤ 3 goes to ``reduce`` (kernel
-    B3), which forms the damped inverses itself.  Every other W has its
-    inverses formed in float64 (:meth:`damped_inverse`) and reduced over by
-    ``reduce_external``: kernel B4 for an obs-major W — every float64
-    solve —, kernel B5 with ``external_inverse`` (W from the generic
-    assembly, the JAX package's standard-layout route)."""
+    the JAX package routes it (``SchurOps._solve``).  The generic
+    assembly's W (a landmark-sorted batch, the JAX package's
+    standard-layout route) comes with its structure ``pairs`` and goes to
+    ``reduce_external`` (kernel B5) over inverses formed in float64
+    (:meth:`damped_inverse`).  An obs-major W (kernels B1, B2, B8) in
+    float32 with dl ≤ 3 goes to ``reduce`` (kernel B3), which forms the
+    damped inverses itself; any other obs-major W — every float64 solve —
+    to ``reduce_lm`` (kernel B4) over inverses formed in float64."""
 
     dim_reduced: int
     #: damped reduction: kernel B3's dispatcher, or its plain version.
     reduce: Callable = schur_reduce.reduce_s_damped
-    #: reduction over external inverses: the dispatcher of kernels B4
-    #: (``obs_major=True``) and B5, or their plain version.
+    #: reduction over external inverses of an obs-major W: kernel B4's
+    #: dispatcher, or its plain version.
+    reduce_lm: Callable = schur_reduce.reduce_s_lm
+    #: the same over the generic W's structure: kernel B5's dispatcher, or
+    #: its plain version.
     reduce_external: Callable = schur_reduce.reduce_s
-    external_inverse: bool = False
+    #: kernel B5's tables of the generic W (``SchurInfo.w_pairs``), else
+    #: None.
+    pairs: Any = dataclasses.field(default=None, compare=False)
 
     def solve(self, sys, lam):
         """x with (H + λI) x = g, through the damped reduction."""
         a_rr, b_r, h_ll, g_l, w = sys
         L, dl, wc = w.shape
-        if not self.external_inverse and w.dtype == torch.float32 and dl <= 3:
+        if self.pairs is not None:
+            h_inv = self.damped_inverse(h_ll, lam)
+            s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
+        elif w.dtype == torch.float32 and dl <= 3:
             s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam)
         else:
             h_inv = self.damped_inverse(h_ll, lam)
-            s_sum, rhs_sum = self.reduce_external(
-                w, h_inv, g_l, obs_major=not self.external_inverse
-            )
+            s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l)
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
         xr = cholesky_solve(a_rr + lam * eye - s_sum, b_r - rhs_sum)
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]

@@ -123,8 +123,8 @@ def test_make_bal_problem_rejects_unported_forms():
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_bucketed_assembly_and_solve_match_jax(shape):
-    """The degree-bucketed system (one B2 plain-version call per bucket)
-    and the damped solve against the JAX package's one-hot assembly."""
+    """The degree-bucketed system (one B2 plain-version call over every
+    bucket) and the damped solve against the JAX package's one-hot assembly."""
     jp, tp = _pair(shape)
     jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
     tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)

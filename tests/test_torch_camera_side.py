@@ -90,10 +90,16 @@ def test_camera_tables(case):
         mask = batch.mask.numpy()
         assert (fixed_cols & mask).any() and np.all(cpos[fixed_cols] == -1)
         assert fast.n_r == 7 - n_fixed
-    for (_, lb, kb, c0), vc, cp in zip(fast.buckets, fast.vc, fast.cpos):
+    assert fast.cpos_all.dtype == torch.int32 and np.array_equal(fast.cpos_all.numpy(), cpos)
+    assert np.array_equal(fast.vc_all.numpy(), rvid)
+    if len(fast.buckets) == 1:
+        ((_, lb, kb, c0),) = fast.buckets
+        vc, cp = fast.vc, fast.cpos
         assert cp.dtype == torch.int32 and cp.shape == vc.shape == (kb, lb)
         assert np.array_equal(cp.numpy(), cpos[c0 : c0 + lb * kb].reshape(lb, kb).T)
         assert np.array_equal((cp.numpy() < 0), (vc.numpy() == fast.n_r))
+    else:
+        assert fast.vc is None and fast.cpos is None
     assert np.array_equal(fast.cstarts.numpy(), cstarts)
 
 
@@ -112,12 +118,12 @@ def test_b1_two_stage_plain_matches_pallas():
     ``fused_obs_all_pm`` in interpret mode."""
     comp, problem, _ = _compiled("first two cameras fixed")
     (batch,), (fast,) = comp.batches, comp.schur_info.fast
-    _, (args,) = schur.fused_inputs(
+    _, args = schur.fused_inputs(
         batch, problem.stacked_variables(), comp.schur_info, fast, torch.float64
     )
     jac, g0, d1m, d2m, vc, n_r, dr_s, dl, e_start = args
     h, g, w, ab = fused_obs.fused_obs_all(
-        jac, g0, d1m, d2m, vc, fast.cpos[0], fast.cstarts, n_r, dr_s, dl, e_start
+        jac, g0, d1m, d2m, vc, fast.cpos, fast.cstarts, n_r, dr_s, dl, e_start
     )
     h_j, g_j, w_pm, ab_j = fused_obs_all_pm(
         *(jnp.asarray(t.contiguous().numpy()) for t in (jac, g0, d1m, d2m, vc)),
@@ -146,31 +152,44 @@ def _b1_inputs(seed, K, L, n_r, e_start, dr_s):
     return jac, g0, d1, d2, vc
 
 
+def _tiles_as_batch(inputs, calls, l_total, n_r):
+    """The calls' K-major tiles as one batch, call by call and landmark by
+    landmark (slot k of the call's landmark l at column c0 + l·K + k), and
+    kernel B2's tables over it: ``(jac, g0, d1, d2, vc, lid), slots``."""
+    cat = np.concatenate
+    batch = (
+        cat([np.swapaxes(x[0], 2, 3).reshape(*x[0].shape[:2], -1) for x in inputs], axis=2),
+        cat([np.swapaxes(x[1], 1, 2).reshape(x[1].shape[0], -1) for x in inputs], axis=1),
+        *(cat([x[i].T.reshape(-1) for x in inputs]) for i in (2, 3, 4)),
+        cat([l_base + np.repeat(np.arange(lb), K) for K, l_base, lb in calls]),
+    )
+    tables = fused_obs.slot_tables(batch[5], batch[4], l_total, n_r)
+    return batch, fused_obs.SlotTables(*(torch.from_numpy(t) for t in tables))
+
+
 def test_b2_two_stage_plain_matches_pallas():
     """B2's plain version over a chunk bucket and a class bucket at an
-    unaligned l_base that covers it again, its camera rows in one camera
-    order over both, then B6's plain version, against
-    ``fused_obs_all_pm_into`` in interpret mode (``ab`` summed over the
-    calls as the JAX package adds them)."""
+    unaligned l_base that covers it again, taken as one batch (each
+    landmark's slots from both buckets), its camera rows in one camera
+    order, then B6's plain version, against ``fused_obs_all_pm_into`` in
+    interpret mode per bucket (``ab`` summed over the calls as the JAX
+    package adds them)."""
     dr_s, dl, e_start, n_r, l_total = 9, 3, 9, 11, 90
     calls = [(2, 0, 7), (2, 3, 41)]  # (K, l_base, L_b)
     inputs = [_b1_inputs(20 + i, K, lb, n_r, e_start, dr_s) for i, (K, _, lb) in enumerate(calls)]
-    cpos_all, cstarts = fused_obs.camera_order(
-        np.concatenate([x[4].T.reshape(-1) for x in inputs]), n_r
-    )
+    (jac, g0, d1, d2, vc, _), slots = _tiles_as_batch(inputs, calls, l_total, n_r)
+    cpos, cstarts = fused_obs.camera_order(vc, n_r)
     h_t, g_t, w_t, rows = fused_obs.zero_buffers(
         l_total, n_r, dr_s, dl, int(cstarts[-1]), torch.float64, "cpu"
     )
+    fused_obs.fused_obs_all_into(
+        *(torch.from_numpy(a) for a in (jac, g0, d1, d2, vc, cpos)), slots,
+        h_t, g_t, w_t, rows, n_r, dr_s, dl, e_start,
+    )
     nrp = 128
     w_pm = jnp.zeros((dl, dr_s * nrp, l_total), dtype=jnp.float64)
-    h_j, g_j, ab_j, c0 = np.zeros((dl, dl, l_total)), np.zeros((dl, l_total)), 0.0, 0
+    h_j, g_j, ab_j = np.zeros((dl, dl, l_total)), np.zeros((dl, l_total)), 0.0
     for (K, l_base, lb), x in zip(calls, inputs):
-        cpos = torch.from_numpy(cpos_all[c0 : c0 + K * lb].reshape(lb, K).T.copy())
-        c0 += K * lb
-        fused_obs.fused_obs_all_into(
-            *(torch.from_numpy(a) for a in x), cpos, h_t, g_t, w_t, rows,
-            l_base, n_r, dr_s, dl, e_start,
-        )
         h, g, w_pm, ab, la = fused_obs_all_pm_into(
             *(jnp.asarray(a) for a in x), w_pm, l_base, n_r, dr_s, dl, e_start,
             interpret=True,
@@ -186,8 +205,8 @@ def test_b2_two_stage_plain_matches_pallas():
 
 
 def test_skewed_assembly_matches_jax():
-    """The whole bucketed system (B2's plain version per bucket, one camera
-    sum) against the JAX package's assembly of the same skewed problem."""
+    """The whole bucketed system (B2's plain version over the batch, one
+    camera sum) against the JAX package's assembly of the same skewed problem."""
     jp, tp = _skewed_pair()
     jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
     tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)

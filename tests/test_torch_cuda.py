@@ -10,11 +10,13 @@ run over hundreds of terms and B3 sums over L·dl terms in another order
 than the float64 yardstick: all are held to 1e-5 of the largest entry.
 B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5 (float32) of
 the largest entry against the float64 plain version, and in float64 the
-same bits as its plain mirror of the chunk order.  B5 is B3's body over
-external inverses: held as B3.  B7 adds a few values per entry in run
-order: 1e-12 (float64) and 1e-6 (float32) of the largest entry.  B4
-launches B5's body: held as B5.  B1, B2, B6, B7 and B8 use no atomics:
-each gives the same bits on a second launch.
+same bits as its plain mirror of the chunk order.  B4 is B3's body over
+external inverses: held as B3.  B5 reduces over W's column-block
+structure, a landmark's few products per entry summed in landmark order:
+held as B3, against the dense plain version.  B7 adds a few values per
+entry in run order: 1e-12 (float64) and 1e-6 (float32) of the largest
+entry.  No kernel uses atomics: each gives the same bits on a second
+launch.
 """
 
 import numpy as np
@@ -102,55 +104,107 @@ def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("k", [14, 40])
+def test_fused_obs_kernels_on_landmark_major_views(cuda, dtype, tol, k):
+    """B1 and B8 on the main path's layout: [K, L] views of a
+    landmark-major batch (no copy; g0 slot-major, as the einsum that
+    forms it leaves it), at K = 14 (one lane group per landmark) and K =
+    40 (two rounds of a warp, every W block added), each landmark seeing a
+    camera twice; the same bits on a second launch."""
+    gen = torch.Generator().manual_seed(17 + k)
+    n_r, dr_s, L = 53, 9, 700
+    tiles = _b1_inputs(gen, k, L, n_r, dr_s, "cpu", torch.float64)
+    views = [
+        t.transpose(-1, -2).contiguous().to(cuda).transpose(-1, -2) for t in tiles
+    ]
+    views[1] = tiles[1].permute(2, 1, 0).contiguous().to(cuda).permute(2, 1, 0)
+    views = [t.to(dtype) if t.is_floating_point() else t for t in views]
+    assert views[0].stride()[2:] == (1, k) and views[1].stride() == (1, 9 + 3, (9 + 3) * k)
+    tables = fused_obs.camera_tables(views[4], n_r)
+    cpos = tables[0].T.contiguous().T  # the same strides as the views
+    out = fused_obs.fused_obs_all(*views, cpos, tables[1], n_r, dr_s, 3, 9)
+    leg = fused_obs.fused_obs_leg(*views, n_r, dr_s, 3, 9)
+    torch.cuda.synchronize()
+    ref = fused_obs.fused_obs_all_reference(*tiles, *(t.cpu() for t in tables), n_r, dr_s, 3, 9)
+    for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
+        assert _rel_err(a.cpu(), b) <= tol, (name, _rel_err(a.cpu(), b))
+    for name, a, b in zip(("h_ll", "g_l", "w"), leg, ref):
+        assert _rel_err(a.cpu(), b) <= tol, (name, _rel_err(a.cpu(), b))
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, fused_obs.fused_obs_all(*views, cpos, tables[1], n_r, dr_s, 3, 9)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        leg, fused_obs.fused_obs_leg(*views, n_r, dr_s, 3, 9)))
+
+
+def _tiles_as_batch(inputs, calls, l_total, n_r, device):
+    """The calls' K-major tiles as one batch, call by call and landmark by
+    landmark (slot k of the call's landmark l at column c0 + l·K + k), with
+    kernel B2's tables and the camera order over it: ``[jac, g0, d1, d2,
+    vc, cpos], slots, cstarts`` on ``device``."""
+    cat = torch.cat
+    batch = [
+        cat([x[0].transpose(2, 3).reshape(*x[0].shape[:2], -1) for x in inputs], dim=2),
+        # g0 slot-major, as the einsum that forms it on the main path.
+        cat([x[1].transpose(1, 2).reshape(x[1].shape[0], -1) for x in inputs], dim=1).T
+        .contiguous().T,
+        *(cat([x[i].T.reshape(-1) for x in inputs]) for i in (2, 3, 4)),
+    ]
+    lid = np.concatenate([l_base + np.repeat(np.arange(lb), K) for K, l_base, lb in calls])
+    vc = batch[4].cpu().numpy()
+    cpos, cstarts = fused_obs.camera_order(vc, n_r)
+    slots = fused_obs.slot_tables(lid, vc, l_total, n_r)
+    return (batch + [torch.as_tensor(cpos, device=device)],
+            fused_obs.SlotTables(*(torch.as_tensor(t, device=device) for t in slots)),
+            torch.as_tensor(cstarts, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize(
     "dr_s,e_start,n_r",
     # n_r = 300 at dr_s = 9: many short camera runs.
     [(9, 9, 37), (6, 0, 37), (9, 9, 300)],
 )
 def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
-    """B2 over a degree-bucketed plan: a chunk bucket over the heavy prefix,
-    the class bucket that covers it again, and a class bucket at an
-    unaligned l_base, all adding into buffers that start non-zero and
-    writing their slots' camera rows, whose camera runs (one order over
-    the three calls' slots) B6 then sums.  Twice: the same bits."""
+    """B2 over one batch laid out as a degree-bucketed plan: a chunk bucket
+    over the heavy prefix, the class bucket that covers it again, a class
+    bucket at an unaligned l_base, and a 64-slot bucket of one landmark
+    (two rounds of a warp, a camera repeated across them); every run sees a
+    camera twice.  h_ll and g_l start non-zero and are added to; W starts
+    zero; B6 sums the camera rows.  Twice: the same bits."""
     gen = torch.Generator().manual_seed(13)
     L, dl = 1000, 3
-    calls = [(16, 0, 57), (14, 0, 300), (4, 337, 600)]  # (K, l_base, L_b)
+    calls = [(16, 0, 57), (14, 0, 300), (4, 337, 600), (64, 999, 1)]  # (K, l_base, L_b)
     init = [
         torch.randn(shape, generator=gen, dtype=torch.float64)
-        for shape in ((dl, dl, L), (dl, L), (L, dl, n_r * dr_s))
+        for shape in ((dl, dl, L), (dl, L))
     ]
     init[0] = init[0] + init[0].transpose(0, 1)
     inputs = [_b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype) for K, _, lb in calls]
-    cols = np.concatenate([x[4].T.reshape(-1).cpu().numpy() for x in inputs])
-    cpos_all, cstarts = fused_obs.camera_order(cols, n_r)
-    cpos, c0 = [], 0
-    for (K, _, lb), x in zip(calls, inputs):
-        tile = cpos_all[c0 : c0 + K * lb].reshape(lb, K).T.copy()
-        cpos.append(torch.as_tensor(tile, device=cuda))
-        c0 += K * lb
-    cstarts = torch.as_tensor(cstarts, device=cuda)
+    inputs[3][4][40] = inputs[3][4][3]
+    batch, slots, cstarts = _tiles_as_batch(inputs, calls, L, n_r, cuda)
+    assert int((slots.slots < 0).sum()) >= 957  # the repeats
     n_rows, nab = int(cstarts[-1]), dr_s * (dr_s + 3) // 2
 
     def assemble(kernel, dt):
         bufs = [t.to(device=cuda, dtype=dt) for t in init]
+        w = torch.zeros(L, dl, n_r * dr_s, dtype=dt, device=cuda)
         rows = torch.zeros(n_rows, nab, dtype=dt, device=cuda)
-        for (_, l_base, _), x, cp in zip(calls, inputs, cpos):
-            x = [t.to(dt) if t.is_floating_point() else t for t in x]
-            kernel(*x, cp, *bufs, rows, l_base, n_r, dr_s, dl, e_start)
-        sums = segment_sum.segment_block_sum(rows, cstarts)
-        return bufs + [sums]
+        x = [t.to(dt) if t.is_floating_point() else t for t in batch]
+        kernel(*x, slots, *bufs, w, rows, n_r, dr_s, dl, e_start)
+        return bufs + [w, segment_sum.segment_block_sum(rows, cstarts)]
 
     before, before_b1 = fused_obs.INTO_LAUNCHES, fused_obs.LAUNCHES
     got = assemble(fused_obs.fused_obs_all_into, dtype)
     torch.cuda.synchronize()
-    assert fused_obs.INTO_LAUNCHES == before + len(calls)
+    assert fused_obs.INTO_LAUNCHES == before + 1
     assert fused_obs.LAUNCHES == before_b1
     ref = assemble(fused_obs.fused_obs_all_into_reference, torch.float64)
-    for name, a, b, c in zip(("h_ll", "g_l", "w"), got, ref, init):
+    for name, a, b in zip(("h_ll", "g_l", "w", "ab"), got, ref):
+        assert a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    for name, b, c in zip(("h_ll", "g_l"), ref, init):
         assert _rel_err(b, c.to(cuda)) > 1e-3, name  # every buffer was added to
-    assert got[3].shape == (n_r, nab) and _rel_err(got[3], ref[3]) <= tol
     again = assemble(fused_obs.fused_obs_all_into, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -192,41 +246,79 @@ def _spd_inverses(gen, dl, L):
     return torch.linalg.inv(h).permute(1, 2, 0).contiguous()  # [dl, dl, L]
 
 
+def _structured_w(gen, L, dl, widths, spare, kernel=False):
+    """A W zero outside a random block structure: blocks of ``widths``
+    with ``spare`` columns between some of them, landmark l holding a
+    random subset (every 9th none, every 13th only the last block; with
+    ``kernel``, every landmark that holds a block also holds the last, as
+    an adaptive kernel's), and its :class:`schur_reduce.PairTables`."""
+    widths = torch.as_tensor(widths)
+    gaps = torch.randint(0, spare + 1, (len(widths),), generator=gen)
+    bcol = (torch.cumsum(widths + gaps, 0) - widths).tolist()
+    wc = int(bcol[-1] + widths[-1] + spare)
+    held = torch.rand(L, len(widths), generator=gen) < 0.4
+    held[::9] = False
+    held[::13] = False
+    held[::13, -1] = True
+    if kernel:
+        held[:, -1] |= held.any(1)
+    lmk, blk = held.nonzero(as_tuple=True)
+    w = torch.zeros(L, dl, wc, dtype=torch.float64)
+    for l, b in zip(lmk.tolist(), blk.tolist()):
+        w[l, :, bcol[b] : bcol[b] + int(widths[b])] = torch.randn(dl, int(widths[b]), generator=gen)
+    return w, schur_reduce.pair_tables(lmk.numpy(), blk.numpy(), bcol, widths.numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-# dl = 3 at the adaptive BAL width (1152 camera + 3 kernel columns); dl up
-# to 6, past B3's closed form, at widths off the kernel's 64-wide tile.
-@pytest.mark.parametrize("dl,wc", [(3, 1155), (5, 100), (1, 64), (6, 441)])
-def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, wc):
+# dl = 3 at the adaptive BAL structure (128 cameras of 9 columns and a
+# 3-column kernel block held by every landmark); dl up to 6 over blocks
+# of mixed widths up to the kernel's 16, spare columns between them.
+@pytest.mark.parametrize("dl,widths,spare", [
+    (3, [9] * 128 + [3], 0), (5, [4, 16, 1, 9, 9, 7, 2], 3), (1, [1, 2, 3, 5, 8], 2),
+    (6, [9] * 40 + [16], 1), (2, [6] * 30, 0), (4, [3] * 60, 5),
+])
+def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
     gen = torch.Generator().manual_seed(dl)
     L = 777
-    w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
+    w, tables = _structured_w(gen, L, dl, widths, spare, kernel=len(widths) == 129)
     h_inv = _spd_inverses(gen, dl, L)
     g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    pairs = schur_reduce.upload_pairs(tables, cuda)
+    args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
     before, before_b3 = schur_reduce.EXTERNAL_LAUNCHES, schur_reduce.LAUNCHES
-    out = schur_reduce.reduce_s(*(t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)))
+    before_b4 = schur_reduce.LM_LAUNCHES
+    out = schur_reduce.reduce_s(*args, pairs=pairs)
     torch.cuda.synchronize()
     assert schur_reduce.EXTERNAL_LAUNCHES == before + 1 and schur_reduce.LAUNCHES == before_b3
+    assert schur_reduce.LM_LAUNCHES == before_b4
     ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
     for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
         assert x.shape == y.shape, name
         assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+    again = schur_reduce.reduce_s(*args, pairs=pairs)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    with pytest.raises(ValueError):  # B5 needs W's structure
+        schur_reduce.reduce_s(*args)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-# The gauge-fixed pinhole width (126 cameras) and the pinhole bench's.
-@pytest.mark.parametrize("wc", [756, 768])
-def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, wc):
+# The gauge-fixed pinhole width (126 cameras) and the pinhole bench's; the
+# adaptive BAL width (1152 camera + 3 kernel columns); every dl from 1 to
+# 6, past B3's closed form, at widths off the kernel's 64-wide tile.
+@pytest.mark.parametrize("dl,wc", [
+    (3, 756), (3, 768), (3, 1155), (5, 100), (1, 64), (6, 441), (2, 130), (4, 200),
+])
+def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc):
     gen = torch.Generator().manual_seed(wc)
-    L, dl = 777, 3
+    L = 777
     w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
     h_inv = _spd_inverses(gen, dl, L)
     g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
     before, before_b5 = schur_reduce.LM_LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES
-    out = schur_reduce.reduce_s(
-        *(t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)), obs_major=True
-    )
+    out = schur_reduce.reduce_s_lm(*args)
     torch.cuda.synchronize()
     assert schur_reduce.LM_LAUNCHES == before + 1
     assert schur_reduce.EXTERNAL_LAUNCHES == before_b5
@@ -234,6 +326,8 @@ def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, wc):
     for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
         assert x.shape == y.shape, name
         assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+    again = schur_reduce.reduce_s_lm(*args)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
 
 
 def _b7_case(gen, L, dl, dr_s, n_r, extra):
@@ -359,11 +453,12 @@ def test_kernels_reject_bad_inputs(cuda):
         segment_sum.segment_block_sum(w, torch.zeros(3, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w[0], torch.zeros(3, device=cuda))
-    with pytest.raises(ValueError):  # dl = 7
-        schur_reduce.reduce_s(
-            torch.zeros(4, 7, 6, device=cuda), torch.zeros(7, 7, 4, device=cuda),
-            torch.zeros(7, 4, device=cuda),
-        )
+    for reduce in (schur_reduce.reduce_s, schur_reduce.reduce_s_lm):
+        with pytest.raises(ValueError):  # dl = 7
+            reduce(
+                torch.zeros(4, 7, 6, device=cuda), torch.zeros(7, 7, 4, device=cuda),
+                torch.zeros(7, 4, device=cuda),
+            )
     starts = torch.zeros(3, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):  # int64 columns
         w_place.place_w(w, starts, torch.zeros(4, dtype=torch.long, device=cuda), 12)
@@ -393,7 +488,7 @@ def test_plain_versions_run_on_cpu():
     s5, r5 = schur_reduce.reduce_s(w, hi, g)
     assert torch.allclose(s5, s, rtol=1e-12, atol=1e-12 * s.abs().max().item())
     assert torch.allclose(r5, r, rtol=1e-12, atol=1e-12 * r.abs().max().item())
-    s4, r4 = schur_reduce.reduce_s(w, hi, g, obs_major=True)
+    s4, r4 = schur_reduce.reduce_s_lm(w, hi, g)
     assert torch.equal(s4, s5) and torch.equal(r4, r5)
     h8, g8, w8 = fused_obs.fused_obs_leg(*inputs, 4, 6, 3, 6)
     assert torch.equal(h8, h) and torch.equal(g8, g) and torch.equal(w8, w)

@@ -138,9 +138,8 @@ def test_reduce_s_lm_plain_matches_pallas():
     h_inv = np.einsum("del,fel->dfl", a, a)
     g_l = rng.standard_normal((dl, L))
     s_j, r_j = jax_reduce_s_lm(*(jnp.asarray(x) for x in (w, h_inv, g_l)), interpret=True)
-    s_t, r_t = schur_reduce.reduce_s(
+    s_t, r_t = schur_reduce.reduce_s_lm(
         torch.as_tensor(w.transpose(2, 0, 1).copy()), torch.as_tensor(h_inv), torch.as_tensor(g_l),
-        obs_major=True,
     )
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=1e-12, atol=1e-12)
@@ -151,7 +150,7 @@ def _gauge_fixed_pair(problem):
     its unfixed, cameras and eliminated family)`` of a gauge-fixed test
     problem, the first two cameras fixed: the uniform 6/40 pinhole
     problem, or a Snavely BAL problem whose skewed tracks give four degree
-    buckets (B2 per bucket)."""
+    buckets (one B2 call over them)."""
     if problem == "pinhole":
         (jp, jc, jl), (tp, tc, tl) = _pair(6, 40, 9)
         return (jp, jc[2:] + jl, nt.Euclidean(3)), (tp, tc[2:] + tl, tc, pt.Euclidean(3))
@@ -186,7 +185,7 @@ def _gauge_fixed_jax(problem):
 def test_gauge_fixed_lm_trace_matches_jax(problem, w_impl):
     """LM with the first two cameras fixed (BA's gauge removed), through
     either assembly route (B8 and the camera-major leg; B1 on the uniform
-    pinhole layout, B2 per degree bucket on the BAL one) and the float64
+    pinhole layout, B2 over the degree buckets of the BAL one) and the float64
     solve over external inverses: the JAX package's iteration count and
     cost trace to 1e-10, and its final variables; the fixed cameras do not
     move.  Both runs stop before the float64 rounding floor
@@ -272,13 +271,14 @@ def test_refusals(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,route", [
-    pytest.param(torch.float32, ("reduce", None), id="dtype0-reduce"),
-    pytest.param(torch.float64, ("reduce_external", True), id="dtype1-reduce_lm"),
+    pytest.param(torch.float32, "reduce", id="dtype0-reduce"),
+    pytest.param(torch.float64, "reduce_lm", id="dtype1-reduce_lm"),
 ])
 def test_solve_routes_by_dtype(dtype, route):
-    """An obs-major W goes to B3 in float32 and to B4 (``reduce_external``
-    on the obs-major route), over inverses formed in float64, otherwise:
-    each route's plain version gives the same step."""
+    """An obs-major W goes to B3 in float32 and to B4 (``reduce_lm``),
+    over inverses formed in float64, otherwise; B5's route over W's own
+    structure (``schur.w_structure``) gives the same step, each route
+    through its plain version."""
     tp, tc, tl = make_pinhole_ba(5, 30, 0.7, noise=1e-3, dtype=dtype, device="cpu")
     perturb_ba(tp, tl, 0.03, seed=2)
     comp = pt.compile_problem(tp, tc[1:] + tl, schur_family=pt.Euclidean(3), w_impl="fused")
@@ -288,17 +288,18 @@ def test_solve_routes_by_dtype(dtype, route):
         fn = getattr(comp.kernels, name)
 
         def wrapper(*args, **kwargs):
-            calls.append((name, kwargs.get("obs_major")))
+            calls.append(name)
             return fn(*args, **kwargs)
         return wrapper
 
     comp.kernels = dataclasses.replace(
-        comp.kernels, **{n: counted(n) for n in ("reduce", "reduce_external")}
+        comp.kernels, **{n: counted(n) for n in ("reduce", "reduce_lm", "reduce_external")}
     )
     _, sys_ = comp.assemble(tp.stacked_variables())
     x = comp.ctx().linops.solve(sys_, 1e-2)
     assert calls == [route]
-    other = schur.SchurOps(comp.schur_info.dim_reduced, external_inverse=True)
+    other = schur.SchurOps(comp.schur_info.dim_reduced,
+                           pairs=schur.w_structure(comp.schur_info))
     np.testing.assert_allclose(
         x.numpy(), other.solve(sys_, 1e-2).numpy(),
         rtol=1e-4 if dtype == torch.float32 else 1e-10, atol=1e-6,

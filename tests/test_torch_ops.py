@@ -85,14 +85,35 @@ def test_fused_obs_dispatch_cpu_runs_twin():
 
 
 #: B2 cases: (dr_s, e_start, n_r, L_total, calls), each call (K, l_base,
-#: L_b).  The second case chains a chunk bucket over the heavy prefix and
-#: the class bucket that covers the same landmarks, through one set of
-#: buffers.  Few calls with short runs: each interpret-mode call of the
-#: Pallas kernel compiles for seconds.
+#: L_b) a bucket of the JAX package's layout.  The second case chains a
+#: chunk bucket over the heavy prefix and the class bucket that covers the
+#: same landmarks.  The port takes the calls' tiles as one batch, each
+#: landmark's slots from every call, through one set of buffers.  Few
+#: calls with short runs: each interpret-mode call of the Pallas kernel
+#: compiles for seconds.
 INTO_CASES = {
     "l_base 37, dr_s 6": (6, 0, 7, 120, [(2, 37, 50)]),
     "chunk + class, dr_s 9": (9, 9, 11, 64, [(2, 0, 7), (2, 0, 30)]),
 }
+
+
+def _tiles_as_batch(inputs, calls, l_total, n_r):
+    """The calls' K-major tiles as one batch, call by call and landmark by
+    landmark (slot k of the call's landmark l at column c0 + l·K + k), with
+    kernel B2's tables and the camera order over it: ``[jac, g0, d1, d2,
+    vc, cpos], slots, cstarts`` as tensors."""
+    cat = np.concatenate
+    batch = [
+        cat([np.swapaxes(x[0], 2, 3).reshape(*x[0].shape[:2], -1) for x in inputs], axis=2),
+        cat([np.swapaxes(x[1], 1, 2).reshape(x[1].shape[0], -1) for x in inputs], axis=1),
+        *(cat([x[i].T.reshape(-1) for x in inputs]) for i in (2, 3, 4)),
+    ]
+    lid = cat([l_base + np.repeat(np.arange(lb), K) for K, l_base, lb in calls])
+    cpos, cstarts = fused_obs.camera_order(batch[4], n_r)
+    slots = fused_obs.slot_tables(lid, batch[4], l_total, n_r)
+    return ([torch.from_numpy(t) for t in batch + [cpos]],
+            fused_obs.SlotTables(*(torch.from_numpy(t) for t in slots)),
+            torch.from_numpy(cstarts))
 
 
 @pytest.mark.parametrize("case", sorted(INTO_CASES))
@@ -106,14 +127,6 @@ def test_fused_obs_into_twin_matches_pallas(case):
     ab_j = 0.0
     inputs = [_b1_inputs(10 + i, K, lb, n_r, e_start, dr_s=dr_s)
               for i, (K, _, lb) in enumerate(calls)]
-    # One camera order over every call's slots, as over a batch's buckets.
-    cpos_all, cstarts = fused_obs.camera_order(
-        np.concatenate([x[4].T.reshape(-1) for x in inputs]), n_r
-    )
-    h_t, g_t, w_t, rows_t = fused_obs.zero_buffers(
-        l_total, n_r, dr_s, dl, int(cstarts[-1]), torch.float64, "cpu"
-    )
-    c0 = 0
     for (K, l_base, lb), x in zip(calls, inputs):
         h, g, w_pm, ab, la = fused_obs_all_pm_into(
             *(jnp.asarray(a) for a in x), w_pm, l_base, n_r, dr_s, dl,
@@ -122,13 +135,14 @@ def test_fused_obs_into_twin_matches_pallas(case):
         h_j[:, :, la : la + h.shape[-1]] += np.asarray(h)
         g_j[:, la : la + g.shape[-1]] += np.asarray(g)
         ab_j = ab_j + np.asarray(ab)[:, :n_r]
-        cpos = torch.from_numpy(cpos_all[c0 : c0 + K * lb].reshape(lb, K).T.copy())
-        c0 += K * lb
-        fused_obs.fused_obs_all_into_reference(
-            *(torch.from_numpy(a) for a in x), cpos, h_t, g_t, w_t, rows_t,
-            l_base, n_r, dr_s, dl, e_start,
-        )
-    ab_t = segment_sum.segment_block_sum_reference(rows_t, torch.from_numpy(cstarts)).T
+    batch, slots, cstarts = _tiles_as_batch(inputs, calls, l_total, n_r)
+    h_t, g_t, w_t, rows_t = fused_obs.zero_buffers(
+        l_total, n_r, dr_s, dl, int(cstarts[-1]), torch.float64, "cpu"
+    )
+    fused_obs.fused_obs_all_into_reference(
+        *batch, slots, h_t, g_t, w_t, rows_t, n_r, dr_s, dl, e_start,
+    )
+    ab_t = segment_sum.segment_block_sum_reference(rows_t, cstarts).T
     tol = dict(rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(h_t.numpy(), h_j, **tol)
     np.testing.assert_allclose(g_t.numpy(), g_j, **tol)
@@ -144,14 +158,17 @@ def test_fused_obs_into_twin_matches_pallas(case):
 
 def test_fused_obs_into_dispatch_cpu_runs_twin():
     """On CPU tensors B2's dispatcher runs the plain version and launches
-    nothing; into zeroed buffers at l_base 0, then B6 over the camera
-    runs, it is B1."""
-    inputs = [torch.from_numpy(x) for x in _b1_inputs(2, 3, 9, 5, 0, dr_s=9)]
+    nothing; over one tile taken as a batch, into zeroed buffers, then B6
+    over the camera runs, it is B1."""
+    x = _b1_inputs(2, 3, 9, 5, 0, dr_s=9)
+    inputs = [torch.from_numpy(a) for a in x]
     cpos, cstarts = fused_obs.camera_tables(inputs[4], 5)
     ref = fused_obs.fused_obs_all_reference(*inputs, cpos, cstarts, 5, 9, 3, 0)
+    batch, slots, cstarts_b = _tiles_as_batch([x], [(3, 0, 9)], 9, 5)
+    assert torch.equal(cstarts_b, cstarts)
     bufs = fused_obs.zero_buffers(9, 5, 9, 3, int(cstarts[-1]), torch.float64, "cpu")
     before = fused_obs.INTO_LAUNCHES
-    assert fused_obs.fused_obs_all_into(*inputs, cpos, *bufs, 0, 5, 9, 3, 0) is None
+    assert fused_obs.fused_obs_all_into(*batch, slots, *bufs, 5, 9, 3, 0) is None
     got = (*bufs[:3], segment_sum.segment_block_sum(bufs[3], cstarts))
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
