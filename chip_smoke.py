@@ -23,9 +23,17 @@ Phases, one line each or more; any failure raises and exits non-zero:
    bucket): one whole assembly into zeroed buffers, then B6 over the
    camera runs (its plain version for the plain side); the host seconds of
    the compile-time tables.
-5. B3      — kernel ``reduce_s_damped`` against its plain version at
-   wc = 768 (the pinhole bench W), wc = 441 (Ladybug-49's W), wc = 1152
-   (bench-realistic's W) and wc = 1152 random, λ ∈ {0, 1e-2}.
+5. B3      — kernel ``reduce_s_damped`` against its plain version on the
+   systems of the pinhole bench (wc = 768), Ladybug-49 (wc = 441) and
+   bench-realistic (wc = 1152), each over its compile-time row tables
+   (``schur_info.w_rows``), and on a synthetic W of 128 blocks of 9 zero
+   outside a random structure, λ ∈ {0, 1e-2}; two launches must give the
+   same bits and s_sum must be exactly symmetric; beside each main-path
+   shape its time, the structural bound (W's held blocks, the landmarks'
+   inputs, the incidence list and the outputs: ``struct_work``) and the
+   dense product's, the plain version's time and cuBLAS's dense
+   ``Yᵀ W`` product alone (the one PyTorch call of the plain version that
+   forms S).
 6. main paths — Levenberg-Marquardt through ``nt.optimize`` in float32
    for 30 iterations, each with the launch counts set to 0 just before and
    read just after: the pinhole bench problem (B1, B6 and B3), Ladybug-49
@@ -60,22 +68,25 @@ Phases, one line each or more; any failure raises and exits non-zero:
    column-block structure), B7 also on a synthetic case with empty runs,
    repeated cameras, dropped costs and a row past 48 KB of shared memory,
    B5 also at dl = 5 on a synthetic W that is zero outside a random block
-   structure; two B5 launches must give the same bits; beside each
+   structure; two B5 launches must give the same bits and s_sum must be
+   exactly symmetric (B5 is B4's instance of one body); beside each
    main-path shape its time, its bound (B5: the structural one, the dense
    product's beside it), the plain version's time and, for B7,
    ``index_add_`` into a zeroed W, alone and with the zero fill
-   (``torch.zeros`` + ``index_add_``, B7's output).
+   (``torch.zeros`` + ``index_add_``, B7's output), for B5 cuBLAS's dense
+   ``Yᵀ W`` product.
 10. B8 and B4 — kernel ``fused_obs_leg`` against its plain version on the
    inputs of both dual-sorted paths (one assembly's obs-major tiles of the
    gauge-fixed float64 problem and of the float32 pinhole bench problem)
    and on a small case with duplicate cameras and dustbin slots, beside
    its time B1's on the same inputs; kernel ``reduce_s_lm`` against its
-   plain version on the gauge-fixed path's input (float64, wc = 756,
-   recorded from one damped solve), on the pinhole bench system (float32
-   and float64, wc = 768) and at dl = 5 on a dense random W (wc = 400),
-   two float32 launches giving the same bits; on the gauge-fixed system, the float64 solve's two routes
-   timed against each other (B3 in float64, and the float64 inverses then
-   B4, which the solve takes).  Then the determinism gates: two
+   plain version over each system's row tables: the gauge-fixed path's
+   input (float64, wc = 756, recorded from one damped solve), the pinhole
+   bench system (float32 and float64, wc = 768) and dl = 5 on a synthetic
+   W of 80 blocks of 5 (wc = 400), two launches giving the same bits and
+   an exactly symmetric s_sum; beside the main path's shape B3's figures
+   (cuBLAS: DGEMM), and the float64 solve's reduction as it runs
+   (``damped_inverse`` then B4).  Then the determinism gates: two
    assemblies must give the same bits in all five outputs through B1 (the
    pinhole bench), through B2 (Ladybug-49 and bench-realistic) and
    through each dual-sorted path, and two float32 LM runs of the pinhole
@@ -129,10 +140,10 @@ within 1e-6 of the largest entry, and two launches give the same bits.
 B5: float64 within 1e-12 of the largest entry; float32 within 1e-6, or
 ten times the plain version's own float32 error where that is larger.
 B8 is held as B1; B4 within 1e-12 of the largest entry in float64 and
-1e-6 in float32.  No kernel uses atomics: B1, B2, B5, B6, B7 and B8 must
-give the same bits on a second launch, and the assembled systems on a
-second assembly.
-The rows of B1, B2, B5, B6 and B8 also carry ``graph_ms``: the same calls
+1e-6 in float32.  No kernel uses atomics: every kernel must give the same
+bits on a second launch, B3 and B4 an exactly symmetric s_sum, and the
+assembled systems the same bits on a second assembly.
+Every row but B7's also carries ``graph_ms``: the same calls
 replayed from one CUDA graph, the device's time without the host's rate
 of launching them.  The last lines are the card's name and power limit, a
 JSON record of the kernels (one row per kernel and main-path shape, with
@@ -215,7 +226,7 @@ ADAPTIVE_REF = dict(
 #: same problem in float32 with every variable free (the solve through
 #: B3), by dtype and number of fixed cameras.
 GAUGE = "gauge-fixed pinhole f64"
-B4_SYNTHETIC = "dl=5 dense synthetic"
+B4_SYNTHETIC = "dl=5 synthetic structure"
 FUSED = "pinhole bench fused"
 DUAL = {GAUGE: (torch.float64, 2), FUSED: (torch.float32, 0)}
 #: The JAX package's CPU float64 run of the gauge-fixed problem through its
@@ -337,27 +348,69 @@ def reduce_flops(L: int, dl: int, wc: int) -> int:
     return 2 * dl * dl * L * wc + L * dl * wc * (wc + 1) + 2 * L * dl * wc
 
 
-def pair_work(tables, dl: int, elt: int):
-    """``(bytes, operations)`` B5 needs on W's column-block structure
-    (``schur_reduce.PairTables``): each landmark's nonzero blocks, its
-    inverse and g_l read once, the tables read once; per (landmark, block)
-    Y = H⁻¹W once, per (landmark, block pair i ≤ j) the block Y_iᵀW_j (on
-    a diagonal pair its upper triangle only, as :func:`reduce_flops`
-    counts S's), and rhs over the diagonal pairs.  S and rhs (written
-    once) are counted by the caller."""
+def _host(x):
     import numpy as np
 
-    t = {k: np.asarray(getattr(tables, k).cpu()) for k in ("bwidth", "pairs", "pstarts", "lmk")}
-    count = np.diff(t["pstarts"]).astype(np.int64)
-    wi, wj = t["bwidth"][t["pairs"][:, 0]], t["bwidth"][t["pairs"][:, 1]]
-    diag = t["pairs"][:, 0] == t["pairs"][:, 1]
-    held = (count[diag] * wi[diag]).sum()  # Σ over (landmark, block) of the block's width
-    n_lmk = np.unique(t["lmk"]).shape[0]
-    nbytes = (held * dl + n_lmk * dl * (dl + 1)) * elt + sum(
-        np.asarray(getattr(tables, k).cpu()).nbytes for k in tables._fields[:-2])
-    entries = np.where(diag, wi * (wi + 1) // 2, wi * wj)
-    ops = int((count * 2 * dl * entries).sum() + 2 * dl * dl * held + 2 * dl * held)
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def struct_work(tables, dl: int, elt: int, damped: bool = False):
+    """``(bytes, operations)`` the reduction needs on W's block structure
+    (``schur_reduce.RowTables``), as B3, B4 and B5 read it: each held block
+    of W read once; the inverse (B3: h_ll, of every landmark, since B3
+    writes every inverse) and g_l of each landmark holding a block read
+    once; the incidence list (landmark, block) once; per (landmark, block)
+    Y = H⁻¹W and its rhs term once, per (landmark, block pair i ≤ j) the
+    block Y_iᵀW_j (on a diagonal pair its upper triangle only, as
+    :func:`reduce_flops` counts S's).  No other table is counted: the
+    links, items and pair lists are the implementation's.  The outputs
+    (S, rhs, B3's h_inv, written once) are counted by the caller."""
+    import numpy as np
+
+    lmk, blk, bwidth, links = (_host(getattr(tables, k)) for k in ("lmk", "blk", "bwidth", "links"))
+    real = blk >= 0
+    width = bwidth[blk[real]].astype(np.int64)  # each held block's width
+    held = int(width.sum())
+    n_held = np.unique(lmk[real]).shape[0]  # landmarks holding a block
+    n_inv = np.unique(lmk).shape[0] if damped else n_held
+    nbytes = (held * dl + n_inv * dl * dl + n_held * dl) * elt + int(real.sum()) * 8
+    wi, wj = bwidth[blk[links[:, 0]]].astype(np.int64), bwidth[blk[links[:, 1]]].astype(np.int64)
+    entries = np.where(links[:, 0] == links[:, 1], wi * (wi + 1) // 2, wi * wj)
+    ops = int((2 * dl * entries).sum() + 2 * dl * dl * held + 2 * dl * held)
     return int(nbytes), ops
+
+
+def gemm_call(w, h_inv):
+    """The library yardstick of B3, B4 and B5: cuBLAS's dense product Yᵀ W
+    (SGEMM or DGEMM), the one PyTorch call of their plain version that
+    forms S, with Y = H⁻¹ W formed beforehand."""
+    L, dl, wc = w.shape
+    y = torch.einsum("edl,ldr->ler", h_inv, w).reshape(L * dl, wc)
+    w2 = w.reshape(L * dl, wc)
+    return lambda: y.T @ w2
+
+
+def row_case(gen, L, dl, n_blocks, width, device, inverse):
+    """A synthetic obs-major W ``(w, h, g_l, rows)`` on ``device``: landmark
+    l holds about ten random camera blocks of ``width`` columns (every 9th
+    none), zero elsewhere; h SPD, or its inverse with ``inverse``; the
+    device row tables."""
+    from nllstpu_torch.ops import schur_reduce
+
+    held = torch.rand(L, n_blocks, generator=gen) < min(1.0, 10.0 / n_blocks)
+    held[::9] = False
+    lmk, blk = held.nonzero(as_tuple=True)
+    w = torch.zeros(L, dl, n_blocks, width, dtype=torch.float64)
+    w[lmk, :, blk] = torch.randn(len(lmk), dl, width, generator=gen, dtype=torch.float64)
+    a = torch.randn(L, dl, dl, generator=gen, dtype=torch.float64)
+    h = a @ a.transpose(1, 2) + 2.0 * torch.eye(dl, dtype=torch.float64)
+    if inverse:
+        h = torch.linalg.inv(h)
+    rows = schur_reduce.row_tables(lmk.numpy(), blk.numpy(), L,
+                                   *schur_reduce.uniform_blocks(n_blocks, width))
+    return (w.reshape(L, dl, -1).to(device), h.permute(1, 2, 0).contiguous().to(device),
+            torch.randn(dl, L, generator=gen, dtype=torch.float64).to(device),
+            schur_reduce.upload_tables(rows, device))
 
 
 class PhaseTimer:
@@ -543,7 +596,7 @@ def camera_rows(args, cpos, n_rows, dtype):
 
 def phase_b1(device):
     """B1 against its plain version; returns its record, the bench system
-    (for B3) and B6's camera-side input (D = 27)."""
+    with its row tables (for B3) and B6's camera-side input (D = 27)."""
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import fused_obs, schur
 
@@ -585,7 +638,7 @@ def phase_b1(device):
     print(f"B1 bench time (kernel and B6 over the camera runs): kernel {ms:.4f} ms (in a CUDA "
           f"graph {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
-    sys_ = comp.assemble(problem.stacked_variables())[1]
+    sys_ = comp.assemble(problem.stacked_variables())[1], comp.schur_info.w_rows
     cam = {f"pinhole bench D={dr_s * (dr_s + 3) // 2} camera runs": (
         camera_rows(args, fast.cpos, int(fast.cam_starts[-1]), torch.float32),
         fast.cstarts,
@@ -610,8 +663,8 @@ def _assemble_batch(fns, fast, head, tail, dtype, L):
 def phase_b2(device):
     """B2 (with B6 over the camera runs) against its plain version on the
     whole batch of both BAL problems; times per whole assembly.  Returns a
-    record per problem, the float32 systems for B3 and B6's camera-side
-    inputs (D = 54)."""
+    record per problem, the float32 systems with their row tables for B3
+    and B6's camera-side inputs (D = 54)."""
     from nllstpu_torch.core.optimize import compile_problem
     from nllstpu_torch.ops import fused_obs, schur, segment_sum
 
@@ -638,7 +691,7 @@ def phase_b2(device):
         slots = fast.slots
         print(f"B2 {name} ({len(buckets)} buckets {list(buckets)} in one launch of "
               f"{slots.work.shape[0]} warp items, {int((slots.slots < 0).sum())} repeated "
-              f"cameras; B2 and B5 tables built in {comp.schur_info.table_seconds:.4f} s inside "
+              f"cameras; B2 and B3/B4 tables built in {comp.schur_info.table_seconds:.4f} s inside "
               f"compile_problem): rel err h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 "
               f"{['%.2e' % e for e in e32]}, two assemblies bit-identical", flush=True)
         ms = time_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
@@ -659,7 +712,7 @@ def phase_b2(device):
               f"({b['bound_by']})", flush=True)
         records[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)),
                              ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
-        systems[name] = comp.assemble(problem.stacked_variables())[1]
+        systems[name] = comp.assemble(problem.stacked_variables())[1], comp.schur_info.w_rows
         cam[f"{name} D={dr_s * (dr_s + 3) // 2} camera runs"] = (
             _assemble_rows(head, tail, L, int(fast.cam_starts[-1])), fast.cstarts,
         )
@@ -679,32 +732,28 @@ def _assemble_rows(head, tail, L, n_rows):
 
 
 def phase_b3(device, systems):
-    """B3 against its plain version on each main path's own system (keyed
-    by the path) and on a random wc = 1152 case; a record per path."""
+    """B3 against its plain version on each main path's own system over
+    its row tables (keyed by the path) and on a synthetic structure; two
+    launches give the same bits, s_sum exactly symmetric.  A record per
+    path, with both bounds: the structural one (``bound_ms``) and the
+    dense product's."""
     from nllstpu_torch.ops import schur_reduce
 
+    kern, plain = schur_reduce.reduce_s_damped, schur_reduce.reduce_s_damped_reference
     gen = torch.Generator().manual_seed(1)
-    L, dl, wc = WIDE_L, 3, 1152
-    a = torch.randn(dl, dl, L, generator=gen, dtype=torch.float64)
-    wide = (
-        torch.randn(L, dl, wc, generator=gen, dtype=torch.float64),
-        torch.einsum("del,fel->dfl", a, a) + 2.0 * torch.eye(dl, dtype=torch.float64)[:, :, None],
-        torch.randn(dl, L, generator=gen, dtype=torch.float64),
-    )
-    cases = {name: (s[4], s[2], s[3]) for name, s in systems.items()}
-    cases["random"] = wide
+    cases = {name: (s[4], s[2], s[3], rows) for name, (s, rows) in systems.items()}
+    cases["synthetic structure"] = row_case(gen, WIDE_L, 3, 128, 9, device, inverse=False)
     records = {}
-    for name, inputs in cases.items():
+    for name, (*inputs, rows) in cases.items():
         inputs = [t.to(device) for t in inputs]
+        f32 = [t.float() for t in inputs]
         label = f"wc={inputs[0].shape[2]} {name}"
         max_abs = 0.0
         for lam in (0.0, 1e-2):
-            ref = schur_reduce.reduce_s_damped_reference(*[t.double() for t in inputs], lam)
-            plain32 = schur_reduce.reduce_s_damped_reference(*[t.float() for t in inputs], lam)
-            out64 = schur_reduce.reduce_s_damped(*[t.double() for t in inputs], lam)
-            out32 = schur_reduce.reduce_s_damped(*[t.float() for t in inputs], lam)
+            ref = plain(*[t.double() for t in inputs], lam)
+            plain32 = plain(*f32, lam)
+            out32, again = kern(*f32, lam, rows), kern(*f32, lam, rows)
             torch.cuda.synchronize()
-            e64 = check(f"B3 f64 {label} lam={lam}", out64, ref, TOL_F64)
             e32, p32 = scaled_errs(out32, ref), scaled_errs(plain32, ref)
             tol32 = [max(TOL_B3_F32, 10 * p) for p in p32]
             if not all(e <= t for e, t in zip(e32, tol32)):
@@ -712,22 +761,33 @@ def phase_b3(device, systems):
                     f"B3 f32 {label} lam={lam}: scaled errors s_sum/rhs/h_inv {e32}"
                     f" exceed {tol32}"
                 )
+            if not all(torch.equal(x, y) for x, y in zip(out32, again)):
+                raise AssertionError(f"B3 {label} lam={lam}: two launches differ")
+            if not torch.equal(out32[0], out32[0].T):
+                raise AssertionError(f"B3 {label} lam={lam}: s_sum is not exactly symmetric")
             max_abs = max(max_abs, *(abs_err(x, y) for x, y in zip(out32, ref)))
-            print(f"B3 {label} lam={lam}: rel err s_sum/rhs/h_inv f64"
-                  f" {['%.2e' % e for e in e64]}; f32 scaled by diag, kernel"
-                  f" {['%.2e' % e for e in e32]} plain {['%.2e' % e for e in p32]}"
-                  f" tolerance {['%.2e' % t for t in tol32]}", flush=True)
-        if name == "random":
+            print(f"B3 {label} lam={lam} ({rows.links.shape[0]} links in {rows.items.shape[0]} "
+                  f"items): f32 scaled by diag, kernel {['%.2e' % e for e in e32]} plain "
+                  f"{['%.2e' % e for e in p32]} tolerance {['%.2e' % t for t in tol32]}; two "
+                  "launches bit-identical, s_sum symmetric", flush=True)
+        if name not in systems:
             continue
-        f32 = [t.float() for t in inputs]
-        ms = time_ms(lambda: schur_reduce.reduce_s_damped(*f32, 1e-2))
-        plain_ms = time_ms(lambda: schur_reduce.reduce_s_damped_reference(*f32, 1e-2))
-        Lw, dlw, wcw = f32[0].shape
-        outs = schur_reduce.reduce_s_damped(*f32, 1e-2)
-        b = bound(nbytes(*f32, *outs), reduce_flops(Lw, dlw, wcw))
-        print(f"B3 {label} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, **b)
+        ms = time_ms(lambda: kern(*f32, 1e-2, rows))
+        device_ms = graph_ms(lambda: kern(*f32, 1e-2, rows))
+        plain_ms = time_ms(lambda: plain(*f32, 1e-2))
+        outs = kern(*f32, 1e-2, rows)
+        library_ms = time_ms(gemm_call(f32[0], outs[2]))
+        L, dl, wc = f32[0].shape
+        pb, pf = struct_work(rows, dl, 4, damped=True)
+        b = bound(pb + nbytes(*outs), pf)
+        dense = bound(nbytes(*f32, *outs), reduce_flops(L, dl, wc))
+        print(f"B3 {label} time: kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, cuBLAS Y^T W {library_ms:.4f} ms, structural bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {pb} bytes, {pf} operations), dense "
+              f"bound {dense['bound_ms']:.4f} ms ({dense['bound_by']})", flush=True)
+        records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, **b,
+                             dense_bound_ms=dense["bound_ms"], graph_ms=device_ms,
+                             library_ms=library_ms)
     return records
 
 
@@ -922,7 +982,7 @@ def structured_case(gen, L, dl, widths, spare):
     h = a @ a.transpose(1, 2) + 2.0 * torch.eye(dl, dtype=torch.float64)
     return (w, torch.linalg.inv(h).permute(1, 2, 0).contiguous(),
             torch.randn(dl, L, generator=gen, dtype=torch.float64),
-            schur_reduce.pair_tables(lmk.numpy(), blk.numpy(), bcol.numpy(), widths.numpy()))
+            schur_reduce.row_tables(lmk.numpy(), blk.numpy(), L, bcol.numpy(), widths.numpy()))
 
 
 def phase_b5(device, main_inputs):
@@ -938,7 +998,7 @@ def phase_b5(device, main_inputs):
     *syn, syn_tables = structured_case(gen, 2048, 5, [9] * 40 + [3, 16, 1], 2)
     cases = {
         ADAPTIVE: main_inputs,
-        "dl=5 synthetic structure": (*syn, schur_reduce.upload_pairs(syn_tables, device)),
+        "dl=5 synthetic structure": (*syn, schur_reduce.upload_tables(syn_tables, device)),
     }
     record = None
     for label, (*inputs, pairs) in cases.items():
@@ -957,11 +1017,13 @@ def phase_b5(device, main_inputs):
             raise AssertionError(f"B5 f32 {label}: errors s_sum/rhs {e32} exceed {tol32}")
         if not all(torch.equal(x, y) for x, y in zip(out32, again)):
             raise AssertionError(f"B5 {label}: two launches differ")
+        if not (torch.equal(out32[0], out32[0].T) and torch.equal(out64[0], out64[0].T)):
+            raise AssertionError(f"B5 {label}: s_sum is not exactly symmetric")
         line = (f"B5 {label} (W {tuple(inputs[0].shape)}, {pairs.pairs.shape[0]} block pairs, "
-                f"{pairs.lmk.shape[0]} landmark entries, {pairs.items.shape[0]} items): rel err "
+                f"{pairs.links.shape[0]} links, {pairs.items.shape[0]} items): rel err "
                 f"s_sum/rhs f64 {['%.2e' % e for e in e64]}; f32 kernel "
                 f"{['%.2e' % e for e in e32]} plain {['%.2e' % e for e in p32]} tolerance "
-                f"{['%.2e' % t for t in tol32]}; two launches bit-identical")
+                f"{['%.2e' % t for t in tol32]}; two launches bit-identical, s_sum symmetric")
         if label != ADAPTIVE:
             print(line, flush=True)
             continue
@@ -969,16 +1031,17 @@ def phase_b5(device, main_inputs):
         ms = time_ms(lambda: kern(*f32, pairs=pairs))
         device_ms = graph_ms(lambda: kern(*f32, pairs=pairs))
         plain_ms = time_ms(lambda: plain(*f32))
-        pb, pf = pair_work(pairs, f32[0].shape[1], 4)
+        library_ms = time_ms(gemm_call(*f32[:2]))
+        pb, pf = struct_work(pairs, f32[0].shape[1], 4)
         b = bound(pb + nbytes(*out32), pf)
         dense = bound(nbytes(*f32, *out32), reduce_flops(*f32[0].shape))
         print(f"{line} | kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, structural bound "
+              f"{plain_ms:.4f} ms, cuBLAS Y^T W {library_ms:.4f} ms, structural bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {pb} bytes, {pf} operations), dense "
               f"bound {dense['bound_ms']:.4f} ms ({dense['bound_by']})", flush=True)
         record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out32, ref)),
                       ms=ms, plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"],
-                      graph_ms=device_ms)
+                      graph_ms=device_ms, library_ms=library_ms)
     return {ADAPTIVE: record}
 
 
@@ -1092,102 +1155,104 @@ def phase_determinism(device):
 
 
 def b4_inputs(device):
-    """B4's inputs: what the gauge-fixed float64 main path gives it in one
-    damped solve (recorded, with that solve's h_ll and λ for the route
-    comparison), and the float32 pinhole bench system (W [8192, 3, 768])
-    with inverses formed in float64 at the same relative damping, which
-    the float32 route itself sends to B3."""
+    """B4's inputs with their row tables: what the gauge-fixed float64 main
+    path gives it in one damped solve (recorded, with that solve's h_ll
+    and λ), the float32 pinhole bench system (W [8192, 3, 768]) with
+    inverses formed in float64 at the same relative damping (the float32
+    route itself sends it to B3), and a synthetic dl = 5 structure."""
     from nllstpu_torch.ops import schur
 
     problem, comp, _ = dual_compile(GAUGE, device)
     kern, seen = comp.kernels.reduce_lm, {}
 
-    def record(w, h_inv, g_l):
-        seen[GAUGE] = (w.clone(), h_inv.clone(), g_l.clone())
-        return kern(w, h_inv, g_l)
+    def record(w, h_inv, g_l, rows):
+        seen[GAUGE] = (w.clone(), h_inv.clone(), g_l.clone(), rows)
+        return kern(w, h_inv, g_l, rows)
 
     comp.kernels = dataclasses.replace(comp.kernels, reduce_lm=record)
     _, sys_ = comp.assemble(problem.stacked_variables())
     ops = comp.ctx().linops
     lam = 1e-2 * ops.diag_max(sys_).item()
     ops.solve(sys_, lam)
-    damped = (sys_[4], sys_[2], sys_[3], lam)
+    damped = (sys_[2], lam)
     problem, comp, _ = dual_compile(FUSED, device)
     _, sys_ = comp.assemble(problem.stacked_variables())
     lam = 1e-2 * comp.ctx().linops.diag_max(sys_).item()
-    seen["pinhole bench f32"] = (sys_[4], schur.SchurOps.damped_inverse(sys_[2], lam), sys_[3])
+    seen["pinhole bench f32"] = (sys_[4], schur.SchurOps.damped_inverse(sys_[2], lam), sys_[3],
+                                 comp.schur_info.w_rows)
     gen = torch.Generator().manual_seed(5)
-    L, dl, wc = 2048, 5, 400
-    a = torch.randn(L, dl, dl, generator=gen, dtype=torch.float64)
-    h = a @ a.transpose(1, 2) + 2.0 * torch.eye(dl, dtype=torch.float64)
-    seen[B4_SYNTHETIC] = tuple(t.to(device) for t in (
-        torch.randn(L, dl, wc, generator=gen, dtype=torch.float64),
-        torch.linalg.inv(h).permute(1, 2, 0).contiguous(),
-        torch.randn(dl, L, generator=gen, dtype=torch.float64)))
+    seen[B4_SYNTHETIC] = row_case(gen, 2048, 5, 80, 5, device, inverse=True)
     return seen, damped
 
 
-def phase_b4(device, inputs, damped):
-    """B4 against its plain version: in float64 on the gauge-fixed path's
-    input (wc = 756, 1e-12) and in float32 and float64 on the pinhole bench
-    system (wc = 768; float32 within 1e-6 of the largest entry) and on a
-    dense random dl = 5 W (float32 as B5's synthetic case); two float32
-    launches give the same bits; beside the
-    main path's shape its time, its bound (float64 operations) and the
-    plain version's.  Then the float64 solve's two routes on the same
-    system (``damped``: W, h_ll, g_l, λ): B3 in float64, one launch that
-    forms the inverses itself, against the float64 ``damped_inverse`` then
-    B4, which the solve takes; they must agree to 1e-12.  A record for the
-    main path."""
+def phase_b4(device, cases, damped):
+    """B4 against its plain version over each system's row tables: in
+    float64 on the gauge-fixed path's input (wc = 756, 1e-12) and in
+    float32 and float64 on the pinhole bench system (wc = 768; float32
+    within 1e-6 of the largest entry) and on a synthetic dl = 5 structure
+    (float32 as B5's synthetic case); two launches give the same bits and
+    s_sum is exactly symmetric; beside the main path's shape its time, its
+    structural and dense bounds (float64 operations), the plain version's
+    and cuBLAS DGEMM's.  Then the float64 solve's reduction as the solve
+    runs it (``damped``: h_ll, λ): ``damped_inverse``, then B4.  A record
+    for the main path."""
     from nllstpu_torch.ops import schur, schur_reduce
 
     kern, plain = schur_reduce.reduce_s_lm, schur_reduce.reduce_s_reference
     record = None
-    for label, inputs in inputs.items():
-        ref = plain(*[t.double() for t in inputs])
-        out64 = kern(*[t.double() for t in inputs])
-        torch.cuda.synchronize()
-        e64 = check(f"B4 f64 {label}", out64, ref, TOL_B57_F64)
-        line = (f"B4 {label} (W {tuple(inputs[0].shape)}): rel err s_sum/rhs f64 "
-                f"{['%.2e' % e for e in e64]}")
+    for label, (*inputs, rows) in cases.items():
+        f64 = [t.double() for t in inputs]
+        ref = plain(*f64)
+        outs = {torch.float64: (kern(*f64, rows), kern(*f64, rows))}
         if label != GAUGE:
-            out32 = kern(*[t.float() for t in inputs])
-            again = kern(*[t.float() for t in inputs])
-            p32 = [rel_err(x, y) for x, y in zip(plain(*[t.float() for t in inputs]), ref)]
+            f32 = [t.float() for t in inputs]
+            outs[torch.float32] = (kern(*f32, rows), kern(*f32, rows))
+        torch.cuda.synchronize()
+        for dt, (out, again) in outs.items():
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                raise AssertionError(f"B4 {label} {dt}: two launches differ")
+            if not torch.equal(out[0], out[0].T):
+                raise AssertionError(f"B4 {label} {dt}: s_sum is not exactly symmetric")
+        out64 = outs[torch.float64][0]
+        e64 = check(f"B4 f64 {label}", out64, ref, TOL_B57_F64)
+        line = (f"B4 {label} (W {tuple(inputs[0].shape)}, {rows.links.shape[0]} links in "
+                f"{rows.items.shape[0]} items): rel err s_sum/rhs f64 {['%.2e' % e for e in e64]}")
+        if label != GAUGE:
+            out32 = outs[torch.float32][0]
+            p32 = [rel_err(x, y) for x, y in zip(plain(*f32), ref)]
             e32 = [rel_err(x, y) for x, y in zip(out32, ref)]
-            # A main path's system within TOL_B57_F32; the random case, as
+            # A main path's system within TOL_B57_F32; the synthetic case, as
             # B5's, within ten times the plain version's own error too.
             tol32 = [TOL_B57_F32 if label != B4_SYNTHETIC else max(TOL_B57_F32, 10 * p)
                      for p in p32]
             if not all(e <= t for e, t in zip(e32, tol32)):
                 raise AssertionError(f"B4 f32 {label}: errors s_sum/rhs {e32} exceed {tol32}")
-            if not all(torch.equal(x, y) for x, y in zip(out32, again)):
-                raise AssertionError(f"B4 {label}: two launches differ")
             print(f"{line}; f32 kernel {['%.2e' % e for e in e32]} plain (cuBLAS) "
-                  f"{['%.2e' % e for e in p32]}; two launches bit-identical", flush=True)
+                  f"{['%.2e' % e for e in p32]}; two launches bit-identical, s_sum symmetric",
+                  flush=True)
             continue
-        f64 = [t.double() for t in inputs]
-        ms = time_ms(lambda: kern(*f64))
+        ms = time_ms(lambda: kern(*f64, rows))
+        device_ms = graph_ms(lambda: kern(*f64, rows))
         plain_ms = time_ms(lambda: plain(*f64))
-        b = bound(nbytes(*f64, *out64), reduce_flops(*f64[0].shape), torch.float64)
-        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        library_ms = time_ms(gemm_call(*f64[:2]))
+        L, dl, wc = f64[0].shape
+        pb, pf = struct_work(rows, dl, 8)
+        b = bound(pb + nbytes(*out64), pf, torch.float64)
+        dense = bound(nbytes(*f64, *out64), reduce_flops(L, dl, wc), torch.float64)
+        print(f"{line}; two launches bit-identical, s_sum symmetric | kernel {ms:.4f} ms (in a "
+              f"CUDA graph {device_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS Y^T W (DGEMM) "
+              f"{library_ms:.4f} ms, structural bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+              f"{pb} bytes, {pf} operations), dense bound {dense['bound_ms']:.4f} ms "
+              f"({dense['bound_by']})", flush=True)
         record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out64, ref)),
-                      ms=ms, plain_ms=plain_ms, **b)
-    w, h_ll, g_l, lam = damped
-
-    def via_b4():
-        h_inv = schur.SchurOps.damped_inverse(h_ll, lam)
-        return (*kern(w, h_inv, g_l), h_inv)
-
-    b3 = schur_reduce.reduce_s_damped(w, h_ll, g_l, lam)
-    check(f"B3 f64 against damped_inverse + B4 {GAUGE}", b3, via_b4(), TOL_B57_F64)
-    b3_ms = time_ms(lambda: schur_reduce.reduce_s_damped(w, h_ll, g_l, lam))
-    b4_ms = time_ms(via_b4)
+                      ms=ms, plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"],
+                      graph_ms=device_ms, library_ms=library_ms)
+    h_ll, lam = damped
+    w, _, g_l, rows = cases[GAUGE]
+    solve_ms = time_ms(lambda: kern(w, schur.SchurOps.damped_inverse(h_ll, lam), g_l, rows))
     inv_ms = time_ms(lambda: schur.SchurOps.damped_inverse(h_ll, lam))
-    print(f"f64 solve routes {GAUGE} (W {tuple(w.shape)}): B3 f64 {b3_ms:.4f} ms; "
-          f"damped_inverse + B4 {b4_ms:.4f} ms (damped_inverse alone {inv_ms:.4f} ms)",
-          flush=True)
+    print(f"f64 solve reduction {GAUGE} (W {tuple(w.shape)}): damped_inverse + B4 "
+          f"{solve_ms:.4f} ms (damped_inverse alone {inv_ms:.4f} ms)", flush=True)
     return {GAUGE: record}
 
 

@@ -46,8 +46,8 @@ class Kernels:
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree-bucketed batch
     assemble_leg: Any  # kernel B8 contract, the dual-sorted route
-    reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32
-    reduce_lm: Any  # kernel B4 contract (ops/schur_reduce.py), f64-formed inverses, obs-major W
+    reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32, over W's row tables
+    reduce_lm: Any  # kernel B4 contract, f64-formed inverses, obs-major W's row tables
     reduce_external: Any  # kernel B5 contract, f64-formed inverses, over W's structure
     segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, B2's camera sum
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
@@ -128,6 +128,7 @@ class CompiledProblem:
             linops = schur.SchurOps(
                 si.dim_reduced, reduce=self.kernels.reduce, reduce_lm=self.kernels.reduce_lm,
                 reduce_external=self.kernels.reduce_external, pairs=si.w_pairs,
+                rows=si.w_rows,
             )
         extra = {} if phase is None else {"phase": phase}
         return iterators.IterCtx(
@@ -150,8 +151,8 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
     on the obs-major direct path only, fixed landmarks not yet).  Skewed
     degree distributions get the JAX package's degree relabel (see
     :func:`schur_layout`); the direct path then takes the bucketed layout,
-    assembled by kernel B2.  The host tables of kernels B2 and B5 are
-    built here (``schur_info.table_seconds``), inside
+    assembled by kernel B2.  The host tables of kernels B2, B3/B4 (every
+    obs-major direct W) and B5 are built here (``schur_info.table_seconds``), inside
     ``Result.time_init``.  ``w_impl`` picks the direct assembly's route
     (:data:`W_IMPLS`); ``"fused"`` on a batch that does not qualify
     raises.  A batch with an adaptive kernel takes the direct path's

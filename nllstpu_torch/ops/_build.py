@@ -50,19 +50,15 @@ _SIGNATURES = {
     # element strides jsn, jss, gss, gk, stream
     "fused_obs_all_into_f32": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
-    # w, h_ll, g_l, lam, s_part, r_part, s_sum, rhs_sum, h_inv, l, dl, wc,
-    # splits, stream
-    "reduce_s_damped_f32": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
-    "reduce_s_damped_f64": [_P] * 3 + [_D] + [_P] * 5 + [_I] * 4 + [_P],
-    # B4: w, h_inv, g_l, s_part, r_part, s_sum, rhs_sum, l, dl, wc, splits,
-    # stream
-    "reduce_s_lm_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "reduce_s_lm_f64": [_P] * 7 + [_I] * 4 + [_P],
-    # B5: w, h_inv [L, dl²], g_l [L, dl], items, pairs, bcol, bwidth, lmk,
-    # istarts, part, rpart, s_sum, rhs_sum, dl, wc, n_items, n_pairs,
-    # max width, stream
-    "reduce_s_pairs_f32": [_P] * 13 + [_I] * 5 + [_P],
-    "reduce_s_pairs_f64": [_P] * 13 + [_I] * 5 + [_P],
+    # B3 (float32 only), B4 and B5 (the external instance): w, h_ll or
+    # h_inv, g_l, lam, the tables lmk, blk, bcol, bwidth, pairs, links,
+    # items, istarts, the scratch yc, wb, part, rpart, s_sum, rhs_sum, h_inv
+    # (B3; NULL otherwise), l, dl, wc, widest block, padded block, n_inc,
+    # n_items, n_pairs, uniform (every block mw wide from column 0), stream
+    **{
+        name: [_P] * 3 + [_D] + [_P] * 15 + [_I] * 9 + [_P]
+        for name in ("reduce_s_damped_f32", "reduce_s_external_f32", "reduce_s_external_f64")
+    },
     # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream
     "place_w_f32": [_P] * 4 + [_LL] + [_I] * 4 + [_P],
     "place_w_f64": [_P] * 4 + [_LL] + [_I] * 4 + [_P],

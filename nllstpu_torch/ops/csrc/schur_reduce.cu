@@ -1,107 +1,102 @@
-// Kernels B3, B4 and B5: the Schur reductions of the direct solve.
+// Kernels B3, B4 and B5: the Schur reductions of the direct solve, one
+// structured body.
 //
 // B3 replaces the TPU kernel
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm_damped (body
-// _kernel_lm_damped -> _lm_reduce_body / _lm_reduce_body_panels).  One
-// kernel covers every reduced width: the TPU split into a narrow and a
-// column-panel body existed only to fit its scoped VMEM.
-// B4 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body
-// _kernel_lm), the reduction over external inverses for the TPU's p-major
-// W of the obs-major assemblies.  Here that W is landmark-major, and B4 is
-// B3's dense body in its external mode, for dl = 1 .. 6: the float64
-// direct solve runs through it.
-// B5 replaces nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel),
-// the same reduction over the generic assembly's W (the adaptive kernel's
-// batch).  Its W is sparse by structure - a landmark's row holds its
-// cameras' column blocks and the kernel block, ~100 of 1155 columns on the
-// adaptive BAL path - so B5 reduces over the structure instead (below).
+// _kernel_lm_damped -> _lm_reduce_body / _lm_reduce_body_panels), B4
+// nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body _kernel_lm) and B5
+// nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel).  B3 and B4
+// reduce the obs-major assemblies' W, B3 forming the damped inverses itself
+// (float32, dl <= 3), B4 over inverses formed outside (float64, or dl > 3);
+// B5 reduces the generic assembly's W (the adaptive kernel's batch) over
+// inverses formed outside.  B4 and B5 are the same instance (EXTERNAL).
 // The TPU kernels' components-major W, bf16x3 products and landmark
 // padding are not carried over; rhs is full precision, as there.
 //
-// Inputs:  w [L, dl, wc] (landmark-major coupling, standard basis),
-//          B3: h_ll [dl, dl, L] (undamped) and lambda;
-//          B4: h_inv [dl, dl, L] (the damped inverses, formed outside);
-//          B5: h_inv [L, dl, dl] and g_l [L, dl] (landmark-major) and the
-//          structure tables;
-//          g_l [dl, L].
 // Outputs: s_sum [wc, wc] = sum_l W_l^T (h_ll,l + lambda I)^-1 W_l
 //          rhs   [wc]     = sum_l W_l^T (h_ll,l + lambda I)^-1 g_l,l
 //          B3 only: h_inv [dl, dl, L], the damped inverses the
 //          back-substitution needs.
 //
-// B3 and B4, the dense body.  With Y = H^-1 W (never stored), s_sum =
-// Y^T W is a [wc, K] x [K, wc] product over K = L * dl, both operands
-// being the row-major [K, wc] matrices Y and W.  The contraction is this
-// kernel's own tiled FP32 (or FP64) FMA loop:
-//   * a block owns one 64 x 64 tile of s_sum and one slice of the
-//     landmarks (split-K); only tiles on or above the diagonal run, and
-//     the lower triangle is mirrored when the partials are reduced;
-//   * per step it stages LB landmarks (8, or 24 / dl past dl = 3, so the
-//     staged depth never passes 24 rows): their closed-form damped
-//     inverses (the cofactor arithmetic of the JAX package) or the
-//     external ones, the W rows at the tile's row and column ranges, and
-//     Y for the row range, in shared memory; 256 threads then each
-//     accumulate a 4 x 4 register tile;
-//   * each step adds into a partial register tile that folds into the
-//     tile's sum every 8 steps (two-level sums: no float32 chain runs
-//     past 8 * 24 products plus one add per 64 landmarks);
-//   * diagonal tiles also accumulate rhs, its products in double, and
-//     the (0, 0) tiles write h_inv once per landmark;
-//   * a second small kernel sums the split-K partials in a fixed order,
-//     so the result is deterministic.
-// Bound: the FMA rate out of shared memory - about 2 FMAs per shared load
-// with this register tile.  wgmma, TMA and 3xTF32 are later work.
-//
-// B5, the structured body.  W's columns fall into blocks (a camera's
-// dr_s columns, the kernel's k columns); the tables list, for every block
-// pair i <= j that some landmark holds both of, those landmarks in
-// ascending order, cut into items of at most a few dozen landmarks.  One
-// warp takes one item: lane a of a group of w_i lanes owns row a of the
-// output block, forms Y_l[:, a] = H_l^-1 W_l[:, i_a] from the landmark's
-// inverse, and adds Y_l[:, a] . W_l[:, j_b] for every column b of block j;
-// 32 / w_i groups take interleaved landmarks of the item, and the groups'
-// partials are added in group order.  Diagonal items (i = j) also sum rhs
-// in double.  A second kernel adds each pair's item partials in item order
-// and writes the block and, below the diagonal, its mirror; every other
-// entry of s_sum stays zero.  No atomics: two launches give the same bits.
-// It reads only W's nonzero blocks (about 10 MB on the adaptive path, which
-// stays in L2 across the pairs that reread them) and does the structural
-// work, ~40x less than the dense product.
+// W [L, dl, wc] is nonzero only in each landmark's column blocks (an
+// obs-major W's camera blocks; the generic W's camera blocks and its
+// kernel block): 4-15 MB of blocks on the main paths against 41-149 MB of
+// dense rows, and 44-90x less work than the dense product Y^T W.  The
+// tables (schur_reduce.row_tables, built at compile time) give the blocks
+// (first column, width <= kMaxWidth), every landmark's incidences
+// (landmark, block), and for every block pair i <= j the landmarks holding
+// both, as pairs of incidences ("links") in landmark order, cut into items
+// of at most kLinkChunk.  Three launches:
+//   1. incidence_kernel, kIncBlock incidences per block: one thread per
+//      incidence brings its landmark's inverse to shared memory (B3: the
+//      closed form of h_ll + lambda I in double, cast to float, written to
+//      h_inv by the landmark's first incidence - a landmark without a
+//      block keeps one incidence for that; B4/B5: read); then the block's
+//      threads copy the W_l[:, b] entries to shared memory and to a compact
+//      incidence-major array wb, and form Y = H^-1 W_l[:, b] once per
+//      (landmark, block) into another, yc (each block padded to 16 bytes),
+//      consecutive threads writing consecutive entries;
+//   2. reduce_links_kernel, one warp per item: the item's links staged in
+//      shared memory; lane a of a group of w_i lanes owns row a of the
+//      pair's block and adds, link after link, Y_l[:, a] . W_l[:, j]
+//      (16-byte loads of the compact block, broadcast over the group; two
+//      links' loads in flight before their products where both blocks
+//      have the instance's unrolled width); the groups take interleaved
+//      links and are added in group order; diagonal items also sum rhs in
+//      double;
+//   3. sum_links_kernel, one thread per entry of every block pair i <= j:
+//      its items' partials in item order, written at (i, j) and at its
+//      mirror (j, i) - on a diagonal block by the owner of the upper
+//      entry - so every entry of s_sum inside the blocks has exactly one
+//      writer, s_sum is symmetric bit for bit, and a pair without a
+//      landmark writes zeros (no mirror pass; the caller zeroes the
+//      outputs only where the blocks leave columns of W uncovered).
+// No atomics: two launches give the same bits.  What bounds it on the
+// H100: the links pass, most of the time, reads each link's Y rows and W
+// block (~150 bytes in float32, ~290 in float64) from L2, about 2.9-3.6
+// TB/s on the pinhole shapes: L2 traffic, not the FP32/FP64 rate (the
+// structural work is 0.1-0.75 GFLOP, ~10 us at the CUDA-core rate) and not
+// HBM (the compact arrays are 4-15 MB each and stay in L2).  The design
+// answers with Y formed once, aligned vector loads of a block that a group
+// of lanes shares, and one write of S; reusing Y_li across a camera row
+// from shared memory is the next step.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace {
 
-constexpr int kBM = 64;       // s_sum tile edge
-constexpr int kTile = 16;     // threads per tile edge (16 x 16 = 256)
-constexpr int kT = kBM / kTile;  // register tile edge (4)
-constexpr int kFlush = 8;     // steps summed in a partial tile
+constexpr int kMaxWidth = 16;  // widest column block
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kIncThreads = 128;  // incidence_kernel
+constexpr int kIncBlock = 32;     // incidences per incidence_kernel block
+constexpr int kLinkWarps = 4;     // reduce_links_kernel
+constexpr int kLinkChunk = 64;    // links per item (schur_reduce.LINK_CHUNK)
 
-
-template <typename T, int DL>
-__device__ void damped_inverse(const T* __restrict__ h_ll, int L, int l,
-                               T lam, T* out) {
-  auto h = [&](int a, int b) { return h_ll[static_cast<size_t>(a * DL + b) * L + l]; };
+// The closed-form inverse of a symmetric DL x DL block, in double: the
+// cofactor arithmetic of core/linearsolver.batched_inv_spd_cm (and of the
+// JAX package).
+template <int DL>
+__device__ void closed_form_inverse(const double* h, double* out) {
   if constexpr (DL == 1) {
-    out[0] = T(1) / (h(0, 0) + lam);
+    out[0] = 1.0 / h[0];
   } else if constexpr (DL == 2) {
-    const T a = h(0, 0) + lam, b = h(0, 1), e = h(1, 1) + lam;
-    const T inv_det = T(1) / (a * e - b * b);
+    const double a = h[0], b = h[1], c = h[2], e = h[3];
+    const double inv_det = 1.0 / (a * e - b * c);
     out[0] = e * inv_det;
     out[1] = -b * inv_det;
-    out[2] = -b * inv_det;
+    out[2] = -c * inv_det;
     out[3] = a * inv_det;
   } else {
-    const T a = h(0, 0) + lam, b = h(0, 1), c = h(0, 2);
-    const T e = h(1, 1) + lam, f = h(1, 2), g = h(2, 2) + lam;
-    const T c00 = e * g - f * f;
-    const T c01 = c * f - b * g;
-    const T c02 = b * f - c * e;
-    const T c11 = a * g - c * c;
-    const T c12 = b * c - a * f;
-    const T c22 = a * e - b * b;
-    const T inv_det = T(1) / (a * c00 + b * c01 + c * c02);
+    const double a = h[0], b = h[1], c = h[2];
+    const double e = h[4], f = h[5], g = h[8];
+    const double c00 = e * g - f * f;
+    const double c01 = c * f - b * g;
+    const double c02 = b * f - c * e;
+    const double c11 = a * g - c * c;
+    const double c12 = b * c - a * f;
+    const double c22 = a * e - b * b;
+    const double inv_det = 1.0 / (a * c00 + b * c01 + c * c02);
     out[0] = c00 * inv_det;
     out[1] = c01 * inv_det;
     out[2] = c02 * inv_det;
@@ -114,277 +109,208 @@ __device__ void damped_inverse(const T* __restrict__ h_ll, int L, int l,
   }
 }
 
-// EXTERNAL = false: B3, h_in holds h_ll and the damped inverses are formed
-// here (and written to h_inv by the (0, 0) tiles).  EXTERNAL = true: B4,
-// h_in holds the inverses; lam and h_inv are unused.
-template <typename T, int DL, bool EXTERNAL>
-__global__ void __launch_bounds__(kTile * kTile) reduce_s_kernel(
-    const T* __restrict__ w, const T* __restrict__ h_in,
-    const T* __restrict__ g_l, T lam, T* __restrict__ s_part,
-    T* __restrict__ r_part, T* __restrict__ h_inv, int L, int wc,
-    int l_per_split) {
-  const int bj = blockIdx.x;  // column tile
-  const int bi = blockIdx.y;  // row tile
-  if (bi > bj) return;        // lower tiles are mirrored afterwards
-  // Landmarks staged per step: 8 up to dl = 3, then as many as keep the
-  // staged depth dl * LB at most 24 (the shared memory of the dl = 3 body).
-  constexpr int kLB = DL <= 3 ? 8 : 24 / DL;
-  constexpr int BK = DL * kLB;
-  __shared__ T hs[kLB][DL * DL];
-  __shared__ T gs[BK];
-  __shared__ T wr[BK][kBM];  // W at the tile's rows
-  __shared__ T ws[BK][kBM];  // W at the tile's columns (off-diagonal tiles)
-  __shared__ T ys[BK][kBM];  // Y = H^-1 W at the tile's rows
-  const int split = blockIdx.z;
-  const int l_begin = split * l_per_split;
-  const int l_end = min(L, l_begin + l_per_split);
-  const int r0 = bi * kBM;
-  const int s0 = bj * kBM;
-  const bool diag = bi == bj;
-  const bool write_hinv = !EXTERNAL && bi == 0 && bj == 0;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTile;
-  const int ty = tid / kTile;
-  // Two-level sums: a step's products add into part, which folds into acc
-  // every kFlush steps, so no float32 chain runs past a few hundred terms.
-  T acc[kT][kT], part[kT][kT];
-#pragma unroll
-  for (int i = 0; i < kT; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = part[i][j] = T(0);
-  double racc = 0.0;  // rhs: exact products, a double chain
-  int step = 0;
-  const T (*bmat)[kBM] = diag ? wr : ws;
-
-  for (int lc = l_begin; lc < l_end; lc += kLB) {
+// One block takes kIncBlock consecutive incidences.  EXTERNAL = false:
+// B3, h_in holds h_ll, and the damped inverses are formed here;
+// EXTERNAL = true: B4 and B5, h_in holds the inverses; lam and h_inv are
+// unused.  First one thread per incidence brings its landmark's inverse to
+// shared memory (B3: written to h_inv by the landmark's first incidence);
+// then the threads copy the blocks' W entries, element by element, to
+// shared memory and to wb; then form Y element by element: consecutive
+// threads write consecutive entries of the compact arrays.  Each incidence
+// has DL * mw slots; a block of width w_b uses its first DL * w_b, [d][c]
+// in wb and ws, [c][e] in yc.  UNIFORM: every block is mw wide and block b
+// starts at column b * mw (an obs-major W), so the block tables are not
+// read.
+template <typename T, int DL, bool EXTERNAL, bool UNIFORM>
+__global__ void __launch_bounds__(kIncThreads) incidence_kernel(
+    const T* __restrict__ w, const T* __restrict__ h_in, double lam,
+    const int* __restrict__ lmk, const int* __restrict__ blk,
+    const int* __restrict__ bcol, const int* __restrict__ bwidth, T* __restrict__ yc,
+    T* __restrict__ wb, T* __restrict__ h_inv, int L, int wc, int mw, int bs, int n_inc) {
+  __shared__ T hs[kIncBlock][DL * DL];
+  __shared__ T ws[kIncBlock * DL * kMaxWidth];
+  const int s0 = blockIdx.x * kIncBlock;
+  const int n = min(kIncBlock, n_inc - s0);
+  const int t = threadIdx.x;
+  if (t < n) {
+    const int s = s0 + t;
+    const int l = lmk[s];
     if constexpr (EXTERNAL) {
-      for (int i = tid; i < kLB * DL * DL; i += kTile * kTile) {
-        const int l = lc + i / (DL * DL);
-        const int c = i % (DL * DL);
-        hs[i / (DL * DL)][c] = l < l_end ? h_in[static_cast<size_t>(c) * L + l] : T(0);
+#pragma unroll
+      for (int c = 0; c < DL * DL; ++c) hs[t][c] = h_in[static_cast<size_t>(c) * L + l];
+    } else {
+      double h[DL * DL], inv[DL * DL];
+#pragma unroll
+      for (int c = 0; c < DL * DL; ++c)
+        h[c] = static_cast<double>(h_in[static_cast<size_t>(c) * L + l]);
+#pragma unroll
+      for (int d = 0; d < DL; ++d) h[d * DL + d] += lam;
+      closed_form_inverse<DL>(h, inv);
+      const bool first = s == 0 || lmk[s - 1] != l;
+#pragma unroll
+      for (int c = 0; c < DL * DL; ++c) {
+        hs[t][c] = static_cast<T>(inv[c]);
+        if (first) h_inv[static_cast<size_t>(c) * L + l] = hs[t][c];
       }
-    } else if (tid < kLB) {
-      const int l = lc + tid;
-      T inv[DL * DL];
-      if (l < l_end) {
-        damped_inverse<T, DL>(h_in, L, l, lam, inv);
-        if (write_hinv) {
-#pragma unroll
-          for (int c = 0; c < DL * DL; ++c)
-            h_inv[static_cast<size_t>(c) * L + l] = inv[c];
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < DL * DL; ++c) inv[c] = T(0);
-      }
-#pragma unroll
-      for (int c = 0; c < DL * DL; ++c) hs[tid][c] = inv[c];
-    }
-    if (tid < BK) {
-      const int l = lc + tid / DL;
-      gs[tid] = l < l_end ? g_l[static_cast<size_t>(tid % DL) * L + l] : T(0);
-    }
-    for (int i = tid; i < BK * kBM; i += kTile * kTile) {
-      const int kk = i / kBM;
-      const int c = i % kBM;
-      const int l = lc + kk / DL;
-      const bool l_ok = l < l_end;
-      const size_t row = (static_cast<size_t>(l) * DL + kk % DL) * wc;
-      wr[kk][c] = (l_ok && r0 + c < wc) ? w[row + r0 + c] : T(0);
-      if (!diag) ws[kk][c] = (l_ok && s0 + c < wc) ? w[row + s0 + c] : T(0);
-    }
-    __syncthreads();
-    for (int i = tid; i < BK * kBM; i += kTile * kTile) {
-      const int kk = i / kBM;
-      const int c = i % kBM;
-      const int ll = kk / DL;
-      const int e = kk % DL;
-      T y = T(0);
-#pragma unroll
-      for (int d = 0; d < DL; ++d) y += hs[ll][e * DL + d] * wr[ll * DL + d][c];
-      ys[kk][c] = y;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      T a[kT], b[kT];
-#pragma unroll
-      for (int i = 0; i < kT; ++i) a[i] = ys[kk][ty + kTile * i];
-#pragma unroll
-      for (int j = 0; j < kT; ++j) b[j] = bmat[kk][tx + kTile * j];
-#pragma unroll
-      for (int i = 0; i < kT; ++i)
-#pragma unroll
-        for (int j = 0; j < kT; ++j) part[i][j] += a[i] * b[j];
-    }
-    if (diag && tid < kBM) {
-      for (int kk = 0; kk < BK; ++kk)
-        racc += static_cast<double>(ys[kk][tid]) * static_cast<double>(gs[kk]);
-    }
-    if (++step == kFlush) {
-      step = 0;
-#pragma unroll
-      for (int i = 0; i < kT; ++i)
-#pragma unroll
-        for (int j = 0; j < kT; ++j) {
-          acc[i][j] += part[i][j];
-          part[i][j] = T(0);
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kT; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] += part[i][j];
-
-  T* sp = s_part + static_cast<size_t>(split) * wc * wc;
-#pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    const int r = r0 + ty + kTile * i;
-#pragma unroll
-    for (int j = 0; j < kT; ++j) {
-      const int s = s0 + tx + kTile * j;
-      if (r < wc && s < wc) sp[static_cast<size_t>(r) * wc + s] = acc[i][j];
     }
   }
-  if (diag && tid < kBM && r0 + tid < wc)
-    r_part[static_cast<size_t>(split) * wc + r0 + tid] = static_cast<T>(racc);
-}
-
-// s_sum[r, s] = sum over splits of the partial tile that holds (r, s) or,
-// below the diagonal tiles, its mirror (s, r); rhs likewise.
-template <typename T>
-__global__ void sum_partials_kernel(const T* __restrict__ s_part,
-                                    const T* __restrict__ r_part,
-                                    T* __restrict__ s_sum, T* __restrict__ rhs,
-                                    int wc, int splits) {
-  const size_t n = static_cast<size_t>(wc) * wc;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int r = static_cast<int>(idx / wc);
-  const int s = static_cast<int>(idx % wc);
-  const size_t src = (r / kBM <= s / kBM) ? idx : static_cast<size_t>(s) * wc + r;
-  T acc = T(0);
-  for (int sp = 0; sp < splits; ++sp) acc += s_part[sp * n + src];
-  s_sum[idx] = acc;
-  if (idx < static_cast<size_t>(wc)) {
-    T racc = T(0);
-    for (int sp = 0; sp < splits; ++sp) racc += r_part[static_cast<size_t>(sp) * wc + idx];
-    rhs[idx] = racc;
+  // W_l[:, b] of each incidence, [d][c] (a landmark without a block: none).
+  const int per = DL * mw;
+  for (int q = t; q < n * per; q += kIncThreads) {
+    const int sl = q / per;
+    const int r = q - sl * per;
+    const int s = s0 + sl;
+    const int b = blk[s];
+    if (b < 0) continue;
+    const int width = UNIFORM ? mw : bwidth[b];
+    if (r >= DL * width) continue;
+    const int d = r / width;
+    const int col = UNIFORM ? b * mw : bcol[b];
+    const T v = w[(static_cast<size_t>(lmk[s]) * DL + d) * wc + col + (r - d * width)];
+    ws[q] = v;
+    wb[static_cast<size_t>(s) * bs + r] = v;
+  }
+  __syncthreads();
+  // Y = H^-1 W_l[:, b], [c][e].
+  for (int q = t; q < n * per; q += kIncThreads) {
+    const int sl = q / per;
+    const int b = blk[s0 + sl];
+    if (b < 0) continue;
+    const int width = UNIFORM ? mw : bwidth[b];
+    const int r = q - sl * per;
+    if (r >= DL * width) continue;
+    const int c = r / DL;
+    const int e = r - c * DL;
+    T y = T(0);
+#pragma unroll
+    for (int d = 0; d < DL; ++d) y += hs[sl][e * DL + d] * ws[sl * per + d * width + c];
+    yc[static_cast<size_t>(s0 + sl) * bs + r] = y;
   }
 }
 
-template <typename T, int DL, bool EXTERNAL>
-void launch_body(dim3 grid, cudaStream_t st, const T* w, const T* h_in,
-                 const T* g_l, T lam, T* s_part, T* r_part, T* h_inv, int l,
-                 int wc, int l_per_split) {
-  reduce_s_kernel<T, DL, EXTERNAL><<<grid, kTile * kTile, 0, st>>>(
-      w, h_in, g_l, lam, s_part, r_part, h_inv, l, wc, l_per_split);
-}
-
-template <typename T, bool EXTERNAL>
-int launch_reduce_s(const void* w, const void* h_in, const void* g_l,
-                    double lam, void* s_part, void* r_part, void* s_sum,
-                    void* rhs, void* h_inv, int l, int dl, int wc, int splits,
-                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nt = (wc + kBM - 1) / kBM;
-  const int l_per_split = (l + splits - 1) / splits;
-  const dim3 grid(nt, nt, splits);
-  const T* w_t = static_cast<const T*>(w);
-  const T* h_t = static_cast<const T*>(h_in);
-  const T* g_t = static_cast<const T*>(g_l);
-  T* sp_t = static_cast<T*>(s_part);
-  T* rp_t = static_cast<T*>(r_part);
-  T* hi_t = static_cast<T*>(h_inv);
-  const T lam_t = static_cast<T>(lam);
-#define NLLSTPU_BODY(D)                                                      \
-  launch_body<T, D, EXTERNAL>(grid, st, w_t, h_t, g_t, lam_t, sp_t, rp_t, \
-                              hi_t, l, wc, l_per_split)
-  // B3 forms the closed-form inverse, dl <= 3; B4 takes dl up to 6.
-  switch (dl) {
-    case 1: NLLSTPU_BODY(1); break;
-    case 2: NLLSTPU_BODY(2); break;
-    case 3: NLLSTPU_BODY(3); break;
-    default:
-      if constexpr (EXTERNAL) {
-        if (dl == 4) { NLLSTPU_BODY(4); break; }
-        if (dl == 5) { NLLSTPU_BODY(5); break; }
-        if (dl == 6) { NLLSTPU_BODY(6); break; }
-      }
-      return static_cast<int>(cudaErrorInvalidValue);
+// N values of a compact block (16-byte aligned) in 16-byte loads.
+template <int N>
+__device__ __forceinline__ void load_block(const float* __restrict__ p, float (&out)[N]) {
+  const float4* v = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int k = 0; k < (N + 3) / 4; ++k) {
+    const float4 x = __ldg(v + k);
+    if (4 * k + 0 < N) out[4 * k + 0] = x.x;
+    if (4 * k + 1 < N) out[4 * k + 1] = x.y;
+    if (4 * k + 2 < N) out[4 * k + 2] = x.z;
+    if (4 * k + 3 < N) out[4 * k + 3] = x.w;
   }
-#undef NLLSTPU_BODY
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(wc) * wc;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  sum_partials_kernel<T><<<blocks, threads, 0, st>>>(
-      sp_t, rp_t, static_cast<T*>(s_sum), static_cast<T*>(rhs), wc, splits);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// B5: one warp per item of the pair tables (see the header).
-constexpr int kPairWarps = 4;
-constexpr int kMaxWidth = 16;  // widest column block
-constexpr unsigned kFullMask = 0xffffffffu;
+template <int N>
+__device__ __forceinline__ void load_block(const double* __restrict__ p, double (&out)[N]) {
+  const double2* v = reinterpret_cast<const double2*>(p);
+#pragma unroll
+  for (int k = 0; k < (N + 1) / 2; ++k) {
+    const double2 x = __ldg(v + k);
+    if (2 * k + 0 < N) out[2 * k + 0] = x.x;
+    if (2 * k + 1 < N) out[2 * k + 1] = x.y;
+  }
+}
+
+// Lane a's row of one link's block, Y_l[:, a] . W_l[:, c] for every
+// column c, added into acc in column order.
+template <typename T, int DL, int NB>
+__device__ __forceinline__ void add_block(const T (&ya)[DL], const T (&blk)[NB], int width,
+                                          T* acc) {
+#pragma unroll
+  for (int c = 0; c < NB / DL; ++c) {
+    if (c < width) {
+      T t = T(0);
+#pragma unroll
+      for (int e = 0; e < DL; ++e) t += ya[e] * blk[e * width + c];
+      acc[c] += t;
+    }
+  }
+}
 
 template <typename T, int DL>
-__global__ void __launch_bounds__(kPairWarps * 32) reduce_pairs_kernel(
-    const T* __restrict__ w, const T* __restrict__ h_inv,
-    const T* __restrict__ g_l, const int* __restrict__ items,
-    const int* __restrict__ pairs, const int* __restrict__ bcol,
-    const int* __restrict__ bwidth, const int* __restrict__ lmk,
-    T* __restrict__ part, double* __restrict__ rpart, int wc, int n_items,
-    int mw) {
-  const int it = blockIdx.x * kPairWarps + (threadIdx.x >> 5);
+__device__ __forceinline__ void add_rhs(const T (&ya)[DL], const T* __restrict__ g_l, int L,
+                                        long long l, double& racc) {
+#pragma unroll
+  for (int e = 0; e < DL; ++e)
+    racc += static_cast<double>(ya[e]) * static_cast<double>(g_l[e * static_cast<long long>(L) + l]);
+}
+
+// WID: the block width this instance is unrolled for (the cameras' 6 and
+// 9 at dl = 3; every block is at most WID wide), or 0 for any width up to
+// kMaxWidth.  UNIFORM (with WID > 0): every block is WID wide, and the
+// block tables are not read.  The item's links are staged in shared memory
+// first; on a pair whose two blocks are WID wide, each group then takes
+// its links two at a time (both blocks' loads issued before either's
+// products), added in link order; any other pair (the generic W's kernel
+// block) one at a time.
+template <typename T, int DL, int WID, bool UNIFORM>
+__global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_kernel(
+    const T* __restrict__ yc, const T* __restrict__ wb, const T* __restrict__ g_l,
+    const int* __restrict__ lmk, const int* __restrict__ bwidth,
+    const int* __restrict__ items, const int* __restrict__ pairs,
+    const int* __restrict__ links, T* __restrict__ part, double* __restrict__ rpart, int L,
+    int mw, int bs, int n_items) {
+  constexpr int MW = WID > 0 ? WID : kMaxWidth;
+  __shared__ int2 ls[kLinkWarps][kLinkChunk];
+  const int warp = threadIdx.x >> 5;
+  const int it = blockIdx.x * kLinkWarps + warp;
   if (it >= n_items) return;
   const int lane = threadIdx.x & 31;
   const int pr = items[3 * it];
   const int p0 = items[3 * it + 1];
-  const int p1 = items[3 * it + 2];
-  const int bi = pairs[2 * pr];
-  const int bj = pairs[2 * pr + 1];
-  const int ci = bcol[bi], wi = bwidth[bi];
-  const int cj = bcol[bj], wj = bwidth[bj];
+  const int n = items[3 * it + 2] - p0;
+  const int bi = pairs[2 * pr], bj = pairs[2 * pr + 1];
+  const int wi = UNIFORM ? WID : bwidth[bi];
+  const int wj = UNIFORM ? WID : bwidth[bj];
   const bool diag = bi == bj;
+  const int2* lk = reinterpret_cast<const int2*>(links) + p0;
+  for (int k = lane; k < n; k += 32) ls[warp][k] = lk[k];
+  __syncwarp();
   const int groups = 32 / wi;
   const int grp = lane / wi;
   const int a = lane - grp * wi;
-  T acc[kMaxWidth];
+  T acc[MW];
 #pragma unroll
-  for (int b = 0; b < kMaxWidth; ++b) acc[b] = T(0);
+  for (int c = 0; c < MW; ++c) acc[c] = T(0);
   double racc = 0.0;
   if (grp < groups) {
-    for (int p = p0 + grp; p < p1; p += groups) {
-      const long long l = lmk[p];
-      const T* wl = w + l * DL * wc;
-      const T* hl = h_inv + l * DL * DL;
-      T wa[DL], y[DL];
+    if (WID > 0 && (UNIFORM || (wi == WID && wj == WID))) {
+      // Two links in flight: both blocks' loads issued before either's
+      // products, which are added in link order.
+      constexpr int NB = DL * (WID > 0 ? WID : 1);
+      for (int k = grp; k < n; k += 2 * groups) {
+        const bool two = k + groups < n;
+        const int2 l0 = ls[warp][k];
+        const int2 l1 = ls[warp][two ? k + groups : k];
+        T y0[DL], y1[DL], b0[NB], b1[NB];
 #pragma unroll
-      for (int d = 0; d < DL; ++d) wa[d] = wl[d * static_cast<long long>(wc) + ci + a];
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        T t = T(0);
-#pragma unroll
-        for (int d = 0; d < DL; ++d) t += hl[e * DL + d] * wa[d];
-        y[e] = t;
-      }
-#pragma unroll
-      for (int b = 0; b < kMaxWidth; ++b) {
-        if (b < wj) {
-          T t = T(0);
-#pragma unroll
-          for (int e = 0; e < DL; ++e) t += y[e] * wl[e * static_cast<long long>(wc) + cj + b];
-          acc[b] += t;
+        for (int e = 0; e < DL; ++e) {
+          y0[e] = yc[static_cast<size_t>(l0.x) * bs + a * DL + e];
+          y1[e] = yc[static_cast<size_t>(l1.x) * bs + a * DL + e];
+        }
+        load_block<NB>(wb + static_cast<size_t>(l0.y) * bs, b0);
+        load_block<NB>(wb + static_cast<size_t>(l1.y) * bs, b1);
+        add_block<T, DL, NB>(y0, b0, WID, acc);
+        if (two) add_block<T, DL, NB>(y1, b1, WID, acc);
+        if (diag) {
+          add_rhs<T, DL>(y0, g_l, L, lmk[l0.x], racc);
+          if (two) add_rhs<T, DL>(y1, g_l, L, lmk[l1.x], racc);
         }
       }
-      if (diag) {
+    } else if constexpr (!UNIFORM) {
+      for (int k = grp; k < n; k += groups) {
+        const int2 l0 = ls[warp][k];
+        T y0[DL], b0[DL * MW];
 #pragma unroll
-        for (int e = 0; e < DL; ++e)
-          racc += static_cast<double>(y[e]) * static_cast<double>(g_l[l * DL + e]);
+        for (int e = 0; e < DL; ++e) y0[e] = yc[static_cast<size_t>(l0.x) * bs + a * DL + e];
+        const T* wp = wb + static_cast<size_t>(l0.y) * bs;
+#pragma unroll
+        for (int q = 0; q < DL * MW; ++q)
+          if (q < DL * wj) b0[q] = wp[q];
+        add_block<T, DL, DL * MW>(y0, b0, wj, acc);
+        if (diag) add_rhs<T, DL>(y0, g_l, L, lmk[l0.x], racc);
       }
     }
   }
@@ -392,10 +318,10 @@ __global__ void __launch_bounds__(kPairWarps * 32) reduce_pairs_kernel(
   for (int g = 1; g < groups; ++g) {
     const int src = g * wi + a;
 #pragma unroll
-    for (int b = 0; b < kMaxWidth; ++b) {
-      if (b < wj) {
-        const T v = __shfl_sync(kFullMask, acc[b], src & 31);
-        if (grp == 0) acc[b] += v;
+    for (int c = 0; c < MW; ++c) {
+      if (c < wj) {
+        const T v = __shfl_sync(kFullMask, acc[c], src & 31);
+        if (grp == 0) acc[c] += v;
       }
     }
     const double r = __shfl_sync(kFullMask, racc, src & 31);
@@ -404,86 +330,149 @@ __global__ void __launch_bounds__(kPairWarps * 32) reduce_pairs_kernel(
   if (grp == 0) {
     T* out = part + static_cast<long long>(it) * mw * mw + a * wj;
 #pragma unroll
-    for (int b = 0; b < kMaxWidth; ++b)
-      if (b < wj) out[b] = acc[b];
+    for (int c = 0; c < MW; ++c)
+      if (c < wj) out[c] = acc[c];
     if (diag) rpart[static_cast<long long>(it) * mw + a] = racc;
   }
 }
 
-// Each pair's block: its items' partials in item order, written at (i, j)
-// and mirrored at (j, i); rhs from the diagonal pairs, in double.
-template <typename T>
-__global__ void sum_pairs_kernel(const T* __restrict__ part,
+// One thread per entry (a, c) of every block pair i <= j (mw x mw slots,
+// the first w_i x w_j used): the pair's item partials in item order,
+// written at (i, j) and (j, i); on a diagonal block only the owner of the
+// upper entry writes (both places), and the row a = 0 also writes rhs from
+// the items' double partials.  UNIFORM: as incidence_kernel's.
+template <typename T, bool UNIFORM>
+__global__ void sum_links_kernel(const T* __restrict__ part,
                                  const double* __restrict__ rpart,
                                  const int* __restrict__ pairs,
                                  const int* __restrict__ istarts,
                                  const int* __restrict__ bcol,
                                  const int* __restrict__ bwidth,
-                                 T* __restrict__ s_sum, T* __restrict__ rhs,
-                                 int wc, int n_pairs, int mw) {
+                                 T* __restrict__ s_sum, T* __restrict__ rhs, int wc,
+                                 int mw, int n_pairs) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int mw2 = mw * mw;
-  const long long pr = idx / mw2;
+  const int m2 = mw * mw;
+  const long long pr = idx / m2;
   if (pr >= n_pairs) return;
-  const int e = static_cast<int>(idx - pr * mw2);
+  const int e = static_cast<int>(idx - pr * m2);
   const int bi = pairs[2 * pr], bj = pairs[2 * pr + 1];
-  const int wi = bwidth[bi], wj = bwidth[bj];
+  const int wi = UNIFORM ? mw : bwidth[bi];
+  const int wj = UNIFORM ? mw : bwidth[bj];
   if (e >= wi * wj) return;
-  const int a = e / wj, b = e % wj;
-  const long long r = bcol[bi] + a, c = bcol[bj] + b;
+  const int a = e / wj;
+  const int c = e - a * wj;
   const int i0 = istarts[pr], i1 = istarts[pr + 1];
-  T acc = T(0);
-  for (int it = i0; it < i1; ++it) acc += part[static_cast<long long>(it) * mw2 + e];
-  s_sum[r * wc + c] = acc;
-  if (bi != bj) s_sum[c * wc + r] = acc;
-  if (bi == bj && e < wi) {
-    double racc = 0.0;
-    for (int it = i0; it < i1; ++it) racc += rpart[static_cast<long long>(it) * mw + e];
-    rhs[bcol[bi] + e] = static_cast<T>(racc);
+  if (bi == bj) {
+    if (e < wi) {
+      double racc = 0.0;
+      for (int it = i0; it < i1; ++it) racc += rpart[static_cast<long long>(it) * mw + e];
+      rhs[(UNIFORM ? bi * mw : bcol[bi]) + e] = static_cast<T>(racc);
+    }
+    if (a > c) return;
   }
+  T acc = T(0);
+  for (int it = i0; it < i1; ++it) acc += part[static_cast<long long>(it) * m2 + e];
+  const long long r = (UNIFORM ? bi * mw : bcol[bi]) + a;
+  const long long col = (UNIFORM ? bj * mw : bcol[bj]) + c;
+  s_sum[r * wc + col] = acc;
+  s_sum[col * wc + r] = acc;
 }
 
-template <typename T>
-int launch_reduce_pairs(const void* w, const void* h_inv, const void* g_l,
-                        const void* items, const void* pairs, const void* bcol,
-                        const void* bwidth, const void* lmk,
-                        const void* istarts, void* part, void* rpart,
-                        void* s_sum, void* rhs, int dl, int wc, int n_items,
-                        int n_pairs, int mw, void* stream) {
-  if (mw > kMaxWidth || mw < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pairs == 0) return 0;
+template <typename T, bool EXTERNAL>
+int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, double lam,
+                       const void* lmk, const void* blk, const void* bcol,
+                       const void* bwidth, const void* pairs, const void* links,
+                       const void* items, const void* istarts, void* yc, void* wb,
+                       void* part, void* rpart, void* s_sum, void* rhs, void* h_inv, int l,
+                       int dl, int wc, int mw, int bs, int n_inc, int n_items, int n_pairs,
+                       int uniform, void* stream) {
+  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? 6 : 3))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* w_t = static_cast<const T*>(w);
-  const T* h_t = static_cast<const T*>(h_inv);
+  const T* h_t = static_cast<const T*>(h_in);
   const T* g_t = static_cast<const T*>(g_l);
-  const int* it_t = static_cast<const int*>(items);
-  const int* pr_t = static_cast<const int*>(pairs);
+  const int* lmk_t = static_cast<const int*>(lmk);
   const int* bc_t = static_cast<const int*>(bcol);
   const int* bw_t = static_cast<const int*>(bwidth);
-  const int* lm_t = static_cast<const int*>(lmk);
+  T* yc_t = static_cast<T*>(yc);
+  T* wb_t = static_cast<T*>(wb);
   T* part_t = static_cast<T*>(part);
   double* rp_t = static_cast<double*>(rpart);
-  const int blocks = (n_items + kPairWarps - 1) / kPairWarps;
-#define NLLSTPU_PAIRS(D)                                                     \
-  reduce_pairs_kernel<T, D><<<blocks, kPairWarps * 32, 0, st>>>(            \
-      w_t, h_t, g_t, it_t, pr_t, bc_t, bw_t, lm_t, part_t, rp_t, wc, n_items, mw)
-  switch (dl) {
-    case 1: NLLSTPU_PAIRS(1); break;
-    case 2: NLLSTPU_PAIRS(2); break;
-    case 3: NLLSTPU_PAIRS(3); break;
-    case 4: NLLSTPU_PAIRS(4); break;
-    case 5: NLLSTPU_PAIRS(5); break;
-    case 6: NLLSTPU_PAIRS(6); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned inc_blocks = static_cast<unsigned>((n_inc + kIncBlock - 1) / kIncBlock);
+#define NLLSTPU_INC_U(D, U)                                                      \
+  incidence_kernel<T, D, EXTERNAL, U><<<inc_blocks, kIncThreads, 0, st>>>(       \
+      w_t, h_t, lam, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, \
+      static_cast<T*>(h_inv), l, wc, mw, bs, n_inc)
+#define NLLSTPU_INC(D)            \
+  if (uniform) {                  \
+    NLLSTPU_INC_U(D, true);       \
+  } else {                        \
+    NLLSTPU_INC_U(D, false);      \
   }
-#undef NLLSTPU_PAIRS
+  if (n_inc > 0) {
+    switch (dl) {
+      case 1: NLLSTPU_INC(1); break;
+      case 2: NLLSTPU_INC(2); break;
+      case 3: NLLSTPU_INC(3); break;
+      default:
+        if constexpr (EXTERNAL) {
+          if (dl == 4) { NLLSTPU_INC(4); break; }
+          if (dl == 5) { NLLSTPU_INC(5); break; }
+          if (dl == 6) { NLLSTPU_INC(6); break; }
+        }
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef NLLSTPU_INC
+#undef NLLSTPU_INC_U
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int* it_t = static_cast<const int*>(items);
+  const int* pr_t = static_cast<const int*>(pairs);
+  const int* ln_t = static_cast<const int*>(links);
+  const unsigned link_blocks = static_cast<unsigned>((n_items + kLinkWarps - 1) / kLinkWarps);
+#define NLLSTPU_LINKS(D, WID, U)                                                 \
+  reduce_links_kernel<T, D, WID, U><<<link_blocks, kLinkWarps * 32, 0, st>>>(   \
+      yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, mw, bs, n_items)
+  if (n_items > 0) {
+    if (dl == 3 && mw == 6 && uniform) {
+      NLLSTPU_LINKS(3, 6, true);
+    } else if (dl == 3 && mw == 6) {
+      NLLSTPU_LINKS(3, 6, false);
+    } else if (dl == 3 && mw == 9 && uniform) {
+      NLLSTPU_LINKS(3, 9, true);
+    } else if (dl == 3 && mw == 9) {
+      NLLSTPU_LINKS(3, 9, false);
+    } else {
+      switch (dl) {
+        case 1: NLLSTPU_LINKS(1, 0, false); break;
+        case 2: NLLSTPU_LINKS(2, 0, false); break;
+        case 3: NLLSTPU_LINKS(3, 0, false); break;
+        case 4: NLLSTPU_LINKS(4, 0, false); break;
+        case 5: NLLSTPU_LINKS(5, 0, false); break;
+        case 6: NLLSTPU_LINKS(6, 0, false); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+  }
+#undef NLLSTPU_LINKS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(n_pairs) * mw * mw;
-  const int threads = 256;
-  sum_pairs_kernel<T><<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, st>>>(
-      part_t, rp_t, pr_t, static_cast<const int*>(istarts), bc_t, bw_t,
-      static_cast<T*>(s_sum), static_cast<T*>(rhs), wc, n_pairs, mw);
+  if (n > 0) {
+    const int threads = 256;
+    const unsigned grid = static_cast<unsigned>((n + threads - 1) / threads);
+    const int* is_t = static_cast<const int*>(istarts);
+    if (uniform)
+      sum_links_kernel<T, true><<<grid, threads, 0, st>>>(
+          part_t, rp_t, pr_t, is_t, bc_t, bw_t, static_cast<T*>(s_sum), static_cast<T*>(rhs),
+          wc, mw, n_pairs);
+    else
+      sum_links_kernel<T, false><<<grid, threads, 0, st>>>(
+          part_t, rp_t, pr_t, is_t, bc_t, bw_t, static_cast<T*>(s_sum), static_cast<T*>(rhs),
+          wc, mw, n_pairs);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,52 +480,24 @@ int launch_reduce_pairs(const void* w, const void* h_inv, const void* g_l,
 
 extern "C" {
 
-int reduce_s_damped_f32(const void* w, const void* h_ll, const void* g_l,
-                        double lam, void* s_part, void* r_part, void* s_sum,
-                        void* rhs, void* h_inv, int l, int dl, int wc,
-                        int splits, void* stream) {
-  return launch_reduce_s<float, false>(w, h_ll, g_l, lam, s_part, r_part,
-                                       s_sum, rhs, h_inv, l, dl, wc, splits,
-                                       stream);
-}
-
-int reduce_s_damped_f64(const void* w, const void* h_ll, const void* g_l,
-                        double lam, void* s_part, void* r_part, void* s_sum,
-                        void* rhs, void* h_inv, int l, int dl, int wc,
-                        int splits, void* stream) {
-  return launch_reduce_s<double, false>(w, h_ll, g_l, lam, s_part, r_part,
-                                        s_sum, rhs, h_inv, l, dl, wc, splits,
-                                        stream);
-}
-
-int reduce_s_lm_f32(const void* w, const void* h_inv, const void* g_l,
-                    void* s_part, void* r_part, void* s_sum, void* rhs, int l,
-                    int dl, int wc, int splits, void* stream) {
-  return launch_reduce_s<float, true>(w, h_inv, g_l, 0.0, s_part, r_part,
-                                      s_sum, rhs, nullptr, l, dl, wc, splits,
-                                      stream);
-}
-
-int reduce_s_lm_f64(const void* w, const void* h_inv, const void* g_l,
-                    void* s_part, void* r_part, void* s_sum, void* rhs, int l,
-                    int dl, int wc, int splits, void* stream) {
-  return launch_reduce_s<double, true>(w, h_inv, g_l, 0.0, s_part, r_part,
-                                       s_sum, rhs, nullptr, l, dl, wc, splits,
-                                       stream);
-}
-
-#define NLLSTPU_PAIRS_EXPORT(NAME, T)                                          \
-  int NAME(const void* w, const void* h_inv, const void* g_l,                  \
-           const void* items, const void* pairs, const void* bcol,             \
-           const void* bwidth, const void* lmk, const void* istarts,           \
-           void* part, void* rpart, void* s_sum, void* rhs, int dl, int wc,    \
-           int n_items, int n_pairs, int mw, void* stream) {                   \
-    return launch_reduce_pairs<T>(w, h_inv, g_l, items, pairs, bcol, bwidth,   \
-                                  lmk, istarts, part, rpart, s_sum, rhs, dl,   \
-                                  wc, n_items, n_pairs, mw, stream);           \
+#define NLLSTPU_ROWS_EXPORT(NAME, T, EXTERNAL)                                   \
+  int NAME(const void* w, const void* h_in, const void* g_l, double lam,         \
+           const void* lmk, const void* blk, const void* bcol, const void* bwidth, \
+           const void* pairs, const void* links, const void* items,              \
+           const void* istarts, void* yc, void* wb, void* part, void* rpart,     \
+           void* s_sum, void* rhs, void* h_inv, int l, int dl, int wc, int mw,   \
+           int bs, int n_inc, int n_items, int n_pairs, int uniform,             \
+           void* stream) {                                                       \
+    return launch_reduce_rows<T, EXTERNAL>(                                      \
+        w, h_in, g_l, lam, lmk, blk, bcol, bwidth, pairs, links, items, istarts, \
+        yc, wb, part, rpart, s_sum, rhs, h_inv, l, dl, wc, mw, bs, n_inc,        \
+        n_items, n_pairs, uniform, stream);                                      \
   }
-NLLSTPU_PAIRS_EXPORT(reduce_s_pairs_f32, float)
-NLLSTPU_PAIRS_EXPORT(reduce_s_pairs_f64, double)
-#undef NLLSTPU_PAIRS_EXPORT
+// B3 in float32 only: a float64 solve takes damped_inverse, then B4.  B4
+// and B5 are the external instance.
+NLLSTPU_ROWS_EXPORT(reduce_s_damped_f32, float, false)
+NLLSTPU_ROWS_EXPORT(reduce_s_external_f32, float, true)
+NLLSTPU_ROWS_EXPORT(reduce_s_external_f64, double, true)
+#undef NLLSTPU_ROWS_EXPORT
 
 }  // extern "C"

@@ -403,10 +403,14 @@ class SchurInfo:
     # Reduced families (name, offsets [n], dof), for the preconditioner.
     fam_offsets: tuple = ()
     # Kernel B5's structure of the direct W when a batch is landmark-sorted
-    # (schur_reduce.PairTables; host until upload_tables places it on the
-    # device), else None.
+    # (the generic W: schur_reduce.RowTables; host until upload_tables
+    # places it on the device), else None.
     w_pairs: Any = None
-    # Host seconds spent building kernel B2's and B5's tables.
+    # Kernels B3's and B4's structure of the direct W when every batch is
+    # obs-major (schur_reduce.RowTables; host until upload_tables), else
+    # None.
+    w_rows: Any = None
+    # Host seconds spent building kernel B2's, B3/B4's and B5's tables.
     table_seconds: float = 0.0
 
 
@@ -448,25 +452,31 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
                 else _fast_batch_data(b, layout, info, buckets=bk)
                 for b, bk in zip(batches, per_batch)
             )
-            if any(isinstance(f, _RunBatch) for f in info.fast):
+            if any(f is not None for f in info.fast):
                 t0 = time.perf_counter()
-                info.w_pairs = w_structure(info)
+                tables = w_structure(info)
+                if any(isinstance(f, _RunBatch) for f in info.fast):
+                    info.w_pairs = tables
+                else:
+                    info.w_rows = tables
                 info.table_seconds += time.perf_counter() - t0
     return info
 
 
-def w_structure(info: SchurInfo) -> schur_reduce.PairTables:
-    """Kernel B5's tables of the direct W (:func:`schur_reduce.pair_tables`):
-    its column blocks are the cameras' (``dr_s`` columns at each camera's
-    reduced rows) and an adaptive kernel's (its rows); a landmark holds
-    the blocks of the cameras its real costs see and, in a batch with an
-    adaptive kernel, the kernel's.  Every batch of ``info.fast`` adds its
-    incidences."""
+def w_structure(info: SchurInfo) -> schur_reduce.RowTables:
+    """Kernels B3's, B4's and B5's tables of the direct W
+    (:func:`schur_reduce.row_tables`).  An obs-major W (every batch a
+    ``_FastBatch``) has one block per unfixed camera, its ``dr_s`` compact
+    columns; the generic W one block per camera that its costs see (the
+    camera's ``dr_s`` reduced rows) and one per adaptive kernel (its
+    rows).  A landmark holds the blocks of the cameras its real costs see
+    and, in a batch with an adaptive kernel, the kernel's, in every batch
+    of ``info.fast``.  Fixed cameras (the dustbin column ``n_r``) and pads
+    hold none."""
     L = info.num_elim
+    fast = [f for f in info.fast if f is not None]
     lmk, col, width = [], [], []
-    for f in info.fast:
-        if f is None:
-            continue
+    for f in fast:
         real = (f.lid < L) & (f.rvid < f.n_r)
         lmk.append(f.lid[real])
         if isinstance(f, _FastBatch):
@@ -483,11 +493,20 @@ def w_structure(info: SchurInfo) -> schur_reduce.PairTables:
             col.append(np.full(held.shape[0], kr[0], dtype=np.int64))
             width.append(np.full(held.shape[0], kr.shape[0]))
     col, width = np.concatenate(col), np.concatenate(width)
-    bcol, first, blk = np.unique(col, return_index=True, return_inverse=True)
-    bwidth = width[first]
-    if np.any(width != bwidth[blk]):
-        raise NotImplementedError("two column blocks of W start at one column")
-    return schur_reduce.pair_tables(np.concatenate(lmk), blk, bcol, bwidth)
+    if all(isinstance(f, _FastBatch) for f in fast):
+        shapes = {(f.n_r, f.dr_s) for f in fast}
+        if len(shapes) != 1:
+            raise NotImplementedError(f"obs-major batches with camera blocks {sorted(shapes)}: "
+                                      "W's blocks must be one camera family's")
+        ((n_r, dr_s),) = shapes
+        bcol, bwidth = schur_reduce.uniform_blocks(n_r, dr_s)
+        blk = col // dr_s
+    else:
+        bcol, first, blk = np.unique(col, return_index=True, return_inverse=True)
+        bwidth = width[first]
+        if np.any(width != bwidth[blk]):
+            raise NotImplementedError("two column blocks of W start at one column")
+    return schur_reduce.row_tables(np.concatenate(lmk), blk, L, bcol, bwidth)
 
 
 def _landmark_ids(batch, info, e):
@@ -644,9 +663,11 @@ def upload_tables(info: SchurInfo, device, dtype) -> None:
     tables (``_RunBatch.keys``) of a landmark-sorted one, with, on the
     direct path, each cost's W column and the kernel rows; for both, each
     camera's reduced rows and the a_rr pair index of the ``ab`` rows
-    (upper triangle, row-major); and kernel B5's tables of W."""
+    (upper triangle, row-major); and kernel B3/B4's or B5's tables of W."""
     if info.w_pairs is not None:
-        info.w_pairs = schur_reduce.upload_pairs(info.w_pairs, device)
+        info.w_pairs = schur_reduce.upload_tables(info.w_pairs, device)
+    if info.w_rows is not None:
+        info.w_rows = schur_reduce.upload_tables(info.w_rows, device)
     for f in info.fast:
         dr_s = f.dr_s
         if isinstance(f, _FastBatch):
@@ -994,15 +1015,16 @@ class _SchurSystem:
 
 @dataclasses.dataclass(frozen=True)
 class SchurOps(_SchurSystem):
-    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``, routed as
-    the JAX package routes it (``SchurOps._solve``).  The generic
-    assembly's W (a landmark-sorted batch, the JAX package's
-    standard-layout route) comes with its structure ``pairs`` and goes to
+    """The direct solve over ``sys = (a_rr, b_r, h_ll, g_l, w)``, routed by
+    what the W is, as the JAX package routes it (``SchurOps._solve``).
+    The generic assembly's W (a landmark-sorted batch, the JAX package's
+    standard-layout route), which comes with its tables ``pairs``, goes to
     ``reduce_external`` (kernel B5) over inverses formed in float64
-    (:meth:`damped_inverse`).  An obs-major W (kernels B1, B2, B8) in
-    float32 with dl ≤ 3 goes to ``reduce`` (kernel B3), which forms the
-    damped inverses itself; any other obs-major W — every float64 solve —
-    to ``reduce_lm`` (kernel B4) over inverses formed in float64."""
+    (:meth:`damped_inverse`).  An obs-major W (kernels B1, B2, B8), which
+    comes with its tables ``rows``, in float32 with dl ≤ 3 goes to
+    ``reduce`` (kernel B3), which forms the damped inverses itself; any
+    other obs-major W — every float64 solve — to ``reduce_lm`` (kernel B4)
+    over inverses formed in float64."""
 
     dim_reduced: int
     #: damped reduction: kernel B3's dispatcher, or its plain version.
@@ -1010,12 +1032,13 @@ class SchurOps(_SchurSystem):
     #: reduction over external inverses of an obs-major W: kernel B4's
     #: dispatcher, or its plain version.
     reduce_lm: Callable = schur_reduce.reduce_s_lm
-    #: the same over the generic W's structure: kernel B5's dispatcher, or
-    #: its plain version.
+    #: the same over the generic W: kernel B5's dispatcher, or its plain
+    #: version.
     reduce_external: Callable = schur_reduce.reduce_s
-    #: kernel B5's tables of the generic W (``SchurInfo.w_pairs``), else
-    #: None.
+    #: the tables of the generic W (``SchurInfo.w_pairs``), else None.
     pairs: Any = dataclasses.field(default=None, compare=False)
+    #: the tables of an obs-major W (``SchurInfo.w_rows``), else None.
+    rows: Any = dataclasses.field(default=None, compare=False)
 
     def solve(self, sys, lam):
         """x with (H + λI) x = g, through the damped reduction."""
@@ -1025,10 +1048,10 @@ class SchurOps(_SchurSystem):
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
         elif w.dtype == torch.float32 and dl <= 3:
-            s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam)
+            s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam, self.rows)
         else:
             h_inv = self.damped_inverse(h_ll, lam)
-            s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l)
+            s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l, self.rows)
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
         xr = cholesky_solve(a_rr + lam * eye - s_sum, b_r - rhs_sum)
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]

@@ -22,7 +22,14 @@ the host's:
 - one whole direct assembly (``CompiledProblem.assemble``) of Ladybug-49,
   bench-realistic (B2, then B6) and the pinhole bench (B1);
 - one damped solve (``SchurOps.solve``, λ = 1e-2·max diag) of the adaptive
-  bench-realistic system (B5 and a Cholesky).
+  bench-realistic system (B5 and a Cholesky), and its reduction alone
+  (``damped_inverse`` then B5; events, host enqueue, graph);
+- the reduction that the solve takes, alone (events, host enqueue, graph),
+  and the whole damped solve (events; its Cholesky reads the device, so it
+  cannot be captured): B3 on the float32 pinhole bench, Ladybug-49 and
+  bench-realistic systems, ``damped_inverse`` then B4 on the gauge-fixed
+  float64 system.  The reduction is called as the port under ``--root``
+  calls it (with its row tables where ``SchurOps`` has them).
 
 The problems are chip_smoke.py's (its constants), built by the port
 under ``--root``.
@@ -138,13 +145,40 @@ def main():
         v = problem.stacked_variables()
         print(f"{tag} assemble {name} (B2): events "
               f"{events_ms(lambda: comp.assemble(v), reps):.4f} ms", flush=True)
+    def reduction(ops, sys_, lam):
+        """The reduction ``ops.solve`` takes for this system."""
+        _, _, h_ll, g_l, w = sys_
+        tables = (ops.rows,) if hasattr(ops, "rows") else ()
+        if w.dtype == torch.float32:
+            return lambda: ops.reduce(w, h_ll, g_l, lam, *tables)
+        return lambda: ops.reduce_lm(w, ops.damped_inverse(h_ll, lam), g_l, *tables)
+
+    solves = [("pinhole bench", "B3", lambda: (cs.bench_problem(dev), {}))]
+    solves += [(name, "B3", lambda name=name: (cs.bal_problem(name, dev), {})) for name in cs.BAL]
+    solves.append((cs.GAUGE, "damped_inverse + B4", lambda: cs.dual_problem(cs.GAUGE, dev)))
+    for name, what, make in solves:
+        problem, route = make()
+        comp = compile_problem(problem, route.get("unfixed"), schur_family=fam,
+                               w_impl=route.get("w_impl", "fused_all"))
+        _, sys_ = comp.assemble(problem.stacked_variables())
+        ops = comp.ctx().linops
+        lam = 1e-2 * ops.diag_max(sys_).item()
+        red = reduction(ops, sys_, lam)
+        print(f"{tag} reduction {name} ({what}): events {events_ms(red, reps):.4f} ms, host "
+              f"enqueue {host_ms(red, reps):.4f} ms, graph {graph_ms(red, reps):.4f} ms; damped "
+              f"solve: events {events_ms(lambda: ops.solve(sys_, lam), reps):.4f} ms", flush=True)
+        del comp, sys_, ops, red
     problem, _ = cs.adaptive_problem(dev)
     opts = cs.adaptive_options()
     comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
     _, sys_ = comp.assemble(problem.stacked_variables())
     ops = comp.ctx(opts).linops
     lam = 1e-2 * ops.diag_max(sys_).item()
-    print(f"{tag} damped solve {cs.ADAPTIVE} (B5): events "
+    _, _, h_ll, g_l, w = sys_
+    red = lambda: ops.reduce_external(w, ops.damped_inverse(h_ll, lam), g_l, ops.pairs)  # noqa: E731
+    print(f"{tag} reduction {cs.ADAPTIVE} (damped_inverse + B5): events "
+          f"{events_ms(red, reps):.4f} ms, host enqueue {host_ms(red, reps):.4f} ms, graph "
+          f"{graph_ms(red, reps):.4f} ms; damped solve (B5): events "
           f"{events_ms(lambda: ops.solve(sys_, lam), reps):.4f} ms", flush=True)
 
 

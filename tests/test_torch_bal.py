@@ -184,7 +184,15 @@ def test_float32_reduced_solve_is_equilibrated():
     float32 reduced system is indefinite by rounding; the port's solve
     (scaled to a unit diagonal) matches an exact solve of that float32
     system to a few percent, where unscaled LU is off by ~20 times the
-    step."""
+    step.  The system is formed over float32 closed-form inverses, as the
+    JAX package forms them.  The port's own float32 solve (B3's plain
+    version forms the inverses in float64, which leaves this state's
+    scaled system singular to float32, so an exact solve of it is no
+    yardstick) is held to the float64 solve of the float64 system: the
+    same LM trial (the cost change of its step within 5% of the float64
+    step's, measured 1.8%, same sign) and the step within 0.2 of the
+    float64 step's largest entry (measured 0.13; the difference lies in
+    directions that barely change the cost)."""
     _, tp = _pair("chunk bucket")
     tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)
     st = run_loop(tc.assemble, tc.cost, tc.ctx(), pt.Options(
@@ -192,7 +200,8 @@ def test_float32_reduced_solve_is_equilibrated():
     ), tp.stacked_variables())
     lam = float(st["itdata"]["lm_lambda"])
     a_rr, b_r, h_ll, g_l, w = (t.float() for t in tc.assemble(st["variables"])[1])
-    s_sum, rhs_sum, _ = schur_reduce.reduce_s_damped_reference(w, h_ll, g_l, lam)
+    h_inv = linearsolver.batched_inv_spd_cm(h_ll + lam * torch.eye(3)[:, :, None])
+    s_sum, rhs_sum = schur_reduce.reduce_s_reference(w, h_inv, g_l)
     s = a_rr + lam * torch.eye(a_rr.shape[0]) - s_sum
     rhs = b_r - rhs_sum
     assert int(torch.linalg.cholesky_ex(s)[1]) > 0
@@ -200,3 +209,12 @@ def test_float32_reduced_solve_is_equilibrated():
     got = linearsolver.cholesky_solve(s, rhs)
     assert got.dtype == torch.float32
     assert np.abs(got.double().numpy() - exact).max() <= 0.1 * np.abs(exact).max()
+    v = st["variables"]
+    cost0, sys64 = tc.assemble(v)
+    ops = tc.ctx().linops
+    x64 = ops.solve(sys64, lam)
+    x32 = ops.solve(tuple(t.float() for t in sys64), lam)
+    assert x32.dtype == torch.float32
+    d64, d32 = (float(tc.cost(tc.apply(v, x.double())) - cost0) for x in (x64, x32))
+    assert d32 * d64 > 0 and abs(d32 - d64) <= 0.05 * abs(d64)
+    assert float((x32.double() - x64).abs().max()) <= 0.2 * float(x64.abs().max())

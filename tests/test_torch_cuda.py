@@ -10,10 +10,11 @@ run over hundreds of terms and B3 sums over L·dl terms in another order
 than the float64 yardstick: all are held to 1e-5 of the largest entry.
 B6 sums each run in a fixed order: 1e-12 (float64) and 1e-5 (float32) of
 the largest entry against the float64 plain version, and in float64 the
-same bits as its plain mirror of the chunk order.  B4 is B3's body over
-external inverses: held as B3.  B5 reduces over W's column-block
-structure, a landmark's few products per entry summed in landmark order:
-held as B3, against the dense plain version.  B7 adds a few values per
+same bits as its plain mirror of the chunk order.  B3 and B4 reduce over
+an obs-major W's camera blocks (B4 over external inverses), B5 over W's
+column-block structure, a landmark's few products per entry summed in
+landmark order: held as B3 was, against the dense plain version, and
+s_sum exactly symmetric.  B7 adds a few values per
 entry in run order: 1e-12 (float64) and 1e-6 (float32) of the largest
 entry.  No kernel uses atomics: each gives the same bits on a second
 launch.
@@ -209,35 +210,91 @@ def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _row_w(gen, L, dl, n_blocks, width):
+    """An obs-major-like W ``[L, dl, n_blocks·width]``: landmark l holds a
+    random subset of the camera blocks (every 9th none: its costs would
+    see fixed cameras only), zero elsewhere, and its host
+    :class:`schur_reduce.RowTables`."""
+    held = torch.rand(L, n_blocks, generator=gen) < min(1.0, 12.0 / n_blocks)
+    held[::9] = False
+    lmk, blk = held.nonzero(as_tuple=True)
+    w = torch.zeros(L, dl, n_blocks, width, dtype=torch.float64)
+    w[lmk, :, blk] = torch.randn(len(lmk), dl, width, generator=gen, dtype=torch.float64)
+    return (w.reshape(L, dl, n_blocks * width),
+            schur_reduce.row_tables(lmk.numpy(), blk.numpy(), L,
+                                    *schur_reduce.uniform_blocks(n_blocks, width)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-# wc = 441 is Ladybug-49's W (49 Snavely cameras), not a multiple of the
-# kernel's 64-wide tile.
+# B3 is float32 only (a float64 solve takes damped_inverse, then B4).
+# The main paths' structures: the pinhole bench (128 cameras of 6), the
+# Snavely BAL widths (128 and 49 cameras of 9); blocks of 8 and 4 through
+# the kernel's any-width instance.
 @pytest.mark.parametrize(
-    "wc,lam", [(128, 0.0), (768, 1e-2), (1152, 0.0), (100, 0.5), (441, 1e-2)]
+    "wc,width,lam", [(128, 8, 0.0), (768, 6, 1e-2), (1152, 9, 0.0), (100, 4, 0.5), (441, 9, 1e-2)]
 )
-def test_reduce_s_damped_kernel_matches_plain(cuda, dtype, tol, wc, lam):
+def test_reduce_s_damped_kernel_matches_plain(cuda, wc, width, lam):
     gen = torch.Generator().manual_seed(5)
-    L, dl = 777, 3
-    w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
+    L, dl, tol = 777, 3, 1e-5
+    w, tables = _row_w(gen, L, dl, wc // width, width)
     a = torch.randn(dl, dl, L, generator=gen, dtype=torch.float64)
     h_ll = torch.einsum("del,fel->dfl", a, a) + 2.0 * torch.eye(dl, dtype=torch.float64)[:, :, None]
     g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
-    before = schur_reduce.LAUNCHES
-    out = schur_reduce.reduce_s_damped(
-        *(t.to(device=cuda, dtype=dtype) for t in (w, h_ll, g_l)), lam
-    )
+    rows = schur_reduce.upload_tables(tables, cuda)
+    args = [t.to(device=cuda, dtype=torch.float32) for t in (w, h_ll, g_l)]
+    before, before_b4 = schur_reduce.LAUNCHES, schur_reduce.LM_LAUNCHES
+    out = schur_reduce.reduce_s_damped(*args, lam, rows)
     torch.cuda.synchronize()
-    assert schur_reduce.LAUNCHES == before + 1
-    ref = schur_reduce.reduce_s_damped_reference(
-        *(t.to(device=cuda) for t in (w, h_ll, g_l)), lam
-    )
+    assert schur_reduce.LAUNCHES == before + 1 and schur_reduce.LM_LAUNCHES == before_b4
+    ref = schur_reduce.reduce_s_damped_reference(*(t.to(cuda) for t in (w, h_ll, g_l)), lam)
     for name, x, y in zip(("s_sum", "rhs_sum", "h_inv"), out, ref):
         assert x.shape == y.shape, name
         assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
-    # The mirrored lower triangle equals the computed upper one.
-    s = out[0].double()
-    assert float((s - s.T).abs().max() / s.abs().max()) <= 10 * tol
+    assert torch.equal(out[0], out[0].T)  # one writer per entry and its mirror
+    again = schur_reduce.reduce_s_damped(*args, lam, rows)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    with pytest.raises(ValueError):  # B3 needs W's row tables
+        schur_reduce.reduce_s_damped(*args, lam)
+    with pytest.raises(TypeError):  # and float32
+        schur_reduce.reduce_s_damped(*(t.double() for t in args), lam, rows)
+
+
+@pytest.mark.cuda
+def test_reduce_s_damped_over_fixed_cameras(cuda):
+    """B3 on a real float32 system whose cameras 1 and 2 are fixed: the
+    compiled row tables give the landmarks seen by fixed cameras only one
+    incidence without a block, and B3 still writes their inverses (all
+    h_inv against the plain version, 1e-5); through ``SchurOps.solve`` the
+    step matches the plain kernels' to 5e-4 of its largest entry (on the
+    CPU two float32 summation orders of this system give steps 3.5e-5
+    apart, the float64 step 3.8e-5 from the plain one; a wrong block moves
+    it by order one)."""
+    from nllstpu_torch.core.manifolds import Euclidean
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
+
+    problem, cams, lmks = make_pinhole_ba(8, 64, 0.3, noise=1e-3, dtype=torch.float32,
+                                          device=cuda)
+    perturb_ba(problem, lmks, 0.03, seed=2)
+    comp = compile_problem(problem, cams[:1] + cams[3:] + lmks, schur_family=Euclidean(3))
+    rows = comp.schur_info.w_rows
+    assert int((rows.blk < 0).sum()) > 0
+    _, sys_ = comp.assemble(problem.stacked_variables())
+    _, _, h_ll, g_l, w = sys_
+    lam = 1e-3 * float(torch.diagonal(h_ll).abs().max())
+    before = schur_reduce.LAUNCHES
+    out = schur_reduce.reduce_s_damped(w, h_ll, g_l, lam, rows)
+    torch.cuda.synchronize()
+    assert schur_reduce.LAUNCHES == before + 1
+    ref = schur_reduce.reduce_s_damped_reference(w.double(), h_ll.double(), g_l.double(), lam)
+    for name, x, y in zip(("s_sum", "rhs_sum", "h_inv"), out, ref):
+        assert _rel_err(x, y) <= 1e-5, (name, _rel_err(x, y))
+    assert torch.isfinite(out[2]).all() and torch.equal(out[0], out[0].T)
+    plain = compile_problem(problem, cams[:1] + cams[3:] + lmks, schur_family=Euclidean(3),
+                            plain=True)
+    x = comp.ctx().linops.solve(sys_, lam)
+    x_plain = plain.ctx().linops.solve(sys_, lam)
+    assert _rel_err(x, x_plain) <= 5e-4
 
 
 def _spd_inverses(gen, dl, L):
@@ -251,7 +308,7 @@ def _structured_w(gen, L, dl, widths, spare, kernel=False):
     with ``spare`` columns between some of them, landmark l holding a
     random subset (every 9th none, every 13th only the last block; with
     ``kernel``, every landmark that holds a block also holds the last, as
-    an adaptive kernel's), and its :class:`schur_reduce.PairTables`."""
+    an adaptive kernel's), and its :class:`schur_reduce.RowTables`."""
     widths = torch.as_tensor(widths)
     gaps = torch.randint(0, spare + 1, (len(widths),), generator=gen)
     bcol = (torch.cumsum(widths + gaps, 0) - widths).tolist()
@@ -266,7 +323,7 @@ def _structured_w(gen, L, dl, widths, spare, kernel=False):
     w = torch.zeros(L, dl, wc, dtype=torch.float64)
     for l, b in zip(lmk.tolist(), blk.tolist()):
         w[l, :, bcol[b] : bcol[b] + int(widths[b])] = torch.randn(dl, int(widths[b]), generator=gen)
-    return w, schur_reduce.pair_tables(lmk.numpy(), blk.numpy(), bcol, widths.numpy())
+    return w, schur_reduce.row_tables(lmk.numpy(), blk.numpy(), L, bcol, widths.numpy())
 
 
 @pytest.mark.cuda
@@ -284,7 +341,7 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
     w, tables = _structured_w(gen, L, dl, widths, spare, kernel=len(widths) == 129)
     h_inv = _spd_inverses(gen, dl, L)
     g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
-    pairs = schur_reduce.upload_pairs(tables, cuda)
+    pairs = schur_reduce.upload_tables(tables, cuda)
     args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
     before, before_b3 = schur_reduce.EXTERNAL_LAUNCHES, schur_reduce.LAUNCHES
     before_b4 = schur_reduce.LM_LAUNCHES
@@ -296,6 +353,7 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
     for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
         assert x.shape == y.shape, name
         assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
+    assert torch.equal(out[0], out[0].T)  # one writer per entry and its mirror
     again = schur_reduce.reduce_s(*args, pairs=pairs)
     assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
     with pytest.raises(ValueError):  # B5 needs W's structure
@@ -304,21 +362,23 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-# The gauge-fixed pinhole width (126 cameras) and the pinhole bench's; the
-# adaptive BAL width (1152 camera + 3 kernel columns); every dl from 1 to
-# 6, past B3's closed form, at widths off the kernel's 64-wide tile.
-@pytest.mark.parametrize("dl,wc", [
-    (3, 756), (3, 768), (3, 1155), (5, 100), (1, 64), (6, 441), (2, 130), (4, 200),
+# The gauge-fixed pinhole width (126 cameras of 6) and the pinhole bench's;
+# wc = 1155 as the adaptive BAL width; every dl from 1 to 6, past B3's
+# closed form, over blocks of 4 to 16 columns (the any-width instance).
+@pytest.mark.parametrize("dl,wc,width", [
+    (3, 756, 6), (3, 768, 6), (3, 1155, 11), (5, 100, 5), (1, 64, 16), (6, 441, 9), (2, 130, 10),
+    (4, 200, 8),
 ])
-def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc):
+def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc, width):
     gen = torch.Generator().manual_seed(wc)
     L = 777
-    w = torch.randn(L, dl, wc, generator=gen, dtype=torch.float64)
+    w, tables = _row_w(gen, L, dl, wc // width, width)
     h_inv = _spd_inverses(gen, dl, L)
     g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    rows = schur_reduce.upload_tables(tables, cuda)
     args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
     before, before_b5 = schur_reduce.LM_LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES
-    out = schur_reduce.reduce_s_lm(*args)
+    out = schur_reduce.reduce_s_lm(*args, rows)
     torch.cuda.synchronize()
     assert schur_reduce.LM_LAUNCHES == before + 1
     assert schur_reduce.EXTERNAL_LAUNCHES == before_b5
@@ -326,8 +386,11 @@ def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc):
     for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
         assert x.shape == y.shape, name
         assert _rel_err(x, y) <= tol, (name, _rel_err(x, y))
-    again = schur_reduce.reduce_s_lm(*args)
+    assert torch.equal(out[0], out[0].T)
+    again = schur_reduce.reduce_s_lm(*args, rows)
     assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    with pytest.raises(ValueError):  # B4 needs W's row tables
+        schur_reduce.reduce_s_lm(*args)
 
 
 def _b7_case(gen, L, dl, dr_s, n_r, extra):

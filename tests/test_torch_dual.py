@@ -298,8 +298,8 @@ def test_solve_routes_by_dtype(dtype, route):
     _, sys_ = comp.assemble(tp.stacked_variables())
     x = comp.ctx().linops.solve(sys_, 1e-2)
     assert calls == [route]
-    other = schur.SchurOps(comp.schur_info.dim_reduced,
-                           pairs=schur.w_structure(comp.schur_info))
+    assert comp.schur_info.w_rows is not None and comp.schur_info.w_pairs is None
+    other = schur.SchurOps(comp.schur_info.dim_reduced, pairs=schur.w_structure(comp.schur_info))
     np.testing.assert_allclose(
         x.numpy(), other.solve(sys_, 1e-2).numpy(),
         rtol=1e-4 if dtype == torch.float32 else 1e-10, atol=1e-6,

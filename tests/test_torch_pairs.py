@@ -5,7 +5,8 @@ test_torch_camera_side.py and test_torch_adaptive.py).
 
 B2's tables give every landmark its real slots, from every degree bucket,
 in one launch's work list, and mark each slot whose camera repeats an
-earlier one of its landmark.  B5's give every column-block pair i ≤ j the
+earlier one of its landmark.  B5's (``schur_reduce.RowTables``, the
+table type of B3 and B4 too) give every column-block pair i ≤ j the
 landmarks that hold both.  Tolerances: 1e-12 of the largest entry (the
 same float64 arithmetic, summed in another order).
 """
@@ -132,7 +133,7 @@ def test_bucketed_assembly_matches_implicit_blocks(skewed):
 def _structured(rng, L, dl, widths, spare):
     """A W zero outside a random block structure (landmark 0 holds none,
     landmark 1 only the last block, as a landmark seen by the kernel
-    alone), its inverses and g_l, and its pair tables."""
+    alone), its inverses and g_l, and its block tables."""
     widths = np.asarray(widths)
     bcol = np.cumsum(widths + rng.integers(0, spare + 1, widths.shape[0])) - widths
     held = rng.random((L, widths.shape[0])) < 0.4
@@ -147,7 +148,7 @@ def _structured(rng, L, dl, widths, spare):
     h_inv = np.linalg.inv(a @ a.transpose(0, 2, 1) + 2.0 * np.eye(dl)).transpose(1, 2, 0)
     g = rng.standard_normal((dl, L))
     # Every incidence listed twice: repeats are ignored.
-    tables = schur_reduce.pair_tables(np.tile(lmk, 2), np.tile(blk, 2), bcol, widths)
+    tables = schur_reduce.row_tables(np.tile(lmk, 2), np.tile(blk, 2), L, bcol, widths)
     return [torch.from_numpy(np.ascontiguousarray(t)) for t in (w, h_inv, g)], tables
 
 
@@ -155,25 +156,34 @@ def _structured(rng, L, dl, widths, spare):
     (3, [9] * 12 + [3], 0), (5, [4, 16, 1, 9, 7], 3), (1, [1, 2, 3], 2), (6, [6] * 9, 1),
 ])
 def test_pair_mirror_matches_dense(dl, widths, spare):
-    """B5's plain mirror over the pair tables equals the dense plain
+    """B5's plain mirror over the block tables equals the dense plain
     version on a W zero outside the structure, an empty landmark and a
-    kernel-only landmark included; pairs hold their landmarks once, in
-    order, in items of at most PAIR_CHUNK."""
+    kernel-only landmark included; every block pair is listed, its links
+    hold its landmarks once, in order, in items of at most LINK_CHUNK."""
     rng = np.random.default_rng(dl)
     (w, h_inv, g), t = _structured(rng, 200, dl, widths, spare)
     ref = schur_reduce.reduce_s_reference(w, h_inv, g)
-    got = schur_reduce.reduce_s_pairs_reference(w, h_inv, g, t)
+    got = schur_reduce.reduce_s_rows_reference(w, h_inv, g, t)
     _close(got[0].numpy(), ref[0].numpy())
     _close(got[1].numpy(), ref[1].numpy())
-    last = t.pairs.tolist().index([len(widths) - 1] * 2)
-    assert 0 not in t.lmk and np.count_nonzero(t.lmk == 1) == 1
-    assert 1 in t.lmk[t.pstarts[last] : t.pstarts[last + 1]]
+    assert t.covered == sum(widths) and (t.covered < w.shape[2]) == (spare > 0)
+    nb = len(widths)
+    assert t.pairs.tolist() == [[i, j] for i in range(nb) for j in range(i, nb)]
+    assert t.blk[t.lmk == 0].tolist() == [-1] and t.blk[t.lmk == 1].tolist() == [nb - 1]
+    lmk_i, blk_i, blk_j = t.lmk[t.links[:, 0]], t.blk[t.links[:, 0]], t.blk[t.links[:, 1]]
+    assert np.all(t.lmk[t.links[:, 1]] == lmk_i) and np.all(blk_i <= blk_j)
+    last = t.pairs.tolist().index([nb - 1] * 2)
     for p in range(t.pairs.shape[0]):
-        run = t.lmk[t.pstarts[p] : t.pstarts[p + 1]]
-        assert np.all(np.diff(run) > 0)
         its = t.items[t.istarts[p] : t.istarts[p + 1]]
-        assert np.all(its[:, 0] == p) and its[0, 1] == t.pstarts[p] and its[-1, 2] == t.pstarts[p + 1]
-        assert np.all(its[1:, 1] == its[:-1, 2]) and np.all(its[:, 2] - its[:, 1] <= schur_reduce.PAIR_CHUNK)
+        if p == last:
+            assert 1 in lmk_i[its[0, 1] : its[-1, 2]]
+        if len(its) == 0:
+            continue
+        run = slice(its[0, 1], its[-1, 2])
+        assert np.all(np.diff(lmk_i[run]) > 0)
+        assert np.all(blk_i[run] == t.pairs[p, 0]) and np.all(blk_j[run] == t.pairs[p, 1])
+        assert np.all(its[:, 0] == p)
+        assert np.all(its[1:, 1] == its[:-1, 2]) and np.all(its[:, 2] - its[:, 1] <= schur_reduce.LINK_CHUNK)
 
 
 @pytest.fixture(scope="module")
@@ -197,6 +207,7 @@ def test_adaptive_pair_tables(adaptive):
     data, p, kh, comp = adaptive
     info, layout = comp.schur_info, comp.layout
     t = info.w_pairs
+    assert info.w_rows is None
     bcol, bwidth = t.bcol.numpy(), t.bwidth.numpy()
     cam_off = np.asarray(layout.offsets[family_name(tbal.CAM)])
     k_off = int(np.asarray(layout.offsets[family_name(kh.manifold)])[kh.index])
@@ -210,31 +221,35 @@ def test_adaptive_pair_tables(adaptive):
         (int(np.searchsorted(bcol, a)), int(np.searchsorted(bcol, b)), l)
         for l, cols in blocks.items() for a in cols for b in cols if a <= b
     )
-    pairs, pstarts, lmk = t.pairs.numpy(), t.pstarts.numpy(), t.lmk.numpy()
-    got = sorted(
-        (int(pairs[q, 0]), int(pairs[q, 1]), int(l))
-        for q in range(pairs.shape[0]) for l in lmk[pstarts[q] : pstarts[q + 1]]
-    )
-    assert got == expect
-    assert all(np.all(np.diff(lmk[pstarts[q] : pstarts[q + 1]]) > 0) for q in range(len(pairs)))
+    pairs, items, istarts = t.pairs.numpy(), t.items.numpy(), t.istarts.numpy()
+    lmk, blk, links = t.lmk.numpy(), t.blk.numpy(), t.links.numpy()
+    got, runs = [], []
+    for q in range(pairs.shape[0]):
+        its = items[istarts[q] : istarts[q + 1]]
+        run = links[its[0, 1] : its[-1, 2]] if len(its) else links[:0]
+        assert np.all(blk[run[:, 0]] == pairs[q, 0]) and np.all(blk[run[:, 1]] == pairs[q, 1])
+        got += [(int(pairs[q, 0]), int(pairs[q, 1]), int(lmk[s])) for s in run[:, 0]]
+        runs.append(lmk[run[:, 0]])
+    assert sorted(got) == expect
+    assert all(np.all(np.diff(r) > 0) for r in runs)
     kb = int(np.searchsorted(bcol, k_off))
     assert bwidth[kb] == kh.manifold.dof and np.all(np.delete(bwidth, kb) == 9)
-    with_kernel = {tuple(sorted(q)) for q in pairs.tolist() if kb in q}
-    assert with_kernel == {tuple(sorted((b, kb))) for b in range(len(bcol))}
+    assert {i for (i, j, _) in got if j == kb} | {j for (i, j, _) in got if i == kb} == set(
+        range(len(bcol)))
     assert info.table_seconds > 0
     ops = comp.ctx().linops
-    assert ops.pairs is t
+    assert ops.pairs is t and ops.rows is None
 
 
 def test_adaptive_w_lies_in_its_structure(adaptive):
     """The adaptive assembly's W is zero outside the blocks its tables give
-    each landmark: B5's plain mirror over them equals the dense plain
+    each landmark: the body's plain mirror over them equals the dense plain
     version on that W."""
     _, p, _, comp = adaptive
     _, (_, _, h_ll, g_l, w) = comp.assemble(p.stacked_variables())
     lam = 1e-2 * float(torch.diagonal(h_ll, dim1=0, dim2=1).abs().max())
     h_inv = schur.SchurOps.damped_inverse(h_ll, lam)
     ref = schur_reduce.reduce_s_reference(w, h_inv, g_l)
-    got = schur_reduce.reduce_s_pairs_reference(w, h_inv, g_l, comp.schur_info.w_pairs)
+    got = schur_reduce.reduce_s_rows_reference(w, h_inv, g_l, comp.schur_info.w_pairs)
     _close(got[0].numpy(), ref[0].numpy())
     _close(got[1].numpy(), ref[1].numpy())
