@@ -34,9 +34,11 @@ Phases, one line each or more; any failure raises and exits non-zero:
    dense product's, the plain version's time and cuBLAS's dense
    ``Yᵀ W`` product alone (the one PyTorch call of the plain version that
    forms S).
-6. main paths — Levenberg-Marquardt through ``nt.optimize`` in float32
-   for 30 iterations, each with the launch counts set to 0 just before and
-   read just after: the pinhole bench problem (B1, B6 and B3), Ladybug-49
+6. main paths — Levenberg-Marquardt through ``nt.optimize`` (its graph
+   driver: CUDA graphs of the assembly, the damped trial and the PCG's
+   chunks, whose replays add to the launch counts what their captures
+   counted) in float32 for 30 iterations, each with the launch counts set
+   to 0 just before and read just after: the pinhole bench problem (B1, B6 and B3), Ladybug-49
    and bench-realistic (B2, B6 and B3, no B1), each checked against the
    JAX package's CPU float32 reference costs (constants below).
 7. B6      — kernel ``segment_block_sum`` against its plain version on
@@ -109,17 +111,26 @@ Phases, one line each or more; any failure raises and exits non-zero:
    iterations both runs made and the best cost 1e-9, constants below); and
    in float32 with every variable free, B8 and B3 (never B6), held to the pinhole
    reference as the B1 path is.
-13. timed loops — 10 iterations of the pinhole (through B1 and through
+13. drivers — the graph driver against the stepped driver
+   (``callback=nt.null_callback``) on the pinhole bench (float32), the
+   gauge-fixed float64 path and Ladybug-49, 30 iterations: the same
+   iterations and damped solves, each iteration's cost within 1e-6
+   (float32) or 1e-12 (float64) relative, and whether the bits held; two
+   graph-driver runs of the pinhole bench give one trace.
+14. timed loops — 10 iterations of the pinhole (through B1 and through
    the dual-sorted route), gauge-fixed, Ladybug-49, bench-realistic
-   implicit and adaptive bench-realistic loops, through
-   the kernels and through their plain versions in turns, once more of
-   each with CUDA events around every phase (the implicit loops also
-   print PCG iterations per damped solve and the time of one reduced
-   matvec), and once through the kernels under ``torch.profiler`` (device
-   busy time and idle share); the Dubrovnik-class loop once with phase
-   events and once profiled.  The cost reaches the float32 floor early;
-   later iterations spend a varying number of damped trials on rounding
-   noise, so compare per-call phase times, not single-run rates.
+   implicit and adaptive bench-realistic loops, through the graph driver,
+   the stepped driver and the plain versions (``run_loop``) in turns, with
+   each loop's peak device memory and the graph driver's warm-up and
+   capture seconds; once more of each with CUDA events around every phase
+   (the graph driver's: around every replay; the implicit loops also print
+   PCG iterations per damped solve and the time of one reduced matvec),
+   and each driver once under ``torch.profiler`` (device busy time, idle
+   share, the host's launches per iteration); the Dubrovnik-class loop
+   through both drivers, with and without phase events, and profiled.
+   The cost reaches the float32 floor early; later iterations spend a
+   varying number of damped trials on rounding noise, so compare per-call
+   phase times, not single-run rates.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -752,7 +763,9 @@ def phase_b3(device, systems):
         for lam in (0.0, 1e-2):
             ref = plain(*[t.double() for t in inputs], lam)
             plain32 = plain(*f32, lam)
-            out32, again = kern(*f32, lam, rows), kern(*f32, lam, rows)
+            # λ as a float, then as the 0-d float64 device tensor the drivers give.
+            lam_dev = torch.full((), lam, dtype=torch.float64, device=device)
+            out32, again = kern(*f32, lam, rows), kern(*f32, lam_dev, rows)
             torch.cuda.synchronize()
             e32, p32 = scaled_errs(out32, ref), scaled_errs(plain32, ref)
             tol32 = [max(TOL_B3_F32, 10 * p) for p in p32]
@@ -762,26 +775,30 @@ def phase_b3(device, systems):
                     f" exceed {tol32}"
                 )
             if not all(torch.equal(x, y) for x, y in zip(out32, again)):
-                raise AssertionError(f"B3 {label} lam={lam}: two launches differ")
+                raise AssertionError(f"B3 {label} lam={lam}: two launches (λ a float, then "
+                                     "in device memory) differ")
             if not torch.equal(out32[0], out32[0].T):
                 raise AssertionError(f"B3 {label} lam={lam}: s_sum is not exactly symmetric")
             max_abs = max(max_abs, *(abs_err(x, y) for x, y in zip(out32, ref)))
             print(f"B3 {label} lam={lam} ({rows.links.shape[0]} links in {rows.items.shape[0]} "
                   f"items): f32 scaled by diag, kernel {['%.2e' % e for e in e32]} plain "
                   f"{['%.2e' % e for e in p32]} tolerance {['%.2e' % t for t in tol32]}; two "
-                  "launches bit-identical, s_sum symmetric", flush=True)
+                  "launches (λ a float, λ in device memory) bit-identical, s_sum symmetric",
+                  flush=True)
         if name not in systems:
             continue
-        ms = time_ms(lambda: kern(*f32, 1e-2, rows))
-        device_ms = graph_ms(lambda: kern(*f32, 1e-2, rows))
+        lam_dev = torch.full((), 1e-2, dtype=torch.float64, device=device)
+        ms = time_ms(lambda: kern(*f32, lam_dev, rows))
+        device_ms = graph_ms(lambda: kern(*f32, lam_dev, rows))
         plain_ms = time_ms(lambda: plain(*f32, 1e-2))
-        outs = kern(*f32, 1e-2, rows)
+        outs = kern(*f32, lam_dev, rows)
         library_ms = time_ms(gemm_call(f32[0], outs[2]))
         L, dl, wc = f32[0].shape
         pb, pf = struct_work(rows, dl, 4, damped=True)
         b = bound(pb + nbytes(*outs), pf)
         dense = bound(nbytes(*f32, *outs), reduce_flops(L, dl, wc))
-        print(f"B3 {label} time: kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
+        print(f"B3 {label} time (λ in device memory): kernel {ms:.4f} ms (in a CUDA graph "
+              f"{device_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, cuBLAS Y^T W {library_ms:.4f} ms, structural bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {pb} bytes, {pf} operations), dense "
               f"bound {dense['bound_ms']:.4f} ms ({dense['bound_by']})", flush=True)
@@ -1376,89 +1393,167 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
     return launches, result
 
 
-def phase_timed(label, problem, plain: bool, phases: bool, options=None, unfixed=None,
+def run_driver(driver, comp, opts, vars0, phase=None):
+    """One optimization loop of ``comp`` through ``driver``: "graph"
+    (``run_graphs``; its warm-up and captures not in ``seconds``),
+    "stepped" (``run_stepped``, the kernels) or "plain" (``run_loop`` over
+    the plain versions, which cannot be captured).  Returns the final
+    state with ``seconds`` (the loop's wall time, fenced) and ``peak_gib``
+    (peak device memory from the runner's construction on)."""
+    from nllstpu_torch.core.optimize import _GraphRunner, run_loop, run_stepped
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if driver == "graph":
+        runner = _GraphRunner(comp, opts, vars0, phase=phase)
+        t0 = time.perf_counter()
+        final = runner.run()
+    elif driver == "stepped":
+        t0 = time.perf_counter()
+        final = run_stepped(comp, opts, vars0, phase=phase)
+    else:
+        ctx = comp.ctx(opts, phase=phase)
+        t0 = time.perf_counter()
+        final = run_loop(comp.assemble, comp.cost, ctx, opts, vars0)
+        final["cg_iters"] = list(getattr(ctx.linops, "cg_iters", []))
+    torch.cuda.synchronize()
+    final["wall"] = time.perf_counter() - t0
+    final["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return final
+
+
+def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None,
                 w_impl="fused_all"):
-    """The same loop for ``TIMED_ITERS`` iterations, through the kernels or
-    their plain versions; with ``phases``, CUDA events around every
-    phase, and on the implicit path the PCG iterations per damped solve and
-    one reduced matvec's time."""
-    from nllstpu_torch.core.optimize import compile_problem, run_loop
+    """The loop for ``TIMED_ITERS`` iterations through ``driver`` (see
+    :func:`run_driver`); with ``phases``, CUDA events around every phase
+    (the graph driver: around every replay), and on the implicit path the
+    PCG iterations per damped solve and one reduced matvec's time."""
+    from nllstpu_torch.core.optimize import compile_problem
 
     opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
     comp = compile_problem(problem, unfixed, solver=opts.solver,
-                           schur_family=opts.schur_family, plain=plain, w_impl=w_impl)
-    vars0 = problem.stacked_variables()
+                           schur_family=opts.schur_family, plain=driver == "plain",
+                           w_impl=w_impl)
     timer = PhaseTimer() if phases else None
-    ctx = comp.ctx(opts, phase=timer)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final = run_loop(comp.assemble, comp.cost, ctx, opts, vars0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rate = final["iternum"] / wall
+    final = run_driver(driver, comp, opts, problem.stacked_variables(), phase=timer)
+    rate = final["iternum"] / final["wall"]
     line = (
-        f"LM {label} {'plain' if plain else 'kernels'}"
-        f"{' (phase events on)' if phases else ''}: "
+        f"LM {label} {driver}{' (phase events on)' if phases else ''}: "
         f"{final['iternum']} iterations, {final['nsolve']} damped solves in "
-        f"{wall * 1e3:.3f} ms = {rate:.3f} it/s, best cost "
-        f"{float(final['bestcost'])!r}"
+        f"{final['wall'] * 1e3:.3f} ms = {rate:.3f} it/s, best cost "
+        f"{float(final['bestcost'])!r}, peak device memory {final['peak_gib']:.3f} GiB"
     )
+    if driver == "graph":
+        line += (f", warm-up and capture {final['capture_seconds']:.3f} s, "
+                 f"{final['replays']} replays")
     if phases:
         line += " | " + ", ".join(
             f"{k} {n}x {ms / n:.4f} ms/call" for k, (n, ms) in timer.totals().items()
         )
     if phases and comp.schur_info.implicit:
-        ops = ctx.linops
+        ops = comp.ctx(opts).linops
         _, sys_ = comp.assemble(final["variables"])
         lam = 1e-2 * ops.diag_max(sys_).item()
         h_inv = ops.damped_inverse(sys_[2], lam)
         v = torch.randn(comp.schur_info.dim_reduced, device=h_inv.device)
         matvec_ms = time_ms(lambda: ops.s_matvec(sys_, h_inv, lam, v))
-        line += (f" | PCG iterations per damped solve {ops.cg_iters} (mean "
-                 f"{sum(ops.cg_iters) / len(ops.cg_iters):.2f}), reduced matvec "
-                 f"{matvec_ms:.4f} ms/call")
+        cg = final["cg_iters"]
+        line += (f" | PCG iterations per damped solve {cg} (mean "
+                 f"{sum(cg) / len(cg):.2f}), reduced matvec {matvec_ms:.4f} ms/call")
     print(line, flush=True)
     return rate
 
 
-def phase_profile(label, problem, options=None, unfixed=None, w_impl="fused_all"):
-    """The 10-iteration loop through the kernels under ``torch.profiler``:
-    wall time, the summed device time of every kernel, the device's idle
-    share, and the kernels that took the most device time."""
+#: The CUDA runtime calls that enqueue work: what a host launch costs.
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def phase_profile(label, problem, driver, options=None, unfixed=None, w_impl="fused_all"):
+    """The 10-iteration loop through ``driver`` ("graph" or "stepped") under
+    ``torch.profiler``: wall time, the summed device time of every kernel,
+    the device's idle share, the host's launches per iteration (the CUDA
+    runtime calls that enqueue work, graph replays among them), and the
+    kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from nllstpu_torch.core.optimize import compile_problem, run_loop
+    from nllstpu_torch.core.optimize import _GraphRunner, compile_problem, run_stepped
 
     opts = dataclasses.replace(options or bench_options(), max_iters=TIMED_ITERS)
     comp = compile_problem(problem, unfixed, solver=opts.solver,
                            schur_family=opts.schur_family, w_impl=w_impl)
     vars0 = problem.stacked_variables()
+    runner = _GraphRunner(comp, opts, vars0) if driver == "graph" else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_loop(comp.assemble, comp.cost, comp.ctx(opts), opts, vars0)
+        final = runner.run() if runner else run_stepped(comp, opts, vars0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     kernels = [
         (e.key, e.count, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        for e in events if e.device_type == torch.autograd.DeviceType.CUDA
     ]
+    api = {e.key: e.count for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU and e.key in LAUNCH_APIS}
     busy_ms = sum(ms for _, _, ms in kernels)
     top = sorted(kernels, key=lambda k: -k[2])[:6]
     # The port's own kernels: those of ops/csrc's anonymous namespaces (not
     # PyTorch's, whose template arguments name at::).
     port = [k for k in kernels
             if k[0].startswith("void (anonymous namespace)::") and "at::" not in k[0]]
-    print(f"profile {label}, {TIMED_ITERS} iterations through the kernels: wall "
+    n = final["iternum"]
+    print(f"profile {label} {driver}, {n} iterations, {final['nsolve']} damped solves: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {sum(n for _, n, _ in kernels)}"
-          " kernel launches | " + "; ".join(
-              f"{name[:60]} {n}x {ms:.3f} ms" for name, n, ms in top)
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%, {sum(c for _, c, _ in kernels)} kernels "
+          f"on the device; host launches per iteration {sum(api.values()) / n:.1f} "
+          f"({', '.join(f'{k} {v / n:.1f}' for k, v in sorted(api.items()))})"
+          + (f", graph replays per iteration {final['replays'] / n:.1f}" if runner else "")
+          + " | " + "; ".join(f"{name[:60]} {c}x {ms:.3f} ms" for name, c, ms in top)
           + " | the port's kernels: " + "; ".join(
               f"{name.split('::')[1].split('<')[0]}{name[name.find('<'):name.find('>') + 1]}"
-              f" {n}x {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)"
-              for name, n, ms in sorted(port, key=lambda k: -k[2])), flush=True)
+              f" {c}x {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)"
+              for name, c, ms in sorted(port, key=lambda k: -k[2])), flush=True)
+
+
+def phase_drivers(device, smi):
+    """The graph driver (``nt.optimize``) against the stepped driver
+    (``callback=nt.null_callback``) on the pinhole bench (float32), the
+    gauge-fixed float64 path and Ladybug-49, 30 iterations: the same
+    iterations and damped solves, each iteration's cost within 1e-6
+    (float32) or 1e-12 (float64) relative; prints whether the bits held.
+    Two graph-driver runs of the pinhole bench must give one trace."""
+    import nllstpu_torch as nt
+
+    cases = (
+        ("pinhole bench", lambda: (bench_problem(device), {}), 3),
+        (GAUGE, lambda: dual_problem(GAUGE, device), 2),
+        ("Ladybug-49", lambda: (bal_problem("Ladybug-49", device), {}), 2),
+    )
+    for label, make, n_runs in cases:
+        runs = []
+        for i in range(n_runs):
+            problem, route = make()
+            cb = dict(callback=nt.null_callback) if i == 1 else {}
+            runs.append(nt.optimize(problem, bench_options(), **route, **cb))
+        graph, stepped = runs[:2]
+        tol = 1e-12 if problem.dtype == torch.float64 else 1e-6
+        n = min(len(graph.costs), len(stepped.costs))
+        err = max(abs(a - b) / abs(b) for a, b in zip(graph.costs[:n], stepped.costs[:n]))
+        same = graph.costs == stepped.costs
+        print(f"drivers {label}: graph {graph.num_iterations} iterations, "
+              f"{graph.linear_solves} damped solves, best {graph.best_cost!r}; stepped "
+              f"{stepped.num_iterations} iterations, {stepped.linear_solves} damped solves, "
+              f"best {stepped.best_cost!r}; max rel cost difference {err:.2e} (tolerance "
+              f"{tol:g}); bits {'held' if same else 'differ'}"
+              + ("; two graph-driver runs give one trace" if n_runs == 3
+                 and runs[2].costs == graph.costs else "") + f" | {smi}", flush=True)
+        if (graph.num_iterations, graph.linear_solves) != (
+                stepped.num_iterations, stepped.linear_solves) or not err <= tol:
+            raise AssertionError(f"drivers {label}: the graph and stepped drivers disagree")
+        if n_runs == 3 and runs[2].costs != graph.costs:
+            raise AssertionError(f"drivers {label}: two graph-driver runs give two traces")
 
 
 def main():
@@ -1507,9 +1602,10 @@ def main():
                "segment_block_sum"),
         **route,
     )[0]
-    # Kernels and plain versions in turns, then one run of each with
-    # per-phase events (the events cost host time, so rates come from the
-    # runs without them).
+    phase_drivers(device, smi)
+    # The two drivers and the plain versions in turns, then one run of
+    # each with per-phase events (the events cost host time, so rates come
+    # from the runs without them), then each driver profiled.
     implicit = "bench-realistic implicit"
     for label, make, opts in (
         ("pinhole bench", lambda d: (bench_problem(d), {}), None),
@@ -1519,18 +1615,22 @@ def main():
         (implicit, lambda d: (bal_problem(implicit, d), {}), implicit_options(implicit)),
         (ADAPTIVE, lambda d: (adaptive_problem(d)[0], {}), None),
     ):
-        for plain, phases in ((False, False), (True, False), (True, False), (False, False),
-                              (False, True), (True, True)):
+        for driver, phases in (("graph", False), ("stepped", False), ("plain", False),
+                               ("plain", False), ("stepped", False), ("graph", False),
+                               ("graph", True), ("stepped", True), ("plain", True)):
             problem, route = make(device)
-            phase_timed(label, problem, plain=plain, phases=phases, options=opts, **route)
-        problem, route = make(device)
-        phase_profile(label, problem, options=opts, **route)
-    # The Dubrovnik-class loop once, through the kernels: its phase split,
-    # PCG iterations and matvec time, then its idle share.
+            phase_timed(label, problem, driver, phases=phases, options=opts, **route)
+        for driver in ("graph", "stepped"):
+            problem, route = make(device)
+            phase_profile(label, problem, driver, options=opts, **route)
+    # The Dubrovnik-class loop through both drivers: its rate, its phase
+    # split, PCG iterations and matvec time, then its idle share.
     big = "Dubrovnik-class"
-    phase_timed(big, bal_problem(big, device), plain=False, phases=True,
-                options=implicit_options(big))
-    phase_profile(big, bal_problem(big, device), options=implicit_options(big))
+    for driver in ("graph", "stepped"):
+        for phases in (False, True):
+            phase_timed(big, bal_problem(big, device), driver, phases=phases,
+                        options=implicit_options(big))
+        phase_profile(big, bal_problem(big, device), driver, options=implicit_options(big))
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"

@@ -11,20 +11,27 @@ and ``solver="schur"`` past the dense-W limit) takes any size.  A BAL
 batch may carry one shared adaptive robust kernel (ContaminatedGaussian,
 Barron) whose parameters are fitted with the cameras and points, through
 the direct solve.  Problems live on the card unless the caller passes
-``device="cpu"``.  The package never imports ``jax``.
+``device="cpu"``.  ``optimize`` runs the graph driver (CUDA graphs of the
+assembly, the damped trial and the PCG's chunks) unless the caller passes
+a ``callback`` or ``store_trajectory=True``, which take the stepped
+driver.  The package never imports ``jax``.
 """
 
 from .core.manifolds import (
     SE3, BarronManifold, ContaminatedGaussianManifold, Euclidean, Manifold,
     Scalar, ZeroToInf, ZeroToOne, so3_exp,
 )
-from .core.optimize import CompiledProblem, compile_problem, optimize, run_loop
+from .core.callbacks import null_callback, printout_callback, store_costs_callback
+from .core.optimize import (
+    CallbackContext, CompiledProblem, compile_problem, optimize, run_graphs, run_loop,
+    run_stepped,
+)
 from .core.problem import Problem, VarHandle, family_name
 from .core.robust import (
     AdaptiveRobustifier, Barron, ContaminatedGaussian, Huber, Huber2o,
     NoRobust, Robustifier, Scaled, ScaledAdaptive, em_fit,
 )
-from .core.structs import LEVENBERG_MARQUARDT, Options, Result
+from .core.structs import LEVENBERG_MARQUARDT, CostTrajectory, Options, Result
 
 __version__ = "0.1.0"
 
@@ -53,9 +60,16 @@ __all__ = [
     "family_name",
     "Options",
     "Result",
+    "CostTrajectory",
     "LEVENBERG_MARQUARDT",
     "compile_problem",
     "CompiledProblem",
     "optimize",
     "run_loop",
+    "run_stepped",
+    "run_graphs",
+    "CallbackContext",
+    "null_callback",
+    "printout_callback",
+    "store_costs_callback",
 ]

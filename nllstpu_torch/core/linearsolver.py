@@ -4,8 +4,11 @@
 ``cholesky_solve`` falls back to an LU solve when the matrix is not
 positive definite (reference ``try_cholesky!``).  The JAX package detects a
 failed factorization by a NaN diagonal inside ``lax.cond``; here
-``cholesky_ex``'s ``info`` or a non-finite solution says so, and reading
-both is one host sync.  The
+``cholesky_ex``'s ``info`` or a non-finite solution says so.  The pieces
+can be captured in a CUDA graph: :func:`cholesky_solve_ex` returns the
+Cholesky solution with that test as a device flag, :func:`lu_solve` the LU
+one, and the caller reads the flag where it may (the graph driver after a
+replay); :func:`cholesky_solve` reads it at once, one host sync.  The
 fallback is numerics, not a device fallback: both branches run wherever
 the matrix lives.  ``batched_inv_spd`` inverts the implicit backend's
 preconditioner blocks.
@@ -16,41 +19,72 @@ from __future__ import annotations
 import torch
 
 
-def cholesky_solve(a, b):
-    """Solve ``a x = b`` (``b`` a vector) by Cholesky, or by LU when ``a``
-    is not positive definite.
+def _scaled(a, b):
+    """``(a, b, d)``: a float32 system scaled to a unit diagonal (x = D y
+    with D = |diag a|^-½, (D a D) y = D b), else unchanged with d None.
 
-    A float32 ``a`` is first scaled to a unit diagonal (x = D y with
-    D = |diag a|^-½, (D a D) y = D b).  The reduced camera system of
-    Snavely BAL problems has a diagonal spanning eight decades (focal
-    length against rotation) and BA's near-null gauge directions: in
-    float32 it rounds to an indefinite matrix, the Cholesky fails, and LU
-    with partial pivoting on the unscaled rows returns a step off by 3 to
-    1000 times its size, which LM rejects again and again.  On the scaled
-    matrix the LU step matches an exact solve of the same float32 system.
-    Float64 factors unscaled, as the JAX package does: scaled, the
-    last-bit differences at the cost's rounding floor change which damped
-    trials LM accepts, and the float64 LM trace no longer matches the JAX
-    package's (16 cameras, 256 landmarks, Huber: 10 damped solves against
-    5).
+    The reduced camera system of Snavely BAL problems has a diagonal
+    spanning eight decades (focal length against rotation) and BA's
+    near-null gauge directions: in float32 it rounds to an indefinite
+    matrix, the Cholesky fails, and LU with partial pivoting on the
+    unscaled rows returns a step off by 3 to 1000 times its size, which LM
+    rejects again and again.  On the scaled matrix the LU step matches an
+    exact solve of the same float32 system.  Float64 factors unscaled, as
+    the JAX package does: scaled, the last-bit differences at the cost's
+    rounding floor change which damped trials LM accepts, and the float64
+    LM trace no longer matches the JAX package's (16 cameras, 256
+    landmarks, Huber: 10 damped solves against 5)."""
+    if a.dtype != torch.float32:
+        return a, b, None
+    diag = torch.diagonal(a).abs()
+    d = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))
+    return a * d[:, None] * d[None, :], b * d, d
 
-    A factorization counts as failed when ``info`` says so or when the
-    solution it gives is not finite — the JAX package's test (a NaN on
-    the factor's diagonal) reaches the same cases.  ``info`` alone is not
-    enough: on the H100 a float32 reduced system at λ ≈ 1e-10·max diag
-    (the pinhole bench at its rounding floor, in a rare run) factored with
-    ``info`` 0 into a non-finite solution, and the step came out NaN.
-    Both tests are read back in one host sync."""
-    d = None
-    if a.dtype == torch.float32:
-        diag = torch.diagonal(a).abs()
-        d = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))
-        a = a * d[:, None] * d[None, :]
-        b = b * d
+
+def _cholesky(a, b):
+    """``(x, ok)`` on a scaled system.  A factorization counts as failed
+    when ``info`` says so or when the solution it gives is not finite —
+    the JAX package's test (a NaN on the factor's diagonal) reaches the
+    same cases.  ``info`` alone is not enough: on the H100 a float32
+    reduced system at λ ≈ 1e-10·max diag (the pinhole bench at its
+    rounding floor, in a rare run) factored with ``info`` 0 into a
+    non-finite solution, and the step came out NaN."""
     chol, info = torch.linalg.cholesky_ex(a)
     x = torch.cholesky_solve(b[:, None], chol)[:, 0]
-    if bool((info != 0) | ~torch.isfinite(x).all()):
-        x, _ = torch.linalg.solve_ex(a, b)
+    return x, (info == 0) & torch.isfinite(x).all()
+
+
+def _lu(a, b):
+    return torch.linalg.solve_ex(a, b)[0]
+
+
+def cholesky_solve_ex(a, b):
+    """``(x, ok)``: the Cholesky solution of ``a x = b`` (``b`` a vector,
+    a float32 ``a`` scaled as :func:`cholesky_solve` scales it) and a 0-d
+    bool device tensor, false when the factorization failed (then ``x`` is
+    not the answer: take :func:`lu_solve`).  No host sync."""
+    a, b, d = _scaled(a, b)
+    x, ok = _cholesky(a, b)
+    return (x if d is None else d * x), ok
+
+
+def lu_solve(a, b):
+    """The LU solution of ``a x = b``, on the system :func:`cholesky_solve`
+    factors: the fallback of :func:`cholesky_solve_ex`.  No host sync."""
+    a, b, d = _scaled(a, b)
+    x = _lu(a, b)
+    return x if d is None else d * x
+
+
+def cholesky_solve(a, b):
+    """Solve ``a x = b`` (``b`` a vector) by Cholesky, or by LU when ``a``
+    is not positive definite: :func:`cholesky_solve_ex`, the flag read
+    back (one host sync), then :func:`lu_solve` on the same scaled system
+    where it failed."""
+    a, b, d = _scaled(a, b)
+    x, ok = _cholesky(a, b)
+    if not bool(ok):
+        x = _lu(a, b)
     return x if d is None else d * x
 
 

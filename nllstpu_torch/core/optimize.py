@@ -1,4 +1,4 @@
-"""Optimizer entry points: ``compile_problem``, ``run_loop`` and
+"""Optimizer entry points: ``compile_problem``, the two drivers and
 ``optimize`` (port of the Schur Levenberg-Marquardt paths of
 ``nllstpu/core/optimize.py``: the direct solve, with or without a shared
 adaptive robust kernel, through either assembly route of its obs-major
@@ -6,10 +6,20 @@ batches, and the implicit one that ``solver="schur_cg"`` asks for and
 ``solver="schur"`` switches to past the dense-W limit; ``unfixed`` picks
 the variables to optimize).
 
-The JAX package compiles the whole outer optimization into one
-``lax.while_loop``.  Here the solver state stays on the device and the host
-drives the loop, reading a handful of scalars once per damping trial for
-the accept and termination decisions.  The control flow is the reference's
+Two drivers, dispatched as the JAX package dispatches its own:
+
+* **graph driver** (:class:`_GraphRunner`, the counterpart of the JAX
+  package's jit driver, whose whole optimization is one
+  ``lax.while_loop``): on the card the assembly, the damped trial and the
+  PCG's chunks are CUDA graphs, and the host replays them, reading a
+  handful of scalars once per damping trial for the accept and
+  termination decisions.  The default.
+* **stepped driver** (:func:`run_stepped`): the host loop over eager
+  calls, each phase ended by a device fence so that the phase times are
+  real, with user callbacks and the full cost trajectory.  Taken when the
+  caller passes a ``callback`` or ``store_trajectory=True``.
+
+Both run :func:`run_loop`, the reference's control flow
 (src/optimize.jl:109-180): unconditional adoption of the trial variables,
 best-variable snapshot on the first consecutive failure with rollback at
 the end, and the termination bitmask.
@@ -17,15 +27,18 @@ the end, and the termination bitmask.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ..ops import _build, fused_obs, schur, schur_reduce, segment_sum, w_place
 from . import engine, iterators, structs
+from .callbacks import host_array
 from .problem import Problem, family_name
 from .structs import Options, Result
 
@@ -244,15 +257,50 @@ def _termination_bits(cost, dcost, bestcost, maxstep, fails, iternum, opts):
     return bits
 
 
-def run_loop(assemble_fn, cost_fn, ctx: iterators.IterCtx, opts: Options,
-             vars0) -> dict:
+@dataclasses.dataclass
+class CallbackContext:
+    """What a user callback sees (the JAX package's ``CallbackContext``).
+    ``variables`` holds the trial variables of the current iteration; the
+    callback may replace entries, and the loop adopts what it leaves there
+    (reference callbacks mutate ``problem.varnext``).  ``cost_fn`` is the
+    compiled total cost, for recomputing the cost after a change;
+    ``itdata`` the iterator's scalars (``lm_lambda``)."""
+
+    problem: Problem
+    variables: dict
+    step: Any
+    bestcost: float
+    iteration: int
+    cost_fn: Callable
+    itdata: dict
+
+
+def _same(x):
+    return x
+
+
+def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
+             problem=None, trajectory=None, buffers=None) -> dict:
     """The outer optimization (reference ``optimizeinternal!``) over a dict
     of device tensors.  Returns the final state: ``variables`` (rolled back
     to the best ones when the last iterate is worse), ``startcost``,
     ``bestcost``, ``iternum``, ``converged`` (termination bits), the
-    ``ncost``/``ngrad``/``nsolve`` counters and ``trace``, the cost after
-    every iteration."""
+    ``ncost``/``ngrad``/``nsolve`` counters, ``trace`` (the cost after
+    every iteration) and ``step_norms`` (|x| of every iteration's step).
+
+    ``ctx`` is an :class:`iterators.IterCtx`, or the graph driver's
+    :class:`_GraphRunner`, which offers the same members.  ``callback(cost,
+    CallbackContext) -> (cost, flags)`` runs after every iteration; its
+    nonzero flags end the run, shifted into the termination bits.
+    ``trajectory`` (a :class:`structs.CostTrajectory`) gets every
+    iteration's cost, time since the loop's start and step vector.
+    ``buffers`` (the graph driver) holds the variables in static tensors:
+    ``buffers.adopt(nv)`` copies the adopted variables in and returns them,
+    ``buffers.snapshot(v)`` clones; without it both return their
+    argument."""
     t = ctx.np_dtype
+    adopt = buffers.adopt if buffers is not None else _same
+    snapshot = buffers.snapshot if buffers is not None else _same
     t0 = time.perf_counter()
     with ctx.phase("cost"):
         c0 = t(cost_fn(vars0).item())
@@ -260,46 +308,355 @@ def run_loop(assemble_fn, cost_fn, ctx: iterators.IterCtx, opts: Options,
         variables=vars0, varbest=vars0, bestcost=c0, lastcost=c0,
         startcost=c0, itdata=iterators.init_data(t, opts), fails=0,
         iternum=0, converged=0, ncost=1, ngrad=0, nsolve=0, trace=[],
+        step_norms=[],
     )
     with np.errstate(all="ignore"):
         while st["converged"] == 0:
             with ctx.phase("assemble"):
                 _, sys = assemble_fn(st["variables"])
-            nv, c, x, itdata, ns, nc, maxstep = iterators.iterate(
+            nv, c, x, itdata, ns, nc, maxstep, xx = iterators.iterate(
                 opts.iterator, ctx, sys, st["variables"], st["bestcost"],
                 st["itdata"], opts,
             )
+            iternum = st["iternum"] + 1
+            user = 0
+            if callback is not None:
+                cb = CallbackContext(
+                    problem=problem, variables=dict(nv), step=x,
+                    bestcost=float(st["bestcost"]), iteration=iternum,
+                    cost_fn=cost_fn, itdata=itdata,
+                )
+                c, user = callback(c, cb)
+                c = t(float(c))
+                nv = cb.variables
             dcost = st["bestcost"] - c
             accepted = dcost >= 0
             if not accepted and st["fails"] == 0:
-                st["varbest"] = st["variables"]
+                st["varbest"] = snapshot(st["variables"])
             fails = 0 if accepted else st["fails"] + 1
             bestcost = c if accepted else st["bestcost"]
-            iternum = st["iternum"] + 1
             bits = _termination_bits(
                 c, dcost if accepted else c, bestcost, maxstep, fails,
                 iternum, opts,
             )
             if time.perf_counter() - t0 > opts.max_time:
                 bits |= structs.TERM_MAX_TIME
+            bits |= int(user) << structs.TERM_USER_SHIFT
             st.update(
-                variables=nv, bestcost=bestcost, lastcost=c, itdata=itdata,
+                variables=adopt(nv), bestcost=bestcost, lastcost=c, itdata=itdata,
                 fails=fails, iternum=iternum, converged=bits,
                 ncost=st["ncost"] + nc, ngrad=st["ngrad"] + 1,
                 nsolve=st["nsolve"] + ns,
             )
             st["trace"].append(c)
+            st["step_norms"].append(np.sqrt(xx))
+            if trajectory is not None:
+                trajectory.costs.append(float(c))
+                trajectory.times_ns.append(int((time.perf_counter() - t0) * 1e9))
+                trajectory.trajectory.append(host_array(x))
         if not (st["bestcost"] >= st["lastcost"]):
             st["variables"] = st["varbest"]
     return st
 
 
-def optimize(problem: Problem, options: Options = None, unfixed=None,
+@contextlib.contextmanager
+def _cusolver(device):
+    """PyTorch's dense factorizations through cuSOLVER on the card: not
+    MAGMA, which reads its ``info`` on the host and cannot be captured.
+    Both drivers run under it (the graph driver's warm-up and captures,
+    the stepped driver's loop), so that they factor alike: the implicit
+    path's batched preconditioner blocks would otherwise go to MAGMA in the
+    stepped driver alone."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+class _PhaseClock:
+    """The stepped driver's phase hook: the host seconds of each phase,
+    each ended by a device fence (``torch.cuda.synchronize`` on the card),
+    so that they time the device's work and not its enqueue; ``inner``, the
+    caller's own hook (CUDA events, say), runs inside."""
+
+    def __init__(self, device, inner=None):
+        self.device = device
+        self.inner = inner or iterators._no_phase
+        self.seconds = collections.defaultdict(float)
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t = time.perf_counter()
+        with self.inner(name):
+            yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.seconds[name] += time.perf_counter() - t
+
+
+def run_stepped(compiled: CompiledProblem, opts: Options, vars0, callback=None,
+                problem=None, phase=None) -> dict:
+    """The stepped driver (the JAX package's ``_run_stepped``): the host
+    loop over eager calls, every phase ended by a device fence.  Returns
+    :func:`run_loop`'s final state with ``seconds`` (host seconds per phase:
+    "assemble", "solve", "cost"), ``trajectory`` (a
+    :class:`structs.CostTrajectory` when ``opts.store_trajectory`` is
+    True, else None) and ``cg_iters`` (the implicit path's PCG iterations
+    per damped solve).  ``phase`` is an extra phase hook inside the
+    fences."""
+    clock = _PhaseClock(compiled.device, phase)
+    trajectory = structs.CostTrajectory() if opts.store_trajectory is True else None
+    ctx = compiled.ctx(opts, phase=clock)
+    with _cusolver(compiled.device):
+        final = run_loop(
+            compiled.assemble, compiled.cost, ctx, opts, vars0,
+            callback=callback, problem=problem, trajectory=trajectory,
+        )
+    final.update(seconds=dict(clock.seconds), trajectory=trajectory,
+                 cg_iters=list(getattr(ctx.linops, "cg_iters", [])))
+    return final
+
+
+#: The kernels' launch counters, ``(module, attribute)``: each wrapper adds
+#: one where it launches its kernel; the graph driver adds what a capture
+#: counted at every replay of it.
+LAUNCH_COUNTERS = (
+    (fused_obs, "LAUNCHES"), (fused_obs, "INTO_LAUNCHES"), (fused_obs, "LEG_LAUNCHES"),
+    (schur_reduce, "LAUNCHES"), (schur_reduce, "LM_LAUNCHES"),
+    (schur_reduce, "EXTERNAL_LAUNCHES"), (segment_sum, "LAUNCHES"), (w_place, "LAUNCHES"),
+)
+
+
+def _launch_counts() -> list:
+    return [getattr(m, a) for m, a in LAUNCH_COUNTERS]
+
+
+def _set_launch_counts(counts) -> None:
+    for (m, a), n in zip(LAUNCH_COUNTERS, counts):
+        setattr(m, a, n)
+
+
+class _GraphRunner:
+    """The graph driver: the counterpart of the JAX package's jit driver
+    (``_JitRunner`` over ``_loop_machine``, nllstpu/core/optimize.py), whose
+    whole optimization is one ``lax.while_loop``.  Here the loop's control
+    stays :func:`run_loop`'s, on the host, and what it runs between two
+    host reads is one CUDA graph.
+
+    The pieces, each a body over the runner's static tensors (the
+    variables ``vars``, λ as a 0-d float64 tensor ``lam``, the system
+    ``sys`` and its gradient ``g``):
+
+    - ``assemble``: the system and its gradient at ``vars``;
+    - direct: ``trial`` and ``trial_lu``, the damped step at ``lam``
+      through the reduced system's Cholesky or LU, the variables it gives,
+      their cost and the read ``[cost, max|x|, gᵀx, xᵀx, ok]``;
+    - implicit: ``pcg_setup`` (damped inverses, rhs, preconditioner,
+      tolerance, start state), ``pcg_chunk`` (``ops.schur.CG_CHECK_EVERY``
+      iterations in place, and the convergence flag) and ``pcg_finish``
+      (back-substitution, step, cost, read).
+
+    On the card :meth:`prepare` runs every piece once on a side stream
+    (the warm-up: the kernels' scratch, cuBLAS and cuSOLVER workspaces and
+    the kernels' first attribute calls happen there), then captures each
+    in a CUDA graph, all in one memory pool; a failed capture raises and
+    names the piece.  A damped trial is then one λ write, one replay and
+    one read (a second replay and read when the Cholesky failed; on the
+    implicit path a replay and a flag read per PCG chunk), an outer
+    iteration one copy of the adopted variables into ``vars`` and one
+    assembly replay.  Each replay adds to the kernels' launch counters
+    what its capture counted.  On the CPU the pieces run eagerly: the same
+    code.  A compile with the plain versions (``plain=True``) cannot be
+    captured (its kernels' plain versions read the host); on the card the
+    runner refuses it.  ``phase(name)`` wraps every piece's replay."""
+
+    def __init__(self, compiled: CompiledProblem, opts: Options, vars0, phase=None):
+        capture = compiled.device.type == "cuda"
+        if capture and compiled.kernels is not KERNELS:
+            raise ValueError(
+                "graph driver: a compile with the kernels' plain versions (plain=True) "
+                "cannot be captured in CUDA graphs; drive it with run_loop"
+            )
+        self.compiled, self.opts = compiled, opts
+        ctx = compiled.ctx(opts)
+        self.linops, self.np_dtype = ctx.linops, ctx.np_dtype
+        self.phase = iterators._no_phase  # run_loop's hooks: the pieces are timed instead
+        self.timer = phase or iterators._no_phase
+        self.implicit = compiled.schur_info.implicit
+        self.vars = {k: v.clone() for k, v in vars0.items()}
+        self.lam = torch.zeros((), dtype=torch.float64, device=compiled.device)
+        self.bodies = {"assemble": self._assemble}
+        if self.implicit:
+            self.bodies.update(pcg_setup=self._pcg_setup, pcg_chunk=self._pcg_chunk,
+                               pcg_finish=self._pcg_finish)
+        else:
+            self.bodies.update(trial=self._trial, trial_lu=lambda: self._trial(lu=True))
+        self.graphs = {}  # name -> (CUDAGraph, launch counts of its capture, outputs)
+        self.capture_seconds = 0.0
+        self.replays = 0
+        if capture:
+            self.prepare()
+
+    # -- the pieces' bodies ------------------------------------------------
+
+    def _assemble(self):
+        _, sys = self.compiled.assemble(self.vars)
+        return sys, self.linops.grad(sys)
+
+    def _finish_trial(self, x, ok):
+        nv = self.compiled.apply(self.vars, x)
+        c = self.compiled.cost(nv)
+        ok = torch.ones_like(c) if ok is None else ok.to(c.dtype)
+        return nv, x, torch.stack([c, x.abs().max(), self.g @ x, x @ x, ok])
+
+    def _trial(self, lu=False):
+        x, ok = self.linops.solve_ex(self.sys, self.lam, lu=lu)
+        return self._finish_trial(-x, ok)
+
+    def _pcg_setup(self):
+        return self.linops.pcg_setup(self.sys, self.lam)
+
+    def _pcg_chunk(self):
+        h_inv, inv, tol2, state = self.pcg
+        new, flag = self.linops.pcg_chunk(self.sys, self.lam, h_inv, inv, tol2, state)
+        for buf, value in zip(state, new):
+            buf.copy_(value)
+        return flag
+
+    def _pcg_finish(self):
+        h_inv, _, _, state = self.pcg
+        return self._finish_trial(-self.linops.pcg_finish(self.sys, h_inv, state), None)
+
+    def _keep(self, name, out):
+        """Outputs that later pieces read become the runner's."""
+        if name == "assemble":
+            self.sys, self.g = out
+        elif name == "pcg_setup":
+            self.pcg = out
+        return out
+
+    # -- capture and replay ------------------------------------------------
+
+    def prepare(self):
+        """Warm-up and capture (see the class), then one replay of each
+        graph, whose first replay uploads it; their seconds in
+        ``capture_seconds``."""
+        t0 = time.perf_counter()
+        dev = self.compiled.device
+        with _cusolver(dev):
+            self.lam.fill_(1.0)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for name, body in self.bodies.items():
+                    self._keep(name, body())
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            pool = torch.cuda.graph_pool_handle()
+            for name, body in self.bodies.items():
+                graph = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                try:
+                    with torch.cuda.graph(graph, pool=pool):
+                        out = self._keep(name, body())
+                except Exception as e:
+                    raise RuntimeError(
+                        f"graph driver: the capture of {name!r} failed: "
+                        f"{type(e).__name__}: {e}"
+                    ) from e
+                counted = [a - b for a, b in zip(_launch_counts(), before)]
+                _set_launch_counts(before)  # nothing ran during the capture
+                self.graphs[name] = (graph, counted, out)
+            for graph, counted, _ in self.graphs.values():  # the first replay uploads it
+                graph.replay()
+                _set_launch_counts([a + b for a, b in zip(_launch_counts(), counted)])
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _step(self, name):
+        """Piece ``name``: its graph replayed on the card, its body run on
+        the CPU; returns its outputs."""
+        with self.timer(name):
+            if name in self.graphs:
+                graph, counted, out = self.graphs[name]
+                graph.replay()
+                _set_launch_counts([a + b for a, b in zip(_launch_counts(), counted)])
+                self.replays += 1
+            else:
+                out = self.bodies[name]()
+        return self._keep(name, out)
+
+    # -- what run_loop calls -------------------------------------------------
+
+    def assemble(self, variables):
+        return None, self._step("assemble")[0]
+
+    def grad(self, sys):
+        return self.g
+
+    def trial(self, sys, g, variables, lam, lu=False):
+        """The damped trial at ``lam`` (:meth:`iterators.IterCtx.trial`'s
+        contract) through the pieces."""
+        self.lam.fill_(float(lam))
+        if self.implicit:
+            self._step("pcg_setup")
+            more = True
+            while more:
+                more, iters = self._step("pcg_chunk").tolist()
+            self.linops.cg_iters.append(int(iters))
+            nv, x, read = self._step("pcg_finish")
+        else:
+            nv, x, read = self._step("trial_lu" if lu else "trial")
+        return nv, x, read.tolist()
+
+    def adopt(self, variables):
+        for name, v in variables.items():
+            self.vars[name].copy_(v)
+        return self.vars
+
+    @staticmethod
+    def snapshot(variables):
+        return {name: v.clone() for name, v in variables.items()}
+
+    def run(self) -> dict:
+        """:func:`run_loop` through the pieces; the final variables are the
+        caller's own tensors (a later replay does not touch them)."""
+        final = run_loop(self.assemble, self.compiled.cost, self, self.opts, self.vars,
+                         buffers=self)
+        if final["variables"] is self.vars:
+            final["variables"] = self.snapshot(self.vars)
+        final.update(capture_seconds=self.capture_seconds, replays=self.replays,
+                     cg_iters=list(getattr(self.linops, "cg_iters", [])))
+        return final
+
+
+def run_graphs(compiled: CompiledProblem, opts: Options, vars0, phase=None) -> dict:
+    """The graph driver over a compiled problem (:class:`_GraphRunner`:
+    warm-up and capture, then the loop).  Returns :func:`run_loop`'s final
+    state with ``capture_seconds``, ``replays`` and ``cg_iters`` (as
+    :func:`run_stepped`'s)."""
+    return _GraphRunner(compiled, opts, vars0, phase).run()
+
+
+def optimize(problem: Problem, options: Options = None, unfixed=None, callback=None,
              w_impl: str = "fused_all") -> Result:
     """Optimize the ``unfixed`` variables (all by default; see
     :func:`engine.resolve_unfixed`) in place on the problem's device and
     return a :class:`Result` (reference ``optimize!``).  ``w_impl`` picks
-    the direct assembly's route (:data:`W_IMPLS`)."""
+    the direct assembly's route (:data:`W_IMPLS`).
+
+    The driver is picked as the JAX package picks it: a ``callback(cost,
+    CallbackContext) -> (cost, flags)`` or ``store_trajectory=True`` runs
+    the stepped driver (:func:`run_stepped`: real phase times, the full
+    :class:`structs.CostTrajectory`), anything else the graph driver
+    (:class:`_GraphRunner`; ``store_trajectory="jit"`` records costs and
+    step norms), whose warm-up and captures count in ``time_init``, before
+    ``max_time``'s clock starts, as the JAX package compiles before its."""
     options = options or Options()
     if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
         raise ValueError("no unfixed variables to optimize")
@@ -309,24 +666,37 @@ def optimize(problem: Problem, options: Options = None, unfixed=None,
         schur_family=options.schur_family, w_impl=w_impl,
     )
     vars0 = problem.stacked_variables()
-    t1 = time.perf_counter()
-    final = run_loop(
-        compiled.assemble, compiled.cost, compiled.ctx(options), options, vars0
-    )
-    problem.set_values(final["variables"])
     nan = float("nan")
+    if callback is not None or options.store_trajectory is True:
+        t1 = time.perf_counter()
+        final = run_stepped(compiled, options, vars0, callback=callback, problem=problem)
+        times = [final["seconds"].get(k, 0.0) for k in ("cost", "assemble", "solve")]
+        trajectory = final["trajectory"]
+    else:
+        runner = _GraphRunner(compiled, options, vars0)
+        t1 = time.perf_counter()
+        final = runner.run()
+        times = [nan, nan, nan]
+        trajectory = None
+        if options.store_trajectory == "jit":
+            trajectory = structs.CostTrajectory(
+                costs=[float(c) for c in final["trace"]],
+                step_norms=[float(n) for n in final["step_norms"]],
+            )
+    problem.set_values(final["variables"])
     return Result(
         start_cost=float(final["startcost"]),
         best_cost=float(final["bestcost"]),
         time_total=time.perf_counter() - t0,
         time_init=t1 - t0,
-        time_cost=nan,
-        time_gradient=nan,
-        time_solver=nan,
+        time_cost=times[0],
+        time_gradient=times[1],
+        time_solver=times[2],
         termination=final["converged"],
         num_iterations=final["iternum"],
         cost_computations=final["ncost"],
         gradient_computations=final["ngrad"],
         linear_solves=final["nsolve"],
         costs=[float(c) for c in final["trace"]],
+        trajectory=trajectory,
     )

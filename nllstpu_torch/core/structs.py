@@ -1,6 +1,6 @@
-"""Options, result and termination bits (port of
+"""Options, result, cost trajectory and termination bits (port of
 ``nllstpu/core/structs.py`` for the slice: Levenberg-Marquardt on the
-direct Schur backend)."""
+Schur backends)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ TERM_SMALL_STEP = 1 << 6
 TERM_MAX_FAILS = 1 << 7
 TERM_MAX_ITERS = 1 << 8
 TERM_MAX_TIME = 1 << 9
+#: A callback's termination flags are reported shifted left by this much.
+TERM_USER_SHIFT = 16
 
 _TERM_MESSAGES = (
     (TERM_COST_INF, "Cost is infinite."),
@@ -46,7 +48,12 @@ class Options:
     ``iterator=LEVENBERG_MARQUARDT`` with ``solver="schur"`` (or "auto"
     with a ``schur_family``), which switches to the implicit backend past
     the dense-W limit, or ``solver="schur_cg"`` (implicit always);
-    ``max_time`` is checked every iteration."""
+    ``max_time`` is checked every iteration.
+
+    ``store_trajectory``: ``True`` runs the stepped driver and records a
+    :class:`CostTrajectory` with every iteration's cost, time and step
+    vector; ``"jit"`` keeps the graph driver and records every
+    iteration's cost and step norm."""
 
     rel_dcost: float = 1e-15
     abs_dcost: float = 1e-15
@@ -58,6 +65,7 @@ class Options:
     solver: str = "auto"
     schur_family: Any = None  # Manifold of the eliminated (landmark) family
     init_lm_lambda: float = 0.0
+    store_trajectory: Any = False
     # Implicit backend only: relative residual tolerance of the reduced
     # PCG (the Ceres ``eta`` analogue).  None = 1e-5 in float32, 1e-12 in
     # float64.  LM tolerates inexact steps, so 1e-2 trades inner
@@ -67,15 +75,26 @@ class Options:
     def __post_init__(self):
         if self.iterator not in ITERATORS:
             raise ValueError(f"unknown iterator {self.iterator!r}; one of {ITERATORS}")
+        if self.store_trajectory == "jit_full":
+            raise NotImplementedError(
+                'store_trajectory="jit_full" is not ported yet (ROADMAP Queue 1 item 6); '
+                "store_trajectory=True records the step vectors on the stepped driver"
+            )
+        if self.store_trajectory not in (False, True, "jit"):
+            raise ValueError(f"store_trajectory={self.store_trajectory!r}: one of False, "
+                             'True, "jit"')
 
 
 @dataclasses.dataclass
 class Result:
-    """Optimization result (reference ``NLLSResult``).  ``time_cost``,
-    ``time_gradient`` and ``time_solver`` are NaN ("not measured"): the
-    device runs ahead of the host, so host clocks around phases would time
-    the enqueue; per-phase device times come from CUDA events (see
-    ``IterCtx.phase``).  ``costs`` is the per-iteration cost trace."""
+    """Optimization result (reference ``NLLSResult``).  The stepped driver
+    (a callback, or ``store_trajectory=True``) measures ``time_gradient``
+    (assembly), ``time_solver`` (the damped solves) and ``time_cost`` (the
+    steps' application and costs), each phase ended by a device fence.
+    The graph driver replays whole trials, so they are NaN there ("not
+    measured"), as in the JAX package's jit driver.  ``costs`` is the
+    per-iteration cost trace; ``trajectory`` the :class:`CostTrajectory`
+    when one was asked for."""
 
     start_cost: float
     best_cost: float
@@ -90,20 +109,28 @@ class Result:
     gradient_computations: int
     linear_solves: int
     costs: Optional[list] = None
+    trajectory: Optional[Any] = None  # CostTrajectory when requested
 
     def termination_reasons(self) -> list:
-        return [msg for bit, msg in _TERM_MESSAGES if self.termination & bit]
+        reasons = [msg for bit, msg in _TERM_MESSAGES if self.termination & bit]
+        user = self.termination >> TERM_USER_SHIFT
+        if user:
+            reasons.append(f"Terminated by user-defined callback, with flags: {user:b}")
+        return reasons
 
     def __str__(self):
+        def t(v):
+            return f"{v:f} seconds" if v == v else "unmeasured time (graph driver)"
+
         start, best = self.start_cost, self.best_cost
         lines = [
             f"nllstpu_torch optimization took {self.time_total:f} seconds and "
             f"{self.num_iterations} iterations to reduce the cost from "
             f"{start:e} to {best:e} "
             f"(a {100.0 * (1.0 - best / start) if start else 0.0:.2f}% reduction), using:",
-            f"   {self.cost_computations} cost computations,",
-            f"   {self.gradient_computations} gradient computations,",
-            f"   {self.linear_solves} linear solver computations,",
+            f"   {self.cost_computations} cost computations in {t(self.time_cost)},",
+            f"   {self.gradient_computations} gradient computations in {t(self.time_gradient)},",
+            f"   {self.linear_solves} linear solver computations in {t(self.time_solver)},",
             f"   {self.time_init:f} seconds for initialization.",
         ]
         reasons = self.termination_reasons()
@@ -111,3 +138,17 @@ class Result:
             lines.append("Reason(s) for termination:")
             lines.extend(f"   {r}" for r in reasons)
         return "\n".join(lines)
+
+
+@dataclasses.dataclass
+class CostTrajectory:
+    """Per-iteration record (reference ``CostTrajectory``).  The stepped
+    driver fills ``costs``, ``times_ns`` (since the driver's start) and
+    ``trajectory`` (each iteration's step vector, on the host); the graph
+    driver (``store_trajectory="jit"``) ``costs`` and ``step_norms``
+    (|x|, from the scalars every trial reads back)."""
+
+    costs: list = dataclasses.field(default_factory=list)
+    times_ns: list = dataclasses.field(default_factory=list)
+    trajectory: list = dataclasses.field(default_factory=list)
+    step_norms: list = dataclasses.field(default_factory=list)

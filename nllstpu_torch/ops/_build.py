@@ -33,7 +33,6 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_D = ctypes.c_double
 _LL = ctypes.c_longlong
 #: argtypes of every exported launcher (the suffix names the float type,
 #: then, for B6, the index type of ``starts``).
@@ -51,12 +50,13 @@ _SIGNATURES = {
     "fused_obs_all_into_f32": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     # B3 (float32 only), B4 and B5 (the external instance): w, h_ll or
-    # h_inv, g_l, lam, the tables lmk, blk, bcol, bwidth, pairs, links,
-    # items, istarts, the scratch yc, wb, part, rpart, s_sum, rhs_sum, h_inv
-    # (B3; NULL otherwise), l, dl, wc, widest block, padded block, n_inc,
-    # n_items, n_pairs, uniform (every block mw wide from column 0), stream
+    # h_inv, g_l, lam (B3: a device double; NULL otherwise), the tables
+    # lmk, blk, bcol, bwidth, pairs, links, items, istarts, the scratch yc,
+    # wb, part, rpart, s_sum, rhs_sum, h_inv (B3; NULL otherwise), l, dl,
+    # wc, widest block, padded block, n_inc, n_items, n_pairs, uniform
+    # (every block mw wide from column 0), stream
     **{
-        name: [_P] * 3 + [_D] + [_P] * 15 + [_I] * 9 + [_P]
+        name: [_P] * 19 + [_I] * 9 + [_P]
         for name in ("reduce_s_damped_f32", "reduce_s_external_f32", "reduce_s_external_f64")
     },
     # we, lstarts, colbase, w, n, l, dl, dr_s, wc, stream

@@ -31,7 +31,9 @@
 //      incidence brings its landmark's inverse to shared memory (B3: the
 //      closed form of h_ll + lambda I in double, cast to float, written to
 //      h_inv by the landmark's first incidence - a landmark without a
-//      block keeps one incidence for that; B4/B5: read); then the block's
+//      block keeps one incidence for that; lambda read from device memory
+//      once per block, so that a CUDA graph that captured the launch takes
+//      the lambda written before each replay; B4/B5: read); then the block's
 //      threads copy the W_l[:, b] entries to shared memory and to a compact
 //      incidence-major array wb, and form Y = H^-1 W_l[:, b] once per
 //      (landmark, block) into another, yc (each block padded to 16 bytes),
@@ -112,7 +114,8 @@ __device__ void closed_form_inverse(const double* h, double* out) {
 // One block takes kIncBlock consecutive incidences.  EXTERNAL = false:
 // B3, h_in holds h_ll, and the damped inverses are formed here;
 // EXTERNAL = true: B4 and B5, h_in holds the inverses; lam and h_inv are
-// unused.  First one thread per incidence brings its landmark's inverse to
+// unused (NULL).  B3's block reads lam (one double in device memory) once
+// into shared memory.  First one thread per incidence brings its landmark's inverse to
 // shared memory (B3: written to h_inv by the landmark's first incidence);
 // then the threads copy the blocks' W entries, element by element, to
 // shared memory and to wb; then form Y element by element: consecutive
@@ -123,15 +126,20 @@ __device__ void closed_form_inverse(const double* h, double* out) {
 // read.
 template <typename T, int DL, bool EXTERNAL, bool UNIFORM>
 __global__ void __launch_bounds__(kIncThreads) incidence_kernel(
-    const T* __restrict__ w, const T* __restrict__ h_in, double lam,
+    const T* __restrict__ w, const T* __restrict__ h_in, const double* __restrict__ lam,
     const int* __restrict__ lmk, const int* __restrict__ blk,
     const int* __restrict__ bcol, const int* __restrict__ bwidth, T* __restrict__ yc,
     T* __restrict__ wb, T* __restrict__ h_inv, int L, int wc, int mw, int bs, int n_inc) {
   __shared__ T hs[kIncBlock][DL * DL];
   __shared__ T ws[kIncBlock * DL * kMaxWidth];
+  __shared__ double lam_s;
   const int s0 = blockIdx.x * kIncBlock;
   const int n = min(kIncBlock, n_inc - s0);
   const int t = threadIdx.x;
+  if constexpr (!EXTERNAL) {
+    if (t == 0) lam_s = *lam;
+    __syncthreads();
+  }
   if (t < n) {
     const int s = s0 + t;
     const int l = lmk[s];
@@ -144,7 +152,7 @@ __global__ void __launch_bounds__(kIncThreads) incidence_kernel(
       for (int c = 0; c < DL * DL; ++c)
         h[c] = static_cast<double>(h_in[static_cast<size_t>(c) * L + l]);
 #pragma unroll
-      for (int d = 0; d < DL; ++d) h[d * DL + d] += lam;
+      for (int d = 0; d < DL; ++d) h[d * DL + d] += lam_s;
       closed_form_inverse<DL>(h, inv);
       const bool first = s == 0 || lmk[s - 1] != l;
 #pragma unroll
@@ -379,19 +387,21 @@ __global__ void sum_links_kernel(const T* __restrict__ part,
 }
 
 template <typename T, bool EXTERNAL>
-int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, double lam,
+int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const void* lam,
                        const void* lmk, const void* blk, const void* bcol,
                        const void* bwidth, const void* pairs, const void* links,
                        const void* items, const void* istarts, void* yc, void* wb,
                        void* part, void* rpart, void* s_sum, void* rhs, void* h_inv, int l,
                        int dl, int wc, int mw, int bs, int n_inc, int n_items, int n_pairs,
                        int uniform, void* stream) {
-  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? 6 : 3))
+  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? 6 : 3) ||
+      (!EXTERNAL && lam == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* w_t = static_cast<const T*>(w);
   const T* h_t = static_cast<const T*>(h_in);
   const T* g_t = static_cast<const T*>(g_l);
+  const double* lam_t = static_cast<const double*>(lam);
   const int* lmk_t = static_cast<const int*>(lmk);
   const int* bc_t = static_cast<const int*>(bcol);
   const int* bw_t = static_cast<const int*>(bwidth);
@@ -402,7 +412,7 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, double 
   const unsigned inc_blocks = static_cast<unsigned>((n_inc + kIncBlock - 1) / kIncBlock);
 #define NLLSTPU_INC_U(D, U)                                                      \
   incidence_kernel<T, D, EXTERNAL, U><<<inc_blocks, kIncThreads, 0, st>>>(       \
-      w_t, h_t, lam, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, \
+      w_t, h_t, lam_t, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, \
       static_cast<T*>(h_inv), l, wc, mw, bs, n_inc)
 #define NLLSTPU_INC(D)            \
   if (uniform) {                  \
@@ -481,7 +491,7 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, double 
 extern "C" {
 
 #define NLLSTPU_ROWS_EXPORT(NAME, T, EXTERNAL)                                   \
-  int NAME(const void* w, const void* h_in, const void* g_l, double lam,         \
+  int NAME(const void* w, const void* h_in, const void* g_l, const void* lam,    \
            const void* lmk, const void* blk, const void* bcol, const void* bwidth, \
            const void* pairs, const void* links, const void* items,              \
            const void* istarts, void* yc, void* wb, void* part, void* rpart,     \

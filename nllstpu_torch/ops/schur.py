@@ -48,6 +48,7 @@ lane-axis gathers are slow on the TPU and is not carried over.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -55,7 +56,9 @@ import numpy as np
 import torch
 
 from ..core import engine
-from ..core.linearsolver import batched_inv_spd, batched_inv_spd_cm, cholesky_solve
+from ..core.linearsolver import (
+    batched_inv_spd, batched_inv_spd_cm, cholesky_solve, cholesky_solve_ex, lu_solve,
+)
 from ..core.problem import family_name
 from . import fused_obs, schur_reduce, w_place
 from .segment_sum import segment_block_sum
@@ -846,6 +849,23 @@ def _add_camera_blocks(a_rr, b_r, ab, pair_of, rows):
     b_r[rows] += ab[:, npairs:]
 
 
+@functools.lru_cache(maxsize=None)
+def _reduced_rows(e0: int, dl: int, dr_s: int, device):
+    """The Jacobian rows of a cost's reduced (camera) slots, those outside
+    the landmark's ``[e0, e0 + dl)``, as a device index: built at the first
+    call (on the card, in the graph driver's warm-up), so that no index is
+    copied from the host afterwards (a CUDA graph cannot capture that)."""
+    rows = [i for i in range(dr_s + dl) if not e0 <= i < e0 + dl]
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _triu_rows(d: int, device):
+    """``np.triu_indices(d)`` as two device indices (as
+    :func:`_reduced_rows`, built once)."""
+    return tuple(torch.as_tensor(i, dtype=torch.long, device=device) for i in np.triu_indices(d))
+
+
 def _fast_dual_cam_leg(fast: _FastBatch, variables, dl: int, dtype, a_rr, b_r):
     """Camera-major leg of the dual-sorted assembly (the JAX package's
     ``_fast_dual_cam_leg``): the Jacobian evaluated a second time over the
@@ -860,7 +880,7 @@ def _fast_dual_cam_leg(fast: _FastBatch, variables, dl: int, dtype, a_rr, b_r):
     d1m = d1 * mval
     d2m = 2.0 * d2 * mval
     e0 = sum(m.dof for m in cb.manifolds[: fast.e_slot])
-    r_rows = [i for i in range(dr_s + dl) if not e0 <= i < e0 + dl]
+    r_rows = _reduced_rows(e0, dl, dr_s, jac.device)
     jr, gr = jac[:, r_rows, : n_r * kc], g0[r_rows, : n_r * kc]
     d1m, d2m = d1m[: n_r * kc], d2m[: n_r * kc]
     ha = torch.einsum("npb,nqb->pqb", jr, jr) * d1m + d2m * gr[:, None] * gr[None]
@@ -888,12 +908,12 @@ def _run_blocks(batch, variables, runs: _RunBatch, dl: int, dtype):
     d1m = d1 * mval
     d2m = 2.0 * d2 * mval
     e0, dr_s = runs.e_start, runs.dr_s
-    r_rows = [i for i in range(dr_s + dl) if not e0 <= i < e0 + dl]
+    r_rows = _reduced_rows(e0, dl, dr_s, jac.device)
     je, jr = jac[:, e0 : e0 + dl], jac[:, r_rows]  # [n, dl | dr_s, B]
     ge, gr = g0[e0 : e0 + dl], g0[r_rows]
     n_b = jac.shape[-1]
     he = torch.einsum("nab,ncb->acb", je, je) * d1m + d2m * ge[:, None] * ge[None]
-    pi, qi = np.triu_indices(dr_s)
+    pi, qi = _triu_rows(dr_s, jac.device)
     ha = (jr[:, pi] * jr[:, qi]).sum(0) * d1m + d2m * gr[pi] * gr[qi]
     lcols, ccols, kk = [he.reshape(dl * dl, n_b), ge * d1m], [ha, gr * d1m], None
     if kern is not None:
@@ -1003,7 +1023,8 @@ class _SchurSystem:
     @staticmethod
     def damped_inverse(h_ll, lam):
         """(h_ll + λI)⁻¹ components-major, by the closed form computed in
-        float64 and returned in h_ll's dtype.  On a float32 BAL problem
+        float64 and returned in h_ll's dtype (``lam`` a float or a 0-d
+        tensor: the same bits).  On a float32 BAL problem
         some landmark blocks are singular to working precision (the
         Dubrovnik-class problem at its eighth iteration: eigenvalues ~1e4
         and ~1e-4 against λ ~3e-4), and the float32 determinant rounds to
@@ -1040,10 +1061,11 @@ class SchurOps(_SchurSystem):
     #: the tables of an obs-major W (``SchurInfo.w_rows``), else None.
     rows: Any = dataclasses.field(default=None, compare=False)
 
-    def solve(self, sys, lam):
-        """x with (H + λI) x = g, through the damped reduction."""
+    def reduced(self, sys, lam):
+        """``(S, rhs, h_inv)``: the damped reduced system S = A_rr + λI −
+        s_sum, rhs = b_r − rhs_sum, and the landmarks' damped inverses."""
         a_rr, b_r, h_ll, g_l, w = sys
-        L, dl, wc = w.shape
+        dl = w.shape[1]
         if self.pairs is not None:
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
@@ -1053,10 +1075,31 @@ class SchurOps(_SchurSystem):
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l, self.rows)
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
-        xr = cholesky_solve(a_rr + lam * eye - s_sum, b_r - rhs_sum)
+        return a_rr + lam * eye - s_sum, b_r - rhs_sum, h_inv
+
+    def back_substitute(self, sys, h_inv, xr):
+        """The full step from the reduced one: x_l = H⁻¹ (g_l − Wᵀ x_r)."""
+        _, _, _, g_l, w = sys
+        L, dl, wc = w.shape
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]
         xl = torch.einsum("del,el->dl", h_inv, g_l - wx)
         return torch.cat([xr, xl.T.reshape(-1)])
+
+    def solve(self, sys, lam):
+        """x with (H + λI) x = g, through the damped reduction (``lam`` a
+        float or a 0-d tensor: the same bits); the reduced system by
+        :func:`cholesky_solve`, LU where the Cholesky fails."""
+        s, rhs, h_inv = self.reduced(sys, lam)
+        return self.back_substitute(sys, h_inv, cholesky_solve(s, rhs))
+
+    def solve_ex(self, sys, lam, lu: bool = False):
+        """``(x, ok)`` without a host sync: the reduced system by
+        :func:`cholesky_solve_ex` (``ok`` its device flag), or with ``lu``
+        by :func:`lu_solve` (``ok`` None).  :meth:`solve` gives the
+        Cholesky ``x`` where ``ok``, else the LU one."""
+        s, rhs, h_inv = self.reduced(sys, lam)
+        xr, ok = (lu_solve(s, rhs), None) if lu else cholesky_solve_ex(s, rhs)
+        return self.back_substitute(sys, h_inv, xr), ok
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1158,47 +1201,70 @@ class SchurCGOps(_SchurSystem):
         [dl, L] landmark part, in the flat variable-major order."""
         return torch.cat([xr, xl.T.reshape(-1)])
 
-    def solve(self, sys, lam):
-        """x with (H + λI) x = g: PCG on the reduced system, then the
-        landmark back-substitution.  The PCG body is the JAX package's,
-        updates frozen once converged; the host reads the convergence flag
-        and the iteration count once every :data:`CG_CHECK_EVERY`
-        iterations."""
+    def pcg_setup(self, sys, lam):
+        """The PCG's set-up at ``lam`` (a float or a 0-d tensor):
+        ``(h_inv, inv, tol2, state)`` with the damped inverses, the
+        preconditioner's inverted blocks, the squared absolute tolerance
+        and the start ``state = (x, r, z, p, rz, k)``, each a tensor of its
+        own (:meth:`pcg_chunk` may update them in place)."""
         _, b_r, h_ll, g_l, wparts = sys
         dtype, dev = b_r.dtype, b_r.device
         h_inv = self.damped_inverse(h_ll, lam)
         rhs = b_r - self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))
         inv = self.precond_inverses(sys, lam, h_inv)
+        tol2 = torch.full((), self._tol(dtype), dtype=dtype, device=dev) ** 2 * (rhs @ rhs)
+        r = rhs.clone()
+        z = self._precond(inv, r)
+        state = (torch.zeros_like(rhs), r, z, z.clone(), r @ z,
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        return h_inv, inv, tol2, state
 
-        def precond(r):
-            return torch.einsum("nst,nt->ns", inv, r.view(inv.shape[0], -1)).reshape(-1)
+    @staticmethod
+    def _precond(inv, r):
+        return torch.einsum("nst,nt->ns", inv, r.view(inv.shape[0], -1)).reshape(-1)
 
-        tol2 = torch.tensor(self._tol(dtype), dtype=dtype, device=dev) ** 2 * (rhs @ rhs)
-        one = torch.ones((), dtype=dtype, device=dev)
-        zero = torch.zeros((), dtype=dtype, device=dev)
-        x, r = torch.zeros_like(rhs), rhs
-        z = p = precond(r)
-        rz = r @ z
-        k = torch.zeros((), dtype=torch.int32, device=dev)
-        more = True
-        while more:
-            for _ in range(CG_CHECK_EVERY):
-                active = (r @ r > tol2) & (k < CG_MAX_ITERS)
-                ap = self.s_matvec(sys, h_inv, lam, p)
-                denom = p @ ap
-                alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
-                x = x + alpha * p
-                r = r - alpha * ap
-                z2 = precond(r)
-                rz2 = r @ z2
-                beta = rz2 / torch.where(rz == 0, one, rz)
-                p = torch.where(active, z2 + beta * p, p)
-                z = torch.where(active, z2, z)
-                rz = torch.where(active, rz2, rz)
-                k = k + active.to(k.dtype)
-            more, iters = torch.stack(
-                [((r @ r > tol2) & (k < CG_MAX_ITERS)).to(dtype), k.to(dtype)]
-            ).tolist()
-        self.cg_iters.append(int(iters))
+    def pcg_chunk(self, sys, lam, h_inv, inv, tol2, state):
+        """:data:`CG_CHECK_EVERY` PCG iterations from ``state``: the JAX
+        package's body, updates frozen once converged or at
+        :data:`CG_MAX_ITERS`.  Returns the new state and ``flag = [more,
+        iterations]`` in the system's dtype, still on the device."""
+        x, r, z, p, rz, k = state
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        for _ in range(CG_CHECK_EVERY):
+            active = (r @ r > tol2) & (k < CG_MAX_ITERS)
+            ap = self.s_matvec(sys, h_inv, lam, p)
+            denom = p @ ap
+            alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z2 = self._precond(inv, r)
+            rz2 = r @ z2
+            beta = rz2 / torch.where(rz == 0, one, rz)
+            p = torch.where(active, z2 + beta * p, p)
+            z = torch.where(active, z2, z)
+            rz = torch.where(active, rz2, rz)
+            k = k + active.to(k.dtype)
+        flag = torch.stack([((r @ r > tol2) & (k < CG_MAX_ITERS)).to(x.dtype), k.to(x.dtype)])
+        return (x, r, z, p, rz, k), flag
+
+    def pcg_finish(self, sys, h_inv, state):
+        """The step from the PCG's reduced solution: the landmark
+        back-substitution."""
+        _, _, _, g_l, wparts = sys
+        x = state[0]
         xl = torch.einsum("del,el->dl", h_inv, g_l - self._wt_apply(wparts, x))
         return self._finalize(x, xl)
+
+    def solve(self, sys, lam):
+        """x with (H + λI) x = g: PCG on the reduced system, then the
+        landmark back-substitution (:meth:`pcg_setup`, :meth:`pcg_chunk`
+        until converged, :meth:`pcg_finish`); the host reads the
+        convergence flag and the iteration count after every chunk."""
+        h_inv, inv, tol2, state = self.pcg_setup(sys, lam)
+        more = True
+        while more:
+            state, flag = self.pcg_chunk(sys, lam, h_inv, inv, tol2, state)
+            more, iters = flag.tolist()
+        self.cg_iters.append(int(iters))
+        return self.pcg_finish(sys, h_inv, state)

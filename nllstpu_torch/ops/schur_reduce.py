@@ -239,7 +239,8 @@ def reduce_s_rows_reference(w, h_inv, g_l, rows: RowTables):
 def reduce_s_damped_reference(w, h_ll, g_l, lam, rows=None):
     """Plain PyTorch version of kernel B3 (same contract; the tables do
     not change the function): the closed-form inverses of h_ll + λI in
-    float64, cast to h_ll's dtype, then :func:`reduce_s_reference`."""
+    float64, cast to h_ll's dtype, then :func:`reduce_s_reference`.
+    ``lam`` is a float or a 0-d tensor, with the same bits."""
     dl = w.shape[1]
     eye = torch.eye(dl, dtype=torch.float64, device=h_ll.device)
     h_inv = batched_inv_spd_cm(h_ll.double() + lam * eye[:, :, None]).to(h_ll.dtype)
@@ -264,8 +265,19 @@ def _checked(name, w, h, g_l, max_dl):
     return w.contiguous(), h.contiguous(), g_l.contiguous()
 
 
+def lam_tensor(lam, device):
+    """λ as the 0-d float64 tensor on ``device`` that kernel B3 reads: a
+    0-d tensor as it is (cast to float64 if it is not), a float written by
+    a fill on the device (no host-to-device copy).  Every float32 λ is
+    exact in float64."""
+    if torch.is_tensor(lam):
+        return lam.to(device=device, dtype=torch.float64)
+    return torch.full((), float(lam), dtype=torch.float64, device=device)
+
+
 def _launch_rows(name, fn, w, h, g_l, lam, rows: RowTables, damped: bool):
-    """Kernels B3 (``damped``), B4 and B5 on CUDA tensors: ``fn`` over the
+    """Kernels B3 (``damped``, ``lam`` the 0-d float64 device tensor it
+    reads), B4 and B5 (``lam`` None) on CUDA tensors: ``fn`` over the
     tables, checked by :func:`upload_tables`; returns ``(s_sum, rhs)``,
     and B3's ``h_inv``.  The outputs are views of one allocation; the
     scratch is allocated at the tables' first launch for this dtype and dl
@@ -293,7 +305,8 @@ def _launch_rows(name, fn, w, h, g_l, lam, rows: RowTables, damped: bool):
         out[: wc * wc + wc].zero_()
     elt, sp, op = w.element_size(), yc.data_ptr(), out.data_ptr()
     code = fn(
-        w.data_ptr(), h.data_ptr(), g_l.data_ptr(), float(lam), rows.lmk.data_ptr(),
+        w.data_ptr(), h.data_ptr(), g_l.data_ptr(), lam.data_ptr() if damped else None,
+        rows.lmk.data_ptr(),
         rows.blk.data_ptr(), rows.bcol.data_ptr(), rows.bwidth.data_ptr(),
         rows.pairs.data_ptr(), rows.links.data_ptr(), rows.items.data_ptr(),
         rows.istarts.data_ptr(), sp, sp + n_inc * bs * elt, sp + 2 * n_inc * bs * elt,
@@ -309,14 +322,16 @@ def _launch_rows(name, fn, w, h, g_l, lam, rows: RowTables, damped: bool):
 
 def reduce_s_damped_cuda(w, h_ll, g_l, lam, rows: RowTables = None):
     """Launch kernel B3 over ``rows`` (device :class:`RowTables`) on
-    float32 CUDA tensors (same contract as the reference)."""
+    float32 CUDA tensors (same contract as the reference).  The kernel
+    reads λ from device memory (:func:`lam_tensor`), so a CUDA graph that
+    captured the launch takes the λ written before each replay."""
     global LAUNCHES
     w, h_ll, g_l = _checked("reduce_s_damped", w, h_ll, g_l, 3)
     if w.dtype != torch.float32:
         raise TypeError("reduce_s_damped: kernel B3 takes float32; a float64 solve forms its "
                         "inverses with SchurOps.damped_inverse and takes B4 (reduce_s_lm)")
     out = _launch_rows("reduce_s_damped", _build.library().reduce_s_damped_f32, w, h_ll, g_l,
-                       lam, rows, damped=True)
+                       lam_tensor(lam, w.device), rows, damped=True)
     LAUNCHES += 1
     return out
 
@@ -332,7 +347,7 @@ def reduce_s_lm_cuda(w, h_inv, g_l, rows: RowTables = None):
     obs-major W) on CUDA tensors (same contract as the reference)."""
     global LM_LAUNCHES
     w, h_inv, g_l = _checked("reduce_s_lm", w, h_inv, g_l, MAX_DL)
-    out = _launch_rows("reduce_s_lm", _external(w), w, h_inv, g_l, 0.0, rows, damped=False)
+    out = _launch_rows("reduce_s_lm", _external(w), w, h_inv, g_l, None, rows, damped=False)
     LM_LAUNCHES += 1
     return out
 
@@ -342,7 +357,7 @@ def reduce_s_cuda(w, h_inv, g_l, pairs: RowTables = None):
     generic W) on CUDA tensors (same contract as the reference)."""
     global EXTERNAL_LAUNCHES
     w, h_inv, g_l = _checked("reduce_s", w, h_inv, g_l, MAX_DL)
-    out = _launch_rows("reduce_s", _external(w), w, h_inv, g_l, 0.0, pairs, damped=False)
+    out = _launch_rows("reduce_s", _external(w), w, h_inv, g_l, None, pairs, damped=False)
     EXTERNAL_LAUNCHES += 1
     return out
 

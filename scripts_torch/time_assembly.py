@@ -29,7 +29,9 @@ the host's:
   cannot be captured): B3 on the float32 pinhole bench, Ladybug-49 and
   bench-realistic systems, ``damped_inverse`` then B4 on the gauge-fixed
   float64 system.  The reduction is called as the port under ``--root``
-  calls it (with its row tables where ``SchurOps`` has them).
+  calls it (with its row tables where ``SchurOps`` has them, and λ as a
+  0-d float64 tensor on the card where its kernel B3 reads λ from device
+  memory, as its drivers give it).
 
 The problems are chip_smoke.py's (its constants), built by the port
 under ``--root``.
@@ -100,7 +102,7 @@ def main():
     import chip_smoke as cs  # the problems' constants
 
     from nllstpu_torch.core.optimize import compile_problem
-    from nllstpu_torch.ops import fused_obs, schur
+    from nllstpu_torch.ops import fused_obs, schur, schur_reduce
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(fused_obs.__file__)))
     assert pkg_root == root, fused_obs.__file__
@@ -163,6 +165,8 @@ def main():
         _, sys_ = comp.assemble(problem.stacked_variables())
         ops = comp.ctx().linops
         lam = 1e-2 * ops.diag_max(sys_).item()
+        if hasattr(schur_reduce, "lam_tensor"):  # B3 reads λ from device memory
+            lam = schur_reduce.lam_tensor(lam, dev)
         red = reduction(ops, sys_, lam)
         print(f"{tag} reduction {name} ({what}): events {events_ms(red, reps):.4f} ms, host "
               f"enqueue {host_ms(red, reps):.4f} ms, graph {graph_ms(red, reps):.4f} ms; damped "

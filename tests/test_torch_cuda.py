@@ -564,3 +564,129 @@ def test_plain_versions_run_on_cpu():
             if 0 <= colbase[b] <= wc - 6:
                 expect[:, colbase[b] : colbase[b] + 6] += we[b]
         assert torch.allclose(placed[i], expect, rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_reduce_s_damped_reads_lambda_from_device(cuda):
+    """B3 with λ a 0-d float64 tensor on the card: its plain version's
+    result (1e-5 of the largest entry) and the float λ's bits; captured in
+    a CUDA graph, each replay takes the λ written before it."""
+    gen = torch.Generator().manual_seed(8)
+    L, dl = 777, 3
+    w, tables = _row_w(gen, L, dl, 128, 6)
+    a = torch.randn(dl, dl, L, generator=gen, dtype=torch.float64)
+    h_ll = torch.einsum("del,fel->dfl", a, a) + 2.0 * torch.eye(dl, dtype=torch.float64)[:, :, None]
+    g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    rows = schur_reduce.upload_tables(tables, cuda)
+    args = [t.to(device=cuda, dtype=torch.float32) for t in (w, h_ll, g_l)]
+    for lam in (0.0, 1e-2):
+        lam_t = torch.tensor(lam, dtype=torch.float64, device=cuda)
+        out = schur_reduce.reduce_s_damped(*args, lam_t, rows)
+        ref = schur_reduce.reduce_s_damped_reference(*(t.to(cuda) for t in (w, h_ll, g_l)), lam)
+        for name, x, y in zip(("s_sum", "rhs_sum", "h_inv"), out, ref):
+            assert _rel_err(x, y) <= 1e-5, (name, _rel_err(x, y))
+        again = schur_reduce.reduce_s_damped(*args, float(lam), rows)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+    lam_t = torch.zeros((), dtype=torch.float64, device=cuda)
+    schur_reduce.reduce_s_damped(*args, lam_t, rows)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = schur_reduce.LAUNCHES
+    with torch.cuda.graph(graph):
+        captured = schur_reduce.reduce_s_damped(*args, lam_t, rows)
+    assert schur_reduce.LAUNCHES == before + 1  # the wrapper counts at capture
+    for lam in (1e-2, 0.5):
+        lam_t.fill_(lam)
+        graph.replay()
+        expect = schur_reduce.reduce_s_damped(*args, lam, rows)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, expect)), lam
+
+
+def _driver_case(cuda):
+    """A float32 pinhole problem (16 cameras, 256 landmarks): B1, B6 and
+    B3 on the direct path."""
+    from nllstpu_torch.core.manifolds import Euclidean
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.core.structs import Options
+    from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
+
+    problem, _, lmks = make_pinhole_ba(16, 256, 0.3, noise=1e-3, dtype=torch.float32,
+                                       device=cuda)
+    perturb_ba(problem, lmks, 0.05, seed=5)
+    opts = Options(solver="schur", schur_family=Euclidean(3), max_iters=8)
+    return problem, opts, compile_problem(problem, schur_family=opts.schur_family)
+
+
+@pytest.mark.cuda
+def test_captured_trial_replays_the_eager_trial(cuda):
+    """The graph driver's captured assembly and damped trials (through the
+    reduced system's Cholesky and through LU), replayed at two λ, give the
+    eager pieces' bits; the launch counters count the warm-up's launches,
+    none at capture, and at every replay what its capture counted."""
+    from nllstpu_torch.core import optimize
+
+    problem, opts, comp = _driver_case(cuda)
+    vars0 = problem.stacked_variables()
+    counts = (fused_obs.LAUNCHES, segment_sum.LAUNCHES, schur_reduce.LAUNCHES)
+    runner = optimize._GraphRunner(comp, opts, vars0)
+    assert set(runner.graphs) == {"assemble", "trial", "trial_lu"}
+    warm = (fused_obs.LAUNCHES, segment_sum.LAUNCHES, schur_reduce.LAUNCHES)
+    # One warm-up run and one first replay of each piece.
+    assert [b - a for a, b in zip(counts, warm)] == [2, 2, 4]
+    ctx = comp.ctx(opts)
+    _, sys_e = comp.assemble(vars0)
+    g_e = ctx.grad(sys_e)
+    runner.assemble(runner.vars)
+    for e, r in zip(sys_e, runner.sys):
+        assert torch.equal(e, r)
+    lam_max = float(ctx.linops.diag_max(sys_e))
+    for lam in (np.float32(1e-2 * lam_max), np.float32(1e-4 * lam_max)):
+        nv_e, x_e, read_e = ctx.trial(sys_e, g_e, vars0, lam)
+        nv_g, x_g, read_g = runner.trial(None, None, None, lam)
+        assert read_g[4] == 1.0 and read_g[:4] == read_e[:4]
+        assert torch.equal(x_g, x_e)
+        assert all(torch.equal(nv_g[k], nv_e[k]) for k in nv_e)
+        x_lu, _ = ctx.linops.solve_ex(sys_e, torch.tensor(float(lam), dtype=torch.float64,
+                                                            device=cuda), lu=True)
+        _, x_glu, _ = runner.trial(None, None, None, lam, lu=True)
+        assert torch.equal(x_glu, -x_lu)
+    torch.cuda.synchronize()
+    after = (fused_obs.LAUNCHES, segment_sum.LAUNCHES, schur_reduce.LAUNCHES)
+    # One assembly replay (B1 and its B6) and four trial replays (B3 each),
+    # beside the eager calls' own launches (one assembly, two trials and two
+    # LU solves).
+    assert [b - a for a, b in zip(warm, after)] == [1 + 1, 1 + 1, 4 + 4]
+    assert runner.replays == 5
+
+
+@pytest.mark.cuda
+def test_graph_driver_matches_the_stepped_driver(cuda):
+    """The graph driver through ``optimize`` against the stepped one
+    (``callback=null_callback``) on the card: the same iterations, damped
+    solves and cost trace bit for bit; a plain compile is refused."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem, run_graphs
+
+    problem, opts, _ = _driver_case(cuda)
+    r_g = nt.optimize(problem, opts)
+    problem, opts, _ = _driver_case(cuda)
+    r_s = nt.optimize(problem, opts, callback=nt.null_callback)
+    assert r_g.num_iterations == r_s.num_iterations and r_g.linear_solves == r_s.linear_solves
+    assert r_g.costs == r_s.costs
+    plain = compile_problem(problem, schur_family=opts.schur_family, plain=True)
+    with pytest.raises(ValueError, match="plain"):
+        run_graphs(plain, opts, problem.stacked_variables())
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A piece that reads the host cannot be captured: the graph driver
+    raises and names it (no eager loop in its place)."""
+    from nllstpu_torch.core.optimize import run_graphs
+
+    problem, opts, comp = _driver_case(cuda)
+    cost = comp.cost
+    comp.cost = lambda v: cost(v) * float(cost(v))  # a host read
+    with pytest.raises(RuntimeError, match="capture of 'trial' failed"):
+        run_graphs(comp, opts, problem.stacked_variables())
