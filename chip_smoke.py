@@ -131,6 +131,34 @@ Phases, one line each or more; any failure raises and exits non-zero:
    The cost reaches the float32 floor early; later iterations spend a
    varying number of damped trials on rounding noise, so compare per-call
    phase times, not single-run rates.
+15. Newton, dogleg and gradient descent — through ``nt.optimize`` (the
+   graph driver), launch counts set to 0 just before and read just after,
+   against the JAX package's CPU runs (``ITER_REF``, written by
+   ``scripts_torch/iterator_reference.py``): Newton on the gauge-fixed
+   float64 path (B8 and B4 at λ = 0; the float64 trace gate) and on the
+   gauge-fixed pinhole bench in float32 through B1 (B1, B6, B3 at λ = 0;
+   start within 1e-4, best ≤ reference + 1e-3·|reference|); dogleg on the
+   gauge-fixed float64 path (trace gate), the free pinhole bench in
+   float32 (B1, B6, B3) and bench-realistic through ``schur_cg`` with
+   ``linear_tol=1e-2`` (B6 only, slack 1e-2); gradient descent on the
+   free pinhole bench in float32 (B1 and B6, never B3 or B4; its cost
+   never above its best).  Each path prints how many of its λ = 0 solves
+   fell to LU and how many it took non-finite.
+16. dense backend — Rosenbrock through the four iterators (to (1, 1)),
+   ``make_curve_fit`` under each fixed kernel (LM, float64, best within
+   1e-9 of the JAX CPU run's), and the parking-garage-sized pose graph
+   (1,661 SE(3) poses, 6,275 edges, d = 9,960; LM and dogleg in float64,
+   the trace gate); the assembly's sums through B6 (D = 1), which is held
+   against its plain version on that input and timed beside
+   ``torch.segment_reduce``.  Then the determinism gates (two dense
+   assemblies of the pose graph give the same bits; a second graph-driver
+   run of the pose graph and of the float32 dogleg pinhole bench gives one
+   trace), the drivers gates of the new iterators (graph against stepped
+   on the gauge-fixed float64 path and the pinhole bench in float32,
+   Newton's gauge-fixed), and the pose graph's Cholesky against its bound
+   (d³/3 at the float64 peak), LU, assembly and cost times and peak memory.
+17. timed loops of this slice's paths — as 14, with each loop's iterator
+   named, and the stepped driver's phase events (assembly, solve, cost).
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -166,6 +194,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import time
@@ -253,6 +282,53 @@ GAUGE_REF = dict(
            0.0921010918722942, 0.09210109187229418, 0.09210109187229419),
     best=0.09210109187229418,
 )
+#: The other iterators and the dense backend: the JAX package's CPU runs
+#: (``JAX_PLATFORMS=cpu python scripts_torch/iterator_reference.py``):
+#: start cost, the cost after every iteration (the float64 traces), best
+#: cost.  The bench paths run ``bench_options`` with the iterator; the
+#: gauge-fixed ones fix the first two cameras; ``dogleg_implicit`` is
+#: bench-realistic through ``schur_cg`` with ``linear_tol=1e-2``; the pose
+#: graphs 20 iterations with ``rel_dcost=1e-12`` (``posegraph_options``).
+#: Inside the JAX runs, no Cholesky fell to LU and no solve came out
+#: non-finite, but on ``dogleg_f32``, whose 25 Newton legs (free gauge,
+#: float32) all fell to LU, finite.
+ITER_REF = {
+    "newton_gauge_f64": dict(
+        start=67.33655986736173, best=0.09210109187229415,
+        costs=(0.13981437158415166, 0.09210201563989999, 0.09210109187404446,
+               0.09210109187229441, 0.09210109187229415, 0.09210109187229418,
+               0.09210109187229416, 0.0921010918722942)),
+    "newton_gauge_f32": dict(start=67.33655548095703, best=0.0921010822057724),
+    "dogleg_gauge_f64": dict(
+        start=67.33655986736173, best=0.09210109187229415,
+        costs=(66.1303135227357, 60.886893852440316, 48.26495663608343, 19.196437261040124,
+               0.09622757962995243, 0.09210109744629769, 0.09210109187243593,
+               0.09210109187229419, 0.09210109187229416, 0.09210109187229415,
+               0.09210109187229419)),
+    "dogleg_f32": dict(start=67.33655548095703, best=0.092099629342556),
+    "gd_f32": dict(start=67.33655548095703, best=48.235252380371094),
+    "dogleg_implicit": dict(start=937386.0, best=0.07560078054666519),
+    "posegraph_lm": dict(
+        start=116.01294325641327, best=1.3664886384424852,
+        costs=(1.5316449844310265, 1.3664905737019573, 1.366488638501362,
+               1.3664886384424881, 1.3664886384424852)),
+    "posegraph_dogleg": dict(
+        start=116.01294325641327, best=1.3664886384424857,
+        costs=(27.732453835470196, 1.3810452048160364, 1.3664888056786404,
+               1.3664886384484565, 1.3664886384424861, 1.3664886384424857)),
+}
+#: ``make_curve_fit`` (100 samples, 15% outliers, seed 0) under each fixed
+#: kernel at width 0.5, LM in float64 with the default options: the JAX
+#: package's CPU best cost (same script, case ``curvefit``).
+CURVEFIT_REF = {
+    "None": 73.89570348817624, "Huber": 22.41616509324342,
+    "GemanMcclure": 1.8378972524967947, "Cauchy": 6.990309101872129,
+    "Welsch": 7.733943213220016, "Tukey": 0.6386680892787314,
+}
+#: The public parking-garage pose graph's counts: 1,661 poses, 6,275 edges
+#: (1,661 odometry edges around the loop and 4,614 loop closures).
+POSES, LOOPS = 1661, 4614
+POSEGRAPH = "parking-garage pose graph"
 TOL_F64 = 1e-10
 TOL_B1_F32 = 1e-5
 TOL_B3_F32 = 1e-4
@@ -315,9 +391,13 @@ def graph_ms(fn, reps=20) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    gc.disable()  # a collected runner's graph destroyed mid-capture invalidates it
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    finally:
+        gc.enable()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1402,6 +1482,7 @@ def run_driver(driver, comp, opts, vars0, phase=None):
     (peak device memory from the runner's construction on)."""
     from nllstpu_torch.core.optimize import _GraphRunner, run_loop, run_stepped
 
+    gc.collect()  # an earlier runner's graphs and their pool go first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     if driver == "graph":
@@ -1438,7 +1519,7 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
     final = run_driver(driver, comp, opts, problem.stacked_variables(), phase=timer)
     rate = final["iternum"] / final["wall"]
     line = (
-        f"LM {label} {driver}{' (phase events on)' if phases else ''}: "
+        f"{ITER_NAME[opts.iterator]} {label} {driver}{' (phase events on)' if phases else ''}: "
         f"{final['iternum']} iterations, {final['nsolve']} damped solves in "
         f"{final['wall'] * 1e3:.3f} ms = {rate:.3f} it/s, best cost "
         f"{float(final['bestcost'])!r}, peak device memory {final['peak_gib']:.3f} GiB"
@@ -1450,7 +1531,7 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
         line += " | " + ", ".join(
             f"{k} {n}x {ms / n:.4f} ms/call" for k, (n, ms) in timer.totals().items()
         )
-    if phases and comp.schur_info.implicit:
+    if phases and comp.implicit:
         ops = comp.ctx(opts).linops
         _, sys_ = comp.assemble(final["variables"])
         lam = 1e-2 * ops.diag_max(sys_).item()
@@ -1504,7 +1585,7 @@ def phase_profile(label, problem, driver, options=None, unfixed=None, w_impl="fu
     port = [k for k in kernels
             if k[0].startswith("void (anonymous namespace)::") and "at::" not in k[0]]
     n = final["iternum"]
-    print(f"profile {label} {driver}, {n} iterations, {final['nsolve']} damped solves: wall "
+    print(f"profile {ITER_NAME[opts.iterator]} {label} {driver}, {n} iterations, {final['nsolve']} damped solves: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {sum(c for _, c, _ in kernels)} kernels "
           f"on the device; host launches per iteration {sum(api.values()) / n:.1f} "
@@ -1556,6 +1637,354 @@ def phase_drivers(device, smi):
             raise AssertionError(f"drivers {label}: two graph-driver runs give two traces")
 
 
+ITER_NAME = {"newton": "Newton", "levenberg_marquardt": "LM", "dogleg": "dogleg",
+             "gradient_descent": "GD"}
+
+
+def iter_options(iterator, base=None):
+    return dataclasses.replace(base or bench_options(), iterator=iterator)
+
+
+def gauge_problem(dtype, device):
+    """``(problem, route)``: the pinhole bench problem in ``dtype`` with its
+    first two cameras fixed; float64 through the dual-sorted route (B8 and
+    B4, as the gauge-fixed LM path), float32 through B1 (B6's camera sum
+    and B3)."""
+    from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
+
+    problem, cams, lmks = make_pinhole_ba(
+        ncameras=NCAM, nlandmarks=NLMK, prop_visible=VIS, noise=NOISE, dtype=dtype,
+        device=device,
+    )
+    perturb_ba(problem, lmks, 0.05, seed=5)
+    w_impl = "fused" if dtype == torch.float64 else "fused_all"
+    return problem, dict(unfixed=cams[2:] + lmks, w_impl=w_impl)
+
+
+def posegraph_problem(device, n_poses=None, n_loops=None):
+    """``(problem, route)``: the parking-garage-sized pose graph in float64,
+    pose 0 fixed."""
+    from nllstpu_torch.models.posegraph import make_pose_graph
+
+    problem, poses, _ = make_pose_graph(n_poses or POSES, LOOPS if n_loops is None else n_loops,
+                                        noise=0.01, dtype=torch.float64, device=device)
+    return problem, dict(unfixed=poses[1:])
+
+
+def posegraph_options(iterator):
+    import nllstpu_torch as nt
+
+    return nt.Options(iterator=iterator, solver="dense", max_iters=20, rel_dcost=1e-12,
+                      max_time=float("inf"))
+
+
+#: The pieces whose read holds a solve at λ = 0 (dogleg's legs; Newton's
+#: trials) and their LU retakes.
+ZERO_SOLVES = ("leg", "leg_lu", "pcg_leg", "trial", "trial_lu")
+
+
+@contextlib.contextmanager
+def piece_counts():
+    """Counts the graph driver's replays per piece while it is open (a
+    "…_lu" replay is a Cholesky that fell to LU), and the solves of
+    :data:`ZERO_SOLVES` that the iterator took (an LU one, or a Cholesky
+    one whose flag held) and whose read came out non-finite ("non-finite
+    <piece>")."""
+    from nllstpu_torch.core import optimize
+
+    counts = collections.Counter()
+    real = optimize._GraphRunner._step
+
+    def step(self, name):
+        out = real(self, name)
+        counts[name] += 1
+        if name in ZERO_SOLVES:
+            read = out if torch.is_tensor(out) else out[2]
+            ok = read[5 if "leg" in name else 4]
+            taken = name.endswith("_lu") or name == "pcg_leg" or bool(ok)
+            if taken and not bool(torch.isfinite(read[:4]).all()):
+                counts[f"non-finite {name}"] += 1
+        return out
+
+    optimize._GraphRunner._step = step
+    try:
+        yield counts
+    finally:
+        optimize._GraphRunner._step = real
+
+
+def trace_gate(label, result, ref, tol=1e-9):
+    """The float64 trace gate (as the gauge-fixed LM path's): start cost
+    within 1e-12, every iteration both runs made and the best cost within
+    ``tol`` relative."""
+    n = min(len(ref["costs"]), len(result.costs))
+    errs = [abs(a - b) / abs(b) for a, b in zip(result.costs[:n], ref["costs"])]
+    best = abs(result.best_cost - ref["best"]) / abs(ref["best"])
+    start = abs(result.start_cost - ref["start"]) / abs(ref["start"])
+    print(f"{label}: costs {result.costs!r} against the JAX package's CPU float64 "
+          f"{list(ref['costs'])!r}; rel err start {start:.2e}, per iteration "
+          f"{['%.2e' % e for e in errs]}, best {best:.2e}", flush=True)
+    if not (start <= 1e-12 and n >= 1 and max(errs) <= tol and best <= tol):
+        raise AssertionError(f"{label}: the trace departs from the JAX package's")
+
+
+#: Launch-count expectations of this slice's main paths: (needed, never).
+ALL_KERNELS = ("fused_obs_all", "fused_obs_all_into", "fused_obs_leg", "reduce_s_damped",
+               "reduce_s_lm", "reduce_s", "segment_block_sum", "place_w")
+def _never(needs, also=()):
+    return tuple(k for k in ALL_KERNELS if k not in needs and k not in also)
+
+
+def phase_iter_main(device, smi):
+    """Newton, dogleg and gradient descent through ``nt.optimize`` (the
+    graph driver) with the launch counts set to 0 just before and read just
+    after, each against the JAX package's CPU run (:data:`ITER_REF`).
+    Returns ``(launches, results)``: per path the launch counts and the
+    result."""
+    import nllstpu_torch as nt
+
+    newton, dogleg, gd = nt.NEWTON, nt.DOGLEG, nt.GRADIENT_DESCENT
+    f64 = ("fused_obs_leg", "reduce_s_lm")
+    b1b3 = ("fused_obs_all", "segment_block_sum", "reduce_s_damped")
+    implicit = "bench-realistic implicit"
+    paths = (
+        ("Newton gauge-fixed f64", "newton_gauge_f64",
+         lambda: gauge_problem(torch.float64, device), iter_options(newton), f64),
+        ("Newton gauge-fixed f32", "newton_gauge_f32",
+         lambda: gauge_problem(torch.float32, device), iter_options(newton), b1b3),
+        ("dogleg gauge-fixed f64", "dogleg_gauge_f64",
+         lambda: gauge_problem(torch.float64, device), iter_options(dogleg), f64),
+        ("dogleg pinhole bench f32", "dogleg_f32", lambda: (bench_problem(device), {}),
+         iter_options(dogleg), b1b3),
+        ("dogleg bench-realistic implicit", "dogleg_implicit",
+         lambda: (bal_problem(implicit, device), {}),
+         iter_options(dogleg, implicit_options(implicit)), ("segment_block_sum",)),
+        ("GD pinhole bench f32", "gd_f32", lambda: (bench_problem(device), {}),
+         iter_options(gd), ("fused_obs_all", "segment_block_sum")),
+    )
+    launches, results = {}, {}
+    for label, key, make, opts, needs in paths:
+        ref = ITER_REF[key]
+        problem, route = make()
+        slack = 1e-2 if key == "dogleg_implicit" else 1e-3
+        with piece_counts() as counts:
+            launches[label], result = phase_main(
+                label, problem, ref["start"], ref["best"], slack, needs=needs,
+                never=_never(needs), options=opts, **route)
+        results[label] = result
+        zero = {k: v for k, v in counts.items() if k in ZERO_SOLVES or "non-finite" in k}
+        print(f"{label}: {result.num_iterations} iterations, {result.linear_solves} solves, "
+              f"{result.cost_computations} cost evaluations; λ = 0 solve pieces replayed "
+              f"{zero} (JAX CPU reference: {key}) | {smi}", flush=True)
+        if "costs" in ref:
+            trace_gate(f"{label} main path", result, ref)
+        if key == "gd_f32":
+            best = [min(result.costs[: i + 1]) for i in range(len(result.costs))]
+            if not all(b <= a for a, b in zip(best, best[1:])) or not all(
+                    c <= result.start_cost for c in result.costs):
+                raise AssertionError(f"{label}: the cost rose above its best")
+    return launches, results
+
+
+def phase_dense(device, smi):
+    """The dense backend through ``nt.optimize``: Rosenbrock through the
+    four iterators (to (1, 1) within the functional test's rtols), robust
+    curve fitting under each fixed kernel (LM, best cost within 1e-9 of the
+    JAX package's CPU run), and the parking-garage-sized pose graph (LM
+    and dogleg, float64, held to the JAX package's CPU trace); each with
+    the launch counts set to 0 just before and read just after (the
+    assembly's sums through B6).  Returns ``(launches, results, b6
+    input)``: the B6 input one pose-graph assembly gives it."""
+    import numpy as np
+
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.curvefit import make_curve_fit
+    from nllstpu_torch.models.rosenbrock import make_rosenbrock
+
+    never = _never(("segment_block_sum",))
+    launches, results = {}, {}
+    for it, x0, y0, rtol in ((nt.NEWTON, 0.0, 0.0, 1e-10),
+                             (nt.LEVENBERG_MARQUARDT, -0.5, 2.5, 1e-10),
+                             (nt.DOGLEG, -0.5, 2.5, 1e-10),
+                             (nt.GRADIENT_DESCENT, 1.0 - 1e-5, 1.0, 1e-5)):
+        _reset_counts()
+        problem, x, y = make_rosenbrock(x0=x0, y0=y0, device=device)
+        r = nt.optimize(problem, nt.Options(iterator=it))
+        counts = _read_counts()
+        xy = [float(problem.get_value(x)), float(problem.get_value(y))]
+        print(f"dense Rosenbrock {ITER_NAME[it]}: {r.num_iterations} iterations, best "
+              f"{r.best_cost!r}, (x, y) {xy!r}, launches {counts}", flush=True)
+        if not np.allclose(xy, 1.0, rtol=rtol, atol=0) or not counts["segment_block_sum"] or any(
+                counts[k] for k in never):
+            raise AssertionError(f"dense Rosenbrock {it}: {xy} (rtol {rtol}), {counts}")
+    for name, ref in CURVEFIT_REF.items():
+        _reset_counts()
+        kernel = None if name == "None" else getattr(nt, name)(0.5)
+        problem, _, _ = make_curve_fit(kernel=kernel, dtype=torch.float64, device=device)
+        r = nt.optimize(problem, nt.Options(max_time=float("inf")))
+        counts = _read_counts()
+        err = abs(r.best_cost - ref) / ref
+        print(f"dense curve fit {name}: {r.num_iterations} iterations, best {r.best_cost!r} "
+              f"against the JAX package's CPU {ref!r} (rel err {err:.2e}), launches "
+              f"{counts['segment_block_sum']} B6", flush=True)
+        if not err <= 1e-9 or not counts["segment_block_sum"]:
+            raise AssertionError(f"dense curve fit {name}: best {r.best_cost} != {ref}")
+    for it, key in ((nt.LEVENBERG_MARQUARDT, "posegraph_lm"), (nt.DOGLEG, "posegraph_dogleg")):
+        label = f"{POSEGRAPH} {ITER_NAME[it]}"
+        ref = ITER_REF[key]
+        problem, route = posegraph_problem(device)
+        launches[label], results[label] = phase_main(
+            label, problem, ref["start"], ref["best"], 1e-9, needs=("segment_block_sum",),
+            never=never, options=posegraph_options(it), **route)
+        trace_gate(f"{label} main path", results[label], ref)
+        print(f"{label}: d = {6 * (POSES - 1)} | {smi}", flush=True)
+    # B6's input on the dense path: one assembly of the pose graph, recorded.
+    problem, route = posegraph_problem(device)
+    comp = compile_problem(problem, route["unfixed"], solver="dense")
+    seen = []
+    kern = comp.kernels.segment_sum
+
+    def record(data, st):
+        seen.append((data.clone(), st))
+        return kern(data, st)
+
+    comp.kernels = dataclasses.replace(comp.kernels, segment_sum=record)
+    comp.assemble(problem.stacked_variables())
+    return launches, results, {f"{POSEGRAPH} D=1": seen[0]}
+
+
+def phase_b6_dense(device, cases):
+    """B6 on the dense path's input (the pose graph's H entries sorted by
+    target, D = 1, float64): against its plain version, two launches, and
+    beside its time the plain version's, ``torch.segment_reduce``'s and
+    the byte bound."""
+    from nllstpu_torch.ops import segment_sum
+
+    kern, plain = segment_sum.segment_block_sum, segment_sum.segment_block_sum_reference
+    records = {}
+    for label, (data, st) in cases.items():
+        ref = plain(data, st)
+        out, again = kern(data, st), kern(data, st)
+        err = check(f"B6 f64 {label}", [out], [ref], TOL_F64)[0]
+        if not torch.equal(out, again):
+            raise AssertionError(f"B6 {label}: two launches differ")
+        lib_off = st.long()
+        ms, plain_ms = time_ms(lambda: kern(data, st)), time_ms(lambda: plain(data, st))
+        library_ms = time_ms(lambda: torch.segment_reduce(data, "sum", offsets=lib_off, axis=0))
+        device_ms = graph_ms(lambda: kern(data, st))
+        b = bound(nbytes(data, st, out), data.numel(), torch.float64)
+        print(f"B6 {label} (N {data.shape[0]}, L {st.shape[0] - 1}): rel err f64 {err:.2e}, two "
+              f"launches bit-identical | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.segment_reduce {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); in a CUDA graph: kernel {device_ms:.4f} ms", flush=True)
+        records[label] = dict(max_abs_err=abs_err(out, ref), ms=ms, plain_ms=plain_ms, **b,
+                              library_ms=library_ms, graph_ms=device_ms)
+    return records
+
+
+def phase_iter_determinism(device, results):
+    """Gates: two dense assemblies of the pose graph give the same bits in
+    H, g and the cost; a second graph-driver LM run of the pose graph and a
+    second float32 dogleg run of the pinhole bench give the first run's
+    trace (``results``: :func:`phase_iter_main`'s and :func:`phase_dense`'s)."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+
+    problem, route = posegraph_problem(device)
+    comp = compile_problem(problem, route["unfixed"], solver="dense")
+    variables = problem.stacked_variables()
+    (c1, (h1, g1)), (c2, (h2, g2)) = comp.assemble(variables), comp.assemble(variables)
+    same = [torch.equal(a, b) for a, b in ((c1, c2), (h1, h2), (g1, g2))]
+    print(f"determinism {POSEGRAPH}: two dense assemblies bit-identical in (cost, H, g): "
+          f"{same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"determinism {POSEGRAPH}: two dense assemblies differ")
+    del comp, h1, h2
+    for label, make, opts in (
+        (f"{POSEGRAPH} LM", lambda: posegraph_problem(device),
+         posegraph_options(nt.LEVENBERG_MARQUARDT)),
+        ("dogleg pinhole bench f32", lambda: (bench_problem(device), {}),
+         iter_options(nt.DOGLEG)),
+    ):
+        problem, route = make()
+        again = nt.optimize(problem, opts, **route)
+        first = results[label]
+        print(f"determinism {label}: two graph-driver runs, {len(first.costs)} and "
+              f"{len(again.costs)} iterations, best {first.best_cost!r} and "
+              f"{again.best_cost!r}", flush=True)
+        if again.costs != first.costs:
+            raise AssertionError(f"determinism {label}: two runs give two traces")
+
+
+def phase_iter_drivers(device, smi, results):
+    """For each new iterator, the graph driver (``results``, the main
+    paths' runs, or a run here) against the stepped driver
+    (``callback=nt.null_callback``) on the gauge-fixed float64 path and the
+    pinhole bench in float32 (Newton: with the gauge fixed, as its main
+    path): the same iterations and solves, costs within 1e-12 (float64) or
+    1e-6 (float32) relative; prints whether the bits held."""
+    import nllstpu_torch as nt
+
+    cases = (
+        ("Newton gauge-fixed f64", lambda: gauge_problem(torch.float64, device), nt.NEWTON),
+        ("Newton gauge-fixed f32", lambda: gauge_problem(torch.float32, device), nt.NEWTON),
+        ("dogleg gauge-fixed f64", lambda: gauge_problem(torch.float64, device), nt.DOGLEG),
+        ("dogleg pinhole bench f32", lambda: (bench_problem(device), {}), nt.DOGLEG),
+        ("GD gauge-fixed f64", lambda: gauge_problem(torch.float64, device),
+         nt.GRADIENT_DESCENT),
+        ("GD pinhole bench f32", lambda: (bench_problem(device), {}), nt.GRADIENT_DESCENT),
+    )
+    for label, make, it in cases:
+        graph = results.get(label)
+        if graph is None:
+            problem, route = make()
+            graph = nt.optimize(problem, iter_options(it), **route)
+        problem, route = make()
+        stepped = nt.optimize(problem, iter_options(it), callback=nt.null_callback, **route)
+        tol = 1e-12 if problem.dtype == torch.float64 else 1e-6
+        n = min(len(graph.costs), len(stepped.costs))
+        err = max(abs(a - b) / abs(b) for a, b in zip(graph.costs[:n], stepped.costs[:n]))
+        print(f"drivers {label}: graph {graph.num_iterations} iterations, "
+              f"{graph.linear_solves} solves, {graph.cost_computations} costs, best "
+              f"{graph.best_cost!r}; stepped {stepped.num_iterations}, {stepped.linear_solves}, "
+              f"{stepped.cost_computations}, best {stepped.best_cost!r}; max rel cost "
+              f"difference {err:.2e} (tolerance {tol:g}); bits "
+              f"{'held' if graph.costs == stepped.costs else 'differ'} | {smi}", flush=True)
+        if (graph.num_iterations, graph.linear_solves) != (
+                stepped.num_iterations, stepped.linear_solves) or not err <= tol:
+            raise AssertionError(f"drivers {label}: the graph and stepped drivers disagree")
+
+
+def phase_posegraph_times(device, smi):
+    """The pose graph's dense system: the damped Cholesky alone against its
+    bound (d³/3 operations at the card's float64 peak), by CUDA events,
+    beside one assembly and one cost evaluation; the peak device memory of
+    one assembly and factorisation."""
+    from nllstpu_torch.core.optimize import _cusolver, compile_problem
+
+    problem, route = posegraph_problem(device)
+    comp = compile_problem(problem, route["unfixed"], solver="dense")
+    variables = problem.stacked_variables()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, (h, g) = comp.assemble(variables)
+    d = h.shape[0]
+    m = h.clone()
+    m.diagonal().add_(1e-6 * float(h.diagonal().abs().max()))
+    with _cusolver(device):
+        chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(m), reps=5)
+        lu_ms = time_ms(lambda: torch.linalg.lu_factor_ex(m), reps=3)
+    assemble_ms = time_ms(lambda: comp.assemble(variables), reps=5)
+    cost_ms = time_ms(lambda: comp.cost(variables), reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b = bound(0, d ** 3 / 3, torch.float64)["bound_ms"]
+    print(f"{POSEGRAPH} dense system (d {d}, H {d * d * 8 / 1e6:.1f} MB): Cholesky "
+          f"{chol_ms:.3f} ms against its bound {b:.3f} ms ({b / chol_ms * 100:.1f}% of the "
+          f"float64 peak), LU {lu_ms:.3f} ms, assembly {assemble_ms:.3f} ms, cost "
+          f"{cost_ms:.3f} ms; peak device memory {peak:.3f} GiB | {smi}", flush=True)
+
+
 def main():
     device, smi = phase_device()
     phase_build(device)
@@ -1603,9 +2032,19 @@ def main():
         **route,
     )[0]
     phase_drivers(device, smi)
+    iter_launches, iter_results = phase_iter_main(device, smi)
+    dense_launches, dense_results, b6_dense_in = phase_dense(device, smi)
+    b6.update(phase_b6_dense(device, b6_dense_in))
+    del b6_dense_in
+    launches[POSEGRAPH] = dense_launches[f"{POSEGRAPH} LM"]
+    phase_iter_determinism(device, {**iter_results, **dense_results})
+    phase_iter_drivers(device, smi, iter_results)
+    phase_posegraph_times(device, smi)
     # The two drivers and the plain versions in turns, then one run of
     # each with per-phase events (the events cost host time, so rates come
-    # from the runs without them), then each driver profiled.
+    # from the runs without them), then each driver profiled.  A timed loop
+    # leaves its problem's values as they were, so one problem serves every
+    # run of a path.
     implicit = "bench-realistic implicit"
     for label, make, opts in (
         ("pinhole bench", lambda d: (bench_problem(d), {}), None),
@@ -1615,22 +2054,43 @@ def main():
         (implicit, lambda d: (bal_problem(implicit, d), {}), implicit_options(implicit)),
         (ADAPTIVE, lambda d: (adaptive_problem(d)[0], {}), None),
     ):
+        problem, route = make(device)
         for driver, phases in (("graph", False), ("stepped", False), ("plain", False),
                                ("plain", False), ("stepped", False), ("graph", False),
                                ("graph", True), ("stepped", True), ("plain", True)):
-            problem, route = make(device)
             phase_timed(label, problem, driver, phases=phases, options=opts, **route)
         for driver in ("graph", "stepped"):
-            problem, route = make(device)
+            phase_profile(label, problem, driver, options=opts, **route)
+    # This slice's paths: the drivers and the plain versions in turns, each
+    # driver profiled; the pose graph's stepped driver once with phase
+    # events (its assembly, solve and cost per call).
+    import nllstpu_torch as nt
+
+    for label, make, opts in (
+        ("gauge-fixed f64", lambda d: gauge_problem(torch.float64, d), iter_options(nt.NEWTON)),
+        ("gauge-fixed f32", lambda d: gauge_problem(torch.float32, d), iter_options(nt.NEWTON)),
+        ("gauge-fixed f64", lambda d: gauge_problem(torch.float64, d), iter_options(nt.DOGLEG)),
+        ("pinhole bench", lambda d: (bench_problem(d), {}), iter_options(nt.DOGLEG)),
+        (implicit, lambda d: (bal_problem(implicit, d), {}),
+         iter_options(nt.DOGLEG, implicit_options(implicit))),
+        ("pinhole bench", lambda d: (bench_problem(d), {}), iter_options(nt.GRADIENT_DESCENT)),
+        (POSEGRAPH, posegraph_problem, posegraph_options(nt.LEVENBERG_MARQUARDT)),
+        (POSEGRAPH, posegraph_problem, posegraph_options(nt.DOGLEG)),
+    ):
+        problem, route = make(device)
+        turns = [("graph", False), ("stepped", False), ("plain", False), ("graph", False)]
+        for driver, phases in turns + [("stepped", True)] * (label == POSEGRAPH):
+            phase_timed(label, problem, driver, phases=phases, options=opts, **route)
+        for driver in ("graph", "stepped"):
             phase_profile(label, problem, driver, options=opts, **route)
     # The Dubrovnik-class loop through both drivers: its rate, its phase
     # split, PCG iterations and matvec time, then its idle share.
     big = "Dubrovnik-class"
+    problem = bal_problem(big, device)
     for driver in ("graph", "stepped"):
         for phases in (False, True):
-            phase_timed(big, bal_problem(big, device), driver, phases=phases,
-                        options=implicit_options(big))
-        phase_profile(big, bal_problem(big, device), driver, options=implicit_options(big))
+            phase_timed(big, problem, driver, phases=phases, options=implicit_options(big))
+        phase_profile(big, problem, driver, options=implicit_options(big))
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"
@@ -1642,10 +2102,14 @@ def main():
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
             ("place_w", "w_place.cu", "w_place.py:98", b7),
             ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482", b8)]
+    # Beside each row, the launches of this slice's main paths (Newton,
+    # dogleg, gradient descent; the dense backend) that launched the kernel.
+    slice_launches = {**iter_launches, **dense_launches}
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,
              launches=launches[shape.split(" D=")[0]][name],
+             slice_launches={p: c[name] for p, c in slice_launches.items() if c[name]},
              **{"library_ms": None, **record})
         for name, source, replaces, records in rows
         for shape, record in records.items()

@@ -2,12 +2,17 @@
 
 The JAX package ``nllstpu`` is the reference; this package solves the same
 problems with PyTorch, and runs its hot path through CUDA kernels written
-by hand for NVIDIA Hopper (``ops/csrc``).  It covers Levenberg-Marquardt
-on components-major bundle-adjustment batches through the Schur solves:
-SE(3)+pinhole problems (``models.ba``) and Snavely BAL problems
-(``models.bal``), whose skewed track lengths take the degree-bucketed
-layout in the direct solve; the implicit solve (``solver="schur_cg"``,
-and ``solver="schur"`` past the dense-W limit) takes any size.  A BAL
+by hand for NVIDIA Hopper (``ops/csrc``).  Every iterator (Newton,
+Levenberg-Marquardt, dogleg, gradient descent) runs on three backends: the
+dense normal equations of any cost batch (single costs, per-cost,
+row-major or components-major batches; autodiff or hand Jacobians; the
+small models ``rosenbrock``, ``curvefit``, ``posegraph``), and the Schur
+solves of components-major bundle-adjustment batches: SE(3)+pinhole
+problems (``models.ba``) and Snavely BAL problems (``models.bal``), whose
+skewed track lengths take the degree-bucketed layout in the direct solve;
+the implicit solve (``solver="schur_cg"``, and ``solver="schur"`` past the
+dense-W limit) takes any size.  ``solver="auto"`` picks as the JAX package
+picks, and raises where it would take the matrix-free "cg" backend.  A BAL
 batch may carry one shared adaptive robust kernel (ContaminatedGaussian,
 Barron) whose parameters are fitted with the cameras and points, through
 the direct solve.  Problems live on the card unless the caller passes
@@ -18,28 +23,32 @@ driver.  The package never imports ``jax``.
 """
 
 from .core.manifolds import (
-    SE3, BarronManifold, ContaminatedGaussianManifold, Euclidean, Manifold,
-    Scalar, ZeroToInf, ZeroToOne, so3_exp,
+    SE3, SO3, BarronManifold, ContaminatedGaussianManifold, Euclidean, Manifold,
+    Scalar, ZeroToInf, ZeroToOne, so3_exp, so3_log,
 )
 from .core.callbacks import null_callback, printout_callback, store_costs_callback
 from .core.optimize import (
-    CallbackContext, CompiledProblem, compile_problem, optimize, run_graphs, run_loop,
+    CallbackContext, CompiledProblem, compile_problem, cost, optimize, run_graphs, run_loop,
     run_stepped,
 )
 from .core.problem import Problem, VarHandle, family_name
 from .core.robust import (
-    AdaptiveRobustifier, Barron, ContaminatedGaussian, Huber, Huber2o,
-    NoRobust, Robustifier, Scaled, ScaledAdaptive, em_fit,
+    AdaptiveRobustifier, Barron, Cauchy, ContaminatedGaussian, GemanMcclure, Huber,
+    Huber2o, NoRobust, Robustifier, Scaled, ScaledAdaptive, Tukey, Welsch, em_fit,
 )
-from .core.structs import LEVENBERG_MARQUARDT, CostTrajectory, Options, Result
+from .core.structs import (
+    DOGLEG, GRADIENT_DESCENT, LEVENBERG_MARQUARDT, NEWTON, CostTrajectory, Options, Result,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Manifold",
     "Euclidean",
+    "SO3",
     "SE3",
     "so3_exp",
+    "so3_log",
     "Scalar",
     "ZeroToInf",
     "ZeroToOne",
@@ -50,6 +59,10 @@ __all__ = [
     "Huber",
     "Huber2o",
     "Scaled",
+    "GemanMcclure",
+    "Cauchy",
+    "Welsch",
+    "Tukey",
     "AdaptiveRobustifier",
     "ScaledAdaptive",
     "ContaminatedGaussian",
@@ -61,8 +74,12 @@ __all__ = [
     "Options",
     "Result",
     "CostTrajectory",
+    "NEWTON",
     "LEVENBERG_MARQUARDT",
+    "DOGLEG",
+    "GRADIENT_DESCENT",
     "compile_problem",
+    "cost",
     "CompiledProblem",
     "optimize",
     "run_loop",

@@ -1,10 +1,14 @@
-"""Cost / residual-Jacobian engine over components-major cost batches.
+"""Cost / gradient / Hessian engine over cost batches.
 
-Port of the parts of ``nllstpu/core/engine.py`` on the solver's paths:
-the tangent :class:`Layout`, the components-major gathers (with the
-landmark-run broadcast of obs-major batches), the raw residual data the
-Schur assembly consumes (with an adaptive kernel's derivative blocks), the
-masked cost, and the manifold step.
+Port of ``nllstpu/core/engine.py``: the tangent :class:`Layout`, the
+components-major gathers (with the landmark-run broadcast of obs-major
+batches), the raw residual data the Schur assembly consumes (with an
+adaptive kernel's derivative blocks), the masked cost of every batch form,
+the per-cost (g, H) blocks of the dense normal equations — Jacobians by
+``torch.func.jacfwd`` through the retractions, plain costs by ``grad``
+and ``jacfwd(grad)``, the IRLS reweighting and second-order correction of
+the robust kernels — their assembly (:func:`assemble_dense`), and the
+manifold step.
 
 The batches passed here are the compiled problem's device copies: ``idx``
 entries are int64 tensors, ``mask`` a bool tensor, ``params`` a tensor.
@@ -13,6 +17,7 @@ entries are int64 tensors, ``mask`` a bool tensor, ``params`` a tensor.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -138,9 +143,221 @@ def _masked_sum(batch, costs):
     return torch.where(batch.mask, costs, torch.zeros_like(costs)).sum()
 
 
+def _gather_vals(batch, variables: dict):
+    """Per-slot stacked values ``[B, *shape]`` of every cost in the batch."""
+    return tuple(variables[family_name(m)][idx] for m, idx in zip(batch.manifolds, batch.idx))
+
+
+def _split_tangent(t, manifolds):
+    parts, start = [], 0
+    for m in manifolds:
+        parts.append(t[start : start + m.dof])
+        start += m.dof
+    return tuple(parts)
+
+
+def _retract_one(m, v, dt):
+    """One variable's retraction through the manifold's stacked one."""
+    return m.retract(v[None], dt[None])[0]
+
+
+def _residual_fn(batch, params, vals):
+    """The residual of one cost (fixed kernel) as a function of the
+    concatenated tangent of its slots, and that tangent's size."""
+    manifolds = batch.manifolds
+
+    def f(t):
+        parts = _split_tangent(t, manifolds)
+        newv = tuple(_retract_one(m, v, dt) for m, v, dt in zip(manifolds, vals, parts))
+        return torch.atleast_1d(batch.fn(params, *newv))
+
+    return f, sum(m.dof for m in manifolds)
+
+
+def _cost_value_one(batch, params, vals):
+    """Cost of one block: ½ρ(‖r‖²) of a residual, ``fn``'s value of a
+    plain cost."""
+    if batch.kind == "cost":
+        return batch.fn(params, *vals)
+    r = torch.atleast_1d(batch.fn(params, *(vals[1:] if batch.adaptive else vals)))
+    s = r @ r
+    if batch.adaptive:
+        return 0.5 * batch.kernel.rho(vals[0], s)
+    return 0.5 * batch.kernel.rho(s)
+
+
+def _cost_grad_hess_one(batch, params, vals):
+    """(cost, g, H) of one cost block over its concatenated tangent (the
+    JAX package's ``_cost_grad_hess_one``, fixed kernels): a plain cost's
+    gradient and Hessian by ``grad`` and ``jacfwd(grad)``; a residual's
+    Jacobian from the hand one or ``jacfwd`` through the retractions, then
+    g = Jᵀr, H = JᵀJ with the IRLS weight ρ′ and the second-order
+    correction 2ρ″ggᵀ."""
+    from torch.func import grad, jacfwd
+
+    if batch.kind == "cost":
+        manifolds = batch.manifolds
+
+        def f(t):
+            parts = _split_tangent(t, manifolds)
+            return batch.fn(params, *(
+                _retract_one(m, v, dt) for m, v, dt in zip(manifolds, vals, parts)))
+
+        z = vals[0].new_zeros(sum(m.dof for m in manifolds))
+        return f(z), grad(f)(z), jacfwd(grad(f))(z)
+    f, dof = _residual_fn(batch, params, vals)
+    if batch.jacobian is not None:
+        r, jac = batch.jacobian(params, *vals)
+        r, jac = torch.atleast_1d(r), torch.atleast_2d(jac)
+    else:
+        z = vals[0].new_zeros(dof)
+        r, jac = f(z), jacfwd(f)(z)
+    g = jac.T @ r
+    h = jac.T @ jac
+    rho, d1, d2 = batch.kernel.rho_dc(r @ r)
+    h = h * d1 + (2.0 * d2) * torch.outer(g, g)
+    return 0.5 * rho, g * d1, h
+
+
+def _irls(batch, costs_sq, g, h):
+    """Robustified (cost, g [B, S], H [B, S, S]) from Gauss-Newton blocks."""
+    rho, d1, d2 = batch.kernel.rho_dc(costs_sq)
+    h = h * d1[:, None, None] + (2.0 * d2)[:, None, None] * (g[:, :, None] * g[:, None, :])
+    return 0.5 * rho, g * d1[:, None], h
+
+
+def batch_grad_hess(batch, variables: dict):
+    """(masked cost sum, g [B, S], H [B, S, S]) of one batch with a fixed
+    kernel, every batch form: components-major (through its Jacobian,
+    synthesized when none was given), row-major with a hand Jacobian, or
+    per-cost (``torch.func.vmap`` of :func:`_cost_grad_hess_one`)."""
+    from torch.func import vmap
+
+    if batch.adaptive:
+        raise NotImplementedError(
+            "an adaptive kernel on the dense backend: the JAX package takes it on the "
+            "components-major route, which the port's Schur path carries"
+        )
+    if batch.batched == "cm":
+        r, jac = batch.jacobian(batch.params, *_gather_vals_cm(batch, variables))
+        g = torch.einsum("nsb,nb->bs", jac, r)
+        h = torch.einsum("nsb,ntb->bst", jac, jac)
+        costs, g, h = _irls(batch, (r * r).sum(dim=0), g, h)
+    elif batch.batched:
+        r, jac = batch.jacobian(batch.params, *_gather_vals(batch, variables))
+        g = torch.einsum("bns,bn->bs", jac, r)
+        h = torch.einsum("bns,bnt->bst", jac, jac)
+        costs, g, h = _irls(batch, (r * r).sum(dim=-1), g, h)
+    else:
+        vals = _gather_vals(batch, variables)
+
+        def one(params, *vals_one):
+            return _cost_grad_hess_one(batch, params, vals_one)
+
+        in_dims = (None if batch.params is None else 0,) + (0,) * len(vals)
+        costs, g, h = vmap(one, in_dims=in_dims)(batch.params, *vals)
+    return _masked_sum(batch, costs), g, h
+
+
+def batch_rows(batch, layout: Layout) -> np.ndarray:
+    """``[B, S]`` global tangent row of each block column (host numpy, the
+    JAX package's ``_batch_rows``): per-slot offsets from the layout, with
+    padding costs sent to the dustbin (``layout.dof_total``) whole."""
+    mask = np.asarray(batch.mask)
+    parts = []
+    for man, idx in zip(batch.manifolds, batch.idx):
+        off = np.asarray(layout.offsets[family_name(man)])[np.asarray(idx)]
+        off = np.where(mask, off, layout.dof_total)
+        parts.append(off[:, None] + np.arange(man.dof)[None, :])
+    return np.concatenate(parts, axis=1)
+
+
+@dataclasses.dataclass
+class DensePlan:
+    """Where the per-cost blocks of every batch land in the dense system,
+    fixed at compile time: the contributions' order sorted by target
+    (``perm``), each target's run in it (``starts``) and the targets
+    (``targets``, flat indices into H ``[d, d]`` or g ``[d]``); H's and
+    g's.  Contributions to the dustbin (fixed variables, padding) are
+    dropped."""
+
+    dim: int
+    h_perm: Any
+    h_starts: Any
+    h_targets: Any
+    g_perm: Any
+    g_starts: Any
+    g_targets: Any
+
+
+def _runs(targets):
+    keep = np.nonzero(targets >= 0)[0]
+    order = keep[np.argsort(targets[keep], kind="stable")]
+    ts = targets[order]
+    first = np.r_[True, ts[1:] != ts[:-1]] if ts.size else np.zeros(0, bool)
+    starts = np.r_[np.nonzero(first)[0], ts.size]
+    return order, starts, ts[first]
+
+
+def dense_plan(batches, layout: Layout, device) -> DensePlan:
+    """The :class:`DensePlan` of host ``batches`` under ``layout``."""
+    d = layout.dof_total
+    h_t, g_t = [], []
+    for b in batches:
+        rows = batch_rows(b, layout).astype(np.int64)
+        ok = rows < d
+        h_t.append(np.where(ok[:, :, None] & ok[:, None, :],
+                            rows[:, :, None] * d + rows[:, None, :], -1).reshape(-1))
+        g_t.append(np.where(ok, rows, -1).reshape(-1))
+    tensors = []
+    for t in (np.concatenate(h_t), np.concatenate(g_t)):
+        tensors.extend(torch.as_tensor(a, dtype=torch.long, device=device) for a in _runs(t))
+    return DensePlan(d, *tensors)
+
+
+def assemble_dense(batches, variables: dict, plan: DensePlan, segment_sum):
+    """Dense symmetric normal equations ``(cost, (H [d, d], g [d]))`` (the
+    JAX package's ``assemble_dense``, whose scatter-add sums in an order
+    the device may change): every batch's blocks, sorted by target as
+    ``plan`` says, each target's run summed in that fixed order by
+    ``segment_sum`` (kernel B6's dispatcher, or its plain version), and
+    the sums written to their unique targets.  The same inputs give the
+    same bits."""
+    total, hs, gs = None, [], []
+    for b in batches:
+        c, g, h = batch_grad_hess(b, variables)
+        total = c if total is None else total + c
+        hs.append(h.reshape(-1))
+        gs.append(g.reshape(-1))
+    d = plan.dim
+    out = []
+    for vals, perm, starts, targets, size in (
+        (hs, plan.h_perm, plan.h_starts, plan.h_targets, d * d),
+        (gs, plan.g_perm, plan.g_starts, plan.g_targets, d),
+    ):
+        v = torch.cat(vals).index_select(0, perm)[:, None]
+        dense = v.new_zeros(size)
+        out.append(dense.index_copy_(0, targets, segment_sum(v, starts)[:, 0]))
+    return total, (out[0].view(d, d), out[1])
+
+
 def batch_cost(batch, variables: dict, runs=None):
-    """Masked total cost ½·Σρ(‖r‖²) of one batch; an adaptive kernel takes
-    its parameters from slot 0."""
+    """Masked total cost of one batch, every form: ½·Σρ(‖r‖²) of residuals
+    (an adaptive kernel takes its parameters from slot 0), Σ fn of plain
+    costs."""
+    from torch.func import vmap
+
+    if batch.batched != "cm":
+        vals = _gather_vals(batch, variables)
+        if batch.batched:
+            r = batch.fn(batch.params, *vals)
+            return _masked_sum(batch, 0.5 * batch.kernel.rho((r * r).sum(dim=-1)))
+
+        def one(params, *vals_one):
+            return _cost_value_one(batch, params, vals_one)
+
+        in_dims = (None if batch.params is None else 0,) + (0,) * len(vals)
+        return _masked_sum(batch, vmap(one, in_dims=in_dims)(batch.params, *vals))
     gath = _gather_vals_cm(batch, variables, runs=runs)
     if batch.adaptive:
         r = batch.fn(batch.params, *gath[1:])

@@ -1,7 +1,8 @@
 """Variable-block manifolds: tangent dimension + batched retraction.
 
 Port of ``nllstpu/core/manifolds.py`` for the slices the solver's paths
-need: ``Euclidean`` and ``SE3`` (with ``so3_exp``), and the scalar and
+need: ``Euclidean``, ``SO3`` and ``SE3`` (with ``so3_exp`` and
+``so3_log``), and the scalar and
 kernel-parameter manifolds of the adaptive robust kernels (``Scalar``,
 ``ZeroToInf``, ``ZeroToOne``, ``ContaminatedGaussianManifold``,
 ``BarronManifold``).  A manifold's ``retract`` takes a whole stacked family
@@ -39,8 +40,13 @@ class Manifold:
         raise NotImplementedError
 
     def retract_cm(self, x_cm, delta_cm):
-        """Components-major ``x_cm [ambient, B]`` ⊞ ``delta_cm [dof, B]``."""
-        raise NotImplementedError
+        """Components-major ``x_cm [ambient, B]`` ⊞ ``delta_cm [dof, B]``.
+        The default goes through :meth:`retract` on the transposed batch,
+        as the JAX package's default vmaps its per-variable retraction;
+        manifolds with components-major math override it."""
+        b = x_cm.shape[-1]
+        out = self.retract(x_cm.T.reshape((b,) + self.shape), delta_cm.T)
+        return out.reshape(b, -1).T
 
     @property
     def ambient(self) -> int:
@@ -226,6 +232,42 @@ def so3_exp(w):
     k = _skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a[:, None, None] * k + b[:, None, None] * (k @ k)
+
+
+def so3_log(r):
+    """Axis-angle vector of rotation matrices ``r [..., 3, 3]`` →
+    ``[..., 3]``, the inverse of :func:`so3_exp`, as the JAX package's
+    ``so3_log``: θ from ``atan2(|vee|/2, (tr − 1)/2)`` (smooth at the
+    identity, where arccos is not), θ/(2 sin θ) with a Taylor guard at
+    |vee|² < 1e-12.  At θ → π, vee → 0 and the guard takes the identity's
+    branch, as in the JAX package (accurate below π − 1e-3)."""
+    trace = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    vee = torch.stack(
+        [r[..., 2, 1] - r[..., 1, 2], r[..., 0, 2] - r[..., 2, 0],
+         r[..., 1, 0] - r[..., 0, 1]], dim=-1,
+    )
+    s2 = (vee * vee).sum(dim=-1)  # (2 sin θ)²
+    small = s2 < 1e-12
+    s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))  # 2 sin θ
+    theta = torch.atan2(torch.where(small, torch.zeros_like(s), s), trace - 1.0)
+    factor = torch.where(small, 0.5 + s2 / 48.0, theta / s)
+    return factor[..., None] * vee
+
+
+@dataclasses.dataclass(frozen=True)
+class SO3(Manifold):
+    """Rotation stored as a 3x3 matrix with 3 DoF: R ⊞ w = R·exp([w]×)."""
+
+    @property
+    def dof(self):
+        return 3
+
+    @property
+    def shape(self):
+        return (3, 3)
+
+    def retract(self, xs, deltas):
+        return xs @ so3_exp(deltas)
 
 
 @dataclasses.dataclass(frozen=True)

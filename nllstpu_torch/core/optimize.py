@@ -1,10 +1,12 @@
 """Optimizer entry points: ``compile_problem``, the two drivers and
-``optimize`` (port of the Schur Levenberg-Marquardt paths of
-``nllstpu/core/optimize.py``: the direct solve, with or without a shared
-adaptive robust kernel, through either assembly route of its obs-major
-batches, and the implicit one that ``solver="schur_cg"`` asks for and
-``solver="schur"`` switches to past the dense-W limit; ``unfixed`` picks
-the variables to optimize).
+``optimize`` (port of ``nllstpu/core/optimize.py``): every iterator over
+three backends — the dense normal equations (``solver="dense"``, any
+batch form, autodiff or hand Jacobians), the direct Schur solve (with or
+without a shared adaptive robust kernel, through either assembly route of
+its obs-major batches) and the implicit one that ``solver="schur_cg"``
+asks for and ``solver="schur"`` switches to past the dense-W limit;
+``solver="auto"`` picks as the JAX package picks; ``unfixed`` picks the
+variables to optimize.
 
 Two drivers, dispatched as the JAX package dispatches its own:
 
@@ -30,6 +32,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
+import gc
 import time
 from typing import Any, Callable
 
@@ -54,7 +58,8 @@ W_IMPLS = ("fused_all", "fused")
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The kernel entry points of the Schur paths."""
+    """The kernel entry points of the Schur paths (and B6, the dense
+    assembly's fixed-order sums)."""
 
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree-bucketed batch
@@ -62,7 +67,7 @@ class Kernels:
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32, over W's row tables
     reduce_lm: Any  # kernel B4 contract, f64-formed inverses, obs-major W's row tables
     reduce_external: Any  # kernel B5 contract, f64-formed inverses, over W's structure
-    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, B2's camera sum
+    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, dense, B2's camera sum
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
 
@@ -87,27 +92,36 @@ PLAIN = Kernels(
 @dataclasses.dataclass
 class CompiledProblem:
     """A problem lowered onto its device: padded batches and index tables
-    uploaded once, the Schur layout fixed."""
+    uploaded once, the Schur layout (``schur_info``) or the dense plan
+    (``dense_plan``, :func:`engine.dense_plan`) fixed."""
 
     manifolds: dict
     layout: engine.Layout
     batches: list  # device batches (idx/mask/params tensors)
     dtype: Any
     device: Any
-    schur_info: schur.SchurInfo
+    schur_info: Any  # schur.SchurInfo, or None on the dense backend
     kernels: Kernels = KERNELS
+    dense_plan: Any = None  # engine.DensePlan on the dense backend
 
     def __post_init__(self):
         self._step_index = engine.step_index(self.layout, self.manifolds, self.device)
-        self._runs = [
+        self._runs = None if self.schur_info is None else [
             (f.e_slot, f.buckets) if isinstance(f, schur._FastBatch) else None
             for f in self.schur_info.fast
         ]
+
+    @property
+    def implicit(self) -> bool:
+        return self.schur_info is not None and self.schur_info.implicit
 
     def cost(self, variables):
         return engine.total_cost(self.batches, variables, runs_list=self._runs)
 
     def assemble(self, variables):
+        if self.schur_info is None:
+            return engine.assemble_dense(self.batches, variables, self.dense_plan,
+                                         self.kernels.segment_sum)
         if self.schur_info.implicit:
             return schur.assemble_implicit(
                 self.batches, variables, self.schur_info, self.dtype,
@@ -131,7 +145,9 @@ class CompiledProblem:
         """The iterators' context; ``options.linear_tol`` sets the implicit
         solve's PCG tolerance."""
         si = self.schur_info
-        if si.implicit:
+        if si is None:
+            linops = iterators.DenseOps(self.layout.dof_total)
+        elif si.implicit:
             linops = schur.SchurCGOps(
                 si.dim_reduced, si.num_elim, si.dof_elim, si.fam_offsets,
                 tol=None if options is None else options.linear_tol,
@@ -153,47 +169,162 @@ class CompiledProblem:
         )
 
 
+def _auto_dense_or_cg(problem, batches, layout):
+    """The reference's dense-vs-sparse decision (the JAX package's
+    ``_auto_dense_or_cg``, ``makesymmvls``): dense when d ≤ 40, else the
+    scalar nonzeros of the lower-triangle block sparsity from the
+    cost-variable incidence against the fill heuristic nnz·64 < 25·d·(d −
+    40), "cg" (the JAX package's matrix-free backend) when sparse."""
+    d = layout.dof_total
+    if d <= 40:
+        return "dense"
+    base, total, dof_parts = {}, 0, []
+    for name in problem.family_names():
+        n = int(np.asarray(layout.offsets[name]).shape[0])
+        base[name] = total
+        total += n
+        dof_parts.append(np.full(n, problem.manifold_of(name).dof, dtype=np.int64))
+    dofs = np.concatenate(dof_parts) if dof_parts else np.zeros(0, np.int64)
+    diag_ids, pair_keys = [], []
+    for b in batches:
+        mask = np.asarray(b.mask)
+        gids = []
+        for s, man in enumerate(b.manifolds):
+            fam = family_name(man)
+            idx = np.asarray(b.idx[s])
+            unfixed = np.asarray(layout.offsets[fam])[idx] < layout.dof_total
+            gids.append(np.where(unfixed & mask, base[fam] + idx, -1))
+        for i in range(len(gids)):
+            diag_ids.append(gids[i])
+            for j in range(i + 1, len(gids)):
+                lo = np.minimum(gids[i], gids[j]).astype(np.int64)
+                hi = np.maximum(gids[i], gids[j]).astype(np.int64)
+                keep = (lo >= 0) & (lo != hi)
+                pair_keys.append(lo[keep] * total + hi[keep])
+    nnz = 0
+    if diag_ids:
+        dv = np.unique(np.concatenate(diag_ids))
+        dv = dv[dv >= 0]
+        nnz += int((dofs[dv] ** 2).sum())
+    if pair_keys:
+        pk = np.unique(np.concatenate(pair_keys))
+        nnz += int((dofs[pk // total] * dofs[pk % total]).sum())
+    return "cg" if nnz * 64 < 25 * d * (d - 40) else "dense"
+
+
+def _auto_schur_family(problem, batches, layout):
+    """The eliminable ("landmark") family, as the JAX package's
+    ``_auto_schur_family`` finds it: a family of dof ≤ 3 that no cost
+    touches twice, with at least 64 unfixed variables holding at least
+    half the tangent space, leaving a non-empty reduced system; the
+    largest such.  None when no family qualifies."""
+    counts = {name: 0 for name in problem.family_names()}
+    for b in batches:
+        per = collections.Counter(family_name(m) for m in b.manifolds)
+        for name, k in per.items():
+            if k > 1:
+                counts[name] = -1
+    best = None
+    for name in problem.family_names():
+        man = problem.manifold_of(name)
+        if counts[name] < 0 or man.dof > 3:
+            continue
+        n_unfixed = int((np.asarray(layout.offsets[name]) < layout.dof_total).sum())
+        fam_dof = n_unfixed * man.dof
+        if n_unfixed < 64 or fam_dof * 2 < layout.dof_total:
+            continue
+        if layout.dof_total - fam_dof <= 0:
+            continue
+        if best is None or fam_dof > best[0]:
+            best = (fam_dof, man)
+    return None if best is None else best[1]
+
+
+def _no_cg(why: str):
+    return NotImplementedError(
+        f"{why}: the JAX package's matrix-free 'cg' backend is not ported yet "
+        "(ROADMAP Queue 1 item 5); pass solver='dense', or a schur_family"
+    )
+
+
+def auto_solver(problem: Problem, unfixed=None, schur_family=None, batches=None):
+    """``(solver, schur_family)`` that ``solver="auto"`` compiles, as the
+    JAX package picks them: Schur over ``schur_family`` when given; else
+    dense for small or dense-enough systems (:func:`_auto_dense_or_cg`),
+    and where the JAX package would take its "cg" backend, Schur over a
+    detected landmark family (:func:`_auto_schur_family`).  Where it would
+    keep "cg", raises ``NotImplementedError`` (ROADMAP Queue 1 item 5)."""
+    if schur_family is not None:
+        return "schur", schur_family
+    batches = problem.batches() if batches is None else batches
+    layout = engine.build_layout(problem, unfixed, batches=batches)
+    if _auto_dense_or_cg(problem, batches, layout) == "dense":
+        return "dense", None
+    cand = _auto_schur_family(problem, batches, layout)
+    if cand is None:
+        raise _no_cg('solver="auto" on a sparse problem with no landmark family to eliminate')
+    return "schur", cand
+
+
 def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
                     schur_family=None, plain: bool = False,
                     w_impl: str = "fused_all") -> CompiledProblem:
-    """Lower a problem onto its device for a Schur solve: direct
-    (``solver="schur"``, or ``"auto"`` with a ``schur_family``) unless its
-    dense W would pass :data:`DENSE_W_BYTE_LIMIT`, implicit for
-    ``solver="schur_cg"`` or past the limit.  ``unfixed`` selects the
-    variables to optimize (:func:`engine.resolve_unfixed`; fixed cameras
-    on the obs-major direct path only, fixed landmarks not yet).  Skewed
+    """Lower a problem onto its device.  ``solver``: "dense" (the normal
+    equations, :func:`engine.assemble_dense`; any batch form, fixed
+    kernels), "schur" (direct, unless its dense W would pass
+    :data:`DENSE_W_BYTE_LIMIT`), "schur_cg" (implicit) — the Schur ones
+    over ``schur_family`` — or "auto" (:func:`auto_solver`); the JAX
+    package's "cg" raises ``NotImplementedError`` (ROADMAP Queue 1 item
+    5).  ``unfixed`` selects the variables to optimize
+    (:func:`engine.resolve_unfixed`; on the Schur backends fixed cameras on
+    the obs-major direct path only, fixed landmarks not yet).  Skewed
     degree distributions get the JAX package's degree relabel (see
     :func:`schur_layout`); the direct path then takes the bucketed layout,
     assembled by kernel B2.  The host tables of kernels B2, B3/B4 (every
-    obs-major direct W) and B5 are built here (``schur_info.table_seconds``), inside
-    ``Result.time_init``.  ``w_impl`` picks the direct assembly's route
-    (:data:`W_IMPLS`); ``"fused"`` on a batch that does not qualify
-    raises.  A batch with an adaptive kernel takes the direct path's
-    generic assembly (landmark-sorted; kernels B6 and B7, the solve through
-    B5) and is refused by the implicit one.  ``plain=True`` runs the
+    obs-major direct W) and B5, and the dense backend's plan, are built
+    here (``schur_info.table_seconds``), inside ``Result.time_init``.
+    ``w_impl`` picks the direct assembly's route (:data:`W_IMPLS`);
+    ``"fused"`` on a batch that does not qualify raises.  A batch with an
+    adaptive kernel takes the direct path's generic assembly
+    (landmark-sorted; kernels B6 and B7, the solve through B5) and is
+    refused by the implicit and dense ones.  ``plain=True`` runs the
     kernels' plain PyTorch versions on every device (a baseline to measure
     the kernels against).  On a CUDA device with the kernels on, the
     kernel library is built (nvcc, at first use) and loaded here, so that
     the build counts as set-up (``Result.time_init``) and never against
     ``Options.max_time``, as the JAX package compiles before its budget
     clock starts; a failed build raises."""
-    if solver == "auto" and schur_family is not None:
-        solver = "schur"
-    if solver not in ("schur", "schur_cg"):
-        raise NotImplementedError(
-            f"solver={solver!r}: the port has the Schur backends only"
-        )
-    if schur_family is None:
-        raise ValueError(f"solver={solver!r} requires schur_family")
     if w_impl not in W_IMPLS:
         raise ValueError(f"w_impl={w_impl!r}: the direct assembly's routes are {W_IMPLS}")
-    layout, info, batches = schur_layout(
-        problem, schur_family, solver == "schur_cg", unfixed=unfixed, w_impl=w_impl
-    )
-    schur.check_slice(info, batches)
+    if solver == "auto":
+        solver, schur_family = auto_solver(problem, unfixed, schur_family)
+    if solver in ("cg", "pcg"):
+        raise _no_cg(f"solver={solver!r}")
+    if solver not in ("dense", "schur", "schur_cg"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if solver == "dense":
+        if w_impl != "fused_all":
+            raise ValueError(f"w_impl={w_impl!r} is a route of the direct Schur assembly")
+        batches = problem.batches()
+        layout = engine.build_layout(problem, unfixed, batches=batches)
+        if any(b.adaptive for b in batches):
+            raise NotImplementedError(
+                "an adaptive kernel on the dense backend: the port takes it through "
+                "solver='schur' (the JAX package's components-major route)"
+            )
+        info, plan = None, engine.dense_plan(batches, layout, problem.device)
+    else:
+        if schur_family is None:
+            raise ValueError(f"solver={solver!r} requires schur_family")
+        layout, info, batches = schur_layout(
+            problem, schur_family, solver == "schur_cg", unfixed=unfixed, w_impl=w_impl
+        )
+        schur.check_slice(info, batches)
+        plan = None
     if problem.device.type == "cuda" and not plain:
         _build.library()
-    schur.upload_tables(info, problem.device, problem.dtype)
+    if info is not None:
+        schur.upload_tables(info, problem.device, problem.dtype)
     return CompiledProblem(
         manifolds={n: problem.manifold_of(n) for n in problem.family_names()},
         layout=layout,
@@ -202,6 +333,7 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
         device=problem.device,
         schur_info=info,
         kernels=PLAIN if plain else KERNELS,
+        dense_plan=plan,
     )
 
 
@@ -449,24 +581,36 @@ class _GraphRunner:
     host reads is one CUDA graph.
 
     The pieces, each a body over the runner's static tensors (the
-    variables ``vars``, λ as a 0-d float64 tensor ``lam``, the system
-    ``sys`` and its gradient ``g``):
+    variables ``vars``, λ — or a combination trial's scalar s — as a 0-d
+    float64 tensor ``lam``, the system ``sys`` and its gradient ``g``, the
+    dogleg legs ``xn`` and ``cauchy``), only those the iterator runs:
 
     - ``assemble``: the system and its gradient at ``vars``;
-    - direct: ``trial`` and ``trial_lu``, the damped step at ``lam``
-      through the reduced system's Cholesky or LU, the variables it gives,
-      their cost and the read ``[cost, max|x|, gᵀx, xᵀx, ok]``;
-    - implicit: ``pcg_setup`` (damped inverses, rhs, preconditioner,
-      tolerance, start state), ``pcg_chunk`` (``ops.schur.CG_CHECK_EVERY``
-      iterations in place, and the convergence flag) and ``pcg_finish``
-      (back-substitution, step, cost, read).
+    - direct and dense, LM and Newton: ``trial`` and ``trial_lu``, the
+      damped step at ``lam`` through the (reduced) system's Cholesky or
+      LU, the variables it gives, their cost and the read ``[cost,
+      max|x|, gᵀx, xᵀx, ok]``;
+    - implicit, LM and Newton: ``pcg_setup`` (damped inverses, rhs,
+      preconditioner, tolerance, start state), ``pcg_chunk``
+      (``ops.schur.CG_CHECK_EVERY`` iterations in place, and the
+      convergence flag) and ``pcg_finish`` (back-substitution, step,
+      cost, read);
+    - dogleg: ``leg`` and ``leg_lu`` (direct and dense: the undamped solve
+      at a zero λ in device memory, fused with gᵀHg) or, implicit,
+      ``pcg_setup`` and ``pcg_chunk`` at λ = 0 and ``pcg_leg``; each writes
+      the legs into ``xn`` and ``cauchy`` and gives the read ``[gᵀg, gᵀHg,
+      x_nᵀx_n, |x_n − c|², cᵀ(x_n − c), ok]``
+      (:func:`iterators.leg_tensors`); then ``trial_cauchy``,
+      ``trial_newton`` and ``trial_blend``, the combination trials of
+      :func:`iterators.combo_step` at s = ``lam``;
+    - gradient descent: ``trial_gradient`` (x = −g·s).
 
     On the card :meth:`prepare` runs every piece once on a side stream
     (the warm-up: the kernels' scratch, cuBLAS and cuSOLVER workspaces and
     the kernels' first attribute calls happen there), then captures each
     in a CUDA graph, all in one memory pool; a failed capture raises and
-    names the piece.  A damped trial is then one λ write, one replay and
-    one read (a second replay and read when the Cholesky failed; on the
+    names the piece.  A trial is then one write of λ or s, one replay and
+    one read (a second replay and read when a Cholesky failed; on the
     implicit path a replay and a flag read per PCG chunk), an outer
     iteration one copy of the adopted variables into ``vars`` and one
     assembly replay.  Each replay adds to the kernels' launch counters
@@ -487,15 +631,28 @@ class _GraphRunner:
         self.linops, self.np_dtype = ctx.linops, ctx.np_dtype
         self.phase = iterators._no_phase  # run_loop's hooks: the pieces are timed instead
         self.timer = phase or iterators._no_phase
-        self.implicit = compiled.schur_info.implicit
+        self.implicit = compiled.implicit
         self.vars = {k: v.clone() for k, v in vars0.items()}
         self.lam = torch.zeros((), dtype=torch.float64, device=compiled.device)
+        self.zero = torch.zeros((), dtype=torch.float64, device=compiled.device)
+        self.xn = self.cauchy = None
+        it = opts.iterator
+        damped = it in (structs.LEVENBERG_MARQUARDT, structs.NEWTON)
         self.bodies = {"assemble": self._assemble}
-        if self.implicit:
-            self.bodies.update(pcg_setup=self._pcg_setup, pcg_chunk=self._pcg_chunk,
-                               pcg_finish=self._pcg_finish)
-        else:
-            self.bodies.update(trial=self._trial, trial_lu=lambda: self._trial(lu=True))
+        if self.implicit and it != structs.GRADIENT_DESCENT:
+            self.bodies.update(pcg_setup=self._pcg_setup, pcg_chunk=self._pcg_chunk)
+        if damped:
+            self.bodies.update(
+                {"pcg_finish": self._pcg_finish} if self.implicit else
+                {"trial": self._trial, "trial_lu": lambda: self._trial(lu=True)})
+        if it == structs.DOGLEG:
+            self.bodies.update(
+                {"pcg_leg": self._pcg_leg} if self.implicit else
+                {"leg": self._leg, "leg_lu": lambda: self._leg(lu=True)})
+            for kind in iterators.COMBOS[:3]:
+                self.bodies["trial_" + kind] = functools.partial(self._combo, kind)
+        if it == structs.GRADIENT_DESCENT:
+            self.bodies["trial_gradient"] = functools.partial(self._combo, "gradient")
         self.graphs = {}  # name -> (CUDAGraph, launch counts of its capture, outputs)
         self.capture_seconds = 0.0
         self.replays = 0
@@ -510,13 +667,28 @@ class _GraphRunner:
 
     def _finish_trial(self, x, ok):
         nv = self.compiled.apply(self.vars, x)
-        c = self.compiled.cost(nv)
-        ok = torch.ones_like(c) if ok is None else ok.to(c.dtype)
-        return nv, x, torch.stack([c, x.abs().max(), self.g @ x, x @ x, ok])
+        return nv, x, iterators.trial_read(self.compiled.cost(nv), x, self.g, ok)
 
     def _trial(self, lu=False):
         x, ok = self.linops.solve_ex(self.sys, self.lam, lu=lu)
         return self._finish_trial(-x, ok)
+
+    def _keep_legs(self, xsol, ghg, ok):
+        """The legs into the static ``xn``/``cauchy`` (every leg piece
+        writes the same buffers, which the combination trials read); the
+        read."""
+        xn, cauchy, read = iterators.leg_tensors(self.g, xsol, ghg, ok)
+        self.xn.copy_(xn)
+        self.cauchy.copy_(cauchy)
+        return read
+
+    def _leg(self, lu=False):
+        return self._keep_legs(*self.linops.leg_ex(self.sys, self.zero, lu))
+
+    def _combo(self, kind):
+        s = self.lam.to(self.g.dtype)
+        return self._finish_trial(
+            iterators.combo_step(kind, self.g, (self.xn, self.cauchy), s), None)
 
     def _pcg_setup(self):
         return self.linops.pcg_setup(self.sys, self.lam)
@@ -528,14 +700,22 @@ class _GraphRunner:
             buf.copy_(value)
         return flag
 
-    def _pcg_finish(self):
+    def _pcg_x(self):
         h_inv, _, _, state = self.pcg
-        return self._finish_trial(-self.linops.pcg_finish(self.sys, h_inv, state), None)
+        return self.linops.pcg_finish(self.sys, h_inv, state)
+
+    def _pcg_finish(self):
+        return self._finish_trial(-self._pcg_x(), None)
+
+    def _pcg_leg(self):
+        return self._keep_legs(self._pcg_x(), self.linops.quad(self.sys, self.g), None)
 
     def _keep(self, name, out):
         """Outputs that later pieces read become the runner's."""
         if name == "assemble":
             self.sys, self.g = out
+            if self.xn is None:
+                self.xn, self.cauchy = torch.empty_like(self.g), torch.empty_like(self.g)
         elif name == "pcg_setup":
             self.pcg = out
         return out
@@ -558,20 +738,30 @@ class _GraphRunner:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             pool = torch.cuda.graph_pool_handle()
-            for name, body in self.bodies.items():
-                graph = torch.cuda.CUDAGraph()
-                before = _launch_counts()
-                try:
-                    with torch.cuda.graph(graph, pool=pool):
-                        out = self._keep(name, body())
-                except Exception as e:
-                    raise RuntimeError(
-                        f"graph driver: the capture of {name!r} failed: "
-                        f"{type(e).__name__}: {e}"
-                    ) from e
-                counted = [a - b for a, b in zip(_launch_counts(), before)]
-                _set_launch_counts(before)  # nothing ran during the capture
-                self.graphs[name] = (graph, counted, out)
+            # No garbage collection inside a capture: a collected runner's
+            # CUDA graph (runners hold reference cycles) would be destroyed
+            # mid-capture, which invalidates it.  ``torch.cuda.graph``
+            # collects before each capture begins.
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                for name, body in self.bodies.items():
+                    graph = torch.cuda.CUDAGraph()
+                    before = _launch_counts()
+                    try:
+                        with torch.cuda.graph(graph, pool=pool):
+                            out = self._keep(name, body())
+                    except Exception as e:
+                        raise RuntimeError(
+                            f"graph driver: the capture of {name!r} failed: "
+                            f"{type(e).__name__}: {e}"
+                        ) from e
+                    counted = [a - b for a, b in zip(_launch_counts(), before)]
+                    _set_launch_counts(before)  # nothing ran during the capture
+                    self.graphs[name] = (graph, counted, out)
+            finally:
+                if gc_on:
+                    gc.enable()
             for graph, counted, _ in self.graphs.values():  # the first replay uploads it
                 graph.replay()
                 _set_launch_counts([a + b for a, b in zip(_launch_counts(), counted)])
@@ -591,7 +781,17 @@ class _GraphRunner:
                 out = self.bodies[name]()
         return self._keep(name, out)
 
-    # -- what run_loop calls -------------------------------------------------
+    def _pcg(self, lam):
+        """The PCG set-up and chunks at ``lam``, the host reading the
+        convergence flag after each chunk."""
+        self.lam.fill_(float(lam))
+        self._step("pcg_setup")
+        more = True
+        while more:
+            more, iters = self._step("pcg_chunk").tolist()
+        self.linops.cg_iters.append(int(iters))
+
+    # -- what run_loop and the iterators call --------------------------------
 
     def assemble(self, variables):
         return None, self._step("assemble")[0]
@@ -602,16 +802,27 @@ class _GraphRunner:
     def trial(self, sys, g, variables, lam, lu=False):
         """The damped trial at ``lam`` (:meth:`iterators.IterCtx.trial`'s
         contract) through the pieces."""
-        self.lam.fill_(float(lam))
         if self.implicit:
-            self._step("pcg_setup")
-            more = True
-            while more:
-                more, iters = self._step("pcg_chunk").tolist()
-            self.linops.cg_iters.append(int(iters))
+            self._pcg(lam)
             nv, x, read = self._step("pcg_finish")
         else:
+            self.lam.fill_(float(lam))
             nv, x, read = self._step("trial_lu" if lu else "trial")
+        return nv, x, read.tolist()
+
+    def leg(self, sys, g, lu=False):
+        """Dogleg's leg (:meth:`iterators.IterCtx.leg`'s contract); the
+        legs stay in the runner's buffers."""
+        if self.implicit:
+            self._pcg(0.0)
+            return None, self._step("pcg_leg").tolist()
+        return None, self._step("leg_lu" if lu else "leg").tolist()
+
+    def combo(self, sys, g, variables, legs, kind, s):
+        """A combination trial (:meth:`iterators.IterCtx.combo`'s
+        contract): s written into ``lam``, one replay, one read."""
+        self.lam.fill_(float(s))
+        nv, x, read = self._step("trial_" + kind)
         return nv, x, read.tolist()
 
     def adopt(self, variables):
@@ -641,6 +852,13 @@ def run_graphs(compiled: CompiledProblem, opts: Options, vars0, phase=None) -> d
     state with ``capture_seconds``, ``replays`` and ``cg_iters`` (as
     :func:`run_stepped`'s)."""
     return _GraphRunner(compiled, opts, vars0, phase).run()
+
+
+def cost(problem: Problem) -> float:
+    """The problem's total cost at its current values (reference
+    ``cost(problem)``)."""
+    batches = [engine.device_batch(b, problem.device, problem.dtype) for b in problem.batches()]
+    return float(engine.total_cost(batches, problem.stacked_variables()))
 
 
 def optimize(problem: Problem, options: Options = None, unfixed=None, callback=None,

@@ -1,11 +1,17 @@
 """Problem definition: variable families + type-grouped cost batches.
 
-Port of ``nllstpu/core/problem.py`` for the slice the solver's main path
-needs: variables of one manifold family are stacked into a host-side
-``[n, *shape]`` numpy block; costs of one type are added in bulk with
-``add_cost_batch(batched="cm")`` and a hand Jacobian, and finalize into a
-padded struct-of-arrays :class:`CostBatch`.  Host bookkeeping stays numpy;
-:func:`nllstpu_torch.core.optimize.compile_problem` uploads it once.
+Port of ``nllstpu/core/problem.py``: variables of one manifold family are
+stacked into a host-side ``[n, *shape]`` numpy block; costs of one type
+(same function, kernel, families, kind and Jacobian) are added one at a
+time (``add_cost``) or in bulk (``add_cost_batch``) and finalize into a
+padded struct-of-arrays :class:`CostBatch`.  A batch is per-cost (``fn``
+of one cost's values, vmapped; Jacobians by autodiff unless a hand one is
+given), row-major (``batched=True``, whole ``[B, ...]`` arrays and a hand
+Jacobian) or components-major (``batched="cm"``, ``[ambient, B]`` slots;
+without a hand Jacobian one is synthesized by forward-mode autodiff
+through the retractions, :func:`auto_cm_jacobian`).  Host bookkeeping
+stays numpy; :func:`nllstpu_torch.core.optimize.compile_problem` uploads
+it once.
 
 Every problem carries an explicit ``dtype`` and ``device``: PyTorch's own
 default is float32, and the tests solve in float64.
@@ -77,20 +83,61 @@ class _Family:
 
 @dataclasses.dataclass
 class _CostGroup:
-    """Host-side chunks of one cost type before finalization."""
+    """Host-side costs of one type before finalization: single costs
+    (``params``/``indices`` lists, from ``add_cost``) and bulk chunks."""
 
+    kind: str  # "residual" or "cost"
     fn: Callable
     kernel: Any
     families: tuple
     jacobian: Callable
+    batched: Any  # False, True or "cm"
+    params: list = dataclasses.field(default_factory=list)
+    indices: list = dataclasses.field(default_factory=list)
     chunks: list = dataclasses.field(default_factory=list)
     # each chunk: (params [k, ...] numpy or None, indices [k, nslots])
+
+
+def auto_cm_jacobian(fn, manifolds):
+    """A components-major ``jacobian(params, *vals_cm) -> (r [n, B], jac
+    [n, S, B])`` for a cm residual ``fn`` without a hand Jacobian (the JAX
+    package's ``_auto_cm_jacobian``): one forward-mode pass
+    (``torch.func.jvp``) of (fn ∘ retract_cm) at the zero tangent per
+    tangent column, every cost's column riding the same broadcast basis
+    tangent, so the batch stays components-major."""
+    from torch.func import jvp
+
+    dofs = [m.dof for m in manifolds]
+
+    def jac_fn(params, *vals_cm):
+        b = vals_cm[0].shape[-1]
+
+        def g(*tangents):
+            newv = tuple(m.retract_cm(v, t) for m, v, t in zip(manifolds, vals_cm, tangents))
+            return torch.atleast_2d(fn(params, *newv))
+
+        zeros = tuple(vals_cm[0].new_zeros(d, b) for d in dofs)
+        r, cols = None, []
+        for slot, d in enumerate(dofs):
+            for j in range(d):
+                tans = [torch.zeros_like(z) for z in zeros]
+                tans[slot][j] = 1
+                r, col = jvp(g, zeros, tuple(tans))
+                cols.append(col)
+        return r, torch.stack(cols, dim=1)  # [n, S, B]
+
+    return jac_fn
 
 
 @dataclasses.dataclass
 class CostBatch:
     """Finalized, padded struct-of-arrays batch of one cost type (host
-    numpy; the compiled problem holds the device copies)."""
+    numpy; the compiled problem holds the device copies).  ``jacobian`` is
+    the hand Jacobian in the batch's layout — cm: ``(params, *vals_cm) ->
+    (r [nres, B], J [nres, S, B])`` (synthesized when none was given);
+    row-major: ``(params, *vals) -> (r [B, nres], J [B, nres, S])``;
+    per-cost: one cost's ``(r [nres], J [nres, S])`` — or None (per-cost
+    autodiff)."""
 
     fn: Callable
     kernel: Any
@@ -99,8 +146,9 @@ class CostBatch:
     params: Any  # [B_pad, ...] numpy array or None
     mask: Any  # bool [B_pad]; False for padding
     n: int  # true cost count
-    jacobian: Callable  # (params, *vals_cm) -> (r [nres, B], J [nres, S, B])
-    batched: str = "cm"
+    jacobian: Callable
+    batched: Any = "cm"  # False (per-cost), True (row-major) or "cm"
+    kind: str = "residual"  # "residual" (½ρ(‖r‖²)) or "cost" (fn's value)
 
     @property
     def block_dof(self) -> int:
@@ -186,6 +234,66 @@ class Problem:
 
     # -- costs -------------------------------------------------------------
 
+    @staticmethod
+    def _kernel(kind, kernel, manifolds):
+        """The group's kernel (NoRobust by default for residuals, None for
+        plain costs), checked as the JAX package checks it."""
+        if kind not in ("residual", "cost"):
+            raise ValueError(f"unknown cost kind {kind!r}")
+        if kernel is None:
+            return NoRobust() if kind == "residual" else None
+        if isinstance(kernel, AdaptiveRobustifier):
+            if kind != "residual":
+                raise ValueError("adaptive kernels only apply to residual costs")
+            if manifolds[0] != kernel.manifold or len(manifolds) < 2:
+                raise ValueError(
+                    "first slot of an adaptive cost must be the kernel variable "
+                    f"({kernel.manifold}), followed by the residual's variables"
+                )
+            return kernel
+        if not isinstance(kernel, Robustifier):
+            raise TypeError(f"kernel {kernel!r} is not a robust kernel of the port")
+        if kind == "cost":
+            if not isinstance(kernel, NoRobust):
+                raise ValueError("plain costs are not robustified")
+            return None
+        return kernel
+
+    def _group(self, kind, fn, kernel, manifolds, jacobian, batched, has_params):
+        key = (kind, fn, kernel, manifolds, jacobian, batched, has_params)
+        group = self._groups.get(key)
+        if group is None:
+            group = _CostGroup(kind, fn, kernel, manifolds, jacobian, batched)
+            self._groups[key] = group
+            self._group_order.append(key)
+        return group
+
+    def add_cost(self, fn: Callable, variables, params: Any = None, kernel: Any = None,
+                 kind: str = "residual", jacobian: Callable = None):
+        """Add one cost block (reference ``addcost!``).  ``fn(params,
+        *values)`` returns the residual vector (``kind="residual"``,
+        robustified as ½·ρ(‖r‖²)) or a scalar cost (``kind="cost"``, used
+        as it is), of one cost's variable values (torch tensors of the
+        manifolds' shapes); ``params`` is an array (or None).  An adaptive
+        kernel's variable comes first in ``variables`` and ``fn`` takes the
+        others.  ``jacobian(params, *values) -> (r, J)`` optionally gives
+        the Jacobian in tangent coordinates.  Costs group by ``fn``
+        identity: pass the same function object for costs of one type."""
+        variables = tuple(variables)
+        if not variables:
+            raise ValueError("a cost must depend on at least one variable")
+        if len(variables) > config.MAX_ARGS:
+            raise ValueError(f"at most {config.MAX_ARGS} variable blocks per cost")
+        manifolds = tuple(h.manifold for h in variables)
+        for h in variables:
+            fam = self._families.get(h.family)
+            if fam is None or not (0 <= h.index < fam.n):
+                raise ValueError(f"unknown variable handle {h}")
+        kernel = self._kernel(kind, kernel, manifolds)
+        group = self._group(kind, fn, kernel, manifolds, jacobian, False, params is not None)
+        group.params.append(None if params is None else np.asarray(params))
+        group.indices.append(tuple(h.index for h in variables))
+
     def add_cost_batch(
         self,
         fn: Callable,
@@ -194,63 +302,62 @@ class Problem:
         kernel: Any = None,
         jacobian: Callable = None,
         batched="cm",
+        kind: str = "residual",
     ):
-        """Bulk-add ``k`` residual costs of one type.  ``slots`` is a list of
+        """Bulk-add ``k`` costs of one type.  ``slots`` is a list of
         ``(manifold, index_array[k])``; ``params`` an array with leading
-        dimension ``k``.  ``fn(params, *vals_cm)`` returns the residual
-        ``[nres, B]`` of components-major slot values ``[ambient, B]`` and
-        ``jacobian`` returns ``(r, J [nres, S, B])`` in tangent coordinates.
-        The port takes components-major batches with a hand Jacobian only.
+        dimension ``k``.  ``batched`` gives ``fn``'s form:
+
+        - ``"cm"`` (the default here; the JAX package defaults to per-cost):
+          ``fn(params, *vals_cm)`` returns the residual ``[nres, B]`` of
+          components-major slot values ``[ambient, B]``; ``jacobian``
+          returns ``(r, J [nres, S, B])`` in tangent coordinates, and is
+          synthesized by :func:`auto_cm_jacobian` when not given;
+        - ``True``: ``fn(params, *vals)`` of whole ``[B, ...]`` arrays
+          returns ``[B, nres]``, with a hand ``jacobian`` ``(r, J [B, nres,
+          S])``;
+        - ``False``: ``fn`` of one cost, as in :meth:`add_cost`.
 
         ``kernel`` is a fixed :class:`Robustifier` or an
         :class:`AdaptiveRobustifier`; for the latter, slot 0 is the kernel's
         parameter variable and ``fn``/``jacobian`` take the other slots
         (reference convention, src/residual.jl:46-47)."""
-        if batched != "cm":
-            raise NotImplementedError(
-                "the port takes components-major batches (batched='cm') only"
-            )
-        if jacobian is None:
-            raise NotImplementedError(
-                "the port needs a hand Jacobian; autodiff Jacobians come with "
-                "the dense path"
-            )
+        if batched not in (False, True, "cm"):
+            raise ValueError(f"batched={batched!r}: one of False, True, 'cm'")
         if not slots:
             raise ValueError("a cost must depend on at least one variable")
         if len(slots) > config.MAX_ARGS:
             raise ValueError(f"at most {config.MAX_ARGS} variable blocks per cost")
         manifolds = tuple(m for m, _ in slots)
         idx = np.stack([np.asarray(i, dtype=np.int32) for _, i in slots], axis=1)
-        for (man, _), col in zip(slots, idx.T):
+        for man, col in zip(manifolds, idx.T):
             fam = self._families.get(family_name(man))
             n = fam.n if fam is not None else 0
             if col.size and (col.min() < 0 or col.max() >= n):
                 raise ValueError(
                     f"variable index out of range for family {family_name(man)}"
                 )
-        kernel = NoRobust() if kernel is None else kernel
-        if isinstance(kernel, AdaptiveRobustifier):
-            if manifolds[0] != kernel.manifold or len(slots) < 2:
-                raise ValueError(
-                    "first slot of an adaptive cost must be the kernel variable "
-                    f"({kernel.manifold}), followed by the residual's variables"
-                )
-        elif not isinstance(kernel, Robustifier):
-            raise TypeError(f"kernel {kernel!r} is not a robust kernel of the port")
-        key = (fn, kernel, manifolds, jacobian, params is None)
-        group = self._groups.get(key)
-        if group is None:
-            group = _CostGroup(fn, kernel, manifolds, jacobian)
-            self._groups[key] = group
-            self._group_order.append(key)
+        kernel = self._kernel(kind, kernel, manifolds)
+        if batched:
+            if kind != "residual":
+                raise ValueError("batched costs must be residuals")
+            if isinstance(kernel, AdaptiveRobustifier) and batched != "cm":
+                raise ValueError("adaptive kernels require batched='cm'")
+            if jacobian is None and batched != "cm":
+                raise ValueError("batched=True requires a (batched) hand jacobian")
+        group = self._group(kind, fn, kernel, manifolds, jacobian, batched, params is not None)
         group.chunks.append((None if params is None else np.asarray(params), idx))
 
     def batches(self) -> list:
-        """Finalize cost groups into padded :class:`CostBatch` objects."""
+        """Finalize cost groups into padded :class:`CostBatch` objects:
+        single costs first, then bulk chunks, in the order added."""
         out = []
         for key in self._group_order:
             g = self._groups[key]
-            ind = np.concatenate([ci for _, ci in g.chunks])
+            parts = ([np.array(g.indices, dtype=np.int32)] if g.indices else []) + [
+                ci for _, ci in g.chunks
+            ]
+            ind = np.concatenate(parts)
             n = ind.shape[0]
             n_pad = -(-n // BATCH_ALIGN) * BATCH_ALIGN
             idx_arr = np.zeros((len(g.families), n_pad), dtype=np.int32)
@@ -258,12 +365,19 @@ class Problem:
             mask = np.zeros(n_pad, dtype=bool)
             mask[:n] = True
             params = None
-            if g.chunks[0][0] is not None:
-                raw = np.concatenate([cp for cp, _ in g.chunks])
+            praw = ([np.stack(g.params)] if g.indices and g.params[0] is not None else []) + [
+                cp for cp, _ in g.chunks if cp is not None
+            ]
+            if praw:
+                raw = np.concatenate(praw)
                 if np.issubdtype(raw.dtype, np.floating):
                     raw = raw.astype(self._np_dtype)
                 params = np.zeros((n_pad,) + raw.shape[1:], dtype=raw.dtype)
                 params[:n] = raw
+            jacobian = g.jacobian
+            if jacobian is None and g.batched == "cm":
+                adaptive = isinstance(g.kernel, AdaptiveRobustifier)
+                jacobian = auto_cm_jacobian(g.fn, g.families[1:] if adaptive else g.families)
             out.append(
                 CostBatch(
                     fn=g.fn,
@@ -273,7 +387,9 @@ class Problem:
                     params=params,
                     mask=mask,
                     n=n,
-                    jacobian=g.jacobian,
+                    jacobian=jacobian,
+                    batched=g.batched,
+                    kind=g.kind,
                 )
             )
         return out

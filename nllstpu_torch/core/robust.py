@@ -1,7 +1,8 @@
 """Robust kernels ρ(s) on squared residual norms, with (ρ, ρ′, ρ″).
 
-Port of ``nllstpu/core/robust.py`` for the kernels the port's paths take:
-the fixed ``NoRobust``, ``Huber`` and ``Scaled``, and the adaptive kernels
+Port of ``nllstpu/core/robust.py``: the fixed ``NoRobust``, ``Huber``,
+``Scaled``, ``GemanMcclure``, ``Cauchy``, ``Welsch`` and ``Tukey`` (whose
+derivatives come from :func:`auto_rho_dc`), and the adaptive kernels
 whose parameters are one more optimized variable — ``ContaminatedGaussian``
 (reference src/robustadaptive.jl) and ``Barron`` — with ``ScaledAdaptive``
 and the EM fit of ``em_fit``.  Every function is elementwise over a tensor
@@ -21,6 +22,19 @@ from torch.func import jacfwd, jvp
 from .manifolds import BarronManifold, ContaminatedGaussianManifold
 
 
+def auto_rho_dc(rho_fn, s):
+    """(ρ, ρ′, ρ″) of an elementwise kernel by forward-mode autodiff (the
+    JAX package's ``auto_rho_dc``): a tangent of ones gives every element's
+    own derivative."""
+    ones = torch.ones_like(s)
+
+    def d1_fn(u):
+        return jvp(rho_fn, (u,), (ones,))[1]
+
+    rho, d1 = jvp(rho_fn, (s,), (ones,))
+    return rho, d1, jvp(d1_fn, (s,), (ones,))[1]
+
+
 @dataclasses.dataclass(frozen=True)
 class Robustifier:
     """Fixed (non-adaptive) robust kernel; instances are hashable and part
@@ -30,7 +44,7 @@ class Robustifier:
         raise NotImplementedError
 
     def rho_dc(self, s):
-        raise NotImplementedError
+        return auto_rho_dc(self.rho, s)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +113,69 @@ class Huber(Robustifier):
 def Huber2o(width: float) -> Huber:
     """Reference ``Huber2oKernel``."""
     return Huber(width, second_order=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemanMcclure(Robustifier):
+    """Geman-McClure kernel: ρ(s) = s·c²/(s + c²)."""
+
+    width: float
+
+    def rho(self, s):
+        wsq = self.width * self.width
+        return s * wsq / (s + wsq)
+
+    def rho_dc(self, s):
+        wsq = self.width * self.width
+        r = 1.0 / (s + wsq)
+        w = wsq * r
+        w2 = w * w
+        return s * w, w2, -2 * w2 * r
+
+
+@dataclasses.dataclass(frozen=True)
+class Cauchy(Robustifier):
+    """Cauchy (Lorentzian) kernel: ρ(s) = c²·log(1 + s/c²)."""
+
+    width: float
+
+    def rho(self, s):
+        csq = self.width * self.width
+        return csq * torch.log1p(s / csq)
+
+    def rho_dc(self, s):
+        csq = self.width * self.width
+        inv = 1.0 / (1.0 + s / csq)
+        return csq * torch.log1p(s / csq), inv, -(inv * inv) / csq
+
+
+@dataclasses.dataclass(frozen=True)
+class Welsch(Robustifier):
+    """Welsch kernel: ρ(s) = c²·(1 − exp(−s/c²))."""
+
+    width: float
+
+    def rho(self, s):
+        csq = self.width * self.width
+        return csq * (1.0 - torch.exp(-s / csq))
+
+    def rho_dc(self, s):
+        csq = self.width * self.width
+        e = torch.exp(-s / csq)
+        return csq * (1.0 - e), e, -e / csq
+
+
+@dataclasses.dataclass(frozen=True)
+class Tukey(Robustifier):
+    """Tukey biweight kernel, redescending: ρ(s) = c²/3·(1 − (1 − u)³)
+    with u = min(s/c², 1); derivatives by :func:`auto_rho_dc`."""
+
+    width: float
+
+    def rho(self, s):
+        csq = self.width * self.width
+        u = torch.clamp(s / csq, max=1.0)
+        return (csq / 3.0) * (1.0 - (1.0 - u) ** 3)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Options, result, cost trajectory and termination bits (port of
-``nllstpu/core/structs.py`` for the slice: Levenberg-Marquardt on the
-Schur backends)."""
+``nllstpu/core/structs.py``)."""
 
 from __future__ import annotations
 
@@ -44,11 +43,15 @@ _TERM_MESSAGES = (
 
 @dataclasses.dataclass(frozen=True)
 class Options:
-    """Solver options (reference ``NLLSOptions``).  The port runs
-    ``iterator=LEVENBERG_MARQUARDT`` with ``solver="schur"`` (or "auto"
-    with a ``schur_family``), which switches to the implicit backend past
-    the dense-W limit, or ``solver="schur_cg"`` (implicit always);
-    ``max_time`` is checked every iteration.
+    """Solver options (reference ``NLLSOptions``).  Every ``iterator``
+    (Newton, Levenberg-Marquardt, dogleg, gradient descent) runs on every
+    ``solver``: "dense" (the normal equations from autodiff or hand
+    Jacobians), "schur" (direct; switches to the implicit backend past the
+    dense-W limit), "schur_cg" (implicit always) or "auto", which picks as
+    the JAX package picks (dense for small or dense-enough systems, Schur
+    over ``schur_family`` or a detected landmark family, and raises where
+    the JAX package would take its matrix-free "cg" backend); ``max_time``
+    is checked every iteration.
 
     ``store_trajectory``: ``True`` runs the stepped driver and records a
     :class:`CostTrajectory` with every iteration's cost, time and step
@@ -64,7 +67,11 @@ class Options:
     iterator: str = LEVENBERG_MARQUARDT
     solver: str = "auto"
     schur_family: Any = None  # Manifold of the eliminated (landmark) family
+    # Initial iterator scalars (reference ``iteratordata`` override): 0 =
+    # auto for λ and the trust radius.
     init_lm_lambda: float = 0.0
+    init_trust_radius: float = 0.0
+    init_gd_step: float = 1.0
     store_trajectory: Any = False
     # Implicit backend only: relative residual tolerance of the reduced
     # PCG (the Ceres ``eta`` analogue).  None = 1e-5 in float32, 1e-12 in

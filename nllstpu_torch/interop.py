@@ -20,7 +20,7 @@ from .core.problem import Problem
 _NO_ARGS = {
     f"{cls.__name__}()": cls
     for cls in (
-        manifolds.SE3, manifolds.Scalar, manifolds.ZeroToInf, manifolds.ZeroToOne,
+        manifolds.SE3, manifolds.SO3, manifolds.Scalar, manifolds.ZeroToInf, manifolds.ZeroToOne,
         manifolds.ContaminatedGaussianManifold, manifolds.BarronManifold,
     )
 }
@@ -45,7 +45,9 @@ def problem_from_arrays(variables: dict, batches: list, dtype, device=None) -> P
     as the JAX package pads) and optionally ``kernel``, a port kernel: an
     adaptive one with its parameter variable's family in ``variables`` and
     its slot first.  The real (masked) costs are added in order, so the
-    port pads them back identically."""
+    port pads them back identically.  ``batched`` (default ``"cm"``) and
+    ``kind`` give the batch's form, as ``Problem.add_cost_batch`` takes
+    them; ``jacobian`` may be None (autodiff)."""
     p = Problem(dtype=dtype, device=device)
     for name, values in variables.items():
         p.add_variables(manifold_from_name(name), np.asarray(values))
@@ -59,6 +61,8 @@ def problem_from_arrays(variables: dict, batches: list, dtype, device=None) -> P
             ],
             params=None if params is None else np.asarray(params)[mask],
             kernel=b.get("kernel"),
-            jacobian=b["jacobian"],
+            jacobian=b.get("jacobian"),
+            batched=b.get("batched", "cm"),
+            kind=b.get("kind", "residual"),
         )
     return p

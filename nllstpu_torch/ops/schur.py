@@ -599,6 +599,13 @@ def check_slice(info: SchurInfo, batches) -> None:
     order = "landmark-sorted" if info.implicit else "obs-major"
     for bi, b in enumerate(batches):
         f = info.fast[bi] if bi < len(info.fast) else None
+        if b.batched != "cm":
+            raise NotImplementedError(
+                f"cost batch {bi} is {'row-major' if b.batched else 'per-cost'}: the "
+                "port's Schur assembly takes components-major batches (batched='cm'); "
+                "the JAX package's generic Schur assembly is ROADMAP Queue 1 item 4, "
+                "solver='dense' takes it"
+            )
         if b.adaptive:
             if info.implicit:
                 raise NotImplementedError(
@@ -1085,6 +1092,45 @@ class SchurOps(_SchurSystem):
         xl = torch.einsum("del,el->dl", h_inv, g_l - wx)
         return torch.cat([xr, xl.T.reshape(-1)])
 
+    def quad(self, sys, x):
+        """xᵀHx of the undamped system (the JAX package's ``quad``), over
+        the obs-major W ``[L, dl, wc]``."""
+        a_rr, _, h_ll, _, w = sys
+        L, dl, wc = w.shape
+        xr, xl = x[: self.dim_reduced], x[self.dim_reduced:].reshape(L, dl)
+        cross = (w.reshape(L * dl, wc) @ xr) @ xl.reshape(-1)
+        return xr @ (a_rr @ xr) + 2.0 * cross + torch.einsum("ld,del,le->", xl, h_ll, xl)
+
+    def leg_ex(self, sys, lam0, lu: bool = False):
+        """``(x, gᵀHg, ok)``: the undamped solve H x = g through the
+        reduction at ``lam0`` (a zero λ: kernel B3 in float32, the float64
+        inverses and B4 otherwise) fused with the gradient's curvature gᵀHg
+        (the JAX package's ``solve0_quad_grad``): the back-substitution's
+        Wᵀx_r and the curvature's cross term Wᵀb_r in one product over W
+        (``Wᵀ·[x_r | b_r]``).  ``ok`` as in :meth:`solve_ex`."""
+        a_rr, b_r, h_ll, g_l, w = sys
+        s, rhs, h_inv = self.reduced(sys, lam0)
+        xr, ok = (lu_solve(s, rhs), None) if lu else cholesky_solve_ex(s, rhs)
+        L, dl, wc = w.shape
+        wt = (w.reshape(L * dl, wc) @ torch.stack([xr, b_r], dim=1)).reshape(L, dl, 2)
+        wt = wt.permute(2, 1, 0)  # [2, dl, L]
+        xl = torch.einsum("del,el->dl", h_inv, g_l - wt[0])
+        ghg = (
+            b_r @ (a_rr @ b_r)
+            + 2.0 * (wt[1] * g_l).sum()
+            + torch.einsum("dl,del,el->", g_l, h_ll, g_l)
+        )
+        return torch.cat([xr, xl.T.reshape(-1)]), ghg, ok
+
+    def solve0_quad_grad(self, sys):
+        """``(x, gᵀHg)``: :meth:`leg_ex` at λ = 0, LU where the Cholesky
+        fails (one host read of its flag)."""
+        zero = torch.zeros((), dtype=torch.float64, device=sys[0].device)
+        x, ghg, ok = self.leg_ex(sys, zero)
+        if not bool(ok):
+            x, ghg, _ = self.leg_ex(sys, zero, lu=True)
+        return x, ghg
+
     def solve(self, sys, lam):
         """x with (H + λI) x = g, through the damped reduction (``lam`` a
         float or a 0-d tensor: the same bits); the reduced system by
@@ -1158,6 +1204,15 @@ class SchurCGOps(_SchurSystem):
             part = self.segment_sum(t.index_select(0, wp.cperm), wp.cstarts)
             y = part.reshape(-1) if y is None else y + part.reshape(-1)
         return y
+
+    def quad(self, sys, x):
+        """xᵀHx of the undamped system (the JAX package's ``quad``): the
+        cross term through :meth:`_w_apply` (kernel B6 over camera runs)."""
+        a_rr, _, h_ll, _, wparts = sys
+        xr = x[: self.dim_reduced]
+        xl = x[self.dim_reduced:].reshape(self.num_elim, self.dof_elim)
+        cross = xr @ self._w_apply(wparts, xl.T)
+        return xr @ (a_rr @ xr) + 2.0 * cross + torch.einsum("ld,del,le->", xl, h_ll, xl)
 
     def s_matvec(self, sys, h_inv, lam, v):
         """S v with ``h_inv`` = (h_ll + λI)⁻¹ components-major."""

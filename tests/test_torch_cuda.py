@@ -690,3 +690,82 @@ def test_a_failed_capture_raises(cuda):
     comp.cost = lambda v: cost(v) * float(cost(v))  # a host read
     with pytest.raises(RuntimeError, match="capture of 'trial' failed"):
         run_graphs(comp, opts, problem.stacked_variables())
+
+
+@pytest.mark.cuda
+def test_dense_assembly_is_deterministic_on_the_card(cuda):
+    """The dense backend's assembly of a pose graph (float64, per-cost
+    autodiff Jacobians): its sums through B6 give the same bits in cost, H
+    and g twice, two B6 launches per assembly (H's and g's), and the CPU
+    assembly's values within 1e-12 of the largest entry."""
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.posegraph import make_pose_graph
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        problem, poses, _ = make_pose_graph(200, 400, noise=0.01, device=dev)
+        comp = compile_problem(problem, poses[1:], solver="dense")
+        variables = problem.stacked_variables()
+        before = segment_sum.LAUNCHES
+        out[dev.type] = [comp.assemble(variables) for _ in range(2)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert segment_sum.LAUNCHES - before == 4
+    (c1, (h1, g1)), (c2, (h2, g2)) = out["cuda"]
+    assert torch.equal(c1, c2) and torch.equal(h1, h2) and torch.equal(g1, g2)
+    c0, (h0, g0) = out["cpu"][0]
+    for a, b in ((c1, c0), (h1, h0), (g1, g0)):
+        assert _rel_err(a.cpu(), b) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterator", ["newton", "dogleg", "gradient_descent"])
+def test_new_iterators_graph_driver_matches_stepped(cuda, iterator):
+    """Newton (on the dense pose graph: a well-posed λ = 0 solve), dogleg
+    and gradient descent (on the float32 pinhole problem: B1, B6, B3 at
+    λ = 0) through ``optimize``'s graph driver against the stepped one:
+    the same iterations, solves, cost evaluations and cost trace bit for
+    bit."""
+    import dataclasses
+
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.posegraph import make_pose_graph
+
+    def case():
+        if iterator == "newton":
+            problem, poses, _ = make_pose_graph(50, 40, noise=0.01, device=cuda)
+            return problem, nt.Options(iterator=iterator, solver="dense"), dict(
+                unfixed=poses[1:])
+        problem, opts, _ = _driver_case(cuda)
+        return problem, dataclasses.replace(opts, iterator=iterator), {}
+
+    problem, opts, route = case()
+    r_g = nt.optimize(problem, opts, **route)
+    problem, opts, route = case()
+    r_s = nt.optimize(problem, opts, callback=nt.null_callback, **route)
+    assert (r_g.num_iterations, r_g.linear_solves, r_g.cost_computations) == (
+        r_s.num_iterations, r_s.linear_solves, r_s.cost_computations)
+    assert r_g.num_iterations >= 2 and r_g.costs == r_s.costs
+
+
+@pytest.mark.cuda
+def test_capture_survives_collected_runners(cuda):
+    """Runners left to the cyclic garbage collector (their CUDA graphs
+    with them) while later runners capture, with the collector made to run
+    at almost every allocation: no capture is invalidated by a graph
+    destroyed mid-capture, and every run gives the first run's trace."""
+    import dataclasses
+    import gc
+
+    from nllstpu_torch.core.optimize import run_graphs
+
+    problem, opts, comp = _driver_case(cuda)
+    opts = dataclasses.replace(opts, iterator="dogleg", max_iters=3)
+    vars0 = problem.stacked_variables()
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        traces = [run_graphs(comp, opts, vars0)["trace"] for _ in range(4)]
+    finally:
+        gc.set_threshold(*old)
+    assert all([c.tobytes() for c in t] == [c.tobytes() for c in traces[0]] for t in traces)

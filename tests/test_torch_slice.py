@@ -153,6 +153,8 @@ def test_port_does_not_import_jax():
         "import sys\n"
         "import nllstpu_torch, nllstpu_torch.interop, nllstpu_torch.models.ba\n"
         "import nllstpu_torch.models.bal\n"
+        "import nllstpu_torch.models.rosenbrock, nllstpu_torch.models.curvefit\n"
+        "import nllstpu_torch.models.simple_error, nllstpu_torch.models.posegraph\n"
         "import nllstpu_torch.ops.schur, nllstpu_torch.ops._build\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert 'nllstpu' not in sys.modules\n"
