@@ -159,6 +159,18 @@ Phases, one line each or more; any failure raises and exits non-zero:
    (d³/3 at the float64 peak), LU, assembly and cost times and peak memory.
 17. timed loops of this slice's paths — as 14, with each loop's iterator
    named, and the stepped driver's phase events (assembly, solve, cost).
+18. cg backend — the parking-garage-sized pose graph through
+   ``solver="cg"`` (the matrix-free PCG, tolerance 1e-14 in float64), LM
+   and dogleg through ``nt.optimize``, launch counts set to 0 just before
+   and read just after (B6 and no other kernel), held to the JAX
+   package's CPU ``"cg"`` runs (the trace gate) and to the dense route's
+   best cost within 1e-9; a second graph-driver run, two assemblies and
+   two matvecs give the same bits; B6 against its plain version and
+   ``torch.segment_reduce`` on the matvec's input (D = 6) and the
+   block-Jacobi blocks' (D = 36), recorded from one assembly and one
+   matvec; then the loops timed as in 17 (PCG iterations per solve, one
+   matvec's time, the PCG chunk's replay time, peak device memory) and
+   profiled.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -288,7 +300,8 @@ GAUGE_REF = dict(
 #: cost.  The bench paths run ``bench_options`` with the iterator; the
 #: gauge-fixed ones fix the first two cameras; ``dogleg_implicit`` is
 #: bench-realistic through ``schur_cg`` with ``linear_tol=1e-2``; the pose
-#: graphs 20 iterations with ``rel_dcost=1e-12`` (``posegraph_options``).
+#: graphs 20 iterations with ``rel_dcost=1e-12`` (``posegraph_options``),
+#: through "dense" and through "cg" (``posegraph_cg_*``).
 #: Inside the JAX runs, no Cholesky fell to LU and no solve came out
 #: non-finite, but on ``dogleg_f32``, whose 25 Newton legs (free gauge,
 #: float32) all fell to LU, finite.
@@ -316,6 +329,14 @@ ITER_REF = {
         start=116.01294325641327, best=1.3664886384424857,
         costs=(27.732453835470196, 1.3810452048160364, 1.3664888056786404,
                1.3664886384484565, 1.3664886384424861, 1.3664886384424857)),
+    "posegraph_cg_lm": dict(
+        start=116.01294325641327, best=1.3664886384424857,
+        costs=(1.5316449844310263, 1.3664905737019577, 1.366488638501362,
+               1.3664886384424884, 1.3664886384424857)),
+    "posegraph_cg_dogleg": dict(
+        start=116.01294325641327, best=1.3664886384424857,
+        costs=(27.732453835470192, 1.3810452048160364, 1.3664888056786402,
+               1.3664886384484565, 1.3664886384424864, 1.3664886384424857)),
 }
 #: ``make_curve_fit`` (100 samples, 15% outliers, seed 0) under each fixed
 #: kernel at width 0.5, LM in float64 with the default options: the JAX
@@ -531,7 +552,7 @@ def bench_problem(device):
 
     problem, _, lmks = make_pinhole_ba(
         ncameras=NCAM, nlandmarks=NLMK, prop_visible=VIS, noise=NOISE,
-        dtype=torch.float32, device=device,
+        dtype=torch.float32, batched="cm", device=device,
     )
     perturb_ba(problem, lmks, 0.05, seed=5)
     return problem
@@ -545,7 +566,7 @@ def dual_problem(name, device):
     dtype, n_fixed = DUAL[name]
     problem, cams, lmks = make_pinhole_ba(
         ncameras=NCAM, nlandmarks=NLMK, prop_visible=VIS, noise=NOISE,
-        dtype=dtype, device=device,
+        dtype=dtype, batched="cm", device=device,
     )
     perturb_ba(problem, lmks, 0.05, seed=5)
     return problem, dict(unfixed=cams[n_fixed:] + lmks if n_fixed else None, w_impl="fused")
@@ -625,7 +646,8 @@ def phase_build(device):
     from nllstpu_torch.models.ba import make_pinhole_ba
     from nllstpu_torch.ops import _build
 
-    problem, _, _ = make_pinhole_ba(8, 64, 0.8, noise=NOISE, dtype=torch.float32, device=device)
+    problem, _, _ = make_pinhole_ba(8, 64, 0.8, noise=NOISE, dtype=torch.float32, batched="cm",
+                                    device=device)
     opts = dataclasses.replace(bench_options(), max_iters=1)
     result = nt.optimize(problem, opts)
     if _build._lib is None:
@@ -692,7 +714,7 @@ def phase_b1(device):
     from nllstpu_torch.ops import fused_obs, schur
 
     problem = bench_problem(device)
-    comp = compile_problem(problem, schur_family=bench_options().schur_family)
+    comp = compile_problem(problem, solver="schur", schur_family=bench_options().schur_family)
     (batch,), (fast,) = comp.batches, comp.schur_info.fast
     _, args = schur.fused_inputs(
         batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
@@ -762,7 +784,7 @@ def phase_b2(device):
     records, systems, cam = {}, {}, {}
     for name in BAL:
         problem = bal_problem(name, device)
-        comp = compile_problem(problem, schur_family=bench_options().schur_family)
+        comp = compile_problem(problem, solver="schur", schur_family=bench_options().schur_family)
         (batch,), (fast,) = comp.batches, comp.schur_info.fast
         _, head, tail = schur.batch_inputs(
             batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
@@ -1148,7 +1170,8 @@ def dual_compile(name, device, w_impl="fused"):
     from nllstpu_torch.core.optimize import compile_problem
 
     problem, route = dual_problem(name, device)
-    comp = compile_problem(problem, route["unfixed"], schur_family=bench_options().schur_family,
+    comp = compile_problem(problem, route["unfixed"], solver="schur",
+                           schur_family=bench_options().schur_family,
                            w_impl=w_impl)
     return problem, comp, route
 
@@ -1231,11 +1254,11 @@ def phase_determinism(device):
         twice(f"{name} (dual-sorted, B8)", problem, comp)
     problem = bench_problem(device)
     twice("pinhole bench (B1)", problem,
-          compile_problem(problem, schur_family=bench_options().schur_family))
+          compile_problem(problem, solver="schur", schur_family=bench_options().schur_family))
     for name in BAL:
         problem = bal_problem(name, device)
         twice(f"{name} (B2)", problem,
-              compile_problem(problem, schur_family=bench_options().schur_family))
+              compile_problem(problem, solver="schur", schur_family=bench_options().schur_family))
     # At the rounding floor a last-bit change in the system changes which
     # damped trials pass, so equal traces show that nothing varies.
     for w_impl in ("fused_all", "fused"):
@@ -1444,6 +1467,7 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
 
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     result = nt.optimize(problem, options or bench_options(), **route)
     torch.cuda.synchronize()
@@ -1452,7 +1476,7 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
     print(f"main path {label}: {result.num_iterations} iterations in {wall:.3f} s, "
           f"start cost {result.start_cost!r}, best cost {result.best_cost!r}, "
           f"{result.linear_solves} damped solves, launches {launches}, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ended: "
+          f"memory {peak_memory(held)}, ended: "
           f"{' '.join(result.termination_reasons())}", flush=True)
     if not all(launches[k] > 0 for k in needs) or any(launches[k] for k in never):
         raise AssertionError(
@@ -1473,18 +1497,28 @@ def phase_main(label, problem, start_ref, best_ref, slack, needs, never=(),
     return launches, result
 
 
+def peak_memory(held: int) -> str:
+    """The peak device memory since the last reset, and how far it rose
+    above ``held``, the bytes allocated at the reset (what the process
+    already held: problems and results of earlier phases)."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**20:.1f} MiB above the "
+            f"{held / 2**30:.3f} GiB held)")
+
+
 def run_driver(driver, comp, opts, vars0, phase=None):
     """One optimization loop of ``comp`` through ``driver``: "graph"
     (``run_graphs``; its warm-up and captures not in ``seconds``),
     "stepped" (``run_stepped``, the kernels) or "plain" (``run_loop`` over
     the plain versions, which cannot be captured).  Returns the final
-    state with ``seconds`` (the loop's wall time, fenced) and ``peak_gib``
-    (peak device memory from the runner's construction on)."""
+    state with ``seconds`` (the loop's wall time, fenced) and ``peak``
+    (:func:`peak_memory` from the runner's construction on)."""
     from nllstpu_torch.core.optimize import _GraphRunner, run_loop, run_stepped
 
     gc.collect()  # an earlier runner's graphs and their pool go first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     if driver == "graph":
         runner = _GraphRunner(comp, opts, vars0, phase=phase)
         t0 = time.perf_counter()
@@ -1499,7 +1533,7 @@ def run_driver(driver, comp, opts, vars0, phase=None):
         final["cg_iters"] = list(getattr(ctx.linops, "cg_iters", []))
     torch.cuda.synchronize()
     final["wall"] = time.perf_counter() - t0
-    final["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    final["peak"] = peak_memory(held)
     return final
 
 
@@ -1522,7 +1556,7 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
         f"{ITER_NAME[opts.iterator]} {label} {driver}{' (phase events on)' if phases else ''}: "
         f"{final['iternum']} iterations, {final['nsolve']} damped solves in "
         f"{final['wall'] * 1e3:.3f} ms = {rate:.3f} it/s, best cost "
-        f"{float(final['bestcost'])!r}, peak device memory {final['peak_gib']:.3f} GiB"
+        f"{float(final['bestcost'])!r}, peak device memory {final['peak']}"
     )
     if driver == "graph":
         line += (f", warm-up and capture {final['capture_seconds']:.3f} s, "
@@ -1531,16 +1565,20 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
         line += " | " + ", ".join(
             f"{k} {n}x {ms / n:.4f} ms/call" for k, (n, ms) in timer.totals().items()
         )
-    if phases and comp.implicit:
+    if phases and (comp.implicit or comp.cg_ops is not None):
         ops = comp.ctx(opts).linops
         _, sys_ = comp.assemble(final["variables"])
         lam = 1e-2 * ops.diag_max(sys_).item()
-        h_inv = ops.damped_inverse(sys_[2], lam)
-        v = torch.randn(comp.schur_info.dim_reduced, device=h_inv.device)
-        matvec_ms = time_ms(lambda: ops.s_matvec(sys_, h_inv, lam, v))
+        if comp.implicit:
+            h_inv = ops.damped_inverse(sys_[2], lam)
+            v = torch.randn(comp.schur_info.dim_reduced, device=h_inv.device)
+            matvec_ms = time_ms(lambda: ops.s_matvec(sys_, h_inv, lam, v))
+        else:
+            v = torch.randn(ops.dim, dtype=comp.dtype, device=comp.device)
+            matvec_ms = time_ms(lambda: ops.matvec(sys_, lam, v))
         cg = final["cg_iters"]
-        line += (f" | PCG iterations per damped solve {cg} (mean "
-                 f"{sum(cg) / len(cg):.2f}), reduced matvec {matvec_ms:.4f} ms/call")
+        line += (f" | PCG iterations per solve {cg} (mean {sum(cg) / max(len(cg), 1):.2f}), "
+                 f"{'reduced ' if comp.implicit else ''}matvec {matvec_ms:.4f} ms/call")
     print(line, flush=True)
     return rate
 
@@ -1654,7 +1692,7 @@ def gauge_problem(dtype, device):
 
     problem, cams, lmks = make_pinhole_ba(
         ncameras=NCAM, nlandmarks=NLMK, prop_visible=VIS, noise=NOISE, dtype=dtype,
-        device=device,
+        batched="cm", device=device,
     )
     perturb_ba(problem, lmks, 0.05, seed=5)
     w_impl = "fused" if dtype == torch.float64 else "fused_all"
@@ -1671,10 +1709,10 @@ def posegraph_problem(device, n_poses=None, n_loops=None):
     return problem, dict(unfixed=poses[1:])
 
 
-def posegraph_options(iterator):
+def posegraph_options(iterator, solver="dense"):
     import nllstpu_torch as nt
 
-    return nt.Options(iterator=iterator, solver="dense", max_iters=20, rel_dcost=1e-12,
+    return nt.Options(iterator=iterator, solver=solver, max_iters=20, rel_dcost=1e-12,
                       max_time=float("inf"))
 
 
@@ -1855,10 +1893,11 @@ def phase_dense(device, smi):
 
 
 def phase_b6_dense(device, cases):
-    """B6 on the dense path's input (the pose graph's H entries sorted by
-    target, D = 1, float64): against its plain version, two launches, and
-    beside its time the plain version's, ``torch.segment_reduce``'s and
-    the byte bound."""
+    """B6 on the pose graph's float64 inputs (``cases``: the dense path's
+    H entries sorted by target, D = 1; the cg path's matvec products, D =
+    6, and block-Jacobi blocks, D = 36, sorted by variable): against its
+    plain version, two launches, and beside its time the plain version's,
+    ``torch.segment_reduce``'s and the byte bound."""
     from nllstpu_torch.ops import segment_sum
 
     kern, plain = segment_sum.segment_block_sum, segment_sum.segment_block_sum_reference
@@ -1968,6 +2007,7 @@ def phase_posegraph_times(device, smi):
     variables = problem.stacked_variables()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     _, (h, g) = comp.assemble(variables)
     d = h.shape[0]
     m = h.clone()
@@ -1977,12 +2017,91 @@ def phase_posegraph_times(device, smi):
         lu_ms = time_ms(lambda: torch.linalg.lu_factor_ex(m), reps=3)
     assemble_ms = time_ms(lambda: comp.assemble(variables), reps=5)
     cost_ms = time_ms(lambda: comp.cost(variables), reps=5)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_memory(held)
     b = bound(0, d ** 3 / 3, torch.float64)["bound_ms"]
     print(f"{POSEGRAPH} dense system (d {d}, H {d * d * 8 / 1e6:.1f} MB): Cholesky "
           f"{chol_ms:.3f} ms against its bound {b:.3f} ms ({b / chol_ms * 100:.1f}% of the "
           f"float64 peak), LU {lu_ms:.3f} ms, assembly {assemble_ms:.3f} ms, cost "
-          f"{cost_ms:.3f} ms; peak device memory {peak:.3f} GiB | {smi}", flush=True)
+          f"{cost_ms:.3f} ms; peak device memory {peak} | {smi}", flush=True)
+
+
+def phase_cg(device, smi, dense_results):
+    """The cg backend through ``nt.optimize`` on the parking-garage-sized
+    pose graph (LM and dogleg, float64), with the launch counts set to 0
+    just before and read just after (B6 and no other kernel): held to the
+    JAX package's CPU "cg" traces and to the dense route's best cost
+    (``dense_results``, :func:`phase_dense`'s) within 1e-9; a second LM run
+    gives the first one's trace; two assemblies give the same bits, and so
+    do two matvecs.  Returns ``(launches, results, b6 inputs)``: B6's
+    inputs on the matvec (D = 6) and on the block-Jacobi blocks (D = 36),
+    recorded from one assembly and one matvec."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import _cusolver, compile_problem
+    from nllstpu_torch.ops import cg
+
+    never = _never(("segment_block_sum",))
+    launches, results = {}, {}
+    for it, key in ((nt.LEVENBERG_MARQUARDT, "posegraph_cg_lm"),
+                    (nt.DOGLEG, "posegraph_cg_dogleg")):
+        label = f"{POSEGRAPH} cg {ITER_NAME[it]}"
+        ref = ITER_REF[key]
+        problem, route = posegraph_problem(device)
+        launches[label], results[label] = phase_main(
+            label, problem, ref["start"], ref["best"], 1e-9, needs=("segment_block_sum",),
+            never=never, options=posegraph_options(it, "cg"), **route)
+        trace_gate(f"{label} main path", results[label], ref)
+        dense = dense_results[f"{POSEGRAPH} {ITER_NAME[it]}"].best_cost
+        err = abs(results[label].best_cost - dense) / abs(dense)
+        print(f"{label}: best {results[label].best_cost!r} against the dense route's "
+              f"{dense!r} (rel err {err:.2e}) | {smi}", flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"{label}: best cost departs from the dense route's")
+    label = f"{POSEGRAPH} cg LM"
+    problem, route = posegraph_problem(device)
+    again = nt.optimize(problem, posegraph_options(nt.LEVENBERG_MARQUARDT, "cg"), **route)
+    comp = compile_problem(problem, route["unfixed"], solver="cg")
+    ops = comp.ctx().linops
+    variables = problem.stacked_variables()
+    (c1, s1), (c2, s2) = comp.assemble(variables), comp.assemble(variables)
+    same_sys = all(torch.equal(a, b) for a, b in zip((c1, s1[0], *s1[1], *s1[3], s1[4]),
+                                                     (c2, s2[0], *s2[1], *s2[3], s2[4])))
+    x = torch.randn(ops.dim, dtype=comp.dtype, device=device)
+    lam = torch.tensor(1e-3, dtype=torch.float64, device=device)
+    same_mv = bool(torch.equal(ops.matvec(s1, lam, x), ops.matvec(s1, lam, x)))
+    same_run = again.costs == results[label].costs
+    print(f"determinism {label}: two graph-driver runs, {len(results[label].costs)} and "
+          f"{len(again.costs)} iterations, traces {'equal' if same_run else 'differ'}; two cg "
+          f"assemblies bit-identical {same_sys}; two matvecs bit-identical {same_mv}", flush=True)
+    if not (same_run and same_sys and same_mv):
+        raise AssertionError(f"determinism {label}: two runs differ")
+    del s2
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with _cusolver(device):
+        _, sys_ = comp.assemble(variables)
+        ops.solve(sys_, lam)
+    torch.cuda.synchronize()
+    blocks_mb = sum(h.numel() * h.element_size() for h in sys_[1]) / 2**20
+    print(f"{POSEGRAPH} cg system: per-cost blocks {blocks_mb:.1f} MiB; one assembly and one "
+          f"solve ({ops.cg_iters[-1]} PCG iterations): peak device memory {peak_memory(held)} "
+          f"| {smi}", flush=True)
+    seen = []
+    kern = ops.segment_sum
+
+    def record(data, st):
+        seen.append((data.clone(), st))
+        return kern(data, st)
+
+    ops = dataclasses.replace(ops, segment_sum=record)
+    _, sys_ = cg.assemble_cg(comp.batches, variables, ops)
+    blocks = next(c for c in seen if c[0].shape[1] == 36)
+    seen.clear()
+    ops.matvec(sys_, lam, x)
+    (matvec_in,) = seen
+    return launches, results, {f"{POSEGRAPH} cg D=6": matvec_in,
+                               f"{POSEGRAPH} cg D=36": blocks}
 
 
 def main():
@@ -2040,6 +2159,10 @@ def main():
     phase_iter_determinism(device, {**iter_results, **dense_results})
     phase_iter_drivers(device, smi, iter_results)
     phase_posegraph_times(device, smi)
+    cg_launches, _, b6_cg_in = phase_cg(device, smi, dense_results)
+    b6.update(phase_b6_dense(device, b6_cg_in))
+    del b6_cg_in
+    launches[f"{POSEGRAPH} cg"] = cg_launches[f"{POSEGRAPH} cg LM"]
     # The two drivers and the plain versions in turns, then one run of
     # each with per-phase events (the events cost host time, so rates come
     # from the runs without them), then each driver profiled.  A timed loop
@@ -2076,10 +2199,14 @@ def main():
         ("pinhole bench", lambda d: (bench_problem(d), {}), iter_options(nt.GRADIENT_DESCENT)),
         (POSEGRAPH, posegraph_problem, posegraph_options(nt.LEVENBERG_MARQUARDT)),
         (POSEGRAPH, posegraph_problem, posegraph_options(nt.DOGLEG)),
+        (f"{POSEGRAPH} cg", posegraph_problem, posegraph_options(nt.LEVENBERG_MARQUARDT, "cg")),
+        (f"{POSEGRAPH} cg", posegraph_problem, posegraph_options(nt.DOGLEG, "cg")),
     ):
         problem, route = make(device)
         turns = [("graph", False), ("stepped", False), ("plain", False), ("graph", False)]
-        for driver, phases in turns + [("stepped", True)] * (label == POSEGRAPH):
+        turns += [("stepped", True)] * label.startswith(POSEGRAPH)
+        turns += [("graph", True)] * (label == f"{POSEGRAPH} cg")
+        for driver, phases in turns:
             phase_timed(label, problem, driver, phases=phases, options=opts, **route)
         for driver in ("graph", "stepped"):
             phase_profile(label, problem, driver, options=opts, **route)
@@ -2104,7 +2231,7 @@ def main():
             ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482", b8)]
     # Beside each row, the launches of this slice's main paths (Newton,
     # dogleg, gradient descent; the dense backend) that launched the kernel.
-    slice_launches = {**iter_launches, **dense_launches}
+    slice_launches = {**iter_launches, **dense_launches, **cg_launches}
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

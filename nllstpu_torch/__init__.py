@@ -3,16 +3,18 @@
 The JAX package ``nllstpu`` is the reference; this package solves the same
 problems with PyTorch, and runs its hot path through CUDA kernels written
 by hand for NVIDIA Hopper (``ops/csrc``).  Every iterator (Newton,
-Levenberg-Marquardt, dogleg, gradient descent) runs on three backends: the
+Levenberg-Marquardt, dogleg, gradient descent) runs on four backends: the
 dense normal equations of any cost batch (single costs, per-cost,
 row-major or components-major batches; autodiff or hand Jacobians; the
-small models ``rosenbrock``, ``curvefit``, ``posegraph``), and the Schur
-solves of components-major bundle-adjustment batches: SE(3)+pinhole
-problems (``models.ba``) and Snavely BAL problems (``models.bal``), whose
-skewed track lengths take the degree-bucketed layout in the direct solve;
-the implicit solve (``solver="schur_cg"``, and ``solver="schur"`` past the
+small models ``rosenbrock``, ``curvefit``, ``posegraph``, affine BA), the
+matrix-free PCG over the same per-cost blocks (``solver="cg"``, what
+``solver="auto"`` takes for a pose graph), and the Schur solves of
+components-major bundle-adjustment batches: SE(3)+pinhole problems
+(``models.ba``) and Snavely BAL problems (``models.bal``), whose skewed
+track lengths take the degree-bucketed layout in the direct solve; the
+implicit solve (``solver="schur_cg"``, and ``solver="schur"`` past the
 dense-W limit) takes any size.  ``solver="auto"`` picks as the JAX package
-picks, and raises where it would take the matrix-free "cg" backend.  A BAL
+picks, and the entry points take its signatures.  A BAL
 batch may carry one shared adaptive robust kernel (ContaminatedGaussian,
 Barron) whose parameters are fitted with the cameras and points, through
 the direct solve.  Problems live on the card unless the caller passes

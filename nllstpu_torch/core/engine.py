@@ -204,14 +204,17 @@ def _cost_grad_hess_one(batch, params, vals):
                 _retract_one(m, v, dt) for m, v, dt in zip(manifolds, vals, parts)))
 
         z = vals[0].new_zeros(sum(m.dof for m in manifolds))
-        return f(z), grad(f)(z), jacfwd(grad(f))(z)
+        return f(z), grad(f)(z), jacfwd(grad(f))(z).to(z.dtype)
     f, dof = _residual_fn(batch, params, vals)
     if batch.jacobian is not None:
         r, jac = batch.jacobian(params, *vals)
         r, jac = torch.atleast_1d(r), torch.atleast_2d(jac)
     else:
         z = vals[0].new_zeros(dof)
-        r, jac = f(z), jacfwd(f)(z)
+        # PyTorch's forward mode gives a float64 tangent where a 0-d
+        # float32 tensor meets a Python float (``so3_log``'s s2 / 48 in one
+        # cost): the Jacobian is taken back to the problem's dtype.
+        r, jac = f(z), jacfwd(f)(z).to(z.dtype)
     g = jac.T @ r
     h = jac.T @ jac
     rho, d1, d2 = batch.kernel.rho_dc(r @ r)

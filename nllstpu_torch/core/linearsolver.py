@@ -10,13 +10,20 @@ Cholesky solution with that test as a device flag, :func:`lu_solve` the LU
 one, and the caller reads the flag where it may (the graph driver after a
 replay); :func:`cholesky_solve` reads it at once, one host sync.  The
 fallback is numerics, not a device fallback: both branches run wherever
-the matrix lives.  ``batched_inv_spd`` inverts the implicit backend's
-preconditioner blocks.
+the matrix lives.  ``batched_inv_spd`` inverts the iterative backends'
+preconditioner blocks; :func:`pcg_start` and :func:`pcg_chunk` are their
+preconditioned conjugate gradients, in chunks that never read the host.
 """
 
 from __future__ import annotations
 
 import torch
+
+#: PCG iterations between host reads of the convergence flag.  Updates
+#: freeze once converged, so the result equals a loop that checks after
+#: every iteration; a solve pays at most this many idle iterations and
+#: reads the device once per chunk instead of once per iteration.
+CG_CHECK_EVERY = 8
 
 
 def _scaled(a, b):
@@ -90,16 +97,21 @@ def cholesky_solve(a, b):
 
 def batched_inv_spd(h):
     """Inverse of small symmetric blocks ``[n, d, d]``: the closed form of
-    :func:`batched_inv_spd_cm` for d ≤ 3; beyond, a batched Cholesky
-    inverse, with an LU inverse for the blocks whose factorization fails
-    (the JAX package's per-block ``cholesky_solve`` falls back the same
-    way).  Both run on the whole batch and the choice is a ``where``, so
-    no host sync is needed; a singular block comes out non-finite."""
+    :func:`batched_inv_spd_cm` for d ≤ 3; beyond, the JAX package's
+    per-block ``cholesky_solve`` against the identity — the Cholesky
+    factor, then two batched triangular solves (``torch.cholesky_inverse``
+    inverts one block after the other on the card: 1,660 pairs of
+    triangular solves for the pose graph's 6x6 blocks) — with an LU
+    inverse for the blocks whose factorization fails.  Both run on the
+    whole batch and the choice is a ``where``, so no host sync is needed;
+    a singular block comes out non-finite."""
     d = h.shape[-1]
     if d <= 3:
         return batched_inv_spd_cm(h.permute(1, 2, 0)).permute(2, 0, 1)
     chol, info = torch.linalg.cholesky_ex(h)
-    inv = torch.cholesky_inverse(chol)
+    eye = torch.eye(d, dtype=h.dtype, device=h.device).expand_as(h)
+    y = torch.linalg.solve_triangular(chol, eye, upper=False)
+    inv = torch.linalg.solve_triangular(chol.mT, y, upper=True)
     lu_inv, _ = torch.linalg.inv_ex(h)
     return torch.where((info > 0)[:, None, None], lu_inv, inv)
 
@@ -137,3 +149,44 @@ def batched_inv_spd_cm(h):
         )
         return out * inv_det
     return torch.linalg.inv(h.permute(2, 0, 1)).permute(1, 2, 0)
+
+
+def pcg_start(rhs, precond, tol):
+    """The start of a PCG solve of A x = ``rhs`` (the JAX package's
+    ``while_loop`` carry): ``(tol2, state)`` with the squared absolute
+    tolerance ``tol²·|rhs|²`` and ``state = (x, r, z, p, rz, k)`` at x = 0,
+    each a tensor of its own (:func:`pcg_chunk`'s caller may update them
+    in place); ``precond(r)`` applies the preconditioner."""
+    tol2 = torch.full((), tol, dtype=rhs.dtype, device=rhs.device) ** 2 * (rhs @ rhs)
+    r = rhs.clone()
+    z = precond(r)
+    state = (torch.zeros_like(rhs), r, z, z.clone(), r @ z,
+             torch.zeros((), dtype=torch.int32, device=rhs.device))
+    return tol2, state
+
+
+def pcg_chunk(matvec, precond, tol2, state, max_iters: int):
+    """:data:`CG_CHECK_EVERY` PCG iterations from ``state`` (the JAX
+    package's loop body), the updates frozen once ``|r|² ≤ tol2`` or at
+    ``max_iters`` iterations.  Returns the new state and ``flag = [more,
+    iterations]`` in the system's dtype, still on the device: no host
+    read, so a CUDA graph can hold it."""
+    x, r, z, p, rz, k = state
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    for _ in range(CG_CHECK_EVERY):
+        active = (r @ r > tol2) & (k < max_iters)
+        ap = matvec(p)
+        denom = p @ ap
+        alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z2 = precond(r)
+        rz2 = r @ z2
+        beta = rz2 / torch.where(rz == 0, one, rz)
+        p = torch.where(active, z2 + beta * p, p)
+        z = torch.where(active, z2, z)
+        rz = torch.where(active, rz2, rz)
+        k = k + active.to(k.dtype)
+    flag = torch.stack([((r @ r > tol2) & (k < max_iters)).to(x.dtype), k.to(x.dtype)])
+    return (x, r, z, p, rz, k), flag

@@ -1,7 +1,8 @@
 """Optimizer entry points: ``compile_problem``, the two drivers and
 ``optimize`` (port of ``nllstpu/core/optimize.py``): every iterator over
-three backends — the dense normal equations (``solver="dense"``, any
-batch form, autodiff or hand Jacobians), the direct Schur solve (with or
+four backends — the dense normal equations (``solver="dense"``, any
+batch form, autodiff or hand Jacobians), the matrix-free PCG over the same
+per-cost blocks (``solver="cg"``), the direct Schur solve (with or
 without a shared adaptive robust kernel, through either assembly route of
 its obs-major batches) and the implicit one that ``solver="schur_cg"``
 asks for and ``solver="schur"`` switches to past the dense-W limit;
@@ -40,7 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..ops import _build, fused_obs, schur, schur_reduce, segment_sum, w_place
+from ..ops import _build, cg, fused_obs, schur, schur_reduce, segment_sum, w_place
 from . import engine, iterators, structs
 from .callbacks import host_array
 from .problem import Problem, family_name
@@ -58,8 +59,8 @@ W_IMPLS = ("fused_all", "fused")
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The kernel entry points of the Schur paths (and B6, the dense
-    assembly's fixed-order sums)."""
+    """The kernel entry points of the Schur paths (and B6, the dense and cg
+    backends' fixed-order sums)."""
 
     assemble: Any  # kernel B1 contract (ops/fused_obs.py), uniform layouts
     assemble_into: Any  # kernel B2 contract, one launch per degree-bucketed batch
@@ -67,7 +68,7 @@ class Kernels:
     reduce: Any  # kernel B3 contract (ops/schur_reduce.py), float32, over W's row tables
     reduce_lm: Any  # kernel B4 contract, f64-formed inverses, obs-major W's row tables
     reduce_external: Any  # kernel B5 contract, f64-formed inverses, over W's structure
-    segment_sum: Any  # kernel B6 contract (ops/segment_sum.py): implicit, generic, dense, B2's camera sum
+    segment_sum: Any  # B6 contract (ops/segment_sum.py): implicit, generic, dense, cg, cameras
     place_w: Any  # kernel B7 contract (ops/w_place.py), generic direct path
 
 
@@ -92,17 +93,19 @@ PLAIN = Kernels(
 @dataclasses.dataclass
 class CompiledProblem:
     """A problem lowered onto its device: padded batches and index tables
-    uploaded once, the Schur layout (``schur_info``) or the dense plan
-    (``dense_plan``, :func:`engine.dense_plan`) fixed."""
+    uploaded once, the Schur layout (``schur_info``), the dense plan
+    (``dense_plan``, :func:`engine.dense_plan`) or the matrix-free
+    backend's ops (``cg_ops``, :func:`ops.cg.build_cg_ops`) fixed."""
 
     manifolds: dict
     layout: engine.Layout
     batches: list  # device batches (idx/mask/params tensors)
     dtype: Any
     device: Any
-    schur_info: Any  # schur.SchurInfo, or None on the dense backend
+    schur_info: Any  # schur.SchurInfo, or None on the dense and cg backends
     kernels: Kernels = KERNELS
     dense_plan: Any = None  # engine.DensePlan on the dense backend
+    cg_ops: Any = None  # cg.CGOps on the cg backend
 
     def __post_init__(self):
         self._step_index = engine.step_index(self.layout, self.manifolds, self.device)
@@ -119,6 +122,8 @@ class CompiledProblem:
         return engine.total_cost(self.batches, variables, runs_list=self._runs)
 
     def assemble(self, variables):
+        if self.cg_ops is not None:
+            return cg.assemble_cg(self.batches, variables, self.cg_ops)
         if self.schur_info is None:
             return engine.assemble_dense(self.batches, variables, self.dense_plan,
                                          self.kernels.segment_sum)
@@ -142,15 +147,17 @@ class CompiledProblem:
         )
 
     def ctx(self, options: Options = None, phase=None) -> iterators.IterCtx:
-        """The iterators' context; ``options.linear_tol`` sets the implicit
-        solve's PCG tolerance."""
+        """The iterators' context; ``options.linear_tol`` sets the PCG
+        tolerance of the cg and implicit solves."""
         si = self.schur_info
-        if si is None:
+        tol = None if options is None else options.linear_tol
+        if self.cg_ops is not None:
+            linops = dataclasses.replace(self.cg_ops, tol=tol, cg_iters=[])
+        elif si is None:
             linops = iterators.DenseOps(self.layout.dof_total)
         elif si.implicit:
             linops = schur.SchurCGOps(
-                si.dim_reduced, si.num_elim, si.dof_elim, si.fam_offsets,
-                tol=None if options is None else options.linear_tol,
+                si.dim_reduced, si.num_elim, si.dof_elim, si.fam_offsets, tol=tol,
                 segment_sum=self.kernels.segment_sum,
             )
         else:
@@ -240,20 +247,12 @@ def _auto_schur_family(problem, batches, layout):
     return None if best is None else best[1]
 
 
-def _no_cg(why: str):
-    return NotImplementedError(
-        f"{why}: the JAX package's matrix-free 'cg' backend is not ported yet "
-        "(ROADMAP Queue 1 item 5); pass solver='dense', or a schur_family"
-    )
-
-
 def auto_solver(problem: Problem, unfixed=None, schur_family=None, batches=None):
     """``(solver, schur_family)`` that ``solver="auto"`` compiles, as the
     JAX package picks them: Schur over ``schur_family`` when given; else
     dense for small or dense-enough systems (:func:`_auto_dense_or_cg`),
-    and where the JAX package would take its "cg" backend, Schur over a
-    detected landmark family (:func:`_auto_schur_family`).  Where it would
-    keep "cg", raises ``NotImplementedError`` (ROADMAP Queue 1 item 5)."""
+    and where the sparse "cg" backend would do, Schur over a detected
+    landmark family (:func:`_auto_schur_family`), else "cg"."""
     if schur_family is not None:
         return "schur", schur_family
     batches = problem.batches() if batches is None else batches
@@ -261,33 +260,33 @@ def auto_solver(problem: Problem, unfixed=None, schur_family=None, batches=None)
     if _auto_dense_or_cg(problem, batches, layout) == "dense":
         return "dense", None
     cand = _auto_schur_family(problem, batches, layout)
-    if cand is None:
-        raise _no_cg('solver="auto" on a sparse problem with no landmark family to eliminate')
-    return "schur", cand
+    return ("cg", None) if cand is None else ("schur", cand)
 
 
-def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
+def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
                     schur_family=None, plain: bool = False,
                     w_impl: str = "fused_all") -> CompiledProblem:
-    """Lower a problem onto its device.  ``solver``: "dense" (the normal
-    equations, :func:`engine.assemble_dense`; any batch form, fixed
-    kernels), "schur" (direct, unless its dense W would pass
+    """Lower a problem onto its device.  ``solver``: "dense" (the
+    default, as in the JAX package: the normal equations,
+    :func:`engine.assemble_dense`; any batch form, fixed kernels), "cg" or
+    "pcg" (the matrix-free PCG over the same per-cost blocks,
+    :mod:`ops.cg`), "schur" (direct, unless its dense W would pass
     :data:`DENSE_W_BYTE_LIMIT`), "schur_cg" (implicit) — the Schur ones
-    over ``schur_family`` — or "auto" (:func:`auto_solver`); the JAX
-    package's "cg" raises ``NotImplementedError`` (ROADMAP Queue 1 item
-    5).  ``unfixed`` selects the variables to optimize
-    (:func:`engine.resolve_unfixed`; on the Schur backends fixed cameras on
-    the obs-major direct path only, fixed landmarks not yet).  Skewed
+    over ``schur_family`` — or "auto" (:func:`auto_solver`).  ``unfixed``
+    selects the variables to optimize (:func:`engine.resolve_unfixed`; on
+    the Schur backends fixed cameras on the obs-major direct path only,
+    fixed landmarks not yet).  Skewed
     degree distributions get the JAX package's degree relabel (see
     :func:`schur_layout`); the direct path then takes the bucketed layout,
     assembled by kernel B2.  The host tables of kernels B2, B3/B4 (every
-    obs-major direct W) and B5, and the dense backend's plan, are built
-    here (``schur_info.table_seconds``), inside ``Result.time_init``.
+    obs-major direct W) and B5 (``schur_info.table_seconds``), the dense
+    backend's plan and the cg backend's contribution order are built here,
+    inside ``Result.time_init``.
     ``w_impl`` picks the direct assembly's route (:data:`W_IMPLS`);
     ``"fused"`` on a batch that does not qualify raises.  A batch with an
     adaptive kernel takes the direct path's generic assembly
     (landmark-sorted; kernels B6 and B7, the solve through B5) and is
-    refused by the implicit and dense ones.  ``plain=True`` runs the
+    refused by the implicit, dense and cg ones.  ``plain=True`` runs the
     kernels' plain PyTorch versions on every device (a baseline to measure
     the kernels against).  On a CUDA device with the kernels on, the
     kernel library is built (nvcc, at first use) and loaded here, so that
@@ -298,21 +297,26 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
         raise ValueError(f"w_impl={w_impl!r}: the direct assembly's routes are {W_IMPLS}")
     if solver == "auto":
         solver, schur_family = auto_solver(problem, unfixed, schur_family)
-    if solver in ("cg", "pcg"):
-        raise _no_cg(f"solver={solver!r}")
-    if solver not in ("dense", "schur", "schur_cg"):
+    if solver not in ("dense", "cg", "pcg", "schur", "schur_cg"):
         raise ValueError(f"unknown solver {solver!r}")
-    if solver == "dense":
+    kernels = PLAIN if plain else KERNELS
+    manifolds = {n: problem.manifold_of(n) for n in problem.family_names()}
+    info = plan = cg_ops = None
+    if solver in ("dense", "cg", "pcg"):
         if w_impl != "fused_all":
             raise ValueError(f"w_impl={w_impl!r} is a route of the direct Schur assembly")
         batches = problem.batches()
         layout = engine.build_layout(problem, unfixed, batches=batches)
         if any(b.adaptive for b in batches):
             raise NotImplementedError(
-                "an adaptive kernel on the dense backend: the port takes it through "
+                f"an adaptive kernel on the {solver} backend: the port takes it through "
                 "solver='schur' (the JAX package's components-major route)"
             )
-        info, plan = None, engine.dense_plan(batches, layout, problem.device)
+        if solver == "dense":
+            plan = engine.dense_plan(batches, layout, problem.device)
+        else:
+            cg_ops = cg.build_cg_ops(batches, layout, manifolds, problem.device,
+                                     segment_sum=kernels.segment_sum)
     else:
         if schur_family is None:
             raise ValueError(f"solver={solver!r} requires schur_family")
@@ -320,20 +324,20 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "schur",
             problem, schur_family, solver == "schur_cg", unfixed=unfixed, w_impl=w_impl
         )
         schur.check_slice(info, batches)
-        plan = None
     if problem.device.type == "cuda" and not plain:
         _build.library()
     if info is not None:
         schur.upload_tables(info, problem.device, problem.dtype)
     return CompiledProblem(
-        manifolds={n: problem.manifold_of(n) for n in problem.family_names()},
+        manifolds=manifolds,
         layout=layout,
         batches=[engine.device_batch(b, problem.device, problem.dtype) for b in batches],
         dtype=problem.dtype,
         device=problem.device,
         schur_info=info,
-        kernels=PLAIN if plain else KERNELS,
+        kernels=kernels,
         dense_plan=plan,
+        cg_ops=cg_ops,
     )
 
 
@@ -538,8 +542,8 @@ def run_stepped(compiled: CompiledProblem, opts: Options, vars0, callback=None,
     :func:`run_loop`'s final state with ``seconds`` (host seconds per phase:
     "assemble", "solve", "cost"), ``trajectory`` (a
     :class:`structs.CostTrajectory` when ``opts.store_trajectory`` is
-    True, else None) and ``cg_iters`` (the implicit path's PCG iterations
-    per damped solve).  ``phase`` is an extra phase hook inside the
+    True, else None) and ``cg_iters`` (the cg and implicit paths' PCG
+    iterations per solve).  ``phase`` is an extra phase hook inside the
     fences."""
     clock = _PhaseClock(compiled.device, phase)
     trajectory = structs.CostTrajectory() if opts.store_trajectory is True else None
@@ -590,13 +594,14 @@ class _GraphRunner:
       damped step at ``lam`` through the (reduced) system's Cholesky or
       LU, the variables it gives, their cost and the read ``[cost,
       max|x|, gᵀx, xᵀx, ok]``;
-    - implicit, LM and Newton: ``pcg_setup`` (damped inverses, rhs,
-      preconditioner, tolerance, start state), ``pcg_chunk``
-      (``ops.schur.CG_CHECK_EVERY`` iterations in place, and the
-      convergence flag) and ``pcg_finish`` (back-substitution, step,
-      cost, read);
+    - cg and implicit (the backends whose linear ops have PCG pieces), LM
+      and Newton: ``pcg_setup`` (preconditioner, tolerance, start state;
+      implicit: damped inverses and the reduced rhs before them),
+      ``pcg_chunk`` (``linearsolver.CG_CHECK_EVERY`` iterations in place,
+      and the convergence flag) and ``pcg_finish`` (the step — implicit:
+      through the back-substitution —, its cost, the read);
     - dogleg: ``leg`` and ``leg_lu`` (direct and dense: the undamped solve
-      at a zero λ in device memory, fused with gᵀHg) or, implicit,
+      at a zero λ in device memory, fused with gᵀHg) or, cg and implicit,
       ``pcg_setup`` and ``pcg_chunk`` at λ = 0 and ``pcg_leg``; each writes
       the legs into ``xn`` and ``cauchy`` and gives the read ``[gᵀg, gᵀHg,
       x_nᵀx_n, |x_n − c|², cᵀ(x_n − c), ok]``
@@ -611,7 +616,7 @@ class _GraphRunner:
     in a CUDA graph, all in one memory pool; a failed capture raises and
     names the piece.  A trial is then one write of λ or s, one replay and
     one read (a second replay and read when a Cholesky failed; on the
-    implicit path a replay and a flag read per PCG chunk), an outer
+    cg and implicit paths a replay and a flag read per PCG chunk), an outer
     iteration one copy of the adopted variables into ``vars`` and one
     assembly replay.  Each replay adds to the kernels' launch counters
     what its capture counted.  On the CPU the pieces run eagerly: the same
@@ -631,7 +636,9 @@ class _GraphRunner:
         self.linops, self.np_dtype = ctx.linops, ctx.np_dtype
         self.phase = iterators._no_phase  # run_loop's hooks: the pieces are timed instead
         self.timer = phase or iterators._no_phase
-        self.implicit = compiled.implicit
+        # The PCG pieces where the backend's linear ops have them (cg and
+        # implicit), else the damped trial through a factorisation.
+        self.iterative = hasattr(self.linops, "pcg_chunk")
         self.vars = {k: v.clone() for k, v in vars0.items()}
         self.lam = torch.zeros((), dtype=torch.float64, device=compiled.device)
         self.zero = torch.zeros((), dtype=torch.float64, device=compiled.device)
@@ -639,15 +646,15 @@ class _GraphRunner:
         it = opts.iterator
         damped = it in (structs.LEVENBERG_MARQUARDT, structs.NEWTON)
         self.bodies = {"assemble": self._assemble}
-        if self.implicit and it != structs.GRADIENT_DESCENT:
+        if self.iterative and it != structs.GRADIENT_DESCENT:
             self.bodies.update(pcg_setup=self._pcg_setup, pcg_chunk=self._pcg_chunk)
         if damped:
             self.bodies.update(
-                {"pcg_finish": self._pcg_finish} if self.implicit else
+                {"pcg_finish": self._pcg_finish} if self.iterative else
                 {"trial": self._trial, "trial_lu": lambda: self._trial(lu=True)})
         if it == structs.DOGLEG:
             self.bodies.update(
-                {"pcg_leg": self._pcg_leg} if self.implicit else
+                {"pcg_leg": self._pcg_leg} if self.iterative else
                 {"leg": self._leg, "leg_lu": lambda: self._leg(lu=True)})
             for kind in iterators.COMBOS[:3]:
                 self.bodies["trial_" + kind] = functools.partial(self._combo, kind)
@@ -802,7 +809,7 @@ class _GraphRunner:
     def trial(self, sys, g, variables, lam, lu=False):
         """The damped trial at ``lam`` (:meth:`iterators.IterCtx.trial`'s
         contract) through the pieces."""
-        if self.implicit:
+        if self.iterative:
             self._pcg(lam)
             nv, x, read = self._step("pcg_finish")
         else:
@@ -813,7 +820,7 @@ class _GraphRunner:
     def leg(self, sys, g, lu=False):
         """Dogleg's leg (:meth:`iterators.IterCtx.leg`'s contract); the
         legs stay in the runner's buffers."""
-        if self.implicit:
+        if self.iterative:
             self._pcg(0.0)
             return None, self._step("pcg_leg").tolist()
         return None, self._step("leg_lu" if lu else "leg").tolist()

@@ -300,23 +300,23 @@ class Problem:
         slots: list,
         params: Any = None,
         kernel: Any = None,
-        jacobian: Callable = None,
-        batched="cm",
         kind: str = "residual",
+        jacobian: Callable = None,
+        batched=False,
     ):
-        """Bulk-add ``k`` costs of one type.  ``slots`` is a list of
-        ``(manifold, index_array[k])``; ``params`` an array with leading
-        dimension ``k``.  ``batched`` gives ``fn``'s form:
+        """Bulk-add ``k`` costs of one type (the JAX package's signature).
+        ``slots`` is a list of ``(manifold, index_array[k])``; ``params``
+        an array with leading dimension ``k``.  ``batched`` gives ``fn``'s
+        form:
 
-        - ``"cm"`` (the default here; the JAX package defaults to per-cost):
-          ``fn(params, *vals_cm)`` returns the residual ``[nres, B]`` of
+        - ``False`` (the default): ``fn`` of one cost, as in :meth:`add_cost`;
+        - ``"cm"``: ``fn(params, *vals_cm)`` returns the residual ``[nres, B]`` of
           components-major slot values ``[ambient, B]``; ``jacobian``
           returns ``(r, J [nres, S, B])`` in tangent coordinates, and is
           synthesized by :func:`auto_cm_jacobian` when not given;
         - ``True``: ``fn(params, *vals)`` of whole ``[B, ...]`` arrays
           returns ``[B, nres]``, with a hand ``jacobian`` ``(r, J [B, nres,
-          S])``;
-        - ``False``: ``fn`` of one cost, as in :meth:`add_cost`.
+          S])``.
 
         ``kernel`` is a fixed :class:`Robustifier` or an
         :class:`AdaptiveRobustifier`; for the latter, slot 0 is the kernel's

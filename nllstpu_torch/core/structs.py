@@ -46,12 +46,15 @@ class Options:
     """Solver options (reference ``NLLSOptions``).  Every ``iterator``
     (Newton, Levenberg-Marquardt, dogleg, gradient descent) runs on every
     ``solver``: "dense" (the normal equations from autodiff or hand
-    Jacobians), "schur" (direct; switches to the implicit backend past the
-    dense-W limit), "schur_cg" (implicit always) or "auto", which picks as
-    the JAX package picks (dense for small or dense-enough systems, Schur
-    over ``schur_family`` or a detected landmark family, and raises where
-    the JAX package would take its matrix-free "cg" backend); ``max_time``
-    is checked every iteration.
+    Jacobians), "cg" (the matrix-free PCG over the same blocks), "schur"
+    (direct; switches to the implicit backend past the dense-W limit),
+    "schur_cg" (implicit always) or "auto", which picks as the JAX package
+    picks (dense for small or dense-enough systems, else Schur over
+    ``schur_family`` or a detected landmark family, else "cg");
+    ``max_time`` is checked every iteration.  The fields the port has come
+    in the JAX package's order (its ``jit_max_time`` and ``jit_printout``,
+    between ``max_time`` and ``iterator``, come with ROADMAP Queue 1 item
+    6).
 
     ``store_trajectory``: ``True`` runs the stepped driver and records a
     :class:`CostTrajectory` with every iteration's cost, time and step
@@ -67,14 +70,15 @@ class Options:
     iterator: str = LEVENBERG_MARQUARDT
     solver: str = "auto"
     schur_family: Any = None  # Manifold of the eliminated (landmark) family
+    store_trajectory: Any = False
     # Initial iterator scalars (reference ``iteratordata`` override): 0 =
     # auto for λ and the trust radius.
     init_lm_lambda: float = 0.0
     init_trust_radius: float = 0.0
     init_gd_step: float = 1.0
-    store_trajectory: Any = False
-    # Implicit backend only: relative residual tolerance of the reduced
-    # PCG (the Ceres ``eta`` analogue).  None = 1e-5 in float32, 1e-12 in
+    # Iterative backends (cg, schur_cg) only: relative residual tolerance
+    # of the PCG (the Ceres ``eta`` analogue).  None = the backend's
+    # default: 1e-5 in float32, and 1e-14 (cg) or 1e-12 (schur_cg) in
     # float64.  LM tolerates inexact steps, so 1e-2 trades inner
     # iterations for outer ones.
     linear_tol: Optional[float] = None

@@ -1,9 +1,12 @@
-"""Synthetic SE(3)+pinhole bundle adjustment (port of the components-major
-form of ``nllstpu/models/ba.py``).
+"""Synthetic bundle-adjustment problems (port of ``nllstpu/models/ba.py``):
+the reference's affine BA (``make_affine_ba``, single costs), and SE(3)
+poses with a pinhole projection (``make_pinhole_ba``) in each of the JAX
+package's batch forms: per-cost (autodiff or the hand Jacobian),
+row-major and components-major.
 
 The host-side generation is line-for-line the JAX package's numpy code, so
 the same seed draws the same numbers and gives bit-identical problem
-arrays; only the residual and its Jacobian are torch.
+arrays; only the residuals and their Jacobians are torch.
 """
 
 from __future__ import annotations
@@ -26,6 +29,40 @@ def _banded_visibility(ncameras, nlandmarks, prop_visible):
     return dist <= thresh
 
 
+def affine_project(measurement, pose, point):
+    """Residual of the affine two-row projection
+    (test/optimizeba.jl:4): [pose[0:3]·X, pose[3:6]·X] − measurement."""
+    return torch.stack([pose[:3] @ point, pose[3:] @ point]) - measurement
+
+
+def make_affine_ba(ncameras=3, nlandmarks=5, prop_visible=1.0, seed=1, dtype=None,
+                   device=None):
+    """Ground-truth-consistent affine BA problem (the reference's BA
+    workload, test/optimizeba.jl:3-47): 6-vector affine cameras, 3-vector
+    landmarks, one single cost per visible pair, measurements from the
+    truth.  Returns ``(problem, camera_handles, landmark_handles)``."""
+    rng = np.random.default_rng(seed)
+    p = Problem(dtype=dtype, device=device)
+    cam_man, lmk_man = Euclidean(6), Euclidean(3)
+    cam_offset = np.array([1.0, 0, 0, 0, 1.0, 0])
+    cameras = [p.add_variable(cam_man, rng.standard_normal(6) + cam_offset)
+               for _ in range(ncameras)]
+    lmk_offset = np.array([-0.5, -0.5, 10.0])
+    landmarks = [p.add_variable(lmk_man, rng.random(3) + lmk_offset)
+                 for _ in range(nlandmarks)]
+    cam_values = [p.get_value(c) for c in cameras]
+    lmk_values = [p.get_value(lm) for lm in landmarks]
+    vis = _banded_visibility(ncameras, nlandmarks, prop_visible)
+    for ci in range(ncameras):
+        pose = cam_values[ci]
+        for li in range(nlandmarks):
+            if vis[ci, li]:
+                point = lmk_values[li]
+                meas = np.array([pose[:3] @ point, pose[3:] @ point])
+                p.add_cost(affine_project, (cameras[ci], landmarks[li]), params=meas)
+    return p, cameras, landmarks
+
+
 def perturb_ba(problem, handles, scale, seed=2):
     """Add Gaussian noise to Euclidean-storage variables, per family
     (reference perturb_ba_problem, test/optimizeba.jl:38-47)."""
@@ -38,6 +75,73 @@ def perturb_ba(problem, handles, scale, seed=2):
         idxs = np.asarray(idxs)
         noise = rng.standard_normal((len(idxs),) + fam.manifold.shape) * scale
         fam.values[idxs] = fam.values[idxs] + noise
+
+
+def pinhole_project(measurement, pose, point):
+    """Pinhole reprojection residual of one cost for an SE(3) camera
+    ``pose [3, 4]`` (world-to-camera, X_c = Rᵀ(X − t)), projected to the
+    normalized image plane."""
+    xc = pose[:, :3].T @ (point - pose[:, 3])
+    return xc[:2] / xc[2] - measurement
+
+
+def pinhole_project_jacobian(measurement, pose, point):
+    """Residual and hand Jacobian ``[2, 9]`` of :func:`pinhole_project` in
+    SE(3)/R³ tangent coordinates (camera [w, v], then point; the JAX
+    package's ``pinhole_project_jacobian`` has the derivation)."""
+    r = pose[:, :3]
+    xc = r.T @ (point - pose[:, 3])
+    x, y, z = xc[0], xc[1], xc[2]
+    inv_z = 1.0 / z
+    res = xc[:2] * inv_z - measurement
+    zero = torch.zeros_like(z)
+    dpi = torch.stack([torch.stack([inv_z, zero, -x * inv_z * inv_z]),
+                       torch.stack([zero, inv_z, -y * inv_z * inv_z])])
+    skew_xc = torch.stack([torch.stack([zero, -z, y]), torch.stack([z, zero, -x]),
+                           torch.stack([-y, x, zero])])
+    return res, torch.cat([dpi @ skew_xc, -dpi, dpi @ r.T], dim=1)
+
+
+def _camera_frame_batched(pose, point):
+    r = pose[:, :, :3]
+    d = point - pose[:, :, 3]
+    xc0 = r[:, 0, 0] * d[:, 0] + r[:, 1, 0] * d[:, 1] + r[:, 2, 0] * d[:, 2]
+    xc1 = r[:, 0, 1] * d[:, 0] + r[:, 1, 1] * d[:, 1] + r[:, 2, 1] * d[:, 2]
+    xc2 = r[:, 0, 2] * d[:, 0] + r[:, 1, 2] * d[:, 1] + r[:, 2, 2] * d[:, 2]
+    return r, xc0, xc1, xc2
+
+
+def pinhole_project_batched(measurement, pose, point):
+    """Row-major pinhole residual of a whole batch: ``pose [B, 3, 4]``,
+    ``point [B, 3]``, ``measurement [B, 2]`` → ``[B, 2]``."""
+    _, xc0, xc1, xc2 = _camera_frame_batched(pose, point)
+    inv_z = 1.0 / xc2
+    return torch.stack([xc0 * inv_z - measurement[:, 0], xc1 * inv_z - measurement[:, 1]],
+                       dim=-1)
+
+
+def pinhole_project_jacobian_batched(measurement, pose, point):
+    """Row-major residual and hand Jacobian ``(r [B, 2], J [B, 2, 9])``
+    (:func:`pinhole_project_jacobian`, expanded over the batch)."""
+    r, xc0, xc1, xc2 = _camera_frame_batched(pose, point)
+    inv_z = 1.0 / xc2
+    u = xc0 * inv_z
+    v = xc1 * inv_z
+    res = torch.stack([u - measurement[:, 0], v - measurement[:, 1]], dim=-1)
+    zero = torch.zeros_like(u)
+    row0 = torch.stack([
+        u * v, -(1.0 + u * u), xc1 * inv_z,
+        -inv_z, zero, u * inv_z,
+        (r[:, 0, 0] - r[:, 0, 2] * u) * inv_z, (r[:, 1, 0] - r[:, 1, 2] * u) * inv_z,
+        (r[:, 2, 0] - r[:, 2, 2] * u) * inv_z,
+    ], dim=-1)
+    row1 = torch.stack([
+        1.0 + v * v, -u * v, -xc0 * inv_z,
+        zero, -inv_z, v * inv_z,
+        (r[:, 0, 1] - r[:, 0, 2] * v) * inv_z, (r[:, 1, 1] - r[:, 1, 2] * v) * inv_z,
+        (r[:, 2, 1] - r[:, 2, 2] * v) * inv_z,
+    ], dim=-1)
+    return res, torch.stack([row0, row1], dim=1)
 
 
 def _camera_frame(pose_cm, point_cm):
@@ -97,14 +201,16 @@ def pinhole_project_jacobian_cm(measurement, pose_cm, point_cm):
 
 
 def make_pinhole_ba(ncameras=8, nlandmarks=64, prop_visible=1.0, seed=1,
-                    noise=0.0, robust_width=None, dtype=None, device=None,
-                    batched="cm"):
+                    noise=0.0, robust_width=None, dtype=None, hand_jacobian=False,
+                    batched=False, device=None):
     """SE(3)+pinhole BA with ground-truth-generated measurements: cameras on
     a ring of radius 2 looking at the origin, landmarks in a unit cube.
-    Returns ``(problem, cameras, landmarks)``.  Only the components-major
-    batch with the hand Jacobian exists in the port."""
-    if batched != "cm":
-        raise NotImplementedError("the port builds the batched='cm' form only")
+    Returns ``(problem, cameras, landmarks)``.  ``batched`` picks the batch
+    form as in the JAX package: ``False`` (per-cost; Jacobians by autodiff,
+    or :func:`pinhole_project_jacobian` with ``hand_jacobian``), ``True``
+    (row-major, hand Jacobian) or ``"cm"`` (components-major, hand
+    Jacobian: the form the port's Schur backends take; the dense and cg
+    backends take every form)."""
     rng = np.random.default_rng(seed)
     p = Problem(dtype=dtype, device=device)
     cam_man, lmk_man = SE3(), Euclidean(3)
@@ -144,12 +250,18 @@ def make_pinhole_ba(ncameras=8, nlandmarks=64, prop_visible=1.0, seed=1,
     t = poses[ci, :, 3]
     xc = np.einsum("kij,ki->kj", r, points[li] - t)  # R^T (X - t)
     meas = xc[:, :2] / xc[:, 2:3] + rng.standard_normal((len(ci), 2)) * noise
+    if batched == "cm":
+        fn, jacobian = pinhole_project_cm, pinhole_project_jacobian_cm
+    elif batched:
+        fn, jacobian = pinhole_project_batched, pinhole_project_jacobian_batched
+    else:
+        fn, jacobian = pinhole_project, pinhole_project_jacobian if hand_jacobian else None
     p.add_cost_batch(
-        pinhole_project_cm,
+        fn,
         slots=[(cam_man, ci), (lmk_man, li)],
         params=meas,
         kernel=Huber(robust_width) if robust_width else None,
-        jacobian=pinhole_project_jacobian_cm,
-        batched="cm",
+        jacobian=jacobian,
+        batched=batched,
     )
     return p, cameras, landmarks

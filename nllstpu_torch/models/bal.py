@@ -136,7 +136,7 @@ def snavely_jacobian_cm(measurement, camera_cm, point_cm):
 def load_bal(path: str) -> dict:
     """Parse a BAL text file into arrays: cameras [C,9], points [P,3],
     cam_idx [K], pt_idx [K], observations [K,2].  The numpy reader only:
-    the JAX package's native C++ parser waits for ROADMAP Queue 1 item 14."""
+    the JAX package's native C++ parser waits for ROADMAP Queue 1 item 6."""
     raw = np.fromfile(path, sep=" ")
     ncam, npt, nobs = int(raw[0]), int(raw[1]), int(raw[2])
     body = raw[3:]
@@ -165,9 +165,10 @@ def make_bal_problem(data: dict, dtype=None, device=None, robust_width=None,
     points."""
     if batched != "cm" or not hand_jacobian:
         raise NotImplementedError(
-            "the port builds the components-major batch with the hand "
-            "Jacobian only; per-cost batches and autodiff Jacobians come "
-            "with the dense path (ROADMAP Queue 1 item 11)"
+            "the port builds the components-major BAL batch with the hand "
+            "Jacobian only: the dense backend exists, but the per-cost and "
+            "autodiff BAL forms wait for the generic Schur assembly (ROADMAP "
+            "Queue 1 item 4)"
         )
     p = Problem(dtype=dtype, device=device)
     cameras = p.add_variables(CAM, data["cameras"])

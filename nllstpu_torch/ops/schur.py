@@ -58,16 +58,12 @@ import torch
 from ..core import engine
 from ..core.linearsolver import (
     batched_inv_spd, batched_inv_spd_cm, cholesky_solve, cholesky_solve_ex, lu_solve,
+    pcg_chunk, pcg_start,
 )
 from ..core.problem import family_name
 from . import fused_obs, schur_reduce, w_place
 from .segment_sum import segment_block_sum
 
-#: Reduced-PCG iterations between host reads of the convergence flag.
-#: Updates freeze once converged, so the result equals a loop that checks
-#: after every iteration; a solve pays at most this many idle iterations
-#: and reads the device once per chunk instead of once per iteration.
-CG_CHECK_EVERY = 8
 #: Reduced-PCG iteration cap (the JAX package's ``SchurCGOps.max_iters``).
 CG_MAX_ITERS = 500
 
@@ -589,7 +585,7 @@ def check_slice(info: SchurInfo, batches) -> None:
         raise NotImplementedError(
             "a fixed landmark (eliminated variable): its costs form the JAX "
             "package's extras region (_onehot_reduced_tail), ROADMAP Queue 1 "
-            "item 7"
+            "item 4"
         )
     if info.w_impl == "fused" and info.implicit:
         raise NotImplementedError(
@@ -604,28 +600,28 @@ def check_slice(info: SchurInfo, batches) -> None:
                 f"cost batch {bi} is {'row-major' if b.batched else 'per-cost'}: the "
                 "port's Schur assembly takes components-major batches (batched='cm'); "
                 "the JAX package's generic Schur assembly is ROADMAP Queue 1 item 4, "
-                "solver='dense' takes it"
+                "solver='dense' and solver='cg' take it"
             )
         if b.adaptive:
             if info.implicit:
                 raise NotImplementedError(
                     f"cost batch {bi} has an adaptive kernel: the implicit "
                     "backend does not take adaptive batches yet (the JAX "
-                    "package's generic wpart; ROADMAP Queue 1 item 13)"
+                    "package's generic wpart; ROADMAP Queue 1 item 9)"
                 )
             nk = np.unique(np.asarray(b.idx[0])[np.asarray(b.mask)]).size
             if nk != 1:
                 raise NotImplementedError(
                     f"cost batch {bi} has {nk} adaptive kernel variables: the "
                     "port takes one kernel variable shared by the whole batch; "
-                    "per-cost kernels are ROADMAP Queue 1 item 13"
+                    "per-cost kernels are ROADMAP Queue 1 item 9"
                 )
         if f is None:
             raise NotImplementedError(
                 f"cost batch {bi} is not a camera/landmark batch in {order} "
                 "order; other batch shapes (priors, pose-graph edges) take "
                 "the generic Schur assembly of a later slice of the port "
-                "(ROADMAP Queue 1 items 7 and 14)"
+                "(ROADMAP Queue 1 item 4)"
             )
         if info.w_impl == "fused":
             _check_dual_route(bi, f)
@@ -642,8 +638,8 @@ def check_slice(info: SchurInfo, batches) -> None:
                 "the reduced space must be exactly the batch's unfixed "
                 "cameras, in order, and an adaptive kernel's parameters (fixed "
                 "cameras: obs-major batches only): other reduced families are "
-                "ROADMAP Queue 1 items 7 and 14, fixed cameras on the implicit "
-                "and adaptive paths item 5"
+                "ROADMAP Queue 1 item 4, and so are fixed cameras on the implicit "
+                "and adaptive paths"
             )
 
 
@@ -1263,15 +1259,10 @@ class SchurCGOps(_SchurSystem):
         and the start ``state = (x, r, z, p, rz, k)``, each a tensor of its
         own (:meth:`pcg_chunk` may update them in place)."""
         _, b_r, h_ll, g_l, wparts = sys
-        dtype, dev = b_r.dtype, b_r.device
         h_inv = self.damped_inverse(h_ll, lam)
         rhs = b_r - self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))
         inv = self.precond_inverses(sys, lam, h_inv)
-        tol2 = torch.full((), self._tol(dtype), dtype=dtype, device=dev) ** 2 * (rhs @ rhs)
-        r = rhs.clone()
-        z = self._precond(inv, r)
-        state = (torch.zeros_like(rhs), r, z, z.clone(), r @ z,
-                 torch.zeros((), dtype=torch.int32, device=dev))
+        tol2, state = pcg_start(rhs, functools.partial(self._precond, inv), self._tol(rhs.dtype))
         return h_inv, inv, tol2, state
 
     @staticmethod
@@ -1279,29 +1270,12 @@ class SchurCGOps(_SchurSystem):
         return torch.einsum("nst,nt->ns", inv, r.view(inv.shape[0], -1)).reshape(-1)
 
     def pcg_chunk(self, sys, lam, h_inv, inv, tol2, state):
-        """:data:`CG_CHECK_EVERY` PCG iterations from ``state``: the JAX
-        package's body, updates frozen once converged or at
+        """``linearsolver.CG_CHECK_EVERY`` PCG iterations from ``state``
+        (:func:`linearsolver.pcg_chunk` over :meth:`s_matvec`), capped at
         :data:`CG_MAX_ITERS`.  Returns the new state and ``flag = [more,
         iterations]`` in the system's dtype, still on the device."""
-        x, r, z, p, rz, k = state
-        one = torch.ones((), dtype=x.dtype, device=x.device)
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        for _ in range(CG_CHECK_EVERY):
-            active = (r @ r > tol2) & (k < CG_MAX_ITERS)
-            ap = self.s_matvec(sys, h_inv, lam, p)
-            denom = p @ ap
-            alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
-            x = x + alpha * p
-            r = r - alpha * ap
-            z2 = self._precond(inv, r)
-            rz2 = r @ z2
-            beta = rz2 / torch.where(rz == 0, one, rz)
-            p = torch.where(active, z2 + beta * p, p)
-            z = torch.where(active, z2, z)
-            rz = torch.where(active, rz2, rz)
-            k = k + active.to(k.dtype)
-        flag = torch.stack([((r @ r > tol2) & (k < CG_MAX_ITERS)).to(x.dtype), k.to(x.dtype)])
-        return (x, r, z, p, rz, k), flag
+        return pcg_chunk(functools.partial(self.s_matvec, sys, h_inv, lam),
+                         functools.partial(self._precond, inv), tol2, state, CG_MAX_ITERS)
 
     def pcg_finish(self, sys, h_inv, state):
         """The step from the PCG's reduced solution: the landmark

@@ -22,7 +22,10 @@ unset):
 - ``posegraph_lm``, ``posegraph_dogleg``: ``make_pose_graph`` at the
   public parking-garage pose graph's counts (1,661 poses, 6,275 edges:
   ``n_loops=4614``), ``noise=0.01``, float64, pose 0 fixed, ``solver=
-  "dense"``, 20 iterations, ``rel_dcost=1e-12``.
+  "dense"``, 20 iterations, ``rel_dcost=1e-12``;
+- ``posegraph_cg_lm``, ``posegraph_cg_dogleg``: the same through
+  ``solver="cg"`` (the matrix-free PCG, its default tolerance: 1e-14 in
+  float64).
 
 Each case prints one JSON line: start cost, the cost after every
 iteration, the best cost, iterations, linear solves, cost evaluations and
@@ -109,9 +112,9 @@ def _implicit():
     return nt.optimize(p, opts)
 
 
-def _posegraph(iterator):
+def _posegraph(iterator, solver="dense"):
     p, poses, _ = make_pose_graph(1661, 4614, noise=0.01, dtype=jnp.float64)
-    opts = nt.Options(iterator=iterator, solver="dense", max_iters=20, rel_dcost=1e-12,
+    opts = nt.Options(iterator=iterator, solver=solver, max_iters=20, rel_dcost=1e-12,
                       max_time=float("inf"), store_trajectory="jit")
     return nt.optimize(p, opts, unfixed=poses[1:])
 
@@ -127,6 +130,8 @@ CASES = {
     "dogleg_implicit": _implicit,
     "posegraph_lm": lambda: _posegraph(nt.LEVENBERG_MARQUARDT),
     "posegraph_dogleg": lambda: _posegraph(nt.DOGLEG),
+    "posegraph_cg_lm": lambda: _posegraph(nt.LEVENBERG_MARQUARDT, "cg"),
+    "posegraph_cg_dogleg": lambda: _posegraph(nt.DOGLEG, "cg"),
 }
 
 

@@ -126,7 +126,7 @@ def main():
         return a, fast.cpos, fast
 
     problem = cs.bench_problem(dev)
-    comp = compile_problem(problem, schur_family=fam)
+    comp = compile_problem(problem, solver="schur", schur_family=fam)
     a, cpos, fast = tiles(problem, comp)
     b1 = lambda: fused_obs.fused_obs_all(*a[:5], cpos, fast.cstarts, *a[5:])  # noqa: E731
     print(f"{tag} B1 + B6 pinhole bench: events {events_ms(b1, reps):.4f} ms, host enqueue "
@@ -136,14 +136,15 @@ def main():
           f"{events_ms(lambda: comp.assemble(v), reps):.4f} ms", flush=True)
     for name in (cs.FUSED, cs.GAUGE):
         problem, route = cs.dual_problem(name, dev)
-        comp = compile_problem(problem, route["unfixed"], schur_family=fam, w_impl="fused")
+        comp = compile_problem(problem, route["unfixed"], solver="schur", schur_family=fam,
+                               w_impl="fused")
         a, _, _ = tiles(problem, comp)
         b8 = lambda: fused_obs.fused_obs_leg(*a)  # noqa: E731
         print(f"{tag} B8 {name}: events {events_ms(b8, reps):.4f} ms, host enqueue "
               f"{host_ms(b8, reps):.4f} ms, graph {graph_ms(b8, reps):.4f} ms", flush=True)
     for name in cs.BAL:
         problem = cs.bal_problem(name, dev)
-        comp = compile_problem(problem, schur_family=fam)
+        comp = compile_problem(problem, solver="schur", schur_family=fam)
         v = problem.stacked_variables()
         print(f"{tag} assemble {name} (B2): events "
               f"{events_ms(lambda: comp.assemble(v), reps):.4f} ms", flush=True)
@@ -160,7 +161,7 @@ def main():
     solves.append((cs.GAUGE, "damped_inverse + B4", lambda: cs.dual_problem(cs.GAUGE, dev)))
     for name, what, make in solves:
         problem, route = make()
-        comp = compile_problem(problem, route.get("unfixed"), schur_family=fam,
+        comp = compile_problem(problem, route.get("unfixed"), solver="schur", schur_family=fam,
                                w_impl=route.get("w_impl", "fused_all"))
         _, sys_ = comp.assemble(problem.stacked_variables())
         ops = comp.ctx().linops

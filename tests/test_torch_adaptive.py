@@ -300,8 +300,9 @@ def test_refuses_per_cost_kernels():
         [(CG[2].manifold, np.where(np.arange(n) % 2, k[0], k[1])),
          (tbal.CAM, d["cam_idx"]), (tbal.PT, d["pt_idx"])],
         params=d["observations"], kernel=CG[2], jacobian=tbal.snavely_jacobian_cm,
+        batched="cm",
     )
-    assert "per-cost kernels are ROADMAP Queue 1 item 13" in _refused(p)
+    assert "per-cost kernels are ROADMAP Queue 1 item 9" in _refused(p)
 
 
 def test_refuses_other_reduced_families():
@@ -309,11 +310,11 @@ def test_refuses_other_reduced_families():
     p, _, _, _ = tbal.make_bal_problem(
         jbal.make_synthetic_bal(4, 8), device="cpu", kernel=CG[2], kernel_params=CG[1])
     p.add_variable(pt.Euclidean(2), np.zeros(2))
-    assert "other reduced families are ROADMAP Queue 1 items 7 and 14" in _refused(p)
+    assert "other reduced families are ROADMAP Queue 1 item 4" in _refused(p)
 
 
 def test_refuses_implicit_adaptive():
     """The implicit backend does not take adaptive batches yet."""
     p, _, _, _ = tbal.make_bal_problem(
         jbal.make_synthetic_bal(4, 8), device="cpu", kernel=CG[2], kernel_params=CG[1])
-    assert "ROADMAP Queue 1 item 13" in _refused(p, solver="schur_cg")
+    assert "ROADMAP Queue 1 item 9" in _refused(p, solver="schur_cg")

@@ -54,12 +54,14 @@ def _compiled(case):
     """``(compiled, problem, number of fixed cameras)``."""
     if case == "skewed, chunk bucket":
         p = _skewed_pair()[1]
-        return pt.compile_problem(p, schur_family=tbal.PT), p, 0
-    p, cams, lmks = make_pinhole_ba(7, 40, 0.6, noise=1e-3, dtype=torch.float64, device="cpu")
+        return pt.compile_problem(p, solver="schur", schur_family=tbal.PT), p, 0
+    p, cams, lmks = make_pinhole_ba(7, 40, 0.6, noise=1e-3, dtype=torch.float64, batched="cm",
+                                    device="cpu")
     perturb_ba(p, lmks, 0.05, seed=5)
     if case == "pinhole":
-        return pt.compile_problem(p, schur_family=pt.Euclidean(3)), p, 0
-    return pt.compile_problem(p, cams[2:] + lmks, schur_family=pt.Euclidean(3)), p, 2
+        return pt.compile_problem(p, solver="schur", schur_family=pt.Euclidean(3)), p, 0
+    return pt.compile_problem(p, cams[2:] + lmks, solver="schur",
+                              schur_family=pt.Euclidean(3)), p, 2
 
 
 @pytest.mark.parametrize("case", ["pinhole", "skewed, chunk bucket", "first two cameras fixed"])
@@ -261,7 +263,8 @@ def test_compile_on_cpu_never_builds(monkeypatch):
         raise AssertionError("_build.library called on the CPU")
 
     monkeypatch.setattr(_build, "library", refuse)
-    p, _, _ = make_pinhole_ba(5, 30, 0.7, noise=1e-3, dtype=torch.float64, device="cpu")
+    p, _, _ = make_pinhole_ba(5, 30, 0.7, noise=1e-3, dtype=torch.float64, batched="cm",
+                              device="cpu")
     for solver in ("schur", "schur_cg"):
         for plain in (False, True):
             comp = optimize.compile_problem(p, solver=solver, schur_family=pt.Euclidean(3),

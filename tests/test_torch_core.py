@@ -167,15 +167,46 @@ def test_skewed_layout_matches_jax_and_is_rejected(monkeypatch):
 
 
 def test_compile_rejects_other_solvers():
-    """The JAX package's matrix-free "cg" backend is not ported: asked for
-    by name it raises naming the queue item; an unknown solver is a
-    ValueError.  (The dense backend and every iterator are ported.)"""
-    tp, _, _ = tba.make_pinhole_ba(4, 16, dtype=torch.float64, device="cpu")
+    """The JAX package's solver names compile: "cg" and "pcg" to the
+    matrix-free backend (``cg_ops``), the default to "dense", as in the
+    JAX package; an unknown solver is a ValueError."""
+    tp, _, _ = tba.make_pinhole_ba(4, 16, dtype=torch.float64, batched="cm", device="cpu")
     for solver in ("cg", "pcg"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            pt.compile_problem(tp, solver=solver)
+        comp = pt.compile_problem(tp, solver=solver)
+        assert comp.cg_ops is not None and comp.schur_info is None
+        assert comp.cg_ops.dim == comp.layout.dof_total
+    comp = pt.compile_problem(tp)
+    assert comp.dense_plan is not None and comp.cg_ops is None and comp.schur_info is None
     with pytest.raises(ValueError, match="unknown solver"):
         pt.compile_problem(tp, solver="sparse")
+
+
+def test_jax_shaped_calls_mean_the_same():
+    """The entry points take the JAX package's signatures: the parameters
+    of ``Problem.add_cost_batch``, ``compile_problem`` (default "dense")
+    and ``make_pinhole_ba`` (``hand_jacobian``, ``batched=False``) in its
+    order, and ``Options``' fields in the JAX package's order; a
+    positional ``kind`` is the cost's kind."""
+    import dataclasses
+    import inspect
+
+    def params(f, drop=()):
+        return [(n, p.default) for n, p in inspect.signature(f).parameters.items()
+                if n not in drop]
+
+    assert params(pt.Problem.add_cost_batch) == params(nt.Problem.add_cost_batch)
+    assert params(pt.compile_problem, ("plain", "w_impl")) == params(jax_compile)
+    assert params(tba.make_pinhole_ba, ("device",)) == params(jba.make_pinhole_ba)
+    jax_fields = [f.name for f in dataclasses.fields(nt.Options)]
+    port_fields = [f.name for f in dataclasses.fields(pt.Options)]
+    assert [f for f in jax_fields if f in port_fields] == port_fields
+    p = pt.Problem(device="cpu")
+    x = p.add_variables(pt.Euclidean(1), np.zeros((3, 1)))
+    p.add_cost_batch(lambda prm, v: (v[0] - prm) ** 2, [(pt.Euclidean(1), np.arange(3))],
+                     np.ones(3), None, "cost")
+    (b,) = p.batches()
+    assert b.kind == "cost" and b.batched is False and b.jacobian is None
+    assert len(x) == 3
 
 
 def test_device_defaults_to_the_card(monkeypatch):

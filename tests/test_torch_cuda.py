@@ -274,9 +274,10 @@ def test_reduce_s_damped_over_fixed_cameras(cuda):
     from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
 
     problem, cams, lmks = make_pinhole_ba(8, 64, 0.3, noise=1e-3, dtype=torch.float32,
-                                          device=cuda)
+                                          batched="cm", device=cuda)
     perturb_ba(problem, lmks, 0.03, seed=2)
-    comp = compile_problem(problem, cams[:1] + cams[3:] + lmks, schur_family=Euclidean(3))
+    comp = compile_problem(problem, cams[:1] + cams[3:] + lmks, solver="schur",
+                           schur_family=Euclidean(3))
     rows = comp.schur_info.w_rows
     assert int((rows.blk < 0).sum()) > 0
     _, sys_ = comp.assemble(problem.stacked_variables())
@@ -290,8 +291,8 @@ def test_reduce_s_damped_over_fixed_cameras(cuda):
     for name, x, y in zip(("s_sum", "rhs_sum", "h_inv"), out, ref):
         assert _rel_err(x, y) <= 1e-5, (name, _rel_err(x, y))
     assert torch.isfinite(out[2]).all() and torch.equal(out[0], out[0].T)
-    plain = compile_problem(problem, cams[:1] + cams[3:] + lmks, schur_family=Euclidean(3),
-                            plain=True)
+    plain = compile_problem(problem, cams[:1] + cams[3:] + lmks, solver="schur",
+                            schur_family=Euclidean(3), plain=True)
     x = comp.ctx().linops.solve(sys_, lam)
     x_plain = plain.ctx().linops.solve(sys_, lam)
     assert _rel_err(x, x_plain) <= 5e-4
@@ -494,8 +495,9 @@ def test_compile_problem_builds_the_library(cuda):
     from nllstpu_torch.core.manifolds import Euclidean
     from nllstpu_torch.models.ba import make_pinhole_ba
 
-    problem, _, _ = make_pinhole_ba(4, 32, 0.8, noise=1e-3, dtype=torch.float32, device=cuda)
-    compile_problem(problem, schur_family=Euclidean(3))
+    problem, _, _ = make_pinhole_ba(4, 32, 0.8, noise=1e-3, dtype=torch.float32, batched="cm",
+                                    device=cuda)
+    compile_problem(problem, solver="schur", schur_family=Euclidean(3))
     assert _build._lib is not None
 
 
@@ -612,10 +614,10 @@ def _driver_case(cuda):
     from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
 
     problem, _, lmks = make_pinhole_ba(16, 256, 0.3, noise=1e-3, dtype=torch.float32,
-                                       device=cuda)
+                                       batched="cm", device=cuda)
     perturb_ba(problem, lmks, 0.05, seed=5)
     opts = Options(solver="schur", schur_family=Euclidean(3), max_iters=8)
-    return problem, opts, compile_problem(problem, schur_family=opts.schur_family)
+    return problem, opts, compile_problem(problem, solver="schur", schur_family=opts.schur_family)
 
 
 @pytest.mark.cuda
@@ -674,7 +676,7 @@ def test_graph_driver_matches_the_stepped_driver(cuda):
     r_s = nt.optimize(problem, opts, callback=nt.null_callback)
     assert r_g.num_iterations == r_s.num_iterations and r_g.linear_solves == r_s.linear_solves
     assert r_g.costs == r_s.costs
-    plain = compile_problem(problem, schur_family=opts.schur_family, plain=True)
+    plain = compile_problem(problem, solver="schur", schur_family=opts.schur_family, plain=True)
     with pytest.raises(ValueError, match="plain"):
         run_graphs(plain, opts, problem.stacked_variables())
 
@@ -769,3 +771,83 @@ def test_capture_survives_collected_runners(cuda):
     finally:
         gc.set_threshold(*old)
     assert all([c.tobytes() for c in t] == [c.tobytes() for c in traces[0]] for t in traces)
+
+
+def _cg_case(cuda, iterator="levenberg_marquardt"):
+    """A float64 pose graph (200 poses, 400 loop closures, pose 0 fixed)
+    through the cg backend."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.posegraph import make_pose_graph
+
+    problem, poses, _ = make_pose_graph(200, 400, noise=0.01, device=cuda)
+    opts = nt.Options(iterator=iterator, solver="cg", max_iters=6, rel_dcost=1e-12)
+    return problem, opts, poses[1:], compile_problem(problem, poses[1:], solver="cg")
+
+
+@pytest.mark.cuda
+def test_cg_matvec_through_b6_matches_plain(cuda):
+    """The cg backend's assembly and matvec with their per-variable sums
+    through B6 (one launch per sum) against the same through B6's plain
+    version: float64 within 1e-12 of the largest entry, and two launches
+    give the same bits."""
+    import dataclasses
+
+    from nllstpu_torch.ops import cg
+
+    problem, _, _, comp = _cg_case(cuda)
+    ops = comp.ctx().linops
+    plain = dataclasses.replace(ops, segment_sum=segment_sum.segment_block_sum_reference)
+    variables = problem.stacked_variables()
+    before = segment_sum.LAUNCHES
+    c, sys_ = cg.assemble_cg(comp.batches, variables, ops)
+    x = torch.randn(ops.dim, dtype=torch.float64, device=cuda)
+    lam = torch.tensor(1e-3, dtype=torch.float64, device=cuda)
+    y, y2 = ops.matvec(sys_, lam, x), ops.matvec(sys_, lam, x)
+    torch.cuda.synchronize()
+    assert segment_sum.LAUNCHES - before == 3 + 2  # g, diagonal, blocks; two matvecs
+    assert torch.equal(y, y2)
+    c_p, sys_p = cg.assemble_cg(comp.batches, variables, plain)
+    for a, b in ((c, c_p), (sys_[0], sys_p[0]), (sys_[3][0], sys_p[3][0]), (sys_[4], sys_p[4]),
+                 (y, plain.matvec(sys_, lam, x))):
+        assert _rel_err(a, b) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterator", ["levenberg_marquardt", "dogleg"])
+def test_cg_pieces_capture_and_replay(cuda, iterator):
+    """Every cg piece is captured in a CUDA graph (the assembly, the PCG's
+    set-up, chunk and finish or leg, the combination trials) and its
+    replays give the eager pieces' bits: one trial (or leg) at two λ; the
+    graph driver through ``optimize`` gives the stepped driver's trace and
+    PCG iterations."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core import optimize
+
+    problem, opts, unfixed, comp = _cg_case(cuda, iterator)
+    vars0 = problem.stacked_variables()
+    runner = optimize._GraphRunner(comp, opts, vars0)
+    expect = {"assemble", "pcg_setup", "pcg_chunk"} | (
+        {"pcg_finish"} if iterator == "levenberg_marquardt"
+        else {"pcg_leg", "trial_cauchy", "trial_newton", "trial_blend"})
+    assert set(runner.graphs) == expect
+    ctx = comp.ctx(opts)
+    runner.assemble(runner.vars)
+    with optimize._cusolver(cuda):  # the eager pieces factor as the captures do
+        _, sys_e = comp.assemble(vars0)
+        g_e = ctx.grad(sys_e)
+        assert torch.equal(runner.g, g_e)
+        if iterator == "levenberg_marquardt":
+            for lam in (1e-2, 1e-5):
+                _, x_e, read_e = ctx.trial(sys_e, g_e, vars0, np.float64(lam))
+                _, x_g, read_g = runner.trial(None, None, None, np.float64(lam))
+                assert read_g == read_e and torch.equal(x_g, x_e)
+        else:
+            legs_e, read_e = ctx.leg(sys_e, g_e)
+            _, read_g = runner.leg(None, None)
+            assert read_g == read_e and torch.equal(runner.xn, legs_e[0])
+    assert runner.linops.cg_iters == ctx.linops.cg_iters[-len(runner.linops.cg_iters):]
+    r_g = nt.optimize(problem, opts, unfixed=unfixed)
+    problem, opts, unfixed, _ = _cg_case(cuda, iterator)
+    r_s = nt.optimize(problem, opts, unfixed=unfixed, callback=nt.null_callback)
+    assert r_g.num_iterations >= 2 and r_g.costs == r_s.costs

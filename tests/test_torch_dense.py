@@ -4,8 +4,9 @@ row-major batch with a hand Jacobian, a per-cost batch and a
 components-major batch with autodiff Jacobians, each robustified), the
 fixed robust kernels, ``SO3`` and ``so3_log``, the small models
 (Rosenbrock through all four iterators, robust curve fitting under each
-fixed kernel, a 20-pose pose graph) and ``solver="auto"`` (and the
-refusals that remain: "cg", an adaptive kernel on the dense backend).
+fixed kernel, a 20-pose pose graph), ``make_pinhole_ba``'s per-cost
+and row-major forms, and ``solver="auto"`` (and the refusal that
+remains: an adaptive kernel on the dense backend).
 
 Tolerances: the assembled system (cost, H, g) within 1e-12 of its largest
 entry (the same float64 arithmetic, summed in another order); kernels
@@ -274,15 +275,16 @@ def test_pose_graph_matches_jax(iterator):
 def test_auto_solver_picks_as_jax():
     """``solver="auto"``: dense on Rosenbrock (d ≤ 40), Schur over the
     detected landmark family on the flagship BA problem without a
-    ``schur_family``; on a pose graph, where the JAX package takes its
-    matrix-free "cg" backend, the port raises naming Queue 1 item 5."""
+    ``schur_family``, and on a pose graph the matrix-free "cg" backend,
+    as the JAX package picks; an adaptive kernel is refused by the dense
+    backend."""
     p, _, _ = make_rosenbrock(device="cpu")
     jp, _, _ = jax_rosenbrock()
     jc = jax_compile(jp, solver="auto")
     assert jc.schur_info is None and jc.cg_ops is None
     tc = compile_problem(p, solver="auto")
     assert tc.schur_info is None and tc.dense_plan is not None
-    bp, _, _ = tba.make_pinhole_ba(8, 64, 1.0, dtype=torch.float64, device="cpu")
+    bp, _, _ = tba.make_pinhole_ba(8, 64, 1.0, dtype=torch.float64, batched="cm", device="cpu")
     jbp, _, _ = jba.make_pinhole_ba(8, 64, 1.0, dtype=jnp.float64, batched="cm")
     jc = jax_compile(jbp, solver="auto")
     tc = compile_problem(bp, solver="auto")
@@ -292,10 +294,36 @@ def test_auto_solver_picks_as_jax():
     gp, poses, _ = make_pose_graph(20, 5, device="cpu")
     jgp, _, _ = jax_pose_graph(20, 5)
     assert jax_compile(jgp, solver="auto").cg_ops is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pt.optimize(gp, pt.Options(), unfixed=poses[1:])
+    tc = compile_problem(gp, poses[1:], solver="auto")
+    assert tc.cg_ops is not None and tc.schur_info is None and tc.dense_plan is None
     cg = pt.ContaminatedGaussian()
     bp2, _, _, _ = tbal.make_bal_problem(jbal.make_synthetic_bal(4, 8), device="cpu", kernel=cg,
                                          kernel_params=cg.make_params(1.0, 10.0, 0.8))
     with pytest.raises(NotImplementedError, match="adaptive kernel on the dense backend"):
         compile_problem(bp2, solver="dense")
+
+
+@pytest.mark.parametrize("batched,hand", [(False, False), (True, True)])
+def test_pinhole_forms_match_jax_dense_assembly(batched, hand):
+    """``make_pinhole_ba`` in the JAX package's per-cost (autodiff) and
+    row-major (hand Jacobian) forms, built by both packages at 8/64 with
+    the points perturbed: the port's dense assembly gives the JAX
+    package's cost, H and g within 1e-12 of the largest entry, and the cg
+    assembly the same gradient."""
+    jp, _, jl = jba.make_pinhole_ba(8, 64, 0.7, noise=1e-3, dtype=jnp.float64, batched=batched,
+                                    hand_jacobian=hand)
+    jba.perturb_ba(jp, jl, 0.02, seed=5)
+    c_j, (h_j, g_j) = jax.jit(jax_compile(jp).assemble)(jp.stacked_variables())
+    p, _, lmks = tba.make_pinhole_ba(8, 64, 0.7, noise=1e-3, dtype=torch.float64,
+                                     batched=batched, hand_jacobian=hand, device="cpu")
+    tba.perturb_ba(p, lmks, 0.02, seed=5)
+    (b,) = p.batches()
+    assert b.batched is batched and (b.jacobian is not None) == hand
+    variables = p.stacked_variables()
+    c, (h, g) = compile_problem(p).assemble(variables)
+    for got, ref in ((c, c_j), (h, h_j), (g, g_j)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    _, sys_c = compile_problem(p, solver="cg").assemble(variables)
+    np.testing.assert_allclose(sys_c[0].numpy(), g.numpy(), rtol=0,
+                               atol=1e-12 * float(g.abs().max()))

@@ -30,7 +30,7 @@ LMK = pt.family_name(pt.Euclidean(3))
 
 
 def _pinhole(dtype=torch.float64):
-    p, _, lmks = make_pinhole_ba(**FLAGSHIP, dtype=dtype, device="cpu")
+    p, _, lmks = make_pinhole_ba(**FLAGSHIP, dtype=dtype, batched="cm", device="cpu")
     perturb_ba(p, lmks, 0.01, seed=5)
     return p
 
@@ -187,7 +187,7 @@ def test_lambda_tensor_gives_the_float_bits(case):
         assert len(ops.cg_iters) == 4 and ops.cg_iters[0] == ops.cg_iters[1]
         return
     problem = _pinhole()
-    comp = compile_problem(problem, schur_family=pt.Euclidean(3))
+    comp = compile_problem(problem, solver="schur", schur_family=pt.Euclidean(3))
     ops = comp.ctx().linops
     _, sys64 = comp.assemble(problem.stacked_variables())
     sys32 = tuple(t.float() for t in sys64)

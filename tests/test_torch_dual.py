@@ -40,7 +40,8 @@ def _pair(ncam, nlmk, seed, vis=0.7):
     package's ``(cameras, landmarks)`` handles."""
     jp, jc, jl = jax_make_ba(ncam, nlmk, vis, noise=1e-3, dtype=jnp.float64, batched="cm")
     jax_perturb_ba(jp, jl, 0.03, seed=seed)
-    tp, tc, tl = make_pinhole_ba(ncam, nlmk, vis, noise=1e-3, dtype=torch.float64, device="cpu")
+    tp, tc, tl = make_pinhole_ba(ncam, nlmk, vis, noise=1e-3, dtype=torch.float64, batched="cm",
+                                 device="cpu")
     perturb_ba(tp, tl, 0.03, seed=seed)
     return (jp, jc, jl), (tp, tc, tl)
 
@@ -193,7 +194,7 @@ def test_gauge_fixed_lm_trace_matches_jax(problem, w_impl):
     rounding alone."""
     r_j, final_j = _gauge_fixed_jax(problem)
     _, (tp, t_unfixed, tc, fam) = _gauge_fixed_pair(problem)
-    comp = pt.compile_problem(tp, t_unfixed, schur_family=fam, w_impl=w_impl)
+    comp = pt.compile_problem(tp, t_unfixed, solver="schur", schur_family=fam, w_impl=w_impl)
     (fast,) = comp.schur_info.fast
     assert fast.n_r == len(tc) - 2
     assert len(fast.buckets) == (4 if problem == "bal" else 1)
@@ -251,23 +252,23 @@ def test_refusals(monkeypatch):
     _, (tp, tc, tl) = _pair(4, 16, 1)
     euc = pt.Euclidean(3)
     with pytest.raises(NotImplementedError, match="fixed landmark"):
-        pt.compile_problem(tp, tc + tl[1:], schur_family=euc)
+        pt.compile_problem(tp, tc + tl[1:], solver="schur", schur_family=euc)
     bp, _, _ = tbal.make_bal_problem(
         tbal.make_realistic_bal(12, 160, seed=3, noise=1e-3), dtype=torch.float64, device="cpu"
     )
     with pytest.raises(NotImplementedError, match="degree buckets"):
-        pt.compile_problem(bp, schur_family=tbal.PT, w_impl="fused")
+        pt.compile_problem(bp, solver="schur", schur_family=tbal.PT, w_impl="fused")
     with pytest.raises(NotImplementedError, match="implicit backend"):
         pt.compile_problem(tp, solver="schur_cg", schur_family=euc, w_impl="fused")
     with pytest.raises(NotImplementedError, match="fixed cameras on the implicit"):
         pt.compile_problem(tp, tc[1:] + tl, solver="schur_cg", schur_family=euc)
     with pytest.raises(ValueError, match="w_impl"):
-        pt.compile_problem(tp, schur_family=euc, w_impl="onehot")
+        pt.compile_problem(tp, solver="schur", schur_family=euc, w_impl="onehot")
     with pytest.raises(ValueError, match="no unfixed variables"):
         pt.optimize(tp, pt.Options(schur_family=euc), unfixed=[])
     monkeypatch.setattr(schur, "_FAST_MAX_CAM_K", 1)
     with pytest.raises(NotImplementedError, match="skew limits"):
-        pt.compile_problem(tp, schur_family=euc, w_impl="fused")
+        pt.compile_problem(tp, solver="schur", schur_family=euc, w_impl="fused")
 
 
 @pytest.mark.parametrize("dtype,route", [
@@ -279,9 +280,10 @@ def test_solve_routes_by_dtype(dtype, route):
     over inverses formed in float64, otherwise; B5's route over W's own
     structure (``schur.w_structure``) gives the same step, each route
     through its plain version."""
-    tp, tc, tl = make_pinhole_ba(5, 30, 0.7, noise=1e-3, dtype=dtype, device="cpu")
+    tp, tc, tl = make_pinhole_ba(5, 30, 0.7, noise=1e-3, dtype=dtype, batched="cm", device="cpu")
     perturb_ba(tp, tl, 0.03, seed=2)
-    comp = pt.compile_problem(tp, tc[1:] + tl, schur_family=pt.Euclidean(3), w_impl="fused")
+    comp = pt.compile_problem(tp, tc[1:] + tl, solver="schur", schur_family=pt.Euclidean(3),
+                              w_impl="fused")
     calls = []
 
     def counted(name):

@@ -43,7 +43,7 @@ def _pair(gauge=True):
     """The flagship in both packages, and each one's ``unfixed``."""
     jp, jc, jl = jax_make_ba(**FLAGSHIP, dtype=jnp.float64, batched="cm")
     jax_perturb_ba(jp, jl, 0.01, seed=5)
-    tp, tc, tl = make_pinhole_ba(**FLAGSHIP, dtype=torch.float64, device="cpu")
+    tp, tc, tl = make_pinhole_ba(**FLAGSHIP, dtype=torch.float64, batched="cm", device="cpu")
     perturb_ba(tp, tl, 0.01, seed=5)
     if not gauge:
         return (jp, None), (tp, None)
@@ -144,7 +144,7 @@ def test_initial_trust_radius_and_step_size():
     np.testing.assert_allclose(tr, 1e-3, rtol=1e-12)
     assert abs(first_step_norm(iterator=pt.DOGLEG) - 1e-3) > 1e-4
     _, (tp, tu) = _pair()
-    comp = compile_problem(tp, tu, schur_family=pt.Euclidean(3))
+    comp = compile_problem(tp, tu, solver="schur", schur_family=pt.Euclidean(3))
     _, sys_ = comp.assemble(tp.stacked_variables())
     gnorm = float(comp.ctx().grad(sys_).norm())
     gd = first_step_norm(iterator=pt.GRADIENT_DESCENT, init_gd_step=1e-4)
@@ -186,7 +186,7 @@ def test_graph_runner_captures_only_its_iterators_pieces():
     from nllstpu_torch.core.optimize import _GraphRunner
 
     _, (tp, tu) = _pair()
-    comp = compile_problem(tp, tu, schur_family=pt.Euclidean(3))
+    comp = compile_problem(tp, tu, solver="schur", schur_family=pt.Euclidean(3))
     vars0 = tp.stacked_variables()
     pieces = {it: set(_GraphRunner(comp, _opts(pt, iterator=it), vars0).bodies)
               for it in (pt.LEVENBERG_MARQUARDT, *ITERATORS)}

@@ -46,13 +46,13 @@ def _compiled(case):
         data = tbal.make_realistic_bal(ncameras=12, npoints=160, seed=3, noise=1e-3)
         p, _, pts = tbal.make_bal_problem(data, dtype=torch.float64, device="cpu")
         perturb_ba(p, pts, 0.05, seed=5)
-        comp = pt.compile_problem(p, schur_family=tbal.PT)
+        comp = pt.compile_problem(p, solver="schur", schur_family=tbal.PT)
     else:
         p, cams, lmks = make_pinhole_ba(8, 64, 0.3, noise=1e-3, dtype=torch.float64,
-                                        device="cpu")
+                                        batched="cm", device="cpu")
         perturb_ba(p, lmks, 0.03, seed=2)
         unfixed = cams[:1] + cams[3:] + lmks if case == "fixed-cameras" else None
-        comp = pt.compile_problem(p, unfixed, schur_family=pt.Euclidean(3))
+        comp = pt.compile_problem(p, unfixed, solver="schur", schur_family=pt.Euclidean(3))
     return comp, comp.assemble(p.stacked_variables())[1]
 
 
@@ -116,10 +116,11 @@ def test_row_tables_hold_each_incidence_once(case):
 def test_row_tables_only_for_obs_major_direct_w():
     """The implicit backend builds no W tables; the obs-major direct W
     its tables as ``w_rows`` (B3/B4), never as ``w_pairs`` (B5)."""
-    p, _, lmks = make_pinhole_ba(6, 40, 0.5, noise=1e-3, dtype=torch.float64, device="cpu")
+    p, _, lmks = make_pinhole_ba(6, 40, 0.5, noise=1e-3, dtype=torch.float64, batched="cm",
+                                 device="cpu")
     info = pt.compile_problem(p, solver="schur_cg", schur_family=pt.Euclidean(3)).schur_info
     assert info.implicit and info.w_rows is None and info.w_pairs is None
-    info = pt.compile_problem(p, schur_family=pt.Euclidean(3)).schur_info
+    info = pt.compile_problem(p, solver="schur", schur_family=pt.Euclidean(3)).schur_info
     assert info.w_rows is not None and info.w_pairs is None and info.table_seconds > 0
 
 

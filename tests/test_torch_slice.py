@@ -46,7 +46,7 @@ def _pair(ncam, nlmk, vis, noise, robust, perturb=0.01):
     jax_perturb_ba(jp, jl, perturb, seed=5)
     tp, _, tl = make_pinhole_ba(
         ncam, nlmk, vis, noise=noise, robust_width=robust, dtype=torch.float64,
-        device="cpu",
+        batched="cm", device="cpu",
     )
     perturb_ba(tp, tl, perturb, seed=5)
     return jp, tp
