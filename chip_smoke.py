@@ -47,7 +47,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
    the preconditioner's correction, over landmark and camera runs,
    recorded from one assembly and one damped solve), of the adaptive
    direct problem (21 over landmark runs: h_ll, g_l and the kernel–point
-   cross; 81 over camera runs: a_rr, b_r and the kernel–camera cross) and
+   cross; 81 over camera runs: a_rr, b_r and the kernel–camera cross), of
+   the per-cost problem through ``solver="schur"`` (9: b_r, 81: a_rr, 12:
+   h_ll + g_l of the observations and the priors) and ``solver="schur_cg"``
+   (also 3 for Wᵀv, 9 for W u, 81 for the preconditioner's correction) and
    of the camera side of B1 and B2 (27 on the pinhole bench, 54 on
    Ladybug-49 and bench-realistic: the per-slot camera rows, made here by
    B2's plain version), and on a synthetic case with empty runs and one
@@ -65,9 +68,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
    the JAX package's CPU float32 start and best cost (constants below).
    The Dubrovnik-class run prints the peak device memory.
 9. B7 and B5 — kernels ``place_w`` and ``reduce_s`` against their plain
-   versions on the inputs the adaptive main path gives them (recorded
-   from one assembly and one damped solve: W [8192, 3, 1155] and its
-   column-block structure), B7 also on a synthetic case with empty runs,
+   versions on the inputs the adaptive main path and the per-cost path
+   give them (recorded from one assembly and one damped solve: W [8192, 3,
+   1155] and [7773, 3, 432], and their column-block structures), B7 also
+   on a synthetic case with empty runs,
    repeated cameras, dropped costs and a row past 48 KB of shared memory,
    B5 also at dl = 5 on a synthetic W that is zero outside a random block
    structure; two B5 launches must give the same bits and s_sum must be
@@ -120,7 +124,7 @@ Phases, one line each or more; any failure raises and exits non-zero:
 14. timed loops — 10 iterations of the pinhole (through B1 and through
    the dual-sorted route), gauge-fixed, Ladybug-49, bench-realistic
    implicit and adaptive bench-realistic loops, through the graph driver,
-   the stepped driver and the plain versions (``run_loop``) in turns, with
+   the stepped driver and the plain versions (``run_loop``), once each, with
    each loop's peak device memory and the graph driver's warm-up and
    capture seconds; once more of each with CUDA events around every phase
    (the graph driver's: around every replay; the implicit loops also print
@@ -171,6 +175,23 @@ Phases, one line each or more; any failure raises and exits non-zero:
    matvec; then the loops timed as in 17 (PCG iterations per solve, one
    matvec's time, the PCG chunk's replay time, peak device memory) and
    profiled.
+19. generic Schur main paths — LM through ``nt.optimize``, launch counts
+   set to 0 just before and read just after, then once more through the
+   graph driver and once through the stepped driver: Ladybug-49 in the
+   per-cost form (``make_bal_problem(..., batched=False)``: 34,619
+   observations, autodiff Jacobians, float64) with a prior batch on every
+   25th point, the first camera and three points fixed, through
+   ``solver="schur"`` (the generic route: B5, B6 and B7, never B1–B4 or
+   B8) and ``solver="schur_cg"`` with ``linear_tol=1e-8`` (B6 only), each
+   held to the JAX package's CPU float64 trace (the trace gate, at
+   ``rel_dcost=1e-6``) through both drivers, the implicit one also to its
+   PCG iterations per solve within ±1, a second graph-driver run to the
+   first one's bits; bench-realistic in float32 with riders (a prior batch
+   on every camera and one on every 100th free point) and its 81 lowest-id
+   points fixed (the extras region), the obs-major route (B2, B6 and B3,
+   never B1, B5 or B7), held to the JAX package's CPU float32 start and
+   best cost (slack 1e-2) through both drivers.  Their loops are timed and
+   profiled as in 17.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -210,6 +231,7 @@ import gc
 import json
 import subprocess
 import time
+import types
 
 import torch
 
@@ -337,6 +359,34 @@ ITER_REF = {
         start=116.01294325641327, best=1.3664886384424857,
         costs=(27.732453835470192, 1.3810452048160364, 1.3664888056786402,
                1.3664886384484565, 1.3664886384424864, 1.3664886384424857)),
+}
+#: The generic Schur assembly's main paths, and the JAX package's CPU runs
+#: of them (``JAX_PLATFORMS=cpu python scripts_torch/iterator_reference.py
+#: ladybug_percost_lm ladybug_percost_cg bench_riders_f32``, ~2 min):
+#: Ladybug-49 in the per-cost form (autodiff Jacobians, float64) with a
+#: prior batch on every 25th point, the first camera and three points
+#: fixed, LM with ``rel_dcost=1e-6`` through ``solver="schur"`` (the
+#: generic route: B6, B7, B5) and ``solver="schur_cg"`` with
+#: ``linear_tol=1e-8`` (B6; the PCG iterations of every damped solve);
+#: bench-realistic in float32 with riders (a prior batch on every camera and
+#: one on every 100th free point) and its 81 lowest-id points fixed, the
+#: obs-major route (B2, B6, B3), the bench options.
+PERCOST = "Ladybug-49 per-cost"
+PERCOST_CG = "Ladybug-49 per-cost implicit"
+RIDERS = "bench-realistic with riders"
+GENERIC_REF = {
+    PERCOST: dict(
+        start=373994.9043413996, best=0.02297439421572495,
+        costs=(1036.8302741812097, 70.34228151350952, 4.708976156073184, 0.16573947703244557,
+               0.025093875823566286, 0.022980769577354666, 0.02297490991588189,
+               0.022974428128800052, 0.02297439425988378, 0.02297439421572495)),
+    PERCOST_CG: dict(
+        start=373994.9043413996, best=0.022974394215725717,
+        costs=(1036.8302741642515, 70.34228151412424, 4.70897615617682, 0.16573947703611303,
+               0.02509387582346318, 0.022980769577337568, 0.02297490991587845,
+               0.022974428128802883, 0.022974394259881473, 0.022974394215725717),
+        pcg_iters=(45, 68, 77, 77, 76, 76, 85, 92, 89, 88)),
+    RIDERS: dict(start=946645.25, best=0.0758107602596283),
 }
 #: ``make_curve_fit`` (100 samples, 15% outliers, seed 0) under each fixed
 #: kernel at width 0.5, LM in float64 with the default options: the JAX
@@ -602,6 +652,66 @@ def adaptive_problem(device):
     )
     perturb_ba(problem, points, 0.01, seed=5)
     return problem, kh
+
+
+def point_prior(measurement, point):
+    """A prior on a point: its offset from ``measurement``."""
+    return point - measurement
+
+
+def camera_prior(measurement, camera):
+    """A prior on a Snavely camera: its offset from ``measurement``."""
+    return camera - measurement
+
+
+def percost_problem(device):
+    """``(problem, route)``: Ladybug-49 in the per-cost form in float64,
+    with a prior batch on every 25th point from the fourth on (its true
+    position), the first camera and the first three points fixed at their
+    true values, the free points perturbed by 0.05."""
+    import numpy as np
+
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import PT, make_bal_problem, make_realistic_bal
+
+    data = make_realistic_bal(**BAL["Ladybug-49"][0])
+    problem, cams, pts = make_bal_problem(data, dtype=torch.float64, device=device,
+                                          batched=False)
+    idx = np.arange(3, len(pts), 25)
+    problem.add_cost_batch(point_prior, slots=[(PT, idx)], params=data["points"][idx])
+    perturb_ba(problem, pts[3:], 0.05, seed=5)
+    return problem, dict(unfixed=cams[1:] + pts[3:])
+
+
+def riders_problem(device):
+    """``(problem, route)``: bench-realistic in float32 with a prior batch
+    on every camera and one on every 100th free point (their true values),
+    its 81 lowest-id points (1%) fixed at their true values, the free points
+    perturbed by 0.05."""
+    import numpy as np
+
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import CAM, PT, make_bal_problem, make_realistic_bal
+
+    data = make_realistic_bal(**BAL["bench-realistic"][0])
+    problem, cams, pts = make_bal_problem(data, dtype=torch.float32, device=device)
+    n_fix = len(pts) // 100
+    problem.add_cost_batch(camera_prior, slots=[(CAM, np.arange(len(cams)))],
+                           params=data["cameras"])
+    idx = np.arange(n_fix, len(pts), 100)
+    problem.add_cost_batch(point_prior, slots=[(PT, idx)], params=data["points"][idx])
+    perturb_ba(problem, pts[n_fix:], 0.05, seed=5)
+    return problem, dict(unfixed=cams + pts[n_fix:])
+
+
+def generic_options(solver):
+    """The per-cost path's options: LM, ``rel_dcost=1e-6`` (the float64
+    trace gate's stop rule), ``linear_tol=1e-8`` on the implicit solve."""
+    import nllstpu_torch as nt
+
+    return nt.Options(solver=solver, schur_family=nt.Euclidean(3), rel_dcost=1e-6,
+                      max_time=float("inf"),
+                      linear_tol=1e-8 if solver == "schur_cg" else None)
 
 
 def bench_options():
@@ -932,13 +1042,16 @@ def phase_b6(device, camera_cases):
         torch.randn(int(starts[-1]), 12, generator=gen, dtype=torch.float64).to(device),
         starts.to(device),
     ), **camera_cases}
-    paths = [(name, lambda name=name: bal_problem(name, device), implicit_options(name))
+    paths = [(name, lambda name=name: (bal_problem(name, device), {}), implicit_options(name))
              for name in IMPLICIT]
-    paths.append((ADAPTIVE, lambda: adaptive_problem(device)[0], adaptive_options()))
+    paths.append((ADAPTIVE, lambda: (adaptive_problem(device)[0], {}), adaptive_options()))
+    paths.append((PERCOST, lambda: percost_problem(device), generic_options("schur")))
+    paths.append((PERCOST_CG, lambda: percost_problem(device), generic_options("schur_cg")))
     for name, make, opts in paths:
-        problem = make()
-        comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
-        if comp.schur_info.implicit != (name in IMPLICIT):
+        problem, route = make()
+        comp = compile_problem(problem, route.get("unfixed"), solver=opts.solver,
+                               schur_family=opts.schur_family)
+        if comp.schur_info.implicit != (name in IMPLICIT or name == PERCOST_CG):
             raise AssertionError(f"{name}: solver={opts.solver!r} compiled the wrong backend")
         L = comp.schur_info.num_elim
         seen = {}
@@ -993,18 +1106,30 @@ def phase_b6(device, camera_cases):
 
 
 def adaptive_inputs(device):
-    """The inputs B7 and B5 receive on the adaptive main path: one
-    assembly and one damped solve of its compiled problem, with recorders
-    in place of the two kernels that keep a copy of what they are given."""
+    """The inputs B7 and B5 receive on the adaptive main path and on the
+    per-cost path through ``solver="schur"``: ``({path: B7 input}, {path:
+    B5 input})`` (:func:`recorded_inputs`)."""
+    place, reduce = {}, {}
+    for label, (problem, route), opts in (
+            (ADAPTIVE, (adaptive_problem(device)[0], {}), adaptive_options()),
+            (PERCOST, percost_problem(device), generic_options("schur"))):
+        place[label], reduce[label] = recorded_inputs(problem, route, opts)
+    return place, reduce
+
+
+def recorded_inputs(problem, route, opts):
+    """The inputs B7 and B5 receive on a direct path: one assembly and one
+    damped solve of its compiled problem, with recorders in place of the
+    two kernels that keep a copy of what they are given (B7's first
+    launch)."""
     from nllstpu_torch.core.optimize import compile_problem
 
-    problem, _ = adaptive_problem(device)
-    opts = adaptive_options()
-    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+    comp = compile_problem(problem, route.get("unfixed"), solver=opts.solver,
+                           schur_family=opts.schur_family)
     kern, seen = comp.kernels, {}
 
     def place(we, lstarts, colbase, wc):
-        seen["place_w"] = (we.clone(), lstarts, colbase, wc)
+        seen.setdefault("place_w", (we.clone(), lstarts, colbase, wc))
         return kern.place_w(we, lstarts, colbase, wc)
 
     def reduce(w, h_inv, g_l, pairs):
@@ -1019,11 +1144,12 @@ def adaptive_inputs(device):
 
 
 def phase_b7(device, main_inputs):
-    """B7 against its plain version on the adaptive main path's input and
-    on a synthetic case: empty runs, cameras seen twice in a run, dropped
+    """B7 against its plain version on the main paths' inputs
+    (``main_inputs``, by path: the adaptive and the per-cost one) and on a
+    synthetic case: empty runs, cameras seen twice in a run, dropped
     costs (a negative column and one past W's columns), and a float64 row
-    of 72 KB (past the 48 KB of static shared memory).  A record for the
-    main path."""
+    of 72 KB (past the 48 KB of static shared memory).  A record per main
+    path."""
     from nllstpu_torch.ops import w_place
 
     kern, plain = w_place.place_w, w_place.place_w_reference
@@ -1038,11 +1164,11 @@ def phase_b7(device, main_inputs):
     colbase[::11] = -1
     colbase[5::13] = wc - dr_s + 1
     cases = {
-        ADAPTIVE: main_inputs,
+        **main_inputs,
         "synthetic": (torch.randn(n, dl, dr_s, generator=gen, dtype=torch.float64),
                       lstarts, colbase, wc),
     }
-    record = None
+    records = {}
     for label, (we, lst, cb, wc) in cases.items():
         we, lst, cb = we.to(device), lst.to(device), cb.to(device)
         ref = plain(we.double(), lst, cb, wc)
@@ -1055,7 +1181,7 @@ def phase_b7(device, main_inputs):
             raise AssertionError(f"B7 {label}: two launches differ")
         line = (f"B7 {label} (B {we.shape[0]}, W {tuple(out32.shape)}): rel err f64 "
                 f"{e64:.2e} f32 {e32:.2e}, deterministic")
-        if label != ADAPTIVE:
+        if label not in main_inputs:
             print(line, flush=True)
             continue
         f32 = we.float()
@@ -1066,17 +1192,20 @@ def phase_b7(device, main_inputs):
         if rel_err(lib, ref) > TOL_B57_F32:
             raise AssertionError(f"B7 {label}: index_add_ disagrees")
         ms = time_ms(lambda: kern(f32, lst, cb, wc))
+        device_ms = graph_ms(lambda: kern(f32, lst, cb, wc))
         plain_ms = time_ms(lambda: plain(f32, lst, cb, wc))
         library_ms = time_ms(lambda: wz.index_add_(0, idx, vals))
         zeros_ms = time_ms(lambda: torch.zeros(
             out32.numel(), dtype=torch.float32, device=device).index_add_(0, idx, vals))
         b = bound(nbytes(f32, lst, cb, out32), int(keep.sum()))
-        print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ into a "
-              f"zeroed W {library_ms:.4f} ms, torch.zeros + index_add_ {zeros_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        record = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms, **b,
-                      library_ms=library_ms, zeros_library_ms=zeros_ms)
-    return {ADAPTIVE: record}
+        print(f"{line} | kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, index_add_ into a zeroed W {library_ms:.4f} ms, "
+              f"torch.zeros + index_add_ {zeros_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})", flush=True)
+        records[label] = dict(max_abs_err=abs_err(out32, ref), ms=ms, plain_ms=plain_ms, **b,
+                              graph_ms=device_ms, library_ms=library_ms,
+                              zeros_library_ms=zeros_ms)
+    return records
 
 
 def structured_case(gen, L, dl, widths, spare):
@@ -1105,21 +1234,22 @@ def structured_case(gen, L, dl, widths, spare):
 
 
 def phase_b5(device, main_inputs):
-    """B5 against its plain version on the adaptive main path's input (dl
-    = 3, wc = 1155, over its column-block structure) and at dl = 5 on a
-    synthetic W zero outside a random block structure; two launches give
-    the same bits.  A record for the main path, with both bounds: the
-    structural one (``bound_ms``) and the dense product's."""
+    """B5 against its plain version on the main paths' inputs
+    (``main_inputs``, by path: the adaptive one, dl = 3, wc = 1155, and the
+    per-cost one, wc = 441, each over its column-block structure) and at
+    dl = 5 on a synthetic W zero outside a random block structure; two
+    launches give the same bits.  A record per main path, with both
+    bounds: the structural one (``bound_ms``) and the dense product's."""
     from nllstpu_torch.ops import schur_reduce
 
     kern, plain = schur_reduce.reduce_s, schur_reduce.reduce_s_reference
     gen = torch.Generator().manual_seed(5)
     *syn, syn_tables = structured_case(gen, 2048, 5, [9] * 40 + [3, 16, 1], 2)
     cases = {
-        ADAPTIVE: main_inputs,
+        **main_inputs,
         "dl=5 synthetic structure": (*syn, schur_reduce.upload_tables(syn_tables, device)),
     }
-    record = None
+    records = {}
     for label, (*inputs, pairs) in cases.items():
         inputs = [t.to(device) for t in inputs]
         ref = plain(*[t.double() for t in inputs])
@@ -1143,7 +1273,7 @@ def phase_b5(device, main_inputs):
                 f"s_sum/rhs f64 {['%.2e' % e for e in e64]}; f32 kernel "
                 f"{['%.2e' % e for e in e32]} plain {['%.2e' % e for e in p32]} tolerance "
                 f"{['%.2e' % t for t in tol32]}; two launches bit-identical, s_sum symmetric")
-        if label != ADAPTIVE:
+        if label not in main_inputs:
             print(line, flush=True)
             continue
         f32 = [t.float() for t in inputs]
@@ -1158,10 +1288,10 @@ def phase_b5(device, main_inputs):
               f"{plain_ms:.4f} ms, cuBLAS Y^T W {library_ms:.4f} ms, structural bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {pb} bytes, {pf} operations), dense "
               f"bound {dense['bound_ms']:.4f} ms ({dense['bound_by']})", flush=True)
-        record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out32, ref)),
-                      ms=ms, plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"],
-                      graph_ms=device_ms, library_ms=library_ms)
-    return {ADAPTIVE: record}
+        records[label] = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out32, ref)),
+                              ms=ms, plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"],
+                              graph_ms=device_ms, library_ms=library_ms)
+    return records
 
 
 def dual_compile(name, device, w_impl="fused"):
@@ -1571,7 +1701,7 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
         lam = 1e-2 * ops.diag_max(sys_).item()
         if comp.implicit:
             h_inv = ops.damped_inverse(sys_[2], lam)
-            v = torch.randn(comp.schur_info.dim_reduced, device=h_inv.device)
+            v = torch.randn(comp.schur_info.dim_reduced, dtype=comp.dtype, device=h_inv.device)
             matvec_ms = time_ms(lambda: ops.s_matvec(sys_, h_inv, lam, v))
         else:
             v = torch.randn(ops.dim, dtype=comp.dtype, device=comp.device)
@@ -2025,6 +2155,78 @@ def phase_posegraph_times(device, smi):
           f"{cost_ms:.3f} ms; peak device memory {peak} | {smi}", flush=True)
 
 
+def _final_result(final):
+    """:func:`run_driver`'s final state in the shape :func:`trace_gate`
+    reads."""
+    return types.SimpleNamespace(costs=[float(c) for c in final["trace"]],
+                                 best_cost=float(final["bestcost"]),
+                                 start_cost=float(final["startcost"]))
+
+
+def phase_generic_main(device, smi):
+    """This slice's main paths through ``nt.optimize`` (the graph driver),
+    the launch counts set to 0 just before and read just after, then once
+    more through the graph driver and once through the stepped driver: the
+    per-cost path through ``solver="schur"`` (B5, B6 and B7, never B1–B4 or
+    B8) and ``solver="schur_cg"`` (B6 only), each run held to the JAX
+    package's CPU float64 trace (the implicit one also to its PCG
+    iterations per solve, within ±1), the second graph run to the first
+    one's bits; the riders path (B2, B6 and B3, never B1, B5 or B7) held to
+    the JAX package's CPU float32 start and best cost (slack 1e-2) through
+    both drivers.  Returns the launch counts per path."""
+    from nllstpu_torch.core.optimize import compile_problem
+
+    launches = {}
+    for label, solver, needs in ((PERCOST, "schur", ("segment_block_sum", "place_w", "reduce_s")),
+                                 (PERCOST_CG, "schur_cg", ("segment_block_sum",))):
+        ref, opts = GENERIC_REF[label], generic_options(solver)
+        problem, route = percost_problem(device)
+        launches[label], result = phase_main(
+            label, problem, ref["start"], ref["best"], 1e-9, needs=needs, never=_never(needs),
+            options=opts, **route)
+        trace_gate(f"{label} main path", result, ref)
+        problem, route = percost_problem(device)
+        comp = compile_problem(problem, route["unfixed"], solver=solver,
+                               schur_family=opts.schur_family)
+        vars0 = problem.stacked_variables()
+        runs = {driver: run_driver(driver, comp, opts, vars0) for driver in ("graph", "stepped")}
+        for driver, final in runs.items():
+            trace_gate(f"{label} {driver} driver", _final_result(final), ref)
+        same = [float(c) for c in runs["graph"]["trace"]] == result.costs
+        line = (f"determinism {label}: two graph-driver runs, {len(result.costs)} and "
+                f"{len(runs['graph']['trace'])} iterations, traces "
+                f"{'bit-identical' if same else 'differ'}")
+        if solver == "schur_cg":
+            want = list(ref["pcg_iters"])
+            got = {d: list(f["cg_iters"]) for d, f in runs.items()}
+            line += f"; PCG iterations per solve {got} against the JAX package's {want}"
+            if not all(len(g) == len(want) and max(abs(a - b) for a, b in zip(g, want)) <= 1
+                       for g in got.values()):
+                raise AssertionError(f"{label}: PCG iterations depart from the JAX package's")
+        print(f"{line} | {smi}", flush=True)
+        if not same:
+            raise AssertionError(f"determinism {label}: two runs differ")
+    needs = ("fused_obs_all_into", "segment_block_sum", "reduce_s_damped")
+    ref = GENERIC_REF[RIDERS]
+    problem, route = riders_problem(device)
+    launches[RIDERS], _ = phase_main(RIDERS, problem, ref["start"], ref["best"], 1e-2,
+                                     needs=needs, never=_never(needs), **route)
+    problem, route = riders_problem(device)
+    comp = compile_problem(problem, route["unfixed"], solver="schur",
+                           schur_family=bench_options().schur_family)
+    if comp.schur_info.w_rows is None or comp.schur_info.fast[0].ex_cols.shape[0] == 0:
+        raise AssertionError(f"{RIDERS}: not on the obs-major route with an extras region")
+    final = run_driver("stepped", comp, bench_options(), problem.stacked_variables())
+    best = float(final["bestcost"])
+    print(f"{RIDERS} stepped driver: {final['iternum']} iterations, start cost "
+          f"{float(final['startcost'])!r}, best cost {best!r} against the JAX package's "
+          f"{ref['best']!r} | {smi}", flush=True)
+    if not (abs(float(final["startcost"]) - ref["start"]) <= 1e-4 * abs(ref["start"])
+            and best <= ref["best"] + 1e-2 * abs(ref["best"])):
+        raise AssertionError(f"{RIDERS}: the stepped driver departs from the JAX package's")
+    return launches
+
+
 def phase_cg(device, smi, dense_results):
     """The cg backend through ``nt.optimize`` on the parking-garage-sized
     pose graph (LM and dogleg, float64), with the launch counts set to 0
@@ -2104,9 +2306,21 @@ def phase_cg(device, smi, dense_results):
                                f"{POSEGRAPH} cg D=36": blocks}
 
 
+_CLOCK = [time.perf_counter()]
+
+
+def mark(what):
+    """Print the seconds since the previous mark: where the run's time
+    goes, against its 1,200 s limit."""
+    now = time.perf_counter()
+    print(f"seconds {what}: {now - _CLOCK[0]:.1f}", flush=True)
+    _CLOCK[0] = now
+
+
 def main():
     device, smi = phase_device()
     phase_build(device)
+    mark("device and build")
     b1, bench_sys, cam1 = phase_b1(device)
     b2, bal_systems, cam2 = phase_b2(device)
     b3 = phase_b3(device, {"pinhole bench": bench_sys, **bal_systems})
@@ -2120,6 +2334,7 @@ def main():
     b8 = phase_b8(device)
     b4 = phase_b4(device, *b4_inputs(device))
     phase_determinism(device)
+    mark("kernels against their plain versions, determinism")
     generic = ("place_w", "reduce_s", "fused_obs_leg", "reduce_s_lm")
     launches = {"pinhole bench": phase_main(
         "pinhole bench", bench_problem(device), REF_START_COST, REF_BEST_COST, 1e-3,
@@ -2150,7 +2365,9 @@ def main():
                "segment_block_sum"),
         **route,
     )[0]
+    mark("main paths of slices 1-5")
     phase_drivers(device, smi)
+    mark("drivers")
     iter_launches, iter_results = phase_iter_main(device, smi)
     dense_launches, dense_results, b6_dense_in = phase_dense(device, smi)
     b6.update(phase_b6_dense(device, b6_dense_in))
@@ -2163,6 +2380,10 @@ def main():
     b6.update(phase_b6_dense(device, b6_cg_in))
     del b6_cg_in
     launches[f"{POSEGRAPH} cg"] = cg_launches[f"{POSEGRAPH} cg LM"]
+    mark("iterators, dense and cg backends")
+    generic_launches = phase_generic_main(device, smi)
+    launches.update(generic_launches)
+    mark("generic Schur main paths")
     # The two drivers and the plain versions in turns, then one run of
     # each with per-phase events (the events cost host time, so rates come
     # from the runs without them), then each driver profiled.  A timed loop
@@ -2179,11 +2400,11 @@ def main():
     ):
         problem, route = make(device)
         for driver, phases in (("graph", False), ("stepped", False), ("plain", False),
-                               ("plain", False), ("stepped", False), ("graph", False),
                                ("graph", True), ("stepped", True), ("plain", True)):
             phase_timed(label, problem, driver, phases=phases, options=opts, **route)
         for driver in ("graph", "stepped"):
             phase_profile(label, problem, driver, options=opts, **route)
+    mark("timed loops of slices 1-5")
     # This slice's paths: the drivers and the plain versions in turns, each
     # driver profiled; the pose graph's stepped driver once with phase
     # events (its assembly, solve and cost per call).
@@ -2201,15 +2422,23 @@ def main():
         (POSEGRAPH, posegraph_problem, posegraph_options(nt.DOGLEG)),
         (f"{POSEGRAPH} cg", posegraph_problem, posegraph_options(nt.LEVENBERG_MARQUARDT, "cg")),
         (f"{POSEGRAPH} cg", posegraph_problem, posegraph_options(nt.DOGLEG, "cg")),
+        (PERCOST, percost_problem, generic_options("schur")),
+        (PERCOST_CG, percost_problem, generic_options("schur_cg")),
+        (RIDERS, riders_problem, None),
     ):
         problem, route = make(device)
-        turns = [("graph", False), ("stepped", False), ("plain", False), ("graph", False)]
-        turns += [("stepped", True)] * label.startswith(POSEGRAPH)
+        # A second graph run for the generic paths only: the older ones
+        # were timed in turns by earlier slices' runs.
+        generic = label in (PERCOST, PERCOST_CG, RIDERS)
+        turns = [("graph", False), ("stepped", False), ("plain", False)]
+        turns += [("graph", False)] * generic
+        turns += [("stepped", True)] * (label.startswith(POSEGRAPH) or generic)
         turns += [("graph", True)] * (label == f"{POSEGRAPH} cg")
         for driver, phases in turns:
             phase_timed(label, problem, driver, phases=phases, options=opts, **route)
         for driver in ("graph", "stepped"):
             phase_profile(label, problem, driver, options=opts, **route)
+    mark("timed loops of slices 10-12")
     # The Dubrovnik-class loop through both drivers: its rate, its phase
     # split, PCG iterations and matvec time, then its idle share.
     big = "Dubrovnik-class"
@@ -2218,6 +2447,7 @@ def main():
         for phases in (False, True):
             phase_timed(big, problem, driver, phases=phases, options=implicit_options(big))
         phase_profile(big, problem, driver, options=implicit_options(big))
+    mark("Dubrovnik-class timed loop")
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"
@@ -2229,9 +2459,10 @@ def main():
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
             ("place_w", "w_place.cu", "w_place.py:98", b7),
             ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482", b8)]
-    # Beside each row, the launches of this slice's main paths (Newton,
-    # dogleg, gradient descent; the dense backend) that launched the kernel.
-    slice_launches = {**iter_launches, **dense_launches, **cg_launches}
+    # Beside each row, the launches of the later slices' main paths
+    # (Newton, dogleg, gradient descent; the dense and cg backends; the
+    # generic Schur assembly's) that launched the kernel.
+    slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches}
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

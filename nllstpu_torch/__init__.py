@@ -8,12 +8,13 @@ dense normal equations of any cost batch (single costs, per-cost,
 row-major or components-major batches; autodiff or hand Jacobians; the
 small models ``rosenbrock``, ``curvefit``, ``posegraph``, affine BA), the
 matrix-free PCG over the same per-cost blocks (``solver="cg"``, what
-``solver="auto"`` takes for a pose graph), and the Schur solves of
-components-major bundle-adjustment batches: SE(3)+pinhole problems
-(``models.ba``) and Snavely BAL problems (``models.bal``), whose skewed
-track lengths take the degree-bucketed layout in the direct solve; the
-implicit solve (``solver="schur_cg"``, and ``solver="schur"`` past the
-dense-W limit) takes any size.  ``solver="auto"`` picks as the JAX package
+``solver="auto"`` takes for a pose graph), and the Schur solves, direct
+and implicit (``solver="schur_cg"``, and ``solver="schur"`` past the
+dense-W limit): every batch form, priors, pose-graph edges, several
+reduced families, fixed cameras and fixed landmarks; SE(3)+pinhole
+problems (``models.ba``) and Snavely BAL problems (``models.bal``),
+whose components-major batches take the obs-major route and, with skewed
+track lengths, the degree-bucketed layout in the direct solve.  ``solver="auto"`` picks as the JAX package
 picks, and the entry points take its signatures.  A BAL
 batch may carry one shared adaptive robust kernel (ContaminatedGaussian,
 Barron) whose parameters are fitted with the cameras and points, through

@@ -157,7 +157,7 @@ class CompiledProblem:
             linops = iterators.DenseOps(self.layout.dof_total)
         elif si.implicit:
             linops = schur.SchurCGOps(
-                si.dim_reduced, si.num_elim, si.dof_elim, si.fam_offsets, tol=tol,
+                si.dim_reduced, si.num_elim, si.dof_elim, si.fams, si.cg, tol=tol,
                 segment_sum=self.kernels.segment_sum,
             )
         else:
@@ -273,9 +273,12 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
     :mod:`ops.cg`), "schur" (direct, unless its dense W would pass
     :data:`DENSE_W_BYTE_LIMIT`), "schur_cg" (implicit) — the Schur ones
     over ``schur_family`` — or "auto" (:func:`auto_solver`).  ``unfixed``
-    selects the variables to optimize (:func:`engine.resolve_unfixed`; on
-    the Schur backends fixed cameras on the obs-major direct path only,
-    fixed landmarks not yet).  Skewed
+    selects the variables to optimize (:func:`engine.resolve_unfixed`;
+    fixed cameras and fixed landmarks on every Schur path).  The Schur
+    backends take every batch form, priors, pose-graph edges and several
+    reduced families (the generic assembly: kernels B6, B7 and, direct,
+    B5), and a bundle-adjustment batch with riders on the obs-major route
+    (kernels B1/B2).  Skewed
     degree distributions get the JAX package's degree relabel (see
     :func:`schur_layout`); the direct path then takes the bucketed layout,
     assembled by kernel B2.  The host tables of kernels B2, B3/B4 (every
@@ -286,7 +289,7 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
     ``"fused"`` on a batch that does not qualify raises.  A batch with an
     adaptive kernel takes the direct path's generic assembly
     (landmark-sorted; kernels B6 and B7, the solve through B5) and is
-    refused by the implicit, dense and cg ones.  ``plain=True`` runs the
+    refused by the implicit, dense and cg ones (ROADMAP Queue 1 item 9).  ``plain=True`` runs the
     kernels' plain PyTorch versions on every device (a baseline to measure
     the kernels against).  On a CUDA device with the kernels on, the
     kernel library is built (nvcc, at first use) and loaded here, so that
@@ -346,10 +349,14 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
     """Host half of the Schur compile: ``(layout, info, batches)`` of the
     ``unfixed`` variables.  Skewed degree distributions get the degree
     relabel (``order_key``), exactly as in the JAX package.  The direct
-    solve takes the bucketed obs-major repack (an adaptive batch: sorted by
-    landmark; on the dual-sorted route, ``w_impl="fused"``, a camera repack
-    beside it); the implicit one (``implicit``, or a dense W past
-    :data:`DENSE_W_BYTE_LIMIT`) batches sorted by landmark."""
+    solve takes the route :func:`schur.route_batches` decides: the obs-major
+    route (the bucketed obs-major repack of its one coupling batch, on the
+    dual-sorted route, ``w_impl="fused"``, a camera repack beside it; the
+    rest ride along) or the generic route, every batch sorted by landmark;
+    the implicit one (``implicit``, or a dense W past
+    :data:`DENSE_W_BYTE_LIMIT`) sorts every batch by landmark.  A cost that
+    touches the eliminated family twice raises ``ValueError``, as in the
+    JAX package."""
     batches = problem.batches()
     counts = schur.elim_degree_counts(batches, problem, schur_family)
     order_key = None
@@ -361,6 +368,7 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
         order_key=order_key,
     )
     pre = schur.build_schur_info(problem, layout, schur_family)
+    schur.check_elim_slots(batches, pre)
     # The JAX package's dense-W size, pad column block included.
     w_bytes = (
         pre.num_elim * (pre.dim_reduced + layout.pad) * pre.dof_elim
@@ -368,12 +376,12 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
     )
     implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
     if implicit:
-        batches, buckets = [schur.sort_for_implicit(b, pre) for b in batches], None
+        batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
     else:
-        batches, buckets = schur.repack_batches_for_schur(batches, pre)
+        batches, buckets, route = schur.route_batches(batches, pre, layout)
     info = schur.build_schur_info(
         problem, layout, schur_family, batches=batches, buckets=buckets,
-        implicit=implicit, w_impl=w_impl,
+        implicit=implicit, w_impl=w_impl, route=route,
     )
     return layout, info, batches
 

@@ -1,11 +1,12 @@
-"""BAL (Bundle Adjustment in the Large) problem family (port of the
-components-major form of ``nllstpu/models/bal.py``).
+"""BAL (Bundle Adjustment in the Large) problem family (port of
+``nllstpu/models/bal.py``: the components-major form with the hand or the
+synthesized Jacobian, and the per-cost form).
 
 Cameras use the Snavely 9-parameter model [angle-axis r, translation t,
 focal f, k1, k2] on a Euclidean chart, points are 3-vectors, and the
 residual is the radially distorted reprojection error.  The generators and
 the text-format reader and writer are the JAX package's numpy code line for
-line, so the same seed gives bit-identical arrays; the residual and its
+line, so the same seed gives bit-identical arrays; the residuals and the
 hand Jacobian are torch.
 """
 
@@ -32,6 +33,25 @@ def _rodrigues_coeffs(tt):
     s = torch.where(small, 1.0 - tt / 6.0, torch.sin(theta) / theta)
     c = torch.where(small, 0.5 - tt / 24.0, (1.0 - a) / tts)
     return small, tts, a, s, c
+
+
+def _rodrigues_rotate(w, x):
+    """Rotate ``x`` by the angle-axis vector ``w`` (one cost; Rodrigues),
+    smooth at w = 0 for ``jacfwd``."""
+    _, _, cos_t, sinc, omc = _rodrigues_coeffs(w @ w)
+    return x * cos_t + torch.linalg.cross(w, x) * sinc + w * ((w @ x) * omc)
+
+
+def snavely_residual(measurement, camera, point):
+    """Per-cost Snavely residual (BAL convention): P = R·X + t, p =
+    −P.xy/P.z, distorted by 1 + k1·r² + k2·r⁴, scaled by f."""
+    w, t = camera[:3], camera[3:6]
+    f, k1, k2 = camera[6], camera[7], camera[8]
+    p = _rodrigues_rotate(w, point) + t
+    xp = -p[:2] / p[2]
+    r2 = xp @ xp
+    distortion = 1.0 + r2 * (k1 + k2 * r2)
+    return f * distortion * xp - measurement
 
 
 def snavely_residual_cm(measurement, camera_cm, point_cm):
@@ -156,20 +176,17 @@ def make_bal_problem(data: dict, dtype=None, device=None, robust_width=None,
                      kernel_params=None) -> tuple:
     """Build a Problem from parsed BAL arrays; returns ``(problem,
     camera_handles, point_handles)`` — or, with an adaptive ``kernel``,
-    ``(problem, camera_handles, point_handles, kernel_handle)``.  One
-    components-major batch with the hand Jacobian; ``robust_width`` builds
-    a :class:`Huber`, ``kernel`` overrides it with another kernel of the
-    port.  An :class:`AdaptiveRobustifier` (ContaminatedGaussian, Barron)
-    adds ONE kernel-parameter variable, initialised from ``kernel_params``
-    and shared by every observation, optimized jointly with the cameras and
-    points."""
-    if batched != "cm" or not hand_jacobian:
-        raise NotImplementedError(
-            "the port builds the components-major BAL batch with the hand "
-            "Jacobian only: the dense backend exists, but the per-cost and "
-            "autodiff BAL forms wait for the generic Schur assembly (ROADMAP "
-            "Queue 1 item 4)"
-        )
+    ``(problem, camera_handles, point_handles, kernel_handle)``.
+    ``batched="cm"`` (the default) builds one components-major batch with
+    the hand Jacobian (``hand_jacobian=False``: the Jacobian synthesized by
+    ``auto_cm_jacobian``), the form the obs-major Schur route takes;
+    ``batched=False`` the per-cost form (:func:`snavely_residual`,
+    Jacobians by autodiff), which the generic Schur assembly takes.
+    ``robust_width`` builds a :class:`Huber`, ``kernel`` overrides it with
+    another kernel of the port.  An :class:`AdaptiveRobustifier`
+    (ContaminatedGaussian, Barron) adds ONE kernel-parameter variable,
+    initialised from ``kernel_params`` and shared by every observation,
+    optimized jointly with the cameras and points."""
     p = Problem(dtype=dtype, device=device)
     cameras = p.add_variables(CAM, data["cameras"])
     points = p.add_variables(PT, data["points"])
@@ -183,16 +200,24 @@ def make_bal_problem(data: dict, dtype=None, device=None, robust_width=None,
         kh = p.add_variable(kernel.manifold, kernel_params)
         n = len(np.asarray(data["pt_idx"]))
         slots = [(kernel.manifold, np.full(n, kh.index, np.int32))] + slots
-    p.add_cost_batch(
-        snavely_residual_cm,
-        slots=slots,
-        params=np.asarray(data["observations"]),
-        kernel=kernel,
-        # The hand Jacobian covers the non-kernel slots, the adaptive
-        # contract: the kernel's blocks come from rho_dkernel_cm.
-        jacobian=snavely_jacobian_cm,
-        batched="cm",
-    )
+    if batched == "cm":
+        p.add_cost_batch(
+            snavely_residual_cm,
+            slots=slots,
+            params=np.asarray(data["observations"]),
+            kernel=kernel,
+            # The hand Jacobian covers the non-kernel slots, the adaptive
+            # contract: the kernel's blocks come from rho_dkernel_cm.
+            jacobian=snavely_jacobian_cm if hand_jacobian else None,
+            batched="cm",
+        )
+    else:
+        p.add_cost_batch(
+            snavely_residual,
+            slots=slots,
+            params=np.asarray(data["observations"]),
+            kernel=kernel,
+        )
     if kh is not None:
         return p, cameras, points, kh
     return p, cameras, points

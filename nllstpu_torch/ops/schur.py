@@ -1,13 +1,28 @@
 """Schur-complement (landmark-eliminated) solves: host layout, the direct
-path (assembly through kernels B1/B2, or on the dual-sorted route through
-kernel B8 and a camera-major leg; the damped reduced solve through kernel
-B3 in float32, through kernel B4 over float64-formed inverses otherwise),
-the direct path of batches whose coupling rows come from
-outside B1/B2 (the adaptive kernel's three-slot batch: keyed sums through
-kernel B6, W placed by kernel B7, the reduced solve through kernel B5 over
-an external inverse) and the implicit path (every keyed reduction through
-kernel B6, the reduced system solved by PCG without forming S).  Port of
-``nllstpu/ops/schur.py``.
+path and the implicit path.  Port of ``nllstpu/ops/schur.py``.
+
+The direct path takes one of two routes, decided as the JAX package
+decides its p-major route (:func:`route_batches`):
+
+* the obs-major route, when one components-major camera/landmark batch
+  produces W and its cameras are the whole reduced space: that batch is
+  assembled by kernel B1 (one bucket) or B2 (degree buckets), or on the
+  dual-sorted route by kernel B8 and a camera-major leg; its costs on fixed
+  landmarks (the extras region) add their camera rows through kernel B6;
+  priors and pure-reduced batches ride along on the generic sums; the
+  damped reduced solve goes through kernel B3 in float32 and through
+  kernel B4 over float64-formed inverses otherwise;
+* the generic route (the JAX package's generic fall-through): every batch
+  form, at most one eliminated slot per cost, any number of reduced
+  families; the per-cost blocks of ``engine.batch_grad_hess`` summed per
+  key in an order fixed at compile time by kernel B6, W placed by kernel
+  B7, the reduced solve through kernel B5 over external inverses.  A batch
+  with a shared adaptive kernel takes its own run tables (kernels B6 and
+  B7) on this route.
+
+The implicit path (:class:`SchurCGOps`: every keyed reduction through
+kernel B6, the reduced system solved by PCG without forming S) takes the
+same batches, sorted by landmark.
 
 Block structure, with r = reduced (camera) and l = eliminated (landmark)
 tangent dims:
@@ -18,9 +33,11 @@ tangent dims:
 
 ``h_ll [dl, dl, L]`` and ``g_l [dl, L]`` keep the JAX package's
 components-major layout; W is landmark-major ``[L, dl, Dr]`` in the
-standard basis (the c-th unfixed camera owns columns ``c·dr_s .. c·dr_s +
-dr_s − 1``; fixed cameras have none).
-The flat step vector is variable-major, as in the JAX package.
+standard basis (on the obs-major route the c-th unfixed camera owns
+columns ``c·dr_s .. c·dr_s + dr_s − 1``, which are its reduced rows; fixed
+variables have none).  The flat step vector is variable-major, as in the
+JAX package.  A fixed variable is a dustbin: a fixed landmark's id is
+``L``, a fixed reduced variable's row ``Dr``, and neither is written.
 
 The host-side layout code (obs-major repack, bucket plan, degree counts)
 is copied from the JAX package, which cannot be imported without jax.  A
@@ -37,16 +54,17 @@ give a_rr and b_r.
 
 The implicit path (:class:`SchurCGOps`) never stores W.  Its batches are
 sorted by landmark at compile time (the reference's
-``reordercostsforschur!``), the layout kernel B6 was written for; the
-same costs are also indexed in camera order.  Landmark-keyed sums (h_ll,
-g_l, Wᵀv) are B6 over the landmark runs, camera-keyed sums (a_rr, b_r,
-W u, the preconditioner's correction) B6 over the camera runs.  The JAX
-package's obs-major repack of implicit batches existed only because
-lane-axis gathers are slow on the TPU and is not carried over.
+``reordercostsforschur!``), the layout kernel B6 was written for.
+Landmark-keyed sums (h_ll, g_l, Wᵀv) are B6 over the landmark runs;
+variable-keyed sums (a_rr, b_r, W u, the preconditioner's correction) B6
+over each reduced family's variable runs.  The JAX package's obs-major
+repack of implicit batches existed only because lane-axis gathers are
+slow on the TPU and is not carried over.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import time
@@ -131,6 +149,17 @@ def _elim_slots(batch, info):
     ]
 
 
+def check_elim_slots(batches, info) -> None:
+    """Raise ``ValueError`` where a cost touches the eliminated family
+    twice, as the JAX package's ``assemble_schur`` does."""
+    for b in batches:
+        if len(_elim_slots(b, info)) > 1:
+            raise ValueError(
+                "Schur elimination requires at most one eliminated variable "
+                "per cost (reference src/problem.jl:185)"
+            )
+
+
 def _coupling_slots(batch, info):
     """``(e, r)``, the eliminated and the reduced slot of a camera/landmark
     batch — two slots, or three with an adaptive kernel's variable in slot
@@ -208,17 +237,42 @@ def obs_major_repack(batch, info: "SchurInfo"):
     return _apply_take(batch, take, newmask), tuple(buckets)
 
 
-def repack_batches_for_schur(batches, info: "SchurInfo"):
-    """The direct solve's batch order: an adaptive batch sorted by landmark
-    for the generic assembly (:func:`sort_for_implicit`), any other
-    :func:`obs_major_repack` where it qualifies.  ``(batches,
-    buckets_per_batch)``, ``None`` for a batch that is not obs-major."""
-    out, buckets = [], []
-    for b in batches:
-        nb, bk = (sort_for_implicit(b, info), None) if b.adaptive else obs_major_repack(b, info)
-        out.append(nb if nb is not None else b)
-        buckets.append(bk)
-    return out, buckets
+def route_batches(batches, info: "SchurInfo", layout):
+    """The direct solve's route and batch order, decided as the JAX
+    package's ``_w_pm_data`` decides its p-major route.  The obs-major
+    route (kernels B1/B2, or B8 on the dual-sorted route) is taken when
+    exactly one batch produces W (more than one slot, one of them
+    eliminated), that batch is a two-slot components-major batch without
+    an adaptive kernel whose :func:`obs_major_repack` qualifies, and its
+    camera family's unfixed variables are the whole reduced space; point
+    priors and pure-reduced batches (camera priors, pose-graph edges)
+    ride along on the generic sums.  Anything else takes the generic
+    route, every batch sorted by landmark (:func:`sort_for_implicit`).
+    Returns ``(batches, buckets_per_batch, route)``: ``route`` the index of
+    the obs-major batch or None, ``buckets`` None for every other batch."""
+    sort = [sort_for_implicit(b, info) for b in batches]
+    none = [None] * len(batches)
+    if info.num_elim == 0 or info.dim_reduced == 0 or any(b.adaptive for b in batches):
+        return sort, none, None
+    producing = [bi for bi, b in enumerate(batches)
+                 if len(b.manifolds) > 1 and _elim_slots(b, info)]
+    if len(producing) != 1:
+        return sort, none, None
+    (bi,) = producing
+    b = batches[bi]
+    if b.batched != "cm" or len(b.manifolds) != 2:
+        return sort, none, None
+    rman = b.manifolds[1 - _elim_slots(b, info)[0]]
+    rfam = family_name(rman)
+    cols = (np.asarray(layout.offsets[rfam])[layout.unfixed[rfam]][:, None]
+            + np.arange(rman.dof)).reshape(-1)
+    if not np.array_equal(np.sort(cols), np.arange(info.dim_reduced)):
+        return sort, none, None
+    nb, bk = obs_major_repack(b, info)
+    if nb is None:
+        return sort, none, None
+    sort[bi], none[bi] = nb, bk
+    return sort, none, bi
 
 
 def elim_degree_counts(batches, problem, elim_manifold):
@@ -253,12 +307,19 @@ class _FastBatch:
     rvid: np.ndarray  # [B] camera column (n_r = dustbin: masked cost, fixed camera)
     row_base: np.ndarray  # [n_r] global tangent offset per camera column
     buckets: tuple  # ((l_base, L_b, k_b, col_base), ...)
-    # The camera side of B1/B2 (fused_obs.camera_order over ``rvid``): each
-    # column's row in the camera-sorted order of the non-dustbin columns
-    # (−1 for the dustbin) and each camera's run of that order.
+    # The camera side of B1/B2 (fused_obs.camera_order over ``rvid`` of the
+    # buckets' columns): each column's row in the camera-sorted order of
+    # the non-dustbin columns (−1 for the dustbin and the extras) and each
+    # camera's run of that order.
     cam_pos: np.ndarray  # [B] int32
     cam_starts: np.ndarray  # [n_r+1] int32
     lid: np.ndarray  # [B] landmark of each column (L = pad)
+    # The extras region (the JAX package's ``_onehot_reduced_tail``): the
+    # columns of real costs whose landmark is fixed and camera unfixed,
+    # sorted by camera column, and each camera's run of them.  Their camera
+    # rows are summed by kernel B6 beside B1's and B2's.
+    ex_cols: np.ndarray  # [n_ex] int
+    ex_starts: np.ndarray  # [n_r+1] int32
     # Kernel B2's work list over the columns (fused_obs.slot_tables; host
     # until upload_tables places it on the device), for a bucketed layout.
     slots: Any = None
@@ -274,14 +335,17 @@ class _FastBatch:
     cstarts: Any = None  # device int32 [n_r+1]: cam_starts
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
     rows: Any = None  # device [n_r, dr_s]: reduced rows of each camera column
+    ex_idx: Any = None  # device long [n_ex]: ex_cols
+    ex_cstarts: Any = None  # device int32 [n_r+1]: ex_starts
 
 
 def _fast_batch_data(batch, layout, info, buckets=None):
     """Fast-path tables of one repacked batch, or None when the batch is
     not an obs-major two-slot BA batch.  The costs of fixed cameras go to
-    the dustbin column: they add to h_ll and g_l only.  On the dual-sorted
-    route (``info.w_impl == "fused"``) a single-bucket batch also gets its
-    camera repack."""
+    the dustbin column: they add to h_ll and g_l only; those of fixed
+    landmarks (the extras after the buckets) to a_rr and b_r only.  On the
+    dual-sorted route (``info.w_impl == "fused"``) a single-bucket batch
+    also gets its camera repack, which holds the extras too."""
     elim = _elim_slots(batch, info)
     if buckets is None or len(elim) != 1 or len(batch.manifolds) != 2:
         return None
@@ -297,8 +361,12 @@ def _fast_batch_data(batch, layout, info, buckets=None):
     cam_batch = cam_k = None
     if info.w_impl == "fused" and len(buckets) == 1:
         cam_batch, cam_k = _cam_major_repack(batch, rvid, n_r)
-    cam_pos, cam_starts = fused_obs.camera_order(rvid, n_r)
     lid = _landmark_ids(batch, info, e)
+    extra = np.asarray(batch.mask) & (lid == info.num_elim) & (rvid < n_r)
+    cam_pos, cam_starts = fused_obs.camera_order(np.where(extra, n_r, rvid), n_r)
+    ex = np.nonzero(extra)[0]
+    ex_cols = ex[np.argsort(rvid[ex], kind="stable")]
+    ex_starts = np.concatenate([[0], np.cumsum(np.bincount(rvid[ex], minlength=n_r))])
     slots = None
     if len(buckets) > 1 and info.w_impl == "fused_all":
         t0 = time.perf_counter()
@@ -315,6 +383,8 @@ def _fast_batch_data(batch, layout, info, buckets=None):
         cam_pos=cam_pos,
         cam_starts=cam_starts,
         lid=lid,
+        ex_cols=ex_cols,
+        ex_starts=ex_starts.astype(np.int32),
         slots=slots,
         cam_batch=cam_batch,
         cam_k=cam_k,
@@ -347,31 +417,34 @@ class WPart(NamedTuple):
     coupling blocks in landmark-sorted order and the device tables that
     key them (without ``w_blk``, the keys of any landmark-sorted batch)."""
 
-    w_blk: Any  # [B, dr_s, dl] coupling block of each cost (zero when masked)
-    rows_r: Any  # [B, dr_s] reduced row of each block row (Dr = dustbin)
+    w_blk: Any  # [B, Sr, dl] coupling block of each cost (zero when masked)
+    rows_r: Any  # [B, Sr] reduced row of each block row (Dr = dustbin)
     lid: Any  # [B] landmark id of each cost (L = dustbin)
     lstarts: Any  # int32 [L+1] landmark runs of the sorted costs
-    cperm: Any  # [Nc] rows of the real costs, in camera order
-    cstarts: Any  # int32 [n_r+1] camera runs of ``cperm``
+    cperm: Any = None  # [Nc] rows of the real costs, in camera order (camera/landmark batches)
+    cstarts: Any = None  # int32 [n_r+1] camera runs of ``cperm``
 
 
 @dataclasses.dataclass
 class _RunBatch:
     """Host tables of a landmark-sorted camera/landmark batch: the implicit
-    backend's, and the direct path's generic assembly (with an adaptive
-    kernel's rows)."""
+    backend's components-major batches, and the direct path's adaptive
+    batch (with its kernel's rows).  The camera columns are the unfixed
+    cameras of the batch's camera family, in layout order; a fixed camera's
+    costs go to the dustbin column ``n_r``."""
 
     e_start: int  # offset of the eliminated slot in the Jacobian's tangent
-    n_r: int  # reduced family size
+    n_r: int  # unfixed cameras: the camera columns
     dr_s: int  # reduced (camera) dof
-    row_base: np.ndarray  # [n_r] global tangent offset per reduced var
+    row_base: np.ndarray  # [n_r] global tangent offset per camera column
     lid: np.ndarray  # [B] landmark id per sorted cost (L for masked ones)
-    rvid: np.ndarray  # [B] camera id per sorted cost (n_r for masked ones)
+    rvid: np.ndarray  # [B] camera column per sorted cost (n_r: masked, fixed camera)
     lstarts: np.ndarray  # int32 [L+1]
     cperm: np.ndarray  # [Nc] sorted rows of the real costs, camera-stable order
     cstarts: np.ndarray  # int32 [n_r+1]
+    rfam: str = ""  # the camera family
     # Reduced rows of the shared adaptive kernel's parameters (the JAX
-    # package's ``kernel_rows``), or None for a fixed kernel.
+    # package's ``kernel_rows``), or None for a fixed kernel or variable.
     kernel_rows: Optional[np.ndarray] = None
     keys: Any = None  # device WPart without w_blk (upload_tables)
     pair_of: Any = None  # device [dr_s²]: ab row of a_rr entry (p, q)
@@ -381,45 +454,136 @@ class _RunBatch:
 
 
 @dataclasses.dataclass
+class _GenBatch:
+    """Host tables of a batch on the generic route (the JAX package's
+    generic fall-through of ``assemble_schur``): any batch form, at most
+    one eliminated slot, its per-cost blocks from
+    ``engine.batch_grad_hess``.  ``sel_r`` are the block columns of its
+    reduced slots, ``sel_e`` those of its eliminated slot (None for a
+    pure-reduced batch: a camera prior, a pose-graph edge).  A cost's
+    landmark is the dustbin ``L`` when it is masked, its landmark is fixed
+    or it has none; a reduced column's row the dustbin ``Dr`` when its cost
+    is masked or its variable fixed.  The batch is sorted by landmark."""
+
+    sel_r: np.ndarray  # [Sr]
+    sel_e: Optional[np.ndarray]  # [dl] or None
+    # Per reduced slot: (first column in sel_r, family, dof, position of
+    # each cost's variable in its family's unfixed range, −1 dropped).
+    slots: tuple
+    two_slot: bool  # one reduced slot beside the eliminated one
+    lid: np.ndarray  # [B]
+    rows_r: np.ndarray  # [B, Sr]
+    lstarts: np.ndarray  # int32 [L+1]
+    sel: Any = None  # device (sel_r, sel_e)
+    keys: Any = None  # implicit: device WPart without w_blk
+
+
+class _Sum(NamedTuple):
+    """One fixed-order keyed sum of per-cost rows: the rows of each
+    source ``(part, first column)`` concatenated in source order, taken in
+    the order ``perm`` (None: as they are) and summed over the runs
+    ``starts`` by kernel B6.  ``out`` says where the sums land (its
+    owner's)."""
+
+    sources: tuple
+    perm: Any
+    starts: Any
+    out: Any
+
+
+@dataclasses.dataclass
+class _GenericPlan:
+    """The keyed sums of the generic batches' per-cost blocks, in an order
+    fixed at compile time (``engine.dense_plan``'s and ``ops/cg.py``'s
+    design: the same inputs give the same bits).  ``b``: b_r per reduced
+    family (``out = (base, n, dof)``, its rows ``base .. base + n·dof −
+    1``); ``a``: a_rr per ordered pair of reduced families, keyed by the
+    variable pair (``out`` each key's rows of the two variables); ``l``:
+    h_ll and g_l over landmark runs; ``w``: W per slot width, placed by
+    kernel B7 (``out`` each row's first W column, −1 dropped).  Sources
+    are batch indices.  ``w_inc``: W's (landmark, first column, width)
+    incidences, host arrays for :func:`w_structure`."""
+
+    b: tuple = ()
+    a: tuple = ()
+    l: Optional[_Sum] = None
+    w: tuple = ()
+    w_inc: tuple = ()
+
+
+@dataclasses.dataclass
+class _ImplicitPlan:
+    """The implicit solve's keyed sums over its coupling parts (``parts``:
+    the batch index of each part, in order): ``vec`` the W u sums per
+    reduced family (``out = (base, n, dof)``, every family, None where no
+    part sees it), ``corr`` the preconditioner's Schur correction per
+    family, from the two-slot parts only (None: the family keeps its
+    A_rr-only blocks), as the JAX package's ``SchurCGOps.precond_blocks``
+    corrects them."""
+
+    parts: tuple = ()
+    vec: tuple = ()
+    corr: tuple = ()
+
+
+@dataclasses.dataclass
 class SchurInfo:
     """Static structure of the Schur system.  ``implicit`` selects the
-    matrix-free solve (:class:`SchurCGOps`), whose per-batch tables in
-    ``fast`` are :class:`_RunBatch`; otherwise the direct solve over a
-    dense W (:class:`SchurOps`), whose tables are :class:`_FastBatch` for
-    an obs-major batch and :class:`_RunBatch` for an adaptive one."""
+    matrix-free solve (:class:`SchurCGOps`); otherwise the direct solve
+    over a dense W (:class:`SchurOps`).  ``fast`` holds each batch's
+    tables: :class:`_FastBatch` for the obs-major batch (kernels B1/B2 or
+    B8), :class:`_RunBatch` for an adaptive batch of the direct solve and a
+    components-major camera/landmark batch of the implicit one, and
+    :class:`_GenBatch` for any other (the generic sums of ``plan``)."""
 
     elim_family: str
     dim_reduced: int  # Dr
     num_elim: int  # L
     dof_elim: int  # dl
     elim_ids: dict  # family name -> [n] landmark ids (num_elim: fixed)
-    fast: tuple = ()  # per-batch _FastBatch / _RunBatch or None
+    fast: tuple = ()  # per batch: _FastBatch, _RunBatch or _GenBatch
     implicit: bool = False
-    # Direct assembly route of the obs-major batches: "fused_all" (kernels
+    # Direct assembly route of the obs-major batch: "fused_all" (kernels
     # B1/B2) or "fused" (the dual-sorted route: kernel B8 and the
     # camera-major leg).
     w_impl: str = "fused_all"
-    # Reduced families (name, offsets [n], dof), for the preconditioner.
-    fam_offsets: tuple = ()
-    # Kernel B5's structure of the direct W when a batch is landmark-sorted
-    # (the generic W: schur_reduce.RowTables; host until upload_tables
-    # places it on the device), else None.
+    # Reduced families with unfixed variables, (name, base, n, dof) in
+    # tangent order: each fills rows base .. base + n·dof − 1.
+    fams: tuple = ()
+    plan: Any = None  # _GenericPlan of the _GenBatch batches
+    cg: Any = None  # _ImplicitPlan (implicit)
+    # Kernel B5's structure of the generic W (schur_reduce.RowTables; host
+    # until upload_tables places it on the device), else None.
     w_pairs: Any = None
-    # Kernels B3's and B4's structure of the direct W when every batch is
-    # obs-major (schur_reduce.RowTables; host until upload_tables), else
-    # None.
+    # Kernels B3's and B4's structure of an obs-major W (the obs-major
+    # route; schur_reduce.RowTables; host until upload_tables), else None.
     w_rows: Any = None
     # Host seconds spent building kernel B2's, B3/B4's and B5's tables.
     table_seconds: float = 0.0
 
 
+def _reduced_families(problem, layout, elim_fam: str) -> tuple:
+    """``(name, base, n, dof)`` of every reduced family with unfixed
+    variables, in tangent order (``engine.build_layout`` gives a family's
+    unfixed variables one range, the eliminated family's last)."""
+    out = []
+    for name in problem.family_names():
+        off = np.asarray(layout.offsets[name])
+        held = off[off < layout.dof_total]
+        if name != elim_fam and held.size:
+            out.append((name, int(held.min()), int(held.size), problem.manifold_of(name).dof))
+    return tuple(sorted(out, key=lambda f: f[1]))
+
+
 def build_schur_info(problem, layout, elim_manifold, batches=None,
                      buckets=None, implicit: bool = False,
-                     w_impl: str = "fused_all") -> SchurInfo:
+                     w_impl: str = "fused_all", route=None) -> SchurInfo:
     """Reduced/eliminated split of a layout built with the eliminated family
     ordered last (a fixed landmark's id is ``num_elim``, the dustbin); with
-    ``batches``, also the per-batch tables (for ``implicit``, of batches
-    already sorted by :func:`sort_for_implicit`)."""
+    ``batches`` (ordered by :func:`route_batches` for the direct solve,
+    :func:`sort_for_implicit` for the implicit one), also each batch's
+    tables, the generic sums' plan and W's block tables.  ``route`` is the
+    obs-major batch's index (direct solve), or None."""
     elim_fam = family_name(elim_manifold)
     dl = elim_manifold.dof
     offs = np.asarray(layout.offsets[elim_fam])
@@ -436,76 +600,87 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
         elim_ids={elim_fam: ids},
         implicit=implicit,
         w_impl=w_impl,
-        fam_offsets=tuple(
-            (name, np.asarray(layout.offsets[name]), problem.manifold_of(name).dof)
-            for name in problem.family_names() if name != elim_fam
-        ) if implicit else (),
+        fams=_reduced_families(problem, layout, elim_fam),
     )
-    if batches is not None:
-        if implicit:
-            info.fast = tuple(_run_batch_data(b, layout, info) for b in batches)
+    if batches is None:
+        return info
+    per_batch = buckets if buckets is not None else [None] * len(batches)
+    fast = []
+    for bi, (b, bk) in enumerate(zip(batches, per_batch)):
+        f = None
+        if bi == route and not implicit:
+            f = _fast_batch_data(b, layout, info, buckets=bk)
+        elif b.batched == "cm" and b.adaptive != implicit:
+            # The direct path's adaptive batch; a components-major
+            # camera/landmark batch of the implicit one.
+            f = _run_batch_data(b, layout, info)
+        fast.append(f if f is not None else _gen_batch_data(b, layout, info))
+    info.fast = tuple(fast)
+    info.plan = _generic_plan(info)
+    if implicit:
+        info.cg = _implicit_plan(info)
+    else:
+        t0 = time.perf_counter()
+        tables = w_structure(info)
+        if route is None:
+            info.w_pairs = tables
         else:
-            per_batch = buckets if buckets is not None else [None] * len(batches)
-            info.fast = tuple(
-                _run_batch_data(b, layout, info) if b.adaptive
-                else _fast_batch_data(b, layout, info, buckets=bk)
-                for b, bk in zip(batches, per_batch)
-            )
-            if any(f is not None for f in info.fast):
-                t0 = time.perf_counter()
-                tables = w_structure(info)
-                if any(isinstance(f, _RunBatch) for f in info.fast):
-                    info.w_pairs = tables
-                else:
-                    info.w_rows = tables
-                info.table_seconds += time.perf_counter() - t0
+            info.w_rows = tables
+        info.table_seconds += time.perf_counter() - t0
     return info
 
 
 def w_structure(info: SchurInfo) -> schur_reduce.RowTables:
     """Kernels B3's, B4's and B5's tables of the direct W
-    (:func:`schur_reduce.row_tables`).  An obs-major W (every batch a
-    ``_FastBatch``) has one block per unfixed camera, its ``dr_s`` compact
-    columns; the generic W one block per camera that its costs see (the
-    camera's ``dr_s`` reduced rows) and one per adaptive kernel (its
-    rows).  A landmark holds the blocks of the cameras its real costs see
-    and, in a batch with an adaptive kernel, the kernel's, in every batch
-    of ``info.fast``.  Fixed cameras (the dustbin column ``n_r``) and pads
-    hold none."""
+    (:func:`schur_reduce.row_tables`).  An obs-major W has one block per
+    unfixed camera, its ``dr_s`` compact columns; the generic W one block
+    per reduced variable that its coupling costs see (its rows, cut into
+    blocks of at most ``schur_reduce.MAX_WIDTH`` columns) and one per
+    adaptive kernel (its rows).  A landmark holds the blocks of the
+    variables its real costs see, in every batch.  Fixed variables and
+    pads hold none."""
     L = info.num_elim
-    fast = [f for f in info.fast if f is not None]
     lmk, col, width = [], [], []
-    for f in fast:
+    obs_major = None
+    for f in info.fast:
+        if isinstance(f, _GenBatch):
+            continue
         real = (f.lid < L) & (f.rvid < f.n_r)
         lmk.append(f.lid[real])
         if isinstance(f, _FastBatch):
+            obs_major = (f.n_r, f.dr_s)
             col.append(f.rvid[real].astype(np.int64) * f.dr_s)  # compact camera columns
         else:
             col.append(np.asarray(f.row_base, dtype=np.int64)[f.rvid[real]])
         width.append(np.full(lmk[-1].shape[0], f.dr_s))
         kr = getattr(f, "kernel_rows", None)
         if kr is not None:
-            if not np.array_equal(kr, kr[0] + np.arange(kr.shape[0])):
-                raise NotImplementedError("the adaptive kernel's reduced rows are not contiguous")
             held = np.unique(f.lid[f.lid < L])
             lmk.append(held)
             col.append(np.full(held.shape[0], kr[0], dtype=np.int64))
             width.append(np.full(held.shape[0], kr.shape[0]))
-    col, width = np.concatenate(col), np.concatenate(width)
-    if all(isinstance(f, _FastBatch) for f in fast):
-        shapes = {(f.n_r, f.dr_s) for f in fast}
-        if len(shapes) != 1:
-            raise NotImplementedError(f"obs-major batches with camera blocks {sorted(shapes)}: "
-                                      "W's blocks must be one camera family's")
-        ((n_r, dr_s),) = shapes
+    for lm, c, w in info.plan.w_inc:
+        lmk.append(lm)
+        col.append(c)
+        width.append(w)
+    lmk = np.concatenate(lmk) if lmk else np.zeros(0, np.int64)
+    col = np.concatenate(col) if col else np.zeros(0, np.int64)
+    width = np.concatenate(width) if width else np.zeros(0, np.int64)
+    if obs_major is not None:
+        n_r, dr_s = obs_major
         bcol, bwidth = schur_reduce.uniform_blocks(n_r, dr_s)
-        blk = col // dr_s
-    else:
-        bcol, first, blk = np.unique(col, return_index=True, return_inverse=True)
-        bwidth = width[first]
-        if np.any(width != bwidth[blk]):
-            raise NotImplementedError("two column blocks of W start at one column")
-    return schur_reduce.row_tables(np.concatenate(lmk), blk, L, bcol, bwidth)
+        return schur_reduce.row_tables(lmk, col // dr_s, L, bcol, bwidth)
+    # Blocks wider than the kernels take are cut into pieces.
+    mw = schur_reduce.MAX_WIDTH
+    n_pc = -(-width // mw)
+    rep = np.repeat(np.arange(lmk.shape[0]), n_pc)
+    k = np.arange(rep.shape[0]) - np.repeat(np.cumsum(n_pc) - n_pc, n_pc)
+    lmk, col, width = lmk[rep], col[rep] + k * mw, np.minimum(width[rep] - k * mw, mw)
+    bcol, first, blk = np.unique(col, return_index=True, return_inverse=True)
+    bwidth = width[first]
+    if np.any(width != bwidth[blk]):
+        raise ValueError("two column blocks of W start at one column")
+    return schur_reduce.row_tables(lmk, blk, L, bcol, bwidth)
 
 
 def _landmark_ids(batch, info, e):
@@ -515,21 +690,38 @@ def _landmark_ids(batch, info, e):
 
 
 def sort_for_implicit(batch, info: SchurInfo):
-    """The batch with its costs sorted by landmark id, masked costs last
-    (the JAX package's ``_elim_sort_data``, the reference's
-    ``reordercostsforschur!``); a batch that is not a camera/landmark
-    batch (:func:`_coupling_slots`) is returned as it is."""
-    slots = _coupling_slots(batch, info)
-    if slots is None:
+    """The batch with its costs sorted by landmark id, masked costs and
+    those of fixed landmarks last (the JAX package's ``_elim_sort_data``,
+    the reference's ``reordercostsforschur!``); a batch without exactly one
+    eliminated slot is returned as it is."""
+    elim = _elim_slots(batch, info)
+    if len(elim) != 1 or info.num_elim == 0:
         return batch
-    perm = np.argsort(_landmark_ids(batch, info, slots[0]), kind="stable")
+    perm = np.argsort(_landmark_ids(batch, info, elim[0]), kind="stable")
     return _apply_take(batch, perm, np.asarray(batch.mask)[perm])
 
 
+def _runs(keys, n):
+    """int32 ``[n + 1]`` run starts of the sorted ``keys`` (all < n)."""
+    return np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=n))]).astype(np.int32)
+
+
+def _positions(batch, layout, info, slot):
+    """Position of each cost's variable in slot ``slot`` within its
+    family's unfixed range (:attr:`SchurInfo.fams`), −1 where the cost is
+    masked or the variable fixed; and the family's ``(base, n, dof)``."""
+    name = family_name(batch.manifolds[slot])
+    ((base, n, dof),) = [f[1:] for f in info.fams if f[0] == name] or [(0, 0, 1)]
+    off = np.asarray(layout.offsets[name])[np.asarray(batch.idx[slot])]
+    ok = np.asarray(batch.mask) & (off < layout.dof_total)
+    return np.where(ok, (off - base) // dof, -1), (base, n, dof)
+
+
 def _run_batch_data(batch, layout, info):
-    """Run tables of a landmark-sorted camera/landmark batch, or None.  An
-    adaptive batch's kernel rows are those of its first real cost's kernel
-    variable (:func:`check_slice` refuses more than one)."""
+    """Run tables of a landmark-sorted camera/landmark batch
+    (:func:`_coupling_slots`), or None.  An adaptive batch's kernel rows are
+    those of its first real cost's kernel variable (:func:`check_slice`
+    refuses more than one), None when that variable is fixed."""
     slots = _coupling_slots(batch, info)
     if slots is None:
         return None
@@ -544,64 +736,182 @@ def _run_batch_data(batch, layout, info):
         kman = batch.manifolds[0]
         kvar = np.asarray(batch.idx[0])[mask][0]
         koff = int(np.asarray(layout.offsets[family_name(kman)])[kvar])
-        kernel_rows = koff + np.arange(kman.dof, dtype=np.int64)
-    rfam = family_name(batch.manifolds[r])
-    n_r = int(layout.unfixed[rfam].shape[0])
-    rvid = np.asarray(batch.idx[r]).astype(np.int64)
-    rvid[~np.asarray(batch.mask)] = n_r
+        if koff < layout.dof_total:
+            kernel_rows = koff + np.arange(kman.dof, dtype=np.int64)
+    pos, (base, n_r, dr_s) = _positions(batch, layout, info, r)
+    rvid = np.where(pos >= 0, pos, n_r)
     real = np.nonzero(rvid < n_r)[0]
     cperm = real[np.argsort(rvid[real], kind="stable")]
-
-    def runs(keys, n):
-        counts = np.bincount(keys, minlength=n)
-        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-
     return _RunBatch(
         # The Jacobian's tangent leaves out an adaptive kernel's slot 0.
         e_start=sum(m.dof for m in batch.manifolds[int(batch.adaptive) : e]),
         n_r=n_r,
         dr_s=batch.manifolds[r].dof,
-        row_base=np.minimum(np.asarray(layout.offsets[rfam]), info.dim_reduced).astype(np.int32),
+        row_base=(base + dr_s * np.arange(n_r)).astype(np.int32),
         lid=lid,
         rvid=rvid,
-        lstarts=runs(lid[lid < L], L),
+        lstarts=_runs(lid[lid < L], L),
         cperm=cperm,
-        cstarts=runs(rvid[real], n_r),
+        cstarts=_runs(rvid[real], n_r),
+        rfam=family_name(batch.manifolds[r]),
         kernel_rows=kernel_rows,
     )
 
 
+def _gen_batch_data(batch, layout, info) -> _GenBatch:
+    """Generic tables of a landmark-sorted batch (:class:`_GenBatch`)."""
+    elim = _elim_slots(batch, info)
+    L, dr = info.num_elim, info.dim_reduced
+    B = np.asarray(batch.mask).shape[0]
+    lid = _landmark_ids(batch, info, elim[0]) if elim else np.full(B, L)
+    held = {f[0] for f in info.fams}
+    col, sr, sel_r, sel_e, slots, rows = 0, 0, [], None, [], []
+    for s, m in enumerate(batch.manifolds):
+        cols = np.arange(col, col + m.dof)
+        col += m.dof
+        if elim and s == elim[0]:
+            sel_e = cols
+            continue
+        if family_name(m) not in held:
+            continue  # a family with every variable fixed: no reduced rows
+        pos, (base, _, dof) = _positions(batch, layout, info, s)
+        slots.append((sr, family_name(m), dof, pos))
+        sr += dof
+        sel_r.append(cols)
+        rows.append(np.where(pos[:, None] >= 0, base + pos[:, None] * dof + np.arange(dof), dr))
+    return _GenBatch(
+        sel_r=np.concatenate(sel_r) if sel_r else np.zeros(0, np.int64),
+        sel_e=sel_e,
+        slots=tuple(slots),
+        two_slot=bool(elim) and len(batch.manifolds) == 2,
+        lid=lid,
+        rows_r=np.concatenate(rows, 1) if rows else np.zeros((B, 0), np.int64),
+        lstarts=_runs(lid[lid < L], L),
+    )
+
+
+def _keyed(keys, n_keys):
+    """``(perm, starts)``: the rows whose key lies in ``[0, n_keys)``
+    sorted by key, stably (``perm`` None when that is every row in its
+    order), and each key's run."""
+    keys = np.asarray(keys, dtype=np.int64)
+    keep = np.nonzero((keys >= 0) & (keys < n_keys))[0]
+    perm = keep[np.argsort(keys[keep], kind="stable")]
+    starts = np.concatenate([[0], np.cumsum(np.bincount(keys[perm], minlength=n_keys))])
+    if perm.shape[0] == keys.shape[0] and np.array_equal(perm, np.arange(keys.shape[0])):
+        perm = None
+    return perm, starts
+
+
+def _family_sums(parts, fams, only=None) -> tuple:
+    """Per reduced family, the :class:`_Sum` of its slots' rows keyed by
+    variable over ``parts`` (``(source index, slots)`` pairs, ``slots`` as
+    :attr:`_GenBatch.slots`; ``only`` filters the sources), or None where
+    no source holds the family."""
+    out = []
+    for name, base, n, dof in fams:
+        src, keys = [], []
+        for si, slots in parts:
+            if only is not None and not only(si):
+                continue
+            for c, nm, _, pos in slots:
+                if nm == name:
+                    src.append((si, c))
+                    keys.append(pos)
+        if not src:
+            out.append(None)
+            continue
+        perm, starts = _keyed(np.concatenate(keys), n)
+        out.append(_Sum(tuple(src), perm, starts, (base, n, dof)))
+    return tuple(out)
+
+
+def _generic_plan(info: SchurInfo) -> _GenericPlan:
+    """The :class:`_GenericPlan` of the batches ``info.fast`` marks
+    generic."""
+    gens = [(bi, f) for bi, f in enumerate(info.fast) if isinstance(f, _GenBatch)]
+    L = info.num_elim
+    fam_of = {name: (base, n, dof) for name, base, n, dof in info.fams}
+    b = tuple(s for s in _family_sums([(bi, f.slots) for bi, f in gens], info.fams)
+              if s is not None)
+    # a_rr: every ordered pair of reduced slots, keyed by the variable pair.
+    pairs = collections.defaultdict(lambda: ([], []))
+    for bi, f in gens:
+        for ca, na, _, pa in f.slots:
+            for cb, nb, _, pb in f.slots:
+                nbk = fam_of[nb][1]
+                src, keys = pairs[(na, nb)]
+                src.append((bi, ca, cb))
+                keys.append(np.where((pa >= 0) & (pb >= 0), pa * nbk + pb, -1))
+    a = []
+    for (na, nb), (src, keys) in pairs.items():
+        keys = np.concatenate(keys)
+        uk = np.unique(keys[keys >= 0])
+        perm, starts = _keyed(np.where(keys >= 0, np.searchsorted(uk, keys), -1), uk.shape[0])
+        (ba, _, da), (bb, nbk, db) = fam_of[na], fam_of[nb]
+        out = (ba + (uk // nbk)[:, None] * da + np.arange(da),
+               bb + (uk % nbk)[:, None] * db + np.arange(db))
+        a.append(_Sum(tuple(src), perm, starts, out))
+    coupled = [(bi, f) for bi, f in gens if f.sel_e is not None]
+    lsum = None
+    if coupled:
+        perm, starts = _keyed(np.concatenate([f.lid for _, f in coupled]), L)
+        lsum = _Sum(tuple((bi, 0) for bi, _ in coupled), perm, starts, None)
+    # W: one placement per slot width over every coupling slot of that width.
+    by_width = collections.defaultdict(lambda: ([], [], []))
+    for bi, f in coupled if not info.implicit else ():
+        for c, name, dof, pos in f.slots:
+            src, keys, cols = by_width[dof]
+            src.append((bi, c, dof))
+            keys.append(f.lid)
+            cols.append(np.where(pos >= 0, fam_of[name][0] + pos * dof, -1))
+    w, w_inc = [], []
+    for dof, (src, keys, cols) in sorted(by_width.items()):
+        keys, cols = np.concatenate(keys), np.concatenate(cols)
+        perm, starts = _keyed(keys, L)
+        colbase = cols if perm is None else cols[perm]
+        w.append(_Sum(tuple(src), perm, starts, colbase.astype(np.int32)))
+        real = (keys < L) & (cols >= 0)
+        w_inc.append((keys[real], cols[real], np.full(int(real.sum()), dof)))
+    return _GenericPlan(b=b, a=tuple(a), l=lsum, w=tuple(w), w_inc=tuple(w_inc))
+
+
+def _implicit_plan(info: SchurInfo) -> _ImplicitPlan:
+    """The :class:`_ImplicitPlan`: a coupling part per batch with an
+    eliminated slot and reduced columns, in batch order."""
+    parts, slots, two = [], [], []
+    for bi, f in enumerate(info.fast):
+        if isinstance(f, _RunBatch):
+            parts.append(bi)
+            pos = np.where(f.rvid < f.n_r, f.rvid, -1)
+            slots.append([(0, f.rfam, f.dr_s, pos)])
+            two.append(True)
+        elif f.sel_e is not None and f.sel_r.shape[0]:
+            parts.append(bi)
+            slots.append(f.slots)
+            two.append(f.two_slot)
+    indexed = list(enumerate(slots))
+    return _ImplicitPlan(
+        parts=tuple(parts),
+        vec=_family_sums(indexed, info.fams),
+        corr=_family_sums(indexed, info.fams, only=lambda j: two[j]),
+    )
+
+
 def check_slice(info: SchurInfo, batches) -> None:
-    """Raise ``NotImplementedError`` unless every batch takes one of the
-    port's paths: a camera/landmark batch — obs-major (any number of degree
-    buckets, kernels B1/B2; one bucket with a camera repack on the
-    dual-sorted route, kernel B8) or, with one shared adaptive kernel,
-    landmark-sorted (the generic assembly) for the direct solve;
-    landmark-sorted without an adaptive kernel for the implicit one — whose
-    unfixed cameras (and kernel parameters) fill the reduced space.  Fixed
-    cameras are taken by the obs-major batches only, fixed landmarks by
-    none."""
-    if np.any(info.elim_ids[info.elim_family] == info.num_elim):
-        raise NotImplementedError(
-            "a fixed landmark (eliminated variable): its costs form the JAX "
-            "package's extras region (_onehot_reduced_tail), ROADMAP Queue 1 "
-            "item 4"
-        )
+    """Raise ``NotImplementedError`` for what the port does not take yet
+    (ROADMAP Queue 1 item 9): an adaptive batch on the implicit backend,
+    per-cost adaptive kernels (more than one kernel variable in a batch),
+    and an adaptive batch other than (kernel, camera, landmark); and for
+    the dual-sorted route (``w_impl="fused"``) on a problem whose coupling
+    batch does not qualify for it (:func:`_check_dual_route`)."""
     if info.w_impl == "fused" and info.implicit:
         raise NotImplementedError(
             "w_impl='fused' is a route of the direct solve's assembly; this "
             "problem compiled the implicit backend"
         )
-    order = "landmark-sorted" if info.implicit else "obs-major"
     for bi, b in enumerate(batches):
-        f = info.fast[bi] if bi < len(info.fast) else None
-        if b.batched != "cm":
-            raise NotImplementedError(
-                f"cost batch {bi} is {'row-major' if b.batched else 'per-cost'}: the "
-                "port's Schur assembly takes components-major batches (batched='cm'); "
-                "the JAX package's generic Schur assembly is ROADMAP Queue 1 item 4, "
-                "solver='dense' and solver='cg' take it"
-            )
+        f = info.fast[bi]
         if b.adaptive:
             if info.implicit:
                 raise NotImplementedError(
@@ -616,38 +926,21 @@ def check_slice(info: SchurInfo, batches) -> None:
                     "port takes one kernel variable shared by the whole batch; "
                     "per-cost kernels are ROADMAP Queue 1 item 9"
                 )
-        if f is None:
-            raise NotImplementedError(
-                f"cost batch {bi} is not a camera/landmark batch in {order} "
-                "order; other batch shapes (priors, pose-graph edges) take "
-                "the generic Schur assembly of a later slice of the port "
-                "(ROADMAP Queue 1 item 4)"
-            )
-        if info.w_impl == "fused":
+            if not isinstance(f, _RunBatch):
+                raise NotImplementedError(
+                    f"cost batch {bi} has an adaptive kernel outside a components-major "
+                    "(kernel, camera, landmark) batch: the JAX package's generic "
+                    "adaptive blocks are ROADMAP Queue 1 item 9"
+                )
+        if info.w_impl == "fused" and len(b.manifolds) > 1 and _elim_slots(b, info):
             _check_dual_route(bi, f)
-        dr_s = sum(m.dof for m in b.manifolds[int(b.adaptive):]) - info.dof_elim
-        cams = (np.asarray(f.row_base)[:, None] + np.arange(dr_s)).reshape(-1)
-        kern = getattr(f, "kernel_rows", None)
-        rows = cams if kern is None else np.concatenate([cams, kern])
-        generic = isinstance(f, _RunBatch) and not info.implicit
-        in_order = np.array_equal(cams, np.arange(f.n_r * dr_s))
-        if info.dim_reduced == 0 or not np.array_equal(
-            np.sort(rows), np.arange(info.dim_reduced)
-        ) or not (generic or in_order):
-            raise NotImplementedError(
-                "the reduced space must be exactly the batch's unfixed "
-                "cameras, in order, and an adaptive kernel's parameters (fixed "
-                "cameras: obs-major batches only): other reduced families are "
-                "ROADMAP Queue 1 item 4, and so are fixed cameras on the implicit "
-                "and adaptive paths"
-            )
 
 
 def _check_dual_route(bi: int, f) -> None:
     """Raise unless batch ``bi`` qualifies for the dual-sorted route: one
     obs-major bucket and a camera repack within the skew limits."""
     if not isinstance(f, _FastBatch):
-        why = "it is not obs-major"
+        why = "it is not obs-major (the problem takes the generic route)"
     elif len(f.buckets) != 1:
         why = f"its layout has {len(f.buckets)} degree buckets"
     elif f.cam_batch is None:
@@ -660,21 +953,65 @@ def _check_dual_route(bi: int, f) -> None:
     )
 
 
+def _upload_sum(s: Optional[_Sum], device, out_dtype=torch.long):
+    """A :class:`_Sum` with its arrays on ``device``."""
+    if s is None:
+        return None
+    out = s.out
+    if isinstance(out, np.ndarray):
+        out = torch.as_tensor(out, dtype=out_dtype, device=device)
+    elif isinstance(out, tuple) and out and isinstance(out[0], np.ndarray):
+        out = tuple(torch.as_tensor(o, dtype=torch.long, device=device) for o in out)
+    return s._replace(
+        perm=None if s.perm is None else torch.as_tensor(s.perm, dtype=torch.long, device=device),
+        starts=torch.as_tensor(s.starts, dtype=torch.int32, device=device),
+        out=out,
+    )
+
+
 def upload_tables(info: SchurInfo, device, dtype) -> None:
     """Place each batch's tables on the device: an obs-major batch's camera
     columns and camera-order rows, whole (kernel B2's) and, for a uniform
     batch, as ``[K, L]`` views (B1's and B8's, strided like its Jacobian
-    tile), kernel B2's work list, its camera runs, and its
+    tile), kernel B2's work list, its camera runs and its extras, and its
     camera repack as a device batch on the dual-sorted route; the run
     tables (``_RunBatch.keys``) of a landmark-sorted one, with, on the
     direct path, each cost's W column and the kernel rows; for both, each
     camera's reduced rows and the a_rr pair index of the ``ab`` rows
-    (upper triangle, row-major); and kernel B3/B4's or B5's tables of W."""
+    (upper triangle, row-major); a generic batch's block columns (and its
+    coupling keys, implicit); the generic sums' and the implicit solve's
+    plans; and kernel B3/B4's or B5's tables of W."""
     if info.w_pairs is not None:
         info.w_pairs = schur_reduce.upload_tables(info.w_pairs, device)
     if info.w_rows is not None:
         info.w_rows = schur_reduce.upload_tables(info.w_rows, device)
+    p = info.plan
+    if p is not None:
+        info.plan = _GenericPlan(
+            b=tuple(_upload_sum(s, device) for s in p.b),
+            a=tuple(_upload_sum(s, device) for s in p.a),
+            l=_upload_sum(p.l, device),
+            w=tuple(_upload_sum(s, device, torch.int32) for s in p.w),
+            w_inc=p.w_inc,
+        )
+    if info.cg is not None:
+        info.cg = dataclasses.replace(
+            info.cg,
+            vec=tuple(_upload_sum(s, device) for s in info.cg.vec),
+            corr=tuple(_upload_sum(s, device) for s in info.cg.corr),
+        )
     for f in info.fast:
+        if isinstance(f, _GenBatch):
+            f.sel = tuple(None if c is None else torch.as_tensor(c, dtype=torch.long, device=device)
+                          for c in (f.sel_r, f.sel_e))
+            if info.implicit:
+                f.keys = WPart(
+                    w_blk=None,
+                    rows_r=torch.as_tensor(f.rows_r, dtype=torch.long, device=device),
+                    lid=torch.as_tensor(f.lid, dtype=torch.long, device=device),
+                    lstarts=torch.as_tensor(f.lstarts, device=device),
+                )
+            continue
         dr_s = f.dr_s
         if isinstance(f, _FastBatch):
             f.vc_all, f.cpos_all = (
@@ -690,6 +1027,8 @@ def upload_tables(info: SchurInfo, device, dtype) -> None:
                     *(torch.as_tensor(t, device=device) for t in f.slots)
                 )
             f.cstarts = torch.as_tensor(f.cam_starts, device=device)
+            f.ex_idx = torch.as_tensor(f.ex_cols, dtype=torch.long, device=device)
+            f.ex_cstarts = torch.as_tensor(f.ex_starts, device=device)
             if f.cam_batch is not None:
                 f.cam_batch = engine.device_batch(f.cam_batch, device, dtype)
         else:
@@ -738,28 +1077,26 @@ def _weighted(batch, variables, fast: _FastBatch, dtype):
     return cost, jac, g0, d1 * mval, 2.0 * d2 * mval
 
 
-def batch_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
-    """``(cost, head, tail)``: the batch's masked cost and kernel B2's
-    arguments around its buffers — ``head = (jac [n, S, B], g0 [S, B],
-    ρ′·mask, 2ρ″·mask, camera columns, camera-order rows, slot tables)``,
-    ``tail = (n_r, dr_s, dl, e_start)``."""
-    cost, jac, g0, d1m, d2m = _weighted(batch, variables, fast, dtype)
+def _into_args(weighted, info: SchurInfo, fast: _FastBatch, batch):
+    cost, jac, g0, d1m, d2m = weighted
     e0 = sum(m.dof for m in batch.manifolds[: fast.e_slot])
     return cost, (jac, g0, d1m, d2m, fast.vc_all, fast.cpos_all, fast.slots), (
         fast.n_r, fast.dr_s, info.dof_elim, e0)
 
 
-def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
-    """``(cost, args)``: a uniform batch's masked cost and the arguments of
-    kernel B8 — the tile ``jac [n, S, K, L]``, ``g0``, ``ρ′·mask``,
-    ``2ρ″·mask`` and the camera columns (views of the batch,
-    landmark-major in memory), then ``(n_r, dr_s, dl, e_start)``; B1 takes
-    the camera-order rows (``fast.cpos``) after the camera columns, and
-    the camera runs (``fast.cstarts``)."""
+def batch_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
+    """``(cost, head, tail)``: the batch's masked cost and kernel B2's
+    arguments around its buffers — ``head = (jac [n, S, B], g0 [S, B],
+    ρ′·mask, 2ρ″·mask, camera columns, camera-order rows, slot tables)``,
+    ``tail = (n_r, dr_s, dl, e_start)``."""
+    return _into_args(_weighted(batch, variables, fast, dtype), info, fast, batch)
+
+
+def _tile_args(weighted, info: SchurInfo, fast: _FastBatch, batch):
     if len(fast.buckets) != 1:
         raise ValueError(f"fused_inputs: {len(fast.buckets)} buckets; B1 and B8 take one")
     ((_, lb, kb, c0),) = fast.buckets
-    cost, jac, g0, d1m, d2m = _weighted(batch, variables, fast, dtype)
+    cost, jac, g0, d1m, d2m = weighted
     nres, stot = jac.shape[0], jac.shape[1]
     sl = slice(c0, c0 + lb * kb)
     return cost, (
@@ -775,25 +1112,52 @@ def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
     )
 
 
+def fused_inputs(batch, variables, info: SchurInfo, fast: _FastBatch, dtype):
+    """``(cost, args)``: a uniform batch's masked cost and the arguments of
+    kernel B8 — the tile ``jac [n, S, K, L]``, ``g0``, ``ρ′·mask``,
+    ``2ρ″·mask`` and the camera columns (views of the batch,
+    landmark-major in memory), then ``(n_r, dr_s, dl, e_start)``; B1 takes
+    the camera-order rows (``fast.cpos``) after the camera columns, and
+    the camera runs (``fast.cstarts``)."""
+    return _tile_args(_weighted(batch, variables, fast, dtype), info, fast, batch)
+
+
+def _extras_rows(weighted, fast: _FastBatch, e0: int, dl: int):
+    """The camera rows ``[n_ex, npairs + dr_s]`` (a_rr's upper triangle,
+    then b_r, as B1 and B2 write theirs) of the extras region's costs, in
+    camera order."""
+    _, jac, g0, d1m, d2m = weighted
+    idx, dr_s = fast.ex_idx, fast.dr_s
+    r_rows = _reduced_rows(e0, dl, dr_s, jac.device)
+    jr = jac.index_select(2, idx)[:, r_rows]
+    gr = g0.index_select(1, idx)[r_rows]
+    a1, a2 = d1m[idx], d2m[idx]
+    pi, qi = _triu_rows(dr_s, jac.device)
+    ha = (jr[:, pi] * jr[:, qi]).sum(0) * a1 + a2 * gr[pi] * gr[qi]
+    return torch.cat([ha, gr * a1]).T
+
+
 def assemble_schur(batches, variables, info: SchurInfo, dtype,
                    assemble_kernel: Callable = fused_obs.fused_obs_all,
                    assemble_into_kernel: Callable = fused_obs.fused_obs_all_into,
                    segment_sum: Callable = segment_block_sum,
                    place_w: Callable = w_place.place_w,
                    assemble_leg: Callable = fused_obs.fused_obs_leg):
-    """``(cost, (a_rr, b_r, h_ll, g_l, w))`` for the direct solve.  An
+    """``(cost, (a_rr, b_r, h_ll, g_l, w))`` for the direct solve.  The
     obs-major batch goes through the whole-system assembly kernels, one
     pass over its obs-major Jacobian: kernel B1 for a single bucket, one
     launch of kernel B2 over every bucket of a degree-bucketed batch, then
     one ``segment_sum`` (kernel B6) over the camera runs of the per-slot
-    camera rows that B2 wrote (B1 makes that sum itself): the system has
-    the same bits on every assembly.  On the dual-sorted route
-    (``info.w_impl == "fused"``) kernel B8 makes that pass without the
-    camera side, and the camera-major leg (:func:`_fast_dual_cam_leg`)
-    sums a_rr and b_r over camera runs.  A landmark-sorted (adaptive)
-    batch goes through
-    :func:`_assemble_generic`.  ``batches`` are the compiled device
-    batches; :func:`check_slice` has vetted them."""
+    camera rows that B2 wrote (B1 makes that sum itself), and one more
+    over the extras region's camera rows: the system has the same bits on
+    every assembly.  On the dual-sorted route (``info.w_impl == "fused"``)
+    kernel B8 makes that pass without the camera side, and the
+    camera-major leg (:func:`_fast_dual_cam_leg`) sums a_rr and b_r over
+    camera runs, extras included.  An adaptive batch goes through
+    :func:`_assemble_generic`; every other batch through the generic sums
+    (:func:`_add_generic`: B6 over keyed runs, W placed by kernel B7).
+    ``batches`` are the compiled device batches; :func:`check_slice` has
+    vetted them."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
     dev = next(iter(variables.values())).device
     total = torch.zeros((), dtype=dtype, device=dev)
@@ -801,8 +1165,12 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
     b_r = torch.zeros(dr, dtype=dtype, device=dev)
     h_ll = torch.zeros(dl, dl, L, dtype=dtype, device=dev)
     g_l = torch.zeros(dl, L, dtype=dtype, device=dev)
-    w = None
-    for batch, fast in zip(batches, info.fast):
+    w, blocks = None, {}
+    for bi, (batch, fast) in enumerate(zip(batches, info.fast)):
+        if isinstance(fast, _GenBatch):
+            cost, *blocks[bi] = _generic_blocks(batch, variables, fast, dl)
+            total = total + cost
+            continue
         if isinstance(fast, _RunBatch):
             cost, w_b = _assemble_generic(
                 batch, variables, info, fast, dtype, segment_sum, place_w,
@@ -812,11 +1180,12 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             w = w_b if w is None else w + w_b
             continue
         n_r, dr_s = fast.n_r, fast.dr_s
+        weighted = _weighted(batch, variables, fast, dtype)
+        total = total + weighted[0]
         if fast.slots is not None:
             # B2 adds into h_ll and g_l, writes W's blocks into a zeroed W
             # and each real slot's camera row once.
-            cost, head, tail = batch_inputs(batch, variables, info, fast, dtype)
-            total = total + cost
+            _, head, tail = _into_args(weighted, info, fast, batch)
             w_b = torch.zeros(L, dl, n_r * dr_s, dtype=dtype, device=dev)
             rows = torch.empty(int(fast.cam_starts[-1]), dr_s * (dr_s + 3) // 2,
                                dtype=dtype, device=dev)
@@ -824,22 +1193,90 @@ def assemble_schur(batches, variables, info: SchurInfo, dtype,
             w = w_b if w is None else w + w_b
             _add_camera_blocks(a_rr, b_r, segment_sum(rows, fast.cstarts), fast.pair_of,
                                fast.rows)
-            continue
-        cost, args = fused_inputs(batch, variables, info, fast, dtype)
-        total = total + cost
-        if info.w_impl == "fused":
-            h_add, g_add, w_b = assemble_leg(*args)
+        else:
+            _, args = _tile_args(weighted, info, fast, batch)
+            if info.w_impl == "fused":
+                h_add, g_add, w_b = assemble_leg(*args)
+                h_ll += h_add
+                g_l += g_add
+                w = w_b if w is None else w + w_b
+                _fast_dual_cam_leg(fast, variables, info.dof_elim, dtype, a_rr, b_r)
+                continue
+            h_add, g_add, w_b, ab = assemble_kernel(*args[:5], fast.cpos, fast.cstarts,
+                                                    *args[5:])
             h_ll += h_add
             g_l += g_add
             w = w_b if w is None else w + w_b
-            _fast_dual_cam_leg(fast, variables, info.dof_elim, dtype, a_rr, b_r)
-            continue
-        h_add, g_add, w_b, ab = assemble_kernel(*args[:5], fast.cpos, fast.cstarts, *args[5:])
-        h_ll += h_add
-        g_l += g_add
-        w = w_b if w is None else w + w_b
-        _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, fast.rows)
+            _add_camera_blocks(a_rr, b_r, ab, fast.pair_of, fast.rows)
+        if fast.ex_cols.shape[0]:
+            ex = _extras_rows(weighted, fast, sum(m.dof for m in batch.manifolds[: fast.e_slot]),
+                              dl)
+            _add_camera_blocks(a_rr, b_r, segment_sum(ex, fast.ex_cstarts), fast.pair_of,
+                               fast.rows)
+    w_g = _add_generic(blocks, info, segment_sum, place_w, a_rr, b_r, h_ll, g_l)
+    if w_g is not None:
+        w = w_g if w is None else w + w_g
+    if w is None:
+        w = torch.zeros(L, dl, dr, dtype=dtype, device=dev)
     return total, (a_rr, b_r, h_ll, g_l, w)
+
+
+def _generic_blocks(batch, variables, gen: _GenBatch, dl: int):
+    """The per-cost blocks of a generic batch (``engine.batch_grad_hess``,
+    masked costs zeroed), split as the JAX package splits them: ``(cost,
+    g_r [B, Sr], h_rr [B, Sr, Sr], le [B, dl² + dl] or None, h_re [B, Sr,
+    dl] or None)``, ``le`` the landmark block and gradient, ``h_re`` the
+    coupling block of each cost."""
+    cost, g, h = engine.batch_grad_hess(batch, variables)
+    m = batch.mask
+    g = torch.where(m[:, None], g, torch.zeros_like(g))
+    h = torch.where(m[:, None, None], h, torch.zeros_like(h))
+    sel_r, sel_e = gen.sel
+    h_r = h.index_select(1, sel_r)
+    out = (cost, g.index_select(1, sel_r), h_r.index_select(2, sel_r))
+    if sel_e is None:
+        return (*out, None, None)
+    le = torch.cat([h.index_select(1, sel_e).index_select(2, sel_e).reshape(-1, dl * dl),
+                    g.index_select(1, sel_e)], 1)
+    return (*out, le, h_r.index_select(2, sel_e))
+
+
+def _gather_rows(s: _Sum, take):
+    """The rows of :class:`_Sum` ``s``'s sources (``take(*source)``),
+    concatenated and taken in its order."""
+    vals = [take(*src) for src in s.sources]
+    v = vals[0] if len(vals) == 1 else torch.cat(vals)
+    return v if s.perm is None else v.index_select(0, s.perm)
+
+
+def _add_generic(blocks, info: SchurInfo, segment_sum, place_w, a_rr, b_r, h_ll, g_l):
+    """Add the generic batches' blocks (``blocks[batch] = (g_r, h_rr, le,
+    h_re)``, :func:`_generic_blocks`) into a_rr, b_r, h_ll and g_l in
+    place, each keyed sum of ``info.plan`` through ``segment_sum`` (kernel
+    B6); returns their W ``[L, dl, Dr]`` placed by ``place_w`` (kernel B7,
+    one launch per slot width), or None."""
+    plan = info.plan
+    L, dl, dr = info.num_elim, info.dof_elim, info.dim_reduced
+    for s in plan.b:
+        base, n, dof = s.out
+        v = _gather_rows(s, lambda bi, c: blocks[bi][0][:, c : c + dof])
+        b_r[base : base + n * dof] += segment_sum(v, s.starts).reshape(-1)
+    for s in plan.a:
+        ra, rb = s.out
+        da, db = ra.shape[1], rb.shape[1]
+        v = _gather_rows(s, lambda bi, ca, cb: blocks[bi][1][:, ca : ca + da, cb : cb + db]
+                         .reshape(-1, da * db))
+        a_rr[ra[:, :, None], rb[:, None, :]] += segment_sum(v, s.starts).view(-1, da, db)
+    if plan.l is not None:
+        lsum = segment_sum(_gather_rows(plan.l, lambda bi, _: blocks[bi][2]), plan.l.starts)
+        h_ll += lsum[:, : dl * dl].T.reshape(dl, dl, L)
+        g_l += lsum[:, dl * dl :].T
+    w = None
+    for s in plan.w:
+        v = _gather_rows(s, lambda bi, c, d: blocks[bi][3][:, c : c + d].transpose(1, 2))
+        w_d = place_w(v, s.starts, s.out, dr)
+        w = w_d if w is None else w + w_d
+    return w
 
 
 def _add_camera_blocks(a_rr, b_r, ab, pair_of, rows):
@@ -959,7 +1396,7 @@ def _assemble_generic(batch, variables, info: SchurInfo, runs: _RunBatch, dtype,
         + d2m[:, None, None] * ge.T[:, :, None] * gr.T[:, None, :]
     )
     w = place_w(w_blk, runs.keys.lstarts, runs.colbase, info.dim_reduced)
-    if kk is not None:
+    if kk is not None and runs.kr is not None:
         kr = runs.kr
         a_kk, g_k = kk
         a_rr[kr[:, None], kr[None, :]] += a_kk
@@ -974,13 +1411,15 @@ def _assemble_generic(batch, variables, info: SchurInfo, runs: _RunBatch, dtype,
 def assemble_implicit(batches, variables, info: SchurInfo, dtype,
                       segment_sum: Callable = segment_block_sum):
     """``(cost, (a_rr, b_r, h_ll, g_l, wparts))`` for the implicit solve:
-    the per-cost blocks of each landmark-sorted batch (:func:`_run_blocks`)
-    and every keyed sum through ``segment_sum`` (kernel B6's contract):
-    h_ll and g_l (D = dl² + dl) over the landmark runs, the a_rr upper
-    triangle and b_r (D = dr_s(dr_s+1)/2 + dr_s) over the camera runs.  The
-    coupling blocks stay per cost in ``wparts``; no dense W is formed.
-    ``batches`` are the compiled device batches, vetted by
-    :func:`check_slice`."""
+    the per-cost blocks of each components-major camera/landmark batch
+    (:func:`_run_blocks`) and every keyed sum through ``segment_sum``
+    (kernel B6's contract): h_ll and g_l (D = dl² + dl) over the landmark
+    runs, the a_rr upper triangle and b_r (D = dr_s(dr_s+1)/2 + dr_s) over
+    the camera runs; every other batch's blocks through the generic sums
+    (:func:`_add_generic`, without W).  The coupling blocks stay per cost
+    in ``wparts``, one per batch with an eliminated slot and reduced
+    columns (``info.cg.parts``); no dense W is formed.  ``batches`` are the
+    compiled device batches, vetted by :func:`check_slice`."""
     dr, L, dl = info.dim_reduced, info.num_elim, info.dof_elim
     dev = next(iter(variables.values())).device
     total = torch.zeros((), dtype=dtype, device=dev)
@@ -988,8 +1427,14 @@ def assemble_implicit(batches, variables, info: SchurInfo, dtype,
     b_r = torch.zeros(dr, dtype=dtype, device=dev)
     h_ll = torch.zeros(dl, dl, L, dtype=dtype, device=dev)
     g_l = torch.zeros(dl, L, dtype=dtype, device=dev)
-    wparts = []
-    for batch, runs in zip(batches, info.fast):
+    wparts, blocks = [], {}
+    for bi, (batch, runs) in enumerate(zip(batches, info.fast)):
+        if isinstance(runs, _GenBatch):
+            cost, *blocks[bi] = _generic_blocks(batch, variables, runs, dl)
+            total = total + cost
+            if bi in info.cg.parts:
+                wparts.append(runs.keys._replace(w_blk=blocks[bi][3]))
+            continue
         cost, lrows, crows, (jr, je, gr, ge, d1m, d2m), _ = _run_blocks(
             batch, variables, runs, dl, dtype
         )
@@ -1005,6 +1450,7 @@ def assemble_implicit(batches, variables, info: SchurInfo, dtype,
             + d2m[:, None, None] * gr.T[:, :, None] * ge.T[:, None, :]
         )
         wparts.append(runs.keys._replace(w_blk=w_blk))
+    _add_generic(blocks, info, segment_sum, None, a_rr, b_r, h_ll, g_l)
     return total, (a_rr, b_r, h_ll, g_l, tuple(wparts))
 
 
@@ -1019,9 +1465,8 @@ class _SchurSystem:
 
     def diag_max(self, sys):
         a_rr, _, h_ll, _, _ = sys
-        m_r = torch.diagonal(a_rr).abs().max()
-        m_l = torch.diagonal(h_ll, dim1=0, dim2=1).abs().max()
-        return torch.maximum(m_r, m_l)
+        d = torch.cat([torch.diagonal(a_rr), torch.diagonal(h_ll, dim1=0, dim2=1).reshape(-1)])
+        return d.abs().max()
 
     @staticmethod
     def damped_inverse(h_ll, lam):
@@ -1162,9 +1607,11 @@ class SchurCGOps(_SchurSystem):
     dim_reduced: int
     num_elim: int
     dof_elim: int
-    # Reduced families (name, offsets [n], dof); check_slice leaves one,
-    # whose cameras fill the reduced space in order.
-    fam_offsets: tuple
+    # Reduced families with unfixed variables, (name, base, n, dof) in
+    # tangent order (SchurInfo.fams), and the keyed sums over the coupling
+    # parts (SchurInfo.cg, an _ImplicitPlan on the device).
+    fams: tuple
+    plan: Any
     # Relative PCG residual tolerance; None = 1e-5 in float32, 1e-12 in
     # float64 (a float64 tolerance is out of float32's reach and would
     # run every solve to CG_MAX_ITERS).
@@ -1186,24 +1633,37 @@ class SchurCGOps(_SchurSystem):
             q = (wp.w_blk * vp[wp.rows_r][:, :, None]).sum(1)  # [B, dl]
             part = self.segment_sum(q, wp.lstarts)  # [L, dl]
             u = part if u is None else u + part
+        if u is None:
+            return v.new_zeros(self.dof_elim, self.num_elim)
         return u.T
 
+    def _family_vector(self, sums, take, like):
+        """The ``[Dr]`` vector of the per-variable sums ``sums`` (one
+        :class:`_Sum` or None per reduced family) of the rows ``take(part,
+        column, dof)``, each family's run of rows in order."""
+        parts = []
+        for (_, _, n, dof), s in zip(self.fams, sums):
+            if s is None:
+                parts.append(like.new_zeros(n * dof))
+                continue
+            v = _gather_rows(s, lambda j, c: take(j, c, dof))
+            parts.append(self.segment_sum(v, s.starts).reshape(-1))
+        if not parts:
+            return like.new_zeros(0)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def _w_apply(self, wparts, u):
-        """y = Σ_c w_c u[:, l_c] at the cost's camera rows → [Dr], ``u``
-        components-major [dl, L]: the block products per cost, gathered
-        into camera order, then B6 over camera runs (deterministic, unlike
-        a scatter-add)."""
+        """y = Σ_c w_c u[:, l_c] at the cost's reduced rows → [Dr], ``u``
+        components-major [dl, L]: the block products per cost, then B6 over
+        each reduced family's variable runs (deterministic, unlike a
+        scatter-add)."""
         up = torch.cat([u.T, u.new_zeros(1, self.dof_elim)])  # row L: dustbin
-        y = None
-        for wp in wparts:
-            t = (wp.w_blk * up[wp.lid][:, None, :]).sum(2)  # [B, dr_s]
-            part = self.segment_sum(t.index_select(0, wp.cperm), wp.cstarts)
-            y = part.reshape(-1) if y is None else y + part.reshape(-1)
-        return y
+        ts = [(wp.w_blk * up[wp.lid][:, None, :]).sum(2) for wp in wparts]  # [B, Sr]
+        return self._family_vector(self.plan.vec, lambda j, c, d: ts[j][:, c : c + d], u)
 
     def quad(self, sys, x):
         """xᵀHx of the undamped system (the JAX package's ``quad``): the
-        cross term through :meth:`_w_apply` (kernel B6 over camera runs)."""
+        cross term through :meth:`_w_apply` (kernel B6 over variable runs)."""
         a_rr, _, h_ll, _, wparts = sys
         xr = x[: self.dim_reduced]
         xl = x[self.dim_reduced:].reshape(self.num_elim, self.dof_elim)
@@ -1217,35 +1677,50 @@ class SchurCGOps(_SchurSystem):
         return a_rr @ v + lam * v - self._w_apply(wparts, u)
 
     def precond_blocks(self, sys, lam, h_inv):
-        """``(blocks, a_blocks)``, both ``[n_r, dof, dof]``: the damped
-        Schur-Jacobi blocks (A_rr + λI)[v,v] − Σ_c w_c H⁻¹ w_cᵀ over camera
-        v's costs (B6 over camera runs), and the A_rr-only blocks
-        (A_rr + λI)[v,v]."""
+        """``(blocks, a_blocks, corrected)``, per reduced family: the
+        damped Schur-Jacobi blocks (A_rr + λI)[v,v] − Σ_c w_c H⁻¹ w_cᵀ over
+        variable v's costs in two-slot coupling parts (B6 over variable
+        runs), the A_rr-only blocks (A_rr + λI)[v,v], and whether the
+        family took the correction (the JAX package's rule: only two-slot
+        parts correct, and a family that none sees keeps its A_rr-only
+        blocks)."""
         a_rr, _, _, _, wparts = sys
-        _, offs, dof = self.fam_offsets[0]
-        n_r, dl = len(offs), self.dof_elim
-        ar = torch.arange(n_r, device=a_rr.device)
-        a_blocks = (
-            a_rr.view(n_r, dof, n_r, dof)[ar, :, ar, :]
-            + lam * torch.eye(dof, dtype=a_rr.dtype, device=a_rr.device)
-        )
+        dl = self.dof_elim
         hi = torch.cat([h_inv.permute(2, 0, 1), h_inv.new_zeros(1, dl, dl)])
-        corr = None
-        for wp in wparts:
-            m = torch.einsum("bpd,bde,bqe->bpq", wp.w_blk, hi[wp.lid], wp.w_blk)
-            m = m.reshape(-1, dof * dof).index_select(0, wp.cperm)
-            part = self.segment_sum(m, wp.cstarts)  # [n_r, dof²]
-            corr = part if corr is None else corr + part
-        return a_blocks - corr.reshape(n_r, dof, dof), a_blocks
+        ms = {}
+
+        def m_of(j, dof):
+            if j not in ms:
+                wp = wparts[j]
+                ms[j] = torch.einsum("bpd,bde,bqe->bpq", wp.w_blk, hi[wp.lid], wp.w_blk)
+            return ms[j].reshape(-1, dof * dof)
+
+        blocks, a_blocks, corrected = [], [], []
+        for (_, base, n, dof), s in zip(self.fams, self.plan.corr):
+            idx = base + torch.arange(n * dof, device=a_rr.device).view(n, dof)
+            a_b = (a_rr[idx[:, :, None], idx[:, None, :]]
+                   + lam * torch.eye(dof, dtype=a_rr.dtype, device=a_rr.device))
+            a_blocks.append(a_b)
+            corrected.append(s is not None)
+            if s is None:
+                blocks.append(a_b)
+                continue
+            corr = self.segment_sum(_gather_rows(s, lambda j, c: m_of(j, dof)), s.starts)
+            blocks.append(a_b - corr.view(n, dof, dof))
+        return blocks, a_blocks, corrected
 
     def precond_inverses(self, sys, lam, h_inv):
-        """Inverted preconditioner blocks, each falling back to its
-        A_rr-only inverse when the corrected one comes out non-finite
-        (λ = 0 on gauge-deficient problems)."""
-        blocks, a_blocks = self.precond_blocks(sys, lam, h_inv)
-        inv = batched_inv_spd(blocks)
-        bad = ~torch.isfinite(inv).flatten(1).all(1)
-        return torch.where(bad[:, None, None], batched_inv_spd(a_blocks), inv)
+        """Inverted preconditioner blocks per family; in a corrected family
+        each falls back to its A_rr-only inverse when the corrected one
+        comes out non-finite (λ = 0 on gauge-deficient problems)."""
+        out = []
+        for blocks, a_blocks, corrected in zip(*self.precond_blocks(sys, lam, h_inv)):
+            inv = batched_inv_spd(blocks)
+            if corrected:
+                bad = ~torch.isfinite(inv).flatten(1).all(1)
+                inv = torch.where(bad[:, None, None], batched_inv_spd(a_blocks), inv)
+            out.append(inv)
+        return tuple(out)
 
     def _finalize(self, xr, xl):
         """The full step from the reduced part and the components-major
@@ -1265,9 +1740,15 @@ class SchurCGOps(_SchurSystem):
         tol2, state = pcg_start(rhs, functools.partial(self._precond, inv), self._tol(rhs.dtype))
         return h_inv, inv, tol2, state
 
-    @staticmethod
-    def _precond(inv, r):
-        return torch.einsum("nst,nt->ns", inv, r.view(inv.shape[0], -1)).reshape(-1)
+    def _precond(self, inv, r):
+        """The block-Jacobi apply, family by family over their row runs."""
+        parts = [
+            torch.einsum("nst,nt->ns", i, r[base : base + n * dof].view(n, dof)).reshape(-1)
+            for (_, base, n, dof), i in zip(self.fams, inv)
+        ]
+        if not parts:
+            return r.new_zeros(0)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def pcg_chunk(self, sys, lam, h_inv, inv, tol2, state):
         """``linearsolver.CG_CHECK_EVERY`` PCG iterations from ``state``

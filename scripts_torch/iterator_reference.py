@@ -1,5 +1,5 @@
-"""The JAX package's reference runs of the Newton, dogleg, gradient-descent
-and dense paths of ``chip_smoke.py``, on the CPU.
+"""The JAX package's reference runs of the Newton, dogleg, gradient-descent,
+dense, cg and generic-Schur paths of ``chip_smoke.py``, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts_torch/iterator_reference.py [case ...]
 
@@ -25,7 +25,24 @@ unset):
   "dense"``, 20 iterations, ``rel_dcost=1e-12``;
 - ``posegraph_cg_lm``, ``posegraph_cg_dogleg``: the same through
   ``solver="cg"`` (the matrix-free PCG, its default tolerance: 1e-14 in
-  float64).
+  float64);
+- ``ladybug_percost_lm``, ``ladybug_percost_cg``: Ladybug-49
+  (``make_realistic_bal(49, 7776, seed=1, noise=1e-3, track_alpha=2.3)``,
+  34,619 observations) in the per-cost form (``make_bal_problem(...,
+  batched=False)``, autodiff Jacobians) in float64, a prior batch on every
+  25th point from the fourth on (its true position), the first camera and
+  the first three points fixed at their true values, the free points
+  perturbed by 0.05 (seed 5); LM
+  with ``rel_dcost=1e-6`` through ``solver="schur"`` and
+  ``solver="schur_cg"`` with ``linear_tol=1e-8`` (the case also prints
+  the PCG iterations of every damped solve: at 1e-10 and at the float64
+  default, 1e-12, the eighth solve's count moves with last-bit rounding);
+- ``bench_riders_f32``: bench-realistic in float32 (components-major,
+  hand Jacobian) with its 81 lowest-id points fixed (1%) at their true
+  values, a prior batch on every camera and one on every 100th free point
+  (their true values), the free points perturbed by 0.05 (seed 5), LM
+  through ``solver="schur"``
+  with the bench options (30 iterations, no early stop).
 
 Each case prints one JSON line: start cost, the cost after every
 iteration, the best cost, iterations, linear solves, cost evaluations and
@@ -51,6 +68,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "highest")
 
 import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
 import nllstpu as nt  # noqa: E402
 from nllstpu.core import iterators as jax_iterators  # noqa: E402
@@ -62,6 +80,8 @@ from nllstpu.ops import schur as jax_schur  # noqa: E402
 
 #: Solves seen inside the JAX programs: [Cholesky fell to LU, non-finite].
 SOLVES = {"total": 0, "lu": 0, "nonfinite": 0}
+#: PCG iterations of every implicit Schur solve, in order.
+PCG_ITERS = []
 
 
 def _record(ok, finite):
@@ -84,6 +104,28 @@ def counting_cholesky_solve(a, b):
 
 jax_schur.cholesky_solve = counting_cholesky_solve
 jax_iterators.cholesky_solve = counting_cholesky_solve
+
+
+class _Proxy:
+    """``base`` with some attributes replaced."""
+
+    def __init__(self, base, **over):
+        self._base, self._over = base, over
+
+    def __getattr__(self, name):
+        return self._over[name] if name in self._over else getattr(self._base, name)
+
+
+def _counting_while_loop(cond, body, init):
+    """``jax.lax.while_loop`` for ``nllstpu.ops.schur`` (whose one while
+    loop is ``SchurCGOps.solve``'s PCG, state ``(x, r, z, p, rz, k)``),
+    with a host callback that records the PCG's iteration count."""
+    out = jax.lax.while_loop(cond, body, init)
+    jax.debug.callback(lambda k: PCG_ITERS.append(int(k)), out[-1], ordered=True)
+    return out
+
+
+jax_schur.jax = _Proxy(jax, lax=_Proxy(jax.lax, while_loop=_counting_while_loop))
 
 BENCH = dict(max_iters=30, rel_dcost=0.0, abs_dcost=0.0, dstep=1e-12, max_fails=1 << 30,
              max_time=float("inf"), store_trajectory="jit")
@@ -119,6 +161,43 @@ def _posegraph(iterator, solver="dense"):
     return nt.optimize(p, opts, unfixed=poses[1:])
 
 
+def point_prior(measurement, point):
+    """A prior on a point: its offset from ``measurement``."""
+    return point - measurement
+
+
+def camera_prior(measurement, camera):
+    """A prior on a Snavely camera: its offset from ``measurement``."""
+    return camera - measurement
+
+
+def _ladybug_percost(solver):
+    data = bal.make_realistic_bal(ncameras=49, npoints=7776, seed=1, noise=1e-3,
+                                  track_alpha=2.3)
+    p, cams, pts = bal.make_bal_problem(data, dtype=jnp.float64, batched=False)
+    idx = np.arange(3, len(pts), 25)
+    p.add_cost_batch(point_prior, slots=[(bal.PT, idx)], params=data["points"][idx])
+    perturb_ba(p, pts[3:], 0.05, seed=5)
+    opts = nt.Options(solver=solver, schur_family=bal.PT, rel_dcost=1e-6,
+                      linear_tol=1e-8 if solver == "schur_cg" else None,
+                      max_time=float("inf"), store_trajectory="jit")
+    return nt.optimize(p, opts, unfixed=cams[1:] + pts[3:])
+
+
+def _bench_riders():
+    data = bal.make_realistic_bal(ncameras=128, npoints=8192, seed=1, noise=1e-3,
+                                  track_alpha=1.6, max_track=96)
+    p, cams, pts = bal.make_bal_problem(data, dtype=jnp.float32)
+    n_fix = len(pts) // 100
+    p.add_cost_batch(camera_prior, slots=[(bal.CAM, np.arange(len(cams)))],
+                     params=data["cameras"])
+    idx = np.arange(n_fix, len(pts), 100)
+    p.add_cost_batch(point_prior, slots=[(bal.PT, idx)], params=data["points"][idx])
+    perturb_ba(p, pts[n_fix:], 0.05, seed=5)
+    opts = nt.Options(solver="schur", schur_family=bal.PT, **BENCH)
+    return nt.optimize(p, opts, unfixed=cams + pts[n_fix:])
+
+
 KERNELS = ("None", "Huber", "GemanMcclure", "Cauchy", "Welsch", "Tukey")
 
 CASES = {
@@ -132,6 +211,9 @@ CASES = {
     "posegraph_dogleg": lambda: _posegraph(nt.DOGLEG),
     "posegraph_cg_lm": lambda: _posegraph(nt.LEVENBERG_MARQUARDT, "cg"),
     "posegraph_cg_dogleg": lambda: _posegraph(nt.DOGLEG, "cg"),
+    "ladybug_percost_lm": lambda: _ladybug_percost("schur"),
+    "ladybug_percost_cg": lambda: _ladybug_percost("schur_cg"),
+    "bench_riders_f32": _bench_riders,
 }
 
 
@@ -143,6 +225,7 @@ def _line(name, r, t0):
         solves=int(r.linear_solves), cost_evals=int(r.cost_computations),
         cholesky_to_lu=SOLVES["lu"], nonfinite_solves=SOLVES["nonfinite"],
         counted_solves=SOLVES["total"], seconds=time.perf_counter() - t0,
+        **({"pcg_iters": list(PCG_ITERS)} if PCG_ITERS else {}),
     )
 
 
@@ -150,6 +233,7 @@ def main():
     names = sys.argv[1:] or [*CASES, "curvefit"]
     for name in names:
         SOLVES.update(total=0, lu=0, nonfinite=0)
+        PCG_ITERS.clear()
         t0 = time.perf_counter()
         if name == "curvefit":
             best = {}

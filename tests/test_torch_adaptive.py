@@ -5,8 +5,8 @@ over external inverses) against the Pallas kernels in interpret mode, and
 an adaptive Snavely BAL problem (6 cameras, 64 points, 10% outliers, as in
 tests/test_adaptive.py) through the direct Schur solve: the assembled
 system, the damped solve and the Levenberg-Marquardt trace with the
-recovered kernel parameters; and the refusals of what the port does not
-take yet."""
+recovered kernel parameters; a further reduced family beside the kernel;
+and the refusals of what the port does not take yet."""
 
 import numpy as np
 import jax
@@ -306,11 +306,28 @@ def test_refuses_per_cost_kernels():
 
 
 def test_refuses_other_reduced_families():
-    """A reduced variable outside the cameras and the kernel: refused."""
-    p, _, _, _ = tbal.make_bal_problem(
-        jbal.make_synthetic_bal(4, 8), device="cpu", kernel=CG[2], kernel_params=CG[1])
+    """A reduced variable outside the cameras and the kernel, which the
+    port refused before its generic assembly: the system (cost, a_rr, b_r,
+    h_ll, g_l, W) within 1e-10 and the damped step at λ = 1e-2 within
+    1e-9 of the JAX package's."""
+    data = jbal.make_synthetic_bal(4, 8, noise=1e-2)
+    p, _, pts, _ = tbal.make_bal_problem(data, device="cpu", kernel=CG[2], kernel_params=CG[1])
     p.add_variable(pt.Euclidean(2), np.zeros(2))
-    assert "other reduced families are ROADMAP Queue 1 item 4" in _refused(p)
+    perturb_ba(p, pts, 0.01, seed=7)
+    jp, _, jpts, _ = jbal.make_bal_problem(data, kernel=CG[0], kernel_params=CG[1])
+    jp.add_variable(nt.Euclidean(2), np.zeros(2))
+    jax_perturb_ba(jp, jpts, 0.01, seed=7)
+    jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
+    tc = pt.compile_problem(p, solver="schur", schur_family=tbal.PT)
+    cost_j, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
+    cost_t, sys_t = tc.assemble(p.stacked_variables())
+    assert tc.schur_info.dim_reduced == 4 * 9 + 3 + 2
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-12)
+    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_t[:4], sys_j[:4]):
+        _close(a.numpy(), b, 1e-10, name)
+    _close(sys_t[4].numpy(), np.asarray(sys_j[4]).transpose(1, 0, 2), 1e-10, "w")
+    x_j = np.asarray(jc.ctx().linops.solve(sys_j, jnp.asarray(1e-2)))
+    _close(tc.ctx().linops.solve(sys_t, 1e-2).numpy(), x_j, 1e-9, "step")
 
 
 def test_refuses_implicit_adaptive():

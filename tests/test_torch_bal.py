@@ -105,10 +105,6 @@ def test_snavely_residual_and_jacobian_match_jax():
 
 def test_make_bal_problem_rejects_unported_forms():
     data = tbal.make_synthetic_bal(4, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbal.make_bal_problem(data, device="cpu", batched=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbal.make_bal_problem(data, device="cpu", hand_jacobian=False)
     # Adaptive kernels are ported: the JAX package's kernel object is not
     # one, and the port's needs its parameters.
     with pytest.raises(TypeError, match="not a robust kernel of the port"):

@@ -851,3 +851,102 @@ def test_cg_pieces_capture_and_replay(cuda, iterator):
     problem, opts, unfixed, _ = _cg_case(cuda, iterator)
     r_s = nt.optimize(problem, opts, unfixed=unfixed, callback=nt.null_callback)
     assert r_g.num_iterations >= 2 and r_g.costs == r_s.costs
+
+
+def _prior(measurement, x):
+    return x - measurement
+
+
+def _generic_case(cuda, dtype, solver="schur"):
+    """A per-cost pinhole problem (autodiff Jacobians) with a prior batch on
+    every seventh landmark, its first camera and two landmarks fixed: the
+    generic Schur route, compiled with the kernels and with their plain
+    versions."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.ba import make_pinhole_ba, perturb_ba
+
+    p, cams, lmks = make_pinhole_ba(6, 60, 0.6, noise=1e-3, dtype=dtype, device=cuda)
+    perturb_ba(p, lmks, 0.03, seed=2)
+    idx = np.arange(2, 60, 7)
+    truth = p.stacked_variables()[nt.family_name(nt.Euclidean(3))][idx].cpu().numpy()
+    p.add_cost_batch(_prior, slots=[(nt.Euclidean(3), idx)], params=truth + 0.01)
+    unfixed = cams[1:] + lmks[2:]
+    return p, [compile_problem(p, unfixed, solver=solver, schur_family=nt.Euclidean(3),
+                               plain=plain) for plain in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_generic_direct_assembly_matches_plain(cuda, dtype, tol):
+    """The generic direct assembly (keyed sums through B6, W placed by B7)
+    and its damped solve (B5) against the plain versions, within ``tol``
+    of the largest entry; two assemblies give the same bits; the path
+    launches B5, B6 and B7 and none of B1–B4 or B8."""
+    p, (comp, plain) = _generic_case(cuda, dtype)
+    v = p.stacked_variables()
+    before = (segment_sum.LAUNCHES, w_place.LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES,
+              fused_obs.LAUNCHES + fused_obs.INTO_LAUNCHES + fused_obs.LEG_LAUNCHES,
+              schur_reduce.LAUNCHES + schur_reduce.LM_LAUNCHES)
+    (c1, s1), (c2, s2) = comp.assemble(v), comp.assemble(v)
+    x = comp.ctx().linops.solve(s1, 1e-2)
+    torch.cuda.synchronize()
+    after = (segment_sum.LAUNCHES, w_place.LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES,
+             fused_obs.LAUNCHES + fused_obs.INTO_LAUNCHES + fused_obs.LEG_LAUNCHES,
+             schur_reduce.LAUNCHES + schur_reduce.LM_LAUNCHES)
+    b6, b7, b5, obs_major, b34 = (a - b for a, b in zip(after, before))
+    assert b6 == 2 * 3 and b7 == 2 and b5 == 1 and obs_major == 0 and b34 == 0
+    assert torch.equal(c1, c2) and all(torch.equal(a, b) for a, b in zip(s1, s2))
+    c_p, s_p = plain.assemble(v)
+    for a, b in zip((c1, *s1), (c_p, *s_p)):
+        assert _rel_err(a, b) <= tol
+    x_p = plain.ctx().linops.solve(s_p, 1e-2)
+    assert _rel_err(x, x_p) <= (1e-9 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.cuda
+def test_generic_implicit_matches_plain(cuda):
+    """The implicit backend on the generic route: the assembly and one PCG
+    solve through B6 against the plain versions (float64, 1e-12 and 1e-9),
+    the same bits on a second assembly and solve."""
+    p, (comp, plain) = _generic_case(cuda, torch.float64, solver="schur_cg")
+    v = p.stacked_variables()
+    (c1, s1), (c2, s2) = comp.assemble(v), comp.assemble(v)
+    ops = comp.ctx().linops
+    x1, x2 = ops.solve(s1, 1e-3), ops.solve(s2, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2) and torch.equal(c1, c2)
+    c_p, s_p = plain.assemble(v)
+    for a, b in zip((c1, *s1[:4]), (c_p, *s_p[:4])):
+        assert _rel_err(a, b) <= 1e-12
+    assert _rel_err(x1, plain.ctx().linops.solve(s_p, 1e-3)) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_percost_ladybug_graph_driver(cuda):
+    """Three LM iterations of the Ladybug-49 per-cost problem (float64,
+    34,619 observations, a prior batch on every 25th point) through the
+    graph driver give the stepped driver's trace, launching B5, B6 and
+    B7."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import PT, make_bal_problem, make_realistic_bal
+
+    def problem():
+        data = make_realistic_bal(ncameras=49, npoints=7776, seed=1, noise=1e-3, track_alpha=2.3)
+        p, cams, pts = make_bal_problem(data, dtype=torch.float64, device=cuda, batched=False)
+        idx = np.arange(3, len(pts), 25)
+        p.add_cost_batch(_prior, slots=[(PT, idx)], params=data["points"][idx])
+        perturb_ba(p, pts[3:], 0.05, seed=5)
+        return p, cams[1:] + pts[3:]
+
+    opts = nt.Options(solver="schur", schur_family=PT, max_iters=3, max_time=float("inf"))
+    before = (segment_sum.LAUNCHES, w_place.LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES)
+    p, unfixed = problem()
+    r_g = nt.optimize(p, opts, unfixed=unfixed)
+    assert all(a > b for a, b in zip(
+        (segment_sum.LAUNCHES, w_place.LAUNCHES, schur_reduce.EXTERNAL_LAUNCHES), before))
+    p, unfixed = problem()
+    r_s = nt.optimize(p, opts, unfixed=unfixed, callback=nt.null_callback)
+    assert r_g.num_iterations == 3 and r_g.costs == r_s.costs
+    assert r_g.costs[-1] < 0.01 * r_g.start_cost

@@ -244,15 +244,12 @@ def test_resolve_unfixed_forms(form):
 
 
 def test_refusals(monkeypatch):
-    """What the slice does not take raises and says why: a fixed
-    landmark, the dual-sorted route on a degree-bucketed batch, on a
-    camera repack past its skew limits and on the implicit backend, fixed
-    cameras on the implicit backend, an unknown route, and nothing to
+    """What the slice does not take raises and says why: the dual-sorted
+    route on a degree-bucketed batch, on a camera repack past its skew
+    limits and on the implicit backend, an unknown route, and nothing to
     optimize.  Nothing falls back."""
     _, (tp, tc, tl) = _pair(4, 16, 1)
     euc = pt.Euclidean(3)
-    with pytest.raises(NotImplementedError, match="fixed landmark"):
-        pt.compile_problem(tp, tc + tl[1:], solver="schur", schur_family=euc)
     bp, _, _ = tbal.make_bal_problem(
         tbal.make_realistic_bal(12, 160, seed=3, noise=1e-3), dtype=torch.float64, device="cpu"
     )
@@ -260,8 +257,6 @@ def test_refusals(monkeypatch):
         pt.compile_problem(bp, solver="schur", schur_family=tbal.PT, w_impl="fused")
     with pytest.raises(NotImplementedError, match="implicit backend"):
         pt.compile_problem(tp, solver="schur_cg", schur_family=euc, w_impl="fused")
-    with pytest.raises(NotImplementedError, match="fixed cameras on the implicit"):
-        pt.compile_problem(tp, tc[1:] + tl, solver="schur_cg", schur_family=euc)
     with pytest.raises(ValueError, match="w_impl"):
         pt.compile_problem(tp, solver="schur", schur_family=euc, w_impl="onehot")
     with pytest.raises(ValueError, match="no unfixed variables"):
