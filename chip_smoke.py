@@ -42,7 +42,7 @@ Phases, one line each or more; any failure raises and exits non-zero:
    and bench-realistic (B2, B6 and B3, no B1), each checked against the
    JAX package's CPU float32 reference costs (constants below).
 7. B6      — kernel ``segment_block_sum`` against its plain version on
-   the real inputs of the two implicit problems (every D the path uses:
+   the real inputs of the two implicit problems, of phase 20's paths, (every D the path uses:
    3 for Wᵀv, 9 for W u, 12 for h_ll + g_l, 54 for a_rr + b_r and 81 for
    the preconditioner's correction, over landmark and camera runs,
    recorded from one assembly and one damped solve), of the adaptive
@@ -68,8 +68,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
    the JAX package's CPU float32 start and best cost (constants below).
    The Dubrovnik-class run prints the peak device memory.
 9. B7 and B5 — kernels ``place_w`` and ``reduce_s`` against their plain
-   versions on the inputs the adaptive main path and the per-cost path
-   give them (recorded from one assembly and one damped solve: W [8192, 3,
+   versions on the inputs the adaptive main path, the per-cost path and
+   phase 20's two direct paths give them (recorded from one assembly and one damped solve: W [8192, 3,
    1155] and [7773, 3, 432], and their column-block structures), B7 also
    on a synthetic case with empty runs,
    repeated cameras, dropped costs and a row past 48 KB of shared memory,
@@ -192,6 +192,29 @@ Phases, one line each or more; any failure raises and exits non-zero:
    never B1, B5 or B7), held to the JAX package's CPU float32 start and
    best cost (slack 1e-2) through both drivers.  Their loops are timed and
    profiled as in 17.
+20. adaptive kernels on every backend and batch form, and cluster-Jacobi —
+   LM through ``nt.optimize``, launch counts set to 0 just before and read
+   just after, each path then profiled (10 iterations: rate and idle
+   share), against the JAX package's CPU runs (``ADAPTIVE_REFS``): the
+   Dubrovnik-class data (1,253,547 observations) with 10% outliers and one
+   shared ContaminatedGaussian through ``schur_cg`` in float32 (B6 only;
+   the start cost against the JAX package's CPU float32 run, the first two
+   iterations' costs within 1e-4 of its float64 run, (σ1, σ2, w) printed
+   beside it, peak memory); adaptive bench-realistic
+   through ``schur_cg`` (B6 only; 60 iterations, start and best cost and
+   (σ1, σ2, w), printed beside the direct path's); Ladybug-49 with
+   outliers in float64, one shared kernel in the per-cost form through
+   ``schur`` (the generic route: B5, B6, B7, never B1–B4 or B8) and
+   ``schur_cg`` (B6; PCG iterations per solve within ±1 of the JAX
+   package's where its own count holds under a one-ulp change of its
+   start), and one kernel per camera (49 kernel variables)
+   through ``schur`` (B5, B6, B7), each held to the float64 trace gate;
+   the pinhole bench through ``schur_cg`` with cluster-Jacobi (four cameras
+   per cluster; B6 only; the pinhole reference), its PCG iterations per
+   solve beside Schur-Jacobi's; tests/test_adaptive.py's two-mean mixture
+   through ``dense`` and ``cg`` (B6 only; the trace gate and (σ1, σ2, w)
+   within 0.12 of (1, 10, 0.8)).  B6 (phase 7) and B7/B5 (phase 9) are
+   also held to their plain versions on these paths' inputs.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -388,6 +411,93 @@ GENERIC_REF = {
         pcg_iters=(45, 68, 77, 77, 76, 76, 85, 92, 89, 88)),
     RIDERS: dict(start=946645.25, best=0.0758107602596283),
 }
+#: This slice's adaptive paths: adaptive kernels on every backend and batch
+#: form, and cluster-Jacobi.  The JAX package's CPU runs of them:
+#: ``JAX_PLATFORMS=cpu python scripts_torch/iterator_reference.py
+#: adaptive_dubrovnik_implicit adaptive_dubrovnik_implicit_f64
+#: adaptive_bench_implicit ladybug_adaptive_lm ladybug_adaptive_cg
+#: ladybug_per_camera_lm mixture_dense mixture_cg`` (~2.5 min; the
+#: Dubrovnik-class cases hold ~6 and ~12 GiB): start cost, the costs of every
+#: iteration, best cost, the recovered (σ1, σ2, w) (of the first three
+#: kernels on the per-camera path) and the implicit paths' PCG iterations.
+ADAPTIVE_BIG = "adaptive Dubrovnik-class implicit"
+ADAPTIVE_IMPLICIT = "adaptive bench-realistic implicit"
+ADAPTIVE_PERCOST = "Ladybug-49 adaptive per-cost"
+ADAPTIVE_PERCOST_CG = "Ladybug-49 adaptive per-cost implicit"
+PER_CAMERA = "Ladybug-49 per-camera kernels"
+CLUSTER = "pinhole bench cluster-Jacobi"
+MIXTURE = "two-mean mixture"
+#: LM iterations of the adaptive Dubrovnik-class path (the JAX CPU runs':
+#: ``DUBROVNIK_ITERS``) and of the Ladybug-49 adaptive paths.  The
+#: Dubrovnik-class path is held to the JAX package's float64 run
+#: (``adaptive_dubrovnik_implicit_f64``): its float32 run's first cost lies
+#: 1.3e-3 from it (``costs_f32``), as does the port's float32 run through
+#: the plain versions, whose sums over the kernel's rows (one run of
+#: 1,253,547 costs) lose 5.4e-3, where B6 keeps them within 5.1e-7 and the
+#: port's float32 run lies within 2.6e-7 of float64; from the third
+#: iteration on, the JAX
+#: float32 run moves from itself by 5e-5 and then 0.87 of its cost under
+#: a one-ulp change of its start (``--spread``), so two iterations are
+#: held, within 1e-4.
+ADAPTIVE_BIG_ITERS = 2
+LADYBUG_ADAPTIVE_ITERS = 10
+ADAPTIVE_REFS = {
+    ADAPTIVE_BIG: dict(
+        start=2152168.0, start_f64=2152167.8815292846,
+        costs=(1025097.9492924765, 495007.92316220584),
+        best=495007.92316220584,
+        costs_f32=(1023744.0625, 494308.21875),
+        sigmas_weight=(0.5367367495523548, 25.890522492476293, 0.8823278404483968)),
+    ADAPTIVE_IMPLICIT: dict(
+        start=152114.40625, best=-207098.796875,
+        sigmas_weight=(0.0012994270073249936, 69.26436614990234, 0.8942699432373047)),
+    ADAPTIVE_PERCOST: dict(
+        start=102427.54876965011, best=74591.64151618074,
+        costs=(
+            89433.25239609904, 84984.40585042434, 81536.78599853278, 79637.44324219247,
+            78046.41506860782, 76881.30660301351, 76182.04848543, 75599.61686042367,
+            75003.98229198487, 74591.64151618074)),
+    ADAPTIVE_PERCOST_CG: dict(
+        start=102427.54876965011, best=74591.77765474908,
+        costs=(
+            89433.25240173953, 84984.40470647899, 81536.7823379137, 79637.44091189807,
+            78046.4044965285, 76881.3416113654, 76182.12643521032, 75599.76412971326,
+            75004.11617351625, 74591.77765474908),
+        pcg_iters=(500, 500, 500, 237, 500, 7, 7, 8, 6, 6, 5, 5, 5, 5, 5, 4, 4, 4),
+        pcg_min=(500, 500, 500, 237, 500, 7, 7, 8, 6, 6, 5, 5, 5, 5, 5, 4, 4, 4),
+        pcg_max=(500, 500, 500, 251, 500, 7, 7, 8, 6, 6, 5, 5, 5, 5, 5, 4, 4, 4)),
+    PER_CAMERA: dict(
+        start=102427.54876965012, best=99460.06249863948,
+        costs=(
+            100891.1877877026, 100492.45686319181, 100306.29656528788, 100067.34163841368,
+            99897.02377247483, 99868.13840342293, 99740.05651112049, 99648.22453118124,
+            99555.55310667718, 99460.06249863948)),
+    f"{MIXTURE} dense": dict(
+        start=1970.5579555490312, best=1268.1134612251515,
+        costs=(
+            1855.83852714888, 1763.9848340936871, 1653.3574152432275, 1527.0544363774914,
+            1439.7331518352016, 1377.9174796582397, 1337.259680081258, 1311.5516782303678,
+            1295.508639108744, 1285.500143845227, 1279.2236725830953, 1275.2590910813938,
+            1272.7358678894284, 1271.1185409242644, 1270.0752749479611, 1269.398597954854,
+            1268.9576353036687, 1268.669143684116, 1268.4797819676987, 1268.355148257247,
+            1268.2729320436483, 1268.2185962975848, 1268.1826315883452, 1268.1587967935538,
+            1268.1429845982484, 1268.1324858361584, 1268.1255102152097, 1268.120872841464,
+            1268.1177885090046, 1268.1157363376499, 1268.1143704985682, 1268.1134612251515)),
+    f"{MIXTURE} cg": dict(
+        start=1970.5579555490312, best=1268.1134612251515,
+        costs=(
+            1855.8385271488778, 1763.984834093684, 1653.3574152432216, 1527.0544363774861,
+            1439.7331518351975, 1377.917479658236, 1337.2596800812562, 1311.5516782303662,
+            1295.5086391087434, 1285.5001438452264, 1279.2236725830953, 1275.2590910813933,
+            1272.7358678894277, 1271.1185409242646, 1270.075274947961, 1269.3985979548538,
+            1268.957635303669, 1268.6691436841163, 1268.4797819676987, 1268.355148257247,
+            1268.272932043648, 1268.2185962975848, 1268.1826315883452, 1268.1587967935538,
+            1268.1429845982484, 1268.1324858361584, 1268.1255102152097, 1268.120872841464,
+            1268.1177885090046, 1268.1157363376499, 1268.1143704985682, 1268.1134612251515)),
+}
+#: Cluster-Jacobi's cameras per cluster on the pinhole bench problem (32
+#: clusters of 4).
+CLUSTER_SIZE = 4
 #: ``make_curve_fit`` (100 samples, 15% outliers, seed 0) under each fixed
 #: kernel at width 0.5, LM in float64 with the default options: the JAX
 #: package's CPU best cost (same script, case ``curvefit``).
@@ -634,18 +744,25 @@ def bal_problem(name, device):
     return problem
 
 
-def adaptive_problem(device):
-    """``(problem, kernel_handle)``: the adaptive main path's problem."""
+def with_outliers(data):
+    """The adaptive paths' outlier recipe: 10% of the observations moved
+    by 50 pixels (``numpy.random.default_rng(3)``)."""
     import numpy as np
 
+    rng = np.random.default_rng(3)
+    out = rng.choice(len(data["pt_idx"]), size=len(data["pt_idx"]) // 10, replace=False)
+    data["observations"][out] += 50.0
+    return data
+
+
+def adaptive_problem(device, args=None):
+    """``(problem, kernel_handle)``: the adaptive main path's problem (on
+    ``make_realistic_bal(**args)``'s data, bench-realistic's by default)."""
     import nllstpu_torch as nt
     from nllstpu_torch.models.ba import perturb_ba
     from nllstpu_torch.models.bal import make_bal_problem, make_realistic_bal
 
-    data = make_realistic_bal(**BAL["bench-realistic"][0])
-    rng = np.random.default_rng(3)
-    out = rng.choice(len(data["pt_idx"]), size=len(data["pt_idx"]) // 10, replace=False)
-    data["observations"][out] += 50.0
+    data = with_outliers(make_realistic_bal(**(args or BAL["bench-realistic"][0])))
     problem, _, points, kh = make_bal_problem(
         data, dtype=torch.float32, device=device, kernel=nt.ContaminatedGaussian(),
         kernel_params=nt.ContaminatedGaussian.make_params(1.0, 10.0, 0.8),
@@ -681,6 +798,102 @@ def percost_problem(device):
     problem.add_cost_batch(point_prior, slots=[(PT, idx)], params=data["points"][idx])
     perturb_ba(problem, pts[3:], 0.05, seed=5)
     return problem, dict(unfixed=cams[1:] + pts[3:])
+
+
+def ladybug_adaptive_problem(device, per_camera=False):
+    """``(problem, route, kernel handles)``: Ladybug-49 with the outlier
+    recipe in float64, one shared ContaminatedGaussian (1, 10, 0.8) in the
+    per-cost form (``make_bal_problem(..., batched=False)``), or one per
+    camera in a components-major batch (49 kernel variables); the first
+    camera and the first three points fixed at their true values, the free
+    points perturbed by 0.05 (seed 5)."""
+    import numpy as np
+
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import (CAM, PT, make_bal_problem, make_realistic_bal,
+                                          snavely_jacobian_cm, snavely_residual_cm)
+
+    data = with_outliers(make_realistic_bal(**BAL["Ladybug-49"][0]))
+    kern = nt.ContaminatedGaussian()
+    kp = nt.ContaminatedGaussian.make_params(1.0, 10.0, 0.8)
+    if per_camera:
+        problem = nt.Problem(dtype=torch.float64, device=device)
+        cams = problem.add_variables(CAM, data["cameras"])
+        pts = problem.add_variables(PT, data["points"])
+        kh = [problem.add_variable(kern.manifold, kp.numpy()) for _ in cams]
+        problem.add_cost_batch(
+            snavely_residual_cm,
+            [(kern.manifold, np.asarray([h.index for h in kh])[data["cam_idx"]]),
+             (CAM, data["cam_idx"]), (PT, data["pt_idx"])],
+            params=data["observations"], kernel=kern, jacobian=snavely_jacobian_cm,
+            batched="cm")
+    else:
+        problem, cams, pts, k = make_bal_problem(data, dtype=torch.float64, device=device,
+                                                 batched=False, kernel=kern,
+                                                 kernel_params=kp.numpy())
+        kh = [k]
+    perturb_ba(problem, pts[3:], 0.05, seed=5)
+    return problem, dict(unfixed=cams[1:] + pts[3:] + kh), kh
+
+
+def mixture_residual(data, mean):
+    """tests/test_adaptive.py's residual: a mean's offset from a sample."""
+    return mean - data
+
+
+def mixture_problem(device):
+    """``(problem, kernel_handle)``: tests/test_adaptive.py's two-mean
+    mixture (1,000 samples, a fifth of them ten times wider; each sample a
+    cost on either mean, one ContaminatedGaussian from (0.5, 5, 0.6)) in
+    float64."""
+    import numpy as np
+
+    import nllstpu_torch as nt
+
+    rng = np.random.default_rng(1)
+    points = np.concatenate([rng.normal(0, 1, 800), rng.normal(0, 10, 200)])
+    kern = nt.ContaminatedGaussian()
+    problem = nt.Problem(dtype=torch.float64, device=device)
+    kh = problem.add_variable(kern.manifold, nt.ContaminatedGaussian.make_params(0.5, 5.0, 0.6))
+    m1 = problem.add_variable(nt.Scalar(), 0.0)
+    m2 = problem.add_variable(nt.Scalar(), 0.0)
+    for x in points:
+        problem.add_cost(mixture_residual, (kh, m1), params=x - 1.0, kernel=kern)
+        problem.add_cost(mixture_residual, (kh, m2), params=x + 1.0, kernel=kern)
+    return problem, kh
+
+
+def adaptive_all_options(label):
+    """The options of this slice's paths (``ADAPTIVE_REFS``' runs)."""
+    import nllstpu_torch as nt
+
+    if label == ADAPTIVE_BIG:
+        return dataclasses.replace(bench_options(), solver="schur_cg", linear_tol=1e-2,
+                                   max_iters=ADAPTIVE_BIG_ITERS)
+    if label == ADAPTIVE_IMPLICIT:
+        return dataclasses.replace(adaptive_options(), solver="schur_cg", linear_tol=1e-2)
+    if label == CLUSTER:
+        return dataclasses.replace(bench_options(), solver="schur_cg", linear_tol=1e-2,
+                                   schur_cluster_size=CLUSTER_SIZE)
+    if label.startswith(MIXTURE):
+        return nt.Options(solver=label.split()[-1], rel_dcost=1e-6, max_time=float("inf"))
+    solver = "schur_cg" if label == ADAPTIVE_PERCOST_CG else "schur"
+    return dataclasses.replace(generic_options(solver), max_iters=LADYBUG_ADAPTIVE_ITERS)
+
+
+def adaptive_all_problem(label, device):
+    """``(problem, route)`` of one of this slice's paths."""
+    if label == ADAPTIVE_BIG:
+        return adaptive_problem(device, IMPLICIT["Dubrovnik-class"][0])[0], {}
+    if label == ADAPTIVE_IMPLICIT:
+        return adaptive_problem(device)[0], {}
+    if label == CLUSTER:
+        return bench_problem(device), {}
+    if label.startswith(MIXTURE):
+        return mixture_problem(device)[0], {}
+    problem, route, _ = ladybug_adaptive_problem(device, per_camera=label == PER_CAMERA)
+    return problem, route
 
 
 def riders_problem(device):
@@ -1047,17 +1260,26 @@ def phase_b6(device, camera_cases):
     paths.append((ADAPTIVE, lambda: (adaptive_problem(device)[0], {}), adaptive_options()))
     paths.append((PERCOST, lambda: percost_problem(device), generic_options("schur")))
     paths.append((PERCOST_CG, lambda: percost_problem(device), generic_options("schur_cg")))
+    paths += [(name, lambda name=name: adaptive_all_problem(name, device),
+               adaptive_all_options(name))
+              for name in (ADAPTIVE_BIG, ADAPTIVE_IMPLICIT, ADAPTIVE_PERCOST, ADAPTIVE_PERCOST_CG,
+                           PER_CAMERA, CLUSTER, f"{MIXTURE} dense", f"{MIXTURE} cg")]
+    implicit = (*IMPLICIT, PERCOST_CG, ADAPTIVE_BIG, ADAPTIVE_IMPLICIT, ADAPTIVE_PERCOST_CG,
+                CLUSTER)
     for name, make, opts in paths:
         problem, route = make()
         comp = compile_problem(problem, route.get("unfixed"), solver=opts.solver,
                                schur_family=opts.schur_family)
-        if comp.schur_info.implicit != (name in IMPLICIT or name == PERCOST_CG):
+        if comp.implicit != (name in implicit):
             raise AssertionError(f"{name}: solver={opts.solver!r} compiled the wrong backend")
-        L = comp.schur_info.num_elim
+        if name == CLUSTER and comp.ctx(opts).linops.cluster is None:
+            raise AssertionError(f"{name}: cluster-Jacobi did not apply")
+        L = comp.schur_info.num_elim if comp.schur_info is not None else -1
         seen = {}
 
         def record(data, st, seen=seen, L=L):
-            key = f"{name} D={data.shape[1]} {'landmark' if st.shape[0] == L + 1 else 'camera'} runs"
+            kind = "landmark" if st.shape[0] == L + 1 else "camera" if L >= 0 else "variable"
+            key = f"{name} D={data.shape[1]} {kind} runs"
             seen.setdefault(key, (data.clone(), st))
             return kern(data, st)
 
@@ -1091,9 +1313,15 @@ def phase_b6(device, camera_cases):
         device_ms = graph_ms(lambda: kern(f32, st))
         library_device_ms = graph_ms(
             lambda: torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0))
+        # The library computes the same function (held in float64); its
+        # float32 error is printed beside B6's: on one run of 1.25M rows
+        # (the adaptive kernel's rows) a float32 sum in the order of a
+        # single pass loses digits that B6's two-level order keeps.
         lib = torch.segment_reduce(lib_in, "sum", offsets=lib_off, axis=0)
-        if rel_err(lib, ref) > TOL_B1_F32:
+        lib64 = torch.segment_reduce(data.double()[:n_run], "sum", offsets=lib_off, axis=0)
+        if rel_err(lib64, ref) > TOL_F64:
             raise AssertionError(f"B6 {label}: torch.segment_reduce disagrees")
+        line += f", torch.segment_reduce f32 {rel_err(lib, ref):.2e}"
         b = bound(nbytes(lib_in, st, out32), lib_in.numel())
         print(f"{line} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"torch.segment_reduce {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms"
@@ -1106,13 +1334,18 @@ def phase_b6(device, camera_cases):
 
 
 def adaptive_inputs(device):
-    """The inputs B7 and B5 receive on the adaptive main path and on the
-    per-cost path through ``solver="schur"``: ``({path: B7 input}, {path:
-    B5 input})`` (:func:`recorded_inputs`)."""
+    """The inputs B7 and B5 receive on the adaptive main path, on the
+    per-cost path through ``solver="schur"`` and on this slice's direct
+    paths (the adaptive per-cost and per-camera-kernel ones): ``({path: B7
+    input}, {path: B5 input})`` (:func:`recorded_inputs`)."""
     place, reduce = {}, {}
     for label, (problem, route), opts in (
             (ADAPTIVE, (adaptive_problem(device)[0], {}), adaptive_options()),
-            (PERCOST, percost_problem(device), generic_options("schur"))):
+            (PERCOST, percost_problem(device), generic_options("schur")),
+            (ADAPTIVE_PERCOST, adaptive_all_problem(ADAPTIVE_PERCOST, device),
+             adaptive_all_options(ADAPTIVE_PERCOST)),
+            (PER_CAMERA, adaptive_all_problem(PER_CAMERA, device),
+             adaptive_all_options(PER_CAMERA))):
         place[label], reduce[label] = recorded_inputs(problem, route, opts)
     return place, reduce
 
@@ -1532,6 +1765,11 @@ def phase_gauge_main(device, smi):
     return launches
 
 
+#: The direct adaptive path's recovered (σ1, σ2, w), printed beside the
+#: implicit one's.
+DIRECT_SIGMAS = []
+
+
 def phase_adaptive_main(device, smi):
     """The adaptive main path through ``nt.optimize``: B5, B6 and B7, never
     B1, B2 or B3; the JAX package's start and best cost (sign-safe gate)
@@ -1546,6 +1784,7 @@ def phase_adaptive_main(device, smi):
         options=adaptive_options(),
     )
     sw = nt.ContaminatedGaussian.sigmas_weight(problem.get_value(kh)).double()
+    DIRECT_SIGMAS.extend(sw.tolist())
     ref = torch.tensor(ADAPTIVE_REF["sigmas_weight"], dtype=torch.float64)
     err = ((sw - ref).abs() / ref.abs()).tolist()
     print(f"{ADAPTIVE} main path: (sigma1, sigma2, w) {sw.tolist()} against the JAX "
@@ -2227,6 +2466,126 @@ def phase_generic_main(device, smi):
     return launches
 
 
+def _sigmas(problem):
+    """(σ1, σ2, w) of a problem's first ContaminatedGaussian variable."""
+    import nllstpu_torch as nt
+
+    kh = nt.VarHandle(nt.ContaminatedGaussian().manifold, 0)
+    return nt.ContaminatedGaussian.sigmas_weight(problem.get_value(kh)).double().tolist()
+
+
+def phase_adaptive_everywhere(device, smi, direct_sigmas, labels=None):
+    """This slice's main paths through ``nt.optimize`` (the graph driver),
+    launch counts set to 0 just before and read just after, each then
+    profiled (10 iterations: its rate and the device's idle share):
+
+    - adaptive Dubrovnik-class through ``schur_cg`` (B6 only), float32,
+      ``ADAPTIVE_BIG_ITERS`` iterations: the start cost within 1e-4 of the
+      JAX package's CPU float32 run's, each iteration's cost within 1e-4
+      of its float64 run's, no NaN, (σ1, σ2, w) printed beside its;
+    - adaptive bench-realistic through ``schur_cg`` (B6 only), 60
+      iterations: start and best cost (sign-safe, slack 1e-2) and (σ1, σ2,
+      w) within ``ADAPTIVE_REF["tol"]`` of the JAX CPU float32 run of the
+      same implicit path, printed beside the direct path's
+      (``direct_sigmas``);
+    - Ladybug-49 adaptive per-cost in float64 through ``schur`` (B5, B6,
+      B7; never B1–B4 or B8) and ``schur_cg`` (B6 only, ``linear_tol=1e-8``:
+      also its PCG iterations per solve, from a second graph-driver run,
+      within ±1 of the JAX package's in every solve whose count does not
+      move when the JAX run's start is scaled by 1 ± 2⁻⁵²), and Ladybug-49
+      with a kernel per camera
+      through ``schur`` (B5, B6, B7): the float64 trace gate;
+    - the pinhole bench through ``schur_cg`` with cluster-Jacobi (B6 only):
+      the pinhole reference (start 1e-4, best slack 1e-2), then the PCG
+      iterations per solve of a graph-driver run with and without it;
+    - the two-mean mixture through ``dense`` and ``cg`` (B6 only): the
+      float64 trace gate and (σ1, σ2, w) within 0.12 of (1, 10, 0.8).
+
+    ``labels`` picks some of the paths (all by default).  Returns the
+    launch counts per path."""
+    from nllstpu_torch.core.optimize import compile_problem
+
+    launches = {}
+    b6_only = ("segment_block_sum",)
+    generic = ("segment_block_sum", "place_w", "reduce_s")
+    paths = ((ADAPTIVE_BIG, b6_only), (ADAPTIVE_IMPLICIT, b6_only),
+             (ADAPTIVE_PERCOST, generic), (ADAPTIVE_PERCOST_CG, b6_only), (PER_CAMERA, generic),
+             (CLUSTER, b6_only), (f"{MIXTURE} dense", b6_only), (f"{MIXTURE} cg", b6_only))
+    for label, needs in paths:
+        if labels is not None and label not in labels:
+            continue
+        opts = adaptive_all_options(label)
+        if label == CLUSTER:
+            ref = dict(start=REF_START_COST, best=REF_BEST_COST)
+        else:
+            ref = ADAPTIVE_REFS[label]
+        problem, route = adaptive_all_problem(label, device)
+        slack = 1e-4 if label == ADAPTIVE_BIG else 1e-9 if "costs" in ref else 1e-2
+        launches[label], result = phase_main(label, problem, ref["start"], ref["best"], slack,
+                                             needs=needs, never=_never(needs), options=opts,
+                                             **route)
+        if label == ADAPTIVE_BIG:
+            errs = [abs(a - b) / abs(b) for a, b in zip(result.costs, ref["costs"])]
+            errs32 = [abs(a - b) / abs(b) for a, b in zip(ref["costs_f32"], ref["costs"])]
+            print(f"{label}: costs {result.costs!r} against the JAX package's CPU float64 "
+                  f"{list(ref['costs'])!r}, rel err {['%.2e' % e for e in errs]} (its float32 "
+                  f"run's {list(ref['costs_f32'])!r}: {['%.2e' % e for e in errs32]}); (sigma1, "
+                  f"sigma2, w) {_sigmas(problem)} against "
+                  f"{list(ref['sigmas_weight'])} | {smi}", flush=True)
+            if len(errs) != len(ref["costs"]) or max(errs) > 1e-4:
+                raise AssertionError(f"{label}: the costs depart from the JAX package's")
+        elif label == ADAPTIVE_IMPLICIT:
+            sw = _sigmas(problem)
+            want = ref["sigmas_weight"]
+            err = [abs(a - b) / abs(b) for a, b in zip(sw, want)]
+            print(f"{label}: (sigma1, sigma2, w) {sw} against the JAX package's implicit "
+                  f"{list(want)}, rel err {['%.2e' % e for e in err]} (tolerance "
+                  f"{ADAPTIVE_REF['tol']}); the direct path's {direct_sigmas} | {smi}",
+                  flush=True)
+            if not all(e <= t for e, t in zip(err, ADAPTIVE_REF["tol"])):
+                raise AssertionError(f"{label}: kernel parameters {sw} != {list(want)}")
+        elif label == CLUSTER:
+            runs = {}
+            for m in (CLUSTER_SIZE, 0):
+                o = dataclasses.replace(opts, schur_cluster_size=m)
+                p2, _ = adaptive_all_problem(label, device)
+                comp = compile_problem(p2, solver=o.solver, schur_family=o.schur_family)
+                if (comp.ctx(o).linops.cluster is None) != (m == 0):
+                    raise AssertionError(f"{label}: cluster-Jacobi taken = {m > 0} expected")
+                runs[m] = run_driver("graph", comp, o, p2.stacked_variables())
+            cg = {m: list(f["cg_iters"]) for m, f in runs.items()}
+            mean = {m: sum(c) / max(len(c), 1) for m, c in cg.items()}
+            print(f"{label}: PCG iterations per solve, cluster size {CLUSTER_SIZE}: "
+                  f"{cg[CLUSTER_SIZE]} (mean {mean[CLUSTER_SIZE]:.2f}, "
+                  f"{runs[CLUSTER_SIZE]['wall']:.3f} s); Schur-Jacobi: {cg[0]} (mean "
+                  f"{mean[0]:.2f}, {runs[0]['wall']:.3f} s) | {smi}", flush=True)
+        else:
+            trace_gate(f"{label} main path", result, ref)
+            if label.startswith(MIXTURE):
+                sw = _sigmas(problem)
+                print(f"{label}: (sigma1, sigma2, w) {sw} against (1, 10, 0.8), rtol 0.12",
+                      flush=True)
+                if not all(abs(a - b) <= 0.12 * b for a, b in zip(sw, (1.0, 10.0, 0.8))):
+                    raise AssertionError(f"{label}: kernel parameters {sw}")
+            if label == ADAPTIVE_PERCOST_CG:
+                problem, route = adaptive_all_problem(label, device)
+                comp = compile_problem(problem, route["unfixed"], solver=opts.solver,
+                                       schur_family=opts.schur_family)
+                final = run_driver("graph", comp, opts, problem.stacked_variables())
+                got, lo, hi = list(final["cg_iters"]), ref["pcg_min"], ref["pcg_max"]
+                print(f"{label}: PCG iterations per solve {got} against the JAX package's "
+                      f"{list(ref['pcg_iters'])} (its own range over starts scaled by 1 ± "
+                      f"2^-52: {list(lo)} to {list(hi)}) | {smi}", flush=True)
+                # Held where the JAX package's own count does not move under
+                # that perturbation, within ±1.
+                if len(got) != len(lo) or any(a == b and abs(g - a) > 1
+                                              for g, a, b in zip(got, lo, hi)):
+                    raise AssertionError(f"{label}: PCG iterations depart from the JAX package's")
+        problem, route = adaptive_all_problem(label, device)
+        phase_profile(label, problem, "graph", options=opts, **route)
+    return launches
+
+
 def phase_cg(device, smi, dense_results):
     """The cg backend through ``nt.optimize`` on the parking-garage-sized
     pose graph (LM and dogleg, float64), with the launch counts set to 0
@@ -2384,6 +2743,9 @@ def main():
     generic_launches = phase_generic_main(device, smi)
     launches.update(generic_launches)
     mark("generic Schur main paths")
+    adaptive_launches = phase_adaptive_everywhere(device, smi, DIRECT_SIGMAS)
+    launches.update(adaptive_launches)
+    mark("adaptive kernels on every backend, cluster-Jacobi")
     # The two drivers and the plain versions in turns, then one run of
     # each with per-phase events (the events cost host time, so rates come
     # from the runs without them), then each driver profiled.  A timed loop
@@ -2462,7 +2824,8 @@ def main():
     # Beside each row, the launches of the later slices' main paths
     # (Newton, dogleg, gradient descent; the dense and cg backends; the
     # generic Schur assembly's) that launched the kernel.
-    slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches}
+    slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches,
+                      **adaptive_launches}
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

@@ -4,7 +4,8 @@ Port of ``nllstpu/core/engine.py``: the tangent :class:`Layout`, the
 components-major gathers (with the landmark-run broadcast of obs-major
 batches), the raw residual data the Schur assembly consumes (with an
 adaptive kernel's derivative blocks), the masked cost of every batch form,
-the per-cost (g, H) blocks of the dense normal equations — Jacobians by
+the per-cost (g, H) blocks of every batch form (an adaptive kernel's
+tangent first) — Jacobians by
 ``torch.func.jacfwd`` through the retractions, plain costs by ``grad``
 and ``jacfwd(grad)``, the IRLS reweighting and second-order correction of
 the robust kernels — their assembly (:func:`assemble_dense`), and the
@@ -162,13 +163,15 @@ def _retract_one(m, v, dt):
 
 
 def _residual_fn(batch, params, vals):
-    """The residual of one cost (fixed kernel) as a function of the
-    concatenated tangent of its slots, and that tangent's size."""
-    manifolds = batch.manifolds
+    """The residual of one cost as a function of the concatenated tangent
+    of its residual slots (an adaptive kernel's slot 0 left out), and that
+    tangent's size."""
+    manifolds = batch.manifolds[1:] if batch.adaptive else batch.manifolds
+    rvals = vals[1:] if batch.adaptive else vals
 
     def f(t):
         parts = _split_tangent(t, manifolds)
-        newv = tuple(_retract_one(m, v, dt) for m, v, dt in zip(manifolds, vals, parts))
+        newv = tuple(_retract_one(m, v, dt) for m, v, dt in zip(manifolds, rvals, parts))
         return torch.atleast_1d(batch.fn(params, *newv))
 
     return f, sum(m.dof for m in manifolds)
@@ -188,11 +191,13 @@ def _cost_value_one(batch, params, vals):
 
 def _cost_grad_hess_one(batch, params, vals):
     """(cost, g, H) of one cost block over its concatenated tangent (the
-    JAX package's ``_cost_grad_hess_one``, fixed kernels): a plain cost's
-    gradient and Hessian by ``grad`` and ``jacfwd(grad)``; a residual's
-    Jacobian from the hand one or ``jacfwd`` through the retractions, then
-    g = Jᵀr, H = JᵀJ with the IRLS weight ρ′ and the second-order
-    correction 2ρ″ggᵀ."""
+    JAX package's ``_cost_grad_hess_one``): a plain cost's gradient and
+    Hessian by ``grad`` and ``jacfwd(grad)``; a residual's Jacobian from
+    the hand one or ``jacfwd`` through the retractions, then g = Jᵀr,
+    H = JᵀJ with the IRLS weight ρ′ and the second-order correction
+    2ρ″ggᵀ.  An adaptive kernel's tangent comes first, its blocks
+    unhalved beside the cross block on the unweighted gradient
+    (:func:`_adaptive_blocks`)."""
     from torch.func import grad, jacfwd
 
     if batch.kind == "cost":
@@ -207,7 +212,7 @@ def _cost_grad_hess_one(batch, params, vals):
         return f(z), grad(f)(z), jacfwd(grad(f))(z).to(z.dtype)
     f, dof = _residual_fn(batch, params, vals)
     if batch.jacobian is not None:
-        r, jac = batch.jacobian(params, *vals)
+        r, jac = batch.jacobian(params, *(vals[1:] if batch.adaptive else vals))
         r, jac = torch.atleast_1d(r), torch.atleast_2d(jac)
     else:
         z = vals[0].new_zeros(dof)
@@ -217,9 +222,30 @@ def _cost_grad_hess_one(batch, params, vals):
         r, jac = f(z), jacfwd(f)(z).to(z.dtype)
     g = jac.T @ r
     h = jac.T @ jac
+    if batch.adaptive:
+        rho, dgrad, dhess = batch.kernel.rho_dkernel(vals[0], r @ r)
+        g, h = _adaptive_blocks(g[None], h[None], dgrad[:, None], dhess[:, :, None])
+        return 0.5 * rho, g[0], h[0]
     rho, d1, d2 = batch.kernel.rho_dc(r @ r)
     h = h * d1 + (2.0 * d2) * torch.outer(g, g)
     return 0.5 * rho, g * d1, h
+
+
+def _adaptive_blocks(g0, h0, dgrad, dhess):
+    """Adaptive (g [B, k+S], H [B, k+S, k+S]) from the Gauss-Newton blocks
+    ``g0 [B, S]``, ``h0 [B, S, S]`` and ρ's derivatives in [kernel
+    tangent, s] (``dgrad [k+1, B]``, ``dhess [k+1, k+1, B]``): the kernel's
+    blocks first and unhalved, the cross block ∂²ρ/∂kernel∂s times the
+    unweighted gradient, the residual blocks reweighted by ρ′ with the
+    correction 2ρ″ggᵀ (the JAX package's layout, reference
+    src/residual.jl:57-111)."""
+    k = dgrad.shape[0] - 1
+    d1, d2 = dgrad[k], dhess[k, k]
+    cross = g0[:, :, None] * dhess[:k, k].T[:, None, :]  # [B, S, k]
+    h = h0 * d1[:, None, None] + (2.0 * d2)[:, None, None] * (g0[:, :, None] * g0[:, None, :])
+    top = torch.cat([dhess[:k, :k].permute(2, 0, 1), cross.transpose(1, 2)], dim=2)
+    h_full = torch.cat([top, torch.cat([cross, h], dim=2)], dim=1)
+    return torch.cat([dgrad[:k].T, g0 * d1[:, None]], dim=1), h_full
 
 
 def _irls(batch, costs_sq, g, h):
@@ -230,22 +256,25 @@ def _irls(batch, costs_sq, g, h):
 
 
 def batch_grad_hess(batch, variables: dict):
-    """(masked cost sum, g [B, S], H [B, S, S]) of one batch with a fixed
-    kernel, every batch form: components-major (through its Jacobian,
-    synthesized when none was given), row-major with a hand Jacobian, or
-    per-cost (``torch.func.vmap`` of :func:`_cost_grad_hess_one`)."""
+    """(masked cost sum, g [B, S], H [B, S, S]) of one batch, every batch
+    form: components-major (through its Jacobian, synthesized when none
+    was given), row-major with a hand Jacobian, or per-cost
+    (``torch.func.vmap`` of :func:`_cost_grad_hess_one`).  An adaptive
+    kernel's tangent leads each block (:func:`_adaptive_blocks`; the
+    components-major form as the JAX package's ``batch_grad_hess_cm``)."""
     from torch.func import vmap
 
-    if batch.adaptive:
-        raise NotImplementedError(
-            "an adaptive kernel on the dense backend: the JAX package takes it on the "
-            "components-major route, which the port's Schur path carries"
-        )
     if batch.batched == "cm":
-        r, jac = batch.jacobian(batch.params, *_gather_vals_cm(batch, variables))
+        gath = _gather_vals_cm(batch, variables)
+        r, jac = batch.jacobian(batch.params, *(gath[1:] if batch.adaptive else gath))
         g = torch.einsum("nsb,nb->bs", jac, r)
         h = torch.einsum("nsb,ntb->bst", jac, jac)
-        costs, g, h = _irls(batch, (r * r).sum(dim=0), g, h)
+        if batch.adaptive:
+            costs, dgrad, dhess = batch.kernel.rho_dkernel_cm(gath[0], (r * r).sum(dim=0))
+            g, h = _adaptive_blocks(g, h, dgrad, dhess)
+            costs = 0.5 * costs
+        else:
+            costs, g, h = _irls(batch, (r * r).sum(dim=0), g, h)
     elif batch.batched:
         r, jac = batch.jacobian(batch.params, *_gather_vals(batch, variables))
         g = torch.einsum("bns,bn->bs", jac, r)

@@ -156,9 +156,11 @@ class CompiledProblem:
         elif si is None:
             linops = iterators.DenseOps(self.layout.dof_total)
         elif si.implicit:
+            csz = 0 if options is None else options.schur_cluster_size
             linops = schur.SchurCGOps(
                 si.dim_reduced, si.num_elim, si.dof_elim, si.fams, si.cg, tol=tol,
                 segment_sum=self.kernels.segment_sum,
+                cluster=schur.cluster_plan(si, csz, self.device),
             )
         else:
             linops = schur.SchurOps(
@@ -286,10 +288,12 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
     backend's plan and the cg backend's contribution order are built here,
     inside ``Result.time_init``.
     ``w_impl`` picks the direct assembly's route (:data:`W_IMPLS`);
-    ``"fused"`` on a batch that does not qualify raises.  A batch with an
-    adaptive kernel takes the direct path's generic assembly
-    (landmark-sorted; kernels B6 and B7, the solve through B5) and is
-    refused by the implicit, dense and cg ones (ROADMAP Queue 1 item 9).  ``plain=True`` runs the
+    ``"fused"`` on a batch that does not qualify raises.  An adaptive
+    kernel runs on every backend and batch form: its tangent leads each
+    cost's blocks (``engine.batch_grad_hess``); on the direct path a
+    components-major batch with one kernel variable takes its run tables
+    and any other the generic route (kernels B6 and B7, the solve through
+    B5), on the implicit one the generic coupling parts.  ``plain=True`` runs the
     kernels' plain PyTorch versions on every device (a baseline to measure
     the kernels against).  On a CUDA device with the kernels on, the
     kernel library is built (nvcc, at first use) and loaded here, so that
@@ -310,11 +314,6 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
             raise ValueError(f"w_impl={w_impl!r} is a route of the direct Schur assembly")
         batches = problem.batches()
         layout = engine.build_layout(problem, unfixed, batches=batches)
-        if any(b.adaptive for b in batches):
-            raise NotImplementedError(
-                f"an adaptive kernel on the {solver} backend: the port takes it through "
-                "solver='schur' (the JAX package's components-major route)"
-            )
         if solver == "dense":
             plan = engine.dense_plan(batches, layout, problem.device)
         else:

@@ -233,6 +233,14 @@ class AdaptiveRobustifier:
         dhess, (dgrad, val) = jacfwd(grad_aux, has_aux=True)(s.new_zeros(k + 1))
         return val, dgrad.T, dhess.permute(1, 2, 0)  # [B], [k+1, B], [k+1, k+1, B]
 
+    def rho_dkernel(self, kparams, s):
+        """``(ρ, dgrad [k+1], dhess [k+1, k+1])`` of one cost: the
+        per-cost form of :meth:`rho_dkernel_cm` (the JAX package's
+        ``rho_dkernel``), through it on a batch of one, so that a kernel's
+        closed form serves both."""
+        val, dgrad, dhess = self.rho_dkernel_cm(kparams[:, None], s.reshape(1))
+        return val[0], dgrad[:, 0], dhess[:, :, 0]
+
 
 @dataclasses.dataclass(frozen=True)
 class ScaledAdaptive(AdaptiveRobustifier):
@@ -387,11 +395,14 @@ def _barron_log_partition_table(n_alpha=129, x_max=60.0, n_x=16001):
 
 @functools.lru_cache(maxsize=None)
 def _barron_table(dtype, device):
-    """The table as tensors, built once per dtype and device."""
-    return tuple(
-        torch.as_tensor(t, dtype=dtype, device=device)
-        for t in _barron_log_partition_table()
-    )
+    """The table as tensors, built once per dtype and device, outside any
+    ``torch.func`` transform (a first call inside nested ``jacfwd`` would
+    otherwise cache tensors of that transform's level)."""
+    with torch._C._DisableFuncTorch():
+        return tuple(
+            torch.as_tensor(t, dtype=dtype, device=device)
+            for t in _barron_log_partition_table()
+        )
 
 
 def _interp(x, xp, fp):

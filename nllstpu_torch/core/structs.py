@@ -82,6 +82,15 @@ class Options:
     # float64.  LM tolerates inexact steps, so 1e-2 trades inner
     # iterations for outer ones.
     linear_tol: Optional[float] = None
+    # Implicit (schur_cg) only: cluster-Jacobi preconditioning (the Ceres
+    # CLUSTER_JACOBI analogue) with this many consecutive cameras per
+    # cluster: the exact diagonal cluster blocks of S, camera-camera
+    # coupling inside a cluster included.  0 = per-camera Schur-Jacobi.
+    # Applies where the JAX package applies it (one reduced family, every
+    # variable of it unfixed, one components-major camera/landmark batch of
+    # uniform landmark runs, at most 64 clusters); elsewhere the solve
+    # keeps Schur-Jacobi (``schur.cluster_plan``).
+    schur_cluster_size: int = 0
 
     def __post_init__(self):
         if self.iterator not in ITERATORS:

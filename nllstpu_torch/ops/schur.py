@@ -16,13 +16,17 @@ decides its p-major route (:func:`route_batches`):
   form, at most one eliminated slot per cost, any number of reduced
   families; the per-cost blocks of ``engine.batch_grad_hess`` summed per
   key in an order fixed at compile time by kernel B6, W placed by kernel
-  B7, the reduced solve through kernel B5 over external inverses.  A batch
-  with a shared adaptive kernel takes its own run tables (kernels B6 and
-  B7) on this route.
+  B7, the reduced solve through kernel B5 over external inverses.  A
+  components-major batch with one shared adaptive kernel takes its own run
+  tables (kernels B6 and B7) on this route; per-cost kernels and the other
+  adaptive batch forms take the generic sums, the kernel family one more
+  reduced family.
 
 The implicit path (:class:`SchurCGOps`: every keyed reduction through
-kernel B6, the reduced system solved by PCG without forming S) takes the
-same batches, sorted by landmark.
+kernel B6, the reduced system solved by PCG without forming S, with the
+Schur-Jacobi or the cluster-Jacobi preconditioner) takes the same
+batches, sorted by landmark; an adaptive batch's kernel rows ride its
+coupling blocks beside the camera's.
 
 Block structure, with r = reduced (camera) and l = eliminated (landmark)
 tangent dims:
@@ -560,6 +564,11 @@ class SchurInfo:
     w_rows: Any = None
     # Host seconds spent building kernel B2's, B3/B4's and B5's tables.
     table_seconds: float = 0.0
+    # Implicit: the one coupling part that cluster-Jacobi can take
+    # (:func:`_cluster_source`: ``(lid, rvid, n_r, dr_s)`` host arrays),
+    # else None; and its plans per cluster size (cluster_plan).
+    cluster_src: Any = None
+    clusters: dict = dataclasses.field(default_factory=dict)
 
 
 def _reduced_families(problem, layout, elim_fam: str) -> tuple:
@@ -619,6 +628,7 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
     info.plan = _generic_plan(info)
     if implicit:
         info.cg = _implicit_plan(info)
+        info.cluster_src = _cluster_source(info, batches, layout)
     else:
         t0 = time.perf_counter()
         tables = w_structure(info)
@@ -719,9 +729,11 @@ def _positions(batch, layout, info, slot):
 
 def _run_batch_data(batch, layout, info):
     """Run tables of a landmark-sorted camera/landmark batch
-    (:func:`_coupling_slots`), or None.  An adaptive batch's kernel rows are
-    those of its first real cost's kernel variable (:func:`check_slice`
-    refuses more than one), None when that variable is fixed."""
+    (:func:`_coupling_slots`), or None.  An adaptive batch qualifies when
+    one kernel variable serves all its costs; its kernel rows are that
+    variable's, None when it is fixed.  Per-cost kernels take the generic
+    route, where the kernel family is one more reduced family, as the JAX
+    package's generic fall-through takes them."""
     slots = _coupling_slots(batch, info)
     if slots is None:
         return None
@@ -732,6 +744,8 @@ def _run_batch_data(batch, layout, info):
         return None  # not sorted by sort_for_implicit
     mask = np.asarray(batch.mask)
     kernel_rows = None
+    if batch.adaptive and np.unique(np.asarray(batch.idx[0])[mask]).size > 1:
+        return None
     if batch.adaptive and mask.any():
         kman = batch.manifolds[0]
         kvar = np.asarray(batch.idx[0])[mask][0]
@@ -898,42 +912,100 @@ def _implicit_plan(info: SchurInfo) -> _ImplicitPlan:
     )
 
 
+class _ClusterPlan(NamedTuple):
+    """Cluster-Jacobi's tables for ``m`` cameras per cluster (device):
+    the pairs of costs of one landmark whose cameras share a cluster
+    (``c1``, ``c2``, rows of the one coupling part), sorted by their target
+    ``(cluster, local camera 1, local camera 2)`` (``perm``) with each
+    target's run (``starts``); then ``n_cl`` clusters of ``m`` cameras of
+    ``dof`` rows each."""
+
+    c1: Any
+    c2: Any
+    perm: Any
+    starts: Any
+    n_cl: int
+    m: int
+    dof: int
+
+
+def _cluster_source(info: SchurInfo, batches, layout):
+    """The coupling part cluster-Jacobi can take, where the JAX package's
+    ``SchurCGOps._cluster_layout`` takes one: one reduced family whose
+    variables are all unfixed (contiguous offsets), and one coupling part
+    in all, a components-major two-slot camera/landmark batch with a fixed
+    kernel whose landmark runs are uniform (its obs-major repack is one
+    bucket).  Returns ``(lid, rvid, n_r, dr_s)`` or None."""
+    if len(info.fams) != 1 or len(info.cg.parts) != 1:
+        return None
+    (bi,) = info.cg.parts
+    f, b = info.fast[bi], batches[bi]
+    if not isinstance(f, _RunBatch) or b.adaptive or len(b.manifolds) != 2:
+        return None
+    if not layout.unfixed[f.rfam].all():
+        return None
+    _, buckets = obs_major_repack(b, info)
+    if buckets is None or len(buckets) != 1:
+        return None
+    return f.lid, f.rvid, f.n_r, f.dr_s
+
+
+def cluster_plan(info: SchurInfo, m: int, device) -> Optional[_ClusterPlan]:
+    """Cluster-Jacobi's :class:`_ClusterPlan` for ``m`` consecutive
+    cameras per cluster (``Options.schur_cluster_size``), built once per
+    size; None where it does not apply (``m`` ≤ 0, no
+    :attr:`SchurInfo.cluster_src`, or more than 64 clusters, the JAX
+    package's limit): the solve keeps Schur-Jacobi, as the JAX package
+    falls back.  The JAX package builds each cluster's block with a
+    W-sized one-hot contraction per cluster; here the in-cluster camera
+    pairs of each landmark are listed once on the host (at the first
+    ``ctx`` with that size), and their products summed per target by
+    kernel B6."""
+    if m <= 0 or info.cluster_src is None:
+        return None
+    if m not in info.clusters:
+        lid, rvid, n_r, dr_s = info.cluster_src
+        n_cl = -(-n_r // m)
+        plan = None
+        if n_cl <= 64:
+            real = np.nonzero((lid < info.num_elim) & (rvid < n_r))[0]
+            cl = rvid[real] // m
+            o = real[np.lexsort((rvid[real], cl, lid[real]))]
+            key = lid[o].astype(np.int64) * n_cl + rvid[o] // m
+            first = np.r_[True, key[1:] != key[:-1]]
+            gid = np.cumsum(first) - 1
+            gstart = np.nonzero(first)[0]
+            gsize = np.diff(np.r_[gstart, o.shape[0]])
+            rep = gsize[gid]
+            c1 = np.repeat(o, rep)
+            k = np.arange(c1.shape[0]) - np.repeat(np.cumsum(rep) - rep, rep)
+            c2 = o[np.repeat(gstart[gid], rep) + k]
+            tgt = (rvid[c1] // m) * m * m + (rvid[c1] % m) * m + rvid[c2] % m
+            perm, starts = _keyed(tgt, n_cl * m * m)
+            perm = np.arange(tgt.shape[0]) if perm is None else perm
+            plan = _ClusterPlan(
+                *(torch.as_tensor(a, dtype=torch.long, device=device) for a in (c1, c2, perm)),
+                torch.as_tensor(starts, dtype=torch.int32, device=device), n_cl, m, dr_s,
+            )
+        info.clusters[m] = plan
+    return info.clusters[m]
+
+
 def check_slice(info: SchurInfo, batches) -> None:
-    """Raise ``NotImplementedError`` for what the port does not take yet
-    (ROADMAP Queue 1 item 9): an adaptive batch on the implicit backend,
-    per-cost adaptive kernels (more than one kernel variable in a batch),
-    and an adaptive batch other than (kernel, camera, landmark); and for
-    the dual-sorted route (``w_impl="fused"``) on a problem whose coupling
-    batch does not qualify for it (:func:`_check_dual_route`)."""
-    if info.w_impl == "fused" and info.implicit:
+    """Raise ``NotImplementedError`` where the dual-sorted route
+    (``w_impl="fused"``) is asked of a problem that does not take it: the
+    implicit backend, or a coupling batch that does not qualify
+    (:func:`_check_dual_route`)."""
+    if info.w_impl != "fused":
+        return
+    if info.implicit:
         raise NotImplementedError(
             "w_impl='fused' is a route of the direct solve's assembly; this "
             "problem compiled the implicit backend"
         )
     for bi, b in enumerate(batches):
-        f = info.fast[bi]
-        if b.adaptive:
-            if info.implicit:
-                raise NotImplementedError(
-                    f"cost batch {bi} has an adaptive kernel: the implicit "
-                    "backend does not take adaptive batches yet (the JAX "
-                    "package's generic wpart; ROADMAP Queue 1 item 9)"
-                )
-            nk = np.unique(np.asarray(b.idx[0])[np.asarray(b.mask)]).size
-            if nk != 1:
-                raise NotImplementedError(
-                    f"cost batch {bi} has {nk} adaptive kernel variables: the "
-                    "port takes one kernel variable shared by the whole batch; "
-                    "per-cost kernels are ROADMAP Queue 1 item 9"
-                )
-            if not isinstance(f, _RunBatch):
-                raise NotImplementedError(
-                    f"cost batch {bi} has an adaptive kernel outside a components-major "
-                    "(kernel, camera, landmark) batch: the JAX package's generic "
-                    "adaptive blocks are ROADMAP Queue 1 item 9"
-                )
-        if info.w_impl == "fused" and len(b.manifolds) > 1 and _elim_slots(b, info):
-            _check_dual_route(bi, f)
+        if len(b.manifolds) > 1 and _elim_slots(b, info):
+            _check_dual_route(bi, info.fast[bi])
 
 
 def _check_dual_route(bi: int, f) -> None:
@@ -1599,7 +1671,8 @@ class SchurCGOps(_SchurSystem):
     preconditioner (the Ceres ``SCHUR_JACOBI`` analogue): S's exact
     per-camera diagonal blocks.  Port of the JAX package's ``SchurCGOps``
     without its TPU knobs (chunked or fixed-trip CG as worker-fault
-    mitigations, cluster-Jacobi, the sharded hooks).
+    mitigations, the sharded hooks); with ``cluster`` (a
+    :func:`cluster_plan`), cluster-Jacobi in place of Schur-Jacobi.
 
     ``segment_sum`` is kernel B6's dispatcher or its plain version.
     Every :meth:`solve` appends its PCG iteration count to ``cg_iters``."""
@@ -1618,6 +1691,8 @@ class SchurCGOps(_SchurSystem):
     tol: Optional[float] = None
     segment_sum: Callable = segment_block_sum
     cg_iters: list = dataclasses.field(default_factory=list, compare=False)
+    # Cluster-Jacobi's tables (:func:`cluster_plan`), or None: Schur-Jacobi.
+    cluster: Any = dataclasses.field(default=None, compare=False)
 
     def _tol(self, dtype):
         if self.tol is not None:
@@ -1722,6 +1797,34 @@ class SchurCGOps(_SchurSystem):
             out.append(inv)
         return tuple(out)
 
+    def cluster_inverses(self, sys, lam, h_inv):
+        """Inverted ``[n_cl, cdim, cdim]`` diagonal cluster blocks of the
+        damped S (the JAX package's ``cluster_inverses``): S_CC = (A_rr +
+        λI)_CC − Σ_l U_lC H_l⁻¹ U_lCᵀ, each in-cluster pair of one
+        landmark's costs giving w_c1 H_l⁻¹ w_c2ᵀ, summed per target by
+        kernel B6.  The pad rows of a partial last cluster hold the
+        identity; a block that comes out non-finite falls back to its
+        A-only inverse."""
+        c = self.cluster
+        a_rr, _, _, _, wparts = sys
+        (wp,) = wparts
+        n_cl, m, dof = c.n_cl, c.m, c.dof
+        cdim, dr = m * dof, self.dim_reduced
+        hw = torch.einsum("bpd,deb->bpe", wp.w_blk, h_inv[:, :, wp.lid.clamp(max=self.num_elim - 1)])
+        prod = torch.einsum("xpe,xqe->xpq", hw.index_select(0, c.c1), wp.w_blk.index_select(0, c.c2))
+        corr = self.segment_sum(prod.reshape(-1, dof * dof).index_select(0, c.perm), c.starts)
+        corr = corr.view(n_cl, m, m, dof, dof).permute(0, 1, 3, 2, 4).reshape(n_cl, cdim, cdim)
+        total = n_cl * cdim
+        ap = torch.nn.functional.pad(a_rr, (0, total - dr, 0, total - dr))
+        if total > dr:
+            ap[dr:, dr:] += torch.eye(total - dr, dtype=ap.dtype, device=ap.device)
+        eye = torch.eye(cdim, dtype=ap.dtype, device=ap.device)
+        a_blocks = torch.diagonal(ap.view(n_cl, cdim, n_cl, cdim), dim1=0, dim2=2)
+        a_blocks = a_blocks.permute(2, 0, 1) + lam * eye
+        inv = batched_inv_spd(a_blocks - corr)
+        bad = ~torch.isfinite(inv).flatten(1).all(1)
+        return torch.where(bad[:, None, None], batched_inv_spd(a_blocks), inv)
+
     def _finalize(self, xr, xl):
         """The full step from the reduced part and the components-major
         [dl, L] landmark part, in the flat variable-major order."""
@@ -1736,12 +1839,23 @@ class SchurCGOps(_SchurSystem):
         _, b_r, h_ll, g_l, wparts = sys
         h_inv = self.damped_inverse(h_ll, lam)
         rhs = b_r - self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))
-        inv = self.precond_inverses(sys, lam, h_inv)
+        if self.cluster is not None:
+            inv = (self.cluster_inverses(sys, lam, h_inv),)
+        else:
+            inv = self.precond_inverses(sys, lam, h_inv)
         tol2, state = pcg_start(rhs, functools.partial(self._precond, inv), self._tol(rhs.dtype))
         return h_inv, inv, tol2, state
 
     def _precond(self, inv, r):
-        """The block-Jacobi apply, family by family over their row runs."""
+        """The block-Jacobi apply, family by family over their row runs;
+        with cluster-Jacobi, cluster by cluster (contiguous rows, the last
+        cluster padded)."""
+        if self.cluster is not None:
+            (cinv,) = inv
+            n_cl, cdim = cinv.shape[0], cinv.shape[1]
+            rp = torch.cat([r, r.new_zeros(n_cl * cdim - r.shape[0])])
+            z = torch.einsum("nxy,ny->nx", cinv, rp.view(n_cl, cdim))
+            return z.reshape(-1)[: r.shape[0]]
         parts = [
             torch.einsum("nst,nt->ns", i, r[base : base + n * dof].view(n, dof)).reshape(-1)
             for (_, base, n, dof), i in zip(self.fams, inv)

@@ -37,12 +37,39 @@ unset):
   ``solver="schur_cg"`` with ``linear_tol=1e-8`` (the case also prints
   the PCG iterations of every damped solve: at 1e-10 and at the float64
   default, 1e-12, the eighth solve's count moves with last-bit rounding);
+- ``adaptive_dubrovnik_implicit``, ``adaptive_bench_implicit``: the
+  Dubrovnik-class data (``make_realistic_bal(356, 226730, seed=1,
+  noise=1e-3, track_alpha=2.0)``, 1,253,547 observations) or
+  bench-realistic's, 10% of the observations moved by 50 pixels, one
+  shared ContaminatedGaussian (1, 10, 0.8), the points perturbed by 0.01
+  (seed 5), float32, ``solver="schur_cg"``, ``linear_tol=1e-2``;
+  ``DUBROVNIK_ITERS`` (default 2, or the environment's) and 60 LM
+  iterations without early stop (they print the recovered (σ1, σ2, w));
+  ``adaptive_dubrovnik_implicit_f64`` the same in float64 (~12 GiB): the
+  float32 run's first iteration's cost lies 1.3e-3 from it (float32 sums
+  over the kernel's one run of 1,253,547 rows);
+- ``ladybug_adaptive_lm``, ``ladybug_adaptive_cg``,
+  ``ladybug_per_camera_lm``: Ladybug-49 with that outlier recipe in
+  float64, one shared kernel in the per-cost form or one kernel per camera
+  in a components-major batch, the first camera and three points fixed,
+  LM with ``rel_dcost=1e-6`` (at most ``LADYBUG_ITERS`` iterations)
+  through ``schur`` or ``schur_cg`` (``linear_tol=1e-8``);
+- ``mixture_dense``, ``mixture_cg``: tests/test_adaptive.py's two-mean
+  mixture in float64, LM with ``rel_dcost=1e-6`` through ``dense`` or
+  ``cg``;
 - ``bench_riders_f32``: bench-realistic in float32 (components-major,
   hand Jacobian) with its 81 lowest-id points fixed (1%) at their true
   values, a prior batch on every camera and one on every 100th free point
   (their true values), the free points perturbed by 0.05 (seed 5), LM
   through ``solver="schur"``
   with the bench options (30 iterations, no early stop).
+
+With ``--spread``, each (adaptive) case runs three times, its start
+scaled by 1 and 1 ± ε (2⁻⁵² in float64, 2⁻²³ on the float32 cases), and
+prints the largest relative spread of its
+cost trace and its spread at each iteration, the three runs' (iterations,
+solves, termination) and, per
+damped solve, the least and the most PCG iterations of the three.
 
 Each case prints one JSON line: start cost, the cost after every
 iteration, the best cost, iterations, linear solves, cost evaluations and
@@ -198,6 +225,119 @@ def _bench_riders():
     return nt.optimize(p, opts, unfixed=cams + pts[n_fix:])
 
 
+#: The recovered kernel parameters (σ1, σ2, w) of the adaptive cases.
+SIGMAS = {}
+#: The adaptive cases' start is scaled by this before the run
+#: (``--spread``: 1 and 1 ± 2⁻⁵², the trace's own rounding spread).
+SCALE = [1.0]
+
+
+def _optimize(p, opts, **kw):
+    for fam in p._families.values():
+        fam.values[:] = fam.values * SCALE[0]
+    return nt.optimize(p, opts, **kw)
+
+
+def _outliers(data):
+    """The adaptive paths' outlier recipe: 10% of the observations moved
+    by 50 pixels (``numpy.random.default_rng(3)``)."""
+    rng = np.random.default_rng(3)
+    out = rng.choice(len(data["pt_idx"]), size=len(data["pt_idx"]) // 10, replace=False)
+    data["observations"][out] += 50.0
+    return data
+
+
+CG_PARAMS = (1.0, 10.0, 0.8)
+
+
+def _record_sigmas(p, handles):
+    SIGMAS["sigmas_weight"] = [
+        [float(v) for v in nt.ContaminatedGaussian.sigmas_weight(jnp.asarray(p.get_value(h)))]
+        for h in handles
+    ]
+
+
+def _adaptive_implicit(dubrovnik, iters, dtype=jnp.float32):
+    """The adaptive implicit paths: Dubrovnik-class or bench-realistic data
+    with the outlier recipe, one shared ContaminatedGaussian (1, 10, 0.8),
+    the points perturbed by 0.01 (seed 5), float32, ``solver="schur_cg"``
+    with ``linear_tol=1e-2``, ``iters`` LM iterations without early stop."""
+    args = (dict(ncameras=356, npoints=226730, seed=1, noise=1e-3, track_alpha=2.0) if dubrovnik
+            else dict(ncameras=128, npoints=8192, seed=1, noise=1e-3, track_alpha=1.6,
+                      max_track=96))
+    data = _outliers(bal.make_realistic_bal(**args))
+    p, _, pts, kh = bal.make_bal_problem(
+        data, dtype=dtype, kernel=nt.ContaminatedGaussian(),
+        kernel_params=nt.ContaminatedGaussian.make_params(*CG_PARAMS))
+    perturb_ba(p, pts, 0.01, seed=5)
+    opts = nt.Options(solver="schur_cg", schur_family=bal.PT, linear_tol=1e-2,
+                      **dict(BENCH, max_iters=iters))
+    r = _optimize(p, opts)
+    _record_sigmas(p, [kh])
+    return r
+
+
+def _ladybug_adaptive(solver, per_camera=False):
+    """Ladybug-49 with the outlier recipe in float64: the per-cost form
+    with one shared ContaminatedGaussian (``make_bal_problem(...,
+    batched=False)``), or a components-major batch with one
+    ContaminatedGaussian per camera (49 kernel variables); the first camera
+    and the first three points fixed at their true values, the free points
+    perturbed by 0.05 (seed 5); LM with ``rel_dcost=1e-6``, the implicit
+    solve at ``linear_tol=1e-8``."""
+    data = _outliers(bal.make_realistic_bal(ncameras=49, npoints=7776, seed=1, noise=1e-3,
+                                            track_alpha=2.3))
+    kern = nt.ContaminatedGaussian()
+    kp = nt.ContaminatedGaussian.make_params(*CG_PARAMS)
+    if per_camera:
+        p = nt.Problem(dtype=jnp.float64)
+        cams = p.add_variables(bal.CAM, data["cameras"])
+        pts = p.add_variables(bal.PT, data["points"])
+        kh = [p.add_variable(kern.manifold, np.asarray(kp)) for _ in cams]
+        p.add_cost_batch(
+            bal.snavely_residual_cm,
+            [(kern.manifold, np.asarray([h.index for h in kh])[data["cam_idx"]]),
+             (bal.CAM, data["cam_idx"]), (bal.PT, data["pt_idx"])],
+            params=data["observations"], kernel=kern, jacobian=bal.snavely_jacobian_cm,
+            batched="cm")
+    else:
+        p, cams, pts, kh = bal.make_bal_problem(data, dtype=jnp.float64, batched=False,
+                                                kernel=kern, kernel_params=kp)
+        kh = [kh]
+    perturb_ba(p, pts[3:], 0.05, seed=5)
+    opts = nt.Options(solver=solver, schur_family=bal.PT, rel_dcost=1e-6,
+                      linear_tol=1e-8 if solver == "schur_cg" else None, max_iters=LADYBUG_ITERS,
+                      max_time=float("inf"), store_trajectory="jit")
+    r = _optimize(p, opts, unfixed=cams[1:] + pts[3:] + kh)
+    _record_sigmas(p, kh[:3])
+    return r
+
+
+def mean_residual(data, mean):
+    """tests/test_adaptive.py's residual: a mean's offset from a sample."""
+    return mean - data
+
+
+def _mixture(solver):
+    """tests/test_adaptive.py's two-mean mixture (1,000 samples, a fifth
+    of them ten times wider, one ContaminatedGaussian from (0.5, 5, 0.6))
+    in float64, LM with ``rel_dcost=1e-6`` through ``solver``."""
+    rng = np.random.default_rng(1)
+    points = np.concatenate([rng.normal(0, 1, 800), rng.normal(0, 10, 200)])
+    kern = nt.ContaminatedGaussian()
+    p = nt.Problem(dtype=jnp.float64)
+    kh = p.add_variable(kern.manifold, nt.ContaminatedGaussian.make_params(0.5, 5.0, 0.6))
+    m1 = p.add_variable(nt.Scalar(), 0.0)
+    m2 = p.add_variable(nt.Scalar(), 0.0)
+    for x in points:
+        p.add_cost(mean_residual, (kh, m1), params=x - 1.0, kernel=kern)
+        p.add_cost(mean_residual, (kh, m2), params=x + 1.0, kernel=kern)
+    r = _optimize(p, nt.Options(solver=solver, rel_dcost=1e-6, max_time=float("inf"),
+                                store_trajectory="jit"))
+    _record_sigmas(p, [kh])
+    return r
+
+
 KERNELS = ("None", "Huber", "GemanMcclure", "Cauchy", "Welsch", "Tukey")
 
 CASES = {
@@ -214,7 +354,20 @@ CASES = {
     "ladybug_percost_lm": lambda: _ladybug_percost("schur"),
     "ladybug_percost_cg": lambda: _ladybug_percost("schur_cg"),
     "bench_riders_f32": _bench_riders,
+    "adaptive_dubrovnik_implicit": lambda: _adaptive_implicit(True, DUBROVNIK_ITERS),
+    "adaptive_dubrovnik_implicit_f64": lambda: _adaptive_implicit(True, DUBROVNIK_ITERS,
+                                                                  jnp.float64),
+    "adaptive_bench_implicit": lambda: _adaptive_implicit(False, 60),
+    "ladybug_adaptive_lm": lambda: _ladybug_adaptive("schur"),
+    "ladybug_adaptive_cg": lambda: _ladybug_adaptive("schur_cg"),
+    "ladybug_per_camera_lm": lambda: _ladybug_adaptive("schur", per_camera=True),
+    "mixture_dense": lambda: _mixture("dense"),
+    "mixture_cg": lambda: _mixture("cg"),
 }
+#: LM iterations of the adaptive Dubrovnik-class reference (float32 on the
+#: CPU at 1,253,547 observations) and of the adaptive Ladybug-49 ones.
+DUBROVNIK_ITERS = int(os.environ.get("DUBROVNIK_ITERS", 2))
+LADYBUG_ITERS = 10
 
 
 def _line(name, r, t0):
@@ -225,15 +378,42 @@ def _line(name, r, t0):
         solves=int(r.linear_solves), cost_evals=int(r.cost_computations),
         cholesky_to_lu=SOLVES["lu"], nonfinite_solves=SOLVES["nonfinite"],
         counted_solves=SOLVES["total"], seconds=time.perf_counter() - t0,
-        **({"pcg_iters": list(PCG_ITERS)} if PCG_ITERS else {}),
+        **({"pcg_iters": list(PCG_ITERS)} if PCG_ITERS else {}), **SIGMAS,
     )
 
 
 def main():
-    names = sys.argv[1:] or [*CASES, "curvefit"]
+    names = [a for a in sys.argv[1:] if a != "--spread"] or [*CASES, "curvefit"]
+    if "--spread" in sys.argv:
+        # The adaptive cases at their start scaled by 1 and 1 ± 2⁻⁵²: the
+        # largest relative spread of the trace, and each run's counts.
+        for name in names:
+            runs = []
+            eps = 2.0**-23 if name.startswith("adaptive_") else 2.0**-52  # float32 paths
+            for scale in (1.0, 1.0 + eps, 1.0 - eps):
+                SCALE[0] = scale
+                PCG_ITERS.clear()
+                r = CASES[name]()
+                jax.effects_barrier()
+                runs.append((np.asarray(r.trajectory.costs), (r.num_iterations, r.linear_solves,
+                             r.termination), list(PCG_ITERS)))
+            n = min(len(c) for c, _, _ in runs)
+            base = runs[0][0][:n]
+            per_it = [float(max(abs(c[i] - base[i]) for c, _, _ in runs) / abs(base[i]))
+                      for i in range(n)]
+            spread = max(per_it)
+            pcg = [p for _, _, p in runs]
+            same = pcg[0] and all(len(q) == len(pcg[0]) for q in pcg)
+            bounds = dict(pcg_min=[min(c) for c in zip(*pcg)],
+                          pcg_max=[max(c) for c in zip(*pcg)]) if same else {}
+            print(json.dumps(dict(case=name, self_spread=spread, per_iteration=per_it,
+                                  counts=[k for _, k, _ in runs], **bounds)), flush=True)
+        SCALE[0] = 1.0
+        return
     for name in names:
         SOLVES.update(total=0, lu=0, nonfinite=0)
         PCG_ITERS.clear()
+        SIGMAS.clear()
         t0 = time.perf_counter()
         if name == "curvefit":
             best = {}

@@ -6,7 +6,10 @@ an adaptive Snavely BAL problem (6 cameras, 64 points, 10% outliers, as in
 tests/test_adaptive.py) through the direct Schur solve: the assembled
 system, the damped solve and the Levenberg-Marquardt trace with the
 recovered kernel parameters; a further reduced family beside the kernel;
-and the refusals of what the port does not take yet."""
+two kernel variables in one batch (direct) and an adaptive batch on the
+implicit backend."""
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -280,29 +283,70 @@ def test_adaptive_lm_matches_jax(kernels):
     np.testing.assert_allclose(tp.get_value(kh), np.asarray(jp.get_value(jkh)), rtol=1e-8)
 
 
-def _refused(problem, solver="schur"):
-    with pytest.raises(NotImplementedError) as err:
-        pt.compile_problem(problem, solver=solver, schur_family=tbal.PT)
-    return str(err.value)
-
-
-def test_refuses_per_cost_kernels():
-    """Two kernel variables in one batch (per-cost kernels): refused,
-    naming the queue item."""
+def _two_kernel_problems():
+    """The JAX and port problems of one components-major adaptive batch
+    whose costs alternate between two kernel variables (4 cameras, 8
+    points), the points perturbed alike."""
     d = jbal.make_synthetic_bal(4, 8)
-    p = pt.Problem(device="cpu")
-    p.add_variables(tbal.CAM, d["cameras"])
-    p.add_variables(tbal.PT, d["points"])
-    k = [p.add_variable(CG[2].manifold, CG[1]).index for _ in range(2)]
     n = len(d["pt_idx"])
-    p.add_cost_batch(
-        tbal.snavely_residual_cm,
-        [(CG[2].manifold, np.where(np.arange(n) % 2, k[0], k[1])),
-         (tbal.CAM, d["cam_idx"]), (tbal.PT, d["pt_idx"])],
-        params=d["observations"], kernel=CG[2], jacobian=tbal.snavely_jacobian_cm,
-        batched="cm",
-    )
-    assert "per-cost kernels are ROADMAP Queue 1 item 9" in _refused(p)
+    out = []
+    for pkg, bal, kern, kw in ((nt, jbal, CG[0], {}), (pt, tbal, CG[2], {"device": "cpu"})):
+        p = pkg.Problem(**kw)
+        p.add_variables(bal.CAM, d["cameras"])
+        pts = p.add_variables(bal.PT, d["points"])
+        k = [p.add_variable(kern.manifold, np.asarray(CG[1])).index for _ in range(2)]
+        p.add_cost_batch(
+            bal.snavely_residual_cm,
+            [(kern.manifold, np.where(np.arange(n) % 2, k[0], k[1])),
+             (bal.CAM, d["cam_idx"]), (bal.PT, d["pt_idx"])],
+            params=d["observations"], kernel=kern, jacobian=bal.snavely_jacobian_cm,
+            batched="cm",
+        )
+        (jax_perturb_ba if pkg is nt else perturb_ba)(p, pts, 0.01, seed=7)
+        out.append(p)
+    return out
+
+
+def _system_step_trace(jp, tp, solver, lam=1e-2):
+    """The assembled system (cost, a_rr, b_r, h_ll, g_l; W on the direct
+    solve) within 1e-10, the damped step at ``lam`` within 32·κ·max(ε,
+    PCG tolerance) of max|x| (κ of the JAX package's dense H + λI: each
+    step lies within 16·κ·ε of the exact one) and two LM iterations (same
+    counts, costs within 1e-9) against the JAX package's."""
+    jc = jax_compile(jp, solver=solver, schur_family=jbal.PT)
+    tc = pt.compile_problem(tp, solver=solver, schur_family=tbal.PT)
+    cost_j, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
+    cost_t, sys_t = tc.assemble(tp.stacked_variables())
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-12)
+    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_t[:4], sys_j[:4]):
+        _close(a.numpy(), b, 1e-10, name)
+    if solver == "schur":
+        _close(sys_t[4].numpy(), np.asarray(sys_j[4]).transpose(1, 0, 2), 1e-10, "w")
+    ops_j = jc.ctx().linops
+    if solver == "schur_cg":
+        ops_j = dataclasses.replace(ops_j, tol=1e-12)
+    x_j = np.asarray(ops_j.solve(sys_j, jnp.asarray(lam)))
+    x_t = tc.ctx(pt.Options(linear_tol=1e-12)).linops.solve(sys_t, lam).numpy()
+    _, (h, _) = jax.jit(jax_compile(jp, solver="dense").assemble)(jp.stacked_variables())
+    ev = np.abs(np.linalg.eigvalsh(np.asarray(h) + lam * np.eye(h.shape[0])))
+    kappa = ev.max() / ev.min()
+    bound = 32 * kappa * max(np.finfo(np.float64).eps, 1e-12 if solver == "schur_cg" else 0.0)
+    err = np.abs(x_t - x_j).max() / np.abs(x_j).max()
+    assert err <= bound, f"step: {err:.3e} of max|x|, κ = {kappa:.3e}, bound {bound:.3e}"
+    opts = dict(solver=solver, max_iters=2, rel_dcost=1e-6, linear_tol=1e-12)
+    r_j = nt.optimize(jp, nt.Options(schur_family=jbal.PT, store_trajectory="jit", **opts))
+    r_t = pt.optimize(tp, pt.Options(schur_family=tbal.PT, max_time=float("inf"), **opts))
+    counts = [(r.num_iterations, r.linear_solves, r.termination) for r in (r_t, r_j)]
+    assert counts[0] == counts[1], counts
+    np.testing.assert_allclose(r_t.costs, np.asarray(r_j.trajectory.costs), rtol=1e-9)
+
+
+def test_two_kernel_variables_match_jax():
+    """Two kernel variables in one batch (per-cost kernels, which the port
+    refused before): the generic route with the kernel family as one more
+    reduced family, against the JAX package's generic fall-through."""
+    jp, tp = _two_kernel_problems()
+    _system_step_trace(jp, tp, "schur")
 
 
 def test_refuses_other_reduced_families():
@@ -330,8 +374,13 @@ def test_refuses_other_reduced_families():
     _close(tc.ctx().linops.solve(sys_t, 1e-2).numpy(), x_j, 1e-9, "step")
 
 
-def test_refuses_implicit_adaptive():
-    """The implicit backend does not take adaptive batches yet."""
-    p, _, _, _ = tbal.make_bal_problem(
-        jbal.make_synthetic_bal(4, 8), device="cpu", kernel=CG[2], kernel_params=CG[1])
-    assert "ROADMAP Queue 1 item 9" in _refused(p, solver="schur_cg")
+def test_implicit_adaptive_matches_jax():
+    """The 4/8 adaptive problem through the implicit backend (which the
+    port refused before): the kernel's rows ride the coupling blocks beside
+    the camera's, as in the JAX package's generic full-block wpart."""
+    data = jbal.make_synthetic_bal(4, 8)
+    tp, _, tpts, _ = tbal.make_bal_problem(data, device="cpu", kernel=CG[2], kernel_params=CG[1])
+    perturb_ba(tp, tpts, 0.01, seed=7)
+    jp, _, jpts, _ = jbal.make_bal_problem(data, kernel=CG[0], kernel_params=CG[1])
+    jax_perturb_ba(jp, jpts, 0.01, seed=7)
+    _system_step_trace(jp, tp, "schur_cg")

@@ -299,8 +299,14 @@ def test_auto_solver_picks_as_jax():
     cg = pt.ContaminatedGaussian()
     bp2, _, _, _ = tbal.make_bal_problem(jbal.make_synthetic_bal(4, 8), device="cpu", kernel=cg,
                                          kernel_params=cg.make_params(1.0, 10.0, 0.8))
-    with pytest.raises(NotImplementedError, match="adaptive kernel on the dense backend"):
-        compile_problem(bp2, solver="dense")
+    # An adaptive kernel compiles on the dense backend (its blocks lead
+    # with the kernel's tangent): a finite, symmetric H over every variable.
+    tc = compile_problem(bp2, solver="dense")
+    assert tc.dense_plan is not None and tc.schur_info is None
+    _, (h, g) = tc.assemble(bp2.stacked_variables())
+    assert h.shape == (tc.layout.dof_total,) * 2 == (4 * 9 + 8 * 3 + 3,) * 2
+    assert bool(torch.isfinite(h).all()) and bool(torch.isfinite(g).all())
+    assert torch.equal(h, h.T)
 
 
 @pytest.mark.parametrize("batched,hand", [(False, False), (True, True)])

@@ -126,21 +126,29 @@ def test_assembly_and_solve_match_jax(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_lm_trace_matches_jax(shape):
     """Levenberg-Marquardt through the direct Schur solve: same iteration
-    count and a per-iteration cost trace within 1e-9 relative."""
+    count and a per-iteration cost trace within 1e-9 relative.
+    ``rel_dcost=1e-6`` ends both runs before the float64 floor: with the
+    default 1e-15 the last check compares best costs one ulp apart, and
+    rounding alone decides whether ``TERM_RELDCOST`` is set.  There the
+    JAX package moves from itself by at most 4.8e-15 of its trace when its
+    start is scaled by 1 ± 2⁻⁵², its counts unchanged
+    (``scripts_torch/trace_spread.py slice``).  ``max_time`` is lifted, so
+    that the run ends by its tests and not by the host's speed."""
     jp, tp = _pair(*shape)
     r_j = nt.optimize(
         jp, nt.Options(solver="schur", schur_family=nt.Euclidean(3),
-                       store_trajectory="jit"),
+                       store_trajectory="jit", rel_dcost=1e-6),
     )
-    r_t = pt.optimize(tp, pt.Options(solver="schur", schur_family=pt.Euclidean(3)))
-    assert r_t.num_iterations == r_j.num_iterations
-    assert r_t.termination == r_j.termination
-    assert r_t.linear_solves == r_j.linear_solves
-    np.testing.assert_allclose(r_t.start_cost, r_j.start_cost, rtol=1e-12)
+    r_t = pt.optimize(tp, pt.Options(solver="schur", schur_family=pt.Euclidean(3),
+                                     rel_dcost=1e-6, max_time=float("inf")))
+    counts = [(r.num_iterations, r.linear_solves, r.termination, r.time_total) for r in (r_t, r_j)]
+    msg = f"(iterations, solves, termination, seconds) port, jax: {counts}"
+    assert counts[0][:3] == counts[1][:3], msg
+    np.testing.assert_allclose(r_t.start_cost, r_j.start_cost, rtol=1e-12, err_msg=msg)
     np.testing.assert_allclose(
-        r_t.costs, np.asarray(r_j.trajectory.costs), rtol=1e-9
+        r_t.costs, np.asarray(r_j.trajectory.costs), rtol=1e-9, err_msg=msg
     )
-    np.testing.assert_allclose(r_t.best_cost, r_j.best_cost, rtol=1e-9)
+    np.testing.assert_allclose(r_t.best_cost, r_j.best_cost, rtol=1e-9, err_msg=msg)
     for name, v in tp.stacked_variables().items():
         np.testing.assert_allclose(
             v.numpy(), np.asarray(jp.stacked_variables()[name]),
