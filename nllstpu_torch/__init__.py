@@ -22,7 +22,13 @@ the direct solve.  Problems live on the card unless the caller passes
 ``device="cpu"``.  ``optimize`` runs the graph driver (CUDA graphs of the
 assembly, the damped trial and the PCG's chunks) unless the caller passes
 a ``callback`` or ``store_trajectory=True``, which take the stepped
-driver.  The package never imports ``jax``.
+driver; a second ``optimize`` of a problem whose structure is unchanged
+reuses the compiled problem and its graphs.  ``optimize_singles`` solves
+every variable of a family on its own in one batched loop (landmark
+polish), ``SubproblemView`` swaps cost subsets without compiling again,
+and ``ops.export``, ``utils.checkpoint``, ``utils.profiling`` and
+``utils.native`` (the C++ BAL parser) are the JAX package's utilities.
+The package never imports ``jax``.
 """
 
 from .core.manifolds import (
@@ -31,9 +37,10 @@ from .core.manifolds import (
 )
 from .core.callbacks import null_callback, printout_callback, store_costs_callback
 from .core.optimize import (
-    CallbackContext, CompiledProblem, compile_problem, cost, optimize, run_graphs, run_loop,
-    run_stepped,
+    CallbackContext, CompiledProblem, SubproblemView, compile_problem, cost, optimize,
+    run_graphs, run_loop, run_stepped,
 )
+from .core.singles import optimize_singles
 from .core.problem import Problem, VarHandle, family_name
 from .core.robust import (
     AdaptiveRobustifier, Barron, Cauchy, ContaminatedGaussian, GemanMcclure, Huber,
@@ -85,6 +92,8 @@ __all__ = [
     "cost",
     "CompiledProblem",
     "optimize",
+    "SubproblemView",
+    "optimize_singles",
     "run_loop",
     "run_stepped",
     "run_graphs",

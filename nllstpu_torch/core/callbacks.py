@@ -23,26 +23,28 @@ def null_callback(cost, ctx):
     return cost, 0
 
 
-def printout_callback(cost, ctx):
-    """Per-iteration printout (src/callbacks.jl:39-60).  The last column is
-    the iterator's trust proxy: 1/λ for LM, the trust radius for dogleg,
-    the step size for gradient descent (the port's iterator data holds
-    ``lm_lambda`` only; the others read as 0)."""
-    if ctx.iteration == 1:
-        print(
-            f"{'iter':>6} {'cost':>16} {'cost change':>16} {'|step|':>12}"
-            f" {'trust':>12}"
-        )
-        print(f"{0:>6} {ctx.bestcost:>16.8e}")
-    lam = float(ctx.itdata.get("lm_lambda", 0.0))
-    tr = float(ctx.itdata.get("tr", 0.0))
-    gd = float(ctx.itdata.get("gd_step", 0.0))
+def print_row(it, cost, prev_best, step, itdata):
+    """One row of the per-iteration printout (the header and the start
+    cost before the first): the cost, its change from the best before it,
+    |step| and the iterator's trust proxy — 1/λ for LM, the trust radius
+    for dogleg, the step size for gradient descent."""
+    if it == 0:
+        print(f"{'iter':>6} {'cost':>16} {'cost change':>16} {'|step|':>12} {'trust':>12}")
+        print(f"{0:>6} {cost:>16.8e}")
+        return
+    lam, tr, gd = (float(itdata.get(k, 0.0)) for k in ("lm_lambda", "tr", "gd_step"))
     trust = (1.0 / lam) if lam > 0 else (tr if tr > 0 else gd)
+    print(f"{it:>6} {cost:>16.8e} {prev_best - cost:>16.8e} {step:>12.4e} {trust:>12.4e}")
+
+
+def printout_callback(cost, ctx):
+    """Per-iteration printout (src/callbacks.jl:39-60), :func:`print_row`'s
+    format; the graph driver prints the same rows under
+    ``Options.jit_printout``."""
+    if ctx.iteration == 1:
+        print_row(0, ctx.bestcost, ctx.bestcost, 0.0, ctx.itdata)
     step = float(np.linalg.norm(host_array(ctx.step))) if ctx.step is not None else 0.0
-    print(
-        f"{ctx.iteration:>6} {cost:>16.8e} {ctx.bestcost - cost:>16.8e}"
-        f" {step:>12.4e} {trust:>12.4e}"
-    )
+    print_row(ctx.iteration, cost, ctx.bestcost, step, ctx.itdata)
     return cost, 0
 
 

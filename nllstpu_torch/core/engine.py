@@ -231,6 +231,120 @@ def _cost_grad_hess_one(batch, params, vals):
     return 0.5 * rho, g * d1, h
 
 
+def _cost_grad_hess_slot(batch, params, vals, slot: int):
+    """(cost, g, H) of one cost in the tangent of dependency slot ``slot``
+    alone, the other slots held fixed (the JAX package's
+    ``_cost_grad_hess_slot``; reference univariate systems): a plain
+    cost's gradient and Hessian by ``grad`` and ``jacfwd(grad)``; an
+    adaptive kernel's slot 0 by its own derivative blocks (only the kernel
+    moves); a residual's slot Jacobian by ``jacfwd`` through the slot's
+    retraction, then the IRLS weight and the second-order term."""
+    from torch.func import grad, jacfwd
+
+    man = batch.manifolds[slot]
+    z = vals[slot].new_zeros(man.dof)
+
+    def moved(t):
+        newv = list(vals)
+        newv[slot] = _retract_one(man, vals[slot], t)
+        return newv
+
+    if batch.kind == "cost":
+        def fc(t):
+            return batch.fn(params, *moved(t))
+
+        return fc(z), grad(fc)(z), jacfwd(grad(fc))(z).to(z.dtype)
+    if batch.adaptive and slot == 0:
+        r = torch.atleast_1d(batch.fn(params, *vals[1:]))
+        rho, dgrad, dhess = batch.kernel.rho_dkernel(vals[0], r @ r)
+        k = man.dof
+        return 0.5 * rho, dgrad[:k], dhess[:k, :k]
+
+    def f(t):
+        newv = moved(t)
+        return torch.atleast_1d(batch.fn(params, *(newv[1:] if batch.adaptive else newv)))
+
+    r, jac = f(z), jacfwd(f)(z).to(z.dtype)
+    s = r @ r
+    g, h = jac.T @ r, jac.T @ jac
+    rho, d1, d2 = (batch.kernel.rho_dc(vals[0], s) if batch.adaptive
+                   else batch.kernel.rho_dc(s))
+    return 0.5 * rho, g * d1, h * d1 + (2.0 * d2) * torch.outer(g, g)
+
+
+def _slot_columns(batch, slot: int) -> slice:
+    """The columns of slot ``slot`` in the batch's hand Jacobian (whose
+    tangent leaves an adaptive kernel's slot out)."""
+    first = 1 if batch.adaptive else 0
+    o = sum(m.dof for m in batch.manifolds[first:slot])
+    return slice(o, o + batch.manifolds[slot].dof)
+
+
+def rows_grad_hess_slot(batch, params, vals, slot: int):
+    """``(cost [N], g [N, d], H [N, d, d])`` of N costs of ``batch`` in the
+    tangent of slot ``slot`` (``vals`` per slot ``[N, *shape]``,
+    ``params`` the rows' parameters or None): per-cost batches and plain
+    costs by ``torch.func.vmap`` of :func:`_cost_grad_hess_slot`;
+    components-major and row-major batches from the slot's columns of their
+    Jacobian (hand or synthesized), as :func:`batch_res_jac_cm` gives it;
+    an adaptive kernel's slot from ``rho_dkernel_cm``."""
+    from torch.func import vmap
+
+    if batch.kind == "cost" or batch.batched is False:
+        def one(p, *v):
+            return _cost_grad_hess_slot(batch, p, v, slot)
+
+        in_dims = (None if params is None else 0,) + (0,) * len(vals)
+        return vmap(one, in_dims=in_dims)(params, *vals)
+    if batch.batched == "cm":
+        cm = tuple(v.reshape(v.shape[0], -1).T for v in vals)
+        if batch.adaptive and slot == 0:
+            r = batch.fn(params, *cm[1:])
+            rho, dgrad, dhess = batch.kernel.rho_dkernel_cm(cm[0], (r * r).sum(0))
+            k = batch.manifolds[0].dof
+            return 0.5 * rho, dgrad[:k].T, dhess[:k, :k].permute(2, 0, 1)
+        r, jac = batch.jacobian(params, *(cm[1:] if batch.adaptive else cm))
+        js = jac[:, _slot_columns(batch, slot)]  # [n, d, N]
+        g = torch.einsum("ndb,nb->bd", js, r)
+        h = torch.einsum("ndb,neb->bde", js, js)
+        s = (r * r).sum(0)
+        if batch.adaptive:
+            rho, dgrad, dhess = batch.kernel.rho_dkernel_cm(cm[0], s)
+            d1, d2 = dgrad[-1], dhess[-1, -1]
+        else:
+            rho, d1, d2 = batch.kernel.rho_dc(s)
+    else:
+        r, jac = batch.jacobian(params, *vals)
+        js = jac[:, :, _slot_columns(batch, slot)]  # [N, n, d]
+        g = torch.einsum("bnd,bn->bd", js, r)
+        h = torch.einsum("bnd,bne->bde", js, js)
+        rho, d1, d2 = batch.kernel.rho_dc((r * r).sum(-1))
+    h = h * d1[:, None, None] + (2.0 * d2)[:, None, None] * (g[:, :, None] * g[:, None, :])
+    return 0.5 * rho, g * d1[:, None], h
+
+
+def rows_cost(batch, params, vals):
+    """``cost [N]`` of N costs of ``batch`` (``vals`` per slot ``[N,
+    *shape]``), every batch form."""
+    from torch.func import vmap
+
+    if batch.kind == "cost" or batch.batched is False:
+        def one(p, *v):
+            return _cost_value_one(batch, p, v)
+
+        in_dims = (None if params is None else 0,) + (0,) * len(vals)
+        return vmap(one, in_dims=in_dims)(params, *vals)
+    if batch.batched == "cm":
+        cm = tuple(v.reshape(v.shape[0], -1).T for v in vals)
+        if batch.adaptive:
+            r = batch.fn(params, *cm[1:])
+            return 0.5 * batch.kernel.rho(cm[0], (r * r).sum(0))
+        r = batch.fn(params, *cm)
+        return 0.5 * batch.kernel.rho((r * r).sum(0))
+    r = batch.fn(params, *vals)
+    return 0.5 * batch.kernel.rho((r * r).sum(-1))
+
+
 def _adaptive_blocks(g0, h0, dgrad, dhess):
     """Adaptive (g [B, k+S], H [B, k+S, k+S]) from the Gauss-Newton blocks
     ``g0 [B, S]``, ``h0 [B, S, S]`` and ρ's derivatives in [kernel
@@ -358,6 +472,10 @@ def assemble_dense(batches, variables: dict, plan: DensePlan, segment_sum):
     total, hs, gs = None, [], []
     for b in batches:
         c, g, h = batch_grad_hess(b, variables)
+        # Masked costs add nothing, whatever the mask holds at run time
+        # (``SubproblemView`` writes it); the plan drops the padding.
+        g = torch.where(b.mask[:, None], g, torch.zeros_like(g))
+        h = torch.where(b.mask[:, None, None], h, torch.zeros_like(h))
         total = c if total is None else total + c
         hs.append(h.reshape(-1))
         gs.append(g.reshape(-1))

@@ -7,7 +7,9 @@ gradient descent's line search) as a ``lax.while_loop`` on the device.
 Here the tensors stay on the device and the host reads a handful of
 scalars per trial in ONE transfer, then does the scalar control in numpy
 scalars of the problem's dtype, so float32 problems round λ, the trust
-radius and the step size as the JAX package's float32 programs do.
+radius and the step size as the JAX package's float32 programs do.  The
+control's arithmetic is ``core/rules.py``'s, shared with
+``optimize_singles``' per-lane loop.
 
 Every trial is one of two shapes, each the context's (:class:`IterCtx`):
 
@@ -38,7 +40,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import structs
+from . import rules, structs
 from .linearsolver import cholesky_solve, cholesky_solve_ex, lu_solve
 
 #: The combination trials' step forms (see the module docstring).
@@ -252,8 +254,8 @@ def _levmar(ctx, sys, variables, bestcost, data, opts):
     t = ctx.np_dtype
     g = ctx.grad(sys)
     lam = t(data["lm_lambda"])
-    if lam == 0:
-        lam = t(ctx.linops.diag_max(sys).item()) * t(1e-6)
+    if lam == 0:  # read max|diag H| only when it is needed
+        lam = rules.lm_start(lam, t(ctx.linops.diag_max(sys).item()))
     mu = t(2.0)
     ns = nc = 0
     with np.errstate(all="ignore"):
@@ -262,17 +264,10 @@ def _levmar(ctx, sys, variables, bestcost, data, opts):
             c, maxstep, gx, xx = (t(v) for v in read[:4])
             ns += 1
             nc += 1
-            if (
-                ((not (c > bestcost)) and np.isfinite(c))
-                or maxstep < opts.dstep
-                or np.isnan(maxstep)
-            ):
+            if rules.accepts(c, bestcost, maxstep, opts.dstep):
                 break
-            lam = lam * mu
-            mu = mu * t(2)
-        quality = (c - bestcost) / (t(0.5) * (gx - lam * xx))
-        factor = t(1) - (t(2) * quality - t(1)) ** 3 if quality < 0.983 else t(0.1)
-        lam_new = lam * factor
+            lam, mu = rules.lm_reject(lam, mu)
+        lam_new = rules.lm_accept(lam, c, bestcost, gx, xx)
     return nv, c, x, dict(data, lm_lambda=lam_new), ns, nc, maxstep, xx
 
 
@@ -290,9 +285,7 @@ def _dogleg(ctx, sys, variables, bestcost, data, opts):
         legs, read = ctx.leg(sys, g, lu=True)
     gnorm2, ghg, xnxn, sq_leg, cdot = (t(v) for v in read[:5])
     with np.errstate(all="ignore"):
-        coef = gnorm2 / (ghg + tiny)
-        alpha2 = coef * coef * gnorm2
-        alpha = np.sqrt(alpha2)
+        coef, alpha2, alpha = rules.dogleg_leg(gnorm2, ghg, tiny)
         tr = t(data["tr"])
         if tr == 0:
             tr = alpha  # first step: the Cauchy point
@@ -300,39 +293,14 @@ def _dogleg(ctx, sys, variables, bestcost, data, opts):
         c_prev = bestcost
         nc = 0
         while True:
-            if not (alpha < tr):
-                kind, s = "cauchy", tr / alpha
-                lin = tr * (t(2) * alpha - tr) / (t(2) * coef)
-            elif beta <= tr:
-                kind, s = "newton", t(0)
-                lin = c_prev
-            else:
-                trsq = tr * tr - alpha2
-                root = np.sqrt(np.maximum(cdot * cdot + sq_leg * trsq, t(0)))
-                if cdot <= 0:
-                    s = (-cdot + root) / (sq_leg + tiny)
-                else:
-                    s = trsq / (cdot + root + tiny)
-                kind = "blend"
-                lin = t(0.5) * (coef * (t(1) - s) ** 2 * gnorm2) + s * (t(2) - s) * c_prev
+            first, full, s, lin = rules.dogleg_point(tr, coef, alpha2, alpha, beta, gnorm2,
+                                                     cdot, sq_leg, c_prev, tiny)
+            kind = "cauchy" if first else "newton" if full else "blend"
             nv, x, read = ctx.combo(sys, g, variables, legs, kind, s)
             c, maxstep, _, xx = (t(v) for v in read[:4])
             nc += 1
-            mu = (bestcost - c) / lin
-            xnorm = np.sqrt(xx)
-            if mu > 0.375:
-                tr_new = np.maximum(tr, t(3) * xnorm)
-            elif mu < 0.125:
-                tr_new = tr * t(0.5)
-            else:
-                tr_new = tr
-            finite = np.isfinite(c)
-            tr = tr_new if finite else tr * t(0.5)
-            if (
-                ((not (c > bestcost)) and finite)
-                or maxstep < opts.dstep
-                or np.isnan(maxstep)
-            ):
+            tr = rules.dogleg_radius(tr, bestcost, c, lin, xx)
+            if rules.accepts(c, bestcost, maxstep, opts.dstep):
                 break
             c_prev = c
     return nv, c, x, dict(data, tr=tr), 1, nc, maxstep, xx
@@ -354,6 +322,5 @@ def _gradient_descent(ctx, sys, variables, bestcost, data, opts):
             nc += 1
             if not c > bestcost:
                 break
-            costdiff = bestcost + gx - c
-            ss = ss * t(0.5) * gx / costdiff
+            ss = rules.gd_refit(ss, bestcost, gx, c)
     return nv, c, x, dict(data, gd_step=ss * t(2)), 0, nc, maxstep, xx

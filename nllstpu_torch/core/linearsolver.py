@@ -95,6 +95,44 @@ def cholesky_solve(a, b):
     return x if d is None else d * x
 
 
+def solve_symmetric(a, b):
+    """The iterators' entry point: x = a \\ b (:func:`cholesky_solve`)."""
+    return cholesky_solve(a, b)
+
+
+def batched_cholesky_solve(a, b):
+    """``x [T, d]`` with ``a[t] x[t] = b[t]`` for a batch of small systems
+    ``a [T, d, d]``: :func:`cholesky_solve` of every system at once — a
+    float32 batch scaled to unit diagonals per system, one batched
+    Cholesky, and the LU solution taken where a system's factorization
+    failed (``info``, or a non-finite solution), by a ``where`` over both
+    batched solves (the JAX package vmaps ``cholesky_solve``, whose
+    ``lax.cond`` becomes the same select).  No host sync."""
+    d = None
+    if a.dtype == torch.float32:
+        diag = torch.diagonal(a, dim1=-2, dim2=-1).abs()
+        d = torch.where(diag > 0, torch.rsqrt(diag), torch.ones_like(diag))
+        a = a * d[:, :, None] * d[:, None, :]
+        b = b * d
+    chol, info = torch.linalg.cholesky_ex(a)
+    x = torch.cholesky_solve(b[:, :, None], chol)[:, :, 0]
+    ok = (info == 0) & torch.isfinite(x).all(-1)
+    x = torch.where(ok[:, None], x, torch.linalg.solve_ex(a, b)[0])
+    return x if d is None else d * x
+
+
+def invert_psd(a):
+    """Inverse of a symmetric positive-definite matrix (reference
+    ``invsym``, used for covariances): :func:`cholesky_solve` against each
+    column of the identity, LU where the factorization fails."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    chol, info = torch.linalg.cholesky_ex(a)
+    x = torch.cholesky_solve(eye, chol)
+    if int(info) != 0 or not bool(torch.isfinite(x).all()):
+        x = torch.linalg.solve(a, eye)
+    return x
+
+
 def batched_inv_spd(h):
     """Inverse of small symmetric blocks ``[n, d, d]``: the closed form of
     :func:`batched_inv_spd_cm` for d ≤ 3; beyond, the JAX package's

@@ -36,17 +36,23 @@ import dataclasses
 import functools
 import gc
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ..ops import _build, cg, fused_obs, schur, schur_reduce, segment_sum, w_place
-from . import engine, iterators, structs
-from .callbacks import host_array
+from . import engine, iterators, rules, structs
+from .callbacks import host_array, print_row
 from .problem import Problem, family_name
 from .structs import Options, Result
 
+#: Calls of :func:`compile_problem` and CUDA-graph captures of
+#: :class:`_GraphRunner` (one per runner) in this process: what the runner
+#: cache and ``SubproblemView`` save is read off these.
+COMPILES = 0
+CAPTURES = 0
 #: Direct elimination stores W densely; past this size ``solver="schur"``
 #: compiles the implicit solve instead, as the JAX package does.
 DENSE_W_BYTE_LIMIT = 4 << 30
@@ -300,8 +306,10 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
     the build counts as set-up (``Result.time_init``) and never against
     ``Options.max_time``, as the JAX package compiles before its budget
     clock starts; a failed build raises."""
+    global COMPILES
     if w_impl not in W_IMPLS:
         raise ValueError(f"w_impl={w_impl!r}: the direct assembly's routes are {W_IMPLS}")
+    COMPILES += 1
     if solver == "auto":
         solver, schur_family = auto_solver(problem, unfixed, schur_family)
     if solver not in ("dense", "cg", "pcg", "schur", "schur_cg"):
@@ -385,21 +393,6 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
     return layout, info, batches
 
 
-def _termination_bits(cost, dcost, bestcost, maxstep, fails, iternum, opts):
-    """The reference's termination bitmask (src/optimize.jl:149-165)."""
-    bits = 0
-    bits |= int(np.isinf(cost)) << 0
-    bits |= int(np.isnan(cost)) << 1
-    bits |= int(dcost < bestcost * opts.rel_dcost) << 2
-    bits |= int(dcost < opts.abs_dcost) << 3
-    bits |= int(np.isinf(maxstep)) << 4
-    bits |= int(np.isnan(maxstep)) << 5
-    bits |= int(maxstep < opts.dstep) << 6
-    bits |= int(fails > opts.max_fails) << 7
-    bits |= int(iternum >= opts.max_iters) << 8
-    return bits
-
-
 @dataclasses.dataclass
 class CallbackContext:
     """What a user callback sees (the JAX package's ``CallbackContext``).
@@ -423,7 +416,7 @@ def _same(x):
 
 
 def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
-             problem=None, trajectory=None, buffers=None) -> dict:
+             problem=None, trajectory=None, buffers=None, times=None) -> dict:
     """The outer optimization (reference ``optimizeinternal!``) over a dict
     of device tensors.  Returns the final state: ``variables`` (rolled back
     to the best ones when the last iterate is worse), ``startcost``,
@@ -440,7 +433,9 @@ def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
     ``buffers`` (the graph driver) holds the variables in static tensors:
     ``buffers.adopt(nv)`` copies the adopted variables in and returns them,
     ``buffers.snapshot(v)`` clones; without it both return their
-    argument."""
+    argument.  ``times`` (a list) gets every iteration's time since the
+    loop's start in ns; ``opts.jit_printout`` prints a row per
+    iteration."""
     t = ctx.np_dtype
     adopt = buffers.adopt if buffers is not None else _same
     snapshot = buffers.snapshot if buffers is not None else _same
@@ -453,6 +448,8 @@ def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
         iternum=0, converged=0, ncost=1, ngrad=0, nsolve=0, trace=[],
         step_norms=[],
     )
+    if opts.jit_printout:
+        print_row(0, c0, c0, 0.0, st["itdata"])
     with np.errstate(all="ignore"):
         while st["converged"] == 0:
             with ctx.phase("assemble"):
@@ -472,16 +469,11 @@ def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
                 c, user = callback(c, cb)
                 c = t(float(c))
                 nv = cb.variables
-            dcost = st["bestcost"] - c
-            accepted = dcost >= 0
+            prev_best = st["bestcost"]
+            accepted, fails, bestcost, bits = rules.outer_update(
+                c, prev_best, maxstep, st["fails"], iternum, opts)
             if not accepted and st["fails"] == 0:
                 st["varbest"] = snapshot(st["variables"])
-            fails = 0 if accepted else st["fails"] + 1
-            bestcost = c if accepted else st["bestcost"]
-            bits = _termination_bits(
-                c, dcost if accepted else c, bestcost, maxstep, fails,
-                iternum, opts,
-            )
             if time.perf_counter() - t0 > opts.max_time:
                 bits |= structs.TERM_MAX_TIME
             bits |= int(user) << structs.TERM_USER_SHIFT
@@ -497,6 +489,10 @@ def run_loop(assemble_fn, cost_fn, ctx, opts: Options, vars0, callback=None,
                 trajectory.costs.append(float(c))
                 trajectory.times_ns.append(int((time.perf_counter() - t0) * 1e9))
                 trajectory.trajectory.append(host_array(x))
+            if times is not None:
+                times.append(int((time.perf_counter() - t0) * 1e9))
+            if opts.jit_printout:
+                print_row(iternum, c, prev_best, np.sqrt(xx), itdata)
         if not (st["bestcost"] >= st["lastcost"]):
             st["variables"] = st["varbest"]
     return st
@@ -584,6 +580,18 @@ def _set_launch_counts(counts) -> None:
         setattr(m, a, n)
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device):
+    """The warm-up stream of every runner on ``device``: one per device,
+    since the cuBLAS workspaces PyTorch keeps per stream would otherwise
+    stay allocated (64 MiB on the H100) for every runner ever built."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 class _GraphRunner:
     """The graph driver: the counterpart of the JAX package's jit driver
     (``_JitRunner`` over ``_loop_machine``, nllstpu/core/optimize.py), whose
@@ -650,6 +658,15 @@ class _GraphRunner:
         self.lam = torch.zeros((), dtype=torch.float64, device=compiled.device)
         self.zero = torch.zeros((), dtype=torch.float64, device=compiled.device)
         self.xn = self.cauchy = None
+        # store_trajectory="jit_full": every trial writes its step into row
+        # ``row`` of ``steps`` inside its graph; the adopted trial writes
+        # last, and each assembly moves ``row`` on.
+        self.steps = self.row = None
+        self.iteration = 0
+        if opts.store_trajectory == "jit_full":
+            self.steps = torch.full((opts.max_iters, compiled.layout.dof_total), float("nan"),
+                                    dtype=compiled.dtype, device=compiled.device)
+            self.row = torch.zeros(1, dtype=torch.long, device=compiled.device)
         it = opts.iterator
         damped = it in (structs.LEVENBERG_MARQUARDT, structs.NEWTON)
         self.bodies = {"assemble": self._assemble}
@@ -680,6 +697,8 @@ class _GraphRunner:
         return sys, self.linops.grad(sys)
 
     def _finish_trial(self, x, ok):
+        if self.steps is not None:
+            self.steps.index_copy_(0, self.row, x[None])
         nv = self.compiled.apply(self.vars, x)
         return nv, x, iterators.trial_read(self.compiled.cost(nv), x, self.g, ok)
 
@@ -740,11 +759,13 @@ class _GraphRunner:
         """Warm-up and capture (see the class), then one replay of each
         graph, whose first replay uploads it; their seconds in
         ``capture_seconds``."""
+        global CAPTURES
+        CAPTURES += 1
         t0 = time.perf_counter()
         dev = self.compiled.device
         with _cusolver(dev):
             self.lam.fill_(1.0)
-            side = torch.cuda.Stream(dev)
+            side = _side_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for name, body in self.bodies.items():
@@ -808,6 +829,9 @@ class _GraphRunner:
     # -- what run_loop and the iterators call --------------------------------
 
     def assemble(self, variables):
+        if self.row is not None:
+            self.row.fill_(self.iteration)
+        self.iteration += 1
         return None, self._step("assemble")[0]
 
     def grad(self, sys):
@@ -848,15 +872,41 @@ class _GraphRunner:
     def snapshot(variables):
         return {name: v.clone() for name, v in variables.items()}
 
+    def reset(self, vars0):
+        """Start a new run from ``vars0`` on the captured graphs (the
+        runner cache's hit, ``SubproblemView``'s next subset): the values
+        copied into the static variables, the counters cleared; nothing is
+        compiled or captured."""
+        self.adopt(vars0)
+        self.iteration = self.replays = 0
+        self.capture_seconds = 0.0
+        if hasattr(self.linops, "cg_iters"):
+            self.linops.cg_iters.clear()
+
+    def release(self):
+        """Drop the graphs and the static tensors, so that their memory
+        pool returns to the allocator (an evicted cache entry)."""
+        self.graphs.clear()
+        self.bodies.clear()
+        self.vars = {}
+        self.sys = self.g = self.pcg = self.xn = self.cauchy = self.steps = None
+
     def run(self) -> dict:
         """:func:`run_loop` through the pieces; the final variables are the
-        caller's own tensors (a later replay does not touch them)."""
+        caller's own tensors (a later replay does not touch them).  With
+        ``jit_max_time`` the final state has every iteration's time
+        (``times_ns``); under ``store_trajectory="jit_full"`` every
+        iteration's step (``steps``, host arrays)."""
+        times = [] if self.opts.jit_max_time else None
         final = run_loop(self.assemble, self.compiled.cost, self, self.opts, self.vars,
-                         buffers=self)
+                         buffers=self, times=times)
         if final["variables"] is self.vars:
             final["variables"] = self.snapshot(self.vars)
+        steps = ([] if self.steps is None else
+                 list(self.steps[: final["iternum"]].cpu().numpy()))
         final.update(capture_seconds=self.capture_seconds, replays=self.replays,
-                     cg_iters=list(getattr(self.linops, "cg_iters", [])))
+                     cg_iters=list(getattr(self.linops, "cg_iters", [])),
+                     times_ns=times or [], steps=steps)
         return final
 
 
@@ -875,47 +925,91 @@ def cost(problem: Problem) -> float:
     return float(engine.total_cost(batches, problem.stacked_variables()))
 
 
-def optimize(problem: Problem, options: Options = None, unfixed=None, callback=None,
-             w_impl: str = "fused_all") -> Result:
-    """Optimize the ``unfixed`` variables (all by default; see
-    :func:`engine.resolve_unfixed`) in place on the problem's device and
-    return a :class:`Result` (reference ``optimize!``).  ``w_impl`` picks
-    the direct assembly's route (:data:`W_IMPLS`).
 
-    The driver is picked as the JAX package picks it: a ``callback(cost,
-    CallbackContext) -> (cost, flags)`` or ``store_trajectory=True`` runs
-    the stepped driver (:func:`run_stepped`: real phase times, the full
-    :class:`structs.CostTrajectory`), anything else the graph driver
-    (:class:`_GraphRunner`; ``store_trajectory="jit"`` records costs and
-    step norms), whose warm-up and captures count in ``time_init``, before
-    ``max_time``'s clock starts, as the JAX package compiles before its."""
-    options = options or Options()
-    if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
-        raise ValueError("no unfixed variables to optimize")
-    t0 = time.perf_counter()
-    compiled = compile_problem(
-        problem, unfixed, solver=options.solver,
-        schur_family=options.schur_family, w_impl=w_impl,
-    )
-    vars0 = problem.stacked_variables()
-    nan = float("nan")
-    if callback is not None or options.store_trajectory is True:
-        t1 = time.perf_counter()
-        final = run_stepped(compiled, options, vars0, callback=callback, problem=problem)
-        times = [final["seconds"].get(k, 0.0) for k in ("cost", "assemble", "solve")]
-        trajectory = final["trajectory"]
-    else:
-        runner = _GraphRunner(compiled, options, vars0)
-        t1 = time.perf_counter()
-        final = runner.run()
-        times = [nan, nan, nan]
-        trajectory = None
-        if options.store_trajectory == "jit":
-            trajectory = structs.CostTrajectory(
-                costs=[float(c) for c in final["trace"]],
-                step_norms=[float(n) for n in final["step_norms"]],
-            )
-    problem.set_values(final["variables"])
+
+def _unfixed_cache_key(unfixed):
+    """A hashable form of ``unfixed`` (the JAX package's)."""
+    from .manifolds import Manifold
+    from .problem import VarHandle
+
+    if unfixed is None or isinstance(unfixed, Manifold):
+        return unfixed
+    if isinstance(unfixed, VarHandle):
+        return (unfixed.family, unfixed.index)
+    if isinstance(unfixed, dict):
+        return tuple((name, tuple(np.asarray(m, dtype=bool).tolist()))
+                     for name, m in sorted(unfixed.items()))
+    return tuple((h.family, h.index) for h in unfixed)
+
+
+#: LRU capacity of the runner cache: alternation workflows swap between a
+#: handful of (problem, options, unfixed) configurations — EM over two
+#: subproblems, say — and must not compile or capture on every call.
+_RUNNER_CACHE_SIZE = 8
+_runner_cache: dict = {}  # insertion-ordered: the first entry is the least recent
+
+
+class _RunnerEntry:
+    """A cache slot: the compiled problem and its graph runner, built at
+    the first run and reset at every later one."""
+
+    def __init__(self, compiled: CompiledProblem, opts: Options):
+        self.compiled, self.opts, self._runner = compiled, opts, None
+
+    def runner(self, vars0) -> "_GraphRunner":
+        if self._runner is None:
+            self._runner = _GraphRunner(self.compiled, self.opts, vars0)
+        else:
+            self._runner.reset(vars0)
+        return self._runner
+
+    def release(self):
+        if self._runner is not None:
+            self._runner.release()
+        self._runner = self.compiled = None
+
+
+def _drop_entry(key):
+    hit = _runner_cache.pop(key, None)
+    if hit is not None:
+        hit[0].release()
+
+
+def clear_runner_cache():
+    """Release every cached runner (graphs, pools, compiled problems)."""
+    for key in list(_runner_cache):
+        _drop_entry(key)
+
+
+def _cached_entry(problem, opts: Options, unfixed, w_impl) -> _RunnerEntry:
+    """The compiled problem and graph runner of ``(problem, opts, unfixed,
+    w_impl)``, reused while the problem's structure is unchanged (value
+    edits keep it: a hit copies the current values into the runner's
+    static tensors), as the JAX package's ``_cached_entry`` reuses its
+    compiled runner: an LRU of :data:`_RUNNER_CACHE_SIZE`, keyed by the
+    problem's ``id`` (checked through a weakref) and ``structure_version``;
+    the kernels' dispatchers and the dense-W limit are part of the key.  An
+    entry is released — its graphs and their memory pool with it — when
+    it is evicted and when its problem is collected."""
+    key = (id(problem), problem.structure_version, opts, _unfixed_cache_key(unfixed),
+           w_impl, KERNELS, DENSE_W_BYTE_LIMIT)
+    hit = _runner_cache.pop(key, None)
+    if hit is not None:
+        if hit[1]() is problem:
+            _runner_cache[key] = hit  # re-inserted: the most recent
+            return hit[0]
+        hit[0].release()
+    compiled = compile_problem(problem, unfixed, solver=opts.solver,
+                               schur_family=opts.schur_family, w_impl=w_impl)
+    entry = _RunnerEntry(compiled, opts)
+    while len(_runner_cache) >= _RUNNER_CACHE_SIZE:
+        _drop_entry(next(iter(_runner_cache)))
+    _runner_cache[key] = (entry, weakref.ref(problem))
+    weakref.finalize(problem, _drop_entry, key)
+    return entry
+
+
+def _result(final, t0, t1, times, trajectory) -> Result:
     return Result(
         start_cost=float(final["startcost"]),
         best_cost=float(final["bestcost"]),
@@ -932,3 +1026,150 @@ def optimize(problem: Problem, options: Options = None, unfixed=None, callback=N
         costs=[float(c) for c in final["trace"]],
         trajectory=trajectory,
     )
+
+
+def _graph_trajectory(final, opts: Options):
+    """The graph driver's :class:`structs.CostTrajectory` under
+    ``store_trajectory="jit"`` or ``"jit_full"``, else None."""
+    if opts.store_trajectory not in ("jit", "jit_full"):
+        return None
+    return structs.CostTrajectory(
+        costs=[float(c) for c in final["trace"]],
+        times_ns=list(final["times_ns"]),
+        trajectory=list(final["steps"]),
+        step_norms=[float(n) for n in final["step_norms"]],
+    )
+
+
+def optimize(problem: Problem, options: Options = None, unfixed=None, callback=None,
+             w_impl: str = "fused_all") -> Result:
+    """Optimize the ``unfixed`` variables (all by default; see
+    :func:`engine.resolve_unfixed`) in place on the problem's device and
+    return a :class:`Result` (reference ``optimize!``).  ``w_impl`` picks
+    the direct assembly's route (:data:`W_IMPLS`).
+
+    The driver is picked as the JAX package picks it: a ``callback(cost,
+    CallbackContext) -> (cost, flags)`` or ``store_trajectory=True`` runs
+    the stepped driver (:func:`run_stepped`: real phase times, the full
+    :class:`structs.CostTrajectory`), anything else the graph driver
+    (:class:`_GraphRunner`; ``store_trajectory="jit"`` records costs and
+    step norms, ``"jit_full"`` the steps too), whose warm-up and captures
+    count in ``time_init``, before ``max_time``'s clock starts, as the JAX
+    package compiles before its.  The graph driver's compiled problem and
+    runner are cached (:func:`_cached_entry`): a second call on a problem
+    whose structure is unchanged compiles and captures nothing, and its
+    ``time_init`` is the copy of the current values into the runner."""
+    options = options or Options()
+    if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
+        raise ValueError("no unfixed variables to optimize")
+    t0 = time.perf_counter()
+    nan = float("nan")
+    if callback is not None or options.store_trajectory is True:
+        compiled = compile_problem(
+            problem, unfixed, solver=options.solver,
+            schur_family=options.schur_family, w_impl=w_impl,
+        )
+        vars0 = problem.stacked_variables()
+        t1 = time.perf_counter()
+        final = run_stepped(compiled, options, vars0, callback=callback, problem=problem)
+        times = [final["seconds"].get(k, 0.0) for k in ("cost", "assemble", "solve")]
+        trajectory = final["trajectory"]
+    else:
+        runner = _cached_entry(problem, options, unfixed, w_impl).runner(
+            problem.stacked_variables())
+        t1 = time.perf_counter()
+        final = runner.run()
+        times = [nan, nan, nan]
+        trajectory = _graph_trajectory(final, options)
+    problem.set_values(final["variables"])
+    return _result(final, t0, t1, times, trajectory)
+
+
+class SubproblemView:
+    """A reusable cost-subset view of one problem (the JAX package's
+    ``SubproblemView``, reference ``subproblem!``): compiled ONCE with
+    every real cost live, then the active subset is swapped as a value.
+    The compiled batches' ``mask`` tensors are the view's: every device
+    consumer of a batch — the costs' sums, the dense assembly, the
+    obs-major assembly's ρ′·mask and 2ρ″·mask (kernels B1/B2), the generic
+    route's blocks — reads them, so the captured graphs (one runner per
+    ``Options`` value) take a new subset without capturing again.
+    :meth:`select` writes them with ``copy_``, mapped through each batch's
+    compile-time reordering (the obs-major and landmark-sorted repacks,
+    ``CostBatch.take``) and ANDed with the compile-time mask.
+
+    ``solver="dense"`` (default) or ``"schur"`` (with ``schur_family``);
+    the implicit backend is refused, as in the JAX package.  Use a damped
+    iterator (LM, dogleg): variables touched by no active cost have zero
+    gradient and Hessian rows and get a zero step from the damped solve.
+    ``compile_count`` stays 1 and ``capture_count`` (CUDA-graph captures,
+    one per ``Options`` value on the card, 0 on the CPU) across swaps.
+
+    Usage::
+
+        view = SubproblemView(problem)
+        view.select(handle_or_predicate)
+        res = view.optimize(options)
+    """
+
+    def __init__(self, problem: Problem, unfixed=None, solver: str = "dense",
+                 schur_family=None):
+        self.problem = problem
+        self._structure_version = problem.structure_version
+        if solver not in ("dense", "schur"):
+            raise ValueError("SubproblemView supports solver='dense' or 'schur'")
+        self.compiled = compile_problem(problem, unfixed, solver=solver,
+                                        schur_family=schur_family)
+        self.compile_count = 1
+        if self.compiled.implicit:
+            raise ValueError(
+                "SubproblemView over the implicit Schur backend is not supported "
+                "(mask-dependent preconditioner structure); use solver='schur' under "
+                "the dense-W byte budget or rebuild per subset via Problem.subproblem"
+            )
+        if self.compiled.layout.dof_total == 0:
+            raise ValueError("no unfixed variables to optimize")
+        dev = self.compiled.device
+        self._base = [b.mask.clone() for b in self.compiled.batches]
+        self._takes = [None if b.take is None else
+                       torch.as_tensor(b.take, dtype=torch.long, device=dev)
+                       for b in self.compiled.batches]
+        self._runners: dict = {}
+        self.capture_count = 0
+
+    def select(self, predicate) -> "SubproblemView":
+        """Choose the active costs (the predicate forms of
+        ``Problem.subproblem``); padding stays masked.  Returns self."""
+        if self.problem.structure_version != self._structure_version:
+            raise ValueError("problem structure changed since this view was compiled; "
+                             "build a new SubproblemView")
+        masks = self.problem.subset_masks(predicate)
+        for b, base, take, m in zip(self.compiled.batches, self._base, self._takes, masks):
+            om = torch.as_tensor(m, device=base.device)
+            if take is not None:
+                om = om[take]
+            b.mask.copy_(base & om)
+        return self
+
+    def cost(self) -> float:
+        """The active subset's cost at the problem's current values."""
+        return float(self.compiled.cost(self.problem.stacked_variables()))
+
+    def optimize(self, options: Options = None) -> Result:
+        """Optimize the active subset in place on the parent problem: one
+        graph runner per ``Options`` value, reset for every later call."""
+        options = options or Options()
+        t0 = time.perf_counter()
+        vars0 = self.problem.stacked_variables()
+        runner = self._runners.get(options)
+        if runner is None:
+            runner = _GraphRunner(self.compiled, options, vars0)
+            self._runners[options] = runner
+            self.capture_count += bool(runner.graphs)
+        else:
+            runner.reset(vars0)
+        t1 = time.perf_counter()
+        final = runner.run()
+        self.problem.set_values(final["variables"])
+        nan = float("nan")
+        return _result(final, t0, t1, [nan, nan, nan], _graph_trajectory(final, options))

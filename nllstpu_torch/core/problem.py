@@ -149,6 +149,10 @@ class CostBatch:
     jacobian: Callable
     batched: Any = "cm"  # False (per-cost), True (row-major) or "cm"
     kind: str = "residual"  # "residual" (½ρ(‖r‖²)) or "cost" (fn's value)
+    # Where a compile reorders the batch (the Schur layouts), each column's
+    # column in the batch as ``Problem.batches`` gave it (None: unchanged):
+    # ``SubproblemView`` maps its masks through it.
+    take: Any = None
 
     @property
     def block_dof(self) -> int:
@@ -173,6 +177,10 @@ class Problem:
         self._families: dict = {}
         self._groups: dict = {}
         self._group_order: list = []
+        # Bumped on structural changes (new variables or costs); value edits
+        # keep it, so that compiled solvers are reused (the runner cache,
+        # ``SubproblemView``).
+        self.structure_version = 0
 
     # -- variables ---------------------------------------------------------
 
@@ -208,7 +216,13 @@ class Problem:
                 f"{manifold.shape}"
             )
         first = self._family(manifold).add_many(values)
+        self.structure_version += 1
         return [VarHandle(manifold, first + i) for i in range(values.shape[0])]
+
+    def set_value(self, handle: VarHandle, value):
+        """Write one variable's value into the host store."""
+        self._families[handle.family].values[handle.index] = np.asarray(
+            value, dtype=self._np_dtype)
 
     def set_values(self, variables: dict):
         """Write a variables dict (family -> stacked tensor or array) back
@@ -217,6 +231,18 @@ class Problem:
             if isinstance(arr, torch.Tensor):
                 arr = arr.detach().cpu().numpy()
             self._families[name].values[:] = arr
+
+    def num_variables(self) -> int:
+        return sum(f.n for f in self._families.values())
+
+    def num_costs(self) -> int:
+        """Real costs over every group (reference ``countcosts``)."""
+        return sum(self._group_indices(g).shape[0] for g in self._groups.values())
+
+    def __repr__(self):
+        fams = ", ".join(f"{name}×{fam.n}" for name, fam in self._families.items())
+        return (f"Problem({self.num_variables()} variables [{fams}], "
+                f"{self.num_costs()} costs in {len(self._group_order)} type groups)")
 
     def manifold_of(self, name: str) -> Manifold:
         return self._families[name].manifold
@@ -293,6 +319,7 @@ class Problem:
         group = self._group(kind, fn, kernel, manifolds, jacobian, False, params is not None)
         group.params.append(None if params is None else np.asarray(params))
         group.indices.append(tuple(h.index for h in variables))
+        self.structure_version += 1
 
     def add_cost_batch(
         self,
@@ -347,6 +374,27 @@ class Problem:
                 raise ValueError("batched=True requires a (batched) hand jacobian")
         group = self._group(kind, fn, kernel, manifolds, jacobian, batched, params is not None)
         group.chunks.append((None if params is None else np.asarray(params), idx))
+        self.structure_version += 1
+
+    @staticmethod
+    def _group_indices(g) -> np.ndarray:
+        """``[n, nslots]`` variable indices of one group's real costs, in
+        the order :meth:`batches` emits them (single costs, then chunks)."""
+        parts = ([np.array(g.indices, dtype=np.int32)] if g.indices else []) + [
+            ci for _, ci in g.chunks
+        ]
+        if not parts:
+            return np.zeros((0, len(g.families)), np.int32)
+        return np.concatenate(parts)
+
+    @staticmethod
+    def _group_params(g):
+        """``[n, ...]`` parameters of one group's real costs (or None), in
+        the order of :meth:`_group_indices`."""
+        praw = ([np.stack(g.params)] if g.indices and g.params[0] is not None else []) + [
+            cp for cp, _ in g.chunks if cp is not None
+        ]
+        return np.concatenate(praw) if praw else None
 
     def batches(self) -> list:
         """Finalize cost groups into padded :class:`CostBatch` objects:
@@ -354,10 +402,7 @@ class Problem:
         out = []
         for key in self._group_order:
             g = self._groups[key]
-            parts = ([np.array(g.indices, dtype=np.int32)] if g.indices else []) + [
-                ci for _, ci in g.chunks
-            ]
-            ind = np.concatenate(parts)
+            ind = self._group_indices(g)
             n = ind.shape[0]
             n_pad = -(-n // BATCH_ALIGN) * BATCH_ALIGN
             idx_arr = np.zeros((len(g.families), n_pad), dtype=np.int32)
@@ -365,11 +410,8 @@ class Problem:
             mask = np.zeros(n_pad, dtype=bool)
             mask[:n] = True
             params = None
-            praw = ([np.stack(g.params)] if g.indices and g.params[0] is not None else []) + [
-                cp for cp, _ in g.chunks if cp is not None
-            ]
-            if praw:
-                raw = np.concatenate(praw)
+            raw = self._group_params(g)
+            if raw is not None:
                 if np.issubdtype(raw.dtype, np.floating):
                     raw = raw.astype(self._np_dtype)
                 params = np.zeros((n_pad,) + raw.shape[1:], dtype=raw.dtype)
@@ -393,3 +435,113 @@ class Problem:
                 )
             )
         return out
+
+    # -- cost subsets and incidence -------------------------------------------
+
+    def subproblem(self, predicate) -> "Problem":
+        """A new problem sharing this problem's variables (the same host
+        store) that keeps only the costs ``predicate`` selects (reference
+        ``subproblem``): a callable ``(slot_handles) -> bool``, one
+        :class:`VarHandle` (the costs touching it) or an iterable of
+        handles.  Handle predicates select by vectorised numpy over the
+        stacked indices; a callable is evaluated per cost.  Selected costs
+        keep their group's hand Jacobian and batch form."""
+        predicate, targets = self._normalize_predicate(predicate)
+        sub = Problem(dtype=self.dtype, device=self.device)
+        sub._families = self._families  # shared, as in the reference
+        for key in self._group_order:
+            g = self._groups[key]
+            ind = self._group_indices(g)
+            if ind.shape[0] == 0:
+                continue
+            sel = self._select_rows(g, ind, predicate, targets)
+            if not sel.any():
+                continue
+            params = self._group_params(g)
+            sub.add_cost_batch(
+                g.fn,
+                [(man, ind[sel, s]) for s, man in enumerate(g.families)],
+                params=None if params is None else params[sel],
+                kernel=g.kernel, kind=g.kind, jacobian=g.jacobian, batched=g.batched,
+            )
+        return sub
+
+    @staticmethod
+    def _normalize_predicate(predicate):
+        """Handle and iterable predicates → per-family sorted index arrays
+        (``(None, targets)``); a callable → ``(predicate, None)``."""
+        if callable(predicate):
+            return predicate, None
+        handles = [predicate] if isinstance(predicate, VarHandle) else list(predicate)
+        targets = {}
+        for h in handles:
+            targets.setdefault(h.family, []).append(h.index)
+        return None, {f: np.unique(np.asarray(ix, dtype=np.int64)) for f, ix in targets.items()}
+
+    @staticmethod
+    def _select_rows(g, ind, predicate, targets):
+        """Boolean selection over one group's real costs: vectorised numpy
+        for handle targets, one call per cost for a callable."""
+        n = ind.shape[0]
+        if targets is not None:
+            sel = np.zeros(n, dtype=bool)
+            for s, man in enumerate(g.families):
+                t = targets.get(family_name(man))
+                if t is not None:
+                    sel |= np.isin(ind[:, s], t)
+            return sel
+        return np.fromiter(
+            (bool(predicate(tuple(VarHandle(m, int(i)) for m, i in zip(g.families, row))))
+             for row in ind),
+            dtype=bool, count=n,
+        )
+
+    def subset_masks(self, predicate) -> list:
+        """Per-batch boolean masks, aligned with :meth:`batches` and padded
+        as it pads, of the costs ``predicate`` keeps (the same forms as
+        :meth:`subproblem`): the batches keep the whole problem's shapes,
+        so a compiled solver takes these masks as values and swaps cost
+        subsets without compiling again (``SubproblemView``)."""
+        predicate, targets = self._normalize_predicate(predicate)
+        masks = []
+        for key in self._group_order:
+            g = self._groups[key]
+            ind = self._group_indices(g)
+            n = ind.shape[0]
+            m = np.zeros(-(-n // BATCH_ALIGN) * BATCH_ALIGN, dtype=bool)
+            if n:
+                m[:n] = self._select_rows(g, ind, predicate, targets)
+            masks.append(m)
+        return masks
+
+    def varcostmap(self) -> dict:
+        """The variable-cost incidence (reference ``getvarcostmap``) in COO
+        form: per family a ``(var_idx, cost_id)`` pair of int64 arrays, cost
+        ids global over the problem in the order :meth:`batches` emits the
+        costs."""
+        rows = {name: [] for name in self._families}
+        cols = {name: [] for name in self._families}
+        base = 0
+        for key in self._group_order:
+            g = self._groups[key]
+            ind = self._group_indices(g)
+            cost_ids = base + np.arange(ind.shape[0], dtype=np.int64)
+            for s, man in enumerate(g.families):
+                rows[family_name(man)].append(ind[:, s].astype(np.int64))
+                cols[family_name(man)].append(cost_ids)
+            base += ind.shape[0]
+        empty = np.zeros(0, np.int64)
+        return {
+            name: (np.concatenate(rows[name]) if rows[name] else empty,
+                   np.concatenate(cols[name]) if cols[name] else empty)
+            for name in self._families
+        }
+
+    def var_cost_counts(self) -> dict:
+        """Per family, how many costs touch each variable (the row sums of
+        :meth:`varcostmap`'s incidence)."""
+        coo = self.varcostmap()
+        return {
+            name: np.bincount(coo[name][0], minlength=fam.n).astype(np.int64)
+            for name, fam in self._families.items()
+        }

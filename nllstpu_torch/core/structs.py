@@ -52,14 +52,22 @@ class Options:
     picks (dense for small or dense-enough systems, else Schur over
     ``schur_family`` or a detected landmark family, else "cg");
     ``max_time`` is checked every iteration.  The fields the port has come
-    in the JAX package's order (its ``jit_max_time`` and ``jit_printout``,
-    between ``max_time`` and ``iterator``, come with ROADMAP Queue 1 item
-    6).
+    in the JAX package's order; the JAX package's TPU mitigations
+    (``cg_fixed_iters``, ``cg_chunk_iters``, ``flat_lm``, ``fused_trial``)
+    are not among them, so passing one raises ``TypeError``.
 
     ``store_trajectory``: ``True`` runs the stepped driver and records a
     :class:`CostTrajectory` with every iteration's cost, time and step
     vector; ``"jit"`` keeps the graph driver and records every
-    iteration's cost and step norm."""
+    iteration's cost and step norm (and, with ``jit_max_time``, its time);
+    ``"jit_full"`` also every accepted step vector, copied into a
+    ``[max_iters, dim]`` device buffer inside the captured trial graph.
+
+    ``jit_max_time``: the graph driver reads the clock every iteration
+    whatever this says (``max_time`` holds on either driver); set, it also
+    records the iterations' times under ``store_trajectory="jit"``, as the
+    JAX driver's per-iteration clock does.  ``jit_printout``: the graph
+    driver prints a row per iteration in ``printout_callback``'s format."""
 
     rel_dcost: float = 1e-15
     abs_dcost: float = 1e-15
@@ -67,6 +75,8 @@ class Options:
     max_fails: int = 3
     max_iters: int = 100
     max_time: float = 30.0
+    jit_max_time: bool = False
+    jit_printout: bool = False
     iterator: str = LEVENBERG_MARQUARDT
     solver: str = "auto"
     schur_family: Any = None  # Manifold of the eliminated (landmark) family
@@ -95,14 +105,9 @@ class Options:
     def __post_init__(self):
         if self.iterator not in ITERATORS:
             raise ValueError(f"unknown iterator {self.iterator!r}; one of {ITERATORS}")
-        if self.store_trajectory == "jit_full":
-            raise NotImplementedError(
-                'store_trajectory="jit_full" is not ported yet (ROADMAP Queue 1 item 6); '
-                "store_trajectory=True records the step vectors on the stepped driver"
-            )
-        if self.store_trajectory not in (False, True, "jit"):
+        if self.store_trajectory not in (False, True, "jit", "jit_full"):
             raise ValueError(f"store_trajectory={self.store_trajectory!r}: one of False, "
-                             'True, "jit"')
+                             'True, "jit", "jit_full"')
 
 
 @dataclasses.dataclass
@@ -166,7 +171,8 @@ class CostTrajectory:
     driver fills ``costs``, ``times_ns`` (since the driver's start) and
     ``trajectory`` (each iteration's step vector, on the host); the graph
     driver (``store_trajectory="jit"``) ``costs`` and ``step_norms``
-    (|x|, from the scalars every trial reads back)."""
+    (|x|, from the scalars every trial reads back), ``times_ns`` with
+    ``jit_max_time``, and ``trajectory`` under ``"jit_full"``."""
 
     costs: list = dataclasses.field(default_factory=list)
     times_ns: list = dataclasses.field(default_factory=list)

@@ -155,8 +155,16 @@ def snavely_jacobian_cm(measurement, camera_cm, point_cm):
 
 def load_bal(path: str) -> dict:
     """Parse a BAL text file into arrays: cameras [C,9], points [P,3],
-    cam_idx [K], pt_idx [K], observations [K,2].  The numpy reader only:
-    the JAX package's native C++ parser waits for ROADMAP Queue 1 item 6."""
+    cam_idx [K], pt_idx [K], observations [K,2] — through the native C++
+    parser (``utils.native``), or with numpy where it cannot be built, as
+    the JAX package falls back; ``utils.native.LAST_PARSER`` says which
+    ran."""
+    from ..utils import native
+
+    parsed = native.parse_bal(path)
+    native.LAST_PARSER = "numpy" if parsed is None else "native"
+    if parsed is not None:
+        return parsed
     raw = np.fromfile(path, sep=" ")
     ncam, npt, nobs = int(raw[0]), int(raw[1]), int(raw[2])
     body = raw[3:]

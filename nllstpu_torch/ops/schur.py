@@ -185,6 +185,7 @@ def _apply_take(batch, take, newmask):
         idx=tuple(np.asarray(i)[take] for i in batch.idx),
         params=None if batch.params is None else np.asarray(batch.params)[take],
         mask=newmask,
+        take=np.asarray(take) if batch.take is None else np.asarray(batch.take)[take],
     )
 
 

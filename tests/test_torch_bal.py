@@ -235,10 +235,14 @@ def test_float32_reduced_solve_is_equilibrated():
     scaled system singular to float32, so an exact solve of it is no
     yardstick) is held to the float64 solve of the float64 system: the
     same LM trial (the cost change of its step within 5% of the float64
-    step's, measured 1.8%, same sign) and the step within 0.2 of the
-    float64 step's largest entry (measured 0.13; the difference lies in
-    directions that barely change the cost)."""
-    _, tp = _pair("chunk bucket")
+    step's, measured 0.08%, same sign) and the step within 0.2 of the
+    float64 step's largest entry (measured 0.014; the difference lies in
+    directions that barely change the cost).  The JAX package's own
+    float32 step on the same state and λ (its float32 reduction and solve)
+    lies farther from the float64 step on both measures (4.6% of the cost
+    change, 4.8 times the largest entry: ``scripts_torch/queue3_faults.py
+    reduced_f32``): the port is held no worse than it."""
+    jp, tp = _pair("chunk bucket")
     tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)
     st = run_loop(tc.assemble, tc.cost, tc.ctx(), pt.Options(
         schur_family=tbal.PT, max_iters=3, rel_dcost=0.0, abs_dcost=0.0,
@@ -263,3 +267,13 @@ def test_float32_reduced_solve_is_equilibrated():
     d64, d32 = (float(tc.cost(tc.apply(v, x.double())) - cost0) for x in (x64, x32))
     assert d32 * d64 > 0 and abs(d32 - d64) <= 0.05 * abs(d64)
     assert float((x32.double() - x64).abs().max()) <= 0.2 * float(x64.abs().max())
+    jp.set_values({k: t.numpy() for k, t in v.items()})
+    jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
+    _, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
+    sys_j32 = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, sys_j)
+    x_j = jax.jit(jc.ctx(nt.Options()).ops().solve)(sys_j32, jnp.float32(lam))
+    x_j = torch.from_numpy(np.array(x_j, dtype=np.float64))
+    dj = float(tc.cost(tc.apply(v, x_j)) - cost0)
+    assert abs(d32 - d64) <= abs(dj - d64)
+    assert float((x32.double() - x64).abs().max()) <= float((x_j - x64).abs().max())

@@ -950,3 +950,109 @@ def test_percost_ladybug_graph_driver(cuda):
     r_s = nt.optimize(p, opts, unfixed=unfixed, callback=nt.null_callback)
     assert r_g.num_iterations == 3 and r_g.costs == r_s.costs
     assert r_g.costs[-1] < 0.01 * r_g.start_cost
+
+
+def _view_case(cuda, dtype=torch.float32):
+    """A small Snavely problem (12 cameras, 300 points) and its points."""
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.models.bal import make_bal_problem, make_realistic_bal
+
+    problem, _, points = make_bal_problem(
+        make_realistic_bal(12, 300, seed=1, noise=1e-3, track_alpha=1.6), dtype=dtype,
+        device=cuda)
+    perturb_ba(problem, points, 0.01, seed=5)
+    return problem, points
+
+
+@pytest.mark.cuda
+def test_subproblem_view_captures_once(cuda):
+    """A view on the card swaps subsets through the graphs of its first
+    capture (one capture across three swaps), each swap launching the
+    obs-major assembly, B3 and B6, and gives a fresh subproblem's result
+    in float64 (B4's route) within 1e-8."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core import optimize
+
+    opts = nt.Options(max_iters=8, rel_dcost=1e-6, solver="schur",
+                      schur_family=nt.Euclidean(3), max_time=float("inf"))
+    problem, points = _view_case(cuda, torch.float64)
+    view = nt.SubproblemView(problem, solver="schur", schur_family=nt.Euclidean(3))
+    half = len(points) // 2
+    for k, sel in enumerate((points[:half], points[half:], points[:half])):
+        fresh, _ = _view_case(cuda, torch.float64)
+        fresh.set_values(problem.stacked_variables())
+        captures = optimize.CAPTURES
+        r = view.select(sel).optimize(opts)
+        assert view.capture_count == 1 and optimize.CAPTURES == captures + (k == 0)
+        ref = nt.optimize(fresh.subproblem(sel), opts)
+        gap = abs(r.best_cost - ref.best_cost) / abs(ref.best_cost)
+        print(f"view swap {k + 1}: best {r.best_cost!r}, fresh {ref.best_cost!r}, "
+              f"relative gap {gap:.3e}")
+        # The view's camera runs hold the unselected costs' zero rows, which
+        # regroup B6's chunks: the two sums part in the last bits (measured
+        # on an H100: 6.7e-12, 1.6e-9 and 1.3e-10 for the three swaps).
+        np.testing.assert_allclose(r.best_cost, ref.best_cost, rtol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterator", ["levenberg_marquardt", "newton", "dogleg",
+                                      "gradient_descent"])
+def test_singles_sums_through_b6(cuda, iterator):
+    """``optimize_singles`` on the card sums every target's cost, gradient
+    and Hessian through kernel B6, and in float64 is one more draw from
+    the rounding that spreads its own CPU runs under a one-ulp change of
+    the start (scaled by 1 and 1 ± 2⁻⁵²): the card's summed iterations lie
+    in the CPU runs' range widened by its width, and its values are no
+    farther from the unscaled CPU run (largest elementwise relative gap)
+    than twice the farthest scaled CPU run.  At ``rel_dcost=1e-6`` a lane
+    near the threshold turns on its last bits and the poorly observed
+    points amplify them: on one CPU the scaled runs part from the unscaled
+    one by 0 / 22 / 0 / 8 summed iterations and 7e-8 / 8e-9 / 4e-10 / 3e-3
+    in the values (LM, Newton, dogleg, gradient descent)."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.bal import PT
+
+    opts = nt.Options(iterator=iterator, rel_dcost=1e-6)
+    fam = nt.family_name(PT)
+
+    def run(device, scale=1.0):
+        problem, _ = _view_case(device, torch.float64)
+        problem.set_values({k: v * scale for k, v in problem.stacked_variables().items()})
+        out = nt.optimize_singles(problem, opts, targets=PT)
+        return out[fam], problem.stacked_variables()[fam].cpu().numpy()
+
+    before = segment_sum.LAUNCHES
+    iters, got = run(cuda)
+    assert segment_sum.LAUNCHES > before
+    cpu = [run(torch.device("cpu"), s) for s in (1.0, 1 + 2.0**-52, 1 - 2.0**-52)]
+    want = cpu[0][1]
+
+    def gap(v):
+        return float(np.max(np.abs(v - want) / np.abs(want)))
+
+    spread = max(gap(v) for _, v in cpu[1:])
+    counts = [n for n, _ in cpu]
+    width = max(counts) - min(counts)
+    print(f"singles ({iterator}): card {iters} iterations, CPU {counts}; the card's largest "
+          f"relative gap to the CPU run {gap(got):.3e}, the scaled CPU runs' {spread:.3e}")
+    assert min(counts) - width <= iters <= max(counts) + width
+    assert gap(got) <= 2 * spread
+
+
+@pytest.mark.cuda
+def test_runner_cache_captures_once(cuda):
+    """A second ``nt.optimize`` of an unchanged problem on the card
+    compiles and captures nothing and repeats a fresh run's trace."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core import optimize
+
+    opts = nt.Options(max_iters=5, solver="schur", schur_family=nt.Euclidean(3),
+                      max_time=float("inf"))
+    problem, _ = _view_case(cuda)
+    start = problem.stacked_variables()
+    nt.optimize(problem, opts)
+    problem.set_values(start)
+    counts = optimize.COMPILES, optimize.CAPTURES
+    again = nt.optimize(problem, opts)
+    assert (optimize.COMPILES, optimize.CAPTURES) == counts
+    assert again.costs == nt.optimize(_view_case(cuda)[0], opts).costs

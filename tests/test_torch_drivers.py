@@ -247,7 +247,7 @@ def test_cholesky_solve_ex_flags_failures(monkeypatch, dtype):
 def test_graph_driver_trajectory_and_options():
     """``store_trajectory="jit"`` keeps the graph driver and records its
     costs and step norms (the stepped driver's step vectors' norms);
-    ``"jit_full"`` is not ported and raises."""
+    ``"jit_full"`` records the stepped driver's step vectors too."""
     r = pt.optimize(_pinhole(), _opts(store_trajectory="jit"))
     r_s = pt.optimize(_pinhole(), _opts(store_trajectory=True))
     tr = r.trajectory
@@ -257,5 +257,7 @@ def test_graph_driver_trajectory_and_options():
                                [np.linalg.norm(s) for s in r_s.trajectory.trajectory],
                                rtol=1e-12)
     assert math.isnan(r.time_solver)
-    with pytest.raises(NotImplementedError, match="jit_full"):
-        _opts(store_trajectory="jit_full")
+    full = pt.optimize(_pinhole(), _opts(store_trajectory="jit_full")).trajectory
+    assert full.costs == tr.costs and full.step_norms == tr.step_norms
+    for a, b in zip(full.trajectory, r_s.trajectory.trajectory, strict=True):
+        np.testing.assert_array_equal(a, b)
