@@ -240,6 +240,32 @@ Phases, one line each or more; any failure raises and exits non-zero:
    then ``load_bal`` of bench-realistic through the native parser.  B6 is
    held to its plain version and timed on the per-target sums' inputs
    (D = 13 and 1) and the bench-realistic view's camera runs.
+22. sharded (run right after the build) — two rank processes, started by
+   ``spawn`` and joined by ``torch.distributed`` (``nccl`` with a card per
+   rank; on one card both ranks on ``cuda:0`` over ``gloo``, which stages
+   every ``all_reduce`` through the host), each loading the library that
+   the build made, run four paths through
+   ``nllstpu_torch.parallel.optimize_sharded``, the launch counts set to 0
+   just before and read just after: the pinhole bench (B1, B6, B3 per
+   rank), bench-realistic (strided ownership; B2, B6, B3), the gauge-fixed
+   float64 pinhole bench (B1, B6, B4) and Dubrovnik-class through the
+   implicit solve (B6; 3 iterations).  Each rank's shard is measured first
+   (one local assembly): h_ll and W hold its Lc landmark slots, 1/n of the
+   landmarks up to the pad, never the global W.  Then each rank's kernels
+   are held to their plain versions on its shard, both against a float64
+   plain shard of the same inputs: the local assembly (B1 or B2, B6), the
+   reduction at λ = 0 and 1e-2 (B3 or B4, S summed over the ranks) or the
+   implicit solve's PCG pieces (B6); on bench-realistic B2 over the local
+   bucket plan is checked on each rank and timed on rank 0 (its row in
+   the kernels line).  Gates: both ranks end
+   with the same bits; the JAX constants of phases 6 and 12 and the
+   one-rank port runs (``nt.optimize``) in this smoke (best cost 1e-4; the
+   float64 trace 1e-9; Dubrovnik-class 1e-3, finite; its PCG iterations:
+   one damped solve ±1 of one card's, a run's within 2 of one card's range
+   under a one-ulp change of the start).  Per path and rank:
+   it/s, the time inside the collectives (CUDA events around each), the
+   shard's bytes against the one-card system's, peak memory above the
+   process, launches.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -1121,40 +1147,35 @@ def _assemble_batch(fns, fast, head, tail, dtype, L):
     return (*bufs[:3], camera_sum(bufs[3], fast.cstarts))
 
 
-def phase_b2(device):
-    """B2 (with B6 over the camera runs) against its plain version on the
-    whole batch of both BAL problems; times per whole assembly.  Returns a
-    record per problem, the float32 systems with their row tables for B3
-    and B6's camera-side inputs (D = 54)."""
-    from nllstpu_torch.core.optimize import compile_problem
+def b2_case(name, batch, info, fast, variables, timed=True):
+    """B2 (with B6 over the camera runs) against its plain version on one
+    bucketed batch's whole assembly (``info``'s tables, ``fast`` its
+    bucket plan); with ``timed``, its times per whole assembly.  Returns
+    its record (no times without ``timed``) and the batch's inputs
+    ``(head, tail)``."""
     from nllstpu_torch.ops import fused_obs, schur, segment_sum
 
-    records, systems, cam = {}, {}, {}
-    for name in BAL:
-        problem = bal_problem(name, device)
-        comp = compile_problem(problem, solver="schur", schur_family=bench_options().schur_family)
-        (batch,), (fast,) = comp.batches, comp.schur_info.fast
-        _, head, tail = schur.batch_inputs(
-            batch, problem.stacked_variables(), comp.schur_info, fast, torch.float32
-        )
-        buckets, L = fast.buckets, comp.schur_info.num_elim
-        kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
-        plain = (fused_obs.fused_obs_all_into_reference, segment_sum.segment_block_sum_reference)
-        ref = _assemble_batch(plain, fast, head, tail, torch.float64, L)
-        out64 = _assemble_batch(kern, fast, head, tail, torch.float64, L)
-        out32 = _assemble_batch(kern, fast, head, tail, torch.float32, L)
-        again = _assemble_batch(kern, fast, head, tail, torch.float32, L)
-        torch.cuda.synchronize()
-        e64 = check(f"B2 f64 {name}", out64, ref, TOL_F64)
-        e32 = check(f"B2 f32 {name}", out32, ref, TOL_B1_F32)
-        if not all(torch.equal(a, b) for a, b in zip(out32, again)):
-            raise AssertionError(f"B2 {name}: two assemblies differ")
-        slots = fast.slots
-        print(f"B2 {name} ({len(buckets)} buckets {list(buckets)} in one launch of "
-              f"{slots.work.shape[0]} warp items, {int((slots.slots < 0).sum())} repeated "
-              f"cameras; B2 and B3/B4 tables built in {comp.schur_info.table_seconds:.4f} s inside "
-              f"compile_problem): rel err h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 "
-              f"{['%.2e' % e for e in e32]}, two assemblies bit-identical", flush=True)
+    _, head, tail = schur.batch_inputs(batch, variables, info, fast, torch.float32)
+    buckets, L = fast.buckets, info.num_elim
+    kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
+    plain = (fused_obs.fused_obs_all_into_reference, segment_sum.segment_block_sum_reference)
+    ref = _assemble_batch(plain, fast, head, tail, torch.float64, L)
+    out64 = _assemble_batch(kern, fast, head, tail, torch.float64, L)
+    out32 = _assemble_batch(kern, fast, head, tail, torch.float32, L)
+    again = _assemble_batch(kern, fast, head, tail, torch.float32, L)
+    torch.cuda.synchronize()
+    e64 = check(f"B2 f64 {name}", out64, ref, TOL_F64)
+    e32 = check(f"B2 f32 {name}", out32, ref, TOL_B1_F32)
+    if not all(torch.equal(a, b) for a, b in zip(out32, again)):
+        raise AssertionError(f"B2 {name}: two assemblies differ")
+    slots = fast.slots
+    print(f"B2 {name} ({len(buckets)} buckets {list(buckets)} in one launch of "
+          f"{slots.work.shape[0]} warp items, {int((slots.slots < 0).sum())} repeated "
+          f"cameras; B2 and B3/B4 tables built in {info.table_seconds:.4f} s): rel err "
+          f"h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}, two "
+          "assemblies bit-identical", flush=True)
+    record = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)))
+    if timed:
         ms = time_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
         device_ms = graph_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
         plain_ms = time_ms(lambda: _assemble_batch(plain, fast, head, tail, torch.float32, L))
@@ -1171,13 +1192,30 @@ def phase_b2(device):
               f"observations, W {tuple(out32[2].shape)}): kernel {ms:.4f} ms (in a CUDA graph "
               f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})", flush=True)
-        records[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)),
-                             ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
-        systems[name] = comp.assemble(problem.stacked_variables())[1], comp.schur_info.w_rows
-        cam[f"{name} D={dr_s * (dr_s + 3) // 2} camera runs"] = (
-            _assemble_rows(head, tail, L, int(fast.cam_starts[-1])), fast.cstarts,
+        record.update(ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
+    return record, head, tail
+
+
+def phase_b2(device):
+    """B2 (with B6 over the camera runs) against its plain version on the
+    whole batch of both BAL problems (:func:`b2_case`); times per whole
+    assembly.  Returns a record per problem, the float32 systems with
+    their row tables for B3 and B6's camera-side inputs (D = 54)."""
+    from nllstpu_torch.core.optimize import compile_problem
+
+    records, systems, cam = {}, {}, {}
+    for name in BAL:
+        problem = bal_problem(name, device)
+        comp = compile_problem(problem, solver="schur", schur_family=bench_options().schur_family)
+        (batch,), (fast,) = comp.batches, comp.schur_info.fast
+        info = comp.schur_info
+        records[name], head, tail = b2_case(name, batch, info, fast,
+                                            problem.stacked_variables())
+        systems[name] = comp.assemble(problem.stacked_variables())[1], info.w_rows
+        cam[f"{name} D={tail[1] * (tail[1] + 3) // 2} camera runs"] = (
+            _assemble_rows(head, tail, info.num_elim, int(fast.cam_starts[-1])), fast.cstarts,
         )
-        del ref, out64, out32, again, head
+        del head
     return records, systems, cam
 
 
@@ -3146,6 +3184,442 @@ def phase_item6(device, smi):
     return launches, records
 
 
+#: The sharded phase: ``SHARDED_WORLD`` rank processes (started by
+#: ``spawn``) through ``nllstpu_torch.parallel.optimize_sharded``, over
+#: ``nccl`` with a card per rank, else over ``gloo`` with every rank on
+#: ``cuda:0`` (each ``all_reduce`` staged through the host); the paths and
+#: the Dubrovnik-class run's iterations.
+SHARDED_WORLD = 2
+SHARDED_GAUGE = "gauge-fixed pinhole f64 B1"
+SHARDED_BIG = "Dubrovnik-class"
+SHARDED_BIG_ITERS = 3
+SHARDED_PATHS = ("pinhole bench", "bench-realistic", SHARDED_GAUGE, SHARDED_BIG)
+#: Seconds the ranks may take in all, and the process group's timeout on
+#: every collective (a rank that diverges fails the phase, not hangs it).
+SHARDED_DEADLINE = 600
+SHARDED_COLLECTIVE_TIMEOUT = 300
+
+
+def sharded_case(label, device):
+    """``(problem, options, unfixed, needs, never)`` of a sharded path:
+    the kernels every rank must launch and those it must not."""
+    generic = ("place_w", "reduce_s", "fused_obs_leg")
+    if label == "pinhole bench":
+        return (bench_problem(device), bench_options(), None,
+                ("fused_obs_all", "segment_block_sum", "reduce_s_damped"),
+                ("fused_obs_all_into", "reduce_s_lm", *generic))
+    if label == "bench-realistic":
+        return (bal_problem(label, device), bench_options(), None,
+                ("fused_obs_all_into", "segment_block_sum", "reduce_s_damped"),
+                ("fused_obs_all", "reduce_s_lm", *generic))
+    if label == SHARDED_GAUGE:
+        problem, route = gauge_problem(torch.float64, device)
+        return (problem, bench_options(), route["unfixed"],
+                ("fused_obs_all", "segment_block_sum", "reduce_s_lm"),
+                ("fused_obs_all_into", "reduce_s_damped", *generic))
+    opts = dataclasses.replace(implicit_options(label), max_iters=SHARDED_BIG_ITERS)
+    return (bal_problem(label, device), opts, None, ("segment_block_sum",),
+            ("fused_obs_all", "fused_obs_all_into", "reduce_s_damped", "reduce_s_lm", *generic))
+
+
+def shard_bytes(par, problem):
+    """This rank's landmark system against the one-card one: one local
+    assembly (outside any counted run) gives ``h_ll`` and W (the implicit
+    solve: its coupling blocks); asserts that the rank holds its ``Lc``
+    landmark slots, 1/n of the landmarks up to the pad (strided ownership:
+    up to one slot per degree bucket), and never the global W.  The
+    implicit solve's coupling blocks are set against the sum of every
+    rank's (one collective): their share follows the costs of the rank's
+    landmarks, which the JAX package's contiguous ownership does not
+    balance."""
+    _, sys_ = par.local.assemble(problem.stacked_variables())
+    h_ll, w = sys_[2], sys_[4]
+    L, lc, n = par.num_elim, par.num_elim_local, par.n_devices
+    info = par.info
+    elt = h_ll.element_size()
+    route = par.plan.route
+    slack = 0 if route is None or par.gid_table is None else len(par.plan.buckets[route])
+    if not (h_ll.shape[-1] == lc and lc * n >= L and lc <= -(-L // n) + slack):
+        raise AssertionError(f"sharded: h_ll {tuple(h_ll.shape)} holds not 1/{n} of {L} "
+                             f"landmarks (Lc {lc})")
+    out = dict(L=L, lc=lc, h_ll=h_ll.numel() * elt,
+               h_ll_global=L * info.dof_elim ** 2 * elt)
+    if isinstance(w, torch.Tensor):
+        if w.shape[0] != lc:
+            raise AssertionError(f"sharded: W {tuple(w.shape)} is not this rank's {lc} slots")
+        out.update(w=w.numel() * elt, w_global=L * info.dof_elim * info.dim_reduced * elt)
+    else:
+        mine = sum(wp.w_blk.numel() for wp in w)
+        total = par.mesh.all_reduce(torch.tensor(float(mine), dtype=torch.float64,
+                                                 device=h_ll.device))
+        out.update(w=mine * elt, w_global=int(total.item()) * elt)
+    return out
+
+
+def shard_vs_plain(label, par, problem, opts, unfixed):
+    """This rank's shard through the kernels against the same shard through
+    the plain versions (``compile_sharded(plain=True)``), both held to a
+    float64 plain yardstick of the same inputs: the local assembly (B1 or
+    B2 with B6; a_rr and b_r summed over the ranks; the implicit solve's
+    coupling blocks), then at λ = 0 and 1e-2 the rank's own reduction of
+    its local W (B3, or B4 within ``TOL_B57_F64``) and the direct solve's
+    reduced system (S and its rhs summed over the ranks, the landmarks'
+    damped inverses; scaled as phase 3 scales them), or the implicit solve's PCG
+    pieces at λ = 1e-6 and 1e-7 of max diag (B6 in every sum: the
+    Schur-Jacobi inverses, the preconditioned residual, the right-hand
+    side's and one reduced matvec's W terms, the matvec) and one damped
+    solve's PCG iterations.  In float64 the
+    kernels hold ``TOL_F64``; in float32 each error stays within the
+    larger of ``TOL_B1_F32`` (assembly) or ``TOL_B3_F32`` (solve) and 10x
+    the plain float32 shard's own error (phase 3's rule).  Every rank runs
+    it, in the same order (its collectives are the ranks').  Returns the
+    kernels' largest error per stage and, on the implicit solve, one damped
+    solve's PCG iterations at each of those λ."""
+    from nllstpu_torch.ops import schur_reduce
+    from nllstpu_torch.parallel import schur_shard
+
+    mesh, device = par.mesh, par.device
+    f64 = problem.dtype == torch.float64
+    v = problem.stacked_variables()
+    yard = schur_shard.compile_sharded(problem, mesh, opts, unfixed, plain=True,
+                                       dtype=torch.float64)
+    same = None if f64 else schur_shard.compile_sharded(problem, mesh, opts, unfixed, plain=True)
+    v64 = {k: x.double() for k, x in v.items()}
+    out = {}
+
+    def held(what, tol, errs, got, plain_out, ref):
+        e_k = errs(got, ref)
+        e_p = [0.0] * len(e_k) if plain_out is None else errs(plain_out, ref)
+        tols = [max(tol, 10 * e) for e in e_p]
+        if not all(e <= t for e, t in zip(e_k, tols)):
+            raise AssertionError(f"sharded {label} rank {mesh.rank}: {what}: the kernels' errors "
+                                 f"{e_k} exceed {tols} (plain {e_p})")
+        out[what] = max(e_k)
+        print(f"sharded {label} rank {mesh.rank} {what} against the float64 plain shard: "
+              f"kernels {['%.2e' % e for e in e_k]}, plain "
+              f"{'(is the yardstick)' if plain_out is None else ['%.2e' % e for e in e_p]}, "
+              f"tolerance {['%.2e' % t for t in tols]}", flush=True)
+
+    def rel_errs(a, b):
+        return [rel_err(x, y) for x, y in zip(a, b)]
+
+    def flat(sys_):
+        a, b, h, g, w = sys_
+        if not isinstance(w, torch.Tensor):
+            w = torch.cat([wp.w_blk.reshape(-1) for wp in w])
+        return a, b, h, g, w
+
+    sys_k, sys_y = par._assemble(v)[1], yard._assemble(v64)[1]
+    sys_p = None if f64 else same._assemble(v)[1]
+    tol = TOL_F64 if f64 else TOL_B1_F32
+    held("assembly a_rr/b_r/h_ll/g_l/W", tol, rel_errs, flat(sys_k),
+         None if f64 else flat(sys_p), flat(sys_y))
+    tol = TOL_F64 if f64 else TOL_B3_F32
+    if not par.info.implicit:
+        ops = par.ops()
+        _, _, h, g, w = sys_k
+        h = ops._damped_h(h)
+        rows = par.local.schur_info.w_rows
+        for lam in (0.0, 1e-2):
+            lam_t = torch.full((), lam, dtype=torch.float64, device=device)
+            # The rank's own reduction (B3 in float32, B4 over float64
+            # inverses) on its local W, before the sum over the ranks.
+            if f64:
+                h_inv = ops.damped_inverse(h, lam_t)
+                held(f"local B4 lam={lam} s_sum/rhs_sum", TOL_B57_F64, rel_errs,
+                     ops.reduce_lm(w, h_inv, g, rows), None,
+                     schur_reduce.reduce_s_reference(w, h_inv, g))
+            else:
+                held(f"local B3 lam={lam} s_sum/rhs_sum/h_inv", tol, scaled_errs,
+                     ops.reduce(w, h, g, lam_t, rows),
+                     schur_reduce.reduce_s_damped_reference(w, h, g, lam),
+                     schur_reduce.reduce_s_damped_reference(w.double(), h.double(),
+                                                            g.double(), lam))
+            held(f"reduced lam={lam} S/rhs/h_inv", tol, scaled_errs,
+                 ops.reduced(sys_k, lam_t),
+                 None if f64 else same.ops().reduced(sys_p, lam_t),
+                 yard.ops().reduced(sys_y, lam_t))
+        return out
+    ops_k, ops_y = par.ops(opts), yard.ops(opts)
+    diag = float(ops_y.diag_max(sys_y))
+    gen = torch.Generator().manual_seed(11)
+    vec = torch.randn(par.info.dim_reduced, generator=gen, dtype=torch.float64).to(device)
+
+    def pieces(ops, sys_, lam):
+        # The right-hand side's W term Σ W H⁻¹ g_l and the matvec's
+        # Σ W H⁻¹ Wᵀ v (B6 over each rank's coupling blocks, then over the
+        # ranks) apart from what they are subtracted from, whose float32
+        # cancellation would hide them.
+        _, _, _, g_l, wparts = sys_
+        h_inv, inv, _, state = ops.pcg_setup(sys_, lam)
+        u = vec.to(sys_[0].dtype)
+        hu = torch.einsum("del,el->dl", h_inv, ops._wt_apply(wparts, u))
+        return (torch.cat([i.reshape(-1) for i in inv]), state[2],
+                ops._reduce(ops._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))),
+                ops._reduce(ops._w_apply(wparts, hu)), ops.s_matvec(sys_, h_inv, lam, u))
+
+    # The LM's first λ (1e-6·max diag, core.rules.lm_start) and a tenth of
+    # it: the damping of the run's solves, where the preconditioner's W
+    # correction shapes its blocks.
+    out.update(solve_lams=[], solve_iters=[])
+    for rel in (1e-6, 1e-7):
+        lam = rel * diag
+        held(f"PCG pieces lam={rel}*max diag inverses/z/W H^-1 g/W H^-1 W^T v/S v", tol,
+             rel_errs,
+             pieces(ops_k, sys_k, lam),
+             None if f64 else pieces(same.ops(opts), sys_p, lam), pieces(ops_y, sys_y, lam))
+        ops_k.solve(sys_k, lam)
+        out["solve_lams"].append(lam)
+        out["solve_iters"].append(ops_k.cg_iters[-1])
+    return out
+
+
+def sharded_rank(rank, world, backend, store, outdir):
+    """One rank of the sharded phase (a spawned process): join the group,
+    then for every path build the problem on this rank's card, measure its
+    shard (:func:`shard_bytes`), hold its kernels to their plain versions
+    on the shard's inputs (:func:`shard_vs_plain`; on a bucketed shard
+    also B2 over the local bucket plan, :func:`b2_case`, timed by rank 0),
+    run the implicit solve once through ``ShardedSchurCompiled.run`` for
+    its PCG iterations, and run it through ``optimize_sharded``
+    with the launch counts set to 0 just before and read just after,
+    collectives timed by CUDA events; writes its rows as JSON to
+    ``outdir``.  It loads the library the build phase made and builds
+    nothing."""
+    import datetime
+    import os
+
+    from nllstpu_torch.core import structs
+    from nllstpu_torch.ops import _build
+    from nllstpu_torch.parallel import distributed, make_mesh, optimize_sharded, schur_shard
+
+    distributed.initialize(backend, f"file://{store}", world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=SHARDED_COLLECTIVE_TIMEOUT))
+    mesh = make_mesh(world)
+    device = mesh.device
+    torch.cuda.set_device(device)
+    rows = []
+    for label in SHARDED_PATHS:
+        problem, opts, unfixed, needs, never = sharded_case(label, device)
+        par = schur_shard.compile_sharded(problem, mesh, opts, unfixed)
+        if _build.BUILD_SECONDS:
+            raise AssertionError(f"sharded rank {rank}: built the kernel library itself")
+        sizes = shard_bytes(par, problem)
+        checks = shard_vs_plain(label, par, problem, opts, unfixed)
+        b2 = None
+        if par.plan.route is not None and par.gid_table is not None:
+            # B2 over this rank's local bucket plan; rank 0 times it while
+            # the others wait in the collective after it.
+            loc = par.local.schur_info
+            b2, _, _ = b2_case(f"sharded {label} rank {rank} local buckets",
+                               par.local.batches[par.plan.route], loc, loc.fast[par.plan.route],
+                               problem.stacked_variables(), timed=rank == 0)
+            mesh.all_reduce(torch.zeros(1, device=device))
+        pcg_run = None
+        if par.info.implicit:
+            pcg_run = par.run(problem.stacked_variables(), opts)["cg_iters"]
+        del par
+        gc.collect()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        _reset_counts()
+        n_coll = mesh.collectives
+        with mesh.timed() as coll:
+            result = optimize_sharded(problem, mesh, opts, unfixed=unfixed)
+            torch.cuda.synchronize(device)
+        launches = _read_counts()
+        if not all(launches[k] > 0 for k in needs) or any(launches[k] for k in never):
+            raise AssertionError(f"sharded {label} rank {rank}: launches {launches}; needed "
+                                 f"{needs}, never {never}")
+        final = problem.stacked_variables()
+        nan = structs.TERM_COST_NAN | structs.TERM_STEP_NAN
+        rows.append(dict(
+            label=label, rank=rank, device=str(device), iterations=result.num_iterations,
+            start=result.start_cost, best=result.best_cost, costs=result.costs,
+            termination=result.termination, nan=bool(result.termination & nan),
+            finite=all(bool(torch.isfinite(v).all()) for v in final.values()),
+            loop=result.time_total - result.time_init, init=result.time_init,
+            phases=[result.time_gradient, result.time_solver, result.time_cost],
+            collectives=mesh.collectives - n_coll, collective_s=sum(coll),
+            peak=torch.cuda.max_memory_allocated(device) - held, launches=launches, **sizes,
+            checks=checks, b2=b2, pcg_run=pcg_run,
+        ))
+        del problem, result, final
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_sharded(device, smi):
+    """The sharded phase: the one-rank port runs of the four paths
+    (``nt.optimize``), then ``SHARDED_WORLD`` ranks through
+    ``optimize_sharded`` (:func:`sharded_rank`).  Gates: both ranks end
+    with the same bits (costs, best cost, iterations); the pinhole bench
+    and bench-realistic meet phase 6's JAX constants with its slack and
+    the one-rank run's best cost within 1e-4; the gauge-fixed float64 trace
+    lies within 1e-9 of ``GAUGE_REF`` and of the one-rank run; the
+    Dubrovnik-class implicit run is finite and its best cost within 1e-3
+    of the one-rank run's (sharding reorders the float32 sums, and the
+    PCG stops at ``linear_tol``), one damped solve of its start system
+    takes the one-card PCG iterations ±1 and the run's iterations per
+    solve stay within 2 of the one-card range under a one-ulp change of
+    the start; every rank's kernels hold their plain versions on its
+    shard (:func:`shard_vs_plain`, raised in the rank).  Every path is
+    printed before a failed gate raises.  The one-rank runs take the
+    stepped driver, as the ranks do, so that their rates compare.  Returns
+    rank 0's launches per path and B2's record over rank 0's local bucket
+    plan."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    import nllstpu_torch as nt
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARDED_WORLD else "gloo"
+    on = [f"cuda:{r % cards}" for r in range(SHARDED_WORLD)]
+    how = ("" if backend == "nccl" else "; the ranks share one card and gloo stages every "
+           "all_reduce through the host: no NCCL or NVLink time")
+    print(f"sharded: {SHARDED_WORLD} ranks over {backend} on {on} ({cards} card(s)){how} "
+          f"| {smi}", flush=True)
+    from nllstpu_torch.core.optimize import compile_problem
+
+    single, big = {}, None
+    for label in SHARDED_PATHS:
+        problem, opts, unfixed, _, _ = sharded_case(label, device)
+        res = nt.optimize(problem, dataclasses.replace(opts, store_trajectory=True),
+                          unfixed=unfixed)
+        torch.cuda.synchronize()
+        single[label] = res
+        print(f"sharded {label} one rank (nt.optimize): {res.num_iterations} iterations, "
+              f"{res.num_iterations / (res.time_total - res.time_init):.3f} it/s, start cost "
+              f"{res.start_cost!r}, best cost {res.best_cost!r}", flush=True)
+        if label == SHARDED_BIG:
+            # The one-card PCG iterations per damped solve from the start
+            # and from it scaled by 1 ± 2^-23 (its own range under a
+            # one-ulp change), and the system for one damped solve at the
+            # ranks' λ.
+            problem, opts, _, _, _ = sharded_case(label, device)
+            comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+            v = problem.stacked_variables()
+            spread = [run_driver("stepped", comp, opts, {k: x * f for k, x in v.items()})
+                      ["cg_iters"] for f in (1.0, 1 + 2**-23, 1 - 2**-23)]
+            big = (comp.ctx(opts).linops, comp.assemble(v)[1], spread)
+        del problem, res
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            sharded_rank, args=(SHARDED_WORLD, backend, os.path.join(tmp, "store"), tmp),
+            nprocs=SHARDED_WORLD, join=False, start_method="spawn",
+        )
+        deadline = time.perf_counter() + SHARDED_DEADLINE
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"sharded: the ranks ran past {SHARDED_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        ranks = []
+        for r in range(SHARDED_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    launches, b2, failed = {}, {}, []
+    for i, label in enumerate(SHARDED_PATHS):
+        rows = [rk[i] for rk in ranks]
+        one = single[label]
+        for row in rows:
+            print(f"sharded {label} rank {row['rank']}: the kernels' largest error against the "
+                  f"float64 plain shard per stage {row['checks']}", flush=True)
+        if rows[0]["b2"] is not None:
+            b2[f"sharded {label} rank 0"] = rows[0]["b2"]
+        for row in rows:
+            loop = row["loop"]
+            print(f"sharded {label} rank {row['rank']} on {row['device']}: "
+                  f"{row['iterations']} iterations in {loop:.3f} s = "
+                  f"{row['iterations'] / loop:.3f} it/s (set-up {row['init']:.3f} s; assemble, "
+                  f"solve, cost {['%.3f' % t for t in row['phases']]} s), best cost "
+                  f"{row['best']!r}; {row['collectives']} collectives taking "
+                  f"{row['collective_s'] * 1e3:.3f} ms = {100 * row['collective_s'] / loop:.1f}% "
+                  f"of the loop; Lc {row['lc']} of L {row['L']}: h_ll "
+                  f"{row['h_ll'] / 2**20:.3f} MiB of {row['h_ll_global'] / 2**20:.3f} MiB, "
+                  f"{'W' if label != SHARDED_BIG else 'coupling blocks'} "
+                  f"{row['w'] / 2**20:.3f} MiB of {row['w_global'] / 2**20:.3f} MiB; peak "
+                  f"device memory {row['peak'] / 2**20:.1f} MiB above the process; launches "
+                  f"{row['launches']} | {smi}", flush=True)
+            if row["nan"] or not row["finite"]:
+                failed.append(f"{label} rank {row['rank']}: a NaN cost or step")
+        for key in ("iterations", "start", "best", "costs"):
+            if any(row[key] != rows[0][key] for row in rows):
+                failed.append(f"{label}: the ranks' {key} differ")
+        got = rows[0]
+        rel = abs(got["best"] - one.best_cost) / abs(one.best_cost)
+        if label == SHARDED_GAUGE:
+            ref = GAUGE_REF["costs"]
+            n = min(len(ref), len(got["costs"]))
+            errs = [abs(a - b) / abs(b) for a, b in zip(got["costs"], ref)]
+            mine = [abs(a - b) / abs(b) for a, b in zip(got["costs"], one.costs)]
+            start = abs(got["start"] - GAUGE_REF["start"]) / GAUGE_REF["start"]
+            print(f"sharded {label}: rel err per iteration against GAUGE_REF "
+                  f"{['%.2e' % e for e in errs]}, against the one-rank run "
+                  f"{['%.2e' % e for e in mine]}", flush=True)
+            if not (start <= 1e-12 and n >= len(ref) - 1 and max(errs) <= 1e-9
+                    and len(mine) >= n and max(mine) <= 1e-9):
+                failed.append(f"{label}: the trace departs from GAUGE_REF or the one-rank run")
+        elif label == SHARDED_BIG:
+            print(f"sharded {label}: best cost {got['best']!r} against the one-rank run's "
+                  f"{one.best_cost!r}, rel {rel:.2e}", flush=True)
+            if not rel <= 1e-3:
+                failed.append(f"{label}: best cost {got['best']} departs from the one-rank "
+                              f"run's {one.best_cost}")
+            # PCG iterations: one damped solve of the start system at the
+            # same λ, two ranks against one card (±1); the runs' iterations
+            # per solve against the one-card range under a one-ulp change
+            # of the start, widened by 2 (the ranks' summation order moves
+            # a float64 CPU run's counts by up to 2:
+            # tests/test_torch_parallel.py).
+            ops, sys_, spread = big
+            one_solve = []
+            for lam in got["checks"]["solve_lams"]:
+                ops.solve(sys_, lam)
+                one_solve.append(ops.cg_iters[-1])
+            two_solve = got["checks"]["solve_iters"]
+            lo = [min(c) for c in zip(*spread)]
+            hi = [max(c) for c in zip(*spread)]
+            run = got["pcg_run"]
+            print(f"sharded {label}: PCG iterations of one damped solve of the start system at "
+                  f"lam {got['checks']['solve_lams']!r}: two ranks {two_solve}, one card "
+                  f"{one_solve}; per damped solve of a run: two ranks {run}, one card "
+                  f"{spread[0]} (from the start scaled by 1 ± 2^-23: {spread[1]}, "
+                  f"{spread[2]})", flush=True)
+            if any(abs(a - b) > 1 for a, b in zip(one_solve, two_solve)):
+                failed.append(f"{label}: one damped solve took {two_solve} PCG iterations on "
+                              f"two ranks, {one_solve} on one card")
+            if not (len(set(map(len, spread))) == 1 and len(run) == len(lo)
+                    and all(a - 2 <= r <= b + 2 for r, a, b in zip(run, lo, hi))):
+                failed.append(f"{label}: the run's PCG iterations {run} leave the one-card "
+                              f"range {lo}..{hi} by more than 2")
+            del big, ops, sys_
+        else:
+            start_ref, best_ref, slack = ((REF_START_COST, REF_BEST_COST, 1e-3)
+                                          if label == "pinhole bench" else BAL[label][1:])
+            print(f"sharded {label}: start {got['start']!r}, best {got['best']!r} against the "
+                  f"JAX package's {start_ref!r}, {best_ref!r}, the one-rank run's best "
+                  f"{one.best_cost!r} (rel {rel:.2e})", flush=True)
+            if not (abs(got["start"] - start_ref) <= 1e-4 * abs(start_ref)
+                    and got["best"] <= best_ref + slack * abs(best_ref) and rel <= 1e-4):
+                failed.append(f"{label}: best cost {got['best']} misses the JAX constants or "
+                              "the one-rank run")
+        launches[f"sharded {label} rank 0"] = got["launches"]
+    if failed:
+        raise AssertionError("sharded: " + "; ".join(failed))
+    return launches, b2
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -3161,8 +3635,11 @@ def main():
     device, smi = phase_device()
     phase_build(device)
     mark("device and build")
+    sharded_launches, sharded_b2 = phase_sharded(device, smi)
+    mark("sharded")
     b1, bench_sys, cam1 = phase_b1(device)
     b2, bal_systems, cam2 = phase_b2(device)
+    b2.update(sharded_b2)
     b3 = phase_b3(device, {"pinhole bench": bench_sys, **bal_systems})
     del bench_sys, bal_systems
     b6 = phase_b6(device, {**cam1, **cam2})
@@ -3308,8 +3785,9 @@ def main():
     # (Newton, dogleg, gradient descent; the dense and cg backends; the
     # generic Schur assembly's) that launched the kernel.
     slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches,
-                      **adaptive_launches, **item6_launches}
+                      **adaptive_launches, **item6_launches, **sharded_launches}
     launches.update(item6_launches)
+    launches.update(sharded_launches)
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

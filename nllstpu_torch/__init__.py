@@ -28,6 +28,9 @@ every variable of a family on its own in one batched loop (landmark
 polish), ``SubproblemView`` swaps cost subsets without compiling again,
 and ``ops.export``, ``utils.checkpoint``, ``utils.profiling`` and
 ``utils.native`` (the C++ BAL parser) are the JAX package's utilities.
+``nllstpu_torch.parallel`` runs the Schur solves landmark-sharded across
+the ranks of a ``torch.distributed`` group (``optimize_sharded``), and
+sums the dense or direct system over them (``parallelize``).
 The package never imports ``jax``.
 """
 

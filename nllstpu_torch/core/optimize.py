@@ -364,6 +364,20 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
     :data:`DENSE_W_BYTE_LIMIT`) sorts every batch by landmark.  A cost that
     touches the eliminated family twice raises ``ValueError``, as in the
     JAX package."""
+    layout, info, batches, buckets, route = schur_routes(
+        problem, schur_family, implicit, unfixed, w_impl)
+    schur.fill_tables(info, layout, batches, buckets, route)
+    return layout, info, batches
+
+
+def schur_routes(problem: Problem, schur_family, implicit: bool = False,
+                 unfixed=None, w_impl: str = "fused_all"):
+    """:func:`schur_layout` without the tables: ``(layout, info, batches,
+    buckets, route)``, ``info`` the split and the solve's kind (its
+    ``fast`` empty), ``buckets`` and ``route`` as
+    :func:`schur.route_batches` gives them (None on the implicit solve).
+    The landmark-sharded compile (``parallel.schur_shard``) starts here and
+    builds only its own shard's tables."""
     batches = problem.batches()
     counts = schur.elim_degree_counts(batches, problem, schur_family)
     order_key = None
@@ -386,11 +400,8 @@ def schur_layout(problem: Problem, schur_family, implicit: bool = False,
         batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
     else:
         batches, buckets, route = schur.route_batches(batches, pre, layout)
-    info = schur.build_schur_info(
-        problem, layout, schur_family, batches=batches, buckets=buckets,
-        implicit=implicit, w_impl=w_impl, route=route,
-    )
-    return layout, info, batches
+    info = dataclasses.replace(pre, implicit=implicit, w_impl=w_impl)
+    return layout, info, batches, buckets, route
 
 
 @dataclasses.dataclass

@@ -612,8 +612,18 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
         w_impl=w_impl,
         fams=_reduced_families(problem, layout, elim_fam),
     )
-    if batches is None:
-        return info
+    if batches is not None:
+        fill_tables(info, layout, batches, buckets, route)
+    return info
+
+
+def fill_tables(info: SchurInfo, layout, batches, buckets=None, route=None) -> None:
+    """Each batch's tables, the generic sums' plan and W's block tables
+    (the implicit plan for the implicit solve) of ``info``, whose landmark
+    numbering (``num_elim``, ``elim_ids``) the batches are laid out in: the
+    second half of :func:`build_schur_info`, also run on a rank's shard
+    with its local numbering (``parallel.schur_shard``)."""
+    implicit = info.implicit
     per_batch = buckets if buckets is not None else [None] * len(batches)
     fast = []
     for bi, (b, bk) in enumerate(zip(batches, per_batch)):
@@ -638,7 +648,6 @@ def build_schur_info(problem, layout, elim_manifold, batches=None,
         else:
             info.w_rows = tables
         info.table_seconds += time.perf_counter() - t0
-    return info
 
 
 def w_structure(info: SchurInfo) -> schur_reduce.RowTables:
@@ -1530,7 +1539,29 @@ def assemble_implicit(batches, variables, info: SchurInfo, dtype,
 class _SchurSystem:
     """``grad`` and ``diag_max`` over ``sys = (a_rr, b_r, h_ll, g_l, _)``,
     shared by both solves: with ``solve``, the protocol the iterators
-    use."""
+    use; and the two hooks of the landmark-sharded solves
+    (``parallel.schur_shard``), which leave the one-card solve as it is."""
+
+    def _reduce(self, *parts):
+        """The sums over every rank of the rank-local partial sums
+        ``parts`` (one tensor, or a tuple of them): on one card the parts
+        themselves."""
+        return parts if len(parts) > 1 else parts[0]
+
+    def _h_damp_extra(self, h_ll):
+        """What the damped landmark blocks add besides λI, or None: on one
+        card nothing; the sharded solves' identity on pad slots."""
+        return None
+
+    def _damped_h(self, h_ll):
+        """h_ll with :meth:`_h_damp_extra` added."""
+        extra = self._h_damp_extra(h_ll)
+        return h_ll if extra is None else h_ll + extra
+
+    def _finalize(self, xr, xl):
+        """The full step from the reduced part and the components-major
+        [dl, L] landmark part, in the flat variable-major order."""
+        return torch.cat([xr, xl.T.reshape(-1)])
 
     def grad(self, sys):
         _, b_r, _, g_l, _ = sys
@@ -1587,6 +1618,7 @@ class SchurOps(_SchurSystem):
         s_sum, rhs = b_r − rhs_sum, and the landmarks' damped inverses."""
         a_rr, b_r, h_ll, g_l, w = sys
         dl = w.shape[1]
+        h_ll = self._damped_h(h_ll)
         if self.pairs is not None:
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
@@ -1595,6 +1627,7 @@ class SchurOps(_SchurSystem):
         else:
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l, self.rows)
+        s_sum, rhs_sum = self._reduce(s_sum, rhs_sum)
         eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
         return a_rr + lam * eye - s_sum, b_r - rhs_sum, h_inv
 
@@ -1604,7 +1637,7 @@ class SchurOps(_SchurSystem):
         L, dl, wc = w.shape
         wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T  # [dl, L]
         xl = torch.einsum("del,el->dl", h_inv, g_l - wx)
-        return torch.cat([xr, xl.T.reshape(-1)])
+        return self._finalize(xr, xl)
 
     def quad(self, sys, x):
         """xᵀHx of the undamped system (the JAX package's ``quad``), over
@@ -1672,7 +1705,9 @@ class SchurCGOps(_SchurSystem):
     preconditioner (the Ceres ``SCHUR_JACOBI`` analogue): S's exact
     per-camera diagonal blocks.  Port of the JAX package's ``SchurCGOps``
     without its TPU knobs (chunked or fixed-trip CG as worker-fault
-    mitigations, the sharded hooks); with ``cluster`` (a
+    mitigations), with its two hooks of the sharded solve (``_reduce``
+    around the matvec's, the right-hand side's and the preconditioner's W
+    sums, ``_h_damp_extra`` in the damped inverses); with ``cluster`` (a
     :func:`cluster_plan`), cluster-Jacobi in place of Schur-Jacobi.
 
     ``segment_sum`` is kernel B6's dispatcher or its plain version.
@@ -1750,7 +1785,7 @@ class SchurCGOps(_SchurSystem):
         """S v with ``h_inv`` = (h_ll + λI)⁻¹ components-major."""
         a_rr, _, _, _, wparts = sys
         u = torch.einsum("del,el->dl", h_inv, self._wt_apply(wparts, v))
-        return a_rr @ v + lam * v - self._w_apply(wparts, u)
+        return a_rr @ v + lam * v - self._reduce(self._w_apply(wparts, u))
 
     def precond_blocks(self, sys, lam, h_inv):
         """``(blocks, a_blocks, corrected)``, per reduced family: the
@@ -1782,7 +1817,7 @@ class SchurCGOps(_SchurSystem):
                 blocks.append(a_b)
                 continue
             corr = self.segment_sum(_gather_rows(s, lambda j, c: m_of(j, dof)), s.starts)
-            blocks.append(a_b - corr.view(n, dof, dof))
+            blocks.append(a_b - self._reduce(corr).view(n, dof, dof))
         return blocks, a_blocks, corrected
 
     def precond_inverses(self, sys, lam, h_inv):
@@ -1814,7 +1849,7 @@ class SchurCGOps(_SchurSystem):
         hw = torch.einsum("bpd,deb->bpe", wp.w_blk, h_inv[:, :, wp.lid.clamp(max=self.num_elim - 1)])
         prod = torch.einsum("xpe,xqe->xpq", hw.index_select(0, c.c1), wp.w_blk.index_select(0, c.c2))
         corr = self.segment_sum(prod.reshape(-1, dof * dof).index_select(0, c.perm), c.starts)
-        corr = corr.view(n_cl, m, m, dof, dof).permute(0, 1, 3, 2, 4).reshape(n_cl, cdim, cdim)
+        corr = self._reduce(corr).view(n_cl, m, m, dof, dof).permute(0, 1, 3, 2, 4).reshape(n_cl, cdim, cdim)
         total = n_cl * cdim
         ap = torch.nn.functional.pad(a_rr, (0, total - dr, 0, total - dr))
         if total > dr:
@@ -1826,11 +1861,6 @@ class SchurCGOps(_SchurSystem):
         bad = ~torch.isfinite(inv).flatten(1).all(1)
         return torch.where(bad[:, None, None], batched_inv_spd(a_blocks), inv)
 
-    def _finalize(self, xr, xl):
-        """The full step from the reduced part and the components-major
-        [dl, L] landmark part, in the flat variable-major order."""
-        return torch.cat([xr, xl.T.reshape(-1)])
-
     def pcg_setup(self, sys, lam):
         """The PCG's set-up at ``lam`` (a float or a 0-d tensor):
         ``(h_inv, inv, tol2, state)`` with the damped inverses, the
@@ -1838,8 +1868,8 @@ class SchurCGOps(_SchurSystem):
         and the start ``state = (x, r, z, p, rz, k)``, each a tensor of its
         own (:meth:`pcg_chunk` may update them in place)."""
         _, b_r, h_ll, g_l, wparts = sys
-        h_inv = self.damped_inverse(h_ll, lam)
-        rhs = b_r - self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))
+        h_inv = self.damped_inverse(self._damped_h(h_ll), lam)
+        rhs = b_r - self._reduce(self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l)))
         if self.cluster is not None:
             inv = (self.cluster_inverses(sys, lam, h_inv),)
         else:

@@ -224,3 +224,139 @@ def test_damped_inverse_survives_blocks_singular_in_float32():
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     exact = torch.linalg.inv((h.double() + lam * eye.double()).permute(2, 0, 1)).permute(1, 2, 0)
     np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-6, atol=1e-6 * exact.abs().max().item())
+
+
+class _CGBeforeHooks(schur.SchurCGOps):
+    """``SchurCGOps`` with its PCG pieces as they were before the sharded
+    solve's hooks (``_reduce``, ``_h_damp_extra``) went into them."""
+
+    def s_matvec(self, sys, h_inv, lam, v):
+        a_rr, _, _, _, wparts = sys
+        u = torch.einsum("del,el->dl", h_inv, self._wt_apply(wparts, v))
+        return a_rr @ v + lam * v - self._w_apply(wparts, u)
+
+    def precond_blocks(self, sys, lam, h_inv):
+        a_rr, _, _, _, wparts = sys
+        dl = self.dof_elim
+        hi = torch.cat([h_inv.permute(2, 0, 1), h_inv.new_zeros(1, dl, dl)])
+        ms = {}
+
+        def m_of(j, dof):
+            if j not in ms:
+                wp = wparts[j]
+                ms[j] = torch.einsum("bpd,bde,bqe->bpq", wp.w_blk, hi[wp.lid], wp.w_blk)
+            return ms[j].reshape(-1, dof * dof)
+
+        blocks, a_blocks, corrected = [], [], []
+        for (_, base, n, dof), s in zip(self.fams, self.plan.corr):
+            idx = base + torch.arange(n * dof, device=a_rr.device).view(n, dof)
+            a_b = (a_rr[idx[:, :, None], idx[:, None, :]]
+                   + lam * torch.eye(dof, dtype=a_rr.dtype, device=a_rr.device))
+            a_blocks.append(a_b)
+            corrected.append(s is not None)
+            if s is None:
+                blocks.append(a_b)
+                continue
+            corr = self.segment_sum(schur._gather_rows(s, lambda j, c: m_of(j, dof)), s.starts)
+            blocks.append(a_b - corr.view(n, dof, dof))
+        return blocks, a_blocks, corrected
+
+    def cluster_inverses(self, sys, lam, h_inv):
+        c = self.cluster
+        a_rr, _, _, _, wparts = sys
+        (wp,) = wparts
+        n_cl, m, dof = c.n_cl, c.m, c.dof
+        cdim, dr = m * dof, self.dim_reduced
+        hw = torch.einsum("bpd,deb->bpe", wp.w_blk, h_inv[:, :, wp.lid.clamp(max=self.num_elim - 1)])
+        prod = torch.einsum("xpe,xqe->xpq", hw.index_select(0, c.c1), wp.w_blk.index_select(0, c.c2))
+        corr = self.segment_sum(prod.reshape(-1, dof * dof).index_select(0, c.perm), c.starts)
+        corr = corr.view(n_cl, m, m, dof, dof).permute(0, 1, 3, 2, 4).reshape(n_cl, cdim, cdim)
+        total = n_cl * cdim
+        ap = torch.nn.functional.pad(a_rr, (0, total - dr, 0, total - dr))
+        if total > dr:
+            ap[dr:, dr:] += torch.eye(total - dr, dtype=ap.dtype, device=ap.device)
+        eye = torch.eye(cdim, dtype=ap.dtype, device=ap.device)
+        a_blocks = torch.diagonal(ap.view(n_cl, cdim, n_cl, cdim), dim1=0, dim2=2)
+        a_blocks = a_blocks.permute(2, 0, 1) + lam * eye
+        inv = linearsolver.batched_inv_spd(a_blocks - corr)
+        bad = ~torch.isfinite(inv).flatten(1).all(1)
+        return torch.where(bad[:, None, None], linearsolver.batched_inv_spd(a_blocks), inv)
+
+    def pcg_setup(self, sys, lam):
+        _, b_r, h_ll, g_l, wparts = sys
+        h_inv = self.damped_inverse(h_ll, lam)
+        rhs = b_r - self._w_apply(wparts, torch.einsum("del,el->dl", h_inv, g_l))
+        if self.cluster is not None:
+            inv = (self.cluster_inverses(sys, lam, h_inv),)
+        else:
+            inv = self.precond_inverses(sys, lam, h_inv)
+        tol2, state = linearsolver.pcg_start(rhs, lambda r: self._precond(inv, r),
+                                             self._tol(rhs.dtype))
+        return h_inv, inv, tol2, state
+
+
+class _DirectBeforeHooks(schur.SchurOps):
+    """``SchurOps`` with its reduction and back-substitution as they were
+    before the sharded solve's hooks."""
+
+    def reduced(self, sys, lam):
+        a_rr, b_r, h_ll, g_l, w = sys
+        dl = w.shape[1]
+        if self.pairs is not None:
+            h_inv = self.damped_inverse(h_ll, lam)
+            s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
+        elif w.dtype == torch.float32 and dl <= 3:
+            s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam, self.rows)
+        else:
+            h_inv = self.damped_inverse(h_ll, lam)
+            s_sum, rhs_sum = self.reduce_lm(w, h_inv, g_l, self.rows)
+        eye = torch.eye(self.dim_reduced, dtype=a_rr.dtype, device=a_rr.device)
+        return a_rr + lam * eye - s_sum, b_r - rhs_sum, h_inv
+
+    def back_substitute(self, sys, h_inv, xr):
+        _, _, _, g_l, w = sys
+        L, dl, wc = w.shape
+        wx = (w.reshape(L * dl, wc) @ xr).reshape(L, dl).T
+        xl = torch.einsum("del,el->dl", h_inv, g_l - wx)
+        return torch.cat([xr, xl.T.reshape(-1)])
+
+
+@pytest.mark.parametrize("case", ["implicit", "cluster", "direct_f64", "direct_f32"])
+def test_sharding_hooks_change_no_bit_on_one_card(case):
+    """The sharded solve's hooks in ``SchurCGOps`` (the ranks' sums around
+    the W terms, the pad slots' identity in the damped inverses) and in
+    ``SchurOps`` leave a one-card solve as it was, bit for bit: the same
+    steps (damped, λ ∈ {1e-3, 1e-1}; dogleg's λ = 0 leg on the direct
+    solve) and the same PCG iterations as the code before them."""
+    from nllstpu_torch.models.ba import make_pinhole_ba
+
+    dtype = torch.float32 if case == "direct_f32" else torch.float64
+    if case == "cluster":
+        tp, _, lmks = make_pinhole_ba(16, 256, 0.3, noise=1e-3, dtype=dtype, batched="cm",
+                                      device="cpu")
+        perturb_ba(tp, lmks, 0.05, seed=5)
+        fam = pt.Euclidean(3)
+    else:
+        tp, _, pts = tbal.make_bal_problem(tbal.make_realistic_bal(**SMALL), dtype=dtype,
+                                           device="cpu")
+        perturb_ba(tp, pts, 0.05, seed=5)
+        fam = tbal.PT
+    solver = "schur" if case.startswith("direct") else "schur_cg"
+    comp = pt.compile_problem(tp, solver=solver, schur_family=fam)
+    ops = comp.ctx(pt.Options(linear_tol=1e-10, schur_cluster_size=4 * (case == "cluster"))).linops
+    if solver == "schur_cg":
+        assert (ops.cluster is not None) == (case == "cluster")
+    fields = {f.name: getattr(ops, f.name) for f in dataclasses.fields(ops)}
+    if solver == "schur_cg":
+        before = _CGBeforeHooks(**dict(fields, cg_iters=[]))
+    else:
+        before = _DirectBeforeHooks(**fields)
+    _, sys_ = comp.assemble(tp.stacked_variables())
+    for lam in (1e-3, 1e-1):
+        assert torch.equal(ops.solve(sys_, lam), before.solve(sys_, lam))
+    if solver == "schur_cg":
+        assert ops.cg_iters == before.cg_iters and all(k > 0 for k in ops.cg_iters)
+    else:
+        zero = torch.zeros((), dtype=torch.float64)
+        for got, want in zip(ops.leg_ex(sys_, zero), before.leg_ex(sys_, zero)):
+            assert torch.equal(got, want)
