@@ -215,7 +215,7 @@ Phases, one line each or more; any failure raises and exits non-zero:
    through ``dense`` and ``cg`` (B6 only; the trace gate and (σ1, σ2, w)
    within 0.12 of (1, 10, 0.8)).  B6 (phase 7) and B7/B5 (phase 9) are
    also held to their plain versions on these paths' inputs.
-21. item 6 — each run with the launch counts set to 0 just before and
+21. alternation, views, cache — each run with the launch counts set to 0 just before and
    read just after: ``optimize_singles(targets=PT)`` in float32, the points
    perturbed by 0.01: Dubrovnik-class with LM (226,730 points at once) and
    bench-realistic with Newton, each through B6 alone (its plain version
@@ -266,6 +266,27 @@ Phases, one line each or more; any failure raises and exits non-zero:
    it/s, the time inside the collectives (CUDA events around each), the
    shard's bytes against the one-card system's, peak memory above the
    process, launches.
+23. shapes (run right after the sharded phase) — the obs-major shapes past
+   the two unrolled instances, ``scripts_torch/shapes_reference.py``'s
+   problems at full width, each run with the launch counts set to 0 just
+   before and read just after: the planar problem (affine cameras of 6
+   dof, landmarks of 2; 128 cameras, 8192 landmarks, 104,858
+   observations) in float32 (B1 at (2, 6, 2), B6, B3 at dl = 2; never B2,
+   B4, B5, B7, B8), through ``w_impl="fused"`` (B8 and B3, nothing else)
+   and in float64 (B1, B6 and B4 at dl = 2; the float64 trace gate against
+   the JAX package's CPU run, ``SHAPES_REF``), and the stereo problem
+   (bench-realistic with a right camera's u: B2 at (3, 9, 3), B6, B3; the
+   bucketed slack 1e-2).  Then each kernel against its plain version,
+   float64 within 1e-12 and float32 within 1e-5 of the largest entry (B3:
+   float32 only, within 1e-5 unscaled and the scaled rule of phase 5), two
+   launches the same bits, and timed: B1 and B8 on the planar path's tile
+   and on bench-sized tiles at (3, 6, 3) and (3, 9, 3); B2 on the stereo
+   path's batch and on random values over its observation pattern at (2,
+   6, 2) and (3, 6, 3); B3 on the planar system (dl = 2) and a synthetic
+   dl = 1 structure; B4 and B5 at dl = 7 and 16 on synthetic structures,
+   through the instance whose loops over dl run at run time.  Each row's
+   launches are those of the main path it names (B5's: the adaptive main
+   path, phase 11).
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -301,6 +322,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -1153,10 +1175,24 @@ def b2_case(name, batch, info, fast, variables, timed=True):
     bucket plan); with ``timed``, its times per whole assembly.  Returns
     its record (no times without ``timed``) and the batch's inputs
     ``(head, tail)``."""
-    from nllstpu_torch.ops import fused_obs, schur, segment_sum
+    from nllstpu_torch.ops import schur
 
     _, head, tail = schur.batch_inputs(batch, variables, info, fast, torch.float32)
-    buckets, L = fast.buckets, info.num_elim
+    note = (f"{len(fast.buckets)} buckets {list(fast.buckets)} in one launch; B2 and B3/B4 "
+            f"tables built in {info.table_seconds:.4f} s")
+    return b2_check(name, head, tail, fast, info.num_elim, batch.n, note, timed), head, tail
+
+
+def b2_check(name, head, tail, fast, L, n_obs, note, timed=True, tol64=TOL_F64,
+             tol32=TOL_B1_F32):
+    """B2 (with B6 over the camera runs) against its plain version on one
+    whole assembly of the batch ``head`` (jac, g0, ρ′·mask, 2ρ″·mask, camera
+    columns, camera-order rows, slot tables), ``tail`` (n_r, dr_s, dl,
+    e_start) of ``L`` landmarks and ``n_obs`` observations (``fast``: its
+    ``cam_starts`` and ``cstarts``); with ``timed``, its times per whole
+    assembly.  Returns its record (no times without ``timed``)."""
+    from nllstpu_torch.ops import fused_obs, segment_sum
+
     kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
     plain = (fused_obs.fused_obs_all_into_reference, segment_sum.segment_block_sum_reference)
     ref = _assemble_batch(plain, fast, head, tail, torch.float64, L)
@@ -1164,36 +1200,35 @@ def b2_case(name, batch, info, fast, variables, timed=True):
     out32 = _assemble_batch(kern, fast, head, tail, torch.float32, L)
     again = _assemble_batch(kern, fast, head, tail, torch.float32, L)
     torch.cuda.synchronize()
-    e64 = check(f"B2 f64 {name}", out64, ref, TOL_F64)
-    e32 = check(f"B2 f32 {name}", out32, ref, TOL_B1_F32)
+    e64 = check(f"B2 f64 {name}", out64, ref, tol64)
+    e32 = check(f"B2 f32 {name}", out32, ref, tol32)
     if not all(torch.equal(a, b) for a, b in zip(out32, again)):
         raise AssertionError(f"B2 {name}: two assemblies differ")
-    slots = fast.slots
-    print(f"B2 {name} ({len(buckets)} buckets {list(buckets)} in one launch of "
+    slots = head[6]
+    n, (_, dr_s, dl, _) = head[0].shape[0], tail
+    print(f"B2 {name} ((n, dr_s, dl) = ({n}, {dr_s}, {dl}); {note}; "
           f"{slots.work.shape[0]} warp items, {int((slots.slots < 0).sum())} repeated "
-          f"cameras; B2 and B3/B4 tables built in {info.table_seconds:.4f} s): rel err "
-          f"h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}, two "
-          "assemblies bit-identical", flush=True)
+          f"cameras): rel err h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 "
+          f"{['%.2e' % e for e in e32]}, two assemblies bit-identical", flush=True)
     record = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)))
     if timed:
         ms = time_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
         device_ms = graph_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
         plain_ms = time_ms(lambda: _assemble_batch(plain, fast, head, tail, torch.float32, L))
-        dr_s, dl = tail[1], tail[2]
         # The real columns of the inputs (the pad columns and the slot
         # tables are the implementation's), the outputs written once.
         n_real = int(slots.starts[-1])
         b = bound(
             sum(t[..., :1].numel() * t.element_size() for t in head[:6]) * n_real
             + nbytes(*out32),
-            assembly_flops(batch.n, dr_s, dl),
+            assembly_flops(n_obs, dr_s, dl, n),
         )
-        print(f"B2 {name} time per assembly, B6 over the camera runs included ({batch.n} "
+        print(f"B2 {name} time per assembly, B6 over the camera runs included ({n_obs} "
               f"observations, W {tuple(out32[2].shape)}): kernel {ms:.4f} ms (in a CUDA graph "
               f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})", flush=True)
         record.update(ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
-    return record, head, tail
+    return record
 
 
 def phase_b2(device):
@@ -1230,18 +1265,26 @@ def _assemble_rows(head, tail, L, n_rows):
     return bufs[3]
 
 
-def phase_b3(device, systems):
+def phase_b3(device, systems, synthetic=None, rel_tol=None):
     """B3 against its plain version on each main path's own system over
     its row tables (keyed by the path) and on a synthetic structure; two
     launches give the same bits, s_sum exactly symmetric.  A record per
     path, with both bounds: the structural one (``bound_ms``) and the
-    dense product's."""
+    dense product's.  ``synthetic``: row cases (:func:`row_case`) checked
+    and timed beside the systems, in place of the default wc = 1152
+    structure, which is checked only; ``rel_tol``: each output also
+    within it of its largest entry, unscaled."""
     from nllstpu_torch.ops import schur_reduce
 
     kern, plain = schur_reduce.reduce_s_damped, schur_reduce.reduce_s_damped_reference
     gen = torch.Generator().manual_seed(1)
     cases = {name: (s[4], s[2], s[3], rows) for name, (s, rows) in systems.items()}
-    cases["synthetic structure"] = row_case(gen, WIDE_L, 3, 128, 9, device, inverse=False)
+    timed = set(systems)
+    if synthetic is None:
+        cases["synthetic structure"] = row_case(gen, WIDE_L, 3, 128, 9, device, inverse=False)
+    else:
+        cases.update(synthetic)
+        timed |= set(synthetic)
     records = {}
     for name, (*inputs, rows) in cases.items():
         inputs = [t.to(device) for t in inputs]
@@ -1262,6 +1305,8 @@ def phase_b3(device, systems):
                     f"B3 f32 {label} lam={lam}: scaled errors s_sum/rhs/h_inv {e32}"
                     f" exceed {tol32}"
                 )
+            if rel_tol is not None:
+                check(f"B3 f32 {label} lam={lam} unscaled", out32, ref, rel_tol)
             if not all(torch.equal(x, y) for x, y in zip(out32, again)):
                 raise AssertionError(f"B3 {label} lam={lam}: two launches (λ a float, then "
                                      "in device memory) differ")
@@ -1273,7 +1318,7 @@ def phase_b3(device, systems):
                   f"{['%.2e' % e for e in p32]} tolerance {['%.2e' % t for t in tol32]}; two "
                   "launches (λ a float, λ in device memory) bit-identical, s_sum symmetric",
                   flush=True)
-        if name not in systems:
+        if name not in timed:
             continue
         lam_dev = torch.full((), 1e-2, dtype=torch.float64, device=device)
         ms = time_ms(lambda: kern(*f32, lam_dev, rows))
@@ -3160,7 +3205,7 @@ def profile_block(label, fn):
           + "; ".join(f"{name[:60]} {c}x {ms:.3f} ms" for name, c, ms in top), flush=True)
 
 
-def phase_item6(device, smi):
+def phase_alternation(device, smi):
     """Phase 21 (see the module docstring): per-variable alternation, the
     views, the runner cache, export, checkpoint and the native parser.
     Returns the launch counts and the B6 records per path."""
@@ -3172,15 +3217,15 @@ def phase_item6(device, smi):
     profile_block("Dubrovnik-class singles (LM, float32)",
                   lambda: nt.optimize_singles(problem, nt.Options(), targets=PT))
     del problem
-    mark("item 6: optimize_singles")
+    mark("alternation: optimize_singles")
     view_launches, view_inputs = phase_views(device, smi)
     launches.update(view_launches)
     inputs.update(view_inputs)
-    mark("item 6: subset views")
+    mark("alternation: subset views")
     phase_cache(device, smi)
     phase_utils(device, smi)
     records = {label: b6_case(label, data, st) for label, (data, st) in inputs.items()}
-    mark("item 6: runner cache, export, checkpoint, native parser, B6 records")
+    mark("alternation: runner cache, export, checkpoint, native parser, B6 records")
     return launches, records
 
 
@@ -3623,6 +3668,295 @@ def phase_sharded(device, smi):
 _CLOCK = [time.perf_counter()]
 
 
+#: Phase 23's paths (``scripts_torch/shapes_reference.py``: the planar
+#: dl = 2 problem at the pinhole bench's size and the stereo three-row
+#: problem over bench-realistic) and the JAX package's CPU references
+#: (``JAX_PLATFORMS=cpu python scripts_torch/shapes_reference.py``): float32
+#: start and best cost after 30 LM iterations, the float64 trace at
+#: ``rel_dcost=1e-6``.
+PLANAR = "planar dl=2"
+PLANAR_F64 = "planar dl=2 f64"
+PLANAR_FUSED = "planar dl=2 fused"
+STEREO = "stereo bench-realistic"
+SHAPES_REF = {
+    PLANAR: dict(start=297.6598205566406, best=0.09593155980110168),
+    PLANAR_F64: dict(start=297.6598322962617, best=0.09593161726761104,
+                     costs=[0.09928079074833866, 0.0959316172753191, 0.09593161726761104]),
+    STEREO: dict(start=1397342.25, best=0.11985284090042114),
+}
+#: Phase 23's kernel tolerances, ``tests/test_torch_cuda.py``'s: of the
+#: largest entry, against the float64 plain version.
+TOL_SHAPE_F32, TOL_SHAPE_F64 = 1e-5, 1e-12
+
+
+@functools.lru_cache(maxsize=None)
+def shapes_data(kind):
+    from scripts_torch import shapes_reference
+
+    return shapes_reference.full_data(kind)
+
+
+def shapes_problem(kind, dtype, device):
+    """Phase 23's ``kind`` ("planar" or "stereo") problem in ``dtype``,
+    its points perturbed as the bench's."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import perturb_ba
+    from scripts_torch import shapes_reference
+
+    problem, _, points = shapes_reference.build(nt, kind, shapes_data(kind), dtype, device)
+    perturb_ba(problem, points, 0.05, seed=5)
+    return problem
+
+
+def shapes_options(kind, f64=False):
+    """The bench options over ``kind``'s landmark family; float64: the
+    trace gate's (``rel_dcost=1e-6``)."""
+    import nllstpu_torch as nt
+
+    fam = nt.Euclidean(2 if kind == "planar" else 3)
+    if f64:
+        return nt.Options(solver="schur", schur_family=fam, rel_dcost=1e-6,
+                          max_time=float("inf"))
+    return dataclasses.replace(bench_options(), schur_family=fam)
+
+
+def synthetic_tile(gen, n, dr_s, dl, device, K=14):
+    """A bench-sized B1/B8 tile ``[n, S, K, L]`` (``NLMK`` landmarks over
+    ``NCAM`` cameras) of shape (n, dr_s, dl),
+    every landmark seeing a camera twice and every third one a dustbin
+    slot (zero weights), as ``(floats, ints)``: B1's ``(vc, cpos, cstarts,
+    n_r, dr_s, dl, e_start)``, the landmark after the camera."""
+    from nllstpu_torch.ops import fused_obs
+
+    s, L, n_r = dr_s + dl, NLMK, NCAM
+    floats = [
+        torch.randn(n, s, K, L, generator=gen, dtype=torch.float64),
+        torch.randn(s, K, L, generator=gen, dtype=torch.float64),
+        torch.rand(K, L, generator=gen, dtype=torch.float64) + 0.05,
+        -0.2 * torch.rand(K, L, generator=gen, dtype=torch.float64),
+    ]
+    vc = torch.randint(0, n_r, (K, L), generator=gen, dtype=torch.int32)
+    vc[1] = vc[0]
+    vc[K - 1, ::3] = n_r
+    floats[2][K - 1, ::3] = 0.0
+    floats[3][K - 1, ::3] = 0.0
+    vc = vc.to(device)
+    return ([t.to(device) for t in floats],
+            (vc, *fused_obs.camera_tables(vc, n_r), n_r, dr_s, dl, dr_s))
+
+
+def synthetic_batch(gen, n, dr_s, dl, device):
+    """A B2 input of shape (n, dr_s, dl) over bench-realistic's observation
+    pattern (the stereo problem's cameras and points of each observation,
+    in its order; random values, the landmark after the camera): ``(head,
+    tail, fast, L, n_obs)``, ``fast`` the camera runs."""
+    import numpy as np
+
+    from nllstpu_torch.ops import fused_obs
+
+    data = shapes_data("stereo")
+    lid, vc = data["pt_idx"], data["cam_idx"]
+    L, n_r, b = int(lid.max()) + 1, int(vc.max()) + 1, lid.shape[0]
+    s = dr_s + dl
+    cpos, cstarts = fused_obs.camera_order(vc, n_r)
+    slots = fused_obs.slot_tables(lid, vc, L, n_r)
+    floats = [torch.randn(n, s, b, generator=gen, dtype=torch.float64),
+              torch.randn(b, s, generator=gen, dtype=torch.float64).T,
+              torch.rand(b, generator=gen, dtype=torch.float64) + 0.05,
+              -0.2 * torch.rand(b, generator=gen, dtype=torch.float64)]
+    head = ([t.to(device) for t in floats]
+            + [torch.as_tensor(x, dtype=torch.int32, device=device) for x in (vc, cpos)]
+            + [fused_obs.SlotTables(*(torch.as_tensor(t, device=device) for t in slots))])
+    fast = types.SimpleNamespace(cam_starts=np.asarray(cstarts),
+                                 cstarts=torch.as_tensor(cstarts, device=device))
+    return head, (n_r, dr_s, dl, dr_s), fast, L, b
+
+
+def tile_case(label, floats, ints, n_obs):
+    """B1 (with B6 over its camera rows) and B8 against their plain
+    versions on one tile: float64 within ``TOL_SHAPE_F64`` and float32
+    within ``TOL_SHAPE_F32`` of the largest entry, two launches the same
+    bits; each one's times (events and graph), its plain version's and its
+    bound.  Returns a record per kernel."""
+    from nllstpu_torch.ops import fused_obs
+
+    vc, cpos, cstarts, n_r, dr_s, dl, e_start = ints
+    n = floats[0].shape[0]
+    f64, f32 = [t.double() for t in floats], [t.float() for t in floats]
+    records = {}
+    for name, kern, plain, tail, cam in (
+        ("fused_obs_all", fused_obs.fused_obs_all, fused_obs.fused_obs_all_reference,
+         (vc, cpos, cstarts, n_r, dr_s, dl, e_start), True),
+        ("fused_obs_leg", fused_obs.fused_obs_leg, fused_obs.fused_obs_leg_reference,
+         (vc, n_r, dr_s, dl, e_start), False),
+    ):
+        ref = plain(*f64, *tail)
+        out64, out32, again = kern(*f64, *tail), kern(*f32, *tail), kern(*f32, *tail)
+        torch.cuda.synchronize()
+        e64 = check(f"{name} f64 {label}", out64, ref, TOL_SHAPE_F64)
+        e32 = check(f"{name} f32 {label}", out32, ref, TOL_SHAPE_F32)
+        if not all(torch.equal(a, b) for a, b in zip(out32, again)):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        ms = time_ms(lambda: kern(*f32, *tail))
+        device_ms = graph_ms(lambda: kern(*f32, *tail))
+        plain_ms = time_ms(lambda: plain(*f32, *tail))
+        ins = (vc, cpos, cstarts) if cam else (vc,)
+        b = bound(nbytes(*f32, *ins, *out32), assembly_flops(n_obs, dr_s, dl, n, cam))
+        print(f"{'B1' if cam else 'B8'} {label} ((n, dr_s, dl) = ({n}, {dr_s}, {dl}), "
+              f"{n_obs} observations, W {tuple(out32[2].shape)}): rel err f64 "
+              f"{['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}, two launches "
+              f"bit-identical | kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        records[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)), ms=ms,
+                             plain_ms=plain_ms, **b, graph_ms=device_ms)
+    return records
+
+
+def external_case(name, label, inputs, tables, device):
+    """B4 (``reduce_s_lm``) or B5 (``reduce_s``) against their plain
+    version on a synthetic W past the unrolled dl (``inputs``: W, the
+    inverses, g_l in float64; ``tables`` its structure, host or uploaded): float64
+    within ``TOL_SHAPE_F64`` and float32 within ``TOL_SHAPE_F32`` of the
+    largest entry, two launches the same bits, s_sum exactly symmetric;
+    the float32 times, the structural bound, the plain version's and
+    cuBLAS's ``Yᵀ W``.  Returns the record."""
+    from nllstpu_torch.ops import schur_reduce
+
+    if tables.device is None:
+        tables = schur_reduce.upload_tables(tables, device)
+    kern = getattr(schur_reduce, name)
+    plain = schur_reduce.reduce_s_reference
+    inputs = [t.to(device) for t in inputs]
+    f64, f32 = [t.double() for t in inputs], [t.float() for t in inputs]
+    ref = plain(*f64)
+    out64, out32, again = kern(*f64, tables), kern(*f32, tables), kern(*f32, tables)
+    torch.cuda.synchronize()
+    e64 = check(f"{name} f64 {label}", out64, ref, TOL_SHAPE_F64)
+    e32 = check(f"{name} f32 {label}", out32, ref, TOL_SHAPE_F32)
+    if not all(torch.equal(x, y) for x, y in zip(out32, again)):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    if not (torch.equal(out32[0], out32[0].T) and torch.equal(out64[0], out64[0].T)):
+        raise AssertionError(f"{name} {label}: s_sum is not exactly symmetric")
+    ms = time_ms(lambda: kern(*f32, tables))
+    device_ms = graph_ms(lambda: kern(*f32, tables))
+    plain_ms = time_ms(lambda: plain(*f32))
+    library_ms = time_ms(gemm_call(*f32[:2]))
+    L, dl, wc = f32[0].shape
+    pb, pf = struct_work(tables, dl, 4)
+    b = bound(pb + nbytes(*out32), pf)
+    dense = bound(nbytes(*f32, *out32), reduce_flops(L, dl, wc))
+    print(f"{'B4' if name == 'reduce_s_lm' else 'B5'} {label} (W {tuple(f32[0].shape)}, "
+          f"{tables.links.shape[0]} links in {tables.items.shape[0]} items): rel err s_sum/rhs "
+          f"f64 {['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}, two launches "
+          f"bit-identical, s_sum symmetric | kernel {ms:.4f} ms (in a CUDA graph "
+          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS Y^T W {library_ms:.4f} ms, "
+          f"structural bound {b['bound_ms']:.4f} ms ({b['bound_by']}), dense bound "
+          f"{dense['bound_ms']:.4f} ms", flush=True)
+    return dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out32, ref)), ms=ms,
+                plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"], graph_ms=device_ms,
+                library_ms=library_ms)
+
+
+def phase_shapes(device, smi):
+    """Phase 23 (see the module docstring): the planar dl = 2 and stereo
+    three-row paths at full width, then each kernel at this slice's shapes
+    against its plain version.  Returns the main paths' launch counts and
+    the kernels' records, by kernel and shape (each with ``path``: the main
+    path whose launches its row gives)."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.ops import schur
+
+    launches = {}
+    ref = SHAPES_REF[PLANAR]
+    problem = shapes_problem("planar", torch.float32, device)
+    needs = ("fused_obs_all", "segment_block_sum", "reduce_s_damped")
+    launches[PLANAR] = phase_main(PLANAR, problem, ref["start"], ref["best"], 1e-3, needs=needs,
+                                  never=_never(needs), options=shapes_options("planar"))[0]
+    needs = ("fused_obs_leg", "reduce_s_damped")
+    launches[PLANAR_FUSED] = phase_main(
+        PLANAR_FUSED, shapes_problem("planar", torch.float32, device), ref["start"],
+        ref["best"], 1e-3, needs=needs, never=_never(needs), options=shapes_options("planar"),
+        w_impl="fused")[0]
+    ref = SHAPES_REF[PLANAR_F64]
+    needs = ("fused_obs_all", "reduce_s_lm")
+    launches[PLANAR_F64], result = phase_main(
+        PLANAR_F64, shapes_problem("planar", torch.float64, device), ref["start"], ref["best"],
+        1e-9, needs=needs, never=_never(needs, ("segment_block_sum",)),
+        options=shapes_options("planar", f64=True))
+    trace_gate(PLANAR_F64, result, ref)
+    ref = SHAPES_REF[STEREO]
+    needs = ("fused_obs_all_into", "segment_block_sum", "reduce_s_damped")
+    stereo = shapes_problem("stereo", torch.float32, device)
+    launches[STEREO] = phase_main(STEREO, stereo, ref["start"], ref["best"], 1e-2, needs=needs,
+                                  never=_never(needs), options=shapes_options("stereo"))[0]
+    print(f"phase 23 main paths | {smi}", flush=True)
+    mark("shapes: main paths")
+    records = collections.defaultdict(dict)
+
+    def add(name, shape, path, record):
+        records[name][shape] = dict(record, path=path)
+
+    # B1 and B8: the planar path's own tile, then synthetic bench-sized
+    # tiles of three residual rows.
+    problem = shapes_problem("planar", torch.float32, device)
+    comp = compile_problem(problem, solver="schur", schur_family=nt.Euclidean(2))
+    (batch,), (fast,) = comp.batches, comp.schur_info.fast
+    _, args = schur.fused_inputs(batch, problem.stacked_variables(), comp.schur_info, fast,
+                                 torch.float32)
+    planar_sys = comp.assemble(problem.stacked_variables())[1], comp.schur_info.w_rows
+    gen = torch.Generator().manual_seed(23)
+    tiles = {f"{PLANAR} (2,6,2)": (list(args[:4]), (args[4], fast.cpos, fast.cstarts, *args[5:]),
+                                   batch.n)}
+    for n, dr_s, dl in ((3, 6, 3), (3, 9, 3)):
+        floats, ints = synthetic_tile(gen, n, dr_s, dl, device)
+        tiles[f"synthetic ({n},{dr_s},{dl}) K=14 L={NLMK}"] = (
+            floats, ints, int((ints[0] < ints[3]).sum()))
+    for label, (floats, ints, n_obs) in tiles.items():
+        recs = tile_case(label, floats, ints, n_obs)
+        add("fused_obs_all", label, PLANAR, recs["fused_obs_all"])
+        add("fused_obs_leg", label, PLANAR_FUSED, recs["fused_obs_leg"])
+    del tiles
+    # B2: the stereo path's own batch, then synthetic values over its
+    # observation pattern.
+    comp = compile_problem(stereo, solver="schur", schur_family=nt.Euclidean(3))
+    (batch,), (fast,) = comp.batches, comp.schur_info.fast
+    _, head, tail = schur.batch_inputs(batch, stereo.stacked_variables(), comp.schur_info,
+                                       fast, torch.float32)
+    label = f"{STEREO} (3,9,3)"
+    add("fused_obs_all_into", label, STEREO,
+        b2_check(label, head, tail, fast, comp.schur_info.num_elim, batch.n,
+                 f"{len(fast.buckets)} buckets in one launch", tol64=TOL_SHAPE_F64,
+                 tol32=TOL_SHAPE_F32))
+    del head
+    for n, dr_s, dl in ((2, 6, 2), (3, 6, 3)):
+        head, tail, fast, L, n_obs = synthetic_batch(gen, n, dr_s, dl, device)
+        label = f"synthetic ({n},{dr_s},{dl}) over bench-realistic's pattern"
+        add("fused_obs_all_into", label, STEREO,
+            b2_check(label, head, tail, fast, L, n_obs, "bench-realistic's observations",
+                     tol64=TOL_SHAPE_F64, tol32=TOL_SHAPE_F32))
+    del stereo, comp, batch, fast
+    mark("shapes: B1, B2, B8")
+    # B3 at dl = 2 (the planar system) and dl = 1; B4 and B5 past the
+    # unrolled dl.
+    b3 = phase_b3(device, {PLANAR: planar_sys},
+                  synthetic={"synthetic dl=1": row_case(gen, NLMK, 1, NCAM, 6, device,
+                                                        inverse=False)},
+                  rel_tol=TOL_SHAPE_F32)
+    for label, record in b3.items():
+        add("reduce_s_damped", label, PLANAR, record)
+    for dl, (L, n_blocks, width) in ((7, (NLMK, NCAM, 6)), (16, (4096, 80, 9))):
+        *inputs, rows = row_case(gen, L, dl, n_blocks, width, device, inverse=True)
+        add("reduce_s_lm", f"synthetic dl={dl}", PLANAR_F64,
+            external_case("reduce_s_lm", f"synthetic dl={dl}", inputs, rows, device))
+        *inputs, tables = structured_case(gen, 4096, dl, [9] * 40 + [3, 16, 1], 2)
+        add("reduce_s", f"synthetic dl={dl}", ADAPTIVE,
+            external_case("reduce_s", f"synthetic dl={dl}", inputs, tables, device))
+    print(f"phase 23 kernels | {smi}", flush=True)
+    mark("shapes: B3, B4, B5")
+    return launches, records
+
+
 def mark(what):
     """Print the seconds since the previous mark: where the run's time
     goes, against its 1,200 s limit."""
@@ -3637,6 +3971,8 @@ def main():
     mark("device and build")
     sharded_launches, sharded_b2 = phase_sharded(device, smi)
     mark("sharded")
+    shapes_launches, shapes = phase_shapes(device, smi)
+    mark("shapes")
     b1, bench_sys, cam1 = phase_b1(device)
     b2, bal_systems, cam2 = phase_b2(device)
     b2.update(sharded_b2)
@@ -3768,30 +4104,38 @@ def main():
             phase_timed(big, problem, driver, phases=phases, options=implicit_options(big))
         phase_profile(big, problem, driver, options=implicit_options(big))
     mark("Dubrovnik-class timed loop")
-    item6_launches, item6_b6 = phase_item6(device, smi)
-    b6.update(item6_b6)
+    alternation_launches, alternation_b6 = phase_alternation(device, smi)
+    b6.update(alternation_b6)
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"
-    rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264", {"pinhole bench": b1}),
-            ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397", b2),
-            ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505", b3),
-            ("reduce_s_lm", "schur_reduce.cu", "schur_reduce.py:375", b4),
-            ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568", b5),
+    # Phase 23's rows name the main path whose launches they give (``path``).
+    rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264",
+             {"pinhole bench": b1, **shapes["fused_obs_all"]}),
+            ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397",
+             {**b2, **shapes["fused_obs_all_into"]}),
+            ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505",
+             {**b3, **shapes["reduce_s_damped"]}),
+            ("reduce_s_lm", "schur_reduce.cu", "schur_reduce.py:375",
+             {**b4, **shapes["reduce_s_lm"]}),
+            ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568", {**b5, **shapes["reduce_s"]}),
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
             ("place_w", "w_place.cu", "w_place.py:98", b7),
-            ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482", b8)]
+            ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482",
+             {**b8, **shapes["fused_obs_leg"]})]
     # Beside each row, the launches of the later slices' main paths
     # (Newton, dogleg, gradient descent; the dense and cg backends; the
     # generic Schur assembly's) that launched the kernel.
     slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches,
-                      **adaptive_launches, **item6_launches, **sharded_launches}
-    launches.update(item6_launches)
+                      **adaptive_launches, **alternation_launches, **sharded_launches,
+                      **shapes_launches}
+    launches.update(alternation_launches)
     launches.update(sharded_launches)
+    launches.update(shapes_launches)
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,
-             launches=launches[shape.split(" D=")[0]][name],
+             launches=launches[record.get("path", shape.split(" D=")[0])][name],
              slice_launches={p: c[name] for p, c in slice_launches.items() if c[name]},
              **{"library_ms": None, **record})
         for name, source, replaces, records in rows

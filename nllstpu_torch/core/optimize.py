@@ -396,10 +396,16 @@ def schur_routes(problem: Problem, schur_family, implicit: bool = False,
         * torch.empty((), dtype=problem.dtype).element_size()
     )
     implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
+    if not implicit and pre.dof_elim > schur_reduce.MAX_DL:
+        raise ValueError(
+            f"the direct Schur solve eliminates blocks of at most {schur_reduce.MAX_DL} dof "
+            f"(kernels B4 and B5, schur_reduce.MAX_DL); {pre.elim_family} has "
+            f"{pre.dof_elim}: solver='schur_cg' takes it"
+        )
     if implicit:
         batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
     else:
-        batches, buckets, route = schur.route_batches(batches, pre, layout)
+        batches, buckets, route = schur.route_batches(batches, pre, layout, problem.dtype)
     info = dataclasses.replace(pre, implicit=implicit, w_impl=w_impl)
     return layout, info, batches, buckets, route
 

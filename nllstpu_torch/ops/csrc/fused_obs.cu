@@ -67,6 +67,19 @@
 // addition in a fixed order, as the TPU kernel adds its per-tile
 // contributions in grid order.
 //
+// Shapes: the JAX kernels take any (n residual rows, dr_s, dl).  Two
+// instances are unrolled for the hot shapes, (2, 6, 3) and (2, 9, 3); one
+// more takes any shape within n <= 4, dr_s <= 16, dl <= 6, its loops
+// unrolled to those caps with the entries past the shape skipped, so that
+// its register arrays keep constant indices (what does not fit spills: the
+// same values, slower).  One instance rather than one per shape compiled
+// at first use: the library stays one build of fixed sources, and no new
+// shape compiles anything inside a timed run or a graph capture.  The
+// staged rows take dynamic shared memory sized to the shape, with as many
+// warps a block as fit 48 KB (one warp of float64 at dr_s = 16).  The host
+// sends a batch outside the caps to the generic route at compile time
+// (fused_obs.kernel_takes).
+//
 // Bound: device-memory traffic (the Jacobian read once, W's touched
 // blocks and the camera rows written once).  Slots of a dustbin camera
 // (fixed camera or pad) still add to h_ll and g_l, whose weights are
@@ -79,12 +92,34 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+// The any-shape instance's caps (fused_obs.kernel_takes on the host).
+constexpr int kMaxN = 4;
+constexpr int kMaxDr = 16;
+constexpr int kMaxDl = 6;
+// Static shared memory a block may take without an opt-in attribute.
+constexpr int kSmemCap = 48 * 1024;
 
-// Warps per block: the shared staging is 32 rows of up to 55 values per
-// warp, about 28 KB a block in either float type.
+// Warps per block of the two unrolled instances: the shared staging is
+// 32 rows of up to 55 values per warp, about 28 KB a block in either float
+// type.  The any-shape instance takes at most as many, fewer where its
+// rows are wider (staging_warps).
 template <typename T>
 __host__ __device__ constexpr int warps_per_block() {
   return sizeof(T) == 8 ? 2 : 4;
+}
+
+// Values per staged row (odd: lanes writing their own rows hit distinct
+// banks): a slot's W block, or its camera row where that is wider.
+__host__ __device__ constexpr int staging_row(int dr, int dl, bool cam) {
+  return ((cam && dr * (dr + 3) / 2 > dl * dr) ? dr * (dr + 3) / 2 : dl * dr) | 1;
+}
+
+// Dynamic shared memory of one warp: its 32 destinations, repeat marks
+// and staged rows.
+template <typename T>
+__host__ __device__ constexpr int staging_bytes(int row) {
+  return 32 * (static_cast<int>(sizeof(long long)) + static_cast<int>(sizeof(int)) +
+               row * static_cast<int>(sizeof(T)));
 }
 
 template <typename T>
@@ -108,24 +143,39 @@ struct AsmArgs {
   int K, L, lg2;            // UNIFORM: slots per landmark, landmarks, log2 G
   int n_work;               // TABLE
   int L_total, n_r, n_rows, e_start;
+  int n, dr, dl;            // residual rows, camera and landmark dof
 };
 
-template <typename T, int N, int DR, int DL, bool ACCUM, bool CAM, bool TABLE>
+// EXACT: the instance is unrolled for (N, DR, DL) itself.  Otherwise
+// (N, DR, DL) are the caps kMaxN, kMaxDr, kMaxDl and the shape is read
+// from the arguments: every loop still runs to its cap, unrolled, with the
+// entries past the shape skipped, so the register arrays keep constant
+// indices (the compiler spills what does not fit; the values are the
+// exact instance's, only slower).
+template <typename T, int N, int DR, int DL, bool EXACT, bool ACCUM, bool CAM, bool TABLE>
 __global__ void __launch_bounds__(warps_per_block<T>() * 32)
     assemble_kernel(const AsmArgs<T> a) {
-  constexpr int NP = DR * (DR + 1) / 2;
-  constexpr int NAB = NP + DR;
-  constexpr int NW = DL * DR;
   constexpr int NH = DL * (DL + 1) / 2;
-  // Odd row stride: lanes writing their own rows hit distinct banks.
-  constexpr int BUF = ((CAM && NAB > NW) ? NAB : NW) | 1;
-  constexpr int WARPS = warps_per_block<T>();
-  __shared__ T buf[WARPS][32][BUF];
-  __shared__ long long dst[WARPS][32];  // W: block offset; camera: row; -1 none
-  __shared__ int rep[WARPS][32];        // W: the slot repeats a camera
+  const int n = EXACT ? N : a.n;
+  const int dr = EXACT ? DR : a.dr;
+  const int dl = EXACT ? DL : a.dl;
+  const int np = dr * (dr + 1) / 2;
+  const int nab = np + dr;
+  const int nw = dl * dr;
+  const int buf_row = staging_row(dr, dl, CAM);
+  const int warps = blockDim.x >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Per warp: dst (W: block offset; camera: row; -1 none), rep (W: the
+  // slot repeats a camera), then 32 staged rows.
+  long long* dst_all = reinterpret_cast<long long*>(smem);
+  int* rep_all = reinterpret_cast<int*>(dst_all + warps * 32);
+  T* buf_all = reinterpret_cast<T*>(rep_all + warps * 32);
   const int wib = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int warp = blockIdx.x * WARPS + wib;
+  long long* dst = dst_all + wib * 32;
+  int* rep = rep_all + wib * 32;
+  T* buf = buf_all + static_cast<long long>(wib) * 32 * buf_row;
+  const int warp = blockIdx.x * warps + wib;
   int l_first, n_l, lg2;
   if constexpr (TABLE) {
     if (warp >= a.n_work) return;
@@ -138,12 +188,12 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
     if (l_first >= a.L) return;
     n_l = min(32 >> lg2, a.L - l_first);
   }
-  const long long wc = static_cast<long long>(a.n_r) * DR;
+  const long long wc = static_cast<long long>(a.n_r) * dr;
   if constexpr (!TABLE) {
     // B1/B8 write W whole: the warp zeroes its landmarks' rows (contiguous)
     // before any block lands in them.
-    T* rows0 = a.w + static_cast<long long>(l_first) * DL * wc;
-    const long long n_zero = static_cast<long long>(n_l) * DL * wc;
+    T* rows0 = a.w + static_cast<long long>(l_first) * dl * wc;
+    const long long n_zero = static_cast<long long>(n_l) * dl * wc;
     for (long long i = lane; i < n_zero; i += 32) rows0[i] = T(0);
     __syncwarp();
   }
@@ -209,28 +259,37 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
       v = a.vc[o];
 #pragma unroll
       for (int d = 0; d < DL; ++d) {
-        const int row = a.e_start + d;
-        ge[d] = a.g0[og + row * a.gss];
+        if (d < dl) {
+          const int row = a.e_start + d;
+          ge[d] = a.g0[og + row * a.gss];
 #pragma unroll
-        for (int ni = 0; ni < N; ++ni) je[ni][d] = a.jac[o + ni * a.jsn + row * a.jss];
+          for (int ni = 0; ni < N; ++ni)
+            if (ni < n) je[ni][d] = a.jac[o + ni * a.jsn + row * a.jss];
+        }
       }
 #pragma unroll
       for (int p = 0; p < DR; ++p) {
-        const int row = p < a.e_start ? p : p + DL;
-        gr[p] = a.g0[og + row * a.gss];
+        if (p < dr) {
+          const int row = p < a.e_start ? p : p + dl;
+          gr[p] = a.g0[og + row * a.gss];
 #pragma unroll
-        for (int ni = 0; ni < N; ++ni) jr[ni][p] = a.jac[o + ni * a.jsn + row * a.jss];
+          for (int ni = 0; ni < N; ++ni)
+            if (ni < n) jr[ni][p] = a.jac[o + ni * a.jsn + row * a.jss];
+        }
       }
       int idx = 0;
 #pragma unroll
       for (int e1 = 0; e1 < DL; ++e1) {
-        g[e1] += ge[e1] * dd1;
+        if (e1 < dl) g[e1] += ge[e1] * dd1;
 #pragma unroll
         for (int e2 = e1; e2 < DL; ++e2) {
-          T jj = T(0);
+          if (e2 < dl) {
+            T jj = T(0);
 #pragma unroll
-          for (int ni = 0; ni < N; ++ni) jj += je[ni][e1] * je[ni][e2];
-          h[idx] += jj * dd1 + dd2 * ge[e1] * ge[e2];
+            for (int ni = 0; ni < N; ++ni)
+              if (ni < n) jj += je[ni][e1] * je[ni][e2];
+            h[idx] += jj * dd1 + dd2 * ge[e1] * ge[e2];
+          }
           ++idx;
         }
       }
@@ -249,28 +308,34 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
       }
     }
     if (wv) {
+      T* row = buf + lane * buf_row;
 #pragma unroll
       for (int d = 0; d < DL; ++d) {
 #pragma unroll
         for (int p = 0; p < DR; ++p) {
-          T jj = T(0);
+          if (d < dl && p < dr) {
+            T jj = T(0);
 #pragma unroll
-          for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * je[ni][d];
-          buf[wib][lane][d * DR + p] = jj * dd1 + dd2 * gr[p] * ge[d];
+            for (int ni = 0; ni < N; ++ni)
+              if (ni < n) jj += jr[ni][p] * je[ni][d];
+            row[d * dr + p] = jj * dd1 + dd2 * gr[p] * ge[d];
+          }
         }
       }
     }
-    dst[wib][lane] = wv ? (static_cast<long long>(l) * DL * wc + static_cast<long long>(v) * DR) : -1;
-    rep[wib][lane] = repeat;
+    dst[lane] = wv ? (static_cast<long long>(l) * dl * wc + static_cast<long long>(v) * dr) : -1;
+    rep[lane] = repeat;
     __syncwarp();
-    if (lane < NW) {
-      const long long off = (lane / DR) * wc + lane % DR;
+    // Entry i of every block is written by lane i % 32, so a repeated
+    // camera's slot adds after the slot that stored the block.
+    for (int i = lane; i < nw; i += 32) {
+      const long long off = (i / dr) * wc + i % dr;
       for (int src = 0; src < 32; ++src) {
-        const long long base = dst[wib][src];
+        const long long base = dst[src];
         if (base < 0) continue;
         T* dp = a.w + base + off;
-        const T val = buf[wib][src][lane];
-        if (rep[wib][src]) {
+        const T val = buf[src * buf_row + i];
+        if (rep[src]) {
           *dp += val;
         } else {
           *dp = val;
@@ -282,28 +347,33 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
       const int cp = has ? a.cpos[o] : -1;
       const bool cv = cp >= 0 && cp < a.n_rows;
       if (cv) {
+        T* row = buf + lane * buf_row;
         int idx = 0;
 #pragma unroll
         for (int p = 0; p < DR; ++p) {
 #pragma unroll
           for (int q = p; q < DR; ++q) {
-            T jj = T(0);
+            if (q < dr) {
+              T jj = T(0);
 #pragma unroll
-            for (int ni = 0; ni < N; ++ni) jj += jr[ni][p] * jr[ni][q];
-            buf[wib][lane][idx] = jj * dd1 + dd2 * gr[p] * gr[q];
-            ++idx;
+              for (int ni = 0; ni < N; ++ni)
+                if (ni < n) jj += jr[ni][p] * jr[ni][q];
+              row[idx] = jj * dd1 + dd2 * gr[p] * gr[q];
+              ++idx;
+            }
           }
         }
 #pragma unroll
-        for (int p = 0; p < DR; ++p) buf[wib][lane][NP + p] = gr[p] * dd1;
+        for (int p = 0; p < DR; ++p)
+          if (p < dr) row[np + p] = gr[p] * dd1;
       }
-      dst[wib][lane] = cv ? cp : -1;
+      dst[lane] = cv ? cp : -1;
       __syncwarp();
       for (int src = 0; src < 32; ++src) {
-        const long long row = dst[wib][src];
-        if (row < 0) continue;
-        T* rp = a.rows + row * NAB;
-        for (int i = lane; i < NAB; i += 32) rp[i] = buf[wib][src][i];
+        const long long rw = dst[src];
+        if (rw < 0) continue;
+        T* rp = a.rows + rw * nab;
+        for (int i = lane; i < nab; i += 32) rp[i] = buf[src * buf_row + i];
       }
       __syncwarp();
     }
@@ -321,33 +391,50 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
     int idx = 0;
 #pragma unroll
     for (int e1 = 0; e1 < DL; ++e1) {
-      const long long ig = e1 * lt + l;
-      a.g_l[ig] = ACCUM ? a.g_l[ig] + g[e1] : g[e1];
+      if (e1 < dl) {
+        const long long ig = e1 * lt + l;
+        a.g_l[ig] = ACCUM ? a.g_l[ig] + g[e1] : g[e1];
+      }
 #pragma unroll
       for (int e2 = e1; e2 < DL; ++e2) {
-        const long long i12 = (e1 * DL + e2) * lt + l;
-        const T hv = ACCUM ? a.h_ll[i12] + h[idx] : h[idx];
-        a.h_ll[i12] = hv;
-        a.h_ll[(e2 * DL + e1) * lt + l] = hv;
+        if (e2 < dl) {
+          const long long i12 = (e1 * dl + e2) * lt + l;
+          const T hv = ACCUM ? a.h_ll[i12] + h[idx] : h[idx];
+          a.h_ll[i12] = hv;
+          a.h_ll[(e2 * dl + e1) * lt + l] = hv;
+        }
         ++idx;
       }
     }
   }
 }
 
+// One launch over n_warps warp items: the unrolled instance of the two
+// hot shapes (the pinhole and the Snavely camera with a point), else the
+// any-shape instance within the caps (n <= kMaxN, dr_s <= kMaxDr, dl <=
+// kMaxDl), with as many warps a block as fit kSmemCap.
 template <typename T, bool ACCUM, bool CAM, bool TABLE>
-int launch(const AsmArgs<T>& args, int n, int s, int dr_s, int dl, int n_warps,
-           void* stream) {
-  if (n_warps <= 0) return 0;
-  constexpr int W = warps_per_block<T>();
-  const int blocks = (n_warps + W - 1) / W;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n == 2 && dr_s == 6 && dl == 3 && s == 9) {
-    assemble_kernel<T, 2, 6, 3, ACCUM, CAM, TABLE><<<blocks, W * 32, 0, st>>>(args);
-  } else if (n == 2 && dr_s == 9 && dl == 3 && s == 12) {
-    assemble_kernel<T, 2, 9, 3, ACCUM, CAM, TABLE><<<blocks, W * 32, 0, st>>>(args);
-  } else {
+int launch(AsmArgs<T>& args, int n, int s, int dr_s, int dl, int n_warps, void* stream) {
+  if (n < 1 || n > kMaxN || dr_s < 1 || dr_s > kMaxDr || dl < 1 || dl > kMaxDl ||
+      s != dr_s + dl)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_warps <= 0) return 0;
+  args.n = n;
+  args.dr = dr_s;
+  args.dl = dl;
+  const int per_warp = staging_bytes<T>(staging_row(dr_s, dl, CAM));
+  int warps = warps_per_block<T>();
+  while (warps > 1 && warps * per_warp > kSmemCap) --warps;
+  const int blocks = (n_warps + warps - 1) / warps;
+  const size_t smem = static_cast<size_t>(warps) * per_warp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 2 && dr_s == 6 && dl == 3) {
+    assemble_kernel<T, 2, 6, 3, true, ACCUM, CAM, TABLE><<<blocks, warps * 32, smem, st>>>(args);
+  } else if (n == 2 && dr_s == 9 && dl == 3) {
+    assemble_kernel<T, 2, 9, 3, true, ACCUM, CAM, TABLE><<<blocks, warps * 32, smem, st>>>(args);
+  } else {
+    assemble_kernel<T, kMaxN, kMaxDr, kMaxDl, false, ACCUM, CAM, TABLE>
+        <<<blocks, warps * 32, smem, st>>>(args);
   }
   return static_cast<int>(cudaGetLastError());
 }

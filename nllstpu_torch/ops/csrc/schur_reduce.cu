@@ -7,7 +7,9 @@
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body _kernel_lm) and B5
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel).  B3 and B4
 // reduce the obs-major assemblies' W, B3 forming the damped inverses itself
-// (float32, dl <= 3), B4 over inverses formed outside (float64, or dl > 3);
+// (float32, dl <= 3), B4 over inverses formed outside (float64, or dl > 3,
+// up to kMaxDl = 16: dl <= 6 unrolled, 7..16 through one instance whose
+// loops over dl run at run time);
 // B5 reduces the generic assembly's W (the adaptive kernel's batch) over
 // inverses formed outside.  B4 and B5 are the same instance (EXTERNAL).
 // The TPU kernels' components-major W, bf16x3 products and landmark
@@ -69,6 +71,9 @@
 namespace {
 
 constexpr int kMaxWidth = 16;  // widest column block
+constexpr int kMaxDl = 16;     // widest landmark block of B4 and B5
+constexpr int kUnrolledDl = 6;  // widest landmark block of an unrolled instance
+constexpr int kSmemCap = 48 * 1024;  // shared memory of a block without an opt-in
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kIncThreads = 128;  // incidence_kernel
 constexpr int kIncBlock = 32;     // incidences per incidence_kernel block
@@ -344,6 +349,142 @@ __global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_kernel(
   }
 }
 
+// incidence_kernel's external instance for any dl up to kMaxDl (B4 and
+// B5 past the unrolled dl <= kUnrolledDl): per_block incidences a block,
+// as many as fit kSmemCap of dynamic shared memory (their inverses and W
+// blocks), every loop over dl at run time.  The same entries as the
+// unrolled instance, in the same order.
+template <typename T, bool UNIFORM>
+__global__ void __launch_bounds__(kIncThreads) incidence_any_kernel(
+    const T* __restrict__ w, const T* __restrict__ h_in, const int* __restrict__ lmk,
+    const int* __restrict__ blk, const int* __restrict__ bcol, const int* __restrict__ bwidth,
+    T* __restrict__ yc, T* __restrict__ wb, int L, int dl, int wc, int mw, int bs, int n_inc,
+    int per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dd = dl * dl;
+  const int per = dl * mw;
+  T* hs = reinterpret_cast<T*>(smem);  // [per_block][dl * dl]
+  T* ws = hs + per_block * dd;         // [per_block][dl * mw]
+  const int s0 = blockIdx.x * per_block;
+  const int n = min(per_block, n_inc - s0);
+  const int t = threadIdx.x;
+  for (int q = t; q < n * dd; q += kIncThreads) {
+    const int sl = q / dd;
+    hs[q] = h_in[static_cast<size_t>(q - sl * dd) * L + lmk[s0 + sl]];
+  }
+  for (int q = t; q < n * per; q += kIncThreads) {
+    const int sl = q / per;
+    const int r = q - sl * per;
+    const int s = s0 + sl;
+    const int b = blk[s];
+    if (b < 0) continue;
+    const int width = UNIFORM ? mw : bwidth[b];
+    if (r >= dl * width) continue;
+    const int d = r / width;
+    const int col = UNIFORM ? b * mw : bcol[b];
+    const T v = w[(static_cast<size_t>(lmk[s]) * dl + d) * wc + col + (r - d * width)];
+    ws[q] = v;
+    wb[static_cast<size_t>(s) * bs + r] = v;
+  }
+  __syncthreads();
+  for (int q = t; q < n * per; q += kIncThreads) {
+    const int sl = q / per;
+    const int b = blk[s0 + sl];
+    if (b < 0) continue;
+    const int width = UNIFORM ? mw : bwidth[b];
+    const int r = q - sl * per;
+    if (r >= dl * width) continue;
+    const int c = r / dl;
+    const int e = r - c * dl;
+    T y = T(0);
+    for (int d = 0; d < dl; ++d) y += hs[sl * dd + e * dl + d] * ws[sl * per + d * width + c];
+    yc[static_cast<size_t>(s0 + sl) * bs + r] = y;
+  }
+}
+
+// reduce_links_kernel for any dl up to kMaxDl and any block widths: lane
+// a of a group holds Y_l[:, a] in registers (unrolled to kMaxDl, the rows
+// past dl skipped) and reads each link's W block from the compact array,
+// one link at a time; the groups' partials added in group order, as
+// there.
+template <typename T>
+__global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_any_kernel(
+    const T* __restrict__ yc, const T* __restrict__ wb, const T* __restrict__ g_l,
+    const int* __restrict__ lmk, const int* __restrict__ bwidth,
+    const int* __restrict__ items, const int* __restrict__ pairs,
+    const int* __restrict__ links, T* __restrict__ part, double* __restrict__ rpart, int L,
+    int dl, int mw, int bs, int n_items) {
+  __shared__ int2 ls[kLinkWarps][kLinkChunk];
+  const int warp = threadIdx.x >> 5;
+  const int it = blockIdx.x * kLinkWarps + warp;
+  if (it >= n_items) return;
+  const int lane = threadIdx.x & 31;
+  const int pr = items[3 * it];
+  const int p0 = items[3 * it + 1];
+  const int n = items[3 * it + 2] - p0;
+  const int bi = pairs[2 * pr], bj = pairs[2 * pr + 1];
+  const int wi = bwidth[bi];
+  const int wj = bwidth[bj];
+  const bool diag = bi == bj;
+  const int2* lk = reinterpret_cast<const int2*>(links) + p0;
+  for (int k = lane; k < n; k += 32) ls[warp][k] = lk[k];
+  __syncwarp();
+  const int groups = 32 / wi;
+  const int grp = lane / wi;
+  const int a = lane - grp * wi;
+  T acc[kMaxWidth];
+#pragma unroll
+  for (int c = 0; c < kMaxWidth; ++c) acc[c] = T(0);
+  double racc = 0.0;
+  if (grp < groups) {
+    for (int k = grp; k < n; k += groups) {
+      const int2 l0 = ls[warp][k];
+      T y0[kMaxDl];
+#pragma unroll
+      for (int e = 0; e < kMaxDl; ++e)
+        y0[e] = e < dl ? yc[static_cast<size_t>(l0.x) * bs + a * dl + e] : T(0);
+      const T* wp = wb + static_cast<size_t>(l0.y) * bs;
+#pragma unroll
+      for (int c = 0; c < kMaxWidth; ++c) {
+        if (c < wj) {
+          T t = T(0);
+#pragma unroll
+          for (int e = 0; e < kMaxDl; ++e)
+            if (e < dl) t += y0[e] * __ldg(wp + e * wj + c);
+          acc[c] += t;
+        }
+      }
+      if (diag) {
+        const long long l = lmk[l0.x];
+#pragma unroll
+        for (int e = 0; e < kMaxDl; ++e)
+          if (e < dl)
+            racc += static_cast<double>(y0[e]) *
+                    static_cast<double>(g_l[e * static_cast<long long>(L) + l]);
+      }
+    }
+  }
+  for (int g = 1; g < groups; ++g) {
+    const int src = g * wi + a;
+#pragma unroll
+    for (int c = 0; c < kMaxWidth; ++c) {
+      if (c < wj) {
+        const T v = __shfl_sync(kFullMask, acc[c], src & 31);
+        if (grp == 0) acc[c] += v;
+      }
+    }
+    const double r = __shfl_sync(kFullMask, racc, src & 31);
+    if (grp == 0) racc += r;
+  }
+  if (grp == 0) {
+    T* out = part + static_cast<long long>(it) * mw * mw + a * wj;
+#pragma unroll
+    for (int c = 0; c < kMaxWidth; ++c)
+      if (c < wj) out[c] = acc[c];
+    if (diag) rpart[static_cast<long long>(it) * mw + a] = racc;
+  }
+}
+
 // One thread per entry (a, c) of every block pair i <= j (mw x mw slots,
 // the first w_i x w_j used): the pair's item partials in item order,
 // written at (i, j) and (j, i); on a diagonal block only the owner of the
@@ -394,7 +535,7 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
                        void* part, void* rpart, void* s_sum, void* rhs, void* h_inv, int l,
                        int dl, int wc, int mw, int bs, int n_inc, int n_items, int n_pairs,
                        int uniform, void* stream) {
-  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? 6 : 3) ||
+  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? kMaxDl : 3) ||
       (!EXTERNAL && lam == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -420,7 +561,23 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
   } else {                        \
     NLLSTPU_INC_U(D, false);      \
   }
-  if (n_inc > 0) {
+  const bool any_dl = dl > kUnrolledDl;
+  if (n_inc > 0 && any_dl) {
+    if constexpr (EXTERNAL) {
+      const int per_inc = (dl * dl + dl * mw) * static_cast<int>(sizeof(T));
+      const int per_block = kSmemCap / per_inc < kIncBlock ? kSmemCap / per_inc : kIncBlock;
+      const unsigned blocks = static_cast<unsigned>((n_inc + per_block - 1) / per_block);
+      const size_t smem = static_cast<size_t>(per_block) * per_inc;
+      if (uniform)
+        incidence_any_kernel<T, true><<<blocks, kIncThreads, smem, st>>>(
+            w_t, h_t, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, l, dl, wc,
+            mw, bs, n_inc, per_block);
+      else
+        incidence_any_kernel<T, false><<<blocks, kIncThreads, smem, st>>>(
+            w_t, h_t, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, l, dl, wc,
+            mw, bs, n_inc, per_block);
+    }
+  } else if (n_inc > 0) {
     switch (dl) {
       case 1: NLLSTPU_INC(1); break;
       case 2: NLLSTPU_INC(2); break;
@@ -445,7 +602,10 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
 #define NLLSTPU_LINKS(D, WID, U)                                                 \
   reduce_links_kernel<T, D, WID, U><<<link_blocks, kLinkWarps * 32, 0, st>>>(   \
       yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, mw, bs, n_items)
-  if (n_items > 0) {
+  if (n_items > 0 && any_dl) {
+    reduce_links_any_kernel<T><<<link_blocks, kLinkWarps * 32, 0, st>>>(
+        yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, dl, mw, bs, n_items);
+  } else if (n_items > 0) {
     if (dl == 3 && mw == 6 && uniform) {
       NLLSTPU_LINKS(3, 6, true);
     } else if (dl == 3 && mw == 6) {

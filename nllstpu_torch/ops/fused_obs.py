@@ -46,6 +46,18 @@ layout, which existed for Mosaic's tiling.  On CUDA tensors the wrappers
 launch the hand-written kernels (``csrc/fused_obs.cu``: a landmark's slots
 spread over a group of lanes, every sum in a fixed order); on CPU tensors
 they run the plain PyTorch versions, which take the same two stages.
+
+Shapes: the JAX kernels take any (n residual rows, dr_s, dl); the CUDA
+source takes any shape within the caps of :func:`kernel_takes` (n ≤ 4,
+dr_s ≤ 16, dl ≤ 6): two instances unrolled for the hot shapes (2, 6, 3)
+and (2, 9, 3), and one for every other shape, unrolled to the caps with
+the entries past the shape skipped.  One instance was chosen over one per
+shape compiled at first use because the library then stays one build of
+fixed sources (its cold build is set-up time, ``Result.time_init``), and
+no new shape compiles inside a timed run or a CUDA graph capture; the cost
+is speed at the other shapes (registers spill), not their values.  The
+route (``ops/schur.py:route_batches``) asks :func:`kernel_takes` at
+compile time and sends any other batch to the generic route.
 """
 
 from __future__ import annotations
@@ -57,8 +69,9 @@ import torch
 
 from . import _build, segment_sum
 
-#: (n residual rows, dr_s, dl) instantiated in csrc/fused_obs.cu.
-CUDA_SHAPES = ((2, 6, 3), (2, 9, 3))
+#: The CUDA source's caps (``kMaxN``, ``kMaxDr``, ``kMaxDl``): residual
+#: rows, camera dof and landmark dof of the any-shape instance.
+MAX_ROWS, MAX_DR, MAX_DL = 4, 16, 6
 #: Widest lane group of one landmark in B2's work list (a warp).
 GROUP_MAX = 32
 
@@ -256,14 +269,24 @@ def fused_obs_leg_reference(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int,
     return _tile_plain(jac, g0, d1m, d2m, vc, None, n_r, dr_s, dl, e_start, 0)[:3]
 
 
+def kernel_takes(n: int, dr_s: int, dl: int, dtype) -> bool:
+    """Whether kernels B1, B2 and B8 take a batch of ``n`` residual rows,
+    ``dr_s`` camera and ``dl`` landmark dof in ``dtype``: the host's copy
+    of the CUDA source's caps, asked by the route at compile time on every
+    device."""
+    return (dtype in (torch.float32, torch.float64) and 1 <= n <= MAX_ROWS
+            and 1 <= dr_s <= MAX_DR and 1 <= dl <= MAX_DL)
+
+
 def _check_shape(name, n, s, dr_s, dl, dtype):
-    if (n, dr_s, dl) not in CUDA_SHAPES or s != dr_s + dl:
-        raise ValueError(
-            f"{name}: no kernel instance for n={n}, dr_s={dr_s}, dl={dl}"
-            f" (have {CUDA_SHAPES})"
-        )
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: unsupported dtype {dtype}")
+    if not kernel_takes(n, dr_s, dl, dtype) or s != dr_s + dl:
+        raise ValueError(
+            f"{name}: n={n}, dr_s={dr_s}, dl={dl}, S={s} is outside the kernels' caps"
+            f" (n ≤ {MAX_ROWS}, dr_s ≤ {MAX_DR}, dl ≤ {MAX_DL}, S = dr_s + dl); the"
+            " compile sends such a batch to the generic route"
+        )
 
 
 def _check_small(name, ref, tensors, shape):
@@ -287,7 +310,7 @@ def _tile_inputs(name, jac, g0, d1m, d2m, vc, dr_s, dl, cpos=None):
     out = [jac, g0, d1m, d2m, vc] if cpos is None else [jac, g0, d1m, d2m, vc, cpos]
     dt, dev = jac.dtype, jac.device
     if not (
-        (n, dr_s, dl) in CUDA_SHAPES and s == dr_s + dl and dt in (torch.float32, torch.float64)
+        kernel_takes(n, dr_s, dl, dt) and s == dr_s + dl
         and g0.shape == (s, k, L) and g0.dtype == dt and g0.device == dev
         and d1m.dtype == dt and d2m.dtype == dt and vc.dtype == torch.int32
         and (cpos is None or cpos.dtype == torch.int32)

@@ -242,19 +242,42 @@ def obs_major_repack(batch, info: "SchurInfo"):
     return _apply_take(batch, take, newmask), tuple(buckets)
 
 
-def route_batches(batches, info: "SchurInfo", layout):
+def residual_rows(batch) -> int:
+    """Residual rows of a components-major batch without an adaptive
+    kernel (the JAX package's ``_batch_nres``): its residual on one column
+    of meta tensors (shapes only, no arithmetic), or on one column of ones
+    on the CPU where an operation of the residual has no meta kernel."""
+    params = None if batch.params is None else np.asarray(batch.params)[:1]
+
+    def rows_on(dev):
+        vals = [torch.ones(int(np.prod(m.shape, dtype=np.int64)), 1, dtype=torch.float64,
+                           device=dev) for m in batch.manifolds]
+        p = None if params is None else torch.as_tensor(params, dtype=torch.float64).to(dev)
+        return int(torch.atleast_2d(batch.fn(p, *vals)).shape[0])
+
+    try:
+        return rows_on("meta")
+    except (NotImplementedError, RuntimeError):
+        return rows_on("cpu")
+
+
+def route_batches(batches, info: "SchurInfo", layout, dtype):
     """The direct solve's route and batch order, decided as the JAX
     package's ``_w_pm_data`` decides its p-major route.  The obs-major
     route (kernels B1/B2, or B8 on the dual-sorted route) is taken when
     exactly one batch produces W (more than one slot, one of them
     eliminated), that batch is a two-slot components-major batch without
-    an adaptive kernel whose :func:`obs_major_repack` qualifies, and its
-    camera family's unfixed variables are the whole reduced space; point
-    priors and pure-reduced batches (camera priors, pose-graph edges)
-    ride along on the generic sums.  Anything else takes the generic
-    route, every batch sorted by landmark (:func:`sort_for_implicit`).
-    Returns ``(batches, buckets_per_batch, route)``: ``route`` the index of
-    the obs-major batch or None, ``buckets`` None for every other batch."""
+    an adaptive kernel whose :func:`obs_major_repack` qualifies, its
+    camera family's unfixed variables are the whole reduced space, and
+    kernels B1, B2 and B8 take its shape (residual rows, camera dof,
+    landmark dof) in ``dtype`` (:func:`fused_obs.kernel_takes`, asked on
+    every device, so that a CPU compile records the route a card compile
+    takes); point priors and pure-reduced batches (camera priors,
+    pose-graph edges) ride along on the generic sums.  Anything else takes
+    the generic route, every batch sorted by landmark
+    (:func:`sort_for_implicit`).  Returns ``(batches, buckets_per_batch,
+    route)``: ``route`` the index of the obs-major batch or None,
+    ``buckets`` None for every other batch."""
     sort = [sort_for_implicit(b, info) for b in batches]
     none = [None] * len(batches)
     if info.num_elim == 0 or info.dim_reduced == 0 or any(b.adaptive for b in batches):
@@ -272,6 +295,15 @@ def route_batches(batches, info: "SchurInfo", layout):
     cols = (np.asarray(layout.offsets[rfam])[layout.unfixed[rfam]][:, None]
             + np.arange(rman.dof)).reshape(-1)
     if not np.array_equal(np.sort(cols), np.arange(info.dim_reduced)):
+        return sort, none, None
+    n_res = residual_rows(b)
+    if not fused_obs.kernel_takes(n_res, rman.dof, info.dof_elim, dtype):
+        info.generic_why = (
+            f"kernels B1, B2 and B8 do not take its shape (n={n_res}, dr_s={rman.dof}, "
+            f"dl={info.dof_elim}, {dtype}; they take n ≤ {fused_obs.MAX_ROWS}, dr_s ≤ "
+            f"{fused_obs.MAX_DR}, dl ≤ {fused_obs.MAX_DL}), so the problem takes the generic "
+            "route"
+        )
         return sort, none, None
     nb, bk = obs_major_repack(b, info)
     if nb is None:
@@ -565,6 +597,9 @@ class SchurInfo:
     w_rows: Any = None
     # Host seconds spent building kernel B2's, B3/B4's and B5's tables.
     table_seconds: float = 0.0
+    # Why the coupling batch takes the generic route where that is its
+    # shape (:func:`route_batches`), else "".
+    generic_why: str = ""
     # Implicit: the one coupling part that cluster-Jacobi can take
     # (:func:`_cluster_source`: ``(lid, rvid, n_r, dr_s)`` host arrays),
     # else None; and its plans per cluster size (cluster_plan).
@@ -1015,14 +1050,14 @@ def check_slice(info: SchurInfo, batches) -> None:
         )
     for bi, b in enumerate(batches):
         if len(b.manifolds) > 1 and _elim_slots(b, info):
-            _check_dual_route(bi, info.fast[bi])
+            _check_dual_route(bi, info.fast[bi], info.generic_why)
 
 
-def _check_dual_route(bi: int, f) -> None:
+def _check_dual_route(bi: int, f, generic_why: str = "") -> None:
     """Raise unless batch ``bi`` qualifies for the dual-sorted route: one
     obs-major bucket and a camera repack within the skew limits."""
     if not isinstance(f, _FastBatch):
-        why = "it is not obs-major (the problem takes the generic route)"
+        why = f"it is not obs-major ({generic_why or 'the problem takes the generic route'})"
     elif len(f.buckets) != 1:
         why = f"its layout has {len(f.buckets)} degree buckets"
     elif f.cam_batch is None:
@@ -1622,7 +1657,7 @@ class SchurOps(_SchurSystem):
         if self.pairs is not None:
             h_inv = self.damped_inverse(h_ll, lam)
             s_sum, rhs_sum = self.reduce_external(w, h_inv, g_l, self.pairs)
-        elif w.dtype == torch.float32 and dl <= 3:
+        elif w.dtype == torch.float32 and dl <= schur_reduce.DAMPED_MAX_DL:
             s_sum, rhs_sum, h_inv = self.reduce(w, h_ll, g_l, lam, self.rows)
         else:
             h_inv = self.damped_inverse(h_ll, lam)

@@ -14,7 +14,8 @@ The caller forms S = A_rr + λI − s_sum and rhs = b_r − rhs_sum.
 
 ``reduce_s_lm(w, h_inv, g_l, rows)`` (kernel B4) and ``reduce_s(w,
 h_inv, g_l, pairs)`` (kernel B5) are the same reduction over inverses
-formed outside, for any dl from 1 to 6, and return ``(s_sum, rhs_sum)``.
+formed outside, for any dl from 1 to :data:`MAX_DL` (16), and return
+``(s_sum, rhs_sum)``.
 B3 and B4 take the W of the obs-major assemblies (B1, B2, B8), whose
 landmark rows hold their cameras' blocks only; B5 the generic assembly's
 W, whose rows hold their cameras' blocks and the adaptive kernel's.  One
@@ -49,8 +50,12 @@ LAUNCHES = 0
 EXTERNAL_LAUNCHES = 0
 #: Number of kernel launches made by :func:`reduce_s_lm_cuda` (B4).
 LM_LAUNCHES = 0
-#: Widest landmark block B4 and B5 take.
-MAX_DL = 6
+#: Widest landmark block B4 and B5 take (``kMaxDl`` in the source: dl ≤ 6
+#: unrolled, 7..16 through one instance whose loops over dl run at run
+#: time); a direct Schur compile refuses a wider eliminated family.
+MAX_DL = 16
+#: Widest landmark block B3 takes (its closed-form inverses).
+DAMPED_MAX_DL = 3
 #: Widest column block of the tables (``kMaxWidth`` in the source).
 MAX_WIDTH = 16
 #: Landmarks per item of the tables (``kLinkChunk`` in the source, which
@@ -326,7 +331,7 @@ def reduce_s_damped_cuda(w, h_ll, g_l, lam, rows: RowTables = None):
     reads λ from device memory (:func:`lam_tensor`), so a CUDA graph that
     captured the launch takes the λ written before each replay."""
     global LAUNCHES
-    w, h_ll, g_l = _checked("reduce_s_damped", w, h_ll, g_l, 3)
+    w, h_ll, g_l = _checked("reduce_s_damped", w, h_ll, g_l, DAMPED_MAX_DL)
     if w.dtype != torch.float32:
         raise TypeError("reduce_s_damped: kernel B3 takes float32; a float64 solve forms its "
                         "inverses with SchurOps.damped_inverse and takes B4 (reduce_s_lm)")

@@ -238,7 +238,7 @@ def parallelize(compiled: optimize.CompiledProblem, mesh: Mesh) -> ParallelCompi
             num_elim=info.num_elim, dof_elim=info.dof_elim, elim_ids=info.elim_ids,
             fams=info.fams,
         )
-        rows, buckets, route = schur.route_batches(rows, info, layout)
+        rows, buckets, route = schur.route_batches(rows, info, layout, dtype)
         schur.fill_tables(info, layout, rows, buckets, route)
         schur.upload_tables(info, device, dtype)
     local = optimize.CompiledProblem(

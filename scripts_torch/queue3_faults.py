@@ -1,28 +1,33 @@
-"""The two open port-against-reference cases of ROADMAP Queue 3, measured
-in both packages on the CPU:
+"""Three cases of ROADMAP Queue 3, measured in both packages on the CPU:
 
     JAX_PLATFORMS=cpu python scripts_torch/queue3_faults.py [pcg_leg] [first_leg] [reduced_f32]
 
-``pcg_leg`` (item 1): the float32 implicit dogleg on
-``make_realistic_bal(12, 300, seed=s, noise=1e-3, track_alpha=1.6)``,
-every variable free, ``solver="schur_cg"``, s = 1…5, from the points as
-made and from ``perturb_ba(points, 0.05, seed=5)``; per run and package the
-iterations, the termination bits, whether any cost or step went
-non-finite, the best cost and (port) the PCG iterations of every solve.
+``pcg_leg`` (open item 2, the float32 free-gauge implicit dogleg ending
+higher in the port, and the "Not reproduced" non-finite PCG leg): the
+float32 implicit dogleg on ``make_realistic_bal(12, 300, seed=s,
+noise=1e-3, track_alpha=1.6)``, every variable free, ``solver="schur_cg"``,
+s = 1…5, from the points as made and from ``perturb_ba(points, 0.05,
+seed=5)``; per run and package the iterations, the termination bits,
+whether any cost or step went non-finite, the best cost and (port) the PCG
+iterations of every solve.
 
-``first_leg`` (item 1's cap): both packages' reduced PCG at λ = 0 on the
+``first_leg`` ("Shared with the reference": PCG at λ = 0 on a free gauge
+in float32 runs to the cap): both packages' reduced PCG at λ = 0 on the
 first dogleg leg of the same runs (the start state, the same in both),
 step by step: the iterations to the float32 tolerance 1e-5 (cap 500) and
 |r|/|rhs| along the way.
 
-``reduced_f32`` (item 2): the float32 reduced direct system of
-``tests/test_torch_bal.py::test_float32_reduced_solve_on_gauge_singular_system``
+``reduced_f32`` ("Shared with the reference": the float32 reduced direct
+system singular to float32): the system of
+``tests/test_torch_bal.py::test_float32_reduced_solve_is_equilibrated``
 (chunk-bucket BAL, three float64 LM iterations, then float32, λ = 1e-10 ·
 max diag): the JAX package's float32 step through its own reduction and
 solve (``SchurOps._solve``), the port's, an exact solve of the same
 float32 system (float64 LU of its entries) and the float64 step; for
 each step its distance from the exact float32 solve, its model cost
-change against the float64 step's, and its largest entry's distance."""
+change against the float64 step's, and its largest entry's distance.
+(``scripts_torch/reduced_f32_step.py`` measures the test's own state and
+λ, without the JAX package where it is absent.)"""
 
 import pathlib
 import sys

@@ -224,6 +224,19 @@ def test_bucketed_lm_trace_matches_jax(shape, robust_width):
     assert r_t.best_cost < 1e-3 * r_t.start_cost
 
 
+def _scaled_backward_error(s, rhs, x):
+    """The normwise backward error, in float64, of ``x`` as a solution of
+    the equilibrated system (D S D) y = D rhs, y = D⁻¹ x, D = |diag S|^-½:
+    ‖D(rhs − S x)‖∞ / (‖D S D‖∞ ‖D⁻¹ x‖∞ + ‖D rhs‖∞), the system that
+    ``linearsolver.cholesky_solve`` solves for a float32 S."""
+    s, rhs, x = s.double(), rhs.double(), x.double()
+    d = torch.diagonal(s).abs().rsqrt()
+    res = d * (rhs - s @ x)
+    sd = d[:, None] * s * d[None, :]
+    return float(res.abs().max() / (sd.abs().sum(1).max() * (x / d).abs().max()
+                                    + (d * rhs).abs().max()))
+
+
 def test_float32_reduced_solve_is_equilibrated():
     """After three float64 LM iterations on the chunk-bucket shape, the
     float32 reduced system is indefinite by rounding; the port's solve
@@ -235,14 +248,22 @@ def test_float32_reduced_solve_is_equilibrated():
     scaled system singular to float32, so an exact solve of it is no
     yardstick) is held to the float64 solve of the float64 system: the
     same LM trial (the cost change of its step within 5% of the float64
-    step's, measured 0.08%, same sign) and the step within 0.2 of the
-    float64 step's largest entry (measured 0.014; the difference lies in
-    directions that barely change the cost).  The JAX package's own
-    float32 step on the same state and λ (its float32 reduction and solve)
-    lies farther from the float64 step on both measures (4.6% of the cost
-    change, 4.8 times the largest entry: ``scripts_torch/queue3_faults.py
-    reduced_f32``): the port is held no worse than it."""
-    jp, tp = _pair("chunk bucket")
+    step's, same sign) and the step within 0.2 of the float64 step's
+    largest entry.  On this singular state both packages' float32 steps
+    move with the host's BLAS: the port's cost change measured 1.80% off
+    the float64 step's and the JAX package's 0.85% on one host, where an
+    earlier host gave 0.08% and 4.6% (``scripts_torch/reduced_f32_step.py``),
+    so the two are not compared.  What holds on every host is the solve
+    itself: the reduced part of the port's step has a backward error, as a
+    solution of the equilibrated system the port solves, within √n·ε of
+    float32 (measured 0.17 ε at n = 720), the size that rounding reaches
+    in practice; unscaled LU of the same float32 system, which is
+    backward stable only in the unscaled norm, fails that bound
+    (measured 445 ε)."""
+    args, kw = SHAPES["chunk bucket"]
+    tp, _, tpts = tbal.make_bal_problem(tbal.make_realistic_bal(*args, **kw),
+                                        dtype=torch.float64, device="cpu")
+    perturb_ba(tp, tpts, 0.05, seed=5)
     tc = pt.compile_problem(tp, solver="schur", schur_family=tbal.PT)
     st = run_loop(tc.assemble, tc.cost, tc.ctx(), pt.Options(
         schur_family=tbal.PT, max_iters=3, rel_dcost=0.0, abs_dcost=0.0,
@@ -262,18 +283,19 @@ def test_float32_reduced_solve_is_equilibrated():
     cost0, sys64 = tc.assemble(v)
     ops = tc.ctx().linops
     x64 = ops.solve(sys64, lam)
-    x32 = ops.solve(tuple(t.float() for t in sys64), lam)
+    sys32 = tuple(t.float() for t in sys64)
+    x32 = ops.solve(sys32, lam)
     assert x32.dtype == torch.float32
     d64, d32 = (float(tc.cost(tc.apply(v, x.double())) - cost0) for x in (x64, x32))
     assert d32 * d64 > 0 and abs(d32 - d64) <= 0.05 * abs(d64)
     assert float((x32.double() - x64).abs().max()) <= 0.2 * float(x64.abs().max())
-    jp.set_values({k: t.numpy() for k, t in v.items()})
-    jc = jax_compile(jp, solver="schur", schur_family=jbal.PT)
-    _, sys_j = jax.jit(jc.assemble)(jp.stacked_variables())
-    sys_j32 = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a, sys_j)
-    x_j = jax.jit(jc.ctx(nt.Options()).ops().solve)(sys_j32, jnp.float32(lam))
-    x_j = torch.from_numpy(np.array(x_j, dtype=np.float64))
-    dj = float(tc.cost(tc.apply(v, x_j)) - cost0)
-    assert abs(d32 - d64) <= abs(dj - d64)
-    assert float((x32.double() - x64).abs().max()) <= float((x_j - x64).abs().max())
+    s32, rhs32, _ = ops.reduced(sys32, lam)
+    xr = linearsolver.cholesky_solve(s32, rhs32)
+    n = s32.shape[0]
+    assert torch.equal(x32[:n], xr)  # the step's reduced part is this solve
+    bound = n ** 0.5 * torch.finfo(torch.float32).eps
+    eta = _scaled_backward_error(s32, rhs32, xr)
+    assert eta <= bound, (eta, bound)
+    # A wrong solve fails the criterion: unscaled LU of the float32 system.
+    eta_lu = _scaled_backward_error(s32, rhs32, torch.linalg.solve(s32, rhs32))
+    assert eta_lu > bound, (eta_lu, bound)

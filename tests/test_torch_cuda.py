@@ -39,9 +39,9 @@ def _rel_err(a, b):
     return float((a.double() - b64).abs().max() / b64.abs().max().clamp_min(1e-300))
 
 
-def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype):
-    s = dr_s + 3
-    jac = torch.randn(2, s, K, L, generator=gen, dtype=torch.float64)
+def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype, n=2, dl=3):
+    s = dr_s + dl
+    jac = torch.randn(n, s, K, L, generator=gen, dtype=torch.float64)
     g0 = torch.randn(s, K, L, generator=gen, dtype=torch.float64)
     d1 = torch.rand(K, L, generator=gen, dtype=torch.float64) + 0.05
     d2 = -0.2 * torch.rand(K, L, generator=gen, dtype=torch.float64)
@@ -55,52 +55,81 @@ def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype):
     return [t.to(device=device, dtype=dtype) for t in (jac, g0, d1, d2)] + [vc.to(device)]
 
 
+#: (n, dr_s, dl, e_start, n_r) of the B1, B2 and B8 cases: the unrolled
+#: instances' pinhole camera before and after the landmark and Snavely
+#: camera (n_r = 300: many short camera runs, ~47 slots each); the
+#: any-shape instance at a planar landmark (2, 6, 2), three residual rows
+#: (3, 6, 3) and (3, 9, 3), and at its caps (4, 16, 6), where a block of
+#: float64 takes one warp.
+ASM_SHAPES = [(2, 6, 3, 6, 37), (2, 6, 3, 0, 37), (2, 9, 3, 9, 300), (2, 6, 2, 6, 37),
+              (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize(
-    "dr_s,e_start,n_r",
-    # n_r = 300 at dr_s = 9: many short camera runs (~47 slots each).
-    [(6, 6, 37), (6, 0, 37), (9, 9, 300)],
-)
-def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
+@pytest.mark.parametrize("n,dr_s,dl,e_start,n_r", ASM_SHAPES)
+def test_fused_obs_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_start, n_r):
     gen = torch.Generator().manual_seed(11)
-    inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype)
+    inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype, n, dl)
     inputs += fused_obs.camera_tables(inputs[4], n_r)
     before, before_b6 = fused_obs.LAUNCHES, segment_sum.LAUNCHES
-    out = fused_obs.fused_obs_all(*inputs, n_r, dr_s, 3, e_start)
+    out = fused_obs.fused_obs_all(*inputs, n_r, dr_s, dl, e_start)
     torch.cuda.synchronize()
     assert fused_obs.LAUNCHES == before + 1 and segment_sum.LAUNCHES == before_b6 + 1
     ref = fused_obs.fused_obs_all_reference(
         *[t.double() if t.is_floating_point() else t for t in inputs],
-        n_r, dr_s, 3, e_start,
+        n_r, dr_s, dl, e_start,
     )
     for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
-    again = fused_obs.fused_obs_all(*inputs, n_r, dr_s, 3, e_start)
+    again = fused_obs.fused_obs_all(*inputs, n_r, dr_s, dl, e_start)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-# The pinhole camera before and after the landmark, a Snavely camera.
-@pytest.mark.parametrize("dr_s,e_start,n_r", [(6, 6, 37), (6, 0, 37), (9, 9, 300)])
-def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
+@pytest.mark.parametrize("n,dr_s,dl,e_start,n_r", ASM_SHAPES)
+def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_start, n_r):
     gen = torch.Generator().manual_seed(13)
-    inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype)
+    inputs = _b1_inputs(gen, 14, 1000, n_r, dr_s, cuda, dtype, n, dl)
     before, before_b1 = fused_obs.LEG_LAUNCHES, fused_obs.LAUNCHES
-    out = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, 3, e_start)
+    out = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, dl, e_start)
     torch.cuda.synchronize()
     assert fused_obs.LEG_LAUNCHES == before + 1 and fused_obs.LAUNCHES == before_b1
     ref = fused_obs.fused_obs_leg_reference(
         *[t.double() if t.is_floating_point() else t for t in inputs],
-        n_r, dr_s, 3, e_start,
+        n_r, dr_s, dl, e_start,
     )
     for name, a, b in zip(("h_ll", "g_l", "w"), out, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
-    again = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, 3, e_start)
+    again = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, dl, e_start)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,dr_s,dl", [(2, 6, 2), (3, 9, 3)])
+def test_fused_obs_any_shape_past_one_group(cuda, dtype, tol, n, dr_s, dl):
+    """B1 and B8's any-shape instance at K = 40 (two rounds of a warp, every
+    W block added into the zeroed rows, not found by __match_any_sync), a
+    camera repeated across the rounds."""
+    gen = torch.Generator().manual_seed(19)
+    n_r = 31
+    inputs = _b1_inputs(gen, 40, 300, n_r, dr_s, cuda, dtype, n, dl)
+    inputs[4][35] = inputs[4][2]
+    tables = fused_obs.camera_tables(inputs[4], n_r)
+    out = fused_obs.fused_obs_all(*inputs, *tables, n_r, dr_s, dl, dl)
+    leg = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, dl, dl)
+    ref = fused_obs.fused_obs_all_reference(
+        *[t.double() if t.is_floating_point() else t for t in inputs], *tables,
+        n_r, dr_s, dl, dl,
+    )
+    for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    for name, a, b in zip(("h_ll", "g_l", "w"), leg, ref):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
 
 
 @pytest.mark.cuda
@@ -162,11 +191,13 @@ def _tiles_as_batch(inputs, calls, l_total, n_r, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize(
-    "dr_s,e_start,n_r",
-    # n_r = 300 at dr_s = 9: many short camera runs.
-    [(9, 9, 37), (6, 0, 37), (9, 9, 300)],
+    "n,dr_s,dl,e_start,n_r",
+    # n_r = 300 at dr_s = 9: many short camera runs; the any-shape instance
+    # at (2, 6, 2), (3, 6, 3), (3, 9, 3) and its caps (4, 16, 6).
+    [(2, 9, 3, 9, 37), (2, 6, 3, 0, 37), (2, 9, 3, 9, 300), (2, 6, 2, 6, 37),
+     (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23)],
 )
-def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_r):
+def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_start, n_r):
     """B2 over one batch laid out as a degree-bucketed plan: a chunk bucket
     over the heavy prefix, the class bucket that covers it again, a class
     bucket at an unaligned l_base, and a 64-slot bucket of one landmark
@@ -174,14 +205,14 @@ def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, dr_s, e_start, n_
     camera twice.  h_ll and g_l start non-zero and are added to; W starts
     zero; B6 sums the camera rows.  Twice: the same bits."""
     gen = torch.Generator().manual_seed(13)
-    L, dl = 1000, 3
+    L = 1000
     calls = [(16, 0, 57), (14, 0, 300), (4, 337, 600), (64, 999, 1)]  # (K, l_base, L_b)
     init = [
         torch.randn(shape, generator=gen, dtype=torch.float64)
         for shape in ((dl, dl, L), (dl, L))
     ]
     init[0] = init[0] + init[0].transpose(0, 1)
-    inputs = [_b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype) for K, _, lb in calls]
+    inputs = [_b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype, n, dl) for K, _, lb in calls]
     inputs[3][4][40] = inputs[3][4][3]
     batch, slots, cstarts = _tiles_as_batch(inputs, calls, L, n_r, cuda)
     assert int((slots.slots < 0).sum()) >= 957  # the repeats
@@ -229,13 +260,14 @@ def _row_w(gen, L, dl, n_blocks, width):
 # B3 is float32 only (a float64 solve takes damped_inverse, then B4).
 # The main paths' structures: the pinhole bench (128 cameras of 6), the
 # Snavely BAL widths (128 and 49 cameras of 9); blocks of 8 and 4 through
-# the kernel's any-width instance.
-@pytest.mark.parametrize(
-    "wc,width,lam", [(128, 8, 0.0), (768, 6, 1e-2), (1152, 9, 0.0), (100, 4, 0.5), (441, 9, 1e-2)]
-)
-def test_reduce_s_damped_kernel_matches_plain(cuda, wc, width, lam):
+# the kernel's any-width instance; dl = 2 (the planar path's) and 1.
+@pytest.mark.parametrize("wc,width,lam,dl", [
+    (128, 8, 0.0, 3), (768, 6, 1e-2, 3), (1152, 9, 0.0, 3), (100, 4, 0.5, 3), (441, 9, 1e-2, 3),
+    (768, 6, 1e-2, 2), (128, 8, 0.0, 2), (441, 9, 1e-2, 1), (100, 4, 0.5, 1),
+])
+def test_reduce_s_damped_kernel_matches_plain(cuda, wc, width, lam, dl):
     gen = torch.Generator().manual_seed(5)
-    L, dl, tol = 777, 3, 1e-5
+    L, tol = 777, 1e-5
     w, tables = _row_w(gen, L, dl, wc // width, width)
     a = torch.randn(dl, dl, L, generator=gen, dtype=torch.float64)
     h_ll = torch.einsum("del,fel->dfl", a, a) + 2.0 * torch.eye(dl, dtype=torch.float64)[:, :, None]
@@ -331,10 +363,12 @@ def _structured_w(gen, L, dl, widths, spare, kernel=False):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 # dl = 3 at the adaptive BAL structure (128 cameras of 9 columns and a
 # 3-column kernel block held by every landmark); dl up to 6 over blocks
-# of mixed widths up to the kernel's 16, spare columns between them.
+# of mixed widths up to the kernel's 16, spare columns between them; dl
+# 7 and 16 through the instance whose loops over dl run at run time.
 @pytest.mark.parametrize("dl,widths,spare", [
     (3, [9] * 128 + [3], 0), (5, [4, 16, 1, 9, 9, 7, 2], 3), (1, [1, 2, 3, 5, 8], 2),
     (6, [9] * 40 + [16], 1), (2, [6] * 30, 0), (4, [3] * 60, 5),
+    (7, [4, 16, 1, 9, 9, 7, 2], 3), (16, [9] * 40 + [16], 1),
 ])
 def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
     gen = torch.Generator().manual_seed(dl)
@@ -365,10 +399,11 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 # The gauge-fixed pinhole width (126 cameras of 6) and the pinhole bench's;
 # wc = 1155 as the adaptive BAL width; every dl from 1 to 6, past B3's
-# closed form, over blocks of 4 to 16 columns (the any-width instance).
+# closed form, over blocks of 4 to 16 columns (the any-width instance);
+# dl 7 and 16 through the instance whose loops over dl run at run time.
 @pytest.mark.parametrize("dl,wc,width", [
     (3, 756, 6), (3, 768, 6), (3, 1155, 11), (5, 100, 5), (1, 64, 16), (6, 441, 9), (2, 130, 10),
-    (4, 200, 8),
+    (4, 200, 8), (7, 441, 9), (16, 768, 6), (16, 320, 16),
 ])
 def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc, width):
     gen = torch.Generator().manual_seed(wc)
@@ -506,7 +541,7 @@ def test_kernels_reject_bad_inputs(cuda):
     w = torch.zeros(4, 5, 6, device=cuda)
     with pytest.raises(ValueError):
         schur_reduce.reduce_s_damped(w, torch.zeros(3, 3, 4, device=cuda), torch.zeros(3, 4, device=cuda), 0.0)
-    jac = torch.zeros(3, 9, 2, 4, device=cuda)
+    jac = torch.zeros(5, 9, 2, 4, device=cuda)  # five residual rows: past the caps
     idx = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         fused_obs.fused_obs_all(
@@ -519,10 +554,10 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w[0], torch.zeros(3, device=cuda))
     for reduce in (schur_reduce.reduce_s, schur_reduce.reduce_s_lm):
-        with pytest.raises(ValueError):  # dl = 7
+        with pytest.raises(ValueError, match="dl must be 1..16"):  # dl = 17
             reduce(
-                torch.zeros(4, 7, 6, device=cuda), torch.zeros(7, 7, 4, device=cuda),
-                torch.zeros(7, 4, device=cuda),
+                torch.zeros(4, 17, 6, device=cuda), torch.zeros(17, 17, 4, device=cuda),
+                torch.zeros(17, 4, device=cuda),
             )
     starts = torch.zeros(3, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):  # int64 columns
