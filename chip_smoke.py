@@ -284,9 +284,23 @@ Phases, one line each or more; any failure raises and exits non-zero:
    path's batch and on random values over its observation pattern at (2,
    6, 2) and (3, 6, 3); B3 on the planar system (dl = 2) and a synthetic
    dl = 1 structure; B4 and B5 at dl = 7 and 16 on synthetic structures,
-   through the instance whose loops over dl run at run time.  Each row's
-   launches are those of the main path it names (B5's: the adaptive main
-   path, phase 11).
+   through their tiled instance.  Each row's launches are those of the
+   main path it names (B5's: the adaptive main path, phase 11).
+24. anydl (run right after the shapes phase) — the direct solve past the
+   unrolled dl ≤ 6: trajectory-space NRSfM
+   (``scripts_torch/anydl_reference.py``: 128 frames of 6 dof, 8192 points
+   of K DCT coefficients per axis, dl = 3K, 104,858 observations, W [8192,
+   3K, 768]) through the generic route, each run with the launch counts
+   set to 0 just before and read just after and the plain versions of B4
+   and B5 refused: float32 at K = 3 and 6 (B6, B7, B5; the JAX package's
+   CPU start within 1e-4 and its best cost + 1e-3, ``ANYDL_REF``), float64
+   at K = 6 (the float64 trace gate).  Then B5's tiled instance against
+   its plain version on the float32 paths' own reductions (dl 9 and 18)
+   and a synthetic dl = 33 structure (float64 within 1e-12, float32 within
+   1e-5 of the largest entry, two launches the same bits, s_sum exactly
+   symmetric; timed beside cuBLAS's ``Yᵀ W`` and the structural bound),
+   and B7 on rows past a block's shared memory (a float64 row of 233,280
+   bytes, built in column spans; timed in float64).
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -3814,8 +3828,9 @@ def tile_case(label, floats, ints, n_obs):
 
 def external_case(name, label, inputs, tables, device):
     """B4 (``reduce_s_lm``) or B5 (``reduce_s``) against their plain
-    version on a synthetic W past the unrolled dl (``inputs``: W, the
-    inverses, g_l in float64; ``tables`` its structure, host or uploaded): float64
+    version on a W past the unrolled dl (``inputs``: W, the inverses, g_l
+    in float64, the inverses then laid out as the solve's are; ``tables``
+    its structure, host or uploaded): float64
     within ``TOL_SHAPE_F64`` and float32 within ``TOL_SHAPE_F32`` of the
     largest entry, two launches the same bits, s_sum exactly symmetric;
     the float32 times, the structural bound, the plain version's and
@@ -3827,6 +3842,8 @@ def external_case(name, label, inputs, tables, device):
     kern = getattr(schur_reduce, name)
     plain = schur_reduce.reduce_s_reference
     inputs = [t.to(device) for t in inputs]
+    # The inverses as the solve gives them: landmark-major underneath.
+    inputs[1] = inputs[1].permute(2, 0, 1).contiguous().permute(1, 2, 0)
     f64, f32 = [t.double() for t in inputs], [t.float() for t in inputs]
     ref = plain(*f64)
     out64, out32, again = kern(*f64, tables), kern(*f32, tables), kern(*f32, tables)
@@ -3957,6 +3974,164 @@ def phase_shapes(device, smi):
     return launches, records
 
 
+#: Phase 24's paths (``scripts_torch/anydl_reference.py``: trajectory-space
+#: NRSfM, K DCT-II coefficients per axis, so dl = 3K, at the pinhole bench's
+#: size, through the generic route: B6, B7, the damped inverses, B5's tiled
+#: instance) and the JAX package's CPU references (``JAX_PLATFORMS=cpu
+#: python scripts_torch/anydl_reference.py``): float32 start and best cost
+#: after 30 LM iterations at K = 3 and 6, the float64 trace at K = 6 to
+#: ``rel_dcost=1e-6``.
+NRSFM3 = "NRSfM K=3"
+NRSFM6 = "NRSfM K=6"
+NRSFM6_F64 = "NRSfM K=6 f64"
+ANYDL = {NRSFM3: (3, torch.float32), NRSFM6: (6, torch.float32), NRSFM6_F64: (6, torch.float64)}
+ANYDL_REF = {
+    NRSFM3: dict(start=1792637.0, best=16914.21484375),
+    NRSFM6: dict(start=3533587.25, best=7881.513671875),
+    NRSFM6_F64: dict(start=3533587.0315783885, best=7887.0030997294125,
+                     costs=[9120.30069638757, 7887.0102194808005, 7887.0030997294125]),
+}
+#: Phase 24's B7 case whose float64 row (18·1620·8 = 233,280 bytes) is past
+#: the 232,448 bytes of shared memory a block holds: landmarks, dl, dr_s,
+#: cameras (180 Snavely cameras), observations a landmark.
+B7_SPAN = dict(L=4096, dl=18, dr_s=9, n_r=180, per=13)
+
+
+def anydl_problem(label, device):
+    """Phase 24's ``label`` problem, its points perturbed as the bench's,
+    and its options."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.models.ba import perturb_ba
+    from scripts_torch import anydl_reference
+
+    K, dtype = ANYDL[label]
+    problem, _, points = anydl_reference.build(nt, anydl_data(K), dtype, device)
+    perturb_ba(problem, points, 0.05, seed=5)
+    fam = nt.Euclidean(3 * K)
+    if dtype == torch.float64:
+        opts = nt.Options(solver="schur", schur_family=fam, rel_dcost=1e-6,
+                          max_time=float("inf"))
+    else:
+        opts = dataclasses.replace(bench_options(), schur_family=fam)
+    return problem, opts
+
+
+@functools.lru_cache(maxsize=None)
+def anydl_data(K):
+    from scripts_torch import anydl_reference
+
+    return anydl_reference.full_data(K)
+
+
+@contextlib.contextmanager
+def no_plain_reduction():
+    """Fail when a plain version of B4/B5 runs (the dispatchers on CUDA
+    tensors must launch the kernel)."""
+    from nllstpu_torch.ops import schur_reduce
+
+    real = schur_reduce.reduce_s_reference, schur_reduce.reduce_s_rows_reference
+
+    def refuse(*args):
+        raise AssertionError("a plain version of B4/B5 ran on a main path")
+
+    schur_reduce.reduce_s_reference = schur_reduce.reduce_s_rows_reference = refuse
+    try:
+        yield
+    finally:
+        schur_reduce.reduce_s_reference, schur_reduce.reduce_s_rows_reference = real
+
+
+def b7_span_case(device):
+    """B7 against its plain version where a float64 row is past a block's
+    shared memory (:data:`B7_SPAN`: the row built in column spans), runs
+    of ``per`` costs with repeated cameras and dropped costs; float64 within
+    ``TOL_B57_F64``, float32 (whose row fits) within ``TOL_B57_F32``, two
+    launches the same bits; the float64 times (the span path), the bound,
+    the plain version's and ``index_add_`` into a zeroed W.  Returns the
+    record."""
+    from nllstpu_torch.ops import w_place
+
+    c = B7_SPAN
+    gen = torch.Generator().manual_seed(24)
+    L, dl, dr_s, n_r = c["L"], c["dl"], c["dr_s"], c["n_r"]
+    wc = n_r * dr_s
+    lstarts = (torch.arange(L + 1) * c["per"]).int()
+    n = L * c["per"]
+    colbase = (torch.randint(0, n_r, (n,), generator=gen) * dr_s).int()
+    colbase[::11] = -1
+    colbase[5::13] = wc - dr_s + 1
+    we = torch.randn(n, dl, dr_s, generator=gen, dtype=torch.float64).to(device)
+    lst, cb = lstarts.to(device), colbase.to(device)
+    kern, plain = w_place.place_w, w_place.place_w_reference
+    ref = plain(we, lst, cb, wc)
+    out64, again = kern(we, lst, cb, wc), kern(we, lst, cb, wc)
+    out32 = kern(we.float(), lst, cb, wc)
+    torch.cuda.synchronize()
+    e64 = check("B7 f64 span path", [out64], [ref], TOL_B57_F64)[0]
+    e32 = check("B7 f32 span case", [out32], [ref], TOL_B57_F32)[0]
+    if not torch.equal(out64, again):
+        raise AssertionError("B7 span path: two launches differ")
+    del out32, again
+    keep, idx = w_place.flat_index(lst, cb, dl, dr_s, wc)
+    vals = torch.where(keep, we.reshape(-1), 0)
+    wz = torch.zeros(out64.numel(), dtype=torch.float64, device=device)
+    ms = time_ms(lambda: kern(we, lst, cb, wc))
+    device_ms = graph_ms(lambda: kern(we, lst, cb, wc))
+    plain_ms = time_ms(lambda: plain(we, lst, cb, wc))
+    library_ms = time_ms(lambda: wz.index_add_(0, idx, vals))
+    b = bound(nbytes(we, lst, cb, out64), int(keep.sum()), torch.float64)
+    print(f"B7 span path (float64 row {dl * wc * 8} bytes; B {n}, W {tuple(out64.shape)}): rel "
+          f"err f64 {e64:.2e} f32 {e32:.2e}, deterministic | kernel {ms:.4f} ms (in a CUDA "
+          f"graph {device_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ into a zeroed W "
+          f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return dict(max_abs_err=abs_err(out64, ref), ms=ms, plain_ms=plain_ms, **b,
+                graph_ms=device_ms, library_ms=library_ms)
+
+
+def phase_anydl(device, smi):
+    """Phase 24 (see the module docstring): the NRSfM paths at full width
+    through the generic route and the tiled B5, with no plain reduction;
+    then the tiled instance at dl 9 and 18 (the paths' own reductions) and
+    33 (synthetic) against its plain version, and B7's span path.  Returns
+    the main paths' launch counts and the kernels' records, by kernel and
+    shape (each with ``path``)."""
+    launches = {}
+    needs = ("segment_block_sum", "place_w", "reduce_s")
+    reductions = {}
+    for label in ANYDL:
+        ref = ANYDL_REF[label]
+        problem, opts = anydl_problem(label, device)
+        f64 = ANYDL[label][1] == torch.float64
+        with no_plain_reduction():
+            launches[label], result = phase_main(
+                label, problem, ref["start"], ref["best"], 1e-9 if f64 else 1e-3, needs=needs,
+                never=_never(needs), options=opts)
+        if f64:
+            trace_gate(label, result, ref)
+        else:
+            reductions[label] = recorded_inputs(anydl_problem(label, device)[0], {}, opts)[1]
+        del problem, result
+    print(f"phase 24 main paths | {smi}", flush=True)
+    mark("anydl: main paths")
+    records = collections.defaultdict(dict)
+    for label, (w, h_inv, g_l, pairs) in reductions.items():
+        dl = w.shape[1]
+        records["reduce_s"][f"{label} dl={dl}"] = dict(
+            external_case("reduce_s", f"{label} dl={dl}", (w.double(), h_inv.double(),
+                                                          g_l.double()), pairs, device),
+            path=label)
+    del reductions
+    gen = torch.Generator().manual_seed(24)
+    *inputs, tables = structured_case(gen, 4096, 33, [9] * 40 + [3, 16, 1], 2)
+    records["reduce_s"]["synthetic dl=33"] = dict(
+        external_case("reduce_s", "synthetic dl=33", inputs, tables, device), path=NRSFM6)
+    records["place_w"]["span path dl=18 wc=1620 f64"] = dict(b7_span_case(device),
+                                                             path=NRSFM6_F64)
+    print(f"phase 24 kernels | {smi}", flush=True)
+    mark("anydl: B5, B7")
+    return launches, records
+
+
 def mark(what):
     """Print the seconds since the previous mark: where the run's time
     goes, against its 1,200 s limit."""
@@ -3973,6 +4148,8 @@ def main():
     mark("sharded")
     shapes_launches, shapes = phase_shapes(device, smi)
     mark("shapes")
+    anydl_launches, anydl = phase_anydl(device, smi)
+    mark("anydl")
     b1, bench_sys, cam1 = phase_b1(device)
     b2, bal_systems, cam2 = phase_b2(device)
     b2.update(sharded_b2)
@@ -4118,9 +4295,10 @@ def main():
              {**b3, **shapes["reduce_s_damped"]}),
             ("reduce_s_lm", "schur_reduce.cu", "schur_reduce.py:375",
              {**b4, **shapes["reduce_s_lm"]}),
-            ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568", {**b5, **shapes["reduce_s"]}),
+            ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568",
+             {**b5, **shapes["reduce_s"], **anydl["reduce_s"]}),
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
-            ("place_w", "w_place.cu", "w_place.py:98", b7),
+            ("place_w", "w_place.cu", "w_place.py:98", {**b7, **anydl["place_w"]}),
             ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482",
              {**b8, **shapes["fused_obs_leg"]})]
     # Beside each row, the launches of the later slices' main paths
@@ -4128,10 +4306,11 @@ def main():
     # generic Schur assembly's) that launched the kernel.
     slice_launches = {**iter_launches, **dense_launches, **cg_launches, **generic_launches,
                       **adaptive_launches, **alternation_launches, **sharded_launches,
-                      **shapes_launches}
+                      **shapes_launches, **anydl_launches}
     launches.update(alternation_launches)
     launches.update(sharded_launches)
     launches.update(shapes_launches)
+    launches.update(anydl_launches)
     kernels = [
         dict(name=name, shape=shape, route="cuda", source=src + source,
              replaces="nllstpu/ops/pallas/" + replaces,

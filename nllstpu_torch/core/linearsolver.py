@@ -158,7 +158,9 @@ def batched_inv_spd_cm(h):
     """Inverse of small symmetric blocks stored components-major: ``h`` is
     ``[d, d, n]`` and so is the result.  Closed-form adjugate for d ≤ 3
     (the same cofactor arithmetic as the JAX package), a batched LU
-    inverse beyond."""
+    inverse beyond (``inv_ex``: no check that reads the device, so that a
+    CUDA graph can capture it; a singular block gives non-finite entries,
+    as the JAX package's inverse does)."""
     d = h.shape[0]
     if d == 1:
         return 1.0 / h
@@ -186,7 +188,7 @@ def batched_inv_spd_cm(h):
             ]
         )
         return out * inv_det
-    return torch.linalg.inv(h.permute(2, 0, 1)).permute(1, 2, 0)
+    return torch.linalg.inv_ex(h.permute(2, 0, 1)).inverse.permute(1, 2, 0)
 
 
 def pcg_start(rhs, precond, tol):

@@ -396,12 +396,6 @@ def schur_routes(problem: Problem, schur_family, implicit: bool = False,
         * torch.empty((), dtype=problem.dtype).element_size()
     )
     implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
-    if not implicit and pre.dof_elim > schur_reduce.MAX_DL:
-        raise ValueError(
-            f"the direct Schur solve eliminates blocks of at most {schur_reduce.MAX_DL} dof "
-            f"(kernels B4 and B5, schur_reduce.MAX_DL); {pre.elim_family} has "
-            f"{pre.dof_elim}: solver='schur_cg' takes it"
-        )
     if implicit:
         batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
     else:

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "fused_obs_all_into_f32": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     # B3 (float32 only), B4 and B5 (the external instance): w, h_ll or
-    # h_inv, g_l, lam (B3: a device double; NULL otherwise), the tables
+    # h_inv ([dl, dl, L]; past dl 6 [L, dl, dl]), g_l, lam (B3: a device
+    # double; NULL otherwise), the tables
     # lmk, blk, bcol, bwidth, pairs, links, items, istarts, the scratch yc,
     # wb, part, rpart, s_sum, rhs_sum, h_inv (B3; NULL otherwise), l, dl,
     # wc, widest block, padded block, n_inc, n_items, n_pairs, uniform

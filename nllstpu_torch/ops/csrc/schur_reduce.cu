@@ -7,9 +7,9 @@
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s_lm (body _kernel_lm) and B5
 // nllstpu/ops/pallas/schur_reduce.py:reduce_s (body _kernel).  B3 and B4
 // reduce the obs-major assemblies' W, B3 forming the damped inverses itself
-// (float32, dl <= 3), B4 over inverses formed outside (float64, or dl > 3,
-// up to kMaxDl = 16: dl <= 6 unrolled, 7..16 through one instance whose
-// loops over dl run at run time);
+// (float32, dl <= 3), B4 over inverses formed outside (float64, or dl > 3:
+// dl <= 6 unrolled, any wider dl through the tiled instance below, as the
+// TPU kernels take any dl);
 // B5 reduces the generic assembly's W (the adaptive kernel's batch) over
 // inverses formed outside.  B4 and B5 are the same instance (EXTERNAL).
 // The TPU kernels' components-major W, bf16x3 products and landmark
@@ -64,6 +64,19 @@
 // answers with Y formed once, aligned vector loads of a block that a group
 // of lanes shares, and one write of S; reusing Y_li across a camera row
 // from shared memory is the next step.
+//
+// Past dl = kUnrolledDl the tiled instance (incidence_tiled_kernel,
+// reduce_links_tiled_kernel) takes both passes, with nothing sized by dl:
+// Y from register tiles over panels of H^-1 rows staged in shared memory
+// (H^-1 landmark-major there), and per item the stream of its links' rows
+// through a ring of shared-memory stages that TMA bulk copies fill
+// (cp.async.bulk, completion on an mbarrier per stage), each lane owning a
+// register tile of the pair's block.  What bounds it is the same as
+// above, grown with dl: every link brings its two blocks, dl (w_i + w_j)
+// values, from L2 (627 MB a call on the float32 dl = 18 NRSfM system,
+// where the structural bound reads each block once); the tiles keep the
+// shared-memory reads at TR + TC per TR * TC FMAs, the ring keeps
+// kTiledWarps stages in flight per block.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -71,14 +84,22 @@
 namespace {
 
 constexpr int kMaxWidth = 16;  // widest column block
-constexpr int kMaxDl = 16;     // widest landmark block of B4 and B5
 constexpr int kUnrolledDl = 6;  // widest landmark block of an unrolled instance
-constexpr int kSmemCap = 48 * 1024;  // shared memory of a block without an opt-in
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kIncThreads = 128;  // incidence_kernel
 constexpr int kIncBlock = 32;     // incidences per incidence_kernel block
 constexpr int kLinkWarps = 4;     // reduce_links_kernel
 constexpr int kLinkChunk = 64;    // links per item (schur_reduce.LINK_CHUNK)
+// The tiled instance (dl > kUnrolledDl):
+constexpr int kTiledIncThreads = 128;  // incidence_tiled_kernel
+constexpr int kTiledIncChunk = 32;     // columns of H^-1 a staged chunk
+constexpr int kTiledWarps = 8;         // reduce_links_tiled_kernel
+constexpr int kStages = 2;             // ring depth of its warps
+constexpr int kStageBytes = 4 * 1024;  // one warp's stage
+// The links pass's per-warp tables: links (int2) and landmarks (int).
+constexpr int kLinkTables = kTiledWarps * kLinkChunk * (8 + 4);
+// Bytes past the last ring that a tile over a block's edge may read.
+constexpr int kRingSlack = 32;
 
 // The closed-form inverse of a symmetric DL x DL block, in double: the
 // cofactor arithmetic of core/linearsolver.batched_inv_spd_cm (and of the
@@ -349,76 +370,355 @@ __global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_kernel(
   }
 }
 
-// incidence_kernel's external instance for any dl up to kMaxDl (B4 and
-// B5 past the unrolled dl <= kUnrolledDl): per_block incidences a block,
-// as many as fit kSmemCap of dynamic shared memory (their inverses and W
-// blocks), every loop over dl at run time.  The same entries as the
-// unrolled instance, in the same order.
-template <typename T, bool UNIFORM>
-__global__ void __launch_bounds__(kIncThreads) incidence_any_kernel(
+// The tiled instance of B4 and B5 for any dl past kUnrolledDl: no array
+// is sized by dl, so any dl runs.  Its Y is laid out [e][c] (dl x w_b
+// rows, each block padded to 16 bytes), so that a run of rows e of one
+// block is contiguous in yc and in wb alike.
+//
+// incidence_tiled_kernel: a block takes ib consecutive incidences
+// (blockIdx.x) and one panel of pe rows e of their Y (blockIdx.y).  Its
+// threads own TI x TI tiles (rows e, columns c) of the incidences' Y (TI =
+// 3, or 4 for blocks wider than 9), ib * ceil(pe / TI) * ceil(mw / TI) <=
+// kTiledIncThreads of them.  For each chunk of dc columns d, the block
+// stages in shared memory the panel of H^-1 rows of each of its landmarks
+// (H^-1 landmark-major, [L][dl][dl], so that a row's chunk is one
+// coalesced read) and each incidence's W rows d (the panel-0 blocks also
+// write them to wb); then each thread adds the chunk's products into its
+// tile in d order, 2 TI shared loads for TI^2 FMAs.  A tile past the panel
+// or the block reads on into the staged neighbours or the slack, and its
+// extra sums are not written.  Dynamic shared memory, opted in past 48
+// KB; ib, pe and dc are chosen at launch (launch_incidence_tiled).
+template <typename T, int TI>
+__global__ void __launch_bounds__(kTiledIncThreads) incidence_tiled_kernel(
     const T* __restrict__ w, const T* __restrict__ h_in, const int* __restrict__ lmk,
     const int* __restrict__ blk, const int* __restrict__ bcol, const int* __restrict__ bwidth,
     T* __restrict__ yc, T* __restrict__ wb, int L, int dl, int wc, int mw, int bs, int n_inc,
-    int per_block) {
+    int ib, int pe, int dc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dd = dl * dl;
-  const int per = dl * mw;
-  T* hs = reinterpret_cast<T*>(smem);  // [per_block][dl * dl]
-  T* ws = hs + per_block * dd;         // [per_block][dl * mw]
-  const int s0 = blockIdx.x * per_block;
-  const int n = min(per_block, n_inc - s0);
+  T* hs = reinterpret_cast<T*>(smem);  // [ib][pe][dc]: each landmark's H^-1 panel chunk
+  T* ws = hs + ib * pe * dc;           // [ib][dc][mw]: each incidence's W rows d
+  const int s0 = blockIdx.x * ib;
+  const int n = min(ib, n_inc - s0);
+  const int lf = lmk[s0];
+  const int nlm = lmk[s0 + n - 1] - lf + 1;  // landmarks of the block, consecutive
+  const int e0 = blockIdx.y * pe;
+  const int ne = min(pe, dl - e0);
   const int t = threadIdx.x;
-  for (int q = t; q < n * dd; q += kIncThreads) {
-    const int sl = q / dd;
-    hs[q] = h_in[static_cast<size_t>(q - sl * dd) * L + lmk[s0 + sl]];
+  // This thread's tile: incidence sl, rows ea.., columns ca.. .
+  const int ct = (mw + TI - 1) / TI;
+  const int tpi = (pe + TI - 1) / TI * ct;
+  const int sl = t / tpi;
+  const int tile = t - sl * tpi;
+  const int ea = tile / ct * TI;
+  const int ca = (tile % ct) * TI;
+  int b = -1, width = 0, lm = 0;
+  if (sl < n) {
+    b = blk[s0 + sl];
+    lm = lmk[s0 + sl] - lf;
+    if (b >= 0) width = bwidth[b];
   }
-  for (int q = t; q < n * per; q += kIncThreads) {
-    const int sl = q / per;
-    const int r = q - sl * per;
-    const int s = s0 + sl;
-    const int b = blk[s];
-    if (b < 0) continue;
-    const int width = UNIFORM ? mw : bwidth[b];
-    if (r >= dl * width) continue;
-    const int d = r / width;
-    const int col = UNIFORM ? b * mw : bcol[b];
-    const T v = w[(static_cast<size_t>(lmk[s]) * dl + d) * wc + col + (r - d * width)];
-    ws[q] = v;
-    wb[static_cast<size_t>(s) * bs + r] = v;
+  const bool mine = b >= 0 && ea < ne && ca < width;
+  T acc[TI][TI];
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TI; ++j) acc[i][j] = T(0);
+  for (int d0 = 0; d0 < dl; d0 += dc) {
+    const int nd = min(dc, dl - d0);
+    if (d0 > 0) __syncthreads();  // the previous chunk's products are done
+    for (int q = t; q < nlm * ne * nd; q += kTiledIncThreads) {
+      const int d = q % nd;
+      const int r = q / nd;
+      const int e = r % ne;
+      const int j = r / ne;
+      hs[(j * pe + e) * dc + d] = h_in[(static_cast<size_t>(lf + j) * dl + e0 + e) * dl + d0 + d];
+    }
+    for (int q = t; q < n * mw; q += kTiledIncThreads) {
+      const int sq = q / mw;
+      const int c = q - sq * mw;
+      const int s = s0 + sq;
+      const int bq = blk[s];
+      if (bq < 0) continue;
+      const int wq = bwidth[bq];
+      if (c >= wq) continue;
+      const T* src = w + (static_cast<size_t>(lmk[s]) * dl + d0) * wc + bcol[bq] + c;
+      T* dst = ws + sq * dc * mw + c;
+      T* out = wb + static_cast<size_t>(s) * bs + d0 * wq + c;
+      for (int d = 0; d < nd; ++d) {
+        const T v = src[static_cast<size_t>(d) * wc];
+        dst[d * mw] = v;
+        if (blockIdx.y == 0) out[d * wq] = v;
+      }
+    }
+    __syncthreads();
+    if (mine) {
+      const T* hp = hs + (lm * pe + ea) * dc;
+      const T* wp = ws + sl * dc * mw + ca;
+      for (int d = 0; d < nd; ++d, wp += mw) {
+        T hv[TI], wv[TI];
+#pragma unroll
+        for (int i = 0; i < TI; ++i) hv[i] = hp[i * dc + d];
+#pragma unroll
+        for (int j = 0; j < TI; ++j) wv[j] = wp[j];
+#pragma unroll
+        for (int i = 0; i < TI; ++i)
+#pragma unroll
+          for (int j = 0; j < TI; ++j) acc[i][j] += hv[i] * wv[j];
+      }
+    }
   }
-  __syncthreads();
-  for (int q = t; q < n * per; q += kIncThreads) {
-    const int sl = q / per;
-    const int b = blk[s0 + sl];
-    if (b < 0) continue;
-    const int width = UNIFORM ? mw : bwidth[b];
-    const int r = q - sl * per;
-    if (r >= dl * width) continue;
-    const int c = r / dl;
-    const int e = r - c * dl;
-    T y = T(0);
-    for (int d = 0; d < dl; ++d) y += hs[sl * dd + e * dl + d] * ws[sl * per + d * width + c];
-    yc[static_cast<size_t>(s0 + sl) * bs + r] = y;
+  if (!mine) return;
+  T* out = yc + static_cast<size_t>(s0 + sl) * bs + (e0 + ea) * width + ca;
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TI; ++j)
+      if (ea + i < ne && ca + j < width) out[i * width + j] = acc[i][j];
+}
+
+__device__ __forceinline__ int round_up(int x, int v) { return (x + v - 1) / v * v; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One item of reduce_links_tiled_kernel, by one warp: the item's K stream
+// (its links in order, each link's rows e = 0..dl-1: row e of Y_i [e][a]
+// and of W_j [e][c]) passes through a ring of kStages buffers of
+// stage_elems values, each filled by TMA bulk copies (one per block, lanes
+// in turn) that complete on the stage's mbarrier (lane 0 arms it with the
+// stage's bytes; its phase parity counts the stage's turns): a stage holds
+// whole links when one fits (both blocks padded to 16 bytes), else a chunk
+// of ec rows of one link (ec a multiple of 4, so every copy stays 16-byte
+// aligned).  The
+// pair's w_i x w_j block is cut into tiles of TR x TC entries; lane
+// (group, tile) owns a tile's sums in registers and the groups take the
+// stream's rows in turn (row r to group r mod G), each adding its rows in
+// order; then group 0 adds the others' tiles in group order.  A diagonal
+// item also sums rhs_a += Y[e][a] g_l[e] in double, by the lanes of tile
+// column 0.  The same order on every launch: the same bits.
+template <typename T, int TR, int TC>
+__device__ __forceinline__ void links_item(
+    const T* __restrict__ yc, const T* __restrict__ wb, const T* __restrict__ g_l,
+    const int2* ls, const int* lm, int n, int wi, int wj, bool diag, int dl, int L, int bs,
+    T* ring, int stage_elems, T* __restrict__ out, double* __restrict__ rout, int lane,
+    unsigned long long* bars) {
+  constexpr int V = 16 / sizeof(T);
+  const int tj_n = (wj + TC - 1) / TC;
+  const int tiles = (wi + TR - 1) / TR * tj_n;
+  const int groups = 32 / tiles;
+  const int grp = lane / tiles;
+  const int tile = lane - grp * tiles;
+  const int ti = tile / tj_n;
+  const int tj = tile - ti * tj_n;
+  // The tile's first entry.  A tile past the block's edge reads on into
+  // the next row (or the ring's slack): its extra sums are never written.
+  const int a0 = ti * TR, c0 = tj * TC;
+  // The stage plan: whole links (lps a stage) or chunks of ec rows.
+  const int y_full = round_up(dl * wi, V), w_full = round_up(dl * wj, V);
+  const bool whole = y_full + w_full <= stage_elems;
+  const int lps = whole ? min(n, stage_elems / (y_full + w_full)) : 1;
+  const int ec = whole ? dl : (stage_elems / (wi + wj)) / 4 * 4;
+  const int nch = (dl + ec - 1) / ec;
+  const int n_stages = whole ? (n + lps - 1) / lps : n * nch;
+  auto plan = [&](int k, int& q0, int& nl, int& e0, int& ne) {
+    if (whole) {
+      q0 = k * lps;
+      nl = min(lps, n - q0);
+      e0 = 0;
+      ne = dl;
+    } else {
+      q0 = k / nch;
+      nl = 1;
+      e0 = (k - q0 * nch) * ec;
+      ne = min(ec, dl - e0);
+    }
+  };
+  auto fetch = [&](int k) {
+    int q0, nl, e0, ne;
+    plan(k, q0, nl, e0, ne);
+    const int yst = round_up(ne * wi, V), wst = round_up(ne * wj, V);
+    T* ybuf = ring + (k % kStages) * stage_elems;
+    T* wbuf = ybuf + nl * yst;
+    unsigned long long* bar = bars + k % kStages;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (lane == 0) mbar_expect_tx(bar, static_cast<unsigned>(nl * (yst + wst) * sizeof(T)));
+    for (int x = lane; x < 2 * nl; x += 32) {
+      const int q = x >> 1;
+      const int2 lk = ls[q0 + q];
+      if (x & 1)
+        bulk_copy(wbuf + q * wst, wb + static_cast<size_t>(lk.y) * bs + e0 * wj,
+                  static_cast<unsigned>(wst * sizeof(T)), bar);
+      else
+        bulk_copy(ybuf + q * yst, yc + static_cast<size_t>(lk.x) * bs + e0 * wi,
+                  static_cast<unsigned>(yst * sizeof(T)), bar);
+    }
+  };
+  T acc[TR][TC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = T(0);
+  double racc[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) racc[i] = 0.0;
+  const bool rhs = diag && tj == 0;
+  for (int k = 0; k < kStages - 1 && k < n_stages; ++k) fetch(k);
+  int next = grp;  // this group's next row of the item's stream
+  int base = 0;    // the stream's rows before stage k
+  for (int k = 0; k < n_stages; ++k) {
+    if (k + kStages - 1 < n_stages) fetch(k + kStages - 1);
+    mbar_wait(bars + k % kStages, static_cast<unsigned>((k / kStages) & 1));
+    __syncwarp();
+    int q0, nl, e0, ne;
+    plan(k, q0, nl, e0, ne);
+    const int yst = round_up(ne * wi, V), wst = round_up(ne * wj, V);
+    const T* ybuf = ring + (k % kStages) * stage_elems;
+    const T* wbuf = ybuf + nl * yst;
+    if (grp < groups) {
+      // This group's rows of the stage: the item's stream rows r, r + G,
+      // ... (consecutive groups on consecutive rows, so that their loads
+      // fall in distinct banks), row e of link q at yr and wr.
+      int local = next - base;
+      int q = local / ne, e = local - q * ne;
+      const T* yr = ybuf + q * yst + e * wi + a0;
+      const T* wr = wbuf + q * wst + e * wj + c0;
+      // The row after (q, e) of this group: (q2, e2) at yr2, wr2.
+      auto step = [&](int q1, int e1, const T* y1, const T* w1, int& q2, int& e2,
+                      const T*& y2, const T*& w2) {
+        q2 = q1;
+        e2 = e1 + groups;
+        if (e2 < ne) {
+          y2 = y1 + groups * wi;
+          w2 = w1 + groups * wj;
+        } else {
+          do e2 -= ne, ++q2; while (e2 >= ne);
+          y2 = ybuf + q2 * yst + e2 * wi + a0;
+          w2 = wbuf + q2 * wst + e2 * wj + c0;
+        }
+      };
+      auto add = [&](const T (&yv)[TR], const T (&wv)[TC], int qr, int er) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TC; ++j) acc[i][j] += yv[i] * wv[j];
+        if (rhs) {
+          const double g =
+              static_cast<double>(g_l[static_cast<long long>(e0 + er) * L + lm[q0 + qr]]);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) racc[i] += static_cast<double>(yv[i]) * g;
+        }
+      };
+      // Two rows a turn, both rows' loads before their products.
+      while (q < nl) {
+        int q2, e2;
+        const T *yr2, *wr2;
+        step(q, e, yr, wr, q2, e2, yr2, wr2);
+        const bool two = q2 < nl;
+        T yv[TR], wv[TC], yv2[TR], wv2[TC];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) yv[i] = yr[i];
+#pragma unroll
+        for (int j = 0; j < TC; ++j) wv[j] = wr[j];
+        if (two) {
+#pragma unroll
+          for (int i = 0; i < TR; ++i) yv2[i] = yr2[i];
+#pragma unroll
+          for (int j = 0; j < TC; ++j) wv2[j] = wr2[j];
+        }
+        add(yv, wv, q, e);
+        if (!two) {
+          q = q2, e = e2;
+          break;
+        }
+        add(yv2, wv2, q2, e2);
+        step(q2, e2, yr2, wr2, q, e, yr, wr);
+      }
+      next = base + q * ne + e;
+    }
+    base += nl * ne;
+    __syncwarp();  // the stage is read before the ring refills it
+  }
+  // The groups' tiles, added in group order into group 0.
+  for (int g = 1; g < groups; ++g) {
+    const int src = g * tiles + tile;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const T v = __shfl_sync(kFullMask, acc[i][j], src & 31);
+        if (grp == 0) acc[i][j] += v;
+      }
+      const double r = __shfl_sync(kFullMask, racc[i], src & 31);
+      if (grp == 0) racc[i] += r;
+    }
+  }
+  if (grp != 0) return;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int a = a0 + i;
+    if (a >= wi) continue;
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+      if (c0 + j < wj) out[a * wj + c0 + j] = acc[i][j];
+    if (rhs) rout[a] = racc[i];
   }
 }
 
-// reduce_links_kernel for any dl up to kMaxDl and any block widths: lane
-// a of a group holds Y_l[:, a] in registers (unrolled to kMaxDl, the rows
-// past dl skipped) and reads each link's W block from the compact array,
-// one link at a time; the groups' partials added in group order, as
-// there.
+// reduce_links_kernel's tiled instance for any dl past kUnrolledDl and
+// any block widths: one warp per item (links_item), the item's links (and,
+// on a diagonal pair, their landmarks) staged in shared memory first; the
+// tile (TR, TC) of a pair is the smallest tiling of its w_i x w_j block
+// by at most 4 x 4 (so 2 to 32 groups of lanes).
 template <typename T>
-__global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_any_kernel(
+__global__ void __launch_bounds__(kTiledWarps * 32) reduce_links_tiled_kernel(
     const T* __restrict__ yc, const T* __restrict__ wb, const T* __restrict__ g_l,
     const int* __restrict__ lmk, const int* __restrict__ bwidth,
     const int* __restrict__ items, const int* __restrict__ pairs,
     const int* __restrict__ links, T* __restrict__ part, double* __restrict__ rpart, int L,
     int dl, int mw, int bs, int n_items) {
-  __shared__ int2 ls[kLinkWarps][kLinkChunk];
+  constexpr int stage_elems = kStageBytes / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
-  const int it = blockIdx.x * kLinkWarps + warp;
-  if (it >= n_items) return;
   const int lane = threadIdx.x & 31;
+  int2* ls = reinterpret_cast<int2*>(smem) + warp * kLinkChunk;
+  int* lm = reinterpret_cast<int*>(smem + kTiledWarps * kLinkChunk * sizeof(int2)) +
+            warp * kLinkChunk;
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(smem + kLinkTables) + warp * kStages;
+  T* ring = reinterpret_cast<T*>(smem + kLinkTables + kTiledWarps * kStages * 8) +
+            warp * kStages * stage_elems;
+  const int it = blockIdx.x * kTiledWarps + warp;
+  if (it >= n_items) return;
   const int pr = items[3 * it];
   const int p0 = items[3 * it + 1];
   const int n = items[3 * it + 2] - p0;
@@ -427,62 +727,90 @@ __global__ void __launch_bounds__(kLinkWarps * 32) reduce_links_any_kernel(
   const int wj = bwidth[bj];
   const bool diag = bi == bj;
   const int2* lk = reinterpret_cast<const int2*>(links) + p0;
-  for (int k = lane; k < n; k += 32) ls[warp][k] = lk[k];
+  for (int k = lane; k < n; k += 32) {
+    const int2 v = lk[k];
+    ls[k] = v;
+    if (diag) lm[k] = lmk[v.x];
+  }
+  if (lane < kStages) mbar_init(bars + lane, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncwarp();
-  const int groups = 32 / wi;
-  const int grp = lane / wi;
-  const int a = lane - grp * wi;
-  T acc[kMaxWidth];
-#pragma unroll
-  for (int c = 0; c < kMaxWidth; ++c) acc[c] = T(0);
-  double racc = 0.0;
-  if (grp < groups) {
-    for (int k = grp; k < n; k += groups) {
-      const int2 l0 = ls[warp][k];
-      T y0[kMaxDl];
-#pragma unroll
-      for (int e = 0; e < kMaxDl; ++e)
-        y0[e] = e < dl ? yc[static_cast<size_t>(l0.x) * bs + a * dl + e] : T(0);
-      const T* wp = wb + static_cast<size_t>(l0.y) * bs;
-#pragma unroll
-      for (int c = 0; c < kMaxWidth; ++c) {
-        if (c < wj) {
-          T t = T(0);
-#pragma unroll
-          for (int e = 0; e < kMaxDl; ++e)
-            if (e < dl) t += y0[e] * __ldg(wp + e * wj + c);
-          acc[c] += t;
-        }
-      }
-      if (diag) {
-        const long long l = lmk[l0.x];
-#pragma unroll
-        for (int e = 0; e < kMaxDl; ++e)
-          if (e < dl)
-            racc += static_cast<double>(y0[e]) *
-                    static_cast<double>(g_l[e * static_cast<long long>(L) + l]);
-      }
-    }
+  const int tr = (wi + (wi + 3) / 4 - 1) / ((wi + 3) / 4);
+  const int tc = (wj + (wj + 3) / 4 - 1) / ((wj + 3) / 4);
+  T* out = part + static_cast<long long>(it) * mw * mw;
+  double* rout = rpart + static_cast<long long>(it) * mw;
+#define NLLSTPU_ITEM(R, C)                                                                   \
+  case (R - 1) * 4 + C - 1:                                                                  \
+    links_item<T, R, C>(yc, wb, g_l, ls, lm, n, wi, wj, diag, dl, L, bs, ring, stage_elems, \
+                        out, rout, lane, bars);                                              \
+    break;
+  switch ((tr - 1) * 4 + tc - 1) {
+    NLLSTPU_ITEM(1, 1) NLLSTPU_ITEM(1, 2) NLLSTPU_ITEM(1, 3) NLLSTPU_ITEM(1, 4)
+    NLLSTPU_ITEM(2, 1) NLLSTPU_ITEM(2, 2) NLLSTPU_ITEM(2, 3) NLLSTPU_ITEM(2, 4)
+    NLLSTPU_ITEM(3, 1) NLLSTPU_ITEM(3, 2) NLLSTPU_ITEM(3, 3) NLLSTPU_ITEM(3, 4)
+    NLLSTPU_ITEM(4, 1) NLLSTPU_ITEM(4, 2) NLLSTPU_ITEM(4, 3) NLLSTPU_ITEM(4, 4)
+    default: break;
   }
-  for (int g = 1; g < groups; ++g) {
-    const int src = g * wi + a;
-#pragma unroll
-    for (int c = 0; c < kMaxWidth; ++c) {
-      if (c < wj) {
-        const T v = __shfl_sync(kFullMask, acc[c], src & 31);
-        if (grp == 0) acc[c] += v;
-      }
-    }
-    const double r = __shfl_sync(kFullMask, racc, src & 31);
-    if (grp == 0) racc += r;
+#undef NLLSTPU_ITEM
+}
+
+// incidence_tiled_kernel's launch: pe rows a panel (all dl, or as many
+// TI-row tiles as one incidence's tiles fit the block's threads), ib
+// incidences a block (as many as their tiles fit the threads), dc =
+// min(dl, kTiledIncChunk).  Each tiled kernel's dynamic shared memory is
+// opted in on every launch (the call is cheap and permitted under stream
+// capture).
+template <typename T, int TI>
+int launch_incidence_tiled(const T* w, const T* h_in, const int* lmk, const int* blk,
+                           const int* bcol, const int* bwidth, T* yc, T* wb, int L, int dl,
+                           int wc, int mw, int bs, int n_inc, cudaStream_t st) {
+  const int ct = (mw + TI - 1) / TI;
+  int pe = TI * (kTiledIncThreads / ct);
+  pe = pe > dl ? dl : pe;
+  const int tpi = (pe + TI - 1) / TI * ct;
+  const int ib = kTiledIncThreads / tpi;
+  const int dc = dl < kTiledIncChunk ? dl : kTiledIncChunk;
+  // + the rows and columns a tile past the edge reads
+  const size_t smem = sizeof(T) * (static_cast<size_t>(ib) * pe * dc +
+                                   static_cast<size_t>(ib) * dc * mw + TI * (dc + mw));
+  cudaError_t err = cudaFuncSetAttribute(incidence_tiled_kernel<T, TI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n_inc + ib - 1) / ib),
+                  static_cast<unsigned>((dl + pe - 1) / pe));
+  incidence_tiled_kernel<T, TI><<<grid, kTiledIncThreads, smem, st>>>(
+      w, h_in, lmk, blk, bcol, bwidth, yc, wb, L, dl, wc, mw, bs, n_inc, ib, pe, dc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the tiled instance's two passes: the incidence pass (TI = 4 on
+// blocks wider than 9), then the links pass with its ring.
+template <typename T>
+int launch_tiled(const T* w, const T* h_in, const T* g_l, const int* lmk, const int* blk,
+                 const int* bcol, const int* bwidth, const int* items, const int* pairs,
+                 const int* links, T* yc, T* wb, T* part, double* rpart, int L, int dl, int wc,
+                 int mw, int bs, int n_inc, int n_items, cudaStream_t st) {
+  if (n_inc > 0) {
+    const int code = mw > 9 ? launch_incidence_tiled<T, 4>(w, h_in, lmk, blk, bcol, bwidth, yc,
+                                                          wb, L, dl, wc, mw, bs, n_inc, st)
+                            : launch_incidence_tiled<T, 3>(w, h_in, lmk, blk, bcol, bwidth, yc,
+                                                          wb, L, dl, wc, mw, bs, n_inc, st);
+    if (code != 0) return code;
   }
-  if (grp == 0) {
-    T* out = part + static_cast<long long>(it) * mw * mw + a * wj;
-#pragma unroll
-    for (int c = 0; c < kMaxWidth; ++c)
-      if (c < wj) out[c] = acc[c];
-    if (diag) rpart[static_cast<long long>(it) * mw + a] = racc;
+  if (n_items > 0) {
+    const size_t smem =
+        kLinkTables + kTiledWarps * kStages * 8 +
+        static_cast<size_t>(kTiledWarps) * kStages * kStageBytes + kRingSlack;
+    cudaError_t err = cudaFuncSetAttribute(
+        reduce_links_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned blocks = static_cast<unsigned>((n_items + kTiledWarps - 1) / kTiledWarps);
+    reduce_links_tiled_kernel<T><<<blocks, kTiledWarps * 32, smem, st>>>(
+        yc, wb, g_l, lmk, bwidth, items, pairs, links, part, rpart, L, dl, mw, bs, n_items);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One thread per entry (a, c) of every block pair i <= j (mw x mw slots,
@@ -535,8 +863,7 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
                        void* part, void* rpart, void* s_sum, void* rhs, void* h_inv, int l,
                        int dl, int wc, int mw, int bs, int n_inc, int n_items, int n_pairs,
                        int uniform, void* stream) {
-  if (mw < 1 || mw > kMaxWidth || dl < 1 || dl > (EXTERNAL ? kMaxDl : 3) ||
-      (!EXTERNAL && lam == nullptr))
+  if (mw < 1 || mw > kMaxWidth || dl < 1 || (!EXTERNAL && (dl > 3 || lam == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* w_t = static_cast<const T*>(w);
@@ -561,21 +888,16 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
   } else {                        \
     NLLSTPU_INC_U(D, false);      \
   }
-  const bool any_dl = dl > kUnrolledDl;
-  if (n_inc > 0 && any_dl) {
+  const int* it_t = static_cast<const int*>(items);
+  const int* pr_t = static_cast<const int*>(pairs);
+  const int* ln_t = static_cast<const int*>(links);
+  const bool tiled = dl > kUnrolledDl;
+  if (tiled) {
     if constexpr (EXTERNAL) {
-      const int per_inc = (dl * dl + dl * mw) * static_cast<int>(sizeof(T));
-      const int per_block = kSmemCap / per_inc < kIncBlock ? kSmemCap / per_inc : kIncBlock;
-      const unsigned blocks = static_cast<unsigned>((n_inc + per_block - 1) / per_block);
-      const size_t smem = static_cast<size_t>(per_block) * per_inc;
-      if (uniform)
-        incidence_any_kernel<T, true><<<blocks, kIncThreads, smem, st>>>(
-            w_t, h_t, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, l, dl, wc,
-            mw, bs, n_inc, per_block);
-      else
-        incidence_any_kernel<T, false><<<blocks, kIncThreads, smem, st>>>(
-            w_t, h_t, lmk_t, static_cast<const int*>(blk), bc_t, bw_t, yc_t, wb_t, l, dl, wc,
-            mw, bs, n_inc, per_block);
+      const int code = launch_tiled<T>(w_t, h_t, g_t, lmk_t, static_cast<const int*>(blk), bc_t,
+                                       bw_t, it_t, pr_t, ln_t, yc_t, wb_t, part_t, rp_t, l, dl,
+                                       wc, mw, bs, n_inc, n_items, st);
+      if (code != 0) return code;
     }
   } else if (n_inc > 0) {
     switch (dl) {
@@ -595,17 +917,11 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
 #undef NLLSTPU_INC_U
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int* it_t = static_cast<const int*>(items);
-  const int* pr_t = static_cast<const int*>(pairs);
-  const int* ln_t = static_cast<const int*>(links);
   const unsigned link_blocks = static_cast<unsigned>((n_items + kLinkWarps - 1) / kLinkWarps);
 #define NLLSTPU_LINKS(D, WID, U)                                                 \
   reduce_links_kernel<T, D, WID, U><<<link_blocks, kLinkWarps * 32, 0, st>>>(   \
       yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, mw, bs, n_items)
-  if (n_items > 0 && any_dl) {
-    reduce_links_any_kernel<T><<<link_blocks, kLinkWarps * 32, 0, st>>>(
-        yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, dl, mw, bs, n_items);
-  } else if (n_items > 0) {
+  if (n_items > 0 && !tiled) {
     if (dl == 3 && mw == 6 && uniform) {
       NLLSTPU_LINKS(3, 6, true);
     } else if (dl == 3 && mw == 6) {

@@ -19,7 +19,11 @@
 // landmarks (LPB = 16 KB / row bytes, at least 1: one float32 row of the
 // bench-realistic adaptive W) in shared memory and writes them once, zeros
 // included, as one contiguous span of W with 16-byte stores: no memset
-// pass.  The launch bounds hold a thread to 64 registers, so that eight
+// pass.  A row past the 227 KB a block can hold (dl * wc values, e.g. a
+// float64 dl 18 row over 1,620 columns) is built in column spans of 16 KB,
+// a block each, whose items add only the costs landing in their span, in
+// the same run order, so every entry keeps its one adding thread.  The
+// launch bounds hold a thread to 64 registers, so that eight
 // blocks share an SM and one block's adds (latency-bound) overlap the
 // others' stores: 256 threads without the register cap ran a third
 // slower, and a persistent variant whose spans leave by double-buffered
@@ -66,38 +70,62 @@ struct Vec16<double> {
   using type = double2;
 };
 
+// spans == 0: a block builds the rows of lpb landmarks from landmark
+// blockIdx.x * lpb.  spans > 0 (a row past the shared memory): a block
+// builds one column span of one landmark's row, span values of it from
+// value (blockIdx.x % spans) * span of landmark blockIdx.x / spans; its
+// items are the (d, p) whose row d meets the span, and each adds only the
+// costs whose column lands inside it, still in run order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) place_w_kernel(
     const T* __restrict__ we, const int32_t* __restrict__ lstarts,
     const int32_t* __restrict__ colbase, T* __restrict__ w, long long n, int L,
-    int dl, int dr_s, int wc, int lpb) {
+    int dl, int dr_s, int wc, int lpb, int spans, int span) {
   using V = typename Vec16<T>::type;
   constexpr int kV = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* buf = reinterpret_cast<T*>(smem_raw);
   const long long width = static_cast<long long>(dl) * wc;
   const int x = dl * dr_s;
-  const long long l0 = static_cast<long long>(blockIdx.x) * lpb;
-  const int nl = static_cast<int>(L - l0 < lpb ? L - l0 : lpb);
-  const long long g0 = l0 * width;              // W's span [g0, g1)
-  const long long g1 = g0 + nl * width;
+  long long l0, g0, g1;  // first landmark; W's span [g0, g1)
+  int nl, d0, nd;        // landmarks; rows d0 .. d0 + nd - 1 of each
+  if (spans == 0) {
+    l0 = static_cast<long long>(blockIdx.x) * lpb;
+    nl = static_cast<int>(L - l0 < lpb ? L - l0 : lpb);
+    g0 = l0 * width;
+    g1 = g0 + nl * width;
+    d0 = 0;
+    nd = dl;
+  } else {
+    l0 = blockIdx.x / spans;
+    nl = 1;
+    const long long o0 = static_cast<long long>(blockIdx.x % spans) * span;
+    const long long o1 = o0 + span < width ? o0 + span : width;
+    g0 = l0 * width + o0;
+    g1 = l0 * width + o1;
+    d0 = static_cast<int>(o0 / wc);
+    nd = static_cast<int>((o1 - 1) / wc) - d0 + 1;
+  }
   const int shift = static_cast<int>(g0 % kV);  // buf[shift] holds w[g0]
-  const int len = static_cast<int>((shift + nl * width + kV - 1) / kV);
+  const int len = static_cast<int>((shift + (g1 - g0) + kV - 1) / kV);
   // 1. zero the span.
   const V zero = {};
   for (int i = threadIdx.x; i < len; i += kThreads) reinterpret_cast<V*>(buf)[i] = zero;
   __syncthreads();
   // 2. add each landmark's costs in run order, one thread per (l, d, p).
-  for (int it = threadIdx.x; it < nl * x; it += kThreads) {
-    const int jl = it / x;
-    const int i = it % x;
-    const int d = i / dr_s;
-    const int p = i % dr_s;
+  const int y = nd * dr_s;
+  for (int it = threadIdx.x; it < nl * y; it += kThreads) {
+    const int jl = it / y;
+    const int d = d0 + (it % y) / dr_s;
+    const int p = it % dr_s;
+    const int i = d * dr_s + p;
     long long s = lstarts[l0 + jl];
     long long e = lstarts[l0 + jl + 1];
     s = s < 0 ? 0 : (s > n ? n : s);
     e = e > n ? n : e;
-    T* row = buf + shift + jl * width + static_cast<long long>(d) * wc + p;
+    // W's index of this item at column 0 of its row, and its place in buf.
+    const long long g = (l0 + jl) * width + static_cast<long long>(d) * wc + p;
+    T* row = buf + shift + (g - g0);
     for (long long b0 = s; b0 < e; b0 += kUnroll) {
       int cb[kUnroll];
       T v[kUnroll];
@@ -110,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) place_w_kernel(
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int c = cb[u];
-        if (c >= 0 && c <= wc - dr_s) row[c] += v[u];
+        if (c >= 0 && c <= wc - dr_s && g + c >= g0 && g + c < g1) row[c] += v[u];
       }
     }
   }
@@ -138,19 +166,27 @@ int launch_place_w(const void* we, const void* lstarts, const void* colbase,
   const size_t row = sizeof(T) * static_cast<size_t>(dl) * wc;
   long long lpb = row > 0 ? static_cast<long long>(kSpanBytes / row) : L;
   lpb = lpb < 1 ? 1 : (lpb > L ? L : lpb);
-  const size_t smem = row * lpb + 32;  // + the shift and the last 16 bytes
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = row * lpb + 32;  // + the shift and the last 16 bytes
+  long long blocks = (L + lpb - 1) / lpb;
+  int spans = 0;
+  const int span = kSpanBytes / static_cast<int>(sizeof(T));
+  if (smem > static_cast<size_t>(kMaxSmem)) {  // a row in column spans
+    spans = static_cast<int>((static_cast<long long>(dl) * wc + span - 1) / span);
+    blocks = static_cast<long long>(L) * spans;
+    smem = static_cast<size_t>(kSpanBytes) + 32;
+  }
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         place_w_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned blocks = static_cast<unsigned>((L + lpb - 1) / lpb);
-  place_w_kernel<T><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  place_w_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(we), static_cast<const int32_t*>(lstarts),
       static_cast<const int32_t*>(colbase), static_cast<T*>(w), n, L, dl, dr_s,
-      wc, static_cast<int>(lpb));
+      wc, static_cast<int>(lpb), spans, span);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,8 +14,7 @@ The caller forms S = A_rr + λI − s_sum and rhs = b_r − rhs_sum.
 
 ``reduce_s_lm(w, h_inv, g_l, rows)`` (kernel B4) and ``reduce_s(w,
 h_inv, g_l, pairs)`` (kernel B5) are the same reduction over inverses
-formed outside, for any dl from 1 to :data:`MAX_DL` (16), and return
-``(s_sum, rhs_sum)``.
+formed outside, for any dl ≥ 1, and return ``(s_sum, rhs_sum)``.
 B3 and B4 take the W of the obs-major assemblies (B1, B2, B8), whose
 landmark rows hold their cameras' blocks only; B5 the generic assembly's
 W, whose rows hold their cameras' blocks and the adaptive kernel's.  One
@@ -29,9 +28,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/schur_reduce.cu``, one structured body: Y = H⁻¹W once per
 (landmark, block), then one warp per item of each block pair's
 landmarks, then a fixed-order sum that writes every entry of s_sum and
-its mirror once; rhs summed in double; B4 and B5 its external instance)
-and raises without its tables.  On a CPU tensor each runs its plain
-version, the dense ``reduce_s_reference`` for B4 and B5 alike.
+its mirror once; rhs summed in double; B4 and B5 its external instance,
+unrolled for dl ≤ 6 and, past it, tiled over dl with the item's blocks
+staged through shared memory) and raises without its tables.  On a CPU
+tensor each runs its plain version, the dense ``reduce_s_reference`` for
+B4 and B5 alike.
 """
 
 from __future__ import annotations
@@ -50,12 +51,12 @@ LAUNCHES = 0
 EXTERNAL_LAUNCHES = 0
 #: Number of kernel launches made by :func:`reduce_s_lm_cuda` (B4).
 LM_LAUNCHES = 0
-#: Widest landmark block B4 and B5 take (``kMaxDl`` in the source: dl ≤ 6
-#: unrolled, 7..16 through one instance whose loops over dl run at run
-#: time); a direct Schur compile refuses a wider eliminated family.
-MAX_DL = 16
-#: Widest landmark block B3 takes (its closed-form inverses).
+#: Widest landmark block B3 takes (its closed-form inverses); B4 and B5
+#: take any (dl ≤ 6 unrolled, wider through the tiled instance).
 DAMPED_MAX_DL = 3
+#: Widest landmark block of the unrolled instances (``kUnrolledDl`` in the
+#: source); past it the tiled instance reads H⁻¹ landmark-major.
+UNROLLED_DL = 6
 #: Widest column block of the tables (``kMaxWidth`` in the source).
 MAX_WIDTH = 16
 #: Landmarks per item of the tables (``kLinkChunk`` in the source, which
@@ -252,11 +253,14 @@ def reduce_s_damped_reference(w, h_ll, g_l, lam, rows=None):
     return (*reduce_s_reference(w, h_inv, g_l), h_inv)
 
 
-def _checked(name, w, h, g_l, max_dl):
-    """Contiguous ``(w, h, g_l)`` after the wrappers' common checks."""
+def _checked(name, w, h, g_l, max_dl=None):
+    """Contiguous ``(w, g_l)`` and ``h`` after the wrappers' common checks
+    (``max_dl``: B3's widest landmark block); :func:`_launch_rows` lays
+    ``h`` out for the instance."""
     L, dl, wc = w.shape
-    if not 1 <= dl <= max_dl:
-        raise ValueError(f"{name}: dl must be 1..{max_dl}, got {dl}")
+    if dl < 1 or (max_dl is not None and dl > max_dl):
+        limit = f"1..{max_dl}" if max_dl is not None else "at least 1"
+        raise ValueError(f"{name}: dl must be {limit}, got {dl}")
     if w.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: unsupported dtype {w.dtype}")
     if tuple(h.shape) != (dl, dl, L) or tuple(g_l.shape) != (dl, L):
@@ -267,7 +271,7 @@ def _checked(name, w, h, g_l, max_dl):
     for t in (h, g_l):
         if t.dtype != w.dtype or t.device != w.device:
             raise ValueError(f"{name}: inputs differ in dtype or device")
-    return w.contiguous(), h.contiguous(), g_l.contiguous()
+    return w.contiguous(), h, g_l.contiguous()
 
 
 def lam_tensor(lam, device):
@@ -308,6 +312,9 @@ def _launch_rows(name, fn, w, h, g_l, lam, rows: RowTables, damped: bool):
     out = torch.empty(wc * wc + wc + (dl * dl * L if damped else 0), dtype=dt, device=w.device)
     if rows.covered < wc:  # columns outside every block: zero there
         out[: wc * wc + wc].zero_()
+    # The unrolled instances read H [dl, dl, L]; the tiled one [L, dl, dl]
+    # (free for the solve's inverses, which are landmark-major underneath).
+    h = h.contiguous() if dl <= UNROLLED_DL else h.permute(2, 0, 1).contiguous()
     elt, sp, op = w.element_size(), yc.data_ptr(), out.data_ptr()
     code = fn(
         w.data_ptr(), h.data_ptr(), g_l.data_ptr(), lam.data_ptr() if damped else None,
@@ -351,7 +358,7 @@ def reduce_s_lm_cuda(w, h_inv, g_l, rows: RowTables = None):
     """Launch kernel B4 over ``rows`` (device :class:`RowTables` of an
     obs-major W) on CUDA tensors (same contract as the reference)."""
     global LM_LAUNCHES
-    w, h_inv, g_l = _checked("reduce_s_lm", w, h_inv, g_l, MAX_DL)
+    w, h_inv, g_l = _checked("reduce_s_lm", w, h_inv, g_l)
     out = _launch_rows("reduce_s_lm", _external(w), w, h_inv, g_l, None, rows, damped=False)
     LM_LAUNCHES += 1
     return out
@@ -361,7 +368,7 @@ def reduce_s_cuda(w, h_inv, g_l, pairs: RowTables = None):
     """Launch kernel B5 over ``pairs`` (device :class:`RowTables` of the
     generic W) on CUDA tensors (same contract as the reference)."""
     global EXTERNAL_LAUNCHES
-    w, h_inv, g_l = _checked("reduce_s", w, h_inv, g_l, MAX_DL)
+    w, h_inv, g_l = _checked("reduce_s", w, h_inv, g_l)
     out = _launch_rows("reduce_s", _external(w), w, h_inv, g_l, None, pairs, damped=False)
     EXTERNAL_LAUNCHES += 1
     return out

@@ -18,8 +18,9 @@ not carried over: W is the port's standard landmark-major basis.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/w_place.cu``: a block builds the ``[dl, wc]`` rows of a few
-landmarks in shared memory, one thread per (landmark, entry) adding the
-landmark's costs in run order, and writes them once with 16-byte stores;
+landmarks in shared memory — a row past a block's 227 KB in column spans,
+a block each — one thread per (landmark, entry) adding the landmark's
+costs in run order, and writes them once with 16-byte stores;
 deterministic, no atomics); on a CPU tensor it runs
 :func:`place_w_reference`.
 """

@@ -33,6 +33,16 @@ the host's:
   0-d float64 tensor on the card where its kernel B3 reads λ from device
   memory, as its drivers give it).
 
+With ``--cases anydl`` it times instead B4 and B5 past the unrolled dl ≤
+6 (events, host enqueue, graph, each pass's mean device time by
+torch.profiler, and cuBLAS's dense ``Yᵀ W`` beside them; the inverses laid
+out as the solve gives them, landmark-major underneath):
+the synthetic W of ``chip_smoke.py``'s phases 23 and 24 at dl 7 and 16
+(B4: ``row_case``; B5: ``structured_case``) and dl 33 (B5), and the NRSfM problem's damped
+reduction (``scripts_torch/anydl_reference.py``, float32, damped_inverse
+then B5) at K = 3 and 6 (dl 9 and 18), where the port under ``--root``
+compiles it.
+
 The problems are chip_smoke.py's (its constants), built by the port
 under ``--root``.
 """
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,10 +100,31 @@ def graph_ms(fn, reps):
     return s.elapsed_time(e) / reps
 
 
+def passes_ms(fn, reps):
+    """Each kernel's mean device time per call of ``fn`` (torch.profiler
+    over ``reps`` calls), by kernel name: ``"name ms, ..."``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.key)
+            out.append(f"{re.split(r'[<(]', name)[0]} {us / reps / 1e3:.4f}")
+    return ", ".join(out) or "no device time"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--cases", choices=("all", "anydl"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_assembly: no CUDA device")
@@ -113,6 +145,8 @@ def main():
     dev = torch.device("cuda", 0)
     tag = f"[{os.path.basename(root) or root}] {smi}"
     reps = args.reps
+    if args.cases == "anydl":
+        return anydl_cases(cs, dev, tag, reps)
     fam = cs.bench_options().schur_family
 
     def tiles(problem, comp):
@@ -185,6 +219,64 @@ def main():
           f"{events_ms(red, reps):.4f} ms, host enqueue {host_ms(red, reps):.4f} ms, graph "
           f"{graph_ms(red, reps):.4f} ms; damped solve (B5): events "
           f"{events_ms(lambda: ops.solve(sys_, lam), reps):.4f} ms", flush=True)
+
+
+def anydl_cases(cs, dev, tag, reps):
+    """B4 and B5 past the unrolled dl: the synthetic W at dl 7, 16 and 33,
+    and the NRSfM reductions at dl 9 and 18 (see the module docstring)."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.ba import perturb_ba
+    from nllstpu_torch.ops import schur_reduce
+    from scripts_torch import anydl_reference as ar
+
+    def report(label, kern, w, h_inv, g_l, tables):
+        f = lambda: kern(w, h_inv, g_l, tables)  # noqa: E731
+        pb, pf = cs.struct_work(tables, w.shape[1], w.element_size())
+        b = cs.bound(pb + cs.nbytes(*f()), pf)
+        print(f"{tag} {label} (W {tuple(w.shape)}, {tables.links.shape[0]} links): events "
+              f"{events_ms(f, reps):.4f} ms, host enqueue {host_ms(f, reps):.4f} ms, graph "
+              f"{graph_ms(f, reps):.4f} ms; cuBLAS Y^T W "
+              f"{events_ms(cs.gemm_call(w, h_inv), reps):.4f} ms; structural bound {b['bound_ms']:.4f} ms ({b['bound_by']}); passes "
+              f"{passes_ms(f, reps)}", flush=True)
+
+    def as_solved(h):
+        """``h`` [dl, dl, L] laid out as the solve's inverses are (a view
+        of landmark-major memory)."""
+        return h.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+
+    def attempt(*args):
+        try:
+            report(*args)
+        except ValueError as err:  # a port that refuses the shape
+            print(f"{tag} {args[0]}: refused ({err})", flush=True)
+
+    gen = torch.Generator().manual_seed(23)
+    for dl, shape in ((7, (cs.NLMK, cs.NCAM, 6)), (16, (4096, 80, 9)), (33, None)):
+        if shape is not None:
+            L, n_blocks, width = shape
+            w, h_inv, g_l, rows = cs.row_case(gen, L, dl, n_blocks, width, dev, inverse=True)
+            attempt(f"B4 synthetic dl={dl}", schur_reduce.reduce_s_lm, w.float(),
+                    as_solved(h_inv.float()), g_l.float(), rows)
+        w, h_inv, g_l, tables = cs.structured_case(gen, 4096, dl, [9] * 40 + [3, 16, 1], 2)
+        w, h_inv, g_l = (t.to(dev, torch.float32) for t in (w, h_inv, g_l))
+        attempt(f"B5 synthetic dl={dl}", schur_reduce.reduce_s, w, as_solved(h_inv), g_l,
+                schur_reduce.upload_tables(tables, dev))
+        del w, h_inv, g_l
+    for K in ar.KS:
+        problem, _, pts = ar.build(nt, ar.full_data(K), torch.float32, dev)
+        perturb_ba(problem, pts, 0.05, seed=5)
+        try:
+            comp = compile_problem(problem, solver="schur", schur_family=nt.Euclidean(3 * K))
+        except ValueError as err:
+            print(f"{tag} NRSfM K={K}: the port refuses the direct solve ({err})", flush=True)
+            continue
+        _, sys_ = comp.assemble(problem.stacked_variables())
+        ops = comp.ctx().linops
+        _, _, h_ll, g_l, w = sys_
+        h_inv = ops.damped_inverse(h_ll, 1e-2 * ops.diag_max(sys_).item())
+        report(f"B5 NRSfM K={K} dl={3 * K}", schur_reduce.reduce_s, w, h_inv, g_l, ops.pairs)
+        del comp, sys_, ops, w, h_inv
 
 
 if __name__ == "__main__":

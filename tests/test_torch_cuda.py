@@ -364,7 +364,7 @@ def _structured_w(gen, L, dl, widths, spare, kernel=False):
 # dl = 3 at the adaptive BAL structure (128 cameras of 9 columns and a
 # 3-column kernel block held by every landmark); dl up to 6 over blocks
 # of mixed widths up to the kernel's 16, spare columns between them; dl
-# 7 and 16 through the instance whose loops over dl run at run time.
+# 7 and 16 through the tiled instance.
 @pytest.mark.parametrize("dl,widths,spare", [
     (3, [9] * 128 + [3], 0), (5, [4, 16, 1, 9, 9, 7, 2], 3), (1, [1, 2, 3, 5, 8], 2),
     (6, [9] * 40 + [16], 1), (2, [6] * 30, 0), (4, [3] * 60, 5),
@@ -400,7 +400,7 @@ def test_reduce_s_kernel_matches_plain(cuda, dtype, tol, dl, widths, spare):
 # The gauge-fixed pinhole width (126 cameras of 6) and the pinhole bench's;
 # wc = 1155 as the adaptive BAL width; every dl from 1 to 6, past B3's
 # closed form, over blocks of 4 to 16 columns (the any-width instance);
-# dl 7 and 16 through the instance whose loops over dl run at run time.
+# dl 7 and 16 through the tiled instance.
 @pytest.mark.parametrize("dl,wc,width", [
     (3, 756, 6), (3, 768, 6), (3, 1155, 11), (5, 100, 5), (1, 64, 16), (6, 441, 9), (2, 130, 10),
     (4, 200, 8), (7, 441, 9), (16, 768, 6), (16, 320, 16),
@@ -429,6 +429,39 @@ def test_reduce_s_lm_kernel_matches_plain(cuda, dtype, tol, dl, wc, width):
         schur_reduce.reduce_s_lm(*args)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("dl", [7, 16, 17, 33])
+@pytest.mark.parametrize("name", ["reduce_s", "reduce_s_lm"])
+def test_tiled_instance_matches_plain(cuda, dtype, tol, dl, name):
+    """B4 and B5 past the unrolled dl ≤ 6 (the tiled instance: whole links
+    a stage, and at dl 33 in float64 a link's rows in chunks) over blocks
+    of every width from 1 to 16, spare columns between some, against the
+    dense plain version; s_sum exactly symmetric, two launches the same
+    bits, and only the wrapper's own counter moved."""
+    gen = torch.Generator().manual_seed(100 + dl)
+    L = 333
+    w, tables = _structured_w(gen, L, dl, list(range(16, 0, -1)), 2)
+    h_inv = _spd_inverses(gen, dl, L)
+    g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    rows = schur_reduce.upload_tables(tables, cuda)
+    args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
+    counters = ("LAUNCHES", "LM_LAUNCHES", "EXTERNAL_LAUNCHES")
+    before = {c: getattr(schur_reduce, c) for c in counters}
+    out = getattr(schur_reduce, name)(*args, rows)
+    torch.cuda.synchronize()
+    own = "EXTERNAL_LAUNCHES" if name == "reduce_s" else "LM_LAUNCHES"
+    assert {c: getattr(schur_reduce, c) - before[c] for c in counters} == {
+        c: int(c == own) for c in counters}
+    ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
+    for label, x, y in zip(("s_sum", "rhs_sum"), out, ref):
+        assert x.shape == y.shape, label
+        assert _rel_err(x, y) <= tol, (label, _rel_err(x, y))
+    assert torch.equal(out[0], out[0].T)
+    again = getattr(schur_reduce, name)(*args, rows)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+
+
 def _b7_case(gen, L, dl, dr_s, n_r, extra):
     """Runs of 0-39 costs (empty ones included) with repeated cameras,
     dropped costs (a negative column, one past W's columns) and ``extra``
@@ -447,11 +480,14 @@ def _b7_case(gen, L, dl, dr_s, n_r, extra):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-6)])
 # Snavely cameras with a 3-dof kernel; a float64 row of 3·3000·8 = 72 KB
-# takes the dynamic shared memory past 48 KB.
-@pytest.mark.parametrize("dl,dr_s,n_r,extra", [(3, 9, 37, 3), (3, 9, 333, 3), (2, 6, 5, 0)])
+# takes the dynamic shared memory past 48 KB; a float64 row of 18·1620·8 =
+# 233,280 bytes is past the 232,448 a block holds, so it is built in
+# column spans (its float32 row, half that, whole).
+@pytest.mark.parametrize("dl,dr_s,n_r,extra", [(3, 9, 37, 3), (3, 9, 333, 3), (2, 6, 5, 0),
+                                               (18, 9, 180, 0)])
 def test_place_w_kernel_matches_plain(cuda, dtype, tol, dl, dr_s, n_r, extra):
     gen = torch.Generator().manual_seed(n_r)
-    we, lstarts, colbase, wc = _b7_case(gen, 300, dl, dr_s, n_r, extra)
+    we, lstarts, colbase, wc = _b7_case(gen, 300 if dl < 18 else 60, dl, dr_s, n_r, extra)
     before = w_place.LAUNCHES
     args = (lstarts.to(cuda), colbase.to(cuda), wc)
     out = w_place.place_w(we.to(cuda, dtype), *args)
@@ -554,11 +590,13 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w[0], torch.zeros(3, device=cuda))
     for reduce in (schur_reduce.reduce_s, schur_reduce.reduce_s_lm):
-        with pytest.raises(ValueError, match="dl must be 1..16"):  # dl = 17
+        with pytest.raises(ValueError, match="dl must be"):  # dl = 0
             reduce(
-                torch.zeros(4, 17, 6, device=cuda), torch.zeros(17, 17, 4, device=cuda),
-                torch.zeros(17, 4, device=cuda),
+                torch.zeros(4, 0, 6, device=cuda), torch.zeros(0, 0, 4, device=cuda),
+                torch.zeros(0, 4, device=cuda),
             )
+    with pytest.raises(ValueError, match="block widths"):  # a block 17 wide
+        schur_reduce.row_tables([0, 1], [0, 0], 2, [0], [17])
     starts = torch.zeros(3, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):  # int64 columns
         w_place.place_w(w, starts, torch.zeros(4, dtype=torch.long, device=cuda), 12)

@@ -2,11 +2,11 @@
 ``compile_problem`` records (the same on every device: kernels B1, B2 and
 B8 take (n residual rows, camera dof, landmark dof) within n ≤ 4, dr_s ≤
 16, dl ≤ 6, ``fused_obs.kernel_takes``; any other batch takes the generic
-route), the compile-time refusal of an eliminated family past
-``schur_reduce.MAX_DL``, the plain versions of B1 and B8 at (2, 6, 2)
-against the JAX package's interpret-mode kernels, and float64 LM traces of
-a planar (dl = 2) and a stereo (three-row) problem against the JAX
-package.  The problems are ``scripts_torch/shapes_reference.py``'s.
+route), the direct compile of an eliminated family past the unrolled
+instances of B4 and B5 (dl 17, against the JAX package), the plain
+versions of B1 and B8 at (2, 6, 2) against the JAX package's
+interpret-mode kernels, and float64 LM traces of a planar (dl = 2) and a
+stereo (three-row) problem against the JAX package.  The problems are ``scripts_torch/shapes_reference.py``'s.
 
 Tolerances: the assembled systems to ``test_assemble_fused_all_dl2``'s
 rtol 1e-12, atol 1e-13 (the same float64 arithmetic, summed in another
@@ -36,21 +36,23 @@ from scripts_torch import shapes_reference as sr
 TOL = dict(rtol=1e-12, atol=1e-13)
 
 
-def _linear_problem(n, dr, dl, dtype=torch.float64, seed=0):
+def _linear_problem(n, dr, dl, dtype=torch.float64, seed=0, pkg=pt):
     """A components-major camera/landmark batch of shape (n, dr, dl):
     residual row i = cam[i mod dr]·x[i mod dl] + x[(i + 1) mod dl] − m_i
     over a banded pattern of 6 cameras and 40 landmarks, the Jacobian
-    synthesized."""
+    synthesized; in the port (on the CPU) or, with ``pkg=nt``, the JAX
+    package."""
     rng = np.random.default_rng(seed)
     cams, pts = rng.standard_normal((6, dr)) + 1.0, rng.standard_normal((40, dl))
     ci, li = np.nonzero(sr.banded_visibility(6, 40, 0.6))
+    xp = torch if pkg is pt else jnp
 
     def residual(meas, cam, x):
-        return torch.stack([cam[i % dr] * x[i % dl] + x[(i + 1) % dl] - meas[:, i]
-                            for i in range(n)])
+        return xp.stack([cam[i % dr] * x[i % dl] + x[(i + 1) % dl] - meas[:, i]
+                         for i in range(n)])
 
-    p = pt.Problem(dtype=dtype, device="cpu")
-    cam_m, pt_m = pt.Euclidean(dr), pt.Euclidean(dl)
+    p = pt.Problem(dtype=dtype, device="cpu") if pkg is pt else nt.Problem(dtype=dtype)
+    cam_m, pt_m = pkg.Euclidean(dr), pkg.Euclidean(dl)
     p.add_variables(cam_m, cams)
     p.add_variables(pt_m, pts)
     p.add_cost_batch(residual, slots=[(cam_m, ci), (pt_m, li)],
@@ -89,19 +91,31 @@ def test_wide_blocks():
     """A camera of 17 dof is past the kernels' dr_s ≤ 16, so its batch
     takes the generic route, whose block tables cut a reduced block wider
     than ``schur_reduce.MAX_WIDTH`` into pieces (16 + 1 columns here): no
-    table holds a block wider than 16.  A landmark of 17 dof is past B4's
-    and B5's ``MAX_DL`` = 16: the direct compile refuses it in words
-    naming the limit, before any table is built; the implicit solve takes
-    it."""
+    table holds a block wider than 16.  A landmark of 17 dof is past the
+    unrolled instances of B4 and B5 and takes their tiled one: the direct
+    compile takes it (21 residual rows, so that every landmark block has
+    full rank), and its float64 LM follows the JAX package's direct solve
+    over four iterations (costs within 1e-9, the same solves); the
+    implicit solve takes it too."""
     problem, fam = _linear_problem(2, 17, 2)
     comp = pt.compile_problem(problem, solver="schur", schur_family=fam)
     pairs = comp.schur_info.w_pairs
     assert isinstance(comp.schur_info.fast[0], schur._GenBatch)
     assert pairs.max_width == schur_reduce.MAX_WIDTH == 16
     assert sorted(set(np.asarray(pairs.bwidth).tolist())) == [1, 16]
-    problem, fam = _linear_problem(2, 6, 17)
-    with pytest.raises(ValueError, match="at most 16 dof"):
-        pt.compile_problem(problem, solver="schur", schur_family=fam)
+    problem, fam = _linear_problem(21, 6, 17)
+    comp = pt.compile_problem(problem, solver="schur", schur_family=fam)
+    info = comp.schur_info
+    assert not info.implicit and info.dof_elim == 17 and info.w_pairs is not None
+    opts = dict(max_iters=4, rel_dcost=0.0, abs_dcost=0.0, max_time=float("inf"))
+    r_t = pt.optimize(problem, pt.Options(solver="schur", schur_family=fam, **opts))
+    jp, jfam = _linear_problem(21, 6, 17, jnp.float64, pkg=nt)
+    r_j = nt.optimize(jp, nt.Options(solver="schur", schur_family=jfam,
+                                     store_trajectory="jit", **opts))
+    counts = [(r.num_iterations, r.linear_solves) for r in (r_t, r_j)]
+    assert counts[0] == counts[1] and counts[0][0] == 4, counts
+    np.testing.assert_allclose(r_t.start_cost, r_j.start_cost, rtol=1e-12)
+    np.testing.assert_allclose(r_t.costs, np.asarray(r_j.trajectory.costs), rtol=1e-9)
     comp = pt.compile_problem(problem, solver="schur_cg", schur_family=fam)
     assert comp.schur_info.implicit
 
