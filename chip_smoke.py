@@ -10,7 +10,9 @@ Phases, one line each or more; any failure raises and exits non-zero:
    ``nt.optimize``, whose ``compile_problem`` compiles the port's CUDA
    kernels (``nllstpu_torch/ops/csrc``) with nvcc, one process per source,
    into ``.torch_ext/``: the build must fall in ``Result.time_init``, before
-   the loop's budget clock.
+   the loop's budget clock.  Each kernel's registers and spill from nvcc's
+   ``-Xptxas -v`` report (``_build.resources``); the any-shape instance of
+   B1/B2/B8 must spill nothing in either float type.
 3. B1      — kernel ``fused_obs_all`` (with kernel B6 over its per-slot
    camera rows, which the wrapper launches) against its plain PyTorch
    version on the pinhole bench problem's own inputs (128 cameras, 8192
@@ -280,12 +282,15 @@ Phases, one line each or more; any failure raises and exits non-zero:
    float64 within 1e-12 and float32 within 1e-5 of the largest entry (B3:
    float32 only, within 1e-5 unscaled and the scaled rule of phase 5), two
    launches the same bits, and timed: B1 and B8 on the planar path's tile
-   and on bench-sized tiles at (3, 6, 3) and (3, 9, 3); B2 on the stereo
-   path's batch and on random values over its observation pattern at (2,
-   6, 2) and (3, 6, 3); B3 on the planar system (dl = 2) and a synthetic
-   dl = 1 structure; B4 and B5 at dl = 7 and 16 on synthetic structures,
-   through their tiled instance.  Each row's launches are those of the
-   main path it names (B5's: the adaptive main path, phase 11).
+   and on bench-sized tiles at (3, 6, 3) and (3, 9, 3) (the planar tile
+   and (3, 9, 3) in float64 too); B2 on the stereo path's batch and on
+   random values over its observation pattern at (2, 6, 2), (3, 6, 3) and
+   (3, 9, 3) (the last in float64); B3 on the planar system (dl = 2) and a
+   synthetic dl = 1 structure; B4 on the float64 planar system (dl = 2,
+   its inverses as the float64 solve forms them); B4 and B5 at dl = 7 and
+   16 on synthetic structures, through their tiled instance.  Each row's
+   launches are those of the main path it names (B5's: the adaptive main
+   path, phase 11).
 24. anydl (run right after the shapes phase) — the direct solve past the
    unrolled dl ≤ 6: trajectory-space NRSfM
    (``scripts_torch/anydl_reference.py``: 128 frames of 6 dof, 8192 points
@@ -1065,11 +1070,18 @@ def phase_build(device):
     if not result.time_init >= _build.BUILD_SECONDS:
         raise AssertionError(f"build: time_init {result.time_init} s misses the "
                              f"{_build.BUILD_SECONDS} s build")
-    regs = [ln.strip() for ln in _build.BUILD_LOG.splitlines() if "registers" in ln]
     how = "compiled" if _build.BUILD_LOG else "reused the library in .torch_ext/"
     print(f"build: {_build.BUILD_SECONDS:.2f} s ({how}) inside compile_problem; the first "
           f"nt.optimize: time_init {result.time_init:.2f} s, its loop "
-          f"{result.time_total - result.time_init:.3f} s | " + " ; ".join(regs), flush=True)
+          f"{result.time_total - result.time_init:.3f} s", flush=True)
+    kernels = _build.resources()
+    for name, regs, stores, loads in kernels:
+        print(f"build: {regs} registers, spill stores {stores} / loads {loads} bytes: {name}",
+              flush=True)
+    anyshape = [k for k in kernels if "assemble_any_kernel" in k[0]]
+    if len(anyshape) != 6 or any(k[2] or k[3] for k in anyshape):
+        raise AssertionError(f"build: the any-shape instance of B1/B2/B8 (f32 and f64 of B1, B2 "
+                             f"and B8) must build spill-free, nvcc reports {anyshape}")
 
 
 def check(name, got, ref, tol):
@@ -1198,13 +1210,14 @@ def b2_case(name, batch, info, fast, variables, timed=True):
 
 
 def b2_check(name, head, tail, fast, L, n_obs, note, timed=True, tol64=TOL_F64,
-             tol32=TOL_B1_F32):
+             tol32=TOL_B1_F32, f64_timed=False):
     """B2 (with B6 over the camera runs) against its plain version on one
     whole assembly of the batch ``head`` (jac, g0, ρ′·mask, 2ρ″·mask, camera
     columns, camera-order rows, slot tables), ``tail`` (n_r, dr_s, dl,
     e_start) of ``L`` landmarks and ``n_obs`` observations (``fast``: its
-    ``cam_starts`` and ``cstarts``); with ``timed``, its times per whole
-    assembly.  Returns its record (no times without ``timed``)."""
+    ``cam_starts`` and ``cstarts``); with ``timed``, its float32 times per
+    whole assembly (``f64_timed``: also its float64 times, the record's
+    ``"f64"``).  Returns its record (no times without ``timed``)."""
     from nllstpu_torch.ops import fused_obs, segment_sum
 
     kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
@@ -1225,23 +1238,31 @@ def b2_check(name, head, tail, fast, L, n_obs, note, timed=True, tol64=TOL_F64,
           f"cameras): rel err h_ll/g_l/w/ab f64 {['%.2e' % e for e in e64]} f32 "
           f"{['%.2e' % e for e in e32]}, two assemblies bit-identical", flush=True)
     record = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)))
-    if timed:
-        ms = time_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
-        device_ms = graph_ms(lambda: _assemble_batch(kern, fast, head, tail, torch.float32, L))
-        plain_ms = time_ms(lambda: _assemble_batch(plain, fast, head, tail, torch.float32, L))
+    for dt, out in ((torch.float32, out32), (torch.float64, out64)):
+        if not timed or (dt == torch.float64 and not f64_timed):
+            continue
+        ms = time_ms(lambda: _assemble_batch(kern, fast, head, tail, dt, L))
+        device_ms = graph_ms(lambda: _assemble_batch(kern, fast, head, tail, dt, L))
+        plain_ms = time_ms(lambda: _assemble_batch(plain, fast, head, tail, dt, L))
         # The real columns of the inputs (the pad columns and the slot
         # tables are the implementation's), the outputs written once.
         n_real = int(slots.starts[-1])
+        elt = torch.empty((), dtype=dt).element_size()
         b = bound(
-            sum(t[..., :1].numel() * t.element_size() for t in head[:6]) * n_real
-            + nbytes(*out32),
-            assembly_flops(n_obs, dr_s, dl, n),
+            sum(t[..., :1].numel() * (elt if t.is_floating_point() else t.element_size())
+                for t in head[:6]) * n_real + nbytes(*out),
+            assembly_flops(n_obs, dr_s, dl, n), dt,
         )
-        print(f"B2 {name} time per assembly, B6 over the camera runs included ({n_obs} "
-              f"observations, W {tuple(out32[2].shape)}): kernel {ms:.4f} ms (in a CUDA graph "
+        print(f"B2 {name} {dt} time per assembly, B6 over the camera runs included ({n_obs} "
+              f"observations, W {tuple(out[2].shape)}): kernel {ms:.4f} ms (in a CUDA graph "
               f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})", flush=True)
-        record.update(ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
+        times = dict(ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
+        if dt == torch.float32:
+            record.update(times)
+        else:
+            record["f64"] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out64, ref)),
+                                 **times)
     return record
 
 
@@ -1803,6 +1824,44 @@ def b4_inputs(device):
     return seen, damped
 
 
+def b4_f64_case(label, w, h_inv, g_l, rows, tol):
+    """B4 in float64 against its plain version (within ``tol`` of the
+    largest entry), two launches the same bits, s_sum exactly symmetric;
+    its times (events and graph), its structural and dense bounds (float64
+    operations), the plain version's and cuBLAS DGEMM's.  Returns the
+    record."""
+    from nllstpu_torch.ops import schur_reduce
+
+    kern, plain = schur_reduce.reduce_s_lm, schur_reduce.reduce_s_reference
+    f64 = [t.double() for t in (w, h_inv, g_l)]
+    ref = plain(*f64)
+    out64, again = kern(*f64, rows), kern(*f64, rows)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(out64, again)):
+        raise AssertionError(f"B4 {label}: two launches differ")
+    if not torch.equal(out64[0], out64[0].T):
+        raise AssertionError(f"B4 {label}: s_sum is not exactly symmetric")
+    e64 = check(f"B4 f64 {label}", out64, ref, tol)
+    ms = time_ms(lambda: kern(*f64, rows))
+    device_ms = graph_ms(lambda: kern(*f64, rows))
+    plain_ms = time_ms(lambda: plain(*f64))
+    library_ms = time_ms(gemm_call(*f64[:2]))
+    L, dl, wc = f64[0].shape
+    pb, pf = struct_work(rows, dl, 8)
+    b = bound(pb + nbytes(*out64), pf, torch.float64)
+    dense = bound(nbytes(*f64, *out64), reduce_flops(L, dl, wc), torch.float64)
+    print(f"B4 {label} (W {tuple(w.shape)}, {rows.links.shape[0]} links in "
+          f"{rows.items.shape[0]} items): rel err s_sum/rhs f64 {['%.2e' % e for e in e64]}; two "
+          f"launches bit-identical, s_sum symmetric | kernel {ms:.4f} ms (in a CUDA graph "
+          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS Y^T W (DGEMM) "
+          f"{library_ms:.4f} ms, structural bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+          f"{pb} bytes, {pf} operations), dense bound {dense['bound_ms']:.4f} ms "
+          f"({dense['bound_by']})", flush=True)
+    return dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out64, ref)), ms=ms,
+                plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"], graph_ms=device_ms,
+                library_ms=library_ms)
+
+
 def phase_b4(device, cases, damped):
     """B4 against its plain version over each system's row tables: in
     float64 on the gauge-fixed path's input (wc = 756, 1e-12) and in
@@ -1819,52 +1878,35 @@ def phase_b4(device, cases, damped):
     kern, plain = schur_reduce.reduce_s_lm, schur_reduce.reduce_s_reference
     record = None
     for label, (*inputs, rows) in cases.items():
+        if label == GAUGE:
+            record = b4_f64_case(GAUGE, *inputs, rows, TOL_B57_F64)
+            continue
         f64 = [t.double() for t in inputs]
         ref = plain(*f64)
-        outs = {torch.float64: (kern(*f64, rows), kern(*f64, rows))}
-        if label != GAUGE:
-            f32 = [t.float() for t in inputs]
-            outs[torch.float32] = (kern(*f32, rows), kern(*f32, rows))
+        f32 = [t.float() for t in inputs]
+        outs = {torch.float64: (kern(*f64, rows), kern(*f64, rows)),
+                torch.float32: (kern(*f32, rows), kern(*f32, rows))}
         torch.cuda.synchronize()
         for dt, (out, again) in outs.items():
             if not all(torch.equal(x, y) for x, y in zip(out, again)):
                 raise AssertionError(f"B4 {label} {dt}: two launches differ")
             if not torch.equal(out[0], out[0].T):
                 raise AssertionError(f"B4 {label} {dt}: s_sum is not exactly symmetric")
-        out64 = outs[torch.float64][0]
-        e64 = check(f"B4 f64 {label}", out64, ref, TOL_B57_F64)
-        line = (f"B4 {label} (W {tuple(inputs[0].shape)}, {rows.links.shape[0]} links in "
-                f"{rows.items.shape[0]} items): rel err s_sum/rhs f64 {['%.2e' % e for e in e64]}")
-        if label != GAUGE:
-            out32 = outs[torch.float32][0]
-            p32 = [rel_err(x, y) for x, y in zip(plain(*f32), ref)]
-            e32 = [rel_err(x, y) for x, y in zip(out32, ref)]
-            # A main path's system within TOL_B57_F32; the synthetic case, as
-            # B5's, within ten times the plain version's own error too.
-            tol32 = [TOL_B57_F32 if label != B4_SYNTHETIC else max(TOL_B57_F32, 10 * p)
-                     for p in p32]
-            if not all(e <= t for e, t in zip(e32, tol32)):
-                raise AssertionError(f"B4 f32 {label}: errors s_sum/rhs {e32} exceed {tol32}")
-            print(f"{line}; f32 kernel {['%.2e' % e for e in e32]} plain (cuBLAS) "
-                  f"{['%.2e' % e for e in p32]}; two launches bit-identical, s_sum symmetric",
-                  flush=True)
-            continue
-        ms = time_ms(lambda: kern(*f64, rows))
-        device_ms = graph_ms(lambda: kern(*f64, rows))
-        plain_ms = time_ms(lambda: plain(*f64))
-        library_ms = time_ms(gemm_call(*f64[:2]))
-        L, dl, wc = f64[0].shape
-        pb, pf = struct_work(rows, dl, 8)
-        b = bound(pb + nbytes(*out64), pf, torch.float64)
-        dense = bound(nbytes(*f64, *out64), reduce_flops(L, dl, wc), torch.float64)
-        print(f"{line}; two launches bit-identical, s_sum symmetric | kernel {ms:.4f} ms (in a "
-              f"CUDA graph {device_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS Y^T W (DGEMM) "
-              f"{library_ms:.4f} ms, structural bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
-              f"{pb} bytes, {pf} operations), dense bound {dense['bound_ms']:.4f} ms "
-              f"({dense['bound_by']})", flush=True)
-        record = dict(max_abs_err=max(abs_err(x, y) for x, y in zip(out64, ref)),
-                      ms=ms, plain_ms=plain_ms, **b, dense_bound_ms=dense["bound_ms"],
-                      graph_ms=device_ms, library_ms=library_ms)
+        e64 = check(f"B4 f64 {label}", outs[torch.float64][0], ref, TOL_B57_F64)
+        out32 = outs[torch.float32][0]
+        p32 = [rel_err(x, y) for x, y in zip(plain(*f32), ref)]
+        e32 = [rel_err(x, y) for x, y in zip(out32, ref)]
+        # A main path's system within TOL_B57_F32; the synthetic case, as
+        # B5's, within ten times the plain version's own error too.
+        tol32 = [TOL_B57_F32 if label != B4_SYNTHETIC else max(TOL_B57_F32, 10 * p)
+                 for p in p32]
+        if not all(e <= t for e, t in zip(e32, tol32)):
+            raise AssertionError(f"B4 f32 {label}: errors s_sum/rhs {e32} exceed {tol32}")
+        print(f"B4 {label} (W {tuple(inputs[0].shape)}, {rows.links.shape[0]} links in "
+              f"{rows.items.shape[0]} items): rel err s_sum/rhs f64 {['%.2e' % e for e in e64]}; "
+              f"f32 kernel {['%.2e' % e for e in e32]} plain (cuBLAS) "
+              f"{['%.2e' % e for e in p32]}; two launches bit-identical, s_sum symmetric",
+              flush=True)
     h_ll, lam = damped
     w, _, g_l, rows = cases[GAUGE]
     solve_ms = time_ms(lambda: kern(w, schur.SchurOps.damped_inverse(h_ll, lam), g_l, rows))
@@ -3786,12 +3828,13 @@ def synthetic_batch(gen, n, dr_s, dl, device):
     return head, (n_r, dr_s, dl, dr_s), fast, L, b
 
 
-def tile_case(label, floats, ints, n_obs):
+def tile_case(label, floats, ints, n_obs, dtypes=(torch.float32,)):
     """B1 (with B6 over its camera rows) and B8 against their plain
     versions on one tile: float64 within ``TOL_SHAPE_F64`` and float32
     within ``TOL_SHAPE_F32`` of the largest entry, two launches the same
-    bits; each one's times (events and graph), its plain version's and its
-    bound.  Returns a record per kernel."""
+    bits; each one's times (events and graph) in each of ``dtypes``, its
+    plain version's and its bound.  Returns a record per kernel and
+    timed dtype."""
     from nllstpu_torch.ops import fused_obs
 
     vc, cpos, cstarts, n_r, dr_s, dl, e_start = ints
@@ -3811,18 +3854,24 @@ def tile_case(label, floats, ints, n_obs):
         e32 = check(f"{name} f32 {label}", out32, ref, TOL_SHAPE_F32)
         if not all(torch.equal(a, b) for a, b in zip(out32, again)):
             raise AssertionError(f"{name} {label}: two launches differ")
-        ms = time_ms(lambda: kern(*f32, *tail))
-        device_ms = graph_ms(lambda: kern(*f32, *tail))
-        plain_ms = time_ms(lambda: plain(*f32, *tail))
-        ins = (vc, cpos, cstarts) if cam else (vc,)
-        b = bound(nbytes(*f32, *ins, *out32), assembly_flops(n_obs, dr_s, dl, n, cam))
         print(f"{'B1' if cam else 'B8'} {label} ((n, dr_s, dl) = ({n}, {dr_s}, {dl}), "
               f"{n_obs} observations, W {tuple(out32[2].shape)}): rel err f64 "
               f"{['%.2e' % e for e in e64]} f32 {['%.2e' % e for e in e32]}, two launches "
-              f"bit-identical | kernel {ms:.4f} ms (in a CUDA graph {device_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-        records[name] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out32, ref)), ms=ms,
-                             plain_ms=plain_ms, **b, graph_ms=device_ms)
+              f"bit-identical", flush=True)
+        records[name] = {}
+        for dt, x, out in ((torch.float32, f32, out32), (torch.float64, f64, out64)):
+            if dt not in dtypes:
+                continue
+            ms = time_ms(lambda: kern(*x, *tail))
+            device_ms = graph_ms(lambda: kern(*x, *tail))
+            plain_ms = time_ms(lambda: plain(*x, *tail))
+            ins = (vc, cpos, cstarts) if cam else (vc,)
+            b = bound(nbytes(*x, *ins, *out), assembly_flops(n_obs, dr_s, dl, n, cam), dt)
+            print(f"{'B1' if cam else 'B8'} {label} {dt} time: kernel {ms:.4f} ms (in a CUDA "
+                  f"graph {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+            records[name][dt] = dict(max_abs_err=max(abs_err(a, r) for a, r in zip(out, ref)),
+                                     ms=ms, plain_ms=plain_ms, **b, graph_ms=device_ms)
     return records
 
 
@@ -3930,9 +3979,16 @@ def phase_shapes(device, smi):
         tiles[f"synthetic ({n},{dr_s},{dl}) K=14 L={NLMK}"] = (
             floats, ints, int((ints[0] < ints[3]).sum()))
     for label, (floats, ints, n_obs) in tiles.items():
-        recs = tile_case(label, floats, ints, n_obs)
-        add("fused_obs_all", label, PLANAR, recs["fused_obs_all"])
-        add("fused_obs_leg", label, PLANAR_FUSED, recs["fused_obs_leg"])
+        # The float64 times of the any-shape instance: the planar path's
+        # own tile (the float64 planar path runs it) and (3, 9, 3).
+        f64 = label.startswith(PLANAR) or "(3,9,3)" in label
+        recs = tile_case(label, floats, ints, n_obs,
+                         (torch.float32, torch.float64) if f64 else (torch.float32,))
+        for name, path in (("fused_obs_all", PLANAR), ("fused_obs_leg", PLANAR_FUSED)):
+            add(name, label, path, recs[name][torch.float32])
+            if f64:
+                add(name, f"{label} f64", PLANAR_F64 if name == "fused_obs_all" else path,
+                    recs[name][torch.float64])
     del tiles
     # B2: the stereo path's own batch, then synthetic values over its
     # observation pattern.
@@ -3946,12 +4002,16 @@ def phase_shapes(device, smi):
                  f"{len(fast.buckets)} buckets in one launch", tol64=TOL_SHAPE_F64,
                  tol32=TOL_SHAPE_F32))
     del head
-    for n, dr_s, dl in ((2, 6, 2), (3, 6, 3)):
+    for n, dr_s, dl in ((2, 6, 2), (3, 6, 3), (3, 9, 3)):
         head, tail, fast, L, n_obs = synthetic_batch(gen, n, dr_s, dl, device)
         label = f"synthetic ({n},{dr_s},{dl}) over bench-realistic's pattern"
-        add("fused_obs_all_into", label, STEREO,
-            b2_check(label, head, tail, fast, L, n_obs, "bench-realistic's observations",
-                     tol64=TOL_SHAPE_F64, tol32=TOL_SHAPE_F32))
+        record = b2_check(label, head, tail, fast, L, n_obs, "bench-realistic's observations",
+                          tol64=TOL_SHAPE_F64, tol32=TOL_SHAPE_F32,
+                          f64_timed=(n, dr_s, dl) == (3, 9, 3))
+        record64 = record.pop("f64", None)
+        add("fused_obs_all_into", label, STEREO, record)
+        if record64 is not None:
+            add("fused_obs_all_into", f"{label} f64", STEREO, record64)
     del stereo, comp, batch, fast
     mark("shapes: B1, B2, B8")
     # B3 at dl = 2 (the planar system) and dl = 1; B4 and B5 past the
@@ -3962,6 +4022,15 @@ def phase_shapes(device, smi):
                   rel_tol=TOL_SHAPE_F32)
     for label, record in b3.items():
         add("reduce_s_damped", label, PLANAR, record)
+    # B4 on the float64 planar system, as its solve takes it.
+    problem = shapes_problem("planar", torch.float64, device)
+    comp = compile_problem(problem, solver="schur", schur_family=nt.Euclidean(2))
+    _, sys_ = comp.assemble(problem.stacked_variables())
+    lam = 1e-2 * comp.ctx().linops.diag_max(sys_).item()
+    h_inv = schur.SchurOps.damped_inverse(sys_[2], lam)
+    add("reduce_s_lm", PLANAR_F64, PLANAR_F64,
+        b4_f64_case(PLANAR_F64, sys_[4], h_inv, sys_[3], comp.schur_info.w_rows, TOL_SHAPE_F64))
+    del problem, comp, sys_, h_inv
     for dl, (L, n_blocks, width) in ((7, (NLMK, NCAM, 6)), (16, (4096, 80, 9))):
         *inputs, rows = row_case(gen, L, dl, n_blocks, width, device, inverse=True)
         add("reduce_s_lm", f"synthetic dl={dl}", PLANAR_F64,

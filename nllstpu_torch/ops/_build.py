@@ -8,7 +8,8 @@ takes seconds rather than minutes, and no ``ninja`` is needed.  The library land
 ``.torch_ext/`` at the repository root under a name that hashes the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  The build runs at first use, never at import; a failed build
-raises.
+raises.  nvcc's report of each kernel's registers and spill (``-Xptxas
+-v``) is kept beside the library and read by :func:`resources`.
 
 Each exported launcher enqueues on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after the launch (0 = success).
@@ -20,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import time
 
@@ -49,6 +51,8 @@ _SIGNATURES = {
     # element strides jsn, jss, gss, gk, stream
     "fused_obs_all_into_f32": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
+    # The any-shape instance's shared memory a block: n, dr_s, dl, f64
+    "fused_obs_any_bytes": [_I] * 4,
     # B3 (float32 only), B4 and B5 (the external instance): w, h_ll or
     # h_inv ([dl, dl, L]; past dl 6 [L, dl, dl]), g_l, lam (B3: a device
     # double; NULL otherwise), the tables
@@ -77,6 +81,8 @@ BUILD_LOG = ""
 #: Seconds the build this process ran took (nvcc and link), 0.0 when the
 #: library was reused.
 BUILD_SECONDS = 0.0
+#: The loaded library's path.
+_so = None
 
 
 def _nvcc() -> str:
@@ -98,7 +104,7 @@ def _check_nvcc(cmd, returncode: int, log: str) -> None:
 
 def library():
     """The loaded kernel library, built on first call."""
-    global _lib, BUILD_LOG, BUILD_SECONDS
+    global _lib, _so, BUILD_LOG, BUILD_SECONDS
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
@@ -130,6 +136,7 @@ def library():
         _check_nvcc(link, pr.returncode, pr.stdout + pr.stderr)
         for obj in objs:
             obj.unlink()
+        so.with_suffix(".log").write_text(BUILD_LOG)
         os.replace(tmp, so)
         BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
@@ -139,8 +146,43 @@ def library():
         fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib, _so = lib, so
     return lib
+
+
+def resources(log=None):
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` of
+    every kernel in ``log`` (nvcc's ``-Xptxas -v`` output; default: the
+    loaded library's build, kept beside it), in the log's order, names
+    demangled by the toolkit's ``cu++filt`` where it runs."""
+    if log is None:
+        path = _so.with_suffix(".log") if _so is not None else None
+        log = path.read_text() if path is not None and path.exists() else ""
+    regs, spill, order = {}, {}, []
+    entry = props = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+            if entry not in regs:
+                order.append(entry)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill[props] = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            regs[entry] = int(m.group(1))
+    names = order
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        filt = os.path.join(CUDA_HOME or "", "bin", "cu++filt")
+        out = subprocess.run([filt], input="\n".join(order), capture_output=True, text=True,
+                             timeout=30).stdout.splitlines()
+        if len(out) == len(order):
+            names = out
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [(name, regs.get(k, 0), *spill.get(k, (0, 0))) for name, k in zip(names, order)]
 
 
 def check(code: int, what: str) -> None:

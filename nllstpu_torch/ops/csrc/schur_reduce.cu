@@ -272,7 +272,7 @@ __device__ __forceinline__ void add_rhs(const T (&ya)[DL], const T* __restrict__
 }
 
 // WID: the block width this instance is unrolled for (the cameras' 6 and
-// 9 at dl = 3; every block is at most WID wide), or 0 for any width up to
+// 9 at dl 1-3; every block is at most WID wide), or 0 for any width up to
 // kMaxWidth.  UNIFORM (with WID > 0): every block is WID wide, and the
 // block tables are not read.  The item's links are staged in shared memory
 // first; on a pair whose two blocks are WID wide, each group then takes
@@ -921,27 +921,32 @@ int launch_reduce_rows(const void* w, const void* h_in, const void* g_l, const v
 #define NLLSTPU_LINKS(D, WID, U)                                                 \
   reduce_links_kernel<T, D, WID, U><<<link_blocks, kLinkWarps * 32, 0, st>>>(   \
       yc_t, wb_t, g_t, lmk_t, bw_t, it_t, pr_t, ln_t, part_t, rp_t, l, mw, bs, n_items)
+  // dl 1-3 at the cameras' widths 6 and 9 (uniform W first): the unrolled
+  // two-link instances; any other width or dl 4-6, the any-width instance.
+#define NLLSTPU_LINKS_DL(D)                    \
+  if (mw == 6 && uniform) {                    \
+    NLLSTPU_LINKS(D, 6, true);                 \
+  } else if (mw == 6) {                        \
+    NLLSTPU_LINKS(D, 6, false);                \
+  } else if (mw == 9 && uniform) {             \
+    NLLSTPU_LINKS(D, 9, true);                 \
+  } else if (mw == 9) {                        \
+    NLLSTPU_LINKS(D, 9, false);                \
+  } else {                                     \
+    NLLSTPU_LINKS(D, 0, false);                \
+  }
   if (n_items > 0 && !tiled) {
-    if (dl == 3 && mw == 6 && uniform) {
-      NLLSTPU_LINKS(3, 6, true);
-    } else if (dl == 3 && mw == 6) {
-      NLLSTPU_LINKS(3, 6, false);
-    } else if (dl == 3 && mw == 9 && uniform) {
-      NLLSTPU_LINKS(3, 9, true);
-    } else if (dl == 3 && mw == 9) {
-      NLLSTPU_LINKS(3, 9, false);
-    } else {
-      switch (dl) {
-        case 1: NLLSTPU_LINKS(1, 0, false); break;
-        case 2: NLLSTPU_LINKS(2, 0, false); break;
-        case 3: NLLSTPU_LINKS(3, 0, false); break;
-        case 4: NLLSTPU_LINKS(4, 0, false); break;
-        case 5: NLLSTPU_LINKS(5, 0, false); break;
-        case 6: NLLSTPU_LINKS(6, 0, false); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-      }
+    switch (dl) {
+      case 1: NLLSTPU_LINKS_DL(1); break;
+      case 2: NLLSTPU_LINKS_DL(2); break;
+      case 3: NLLSTPU_LINKS_DL(3); break;
+      case 4: NLLSTPU_LINKS(4, 0, false); break;
+      case 5: NLLSTPU_LINKS(5, 0, false); break;
+      case 6: NLLSTPU_LINKS(6, 0, false); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+#undef NLLSTPU_LINKS_DL
 #undef NLLSTPU_LINKS
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -50,14 +50,17 @@ they run the plain PyTorch versions, which take the same two stages.
 Shapes: the JAX kernels take any (n residual rows, dr_s, dl); the CUDA
 source takes any shape within the caps of :func:`kernel_takes` (n ≤ 4,
 dr_s ≤ 16, dl ≤ 6): two instances unrolled for the hot shapes (2, 6, 3)
-and (2, 9, 3), and one for every other shape, unrolled to the caps with
-the entries past the shape skipped.  One instance was chosen over one per
-shape compiled at first use because the library then stays one build of
-fixed sources (its cold build is set-up time, ``Result.time_init``), and
-no new shape compiles inside a timed run or a CUDA graph capture; the cost
-is speed at the other shapes (registers spill), not their values.  The
-route (``ops/schur.py:route_batches``) asks :func:`kernel_takes` at
-compile time and sends any other batch to the generic route.
+and (2, 9, 3), and one for every other shape, whose lanes hold nothing
+sized by the caps: each round a warp stages its slots in shared memory
+sized to the shape (:func:`any_shape_plan`), its lanes take the round's W
+and camera-row entries as items, and each landmark's lanes sum its
+h_ll/g_l terms by a butterfly.  One
+instance was chosen over one per shape compiled at first use because the
+library then stays one build of fixed sources (its cold build is set-up
+time, ``Result.time_init``), and no new shape compiles inside a timed run
+or a CUDA graph capture.  The route (``ops/schur.py:route_batches``) asks
+:func:`kernel_takes` at compile time and sends any other batch to the
+generic route.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ from . import _build, segment_sum
 MAX_ROWS, MAX_DR, MAX_DL = 4, 16, 6
 #: Widest lane group of one landmark in B2's work list (a warp).
 GROUP_MAX = 32
+#: Warps a block of the any-shape instance (``kAnyWarps`` in the source).
+ANY_WARPS = 4
 
 #: Number of kernel launches made by :func:`fused_obs_all_cuda` (B1).
 LAUNCHES = 0
@@ -81,6 +86,33 @@ LAUNCHES = 0
 INTO_LAUNCHES = 0
 #: Number of kernel launches made by :func:`fused_obs_leg_cuda` (B8).
 LEG_LAUNCHES = 0
+
+
+class AnyPlan(NamedTuple):
+    """Dynamic shared memory of the any-shape instance's block, bytes
+    (``any_bytes`` in the source)."""
+
+    stride: int  # values of one staged slot: n·S Jacobian columns, g0, ρ′, 2ρ″ (odd)
+    table_bytes: int  # the block's h_ll/g_l entry table, 16-aligned
+    warp_bytes: int  # a warp's 32 staged slots, accumulators and round lists
+    block_bytes: int  # table_bytes + ANY_WARPS · warp_bytes
+
+
+def any_shape_plan(n: int, dr_s: int, dl: int, dtype) -> AnyPlan:
+    """The any-shape instance's shared memory at (n, dr_s, dl) in ``dtype``
+    (B1, B2 and B8 alike), the host's mirror of the CUDA source's: a staged
+    slot of ``n·S + S + 2`` values rounded up to odd (lanes on distinct
+    slots hit distinct banks); per warp 32 such slots, the h_ll/g_l
+    accumulators of up to 32 landmarks, and the round's W leaders (8 + 4
+    bytes) and camera rows (8 bytes); one int per h_ll/g_l entry.  The
+    source opts the kernel in at the caps, the largest plan."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    s = dr_s + dl
+    stride = (n * s + s + 2) | 1
+    n_hg = dl * (dl + 1) // 2 + dl
+    tables = -(-4 * n_hg // 16) * 16
+    warp = 32 * (stride + n_hg) * elt + 32 * (8 + 4 + 8)
+    return AnyPlan(stride, tables, warp, tables + ANY_WARPS * warp)
 
 
 class SlotTables(NamedTuple):

@@ -43,6 +43,25 @@ reduction (``scripts_torch/anydl_reference.py``, float32, damped_inverse
 then B5) at K = 3 and 6 (dl 9 and 18), where the port under ``--root``
 compiles it.
 
+With ``--cases shapes`` it times instead every shape of ``chip_smoke.py``'s
+phase 23 in both float types (events, host enqueue, graph; each kernel's
+mean device time by torch.profiler beside B1, B2, B3 and B4), with the
+unrolled instances' hot shapes and B3 at dl 3 beside them, after printing
+the registers and spill of the assembly and links kernels from the build
+(nvcc's ``-Xptxas -v``):
+
+- B1 with its B6 camera sum and B8 on one tile: the planar problem's (2,
+  6, 2), synthetic bench-sized (3, 6, 3) and (3, 9, 3) tiles, and the hot
+  (2, 6, 3) (the pinhole bench's) and (2, 9, 3) (synthetic);
+- one whole B2 assembly (zeroed buffers, B2, the camera sum): the stereo
+  problem's (3, 9, 3) batch, random values at (2, 6, 2), (3, 6, 3) and (3,
+  9, 3) over its observation pattern, and the hot (2, 9, 3) of
+  bench-realistic;
+- the reductions over the planar system's W (dl 2): B3 (float32) and B4
+  over inverses formed in float64 (both types), B3 at dl 1 (synthetic),
+  and the hot B3 on the pinhole bench (dl 3) and B4 on the gauge-fixed
+  float64 system.
+
 The problems are chip_smoke.py's (its constants), built by the port
 under ``--root``.
 """
@@ -124,7 +143,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--cases", choices=("all", "anydl"), default="all")
+    ap.add_argument("--cases", choices=("all", "anydl", "shapes"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_assembly: no CUDA device")
@@ -147,6 +166,8 @@ def main():
     reps = args.reps
     if args.cases == "anydl":
         return anydl_cases(cs, dev, tag, reps)
+    if args.cases == "shapes":
+        return shapes_cases(cs, dev, tag, reps)
     fam = cs.bench_options().schur_family
 
     def tiles(problem, comp):
@@ -277,6 +298,117 @@ def anydl_cases(cs, dev, tag, reps):
         h_inv = ops.damped_inverse(h_ll, 1e-2 * ops.diag_max(sys_).item())
         report(f"B5 NRSfM K={K} dl={3 * K}", schur_reduce.reduce_s, w, h_inv, g_l, ops.pairs)
         del comp, sys_, ops, w, h_inv
+
+
+def build_resources(tag):
+    """Build (or load) the library of the port under ``--root`` and print
+    each assembly and links kernel's registers and spill, once."""
+    from nllstpu_torch.ops import _build
+
+    _build.library()
+    print(f"{tag} build {_build.BUILD_SECONDS:.2f} s", flush=True)
+    if hasattr(_build, "resources"):
+        for name, regs, st, ld in _build.resources():
+            if "assemble" in name or "reduce_links_kernel" in name:
+                print(f"{tag} {regs} registers, spill {st} / {ld} bytes: {name}", flush=True)
+    else:  # a port that keeps no parsed report: nvcc's own lines
+        lines = _build.BUILD_LOG.splitlines()
+        for i, line in enumerate(lines):
+            if "assemble" in line and "Function properties" in line:
+                print(f"{tag} {' '.join(x.strip() for x in lines[i:i + 3])}", flush=True)
+
+
+def shapes_cases(cs, dev, tag, reps):
+    """Phase 23's shapes in both float types, the hot instances beside
+    them (see the module docstring)."""
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.ops import fused_obs, schur, schur_reduce, segment_sum
+
+    build_resources(tag)
+
+    def timed(label, fn, profile=False):
+        line = (f"{tag} {label}: events {events_ms(fn, reps):.4f} ms, host enqueue "
+                f"{host_ms(fn, reps):.4f} ms, graph {graph_ms(fn, reps):.4f} ms")
+        if profile:
+            line += f"; passes {passes_ms(fn, reps)}"
+        print(line, flush=True)
+
+    def tile_of(problem, fam):
+        comp = compile_problem(problem, solver="schur", schur_family=fam)
+        (batch,), (fast,) = comp.batches, comp.schur_info.fast
+        _, a = schur.fused_inputs(batch, problem.stacked_variables(), comp.schur_info, fast,
+                                  torch.float32)
+        return list(a[:4]), (a[4], fast.cpos, fast.cstarts, *a[5:])
+
+    gen = torch.Generator().manual_seed(23)
+    tiles = {"planar (2,6,2)": tile_of(cs.shapes_problem("planar", torch.float32, dev),
+                                       nt.Euclidean(2))}
+    for shape in ((3, 6, 3), (3, 9, 3), (2, 9, 3)):
+        tiles[f"synthetic {shape} K=14".replace(", ", ",")] = cs.synthetic_tile(gen, *shape, dev)
+    tiles["pinhole bench (2,6,3)"] = tile_of(cs.bench_problem(dev), nt.Euclidean(3))
+    for label, (floats, ints) in tiles.items():
+        vc, cpos, cstarts, n_r, dr_s, dl, e_start = ints
+        for dt in (torch.float32, torch.float64):
+            x = [t.to(dt) for t in floats]
+            b1 = lambda: fused_obs.fused_obs_all(*x, vc, cpos, cstarts, n_r, dr_s, dl, e_start)  # noqa: E731
+            b8 = lambda: fused_obs.fused_obs_leg(*x, vc, n_r, dr_s, dl, e_start)  # noqa: E731
+            timed(f"B1 + B6 {label} {dt}", b1, profile=True)
+            timed(f"B8 {label} {dt}", b8)
+        del x
+    del tiles
+    kern = (fused_obs.fused_obs_all_into, segment_sum.segment_block_sum)
+    stereo = cs.shapes_problem("stereo", torch.float32, dev)
+    comp = compile_problem(stereo, solver="schur", schur_family=nt.Euclidean(3))
+    (batch,), (fast,) = comp.batches, comp.schur_info.fast
+    _, head, tail = schur.batch_inputs(batch, stereo.stacked_variables(), comp.schur_info, fast,
+                                       torch.float32)
+    batches = {"stereo (3,9,3)": (head, tail, fast, comp.schur_info.num_elim)}
+    for shape in ((2, 6, 2), (3, 6, 3), (3, 9, 3)):
+        head_s, tail_s, fast_s, L, _ = cs.synthetic_batch(gen, *shape, dev)
+        batches[f"synthetic {shape} over bench-realistic's pattern".replace(", ", ",")] = (
+            head_s, tail_s, fast_s, L)
+    problem = cs.bal_problem("bench-realistic", dev)
+    comp = compile_problem(problem, solver="schur", schur_family=nt.Euclidean(3))
+    (batch,), (fast,) = comp.batches, comp.schur_info.fast
+    _, head, tail = schur.batch_inputs(batch, problem.stacked_variables(), comp.schur_info, fast,
+                                       torch.float32)
+    batches["bench-realistic (2,9,3)"] = (head, tail, fast, comp.schur_info.num_elim)
+    for label, (head, tail, fast, L) in batches.items():
+        for dt in (torch.float32, torch.float64):
+            timed(f"B2 + B6 assembly {label} {dt}",
+                  lambda: cs._assemble_batch(kern, fast, head, tail, dt, L), profile=True)
+    del batches, head, stereo, problem, comp
+
+    def system(problem, fam, **route):
+        comp = compile_problem(problem, route.get("unfixed"), solver="schur",
+                               schur_family=fam, w_impl=route.get("w_impl", "fused_all"))
+        _, sys_ = comp.assemble(problem.stacked_variables())
+        ops = comp.ctx().linops
+        lam = 1e-2 * ops.diag_max(sys_).item()
+        _, _, h_ll, g_l, w = sys_
+        return w, h_ll, g_l, lam, comp.schur_info.w_rows
+
+    def reductions(label, w, h_ll, g_l, lam, rows, b3=True, types=(torch.float32, torch.float64)):
+        if b3:
+            lam_dev = schur_reduce.lam_tensor(lam, dev)
+            x = [t.float() for t in (w, h_ll, g_l)]
+            timed(f"B3 {label} (W {tuple(w.shape)})",
+                  lambda: schur_reduce.reduce_s_damped(*x, lam_dev, rows), profile=True)
+        h_inv = schur.SchurOps.damped_inverse(h_ll.double(), lam)
+        for dt in types:
+            x = [t.to(dt) for t in (w, h_inv, g_l)]
+            timed(f"B4 {label} (W {tuple(w.shape)}) {dt}",
+                  lambda: schur_reduce.reduce_s_lm(*x, rows), profile=True)
+
+    reductions("planar dl=2", *system(cs.shapes_problem("planar", torch.float64, dev),
+                                      nt.Euclidean(2)))
+    w, h_ll, g_l, rows = cs.row_case(gen, cs.NLMK, 1, cs.NCAM, 6, dev, inverse=False)
+    reductions("synthetic dl=1", w, h_ll, g_l, 1e-2, rows, types=())
+    reductions("pinhole bench dl=3", *system(cs.bench_problem(dev), nt.Euclidean(3)), types=())
+    problem, route = cs.dual_problem(cs.GAUGE, dev)
+    reductions("gauge-fixed dl=3", *system(problem, nt.Euclidean(3), **route), b3=False,
+               types=(torch.float64,))
 
 
 if __name__ == "__main__":

@@ -59,10 +59,12 @@ def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype, n=2, dl=3):
 #: instances' pinhole camera before and after the landmark and Snavely
 #: camera (n_r = 300: many short camera runs, ~47 slots each); the
 #: any-shape instance at a planar landmark (2, 6, 2), three residual rows
-#: (3, 6, 3) and (3, 9, 3), and at its caps (4, 16, 6), where a block of
-#: float64 takes one warp.
+#: (3, 6, 3) and (3, 9, 3), at its caps (4, 16, 6), and at shapes whose
+#: entry lists end mid-warp: one row and one landmark dof (1, 7, 1), the
+#: landmark first at (4, 13, 5), the landmark last at (3, 16, 6).
 ASM_SHAPES = [(2, 6, 3, 6, 37), (2, 6, 3, 0, 37), (2, 9, 3, 9, 300), (2, 6, 2, 6, 37),
-              (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23)]
+              (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23), (1, 7, 1, 7, 37),
+              (4, 13, 5, 0, 23), (3, 16, 6, 16, 19)]
 
 
 @pytest.mark.cuda
@@ -241,6 +243,57 @@ def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_st
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,dr_s,dl,e_start", [(2, 6, 2, 6), (3, 9, 3, 9), (4, 16, 6, 0)])
+def test_fused_obs_into_repeats_across_rounds(cuda, dtype, tol, n, dr_s, dl, e_start):
+    """B2's any-shape instance over landmarks of 70 and 45 slots (three and
+    two rounds of a warp) among 11 cameras: every landmark repeats cameras
+    within a round and across rounds (the table's ~column marks), so each
+    W block is stored by its first slot and added to after, in slot order;
+    the same bits on a second launch."""
+    gen = torch.Generator().manual_seed(29)
+    n_r, L = 11, 64
+    calls = [(70, 0, 20), (45, 20, 44)]  # (K, l_base, L_b)
+    inputs = [_b1_inputs(gen, K, lb, n_r, dr_s, cuda, dtype, n, dl) for K, _, lb in calls]
+    batch, slots, cstarts = _tiles_as_batch(inputs, calls, L, n_r, cuda)
+    repeats = int((slots.slots < 0).sum())
+    assert repeats >= 70 * 20 + 45 * 44 - 11 * 64 - 64  # nearly every slot past a landmark's 11th
+    n_rows, nab = int(cstarts[-1]), dr_s * (dr_s + 3) // 2
+
+    def assemble(kernel, dt):
+        bufs = fused_obs.zero_buffers(L, n_r, dr_s, dl, n_rows, dt, cuda)
+        x = [t.to(dt) if t.is_floating_point() else t for t in batch]
+        kernel(*x, slots, *bufs, n_r, dr_s, dl, e_start)
+        return list(bufs[:3]) + [segment_sum.segment_block_sum(bufs[3], cstarts)]
+
+    before = fused_obs.INTO_LAUNCHES
+    got = assemble(fused_obs.fused_obs_all_into, dtype)
+    torch.cuda.synchronize()
+    assert fused_obs.INTO_LAUNCHES == before + 1
+    ref = assemble(fused_obs.fused_obs_all_into_reference, torch.float64)
+    for name, a, b in zip(("h_ll", "g_l", "w", "ab"), got, ref):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    again = assemble(fused_obs.fused_obs_all_into, dtype)
+    assert fused_obs.INTO_LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_any_shape_plan_matches_the_source(cuda):
+    """The host's mirror of the any-shape instance's shared memory
+    (``fused_obs.any_shape_plan``) gives the source's bytes at every shape
+    within the caps, in both float types."""
+    lib = _build.library()
+    for n in range(1, fused_obs.MAX_ROWS + 1):
+        for dr_s in range(1, fused_obs.MAX_DR + 1):
+            for dl in range(1, fused_obs.MAX_DL + 1):
+                for dtype in (torch.float32, torch.float64):
+                    plan = fused_obs.any_shape_plan(n, dr_s, dl, dtype)
+                    got = lib.fused_obs_any_bytes(n, dr_s, dl, int(dtype == torch.float64))
+                    assert got == plan.block_bytes, (n, dr_s, dl, dtype)
+
+
 def _row_w(gen, L, dl, n_blocks, width):
     """An obs-major-like W ``[L, dl, n_blocks·width]``: landmark l holds a
     random subset of the camera blocks (every 9th none: its costs would
@@ -289,6 +342,54 @@ def test_reduce_s_damped_kernel_matches_plain(cuda, wc, width, lam, dl):
         schur_reduce.reduce_s_damped(*args, lam)
     with pytest.raises(TypeError):  # and float32
         schur_reduce.reduce_s_damped(*(t.double() for t in args), lam, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dl", [1, 2])
+@pytest.mark.parametrize("width", [6, 9])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_links_instances_at_dl_1_2(cuda, dl, width, shift):
+    """B3 (float32) and B4 (float32, float64) at dl 1 and 2 over camera
+    blocks of 6 and 9: from column 0, the uniform W of an obs-major batch
+    (the two-link instances that skip the block tables), or one column on
+    (``shift``: the same widths read from the tables), against the plain
+    versions (1e-5, float64 1e-12 of the largest entry); s_sum exactly
+    symmetric, the same bits on a second launch, the launch counters
+    moved."""
+    gen = torch.Generator().manual_seed(31 + 10 * dl + width + shift)
+    L, n_blocks = 777, 1152 // 9 if width == 9 else 768 // 6
+    w, tables = _row_w(gen, L, dl, n_blocks, width)
+    if shift:
+        w = torch.cat([torch.zeros(L, dl, shift, dtype=torch.float64), w], dim=2)
+        tables = tables._replace(bcol=tables.bcol + shift, n_cols=tables.n_cols + shift)
+    rows = schur_reduce.upload_tables(tables, cuda)
+    a = torch.randn(dl, dl, L, generator=gen, dtype=torch.float64)
+    h_ll = torch.einsum("del,fel->dfl", a, a) + 2.0 * torch.eye(dl, dtype=torch.float64)[:, :, None]
+    g_l = torch.randn(dl, L, generator=gen, dtype=torch.float64)
+    h_inv = _spd_inverses(gen, dl, L)
+    args = [t.to(device=cuda, dtype=torch.float32) for t in (w, h_ll, g_l)]
+    before = schur_reduce.LAUNCHES
+    out = schur_reduce.reduce_s_damped(*args, 1e-2, rows)
+    again = schur_reduce.reduce_s_damped(*args, 1e-2, rows)
+    torch.cuda.synchronize()
+    assert schur_reduce.LAUNCHES == before + 2
+    ref = schur_reduce.reduce_s_damped_reference(*(t.to(cuda) for t in (w, h_ll, g_l)), 1e-2)
+    for name, x, y in zip(("s_sum", "rhs_sum", "h_inv"), out, ref):
+        assert _rel_err(x, y) <= 1e-5, (name, _rel_err(x, y))
+    assert torch.equal(out[0], out[0].T)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    ref = schur_reduce.reduce_s_reference(*(t.to(cuda) for t in (w, h_inv, g_l)))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        args = [t.to(device=cuda, dtype=dtype) for t in (w, h_inv, g_l)]
+        before = schur_reduce.LM_LAUNCHES
+        out = schur_reduce.reduce_s_lm(*args, rows)
+        again = schur_reduce.reduce_s_lm(*args, rows)
+        torch.cuda.synchronize()
+        assert schur_reduce.LM_LAUNCHES == before + 2
+        for name, x, y in zip(("s_sum", "rhs_sum"), out, ref):
+            assert _rel_err(x, y) <= tol, (dtype, name, _rel_err(x, y))
+        assert torch.equal(out[0], out[0].T)
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 @pytest.mark.cuda
