@@ -12,7 +12,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
    into ``.torch_ext/``: the build must fall in ``Result.time_init``, before
    the loop's budget clock.  Each kernel's registers and spill from nvcc's
    ``-Xptxas -v`` report (``_build.resources``); the any-shape instance of
-   B1/B2/B8 must spill nothing in either float type.
+   B1/B2/B8 must spill nothing in either float type (24 instances: B1, B2
+   and B8, each with and without its WIDE_N and WIDE_DL paths).
 3. B1      — kernel ``fused_obs_all`` (with kernel B6 over its per-slot
    camera rows, which the wrapper launches) against its plain PyTorch
    version on the pinhole bench problem's own inputs (128 cameras, 8192
@@ -292,20 +293,37 @@ Phases, one line each or more; any failure raises and exits non-zero:
    launches are those of the main path it names (B5's: the adaptive main
    path, phase 11).
 24. anydl (run right after the shapes phase) — the direct solve past the
-   unrolled dl ≤ 6: trajectory-space NRSfM
+   unrolled dl ≤ 6 and the assembly past the old caps of B1/B2/B8 (n ≤ 4,
+   dr_s ≤ 16, dl ≤ 6): trajectory-space NRSfM
    (``scripts_torch/anydl_reference.py``: 128 frames of 6 dof, 8192 points
    of K DCT coefficients per axis, dl = 3K, 104,858 observations, W [8192,
-   3K, 768]) through the generic route, each run with the launch counts
-   set to 0 just before and read just after and the plain versions of B4
-   and B5 refused: float32 at K = 3 and 6 (B6, B7, B5; the JAX package's
-   CPU start within 1e-4 and its best cost + 1e-3, ``ANYDL_REF``), float64
-   at K = 6 (the float64 trace gate).  Then B5's tiled instance against
-   its plain version on the float32 paths' own reductions (dl 9 and 18)
-   and a synthetic dl = 33 structure (float64 within 1e-12, float32 within
-   1e-5 of the largest entry, two launches the same bits, s_sum exactly
-   symmetric; timed beside cuBLAS's ``Yᵀ W`` and the structural bound),
+   3K, 768]), each run with the launch counts set to 0 just before and
+   read just after and the plain versions of B1, B2, B8, B4 and B5
+   refused: through the obs-major route, float32 at K = 3 and 6 (B1 at
+   (2, 6, 3K), B6, the damped inverses, B4; the JAX package's CPU start
+   within 1e-4 and its best cost + 1e-3, ``ANYDL_REF``) and float64 at
+   K = 6 (the float64 trace gate); through ``w_impl="fused"`` at K = 3 (B8
+   and B4, nothing else; K = 3's reference); and its adaptive form at
+   K = 3 (10% of the measurements moved by 50 pixels, one shared
+   ContaminatedGaussian, started as the adaptive main path, phase 11)
+   through the generic route (B6, B7, B5's tiled instance; the JAX
+   package's CPU float32 start and best cost + 1e-2, its (σ1, σ2, w)
+   printed beside).  Then, each against its plain version (float64 within
+   1e-12, float32 within 1e-5 of the largest entry, two launches the same
+   bits) and timed in both float types beside its bound: B1 and B8 on the
+   obs-major paths' own tiles (2, 6, 9) and (2, 6, 18) and on bench-sized
+   tiles at (5, 6, 3) and (2, 17, 3); B2 on random values over
+   bench-realistic's observation pattern at those four shapes; B4 on the
+   float32 obs-major paths' own reductions (dl 9 and 18, their inverses
+   formed in float64); B5's tiled instance on a synthetic dl = 33
+   structure (s_sum exactly symmetric; timed beside cuBLAS's ``Yᵀ W`` and
+   the structural bound; the adaptive path's own reduction cancels, so
+   that two summation orders part by ~1e-10 of its largest entry);
    and B7 on rows past a block's shared memory (a float64 row of 233,280
-   bytes, built in column spans; timed in float64).
+   bytes, built in column spans; timed in float64).  The rows of B1 and
+   B8 give the launches of the K = 3 paths (obs-major and dual-sorted;
+   K = 6's own tiles those of K = 6), B2's those of phase 23's stereo
+   path, B5's and B7's those of the adaptive form.
 
 Tolerances: each kernel is compared with its plain version run in float64
 on the same inputs.  The float64 instance of a kernel must agree to 1e-10
@@ -1079,9 +1097,10 @@ def phase_build(device):
         print(f"build: {regs} registers, spill stores {stores} / loads {loads} bytes: {name}",
               flush=True)
     anyshape = [k for k in kernels if "assemble_any_kernel" in k[0]]
-    if len(anyshape) != 6 or any(k[2] or k[3] for k in anyshape):
+    if len(anyshape) != 24 or any(k[2] or k[3] for k in anyshape):
         raise AssertionError(f"build: the any-shape instance of B1/B2/B8 (f32 and f64 of B1, B2 "
-                             f"and B8) must build spill-free, nvcc reports {anyshape}")
+                             f"and B8, each with and without its WIDE_N and WIDE_DL paths) must "
+                             f"build spill-free, nvcc reports {anyshape}")
 
 
 def check(name, got, ref, tol):
@@ -4045,44 +4064,67 @@ def phase_shapes(device, smi):
 
 #: Phase 24's paths (``scripts_torch/anydl_reference.py``: trajectory-space
 #: NRSfM, K DCT-II coefficients per axis, so dl = 3K, at the pinhole bench's
-#: size, through the generic route: B6, B7, the damped inverses, B5's tiled
-#: instance) and the JAX package's CPU references (``JAX_PLATFORMS=cpu
-#: python scripts_torch/anydl_reference.py``): float32 start and best cost
-#: after 30 LM iterations at K = 3 and 6, the float64 trace at K = 6 to
-#: ``rel_dcost=1e-6``.
+#: size): through the obs-major route (B1 at (2, 6, 3K), B6, the damped
+#: inverses, B4) at K = 3 and 6, through the dual-sorted route at K = 3 (B8,
+#: B4), and the adaptive form at K = 3 through the generic route (B6, B7,
+#: the damped inverses, B5's tiled instance); the JAX package's CPU
+#: references (``JAX_PLATFORMS=cpu python scripts_torch/anydl_reference.py``):
+#: float32 start and best cost after 30 LM iterations at K = 3 and 6 (the
+#: dual-sorted route shares K = 3's), the float64 trace at K = 6 to
+#: ``rel_dcost=1e-6``, and the adaptive form's float32 start, best cost and
+#: recovered (σ1, σ2, w) after 30 iterations (``adaptive_k3_f32``).
 NRSFM3 = "NRSfM K=3"
 NRSFM6 = "NRSfM K=6"
 NRSFM6_F64 = "NRSfM K=6 f64"
-ANYDL = {NRSFM3: (3, torch.float32), NRSFM6: (6, torch.float32), NRSFM6_F64: (6, torch.float64)}
+NRSFM3_FUSED = "NRSfM K=3 fused"
+NRSFM_ADAPTIVE = "adaptive NRSfM K=3"
+ANYDL = {NRSFM3: (3, torch.float32), NRSFM6: (6, torch.float32), NRSFM6_F64: (6, torch.float64),
+         NRSFM3_FUSED: (3, torch.float32), NRSFM_ADAPTIVE: (3, torch.float32)}
 ANYDL_REF = {
     NRSFM3: dict(start=1792637.0, best=16914.21484375),
     NRSFM6: dict(start=3533587.25, best=7881.513671875),
     NRSFM6_F64: dict(start=3533587.0315783885, best=7887.0030997294125,
                      costs=[9120.30069638757, 7887.0102194808005, 7887.0030997294125]),
+    NRSFM_ADAPTIVE: dict(start=200385.71875, best=37630.31640625,
+                         sigmas_weight=(0.5489867329597473, 69.76701354980469,
+                                        0.8971962928771973)),
 }
+ANYDL_REF[NRSFM3_FUSED] = ANYDL_REF[NRSFM3]
 #: Phase 24's B7 case whose float64 row (18·1620·8 = 233,280 bytes) is past
 #: the 232,448 bytes of shared memory a block holds: landmarks, dl, dr_s,
 #: cameras (180 Snavely cameras), observations a landmark.
 B7_SPAN = dict(L=4096, dl=18, dr_s=9, n_r=180, per=13)
+#: Phase 24's synthetic shapes of B1, B8 and B2 past the old caps n ≤ 4,
+#: dr_s ≤ 16, dl ≤ 6 besides NRSfM's own: five residual rows, a camera of
+#: 17 dof.
+LIFTED_SYNTHETIC = ((5, 6, 3), (2, 17, 3))
 
 
 def anydl_problem(label, device):
-    """Phase 24's ``label`` problem, its points perturbed as the bench's,
-    and its options."""
+    """Phase 24's ``label`` problem, its points perturbed as the bench's
+    (the adaptive form: with its outliers and kernel, perturbed as the
+    adaptive bench-realistic path's), its options, its route and its
+    kernel's handle (None but for the adaptive form)."""
     import nllstpu_torch as nt
     from nllstpu_torch.models.ba import perturb_ba
     from scripts_torch import anydl_reference
 
     K, dtype = ANYDL[label]
-    problem, _, points = anydl_reference.build(nt, anydl_data(K), dtype, device)
-    perturb_ba(problem, points, 0.05, seed=5)
+    kh = None
+    if label == NRSFM_ADAPTIVE:
+        problem, _, points, kh = anydl_reference.build(
+            nt, anydl_reference.with_outliers(anydl_data(K)), dtype, device, adaptive=True)
+        perturb_ba(problem, points, anydl_reference.ADAPTIVE_PERTURB, seed=5)
+    else:
+        problem, _, points = anydl_reference.build(nt, anydl_data(K), dtype, device)
+        perturb_ba(problem, points, 0.05, seed=5)
     fam = nt.Euclidean(3 * K)
     if dtype == torch.float64:
         opts = nt.Options(solver="schur", schur_family=fam, rel_dcost=1e-6,
                           max_time=float("inf"))
     else:
         opts = dataclasses.replace(bench_options(), schur_family=fam)
-    return problem, opts
+    return problem, opts, dict(w_impl="fused") if label == NRSFM3_FUSED else {}, kh
 
 
 @functools.lru_cache(maxsize=None)
@@ -4093,21 +4135,53 @@ def anydl_data(K):
 
 
 @contextlib.contextmanager
-def no_plain_reduction():
-    """Fail when a plain version of B4/B5 runs (the dispatchers on CUDA
-    tensors must launch the kernel)."""
-    from nllstpu_torch.ops import schur_reduce
+def no_plain_kernels():
+    """Fail when a plain version of B1, B2, B8, B4 or B5 runs (the
+    dispatchers on CUDA tensors must launch the kernel)."""
+    from nllstpu_torch.ops import fused_obs, schur_reduce
 
-    real = schur_reduce.reduce_s_reference, schur_reduce.reduce_s_rows_reference
+    names = [(fused_obs, n) for n in ("fused_obs_all_reference", "fused_obs_all_into_reference",
+                                      "fused_obs_leg_reference")]
+    names += [(schur_reduce, n) for n in ("reduce_s_reference", "reduce_s_rows_reference")]
+    real = [getattr(m, n) for m, n in names]
 
     def refuse(*args):
-        raise AssertionError("a plain version of B4/B5 ran on a main path")
+        raise AssertionError("a plain version of B1/B2/B8/B4/B5 ran on a main path")
 
-    schur_reduce.reduce_s_reference = schur_reduce.reduce_s_rows_reference = refuse
+    for m, n in names:
+        setattr(m, n, refuse)
     try:
         yield
     finally:
-        schur_reduce.reduce_s_reference, schur_reduce.reduce_s_rows_reference = real
+        for (m, n), fn in zip(names, real):
+            setattr(m, n, fn)
+
+
+def obs_major_inputs(problem, opts):
+    """What an obs-major direct path hands B1 (its tile, as phase 23 takes
+    the planar path's) and B4 in one assembly and one damped solve of its
+    compiled problem (a recorder in place of B4): ``((floats, ints,
+    n_obs), (w, h_inv, g_l, rows))``."""
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.ops import schur
+
+    comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+    (batch,), (fast,) = comp.batches, comp.schur_info.fast
+    variables = problem.stacked_variables()
+    _, args = schur.fused_inputs(batch, variables, comp.schur_info, fast,
+                                 problem.dtype)
+    tile = (list(args[:4]), (args[4], fast.cpos, fast.cstarts, *args[5:]), batch.n)
+    kern, seen = comp.kernels.reduce_lm, {}
+
+    def record(w, h_inv, g_l, rows):
+        seen["in"] = (w.clone(), h_inv.clone(), g_l.clone(), rows)
+        return kern(w, h_inv, g_l, rows)
+
+    comp.kernels = dataclasses.replace(comp.kernels, reduce_lm=record)
+    _, sys_ = comp.assemble(variables)
+    ctx = comp.ctx(opts)
+    ctx.linops.solve(sys_, 1e-2 * ctx.linops.diag_max(sys_).item())
+    return tile, seen["in"]
 
 
 def b7_span_case(device):
@@ -4159,45 +4233,94 @@ def b7_span_case(device):
 
 def phase_anydl(device, smi):
     """Phase 24 (see the module docstring): the NRSfM paths at full width
-    through the generic route and the tiled B5, with no plain reduction;
-    then the tiled instance at dl 9 and 18 (the paths' own reductions) and
-    33 (synthetic) against its plain version, and B7's span path.  Returns
-    the main paths' launch counts and the kernels' records, by kernel and
-    shape (each with ``path``)."""
-    launches = {}
-    needs = ("segment_block_sum", "place_w", "reduce_s")
-    reductions = {}
+    through the obs-major route (B1, B4), the dual-sorted route (B8, B4)
+    and, in the adaptive form, the generic route (B6, B7, B5's tiled
+    instance), with no plain version of those kernels; then B1 and B8 on
+    the paths' own tiles and on synthetic tiles past the old caps, B2 at
+    those shapes over bench-realistic's pattern, B4 on the obs-major paths'
+    own reductions and B5 at dl = 33 against their plain versions, and
+    B7's span path.  Returns the main paths'
+    launch counts and the kernels' records, by kernel and shape (each with
+    ``path``)."""
+    import nllstpu_torch as nt
+
+    launches, inputs = {}, {}
+    obs_major = ("fused_obs_all", "segment_block_sum", "reduce_s_lm")
+    needs_of = {NRSFM3_FUSED: ("fused_obs_leg", "reduce_s_lm"),
+                NRSFM_ADAPTIVE: ("segment_block_sum", "place_w", "reduce_s")}
     for label in ANYDL:
         ref = ANYDL_REF[label]
-        problem, opts = anydl_problem(label, device)
+        problem, opts, route, kh = anydl_problem(label, device)
         f64 = ANYDL[label][1] == torch.float64
-        with no_plain_reduction():
+        needs = needs_of.get(label, obs_major)
+        slack = 1e-9 if f64 else 1e-2 if label == NRSFM_ADAPTIVE else 1e-3
+        with no_plain_kernels():
             launches[label], result = phase_main(
-                label, problem, ref["start"], ref["best"], 1e-9 if f64 else 1e-3, needs=needs,
-                never=_never(needs), options=opts)
+                label, problem, ref["start"], ref["best"], slack, needs=needs,
+                never=_never(needs), options=opts, **route)
         if f64:
             trace_gate(label, result, ref)
-        else:
-            reductions[label] = recorded_inputs(anydl_problem(label, device)[0], {}, opts)[1]
+        elif label == NRSFM_ADAPTIVE:
+            sw = nt.ContaminatedGaussian.sigmas_weight(problem.get_value(kh)).double().tolist()
+            print(f"{label} main path: (sigma1, sigma2, w) {sw} against the JAX package's "
+                  f"{list(ref['sigmas_weight'])} | {smi}", flush=True)
+        elif not route:
+            inputs[label] = obs_major_inputs(anydl_problem(label, device)[0], opts)
         del problem, result
     print(f"phase 24 main paths | {smi}", flush=True)
     mark("anydl: main paths")
     records = collections.defaultdict(dict)
-    for label, (w, h_inv, g_l, pairs) in reductions.items():
-        dl = w.shape[1]
-        records["reduce_s"][f"{label} dl={dl}"] = dict(
-            external_case("reduce_s", f"{label} dl={dl}", (w.double(), h_inv.double(),
-                                                          g_l.double()), pairs, device),
-            path=label)
-    del reductions
+
+    def add(name, shape, path, record):
+        records[name][shape] = dict(record, path=path)
+
+    # B1 and B8: the obs-major paths' own tiles (2, 6, 9) and (2, 6, 18),
+    # then synthetic bench-sized tiles past the old caps; both float types
+    # timed.
     gen = torch.Generator().manual_seed(24)
-    *inputs, tables = structured_case(gen, 4096, 33, [9] * 40 + [3, 16, 1], 2)
-    records["reduce_s"]["synthetic dl=33"] = dict(
-        external_case("reduce_s", "synthetic dl=33", inputs, tables, device), path=NRSFM6)
-    records["place_w"]["span path dl=18 wc=1620 f64"] = dict(b7_span_case(device),
-                                                             path=NRSFM6_F64)
+    tiles = {f"{label} (2,6,{3 * ANYDL[label][0]})": (inputs[label][0], label)
+             for label in (NRSFM3, NRSFM6)}
+    for n, dr_s, dl in LIFTED_SYNTHETIC:
+        floats, ints = synthetic_tile(gen, n, dr_s, dl, device)
+        tiles[f"synthetic ({n},{dr_s},{dl}) K=14 L={NLMK}"] = (
+            (floats, ints, int((ints[0] < ints[3]).sum())), NRSFM3)
+    for label, ((floats, ints, n_obs), path) in tiles.items():
+        recs = tile_case(label, floats, ints, n_obs, (torch.float32, torch.float64))
+        add("fused_obs_all", label, path, recs["fused_obs_all"][torch.float32])
+        add("fused_obs_all", f"{label} f64", NRSFM6_F64 if path == NRSFM6 else path,
+            recs["fused_obs_all"][torch.float64])
+        for dt, suffix in ((torch.float32, ""), (torch.float64, " f64")):
+            add("fused_obs_leg", label + suffix, NRSFM3_FUSED, recs["fused_obs_leg"][dt])
+    del tiles
+    # B2 at NRSfM's shapes and the synthetic ones, random values over
+    # bench-realistic's observation pattern (its degree buckets).
+    for n, dr_s, dl in ((2, 6, 9), (2, 6, 18), *LIFTED_SYNTHETIC):
+        head, tail, fast, L, n_obs = synthetic_batch(gen, n, dr_s, dl, device)
+        label = f"synthetic ({n},{dr_s},{dl}) over bench-realistic's pattern"
+        record = b2_check(label, head, tail, fast, L, n_obs, "bench-realistic's observations",
+                          tol64=TOL_SHAPE_F64, tol32=TOL_SHAPE_F32, f64_timed=True)
+        add("fused_obs_all_into", f"{label} f64", STEREO, record.pop("f64"))
+        add("fused_obs_all_into", label, STEREO, record)
+        del head
+    mark("anydl: B1, B2, B8")
+    # B4 on the obs-major paths' own reductions (their inverses formed in
+    # float64 as the float32 solve forms them); B5 on a synthetic dl = 33
+    # structure (the adaptive path's own reduction cancels: its S holds
+    # 1e-12 of its largest entry only to about 1e-10 between any two
+    # summation orders).
+    for label in (NRSFM3, NRSFM6):
+        w, h_inv, g_l, rows = inputs.pop(label)[1]
+        dl = w.shape[1]
+        add("reduce_s_lm", f"{label} dl={dl}", label,
+            external_case("reduce_s_lm", f"{label} dl={dl}",
+                          (w.double(), h_inv.double(), g_l.double()), rows, device))
+        del w, h_inv, g_l, rows
+    *synthetic, tables = structured_case(gen, 4096, 33, [9] * 40 + [3, 16, 1], 2)
+    add("reduce_s", "synthetic dl=33", NRSFM_ADAPTIVE,
+        external_case("reduce_s", "synthetic dl=33", synthetic, tables, device))
+    add("place_w", "span path dl=18 wc=1620 f64", NRSFM_ADAPTIVE, b7_span_case(device))
     print(f"phase 24 kernels | {smi}", flush=True)
-    mark("anydl: B5, B7")
+    mark("anydl: B4, B5, B7")
     return launches, records
 
 
@@ -4355,21 +4478,22 @@ def main():
     # One row per kernel and main-path shape: the times are that shape's,
     # the launches those of that shape's main-path run.
     src = "nllstpu_torch/ops/csrc/"
-    # Phase 23's rows name the main path whose launches they give (``path``).
+    # Phases 23's and 24's rows name the main path whose launches they give
+    # (``path``).
     rows = [("fused_obs_all", "fused_obs.cu", "fused_obs.py:264",
-             {"pinhole bench": b1, **shapes["fused_obs_all"]}),
+             {"pinhole bench": b1, **shapes["fused_obs_all"], **anydl["fused_obs_all"]}),
             ("fused_obs_all_into", "fused_obs.cu", "fused_obs.py:397",
-             {**b2, **shapes["fused_obs_all_into"]}),
+             {**b2, **shapes["fused_obs_all_into"], **anydl["fused_obs_all_into"]}),
             ("reduce_s_damped", "schur_reduce.cu", "schur_reduce.py:505",
              {**b3, **shapes["reduce_s_damped"]}),
             ("reduce_s_lm", "schur_reduce.cu", "schur_reduce.py:375",
-             {**b4, **shapes["reduce_s_lm"]}),
+             {**b4, **shapes["reduce_s_lm"], **anydl["reduce_s_lm"]}),
             ("reduce_s", "schur_reduce.cu", "schur_reduce.py:568",
              {**b5, **shapes["reduce_s"], **anydl["reduce_s"]}),
             ("segment_block_sum", "segment_sum.cu", "segment_sum.py:103", b6),
             ("place_w", "w_place.cu", "w_place.py:98", {**b7, **anydl["place_w"]}),
             ("fused_obs_leg", "fused_obs.cu", "fused_obs.py:482",
-             {**b8, **shapes["fused_obs_leg"]})]
+             {**b8, **shapes["fused_obs_leg"], **anydl["fused_obs_leg"]})]
     # Beside each row, the launches of the later slices' main paths
     # (Newton, dogleg, gradient descent; the dense and cg backends; the
     # generic Schur assembly's) that launched the kernel.

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "fused_obs_all_into_f64": [_P] * 13 + [_I] * 9 + [_LL] * 4 + [_P],
     # The any-shape instance's shared memory a block: n, dr_s, dl, f64
     "fused_obs_any_bytes": [_I] * 4,
+    "fused_obs_any_warps": [_I] * 4,
     # B3 (float32 only), B4 and B5 (the external instance): w, h_ll or
     # h_inv ([dl, dl, L]; past dl 6 [L, dl, dl]), g_l, lam (B3: a device
     # double; NULL otherwise), the tables

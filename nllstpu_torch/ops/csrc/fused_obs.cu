@@ -67,32 +67,47 @@
 // addition in a fixed order, as the TPU kernel adds its per-tile
 // contributions in grid order.
 //
-// Shapes: the JAX kernels take any (n residual rows, dr_s, dl).  Two
-// instances are unrolled for the hot shapes, (2, 6, 3) and (2, 9, 3); one
-// more, assemble_any_kernel, takes any shape within n <= 4, dr_s <= 16, dl
-// <= 6 with nothing in a lane sized by those caps: each round the warp
-// stages its 32 slots in dynamic shared memory sized to the real shape
-// (each lane copies its own slot by cp.async: its n x S Jacobian columns,
-// g0, rho' and 2 rho''), then reads them back from shared memory, a lane
-// holding a few values whatever the shape:
-//   - h_ll and g_l entry by entry: each lane its own slot's term, summed
-//     over the landmark's lane group by a fixed xor butterfly and added to
-//     a shared accumulator (so over the rounds too);
+// Shapes: the JAX kernels take any (n residual rows, dr_s, dl), and so do
+// these.  Two instances are unrolled for the hot shapes, (2, 6, 3) and
+// (2, 9, 3); one more, assemble_any_kernel, takes every other shape with
+// nothing in a lane sized by the shape: each round the warp stages its 32
+// slots in dynamic shared memory sized to the real shape (each lane copies
+// its own slot by cp.async: its n x S Jacobian columns, g0, rho' and
+// 2 rho''), then reads them back from shared memory, a lane holding a few
+// values whatever the shape (kHeldRows Jacobian rows of one column, the
+// later ones read in place; kColRows rows of a W column):
+//   - h_ll and g_l in chunks of 32 entries: each lane its own slot's term,
+//     summed over the landmark's lane group by a fixed xor butterfly into
+//     the chunk's sums, written by items (entry, landmark), neighbouring
+//     lanes on neighbouring landmarks (B2 adds them to its buffers): at dl
+//     <= 6 one chunk kept over the rounds and written after the last, past
+//     it each chunk every round, stored on a B1/B8 warp's first round and
+//     added on its later ones (only a warp of one landmark has more than
+//     one);
 //   - W by items (block, camera column p), 32 at a time, neighbouring
 //     lanes on neighbouring columns: over the round's first slot of each
 //     (landmark, camera) (__match_any_sync), that slot and the later slots
 //     of the round with its camera summed in slot order for each of the
-//     column's dl rows, then stored, or added where an earlier round
-//     stored the block (B2: the table's ~o mark on that first slot;
-//     B1/B8: a tile of more than 32 slots, whose W rows the warp zeroed);
+//     column's dl rows, kColRows rows at a time, then stored, or added
+//     where an earlier round stored the block (B2: the table's ~o mark on
+//     that first slot; B1/B8: a tile of more than 32 slots, whose W rows
+//     the warp zeroed);
 //   - the camera rows by items (slot, column q) of the non-dustbin slots:
 //     the a_rr entries (p, q), p <= q, and b_r's entry q.
+// The one limit is the hardware's: a warp's region (32 staged slots of
+// n S + S + 2 values, a chunk's sums, 768 bytes of lists) must fit the
+// 227 KB of shared memory a block opts in to; a block takes up to four
+// warps, as many as fit (any_warps).  The host sends a batch past that to
+// the generic route at compile time (fused_obs.kernel_takes), the
+// counterpart of the JAX route's VMEM fit.  The entry codes keep e1 and
+// e2 in 16 bits, far past any dl that fits.
 // One instance rather than one per shape compiled at first use: the
 // library stays one build of fixed sources, and no new shape compiles
-// anything inside a timed run or a graph capture.  Its shared memory
-// (any_bytes) is opted in once per device, at the caps, before its first
-// launch.  The host sends a batch outside the caps to the generic route at
-// compile time (fused_obs.kernel_takes).
+// anything inside a timed run or a graph capture; it is built four times,
+// with and without the code that only n > kHeldRows (WIDE_N) and dl >
+// kColRows (WIDE_DL) need, so that the other shapes keep their registers.
+// Its shared memory is opted in once per device, at kSmemLimit, before its
+// first launch.
 //
 // Bound: device-memory traffic (the Jacobian read once, W's touched
 // blocks and the camera rows written once; B1/B8 also write W's zeros,
@@ -107,12 +122,17 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-// The any-shape instance's caps (fused_obs.kernel_takes on the host).
-constexpr int kMaxN = 4;
-constexpr int kMaxDr = 16;
-constexpr int kMaxDl = 6;
-// Warps per block of the any-shape instance (fused_obs.ANY_WARPS).
+// Warps per block of the any-shape instance where its shared memory holds
+// them (fused_obs.ANY_WARPS).
 constexpr int kAnyWarps = 4;
+// Shared memory a block of the any-shape instance may take, bytes: the
+// 227 KB a block of an sm_90 card opts in to (fused_obs.SMEM_LIMIT).
+constexpr int kSmemLimit = 232448;
+// The any-shape instance's registers: the Jacobian rows of one column it
+// holds (later rows are read from shared memory in place), and the rows
+// of one W column it sums at a time.
+constexpr int kHeldRows = 4;
+constexpr int kColRows = 6;
 
 // Warps per block of the two unrolled instances: the shared staging is
 // 32 rows of up to 55 values per warp, about 28 KB a block in either float
@@ -424,21 +444,29 @@ __global__ void __launch_bounds__(warps_per_block<T>() * 32)
 // (n x S), g0 (S), rho' and 2 rho'': an odd count, so that lanes on
 // distinct slots hit distinct banks.
 __host__ __device__ constexpr int any_stride(int n, int s) { return (n * s + s + 2) | 1; }
-// Entries of a landmark's h_ll upper triangle and g_l.
-__host__ __device__ constexpr int any_hg(int dl) { return dl * (dl + 1) / 2 + dl; }
-// The block's h_ll / g_l entry table, one int each, padded to 16 bytes.
-__host__ __device__ constexpr int any_table_bytes(int dl) { return (4 * any_hg(dl) + 15) / 16 * 16; }
-// One warp's region: 32 staged slots, the h_ll / g_l accumulators of up to
-// 32 landmarks, the round's W leaders (block offset and mask) and camera
-// rows (row, slot).
+// h_ll / g_l entries summed per chunk (a landmark holds dl(dl+1)/2 + dl).
+__host__ __device__ constexpr int any_chunk(int dl) {
+  return dl * (dl + 1) / 2 + dl < 32 ? dl * (dl + 1) / 2 + dl : 32;
+}
+// One warp's region: 32 staged slots; a chunk's group sums, one per entry
+// and landmark; the round's W leaders (block offset, mask), camera rows
+// (row, slot) and the chunk's entry codes.
 template <typename T>
 __host__ __device__ constexpr int any_warp_bytes(int n, int dr, int dl) {
-  return 32 * (any_stride(n, dr + dl) + any_hg(dl)) * static_cast<int>(sizeof(T)) +
-         32 * (8 + 4 + 8);
+  return 32 * (any_stride(n, dr + dl) + any_chunk(dl)) * static_cast<int>(sizeof(T)) +
+         32 * (8 + 4 + 8 + 4);
+}
+// Warps a block: kAnyWarps, or as many as a block's shared memory holds
+// (0: the shape does not fit one warp).
+template <typename T>
+__host__ __device__ constexpr int any_warps(int n, int dr, int dl) {
+  return kSmemLimit / any_warp_bytes<T>(n, dr, dl) < kAnyWarps
+             ? kSmemLimit / any_warp_bytes<T>(n, dr, dl)
+             : kAnyWarps;
 }
 template <typename T>
 __host__ __device__ constexpr int any_bytes(int n, int dr, int dl) {
-  return any_table_bytes(dl) + kAnyWarps * any_warp_bytes<T>(n, dr, dl);
+  return any_warps<T>(n, dr, dl) * any_warp_bytes<T>(n, dr, dl);
 }
 
 // Lane q's items of a flat list of (a, b) pairs, b fastest (nb to an a),
@@ -474,64 +502,86 @@ __device__ __forceinline__ int camera_row(int p, int e_start, int dl) {
 }
 
 // Column b of a staged slot sp (n Jacobian rows, then g0, rho', 2 rho''):
-// its Jacobian entries into jb[0..n) (kMaxN registers, constant indices).
+// its first kHeldRows Jacobian entries into registers (constant indices).
 template <typename T>
-__device__ __forceinline__ void load_column(const T* sp, int n, int s, int b, T (&jb)[kMaxN]) {
+__device__ __forceinline__ void load_column(const T* sp, int n, int s, int b,
+                                            T (&jb)[kHeldRows]) {
 #pragma unroll
-  for (int ni = 0; ni < kMaxN; ++ni) jb[ni] = ni < n ? sp[ni * s + b] : T(0);
+  for (int ni = 0; ni < kHeldRows; ++ni) jb[ni] = ni < n ? sp[ni * s + b] : T(0);
 }
 
-// One entry from a staged slot: sum_ni J[ni][a] jb[ni] rho' + 2 rho'' g0[a]
-// gb, the unrolled instances' arithmetic, column b held in registers.
-template <typename T>
-__device__ __forceinline__ T pair_value(const T* sp, int n, int s, int a, const T (&jb)[kMaxN],
-                                        T gb) {
+// One entry from a staged slot: sum_ni J[ni][a] J[ni][b] rho' + 2 rho''
+// g0[a] gb, the unrolled instances' arithmetic in the same order, column
+// b's first kHeldRows rows held in registers and (WIDE_N) its later ones
+// read in place.
+template <bool WIDE_N, typename T>
+__device__ __forceinline__ T pair_value(const T* sp, int n, int s, int a, int b,
+                                        const T (&jb)[kHeldRows], T gb) {
   const T* g = sp + n * s;
   T jj = T(0);
 #pragma unroll
-  for (int ni = 0; ni < kMaxN; ++ni)
+  for (int ni = 0; ni < kHeldRows; ++ni)
     if (ni < n) jj += sp[ni * s + a] * jb[ni];
+  if constexpr (WIDE_N) {
+    for (int ni = kHeldRows; ni < n; ++ni) jj += sp[ni * s + a] * sp[ni * s + b];
+  }
   return jj * g[s] + g[s + 1] * g[a] * gb;
 }
 
+// The any-shape instance's h_ll / g_l writes: a chunk's nt sums (entry u
+// of landmark li at hsum[u * 32 + li], its code tcode[u]: e1 | e2 << 16 of
+// h_ll, e | 0xffff << 16 of g_l) out by items (entry, landmark),
+// neighbouring lanes on neighbouring landmarks; stored, or added to what the
+// buffers hold.
+template <typename T>
+__device__ __forceinline__ void write_hg(T* h_ll, T* g_l, const unsigned* tcode, const T* hsum,
+                                         int nt, int n_l, int lane, long long l_first,
+                                         long long lt, int dl, bool add) {
+  for (Walk q(lane, n_l); q.a < nt; q.next()) {
+    const unsigned code = tcode[q.a];
+    const T val = hsum[q.a * 32 + q.b];
+    const long long lm = l_first + q.b;
+    const int c1 = static_cast<int>(code & 0xffffu), c2 = static_cast<int>(code >> 16);
+    if (c2 == 0xffff) {
+      const long long ig = c1 * lt + lm;
+      g_l[ig] = add ? g_l[ig] + val : val;
+    } else {
+      const long long i12 = (static_cast<long long>(c1) * dl + c2) * lt + lm;
+      const T hv = add ? h_ll[i12] + val : val;
+      h_ll[i12] = hv;
+      h_ll[(static_cast<long long>(c2) * dl + c1) * lt + lm] = hv;
+    }
+  }
+}
+
 // The any-shape instance (see the header): the same work items as
-// assemble_kernel, the shape read from the arguments.  The bound's one
-// block an SM lets ptxas take the registers it needs: without it ptxas
-// held the instance to 56-72 registers and spilled 16-44 bytes, 10-25%
-// slower.
-template <typename T, bool ACCUM, bool CAM, bool TABLE>
+// assemble_kernel, the shape read from the arguments, the warps a block
+// from the plan (blockDim).  The bound's one block an SM lets ptxas take
+// the registers it needs: without it ptxas held the instance to 56-72
+// registers and spilled 16-44 bytes, 10-25% slower.  WIDE_N (n >
+// kHeldRows) reads a column's later rows in place, WIDE_DL (dl > kColRows)
+// walks a W column in pieces and writes h_ll / g_l out by chunks every
+// round.  The in-place reads inside the unrolled products cost 11-50
+// registers and up to 19% on the shapes that need neither, the pieces a
+// few percent more (measured on the card, PERF.md §6), so those shapes
+// keep an instance without them.
+template <typename T, bool ACCUM, bool CAM, bool TABLE, bool WIDE_N, bool WIDE_DL>
 __global__ void __launch_bounds__(kAnyWarps * 32, 1) assemble_any_kernel(const AsmArgs<T> a) {
   const int n = a.n, dr = a.dr, dl = a.dl, s = dr + dl, e_start = a.e_start;
-  const int nh = any_hg(dl), nhp = dl * (dl + 1) / 2;
+  const int nhp = dl * (dl + 1) / 2, nh = nhp + dl;
   const int stride = any_stride(n, s);
   extern __shared__ __align__(16) unsigned char smem[];
-  // h_ll entry (e1, e2) -> their rows | e1 << 16 | e2 << 24; g_l entry
-  // e -> its row | 0xff << 8 | e << 16.
-  int* htab = reinterpret_cast<int*>(smem);
-  for (int t = threadIdx.x; t < nh; t += blockDim.x) {
-    int code;
-    if (t < nhp) {
-      int e1 = 0, q = t;
-      while (q >= dl - e1) {
-        q -= dl - e1;
-        ++e1;
-      }
-      code = (e_start + e1) | (e_start + e1 + q) << 8 | e1 << 16 | (e1 + q) << 24;
-    } else {
-      code = (e_start + t - nhp) | 0xff << 8 | (t - nhp) << 16;
-    }
-    htab[t] = code;
-  }
-  __syncthreads();
   const int wib = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  unsigned char* region = smem + any_table_bytes(dl) + wib * any_warp_bytes<T>(n, dr, dl);
+  unsigned char* region = smem + wib * any_warp_bytes<T>(n, dr, dl);
   T* stage = reinterpret_cast<T*>(region);  // [32][stride]
-  T* acc = stage + 32 * stride;             // [nh][32]: entry t of landmark li
-  long long* lead = reinterpret_cast<long long*>(acc + 32 * nh);  // block offset << 1 | add
-  unsigned* lmask = reinterpret_cast<unsigned*>(lead + 32);       // the block's slots
-  int2* cams = reinterpret_cast<int2*>(lmask + 32);                // (row, slot)
-  const int warp = blockIdx.x * kAnyWarps + wib;
+  T* hsum = stage + 32 * stride;            // [chunk][32]: entry u of landmark li
+  long long* lead = reinterpret_cast<long long*>(hsum + 32 * any_chunk(dl));  // offset << 1 | add
+  unsigned* lmask = reinterpret_cast<unsigned*>(lead + 32);  // the block's slots
+  int2* cams = reinterpret_cast<int2*>(lmask + 32);          // (row, slot)
+  // Entry u of the chunk: e1 | e2 << 16 of h_ll, e | 0xffff << 16 of g_l.
+  unsigned* tcode = reinterpret_cast<unsigned*>(cams + 32);
+  const int warp = blockIdx.x * (blockDim.x >> 5) + wib;
   int l_first, n_l, lg2;
   if constexpr (TABLE) {
     if (warp >= a.n_work) return;
@@ -545,6 +595,7 @@ __global__ void __launch_bounds__(kAnyWarps * 32, 1) assemble_any_kernel(const A
     n_l = min(32 >> lg2, a.L - l_first);
   }
   const long long wc = static_cast<long long>(a.n_r) * dr;
+  const long long lt = a.L_total;
   const int G = 1 << lg2;
   const int grp = lane >> lg2;
   const int j = lane & (G - 1);
@@ -563,10 +614,10 @@ __global__ void __launch_bounds__(kAnyWarps * 32, 1) assemble_any_kernel(const A
 #pragma unroll
   for (int off = 16; off; off >>= 1)
     rounds = max(rounds, __shfl_xor_sync(kFull, rounds, off));
-  for (int i = lane; i < 32 * nh; i += 32) acc[i] = T(0);
-  __syncwarp();
   const unsigned below = (1u << lane) - 1u;
   T* const own = stage + lane * stride;  // this lane's staged slot
+  // dl <= kColRows: at most 27 entries, one chunk kept over the rounds.
+  constexpr bool one_chunk = !WIDE_DL;
 
   for (int r = 0; r < rounds; ++r) {
     const int k = (r << lg2) + j;
@@ -635,57 +686,38 @@ __global__ void __launch_bounds__(kAnyWarps * 32, 1) assemble_any_kernel(const A
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncwarp();
-    // h_ll and g_l: each lane its own slot's term, the group's by a fixed
-    // butterfly, added to the landmark's accumulator.
-    for (int t = 0; t < nh; ++t) {
-      const int code = htab[t];
-      T c = T(0);
-      if (has) {
-        const int ra = code & 0xff, rb = (code >> 8) & 0xff;
-        const T* g = own + n * s;
-        if (rb == 0xff) {
-          c = g[ra] * g[s];
-        } else {
-          T jb[kMaxN];
-          load_column(own, n, s, rb, jb);
-          c = pair_value(own, n, s, ra, jb, g[rb]);
-        }
-      }
-      for (int off = G >> 1; off; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
-      if (live && j == 0) acc[t * 32 + grp] += c;
-    }
-    // W: items (leader, camera column p), each the column's dl rows over
-    // the leader's slots in slot order.
+    // W: items (leader, camera column p), each the column's dl rows, kColRows
+    // at a time, over the leader's slots in slot order.
     const int n_first = __popc(firsts);
     for (Walk q(lane, dr); q.a < n_first; q.next()) {
       const long long code = lead[q.a];
       const int rp = camera_row(q.b, e_start, dl);
-      unsigned m = lmask[q.a];
-      T col[kMaxDl];
-      bool head = true;
-      while (m) {
-        const T* sp = stage + (__ffs(m) - 1) * stride;
-        m &= m - 1u;
-        T jb[kMaxN];
-        load_column(sp, n, s, rp, jb);
-        const T gb = sp[n * s + rp];
-#pragma unroll
-        for (int d = 0; d < kMaxDl; ++d) {
-          if (d < dl) {
-            const T val = pair_value(sp, n, s, e_start + d, jb, gb);
-            col[d] = head ? val : col[d] + val;
-          }
-        }
-        head = false;
-      }
       T* dp = a.w + (code >> 1) + q.b;
+      for (int d0 = 0; d0 < (WIDE_DL ? dl : 1); d0 += kColRows) {
+        T col[kColRows];
+        bool head = true;
+        for (unsigned m = lmask[q.a]; m; m &= m - 1u) {
+          const T* sp = stage + (__ffs(m) - 1) * stride;
+          T jb[kHeldRows];
+          load_column(sp, n, s, rp, jb);
+          const T gb = sp[n * s + rp];
 #pragma unroll
-      for (int d = 0; d < kMaxDl; ++d) {
-        if (d < dl) {
-          if (code & 1) {
-            dp[d * wc] += col[d];
-          } else {
-            dp[d * wc] = col[d];
+          for (int d = 0; d < kColRows; ++d) {
+            if (d0 + d < dl) {
+              const T val = pair_value<WIDE_N>(sp, n, s, e_start + d0 + d, rp, jb, gb);
+              col[d] = head ? val : col[d] + val;
+            }
+          }
+          head = false;
+        }
+#pragma unroll
+        for (int d = 0; d < kColRows; ++d) {
+          if (d0 + d < dl) {
+            if (code & 1) {
+              dp[(d0 + d) * wc] += col[d];
+            } else {
+              dp[(d0 + d) * wc] = col[d];
+            }
           }
         }
       }
@@ -698,48 +730,92 @@ __global__ void __launch_bounds__(kAnyWarps * 32, 1) assemble_any_kernel(const A
         const int2 c = cams[q.a];
         const T* sp = stage + c.y * stride;
         const int rq = camera_row(q.b, e_start, dl);
-        T jb[kMaxN];
+        T jb[kHeldRows];
         load_column(sp, n, s, rq, jb);
         const T gq = sp[n * s + rq];
         T* row = a.rows + static_cast<long long>(c.x) * nab;
         int at = q.b;  // a_rr entry (p, q): row p starts at p dr - p (p - 1) / 2
         for (int p = 0; p <= q.b; ++p) {
-          row[at] = pair_value(sp, n, s, camera_row(p, e_start, dl), jb, gq);
+          row[at] = pair_value<WIDE_N>(sp, n, s, camera_row(p, e_start, dl), rq, jb, gq);
           at += dr - p - 1;
         }
         row[dr * (dr + 1) / 2 + q.b] = gq * sp[(n + 1) * s];
       }
     }
+    // h_ll and g_l, 32 entries a chunk, after the W and camera phases (their
+    // lists are dead here): each lane its own slot's term, the group's by a
+    // fixed butterfly, into the chunk's sums.  At dl <= kColRows (at most
+    // 27 entries, one chunk) the sums stay over the rounds and go out once
+    // after the last; past it each chunk goes out every round, stored on the
+    // first round (B1/B8) and added on the later ones, so over the rounds in
+    // round order.  Only a warp of one landmark (G = 32) takes more than one
+    // round.
+    int e1 = 0, e2 = 0;  // the h_ll entry (e1, e2) of the loop
+    for (int t0 = 0; t0 < nh; t0 += 32) {
+      const int nt = min(32, nh - t0);
+      for (int u = 0; u < nt; ++u) {
+        const bool is_g = t0 + u >= nhp;
+        T c = T(0);
+        if (has) {
+          const T* g = own + n * s;
+          if (is_g) {
+            c = g[e_start + t0 + u - nhp] * g[s];
+          } else {
+            T jb[kHeldRows];
+            load_column(own, n, s, e_start + e2, jb);
+            c = pair_value<WIDE_N>(own, n, s, e_start + e1, e_start + e2, jb, g[e_start + e2]);
+          }
+        }
+        for (int off = G >> 1; off; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
+        if (live && j == 0) hsum[u * 32 + grp] = one_chunk && r > 0 ? hsum[u * 32 + grp] + c : c;
+        if (lane == 0)
+          tcode[u] = is_g ? static_cast<unsigned>(t0 + u - nhp) | 0xffff0000u
+                          : static_cast<unsigned>(e1) | static_cast<unsigned>(e2) << 16;
+        if (!is_g && ++e2 == dl) e2 = ++e1;
+      }
+      if constexpr (!one_chunk) {
+        __syncwarp();
+        write_hg(a.h_ll, a.g_l, tcode, hsum, nt, n_l, lane, l_first, lt, dl, ACCUM || r > 0);
+        __syncwarp();  // the chunk's sums are read before the next chunk
+      }
+    }
     __syncwarp();  // the stage and the lists are read before the next round
   }
-  const long long lt = a.L_total;
-  for (Walk q(lane, n_l); q.a < nh; q.next()) {
-    const int code = htab[q.a];
-    const T val = acc[q.a * 32 + q.b];
-    const long long lm = l_first + q.b;
-    const int e1 = (code >> 16) & 0xff;
-    if (((code >> 8) & 0xff) == 0xff) {
-      const long long ig = e1 * lt + lm;
-      a.g_l[ig] = ACCUM ? a.g_l[ig] + val : val;
-    } else {
-      const int e2 = (code >> 24) & 0xff;
-      const long long i12 = (e1 * dl + e2) * lt + lm;
-      const T hv = ACCUM ? a.h_ll[i12] + val : val;
-      a.h_ll[i12] = hv;
-      a.h_ll[(e2 * dl + e1) * lt + lm] = hv;
-    }
+  if constexpr (one_chunk) {
+    __syncwarp();
+    write_hg(a.h_ll, a.g_l, tcode, hsum, nh, n_l, lane, l_first, lt, dl, ACCUM);
   }
+}
+
+// The any-shape instance's launch, its attribute opted in at kSmemLimit,
+// the largest plan, on the first launch on each device, so that no plan
+// launches under a smaller one.
+template <typename T, bool ACCUM, bool CAM, bool TABLE, bool WIDE_N, bool WIDE_DL>
+int launch_any(const AsmArgs<T>& args, int n_warps, cudaStream_t st) {
+  static unsigned long long configured = 0;  // devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !((configured >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(assemble_any_kernel<T, ACCUM, CAM, TABLE, WIDE_N, WIDE_DL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) configured |= 1ull << dev;
+  }
+  const int warps = any_warps<T>(args.n, args.dr, args.dl);
+  const int blocks = (n_warps + warps - 1) / warps;
+  assemble_any_kernel<T, ACCUM, CAM, TABLE, WIDE_N, WIDE_DL>
+      <<<blocks, warps * 32, any_bytes<T>(args.n, args.dr, args.dl), st>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One launch over n_warps warp items: the unrolled instance of the two
 // hot shapes (the pinhole and the Snavely camera with a point), else the
-// any-shape instance within the caps (n <= kMaxN, dr_s <= kMaxDr, dl <=
-// kMaxDl), whose shared memory is opted in at the caps on the first launch
-// on each device.
+// any-shape instance at any shape whose warp region fits a block's shared
+// memory (any_warps >= 1), its warps a block from the plan.
 template <typename T, bool ACCUM, bool CAM, bool TABLE>
 int launch(AsmArgs<T>& args, int n, int s, int dr_s, int dl, int n_warps, void* stream) {
-  if (n < 1 || n > kMaxN || dr_s < 1 || dr_s > kMaxDr || dl < 1 || dl > kMaxDl ||
-      s != dr_s + dl)
+  if (n < 1 || dr_s < 1 || dl < 1 || s != dr_s + dl || any_warps<T>(n, dr_s, dl) < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_warps <= 0) return 0;
   args.n = n;
@@ -758,21 +834,12 @@ int launch(AsmArgs<T>& args, int n, int s, int dr_s, int dl, int n_warps, void* 
       assemble_kernel<T, 2, 9, 3, ACCUM, CAM, TABLE><<<blocks, warps * 32, smem, st>>>(args);
     return static_cast<int>(cudaGetLastError());
   }
-  static unsigned long long configured = 0;  // devices whose attribute is set
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !((configured >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(assemble_any_kernel<T, ACCUM, CAM, TABLE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               any_bytes<T>(kMaxN, kMaxDr, kMaxDl));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) configured |= 1ull << dev;
+  if (n > kHeldRows) {
+    return dl > kColRows ? launch_any<T, ACCUM, CAM, TABLE, true, true>(args, n_warps, st)
+                         : launch_any<T, ACCUM, CAM, TABLE, true, false>(args, n_warps, st);
   }
-  const int blocks = (n_warps + kAnyWarps - 1) / kAnyWarps;
-  assemble_any_kernel<T, ACCUM, CAM, TABLE>
-      <<<blocks, kAnyWarps * 32, any_bytes<T>(n, dr_s, dl), st>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return dl > kColRows ? launch_any<T, ACCUM, CAM, TABLE, false, true>(args, n_warps, st)
+                       : launch_any<T, ACCUM, CAM, TABLE, false, false>(args, n_warps, st);
 }
 
 // B1 and B8: one [K, L] tile, G from K.
@@ -905,6 +972,11 @@ int fused_obs_all_into_f64(const void* jac, const void* g0, const void* d1,
 // host mirror: fused_obs.any_shape_plan).
 int fused_obs_any_bytes(int n, int dr_s, int dl, int f64) {
   return f64 ? any_bytes<double>(n, dr_s, dl) : any_bytes<float>(n, dr_s, dl);
+}
+
+// Its warps a block (0: the shape does not fit).
+int fused_obs_any_warps(int n, int dr_s, int dl, int f64) {
+  return f64 ? any_warps<double>(n, dr_s, dl) : any_warps<float>(n, dr_s, dl);
 }
 
 const char* kernel_error_string(int code) {

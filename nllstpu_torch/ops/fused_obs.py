@@ -47,14 +47,17 @@ launch the hand-written kernels (``csrc/fused_obs.cu``: a landmark's slots
 spread over a group of lanes, every sum in a fixed order); on CPU tensors
 they run the plain PyTorch versions, which take the same two stages.
 
-Shapes: the JAX kernels take any (n residual rows, dr_s, dl); the CUDA
-source takes any shape within the caps of :func:`kernel_takes` (n ≤ 4,
-dr_s ≤ 16, dl ≤ 6): two instances unrolled for the hot shapes (2, 6, 3)
-and (2, 9, 3), and one for every other shape, whose lanes hold nothing
-sized by the caps: each round a warp stages its slots in shared memory
-sized to the shape (:func:`any_shape_plan`), its lanes take the round's W
-and camera-row entries as items, and each landmark's lanes sum its
-h_ll/g_l terms by a butterfly.  One
+Shapes: the JAX kernels take any (n residual rows, dr_s, dl), and so does
+the CUDA source: two instances unrolled for the hot shapes (2, 6, 3) and
+(2, 9, 3), and one for every other shape, whose lanes hold nothing sized
+by the shape: each round a warp stages its slots in shared memory sized to
+the shape (:func:`any_shape_plan`), its lanes take the round's W and
+camera-row entries as items, and each landmark's lanes sum its h_ll/g_l
+terms by a butterfly, 32 entries a chunk.  Its one limit is the
+hardware's (:func:`kernel_takes`): a warp's 32 staged slots of n·S + S + 2
+values, with a chunk's sums and its lists, must fit the 227 KB of shared
+memory a block opts in to (:data:`SMEM_LIMIT`) — the counterpart of the
+JAX route's VMEM fit.  One
 instance was chosen over one per shape compiled at first use because the
 library then stays one build of fixed sources (its cold build is set-up
 time, ``Result.time_init``), and no new shape compiles inside a timed run
@@ -65,6 +68,7 @@ generic route.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -72,13 +76,14 @@ import torch
 
 from . import _build, segment_sum
 
-#: The CUDA source's caps (``kMaxN``, ``kMaxDr``, ``kMaxDl``): residual
-#: rows, camera dof and landmark dof of the any-shape instance.
-MAX_ROWS, MAX_DR, MAX_DL = 4, 16, 6
 #: Widest lane group of one landmark in B2's work list (a warp).
 GROUP_MAX = 32
-#: Warps a block of the any-shape instance (``kAnyWarps`` in the source).
+#: Warps a block of the any-shape instance where its shared memory holds
+#: them (``kAnyWarps`` in the source).
 ANY_WARPS = 4
+#: Bytes of shared memory a block of the any-shape instance may take: the
+#: 227 KB a block of an sm_90 card opts in to (``kSmemLimit``).
+SMEM_LIMIT = 232_448
 
 #: Number of kernel launches made by :func:`fused_obs_all_cuda` (B1).
 LAUNCHES = 0
@@ -93,26 +98,30 @@ class AnyPlan(NamedTuple):
     (``any_bytes`` in the source)."""
 
     stride: int  # values of one staged slot: n·S Jacobian columns, g0, ρ′, 2ρ″ (odd)
-    table_bytes: int  # the block's h_ll/g_l entry table, 16-aligned
-    warp_bytes: int  # a warp's 32 staged slots, accumulators and round lists
-    block_bytes: int  # table_bytes + ANY_WARPS · warp_bytes
+    chunk: int  # h_ll/g_l entries summed a chunk: min(dl(dl+1)/2 + dl, 32)
+    warp_bytes: int  # a warp's 32 staged slots, a chunk's sums and the round's lists
+    warps: int  # warps a block: ANY_WARPS, or as many as SMEM_LIMIT holds (0: none)
+    block_bytes: int  # warps · warp_bytes
 
 
+@functools.lru_cache(maxsize=None)
 def any_shape_plan(n: int, dr_s: int, dl: int, dtype) -> AnyPlan:
     """The any-shape instance's shared memory at (n, dr_s, dl) in ``dtype``
     (B1, B2 and B8 alike), the host's mirror of the CUDA source's: a staged
     slot of ``n·S + S + 2`` values rounded up to odd (lanes on distinct
-    slots hit distinct banks); per warp 32 such slots, the h_ll/g_l
-    accumulators of up to 32 landmarks, and the round's W leaders (8 + 4
-    bytes) and camera rows (8 bytes); one int per h_ll/g_l entry.  The
-    source opts the kernel in at the caps, the largest plan."""
+    slots hit distinct banks); per warp 32 such slots, the group sums of
+    one chunk of h_ll/g_l entries for up to 32 landmarks, and the round's
+    W leaders (8 + 4 bytes), camera rows (8 bytes) and the chunk's entry
+    codes (4 bytes); up to :data:`ANY_WARPS` warps a block within
+    :data:`SMEM_LIMIT`.  The source opts the kernel in at
+    :data:`SMEM_LIMIT`, the largest plan."""
     elt = torch.empty((), dtype=dtype).element_size()
     s = dr_s + dl
     stride = (n * s + s + 2) | 1
-    n_hg = dl * (dl + 1) // 2 + dl
-    tables = -(-4 * n_hg // 16) * 16
-    warp = 32 * (stride + n_hg) * elt + 32 * (8 + 4 + 8)
-    return AnyPlan(stride, tables, warp, tables + ANY_WARPS * warp)
+    chunk = min(dl * (dl + 1) // 2 + dl, 32)
+    warp = 32 * (stride + chunk) * elt + 32 * (8 + 4 + 8 + 4)
+    warps = min(ANY_WARPS, SMEM_LIMIT // warp)
+    return AnyPlan(stride, chunk, warp, warps, warps * warp)
 
 
 class SlotTables(NamedTuple):
@@ -303,21 +312,34 @@ def fused_obs_leg_reference(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int,
 
 def kernel_takes(n: int, dr_s: int, dl: int, dtype) -> bool:
     """Whether kernels B1, B2 and B8 take a batch of ``n`` residual rows,
-    ``dr_s`` camera and ``dl`` landmark dof in ``dtype``: the host's copy
-    of the CUDA source's caps, asked by the route at compile time on every
+    ``dr_s`` camera and ``dl`` landmark dof in ``dtype``: any shape whose
+    warp region fits a block's shared memory (:func:`any_shape_plan`; the
+    two unrolled shapes fit), asked by the route at compile time on every
     device."""
-    return (dtype in (torch.float32, torch.float64) and 1 <= n <= MAX_ROWS
-            and 1 <= dr_s <= MAX_DR and 1 <= dl <= MAX_DL)
+    return (dtype in (torch.float32, torch.float64) and min(n, dr_s, dl) >= 1
+            and any_shape_plan(n, dr_s, dl, dtype).warps >= 1)
 
 
-def _check_shape(name, n, s, dr_s, dl, dtype):
+def refusal(n: int, dr_s: int, dl: int, dtype) -> str:
+    """Why kernels B1, B2 and B8 do not take the shape, in words naming
+    the bytes (the route's ``generic_why`` and the wrappers' error)."""
+    if dtype not in (torch.float32, torch.float64) or min(n, dr_s, dl) < 1:
+        return f"they take float32 and float64 at n, dr_s, dl ≥ 1, not {dtype}"
+    plan = any_shape_plan(n, dr_s, dl, dtype)
+    return (f"a warp's 32 staged slots of {plan.stride} values with its sums and lists take "
+            f"{plan.warp_bytes} bytes of shared memory, past the {SMEM_LIMIT} a block holds")
+
+
+def _check_shape(name, n, s, dr_s, dl, e_start, dtype):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: unsupported dtype {dtype}")
-    if not kernel_takes(n, dr_s, dl, dtype) or s != dr_s + dl:
+    if s != dr_s + dl or not 0 <= e_start <= dr_s:
+        raise ValueError(f"{name}: S={s} is not dr_s + dl = {dr_s} + {dl}, or the landmark's "
+                         f"rows from e_start={e_start} are not inside it")
+    if not kernel_takes(n, dr_s, dl, dtype):
         raise ValueError(
-            f"{name}: n={n}, dr_s={dr_s}, dl={dl}, S={s} is outside the kernels' caps"
-            f" (n ≤ {MAX_ROWS}, dr_s ≤ {MAX_DR}, dl ≤ {MAX_DL}, S = dr_s + dl); the"
-            " compile sends such a batch to the generic route"
+            f"{name}: n={n}, dr_s={dr_s}, dl={dl}: {refusal(n, dr_s, dl, dtype)}; the compile "
+            "sends such a batch to the generic route"
         )
 
 
@@ -332,7 +354,7 @@ def _check_small(name, ref, tensors, shape):
                             f"{'int32' if is_int else 'of jac dtype'}, got {t.dtype}")
 
 
-def _tile_inputs(name, jac, g0, d1m, d2m, vc, dr_s, dl, cpos=None):
+def _tile_inputs(name, jac, g0, d1m, d2m, vc, dr_s, dl, e_start, cpos=None):
     """Validate one bucket's kernel inputs (and B1's ``cpos``); returns
     them with the strides the kernel reads them at, ``(jsn, jss, gss, sk,
     sl, gk, gl)``: the callers' own when every tensor but g0 shares jac's
@@ -342,13 +364,13 @@ def _tile_inputs(name, jac, g0, d1m, d2m, vc, dr_s, dl, cpos=None):
     out = [jac, g0, d1m, d2m, vc] if cpos is None else [jac, g0, d1m, d2m, vc, cpos]
     dt, dev = jac.dtype, jac.device
     if not (
-        kernel_takes(n, dr_s, dl, dt) and s == dr_s + dl
+        kernel_takes(n, dr_s, dl, dt) and s == dr_s + dl and 0 <= e_start <= dr_s
         and g0.shape == (s, k, L) and g0.dtype == dt and g0.device == dev
         and d1m.dtype == dt and d2m.dtype == dt and vc.dtype == torch.int32
         and (cpos is None or cpos.dtype == torch.int32)
         and all(t.shape == (k, L) and t.device == dev for t in out[2:])
     ):
-        _check_shape(name, n, s, dr_s, dl, dt)
+        _check_shape(name, n, s, dr_s, dl, e_start, dt)
         small = [("d1m", d1m, False), ("d2m", d2m, False), ("vc", vc, True)]
         if cpos is not None:
             small.append(("cpos", cpos, True))
@@ -381,7 +403,7 @@ def fused_obs_all_cuda(jac, g0, d1m, d2m, vc, cpos, cstarts, n_r: int,
     rows (same contract as the reference)."""
     global LAUNCHES
     (jac, g0, d1m, d2m, vc, cpos), strides = _tile_inputs(
-        "fused_obs_all", jac, g0, d1m, d2m, vc, dr_s, dl, cpos
+        "fused_obs_all", jac, g0, d1m, d2m, vc, dr_s, dl, e_start, cpos
     )
     if tuple(cstarts.shape) != (n_r + 1,) or cstarts.device != jac.device:
         raise ValueError(f"fused_obs_all: cstarts {tuple(cstarts.shape)} {cstarts.device}")
@@ -410,7 +432,7 @@ def fused_obs_all_into_cuda(jac, g0, d1m, d2m, vc, cpos, slots: SlotTables,
     The buffers are updated in place, so they must be contiguous."""
     global INTO_LAUNCHES
     n, s, b = jac.shape
-    _check_shape("fused_obs_all_into", n, s, dr_s, dl, jac.dtype)
+    _check_shape("fused_obs_all_into", n, s, dr_s, dl, e_start, jac.dtype)
     _check_small("fused_obs_all_into", jac, [("g0", g0, False)], (s, b))
     _check_small(
         "fused_obs_all_into", jac,
@@ -460,7 +482,7 @@ def fused_obs_leg_cuda(jac, g0, d1m, d2m, vc, n_r: int, dr_s: int, dl: int,
     """Launch kernel B8 on CUDA tensors (same contract as the reference)."""
     global LEG_LAUNCHES
     (jac, g0, d1m, d2m, vc), strides = _tile_inputs(
-        "fused_obs_leg", jac, g0, d1m, d2m, vc, dr_s, dl
+        "fused_obs_leg", jac, g0, d1m, d2m, vc, dr_s, dl, e_start
     )
     n, s, k, L = jac.shape
     dt, dev = jac.dtype, jac.device

@@ -300,9 +300,9 @@ def route_batches(batches, info: "SchurInfo", layout, dtype):
     if not fused_obs.kernel_takes(n_res, rman.dof, info.dof_elim, dtype):
         info.generic_why = (
             f"kernels B1, B2 and B8 do not take its shape (n={n_res}, dr_s={rman.dof}, "
-            f"dl={info.dof_elim}, {dtype}; they take n ≤ {fused_obs.MAX_ROWS}, dr_s ≤ "
-            f"{fused_obs.MAX_DR}, dl ≤ {fused_obs.MAX_DL}), so the problem takes the generic "
-            "route"
+            f"dl={info.dof_elim}, {dtype}: "
+            f"{fused_obs.refusal(n_res, rman.dof, info.dof_elim, dtype)}), so the problem "
+            "takes the generic route"
         )
         return sort, none, None
     nb, bk = obs_major_repack(b, info)
@@ -688,7 +688,8 @@ def fill_tables(info: SchurInfo, layout, batches, buckets=None, route=None) -> N
 def w_structure(info: SchurInfo) -> schur_reduce.RowTables:
     """Kernels B3's, B4's and B5's tables of the direct W
     (:func:`schur_reduce.row_tables`).  An obs-major W has one block per
-    unfixed camera, its ``dr_s`` compact columns; the generic W one block
+    unfixed camera, its ``dr_s`` compact columns (cut into pieces of at
+    most ``schur_reduce.MAX_WIDTH`` columns); the generic W one block
     per reduced variable that its coupling costs see (its rows, cut into
     blocks of at most ``schur_reduce.MAX_WIDTH`` columns) and one per
     adaptive kernel (its rows).  A landmark holds the blocks of the
@@ -721,12 +722,14 @@ def w_structure(info: SchurInfo) -> schur_reduce.RowTables:
     lmk = np.concatenate(lmk) if lmk else np.zeros(0, np.int64)
     col = np.concatenate(col) if col else np.zeros(0, np.int64)
     width = np.concatenate(width) if width else np.zeros(0, np.int64)
+    # Blocks wider than the kernels take are cut into pieces.
+    mw = schur_reduce.MAX_WIDTH
     if obs_major is not None:
         n_r, dr_s = obs_major
         bcol, bwidth = schur_reduce.uniform_blocks(n_r, dr_s)
-        return schur_reduce.row_tables(lmk, col // dr_s, L, bcol, bwidth)
-    # Blocks wider than the kernels take are cut into pieces.
-    mw = schur_reduce.MAX_WIDTH
+        n_pc = -(-dr_s // mw)  # each camera's pieces, adjacent
+        blk = (col // dr_s)[:, None] * n_pc + np.arange(n_pc)
+        return schur_reduce.row_tables(np.repeat(lmk, n_pc), blk.reshape(-1), L, bcol, bwidth)
     n_pc = -(-width // mw)
     rep = np.repeat(np.arange(lmk.shape[0]), n_pc)
     k = np.arange(rep.shape[0]) - np.repeat(np.cumsum(n_pc) - n_pc, n_pc)

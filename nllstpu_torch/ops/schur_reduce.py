@@ -136,8 +136,13 @@ def row_tables(lmk_of, blk_of, n_landmarks: int, bcol, bwidth) -> RowTables:
 
 def uniform_blocks(n_blocks: int, width: int):
     """``(bcol, bwidth)`` of ``n_blocks`` adjacent blocks of ``width``
-    columns from column 0: an obs-major W's camera blocks."""
-    return np.arange(n_blocks) * width, np.full(n_blocks, width)
+    columns from column 0, each cut into pieces of at most
+    :data:`MAX_WIDTH` columns (block b's ⌈width / MAX_WIDTH⌉ pieces
+    adjacent, in column order): an obs-major W's camera blocks."""
+    n_pc = -(-width // MAX_WIDTH)
+    k = np.arange(n_pc) * MAX_WIDTH
+    bcol = (np.arange(n_blocks)[:, None] * width + k).reshape(-1)
+    return bcol, np.tile(np.minimum(width - k, MAX_WIDTH), n_blocks)
 
 
 def _incidence_pairs(l_inc):

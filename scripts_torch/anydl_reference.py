@@ -42,8 +42,12 @@ Cases (all by default), each printing one JSON line: ``k3_f32`` and
 ``k6_f32`` — Levenberg-Marquardt, float32, 30 iterations
 (``chip_smoke.py``'s bench options): start and best cost; ``k6_f64`` —
 float64 with ``rel_dcost=1e-6``: start cost, the cost after each
-iteration, best cost (the trace gate's reference).  This script runs the
-JAX package, not the port.
+iteration, best cost (the trace gate's reference); ``adaptive_k3_f32`` —
+the adaptive form (:func:`with_outliers`, one shared ContaminatedGaussian
+started at :data:`ADAPTIVE_START`, points perturbed by
+:data:`ADAPTIVE_PERTURB`, as the adaptive bench-realistic path), float32,
+30 iterations: start and best cost and the kernel's (σ1, σ2, w).  This
+script runs the JAX package, not the port.
 """
 
 import json
@@ -69,6 +73,9 @@ KS = (3, 6)
 FOCAL, NOISE, DEPTH, DEFORM = 500.0, 0.5, 3.0, 0.1
 #: LM iterations of the float32 references.
 ITERS = 30
+#: The adaptive form's kernel start (σ1, σ2, w: the adaptive BAL paths'),
+#: its points' perturbation (theirs) and its K.
+ADAPTIVE_START, ADAPTIVE_PERTURB, ADAPTIVE_K = (1.0, 10.0, 0.8), 0.01, 3
 
 
 def dct_basis(n, K):
@@ -201,10 +208,13 @@ def nrsfm_data(nframes, npoints, vis, K, noise=NOISE, seed=17):
                 K=K)
 
 
-def build(pkg, data, dtype, device=None):
+def build(pkg, data, dtype, device=None, adaptive=False):
     """``(problem, cameras, points)`` over ``data`` in package ``pkg``
     (``nllstpu_torch`` or ``nllstpu``), one components-major batch with the
-    hand Jacobian; ``device`` for the port only."""
+    hand Jacobian; ``device`` for the port only.  ``adaptive``: the batch
+    carries one shared ContaminatedGaussian kernel started at
+    :data:`ADAPTIVE_START` (σ1, σ2, w), as the adaptive BAL paths' is, and
+    the kernel's handle comes fourth."""
     K = data["K"]
     if pkg.__name__ == "nllstpu_torch":
         import torch as xp
@@ -216,11 +226,27 @@ def build(pkg, data, dtype, device=None):
     residual, jacobian = nrsfm_model(xp, K)
     cams = problem.add_variables(cam_m, data["cameras"])
     pts = problem.add_variables(pt_m, data["points"])
-    problem.add_cost_batch(
-        residual, slots=[(cam_m, data["cam_idx"]), (pt_m, data["pt_idx"])],
-        params=np.asarray(data["observations"]), jacobian=jacobian, batched="cm",
-    )
-    return problem, cams, pts
+    slots, kernel, kh = [(cam_m, data["cam_idx"]), (pt_m, data["pt_idx"])], None, None
+    if adaptive:
+        kernel = pkg.ContaminatedGaussian()
+        kh = problem.add_variable(kernel.manifold,
+                                  pkg.ContaminatedGaussian.make_params(*ADAPTIVE_START))
+        slots = [(kernel.manifold, np.full(len(data["pt_idx"]), kh.index, np.int32))] + slots
+    problem.add_cost_batch(residual, slots=slots, params=np.asarray(data["observations"]),
+                           kernel=kernel, jacobian=jacobian, batched="cm")
+    return (problem, cams, pts, kh) if adaptive else (problem, cams, pts)
+
+
+def with_outliers(data):
+    """``data`` with the adaptive paths' outliers: 10% of the observations'
+    measurements (u, v; not their θ) moved by 50 pixels
+    (``numpy.random.default_rng(3)``), as ``chip_smoke.with_outliers`` moves
+    the BAL paths'."""
+    rng = np.random.default_rng(3)
+    out = rng.choice(len(data["pt_idx"]), size=len(data["pt_idx"]) // 10, replace=False)
+    data = dict(data, observations=np.array(data["observations"]))
+    data["observations"][out, :2] += 50.0
+    return data
 
 
 def full_data(K):
@@ -238,11 +264,16 @@ def _jax_case(name):
     import nllstpu as nt
     from nllstpu.models.ba import perturb_ba
 
-    k, prec = name.split("_")
+    adaptive = name.startswith("adaptive_")
+    k, prec = name.removeprefix("adaptive_").split("_")
     K = int(k[1:])
     dtype = jnp.float32 if prec == "f32" else jnp.float64
-    problem, _, pts = build(nt, full_data(K), dtype)
-    perturb_ba(problem, pts, 0.05, seed=5)
+    if adaptive:
+        problem, _, pts, kh = build(nt, with_outliers(full_data(K)), dtype, adaptive=True)
+        perturb_ba(problem, pts, ADAPTIVE_PERTURB, seed=5)
+    else:
+        problem, _, pts = build(nt, full_data(K), dtype)
+        perturb_ba(problem, pts, 0.05, seed=5)
     fam = nt.Euclidean(3 * K)
     if prec == "f32":
         opts = nt.Options(max_iters=ITERS, rel_dcost=0.0, abs_dcost=0.0, dstep=1e-12,
@@ -257,9 +288,12 @@ def _jax_case(name):
                iterations=int(r.num_iterations), seconds=time.perf_counter() - t0)
     if prec == "f64":
         out["costs"] = [float(c) for c in np.asarray(r.trajectory.costs)]
+    if adaptive:
+        out["sigmas_weight"] = [float(x) for x in np.asarray(
+            nt.ContaminatedGaussian.sigmas_weight(problem.get_value(kh)))]
     print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
-    for case in sys.argv[1:] or ["k3_f32", "k6_f32", "k6_f64"]:
+    for case in sys.argv[1:] or ["k3_f32", "k6_f32", "k6_f64", "adaptive_k3_f32"]:
         _jax_case(case)

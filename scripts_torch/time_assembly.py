@@ -40,8 +40,8 @@ out as the solve gives them, landmark-major underneath):
 the synthetic W of ``chip_smoke.py``'s phases 23 and 24 at dl 7 and 16
 (B4: ``row_case``; B5: ``structured_case``) and dl 33 (B5), and the NRSfM problem's damped
 reduction (``scripts_torch/anydl_reference.py``, float32, damped_inverse
-then B5) at K = 3 and 6 (dl 9 and 18), where the port under ``--root``
-compiles it.
+then B5 on the generic route, B4 on the obs-major one) at K = 3 and 6 (dl
+9 and 18), where the port under ``--root`` compiles it.
 
 With ``--cases shapes`` it times instead every shape of ``chip_smoke.py``'s
 phase 23 in both float types (events, host enqueue, graph; each kernel's
@@ -61,6 +61,17 @@ the registers and spill of the assembly and links kernels from the build
   over inverses formed in float64 (both types), B3 at dl 1 (synthetic),
   and the hot B3 on the pinhole bench (dl 3) and B4 on the gauge-fixed
   float64 system.
+
+With ``--cases lifted`` it times instead trajectory-space NRSfM
+(``chip_smoke.py``'s phase 24 problems, built here: K = 3 and 6 in
+float32, K = 6 in float64) on the route that the port under ``--root`` compiles for it
+(printed: a port with the caps n ≤ 4, dr_s ≤ 16, dl ≤ 6 takes the generic
+route, B6/B7/B5; one without them the obs-major route, B1/B4): one whole
+assembly and the reduction of one damped solve (events, host enqueue,
+graph, each kernel's passes by torch.profiler), then ten LM iterations
+through the graph and the stepped drivers (it/s), and through the graph
+driver with events around every replay (its assembly and damped trial
+per call).
 
 The problems are chip_smoke.py's (its constants), built by the port
 under ``--root``.
@@ -143,7 +154,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--cases", choices=("all", "anydl", "shapes"), default="all")
+    ap.add_argument("--cases", choices=("all", "anydl", "shapes", "lifted"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_assembly: no CUDA device")
@@ -168,6 +179,8 @@ def main():
         return anydl_cases(cs, dev, tag, reps)
     if args.cases == "shapes":
         return shapes_cases(cs, dev, tag, reps)
+    if args.cases == "lifted":
+        return lifted_cases(cs, dev, tag, reps)
     fam = cs.bench_options().schur_family
 
     def tiles(problem, comp):
@@ -296,7 +309,11 @@ def anydl_cases(cs, dev, tag, reps):
         ops = comp.ctx().linops
         _, _, h_ll, g_l, w = sys_
         h_inv = ops.damped_inverse(h_ll, 1e-2 * ops.diag_max(sys_).item())
-        report(f"B5 NRSfM K={K} dl={3 * K}", schur_reduce.reduce_s, w, h_inv, g_l, ops.pairs)
+        if getattr(ops, "pairs", None) is not None:  # the generic route
+            report(f"B5 NRSfM K={K} dl={3 * K}", schur_reduce.reduce_s, w, h_inv, g_l, ops.pairs)
+        else:  # the obs-major route
+            report(f"B4 NRSfM K={K} dl={3 * K}", schur_reduce.reduce_s_lm, w, h_inv, g_l,
+                   ops.rows)
         del comp, sys_, ops, w, h_inv
 
 
@@ -409,6 +426,57 @@ def shapes_cases(cs, dev, tag, reps):
     problem, route = cs.dual_problem(cs.GAUGE, dev)
     reductions("gauge-fixed dl=3", *system(problem, nt.Euclidean(3), **route), b3=False,
                types=(torch.float64,))
+
+
+def lifted_cases(cs, dev, tag, reps):
+    """NRSfM on the route the port compiles for it (see the module
+    docstring)."""
+    import dataclasses
+
+    import nllstpu_torch as nt
+    from nllstpu_torch.core.optimize import compile_problem
+    from nllstpu_torch.models.ba import perturb_ba
+    from scripts_torch import anydl_reference as ar
+
+    build_resources(tag)
+    # The drivers' linear-algebra library, under which the damped inverses
+    # past dl 3 (``inv_ex``) can be captured.
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    for K, dtype in ((3, torch.float32), (6, torch.float32), (6, torch.float64)):
+        label = f"NRSfM K={K}{' f64' if dtype == torch.float64 else ''}"
+        problem, _, pts = ar.build(nt, ar.full_data(K), dtype, dev)
+        perturb_ba(problem, pts, 0.05, seed=5)
+        fam = nt.Euclidean(3 * K)
+        opts = (nt.Options(solver="schur", schur_family=fam, rel_dcost=1e-6,
+                           max_time=float("inf")) if dtype == torch.float64
+                else dataclasses.replace(cs.bench_options(), schur_family=fam))
+        comp = compile_problem(problem, solver=opts.solver, schur_family=opts.schur_family)
+        info = comp.schur_info
+        route = (f"generic ({info.generic_why})" if info.w_rows is None
+                 else f"obs-major ({type(info.fast[0]).__name__})")
+        print(f"{tag} {label}: route {route}", flush=True)
+        v = problem.stacked_variables()
+        asm = lambda: comp.assemble(v)  # noqa: E731
+        print(f"{tag} {label} assembly: events {events_ms(asm, reps):.4f} ms, host enqueue "
+              f"{host_ms(asm, reps):.4f} ms, graph {graph_ms(asm, reps):.4f} ms; passes "
+              f"{passes_ms(asm, reps)}", flush=True)
+        _, sys_ = comp.assemble(v)
+        ops = comp.ctx(opts).linops
+        lam = 1e-2 * ops.diag_max(sys_).item()
+        _, _, h_ll, g_l, w = sys_
+        if info.w_rows is None:
+            red = lambda: ops.reduce_external(w, ops.damped_inverse(h_ll, lam), g_l, ops.pairs)  # noqa: E731
+        else:
+            red = lambda: ops.reduce_lm(w, ops.damped_inverse(h_ll, lam), g_l, ops.rows)  # noqa: E731
+        print(f"{tag} {label} reduction (damped_inverse + B{'5' if info.w_rows is None else '4'}):"
+              f" events {events_ms(red, reps):.4f} ms, host enqueue {host_ms(red, reps):.4f} ms, "
+              f"graph {graph_ms(red, reps):.4f} ms; damped solve: events "
+              f"{events_ms(lambda: ops.solve(sys_, lam), reps):.4f} ms", flush=True)
+        del comp, sys_, ops, red, asm, w, h_ll, g_l
+        for driver, phases in (("graph", False), ("stepped", False), ("graph", True)):
+            print(tag, end=" ", flush=True)
+            cs.phase_timed(label, problem, driver, phases=phases, options=opts)
+        del problem
 
 
 if __name__ == "__main__":

@@ -17,10 +17,10 @@ b_r and g_l.  Tolerance: rtol 1e-12, atol 1e-13 in float64 (the same
 arithmetic summed in another order).  One JAX run (two buckets, each
 interpret-mode compile ~3–12 s) serves every comparison.
 
-``fused_obs.any_shape_plan`` mirrors the CUDA source's ``any_bytes``
-(``tests/test_torch_cuda.py::test_any_shape_plan_matches_the_source``
-holds the two equal on the card); here its properties the kernel relies
-on."""
+``fused_obs.any_shape_plan`` mirrors the CUDA source's ``any_bytes`` and
+``any_warps`` (``tests/test_torch_cuda.py::
+test_any_shape_plan_matches_the_source`` holds them equal on the card);
+here its properties the kernel and the route rely on."""
 
 import functools
 
@@ -146,28 +146,30 @@ def test_stereo_b2_matches_pallas(monkeypatch, stereo_b2):
 
 
 def test_any_shape_plan():
-    """The plan at two shapes worked by hand; every shape within the caps:
-    a staged slot of an odd number of values holding the n·S Jacobian
-    columns, g0, ρ′ and 2ρ″; 8-byte aligned warp regions after a 16-byte
-    aligned table; no shape past the caps' plan, which the source opts in
-    and which fits the card's 227 KB in float64."""
-    # (2, 6, 2) float32: a slot 2·8 + 8 + 2 = 26 → 27 values; a table of 3
-    # h_ll and 2 g_l entries, 20 → 32 bytes; a warp 32·(27 + 5)·4 + 640.
-    assert fused_obs.any_shape_plan(2, 6, 2, torch.float32) == (27, 32, 4736, 32 + 4 * 4736)
-    # (3, 9, 3) float64: 3·12 + 12 + 2 = 50 → 51; 9 entries, 36 → 48 bytes.
-    plan = fused_obs.any_shape_plan(3, 9, 3, torch.float64)
-    assert plan == (51, 48, 32 * 60 * 8 + 640, 48 + 4 * (32 * 60 * 8 + 640))
-    caps = {dt: fused_obs.any_shape_plan(fused_obs.MAX_ROWS, fused_obs.MAX_DR, fused_obs.MAX_DL,
-                                         dt) for dt in (torch.float32, torch.float64)}
-    assert caps[torch.float64].block_bytes <= SMEM_OPT_IN
-    for n in range(1, fused_obs.MAX_ROWS + 1):
-        for dr_s in range(1, fused_obs.MAX_DR + 1):
-            for dl in range(1, fused_obs.MAX_DL + 1):
+    """The plan at two shapes worked by hand; over a sweep of shapes (the
+    old caps' and NRSfM's among them): a staged slot of an odd number of
+    values holding the n·S Jacobian columns, g0, ρ′ and 2ρ″; a chunk of at
+    most 32 h_ll/g_l entries; 8-byte aligned warp regions; up to four warps
+    a block within the 227 KB a block opts in to, and ``kernel_takes``
+    exactly where one warp fits."""
+    assert fused_obs.SMEM_LIMIT == SMEM_OPT_IN
+    # (2, 6, 2) float32: a slot 2·8 + 8 + 2 = 26 → 27 values; 3 h_ll and 2
+    # g_l entries a chunk; a warp 32·(27 + 5)·4 + 32·24 bytes; four warps.
+    assert fused_obs.any_shape_plan(2, 6, 2, torch.float32) == (27, 5, 4864, 4, 4 * 4864)
+    # (2, 6, 18) float64 (NRSfM K = 6): 2·24 + 24 + 2 = 74 → 75 values;
+    # 189 entries, chunks of 32; 32·(75 + 32)·8 + 768 = 28,160 bytes.
+    assert fused_obs.any_shape_plan(2, 6, 18, torch.float64) == (75, 32, 28160, 4, 4 * 28160)
+    for n in (1, 2, 3, 4, 5, 8, 21):
+        for dr_s in (1, 6, 9, 16, 17, 40):
+            for dl in (1, 2, 3, 6, 7, 9, 18, 33, 100, 300):
                 s = dr_s + dl
                 for dt in (torch.float32, torch.float64):
                     plan = fused_obs.any_shape_plan(n, dr_s, dl, dt)
                     assert plan.stride % 2 == 1 and n * s + s + 2 <= plan.stride <= n * s + s + 3
-                    assert plan.table_bytes % 16 == 0 and plan.warp_bytes % 8 == 0
-                    assert plan.block_bytes <= caps[dt].block_bytes
-                    assert plan.block_bytes == plan.table_bytes + fused_obs.ANY_WARPS * (
-                        plan.warp_bytes)
+                    assert plan.chunk == min(dl * (dl + 1) // 2 + dl, 32)
+                    assert plan.warp_bytes % 8 == 0
+                    assert plan.warps == min(4, SMEM_OPT_IN // plan.warp_bytes)
+                    assert plan.block_bytes == plan.warps * plan.warp_bytes <= SMEM_OPT_IN
+                    assert fused_obs.kernel_takes(n, dr_s, dl, dt) == (
+                        plan.warp_bytes <= SMEM_OPT_IN)
+    assert not fused_obs.kernel_takes(2, 6, 3, torch.float16)

@@ -59,12 +59,16 @@ def _b1_inputs(gen, K, L, n_r, dr_s, device, dtype, n=2, dl=3):
 #: instances' pinhole camera before and after the landmark and Snavely
 #: camera (n_r = 300: many short camera runs, ~47 slots each); the
 #: any-shape instance at a planar landmark (2, 6, 2), three residual rows
-#: (3, 6, 3) and (3, 9, 3), at its caps (4, 16, 6), and at shapes whose
+#: (3, 6, 3) and (3, 9, 3), at the old caps (4, 16, 6), and at shapes whose
 #: entry lists end mid-warp: one row and one landmark dof (1, 7, 1), the
-#: landmark first at (4, 13, 5), the landmark last at (3, 16, 6).
+#: landmark first at (4, 13, 5), the landmark last at (3, 16, 6); past the
+#: old caps n ≤ 4, dr_s ≤ 16, dl ≤ 6: NRSfM's (2, 6, 9) and (2, 6, 18)
+#: (h_ll/g_l in chunks of 32 entries, W columns in pieces of 6 rows), five
+#: rows (5, 6, 3) and a camera of 17 dof (2, 17, 3).
+LIFTED = [(2, 6, 9, 6, 37), (2, 6, 18, 6, 37), (5, 6, 3, 0, 37), (2, 17, 3, 17, 23)]
 ASM_SHAPES = [(2, 6, 3, 6, 37), (2, 6, 3, 0, 37), (2, 9, 3, 9, 300), (2, 6, 2, 6, 37),
               (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23), (1, 7, 1, 7, 37),
-              (4, 13, 5, 0, 23), (3, 16, 6, 16, 19)]
+              (4, 13, 5, 0, 23), (3, 16, 6, 16, 19), *LIFTED]
 
 
 @pytest.mark.cuda
@@ -112,21 +116,23 @@ def test_fused_obs_leg_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_sta
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n,dr_s,dl", [(2, 6, 2), (3, 9, 3)])
-def test_fused_obs_any_shape_past_one_group(cuda, dtype, tol, n, dr_s, dl):
+@pytest.mark.parametrize("n,dr_s,dl,e_start", [(2, 6, 2, 2), (3, 9, 3, 3), (2, 6, 18, 6),
+                                               (5, 6, 3, 0)])
+def test_fused_obs_any_shape_past_one_group(cuda, dtype, tol, n, dr_s, dl, e_start):
     """B1 and B8's any-shape instance at K = 40 (two rounds of a warp, every
-    W block added into the zeroed rows, not found by __match_any_sync), a
-    camera repeated across the rounds."""
+    W block added into the zeroed rows, not found by __match_any_sync; h_ll
+    and g_l stored on the first round and added on the second), a camera
+    repeated across the rounds."""
     gen = torch.Generator().manual_seed(19)
     n_r = 31
     inputs = _b1_inputs(gen, 40, 300, n_r, dr_s, cuda, dtype, n, dl)
     inputs[4][35] = inputs[4][2]
     tables = fused_obs.camera_tables(inputs[4], n_r)
-    out = fused_obs.fused_obs_all(*inputs, *tables, n_r, dr_s, dl, dl)
-    leg = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, dl, dl)
+    out = fused_obs.fused_obs_all(*inputs, *tables, n_r, dr_s, dl, e_start)
+    leg = fused_obs.fused_obs_leg(*inputs, n_r, dr_s, dl, e_start)
     ref = fused_obs.fused_obs_all_reference(
         *[t.double() if t.is_floating_point() else t for t in inputs], *tables,
-        n_r, dr_s, dl, dl,
+        n_r, dr_s, dl, e_start,
     )
     for name, a, b in zip(("h_ll", "g_l", "w", "ab"), out, ref):
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
@@ -195,9 +201,10 @@ def _tiles_as_batch(inputs, calls, l_total, n_r, device):
 @pytest.mark.parametrize(
     "n,dr_s,dl,e_start,n_r",
     # n_r = 300 at dr_s = 9: many short camera runs; the any-shape instance
-    # at (2, 6, 2), (3, 6, 3), (3, 9, 3) and its caps (4, 16, 6).
+    # at (2, 6, 2), (3, 6, 3), (3, 9, 3), the old caps (4, 16, 6) and the
+    # lifted shapes.
     [(2, 9, 3, 9, 37), (2, 6, 3, 0, 37), (2, 9, 3, 9, 300), (2, 6, 2, 6, 37),
-     (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23)],
+     (3, 6, 3, 0, 37), (3, 9, 3, 9, 300), (4, 16, 6, 16, 23), *LIFTED],
 )
 def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_start, n_r):
     """B2 over one batch laid out as a degree-bucketed plan: a chunk bucket
@@ -245,7 +252,8 @@ def test_fused_obs_into_kernel_matches_plain(cuda, dtype, tol, n, dr_s, dl, e_st
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n,dr_s,dl,e_start", [(2, 6, 2, 6), (3, 9, 3, 9), (4, 16, 6, 0)])
+@pytest.mark.parametrize("n,dr_s,dl,e_start", [(2, 6, 2, 6), (3, 9, 3, 9), (4, 16, 6, 0),
+                                               (2, 6, 18, 6), (5, 6, 3, 0), (2, 17, 3, 17)])
 def test_fused_obs_into_repeats_across_rounds(cuda, dtype, tol, n, dr_s, dl, e_start):
     """B2's any-shape instance over landmarks of 70 and 45 slots (three and
     two rounds of a warp) among 11 cameras: every landmark repeats cameras
@@ -282,16 +290,22 @@ def test_fused_obs_into_repeats_across_rounds(cuda, dtype, tol, n, dr_s, dl, e_s
 @pytest.mark.cuda
 def test_any_shape_plan_matches_the_source(cuda):
     """The host's mirror of the any-shape instance's shared memory
-    (``fused_obs.any_shape_plan``) gives the source's bytes at every shape
-    within the caps, in both float types."""
+    (``fused_obs.any_shape_plan``) gives the source's bytes and warps a
+    block at every shape within the old caps and over a sweep past them
+    (NRSfM's, and shapes whose one warp no longer fits), in both float
+    types; ``kernel_takes`` holds exactly where the source launches."""
     lib = _build.library()
-    for n in range(1, fused_obs.MAX_ROWS + 1):
-        for dr_s in range(1, fused_obs.MAX_DR + 1):
-            for dl in range(1, fused_obs.MAX_DL + 1):
-                for dtype in (torch.float32, torch.float64):
-                    plan = fused_obs.any_shape_plan(n, dr_s, dl, dtype)
-                    got = lib.fused_obs_any_bytes(n, dr_s, dl, int(dtype == torch.float64))
-                    assert got == plan.block_bytes, (n, dr_s, dl, dtype)
+    shapes = [(n, dr_s, dl) for n in range(1, 5) for dr_s in range(1, 17) for dl in range(1, 7)]
+    shapes += [(n, dr_s, dl) for n in (5, 8, 21) for dr_s in (6, 17, 40)
+               for dl in (7, 9, 18, 33, 100, 300)]
+    for n, dr_s, dl in shapes:
+        for dtype in (torch.float32, torch.float64):
+            plan = fused_obs.any_shape_plan(n, dr_s, dl, dtype)
+            f64 = int(dtype == torch.float64)
+            got = (lib.fused_obs_any_bytes(n, dr_s, dl, f64),
+                   lib.fused_obs_any_warps(n, dr_s, dl, f64))
+            assert got == (plan.block_bytes, plan.warps), (n, dr_s, dl, dtype)
+            assert fused_obs.kernel_takes(n, dr_s, dl, dtype) == (plan.warps >= 1)
 
 
 def _row_w(gen, L, dl, n_blocks, width):
@@ -678,13 +692,15 @@ def test_kernels_reject_bad_inputs(cuda):
     w = torch.zeros(4, 5, 6, device=cuda)
     with pytest.raises(ValueError):
         schur_reduce.reduce_s_damped(w, torch.zeros(3, 3, 4, device=cuda), torch.zeros(3, 4, device=cuda), 0.0)
-    jac = torch.zeros(5, 9, 2, 4, device=cuda)  # five residual rows: past the caps
+    # Eight residual rows of 206 columns: a warp's 32 staged slots past the
+    # shared memory a block holds.
+    jac = torch.zeros(8, 206, 2, 4, device=cuda)
     idx = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_obs.fused_obs_all(
-            jac, torch.zeros(9, 2, 4, device=cuda), torch.zeros(2, 4, device=cuda),
+            jac, torch.zeros(206, 2, 4, device=cuda), torch.zeros(2, 4, device=cuda),
             torch.zeros(2, 4, device=cuda), idx, idx,
-            torch.zeros(6, dtype=torch.int32, device=cuda), 5, 6, 3, 6,
+            torch.zeros(6, dtype=torch.int32, device=cuda), 5, 6, 200, 6,
         )
     with pytest.raises(ValueError):
         segment_sum.segment_block_sum(w, torch.zeros(3, dtype=torch.int32, device=cuda))

@@ -1,8 +1,9 @@
 """Every obs-major shape the JAX kernels take, on the CPU: the route that
 ``compile_problem`` records (the same on every device: kernels B1, B2 and
-B8 take (n residual rows, camera dof, landmark dof) within n ≤ 4, dr_s ≤
-16, dl ≤ 6, ``fused_obs.kernel_takes``; any other batch takes the generic
-route), the direct compile of an eliminated family past the unrolled
+B8 take every (n residual rows, camera dof, landmark dof) whose warp
+region fits a block's shared memory, ``fused_obs.kernel_takes``; any other
+batch, or an adaptive one, takes the generic route), the obs-major block
+tables of a camera wider than 16 dof, the direct compile of an eliminated family past the unrolled
 instances of B4 and B5 (dl 17, against the JAX package), the plain
 versions of B1 and B8 at (2, 6, 2) against the JAX package's
 interpret-mode kernels, and float64 LM traces of a planar (dl = 2) and a
@@ -36,12 +37,12 @@ from scripts_torch import shapes_reference as sr
 TOL = dict(rtol=1e-12, atol=1e-13)
 
 
-def _linear_problem(n, dr, dl, dtype=torch.float64, seed=0, pkg=pt):
+def _linear_problem(n, dr, dl, dtype=torch.float64, seed=0, pkg=pt, adaptive=False):
     """A components-major camera/landmark batch of shape (n, dr, dl):
     residual row i = cam[i mod dr]·x[i mod dl] + x[(i + 1) mod dl] − m_i
     over a banded pattern of 6 cameras and 40 landmarks, the Jacobian
     synthesized; in the port (on the CPU) or, with ``pkg=nt``, the JAX
-    package."""
+    package; ``adaptive``: under one shared ContaminatedGaussian."""
     rng = np.random.default_rng(seed)
     cams, pts = rng.standard_normal((6, dr)) + 1.0, rng.standard_normal((40, dl))
     ci, li = np.nonzero(sr.banded_visibility(6, 40, 0.6))
@@ -55,21 +56,29 @@ def _linear_problem(n, dr, dl, dtype=torch.float64, seed=0, pkg=pt):
     cam_m, pt_m = pkg.Euclidean(dr), pkg.Euclidean(dl)
     p.add_variables(cam_m, cams)
     p.add_variables(pt_m, pts)
-    p.add_cost_batch(residual, slots=[(cam_m, ci), (pt_m, li)],
-                     params=rng.standard_normal((len(ci), n)), batched="cm")
+    slots, kernel = [(cam_m, ci), (pt_m, li)], None
+    if adaptive:
+        kernel = pkg.ContaminatedGaussian()
+        kh = p.add_variable(kernel.manifold, pkg.ContaminatedGaussian.make_params(1.0, 10.0, 0.8))
+        slots = [(kernel.manifold, np.full(len(ci), kh.index, np.int32))] + slots
+    p.add_cost_batch(residual, slots=slots, params=rng.standard_normal((len(ci), n)),
+                     kernel=kernel, batched="cm")
     return p, pt_m
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape,obs_major", [
     ((2, 6, 3), True), ((2, 9, 3), True), ((2, 6, 2), True), ((3, 9, 3), True),
-    ((5, 6, 3), False),
+    ((5, 6, 3), True), ((2, 6, 9), True), ((2, 6, 18), True), ((2, 17, 3), True),
+    ((8, 6, 200), False),
 ])
 def test_route_follows_kernel_takes(shape, obs_major, dtype):
     """``compile_problem(device="cpu")`` records the route a card compile
     takes: the obs-major route (B1) where ``kernel_takes`` holds for the
-    batch's (n, dr_s, dl) and dtype, else the generic route (B6, B7, B5),
-    on which ``w_impl="fused"`` is refused in words naming the shape."""
+    batch's (n, dr_s, dl) and dtype — NRSfM's shapes among them, past the
+    old caps n ≤ 4, dr_s ≤ 16, dl ≤ 6 — else the generic route (B6, B7,
+    B5), whose reason names the shared memory a warp would take, and on
+    which ``w_impl="fused"`` is refused in those words."""
     n, dr, dl = shape
     assert fused_obs.kernel_takes(n, dr, dl, dtype) == obs_major
     problem, fam = _linear_problem(n, dr, dl, dtype)
@@ -82,31 +91,47 @@ def test_route_follows_kernel_takes(shape, obs_major, dtype):
     if obs_major:
         assert info.fast[0].dr_s == dr and not info.generic_why
         return
-    assert "do not take its shape (n=5, dr_s=6, dl=3" in info.generic_why
+    plan = fused_obs.any_shape_plan(n, dr, dl, dtype)
+    assert plan.warps == 0 and plan.warp_bytes > fused_obs.SMEM_LIMIT
+    assert "do not take its shape (n=8, dr_s=6, dl=200" in info.generic_why
+    assert f"take {plan.warp_bytes} bytes of shared memory" in info.generic_why
     with pytest.raises(NotImplementedError, match="do not take its shape"):
         pt.compile_problem(problem, solver="schur", schur_family=fam, w_impl="fused")
 
 
+def test_adaptive_batch_takes_the_generic_route():
+    """A batch under an adaptive kernel takes the generic route at a shape
+    the kernels take, as in the JAX package, and ``w_impl="fused"`` is
+    refused on it."""
+    problem, fam = _linear_problem(2, 6, 3, adaptive=True)
+    info = pt.compile_problem(problem, solver="schur", schur_family=fam).schur_info
+    assert not isinstance(info.fast[0], schur._FastBatch) and info.w_pairs is not None
+    with pytest.raises(NotImplementedError, match="it is not obs-major"):
+        pt.compile_problem(problem, solver="schur", schur_family=fam, w_impl="fused")
+
+
 def test_wide_blocks():
-    """A camera of 17 dof is past the kernels' dr_s ≤ 16, so its batch
-    takes the generic route, whose block tables cut a reduced block wider
+    """A camera of 17 dof is past the old dr_s ≤ 16, and its batch now takes
+    the obs-major route, whose block tables cut each camera block wider
     than ``schur_reduce.MAX_WIDTH`` into pieces (16 + 1 columns here): no
-    table holds a block wider than 16.  A landmark of 17 dof is past the
-    unrolled instances of B4 and B5 and takes their tiled one: the direct
-    compile takes it (21 residual rows, so that every landmark block has
-    full rank), and its float64 LM follows the JAX package's direct solve
-    over four iterations (costs within 1e-9, the same solves); the
+    table holds a block wider than 16, and the pieces cover W.  A landmark
+    of 17 dof (21 residual rows, so that every landmark block has full
+    rank) is past the unrolled instances of B4 and B5 and takes their
+    tiled one: the direct compile takes it through the obs-major route (B1
+    at (21, 6, 17)), and its float64 LM follows the JAX package's direct
+    solve over four iterations (costs within 1e-9, the same solves); the
     implicit solve takes it too."""
     problem, fam = _linear_problem(2, 17, 2)
     comp = pt.compile_problem(problem, solver="schur", schur_family=fam)
-    pairs = comp.schur_info.w_pairs
-    assert isinstance(comp.schur_info.fast[0], schur._GenBatch)
-    assert pairs.max_width == schur_reduce.MAX_WIDTH == 16
-    assert sorted(set(np.asarray(pairs.bwidth).tolist())) == [1, 16]
+    rows = comp.schur_info.w_rows
+    assert isinstance(comp.schur_info.fast[0], schur._FastBatch)
+    assert rows.max_width == schur_reduce.MAX_WIDTH == 16
+    assert np.asarray(rows.bwidth).tolist() == [16, 1] * 6
+    assert rows.covered == rows.n_cols == 6 * 17
     problem, fam = _linear_problem(21, 6, 17)
     comp = pt.compile_problem(problem, solver="schur", schur_family=fam)
     info = comp.schur_info
-    assert not info.implicit and info.dof_elim == 17 and info.w_pairs is not None
+    assert not info.implicit and info.dof_elim == 17 and info.w_rows is not None
     opts = dict(max_iters=4, rel_dcost=0.0, abs_dcost=0.0, max_time=float("inf"))
     r_t = pt.optimize(problem, pt.Options(solver="schur", schur_family=fam, **opts))
     jp, jfam = _linear_problem(21, 6, 17, jnp.float64, pkg=nt)
