@@ -2125,7 +2125,7 @@ def phase_timed(label, problem, driver, phases: bool, options=None, unfixed=None
     )
     if driver == "graph":
         line += (f", warm-up and capture {final['capture_seconds']:.3f} s, "
-                 f"{final['replays']} replays")
+                 f"{sum(final['replays'].values())} replays")
     if phases:
         line += " | " + ", ".join(
             f"{k} {n}x {ms / n:.4f} ms/call" for k, (n, ms) in timer.totals().items()
@@ -2193,7 +2193,7 @@ def phase_profile(label, problem, driver, options=None, unfixed=None, w_impl="fu
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {sum(c for _, c, _ in kernels)} kernels "
           f"on the device; host launches per iteration {sum(api.values()) / n:.1f} "
           f"({', '.join(f'{k} {v / n:.1f}' for k, v in sorted(api.items()))})"
-          + (f", graph replays per iteration {final['replays'] / n:.1f}" if runner else "")
+          + (f", graph replays per iteration {sum(final['replays'].values()) / n:.1f}" if runner else "")
           + " | " + "; ".join(f"{name[:60]} {c}x {ms:.3f} ms" for name, c, ms in top)
           + " | the port's kernels: " + "; ".join(
               f"{name.split('::')[1].split('<')[0]}{name[name.find('<'):name.find('>') + 1]}"
@@ -2288,26 +2288,25 @@ ZERO_SOLVES = ("leg", "leg_lu", "pcg_leg", "trial", "trial_lu")
 
 @contextlib.contextmanager
 def piece_counts():
-    """Counts the graph driver's replays per piece while it is open (a
-    "…_lu" replay is a Cholesky that fell to LU), and the solves of
-    :data:`ZERO_SOLVES` that the iterator took (an LU one, or a Cholesky
-    one whose flag held) and whose read came out non-finite ("non-finite
-    <piece>")."""
+    """Counts, while it is open, the solves of :data:`ZERO_SOLVES` that
+    the iterator took (an LU one, or a Cholesky one whose flag held) and
+    whose read came out non-finite ("non-finite <piece>").  The replays
+    per piece are the run's own (``Result.replays``; a "…_lu" replay is a
+    Cholesky that fell to LU): the caller adds them."""
     from nllstpu_torch.core import optimize
 
     counts = collections.Counter()
     real = optimize._GraphRunner._step
 
-    def step(self, name):
+    def step(self, name, read=None):
         out = real(self, name)
-        counts[name] += 1
         if name in ZERO_SOLVES:
-            read = out if torch.is_tensor(out) else out[2]
-            ok = read[5 if "leg" in name else 4]
+            got = out if torch.is_tensor(out) else out[2]
+            ok = got[5 if "leg" in name else 4]
             taken = name.endswith("_lu") or name == "pcg_leg" or bool(ok)
-            if taken and not bool(torch.isfinite(read[:4]).all()):
+            if taken and not bool(torch.isfinite(got[:4]).all()):
                 counts[f"non-finite {name}"] += 1
-        return out
+        return out if read is None else read(out)
 
     optimize._GraphRunner._step = step
     try:
@@ -2375,6 +2374,7 @@ def phase_iter_main(device, smi):
                 label, problem, ref["start"], ref["best"], slack, needs=needs,
                 never=_never(needs), options=opts, **route)
         results[label] = result
+        counts.update(result.replays)
         zero = {k: v for k, v in counts.items() if k in ZERO_SOLVES or "non-finite" in k}
         print(f"{label}: {result.num_iterations} iterations, {result.linear_solves} solves, "
               f"{result.cost_computations} cost evaluations; λ = 0 solve pieces replayed "

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, cg, fused_obs, schur, schur_reduce, segment_sum, w_place
+from ..utils import profiling
 from . import engine, iterators, rules, structs
 from .callbacks import host_array, print_row
 from .problem import Problem, family_name
@@ -311,7 +312,8 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
         raise ValueError(f"w_impl={w_impl!r}: the direct assembly's routes are {W_IMPLS}")
     COMPILES += 1
     if solver == "auto":
-        solver, schur_family = auto_solver(problem, unfixed, schur_family)
+        with profiling.setup_span("nt.compile.layout"):
+            solver, schur_family = auto_solver(problem, unfixed, schur_family)
     if solver not in ("dense", "cg", "pcg", "schur", "schur_cg"):
         raise ValueError(f"unknown solver {solver!r}")
     kernels = PLAIN if plain else KERNELS
@@ -320,13 +322,15 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
     if solver in ("dense", "cg", "pcg"):
         if w_impl != "fused_all":
             raise ValueError(f"w_impl={w_impl!r} is a route of the direct Schur assembly")
-        batches = problem.batches()
-        layout = engine.build_layout(problem, unfixed, batches=batches)
-        if solver == "dense":
-            plan = engine.dense_plan(batches, layout, problem.device)
-        else:
-            cg_ops = cg.build_cg_ops(batches, layout, manifolds, problem.device,
-                                     segment_sum=kernels.segment_sum)
+        with profiling.setup_span("nt.compile.layout"):
+            batches = problem.batches()
+            layout = engine.build_layout(problem, unfixed, batches=batches)
+        with profiling.setup_span("nt.compile.tables"):
+            if solver == "dense":
+                plan = engine.dense_plan(batches, layout, problem.device)
+            else:
+                cg_ops = cg.build_cg_ops(batches, layout, manifolds, problem.device,
+                                         segment_sum=kernels.segment_sum)
     else:
         if schur_family is None:
             raise ValueError(f"solver={solver!r} requires schur_family")
@@ -336,19 +340,20 @@ def compile_problem(problem: Problem, unfixed=None, solver: str = "dense",
         schur.check_slice(info, batches)
     if problem.device.type == "cuda" and not plain:
         _build.library()
-    if info is not None:
-        schur.upload_tables(info, problem.device, problem.dtype)
-    return CompiledProblem(
-        manifolds=manifolds,
-        layout=layout,
-        batches=[engine.device_batch(b, problem.device, problem.dtype) for b in batches],
-        dtype=problem.dtype,
-        device=problem.device,
-        schur_info=info,
-        kernels=kernels,
-        dense_plan=plan,
-        cg_ops=cg_ops,
-    )
+    with profiling.setup_span("nt.compile.upload"):
+        if info is not None:
+            schur.upload_tables(info, problem.device, problem.dtype)
+        return CompiledProblem(
+            manifolds=manifolds,
+            layout=layout,
+            batches=[engine.device_batch(b, problem.device, problem.dtype) for b in batches],
+            dtype=problem.dtype,
+            device=problem.device,
+            schur_info=info,
+            kernels=kernels,
+            dense_plan=plan,
+            cg_ops=cg_ops,
+        )
 
 
 def schur_layout(problem: Problem, schur_family, implicit: bool = False,
@@ -378,30 +383,31 @@ def schur_routes(problem: Problem, schur_family, implicit: bool = False,
     :func:`schur.route_batches` gives them (None on the implicit solve).
     The landmark-sharded compile (``parallel.schur_shard``) starts here and
     builds only its own shard's tables."""
-    batches = problem.batches()
-    counts = schur.elim_degree_counts(batches, problem, schur_family)
-    order_key = None
-    if counts.size and counts.sum() > 0:
-        if counts.size * counts.max() > schur._OBS_MAJOR_MAX_RATIO * counts.sum():
-            order_key = {family_name(schur_family): counts}
-    layout = engine.build_layout(
-        problem, unfixed, batches=batches, order_last=family_name(schur_family),
-        order_key=order_key,
-    )
-    pre = schur.build_schur_info(problem, layout, schur_family)
-    schur.check_elim_slots(batches, pre)
-    # The JAX package's dense-W size, pad column block included.
-    w_bytes = (
-        pre.num_elim * (pre.dim_reduced + layout.pad) * pre.dof_elim
-        * torch.empty((), dtype=problem.dtype).element_size()
-    )
-    implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
-    if implicit:
-        batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
-    else:
-        batches, buckets, route = schur.route_batches(batches, pre, layout, problem.dtype)
-    info = dataclasses.replace(pre, implicit=implicit, w_impl=w_impl)
-    return layout, info, batches, buckets, route
+    with profiling.setup_span("nt.compile.layout"):
+        batches = problem.batches()
+        counts = schur.elim_degree_counts(batches, problem, schur_family)
+        order_key = None
+        if counts.size and counts.sum() > 0:
+            if counts.size * counts.max() > schur._OBS_MAJOR_MAX_RATIO * counts.sum():
+                order_key = {family_name(schur_family): counts}
+        layout = engine.build_layout(
+            problem, unfixed, batches=batches, order_last=family_name(schur_family),
+            order_key=order_key,
+        )
+        pre = schur.build_schur_info(problem, layout, schur_family)
+        schur.check_elim_slots(batches, pre)
+        # The JAX package's dense-W size, pad column block included.
+        w_bytes = (
+            pre.num_elim * (pre.dim_reduced + layout.pad) * pre.dof_elim
+            * torch.empty((), dtype=problem.dtype).element_size()
+        )
+        implicit = implicit or w_bytes > DENSE_W_BYTE_LIMIT
+        if implicit:
+            batches, buckets, route = [schur.sort_for_implicit(b, pre) for b in batches], None, None
+        else:
+            batches, buckets, route = schur.route_batches(batches, pre, layout, problem.dtype)
+        info = dataclasses.replace(pre, implicit=implicit, w_impl=w_impl)
+        return layout, info, batches, buckets, route
 
 
 @dataclasses.dataclass
@@ -574,7 +580,8 @@ def run_stepped(compiled: CompiledProblem, opts: Options, vars0, callback=None,
 
 #: The kernels' launch counters, ``(module, attribute)``: each wrapper adds
 #: one where it launches its kernel; the graph driver adds what a capture
-#: counted at every replay of it.
+#: counted once per replay of it, when its run returns
+#: (:meth:`_GraphRunner._tally_launches`).
 LAUNCH_COUNTERS = (
     (fused_obs, "LAUNCHES"), (fused_obs, "INTO_LAUNCHES"), (fused_obs, "LEG_LAUNCHES"),
     (schur_reduce, "LAUNCHES"), (schur_reduce, "LM_LAUNCHES"),
@@ -589,6 +596,12 @@ def _launch_counts() -> list:
 def _set_launch_counts(counts) -> None:
     for (m, a), n in zip(LAUNCH_COUNTERS, counts):
         setattr(m, a, n)
+
+
+def _add_launch_counts(counts, times: int = 1) -> None:
+    for (m, a), n in zip(LAUNCH_COUNTERS, counts):
+        if n:
+            setattr(m, a, getattr(m, a) + n * times)
 
 
 _SIDE_STREAMS: dict = {}
@@ -644,11 +657,15 @@ class _GraphRunner:
     one read (a second replay and read when a Cholesky failed; on the
     cg and implicit paths a replay and a flag read per PCG chunk), an outer
     iteration one copy of the adopted variables into ``vars`` and one
-    assembly replay.  Each replay adds to the kernels' launch counters
-    what its capture counted.  On the CPU the pieces run eagerly: the same
-    code.  A compile with the plain versions (``plain=True``) cannot be
-    captured (its kernels' plain versions read the host); on the card the
-    runner refuses it.  ``phase(name)`` wraps every piece's replay."""
+    assembly replay.  ``piece_replays`` counts each piece's replays in the
+    run; when the run returns, the kernels' launch counters get what each
+    capture counted once per replay.  On the CPU the pieces run eagerly:
+    the same code, counted alike.  A compile with the plain versions
+    (``plain=True``) cannot be captured (its kernels' plain versions read
+    the host); on the card the runner refuses it.  Every piece's replay
+    and the host read of its outputs run inside its span
+    ``nt.piece.<piece>`` (:func:`profiling.span`); ``phase(name)`` wraps
+    the replay alone."""
 
     def __init__(self, compiled: CompiledProblem, opts: Options, vars0, phase=None):
         capture = compiled.device.type == "cuda"
@@ -696,8 +713,9 @@ class _GraphRunner:
         if it == structs.GRADIENT_DESCENT:
             self.bodies["trial_gradient"] = functools.partial(self._combo, "gradient")
         self.graphs = {}  # name -> (CUDAGraph, launch counts of its capture, outputs)
+        self.spans = {name: "nt.piece." + name for name in self.bodies}
         self.capture_seconds = 0.0
-        self.replays = 0
+        self.piece_replays = collections.Counter()  # this run's, per piece
         if capture:
             self.prepare()
 
@@ -766,66 +784,93 @@ class _GraphRunner:
 
     # -- capture and replay ------------------------------------------------
 
+    @property
+    def replays(self) -> int:
+        """This run's replays of every piece."""
+        return sum(self.piece_replays.values())
+
     def prepare(self):
         """Warm-up and capture (see the class), then one replay of each
-        graph, whose first replay uploads it; their seconds in
-        ``capture_seconds``."""
+        graph, whose first replay uploads it: the set-up spans
+        ``nt.graph.warmup``, ``nt.graph.capture`` and ``nt.graph.upload``,
+        their seconds summed in ``capture_seconds``."""
         global CAPTURES
         CAPTURES += 1
-        t0 = time.perf_counter()
         dev = self.compiled.device
         with _cusolver(dev):
-            self.lam.fill_(1.0)
-            side = _side_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for name, body in self.bodies.items():
-                    self._keep(name, body())
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            pool = torch.cuda.graph_pool_handle()
-            # No garbage collection inside a capture: a collected runner's
-            # CUDA graph (runners hold reference cycles) would be destroyed
-            # mid-capture, which invalidates it.  ``torch.cuda.graph``
-            # collects before each capture begins.
-            gc_on = gc.isenabled()
-            gc.disable()
-            try:
-                for name, body in self.bodies.items():
-                    graph = torch.cuda.CUDAGraph()
-                    before = _launch_counts()
-                    try:
-                        with torch.cuda.graph(graph, pool=pool):
-                            out = self._keep(name, body())
-                    except Exception as e:
-                        raise RuntimeError(
-                            f"graph driver: the capture of {name!r} failed: "
-                            f"{type(e).__name__}: {e}"
-                        ) from e
-                    counted = [a - b for a, b in zip(_launch_counts(), before)]
-                    _set_launch_counts(before)  # nothing ran during the capture
-                    self.graphs[name] = (graph, counted, out)
-            finally:
-                if gc_on:
-                    gc.enable()
-            for graph, counted, _ in self.graphs.values():  # the first replay uploads it
-                graph.replay()
-                _set_launch_counts([a + b for a, b in zip(_launch_counts(), counted)])
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+            with profiling.setup_span("nt.graph.warmup") as warmup:
+                self.lam.fill_(1.0)
+                side = _side_stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for name, body in self.bodies.items():
+                        self._keep(name, body())
+                torch.cuda.current_stream(dev).wait_stream(side)
+                torch.cuda.synchronize(dev)
+            with profiling.setup_span("nt.graph.capture") as capture:
+                self._capture()
+            with profiling.setup_span("nt.graph.upload") as upload:
+                for graph, counted, _ in self.graphs.values():  # the first replay uploads it
+                    graph.replay()
+                    _add_launch_counts(counted)
+                torch.cuda.synchronize(dev)
+        self.capture_seconds = warmup.seconds + capture.seconds + upload.seconds
 
-    def _step(self, name):
+    def _capture(self):
+        """Each piece captured in a CUDA graph, all in one memory pool."""
+        pool = torch.cuda.graph_pool_handle()
+        # No garbage collection inside a capture: a collected runner's
+        # CUDA graph (runners hold reference cycles) would be destroyed
+        # mid-capture, which invalidates it.  ``torch.cuda.graph``
+        # collects before each capture begins.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            for name, body in self.bodies.items():
+                graph = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                try:
+                    with torch.cuda.graph(graph, pool=pool):
+                        out = self._keep(name, body())
+                except Exception as e:
+                    raise RuntimeError(
+                        f"graph driver: the capture of {name!r} failed: "
+                        f"{type(e).__name__}: {e}"
+                    ) from e
+                counted = [a - b for a, b in zip(_launch_counts(), before)]
+                _set_launch_counts(before)  # nothing ran during the capture
+                self.graphs[name] = (graph, counted, out)
+        finally:
+            if gc_on:
+                gc.enable()
+
+    def _tally_launches(self):
+        """Adds to the kernels' launch counters what each graph's capture
+        counted, once per replay of this run (when :meth:`run` returns)."""
+        for name, (_, counted, _) in self.graphs.items():
+            if self.piece_replays[name]:
+                _add_launch_counts(counted, self.piece_replays[name])
+
+    def _step(self, name, read=None):
         """Piece ``name``: its graph replayed on the card, its body run on
-        the CPU; returns its outputs."""
-        with self.timer(name):
-            if name in self.graphs:
-                graph, counted, out = self.graphs[name]
-                graph.replay()
-                _set_launch_counts([a + b for a, b in zip(_launch_counts(), counted)])
-                self.replays += 1
-            else:
-                out = self.bodies[name]()
-        return self._keep(name, out)
+        the CPU, and ``read``, the host read of its outputs, if given, all
+        inside its span; returns the outputs, or what ``read`` makes of
+        them."""
+        with profiling.span(self.spans[name]):
+            with self.timer(name):
+                if name in self.graphs:
+                    graph, _, out = self.graphs[name]
+                    graph.replay()
+                else:
+                    out = self.bodies[name]()
+            self.piece_replays[name] += 1
+            out = self._keep(name, out)
+            return out if read is None else read(out)
+
+    @staticmethod
+    def _read_trial(out):
+        nv, x, read = out
+        return nv, x, read.tolist()
 
     def _pcg(self, lam):
         """The PCG set-up and chunks at ``lam``, the host reading the
@@ -834,7 +879,7 @@ class _GraphRunner:
         self._step("pcg_setup")
         more = True
         while more:
-            more, iters = self._step("pcg_chunk").tolist()
+            more, iters = self._step("pcg_chunk", torch.Tensor.tolist)
         self.linops.cg_iters.append(int(iters))
 
     # -- what run_loop and the iterators call --------------------------------
@@ -853,26 +898,23 @@ class _GraphRunner:
         contract) through the pieces."""
         if self.iterative:
             self._pcg(lam)
-            nv, x, read = self._step("pcg_finish")
-        else:
-            self.lam.fill_(float(lam))
-            nv, x, read = self._step("trial_lu" if lu else "trial")
-        return nv, x, read.tolist()
+            return self._step("pcg_finish", self._read_trial)
+        self.lam.fill_(float(lam))
+        return self._step("trial_lu" if lu else "trial", self._read_trial)
 
     def leg(self, sys, g, lu=False):
         """Dogleg's leg (:meth:`iterators.IterCtx.leg`'s contract); the
         legs stay in the runner's buffers."""
         if self.iterative:
             self._pcg(0.0)
-            return None, self._step("pcg_leg").tolist()
-        return None, self._step("leg_lu" if lu else "leg").tolist()
+            return None, self._step("pcg_leg", torch.Tensor.tolist)
+        return None, self._step("leg_lu" if lu else "leg", torch.Tensor.tolist)
 
     def combo(self, sys, g, variables, legs, kind, s):
         """A combination trial (:meth:`iterators.IterCtx.combo`'s
         contract): s written into ``lam``, one replay, one read."""
         self.lam.fill_(float(s))
-        nv, x, read = self._step("trial_" + kind)
-        return nv, x, read.tolist()
+        return self._step("trial_" + kind, self._read_trial)
 
     def adopt(self, variables):
         for name, v in variables.items():
@@ -889,7 +931,8 @@ class _GraphRunner:
         copied into the static variables, the counters cleared; nothing is
         compiled or captured."""
         self.adopt(vars0)
-        self.iteration = self.replays = 0
+        self.piece_replays.clear()
+        self.iteration = 0
         self.capture_seconds = 0.0
         if hasattr(self.linops, "cg_iters"):
             self.linops.cg_iters.clear()
@@ -904,28 +947,32 @@ class _GraphRunner:
 
     def run(self) -> dict:
         """:func:`run_loop` through the pieces; the final variables are the
-        caller's own tensors (a later replay does not touch them).  With
-        ``jit_max_time`` the final state has every iteration's time
-        (``times_ns``); under ``store_trajectory="jit_full"`` every
-        iteration's step (``steps``, host arrays)."""
+        caller's own tensors (a later replay does not touch them), the
+        launches tallied.  The final state has ``replays`` (per piece),
+        ``capture_seconds`` and ``cg_iters``; with ``jit_max_time`` every
+        iteration's time (``times_ns``); under
+        ``store_trajectory="jit_full"`` every iteration's step (``steps``,
+        host arrays).  What follows the loop runs in span ``nt.finish``."""
         times = [] if self.opts.jit_max_time else None
         final = run_loop(self.assemble, self.compiled.cost, self, self.opts, self.vars,
                          buffers=self, times=times)
-        if final["variables"] is self.vars:
-            final["variables"] = self.snapshot(self.vars)
-        steps = ([] if self.steps is None else
-                 list(self.steps[: final["iternum"]].cpu().numpy()))
-        final.update(capture_seconds=self.capture_seconds, replays=self.replays,
-                     cg_iters=list(getattr(self.linops, "cg_iters", [])),
-                     times_ns=times or [], steps=steps)
+        with profiling.span("nt.finish"):
+            self._tally_launches()
+            if final["variables"] is self.vars:
+                final["variables"] = self.snapshot(self.vars)
+            steps = ([] if self.steps is None else
+                     list(self.steps[: final["iternum"]].cpu().numpy()))
+            final.update(capture_seconds=self.capture_seconds, replays=dict(self.piece_replays),
+                         cg_iters=list(getattr(self.linops, "cg_iters", [])),
+                         times_ns=times or [], steps=steps)
         return final
 
 
 def run_graphs(compiled: CompiledProblem, opts: Options, vars0, phase=None) -> dict:
     """The graph driver over a compiled problem (:class:`_GraphRunner`:
     warm-up and capture, then the loop).  Returns :func:`run_loop`'s final
-    state with ``capture_seconds``, ``replays`` and ``cg_iters`` (as
-    :func:`run_stepped`'s)."""
+    state with ``capture_seconds``, ``replays`` (per piece) and
+    ``cg_iters`` (as :func:`run_stepped`'s)."""
     return _GraphRunner(compiled, opts, vars0, phase).run()
 
 
@@ -1020,8 +1067,10 @@ def _cached_entry(problem, opts: Options, unfixed, w_impl) -> _RunnerEntry:
     return entry
 
 
-def _result(final, t0, t1, times, trajectory) -> Result:
-    return Result(
+def _result(final, t0, t1, times, trajectory, setup=None) -> Result:
+    """The call's :class:`Result` (``setup``: its set-up record, if any);
+    its counters added to :func:`profiling.totals`."""
+    res = Result(
         start_cost=float(final["startcost"]),
         best_cost=float(final["bestcost"]),
         time_total=time.perf_counter() - t0,
@@ -1036,7 +1085,17 @@ def _result(final, t0, t1, times, trajectory) -> Result:
         linear_solves=final["nsolve"],
         costs=[float(c) for c in final["trace"]],
         trajectory=trajectory,
+        replays=dict(final.get("replays", {})),
+        pcg_iterations=[int(k) for k in final.get("cg_iters", [])],
+        setup_seconds=dict(setup or {}),
     )
+    total = profiling.totals()
+    total.update(optimize_calls=1, iterations=res.num_iterations,
+                 linear_solves=res.linear_solves, pcg_solves=len(res.pcg_iterations),
+                 pcg_iterations=sum(res.pcg_iterations))
+    total.update({"replays." + k: n for k, n in res.replays.items()})
+    total.update({"setup." + k: s for k, s in res.setup_seconds.items()})
+    return res
 
 
 def _graph_trajectory(final, opts: Options):
@@ -1069,31 +1128,40 @@ def optimize(problem: Problem, options: Options = None, unfixed=None, callback=N
     package compiles before its.  The graph driver's compiled problem and
     runner are cached (:func:`_cached_entry`): a second call on a problem
     whose structure is unchanged compiles and captures nothing, and its
-    ``time_init`` is the copy of the current values into the runner."""
+    ``time_init`` is the copy of the current values into the runner.
+
+    The call runs in span ``nt.optimize``: set-up in ``nt.setup`` (its
+    phases in ``nt.compile.*`` and ``nt.graph.*``, their seconds in
+    ``Result.setup_seconds``), the loop, then ``nt.finish``."""
     options = options or Options()
-    if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
-        raise ValueError("no unfixed variables to optimize")
-    t0 = time.perf_counter()
-    nan = float("nan")
-    if callback is not None or options.store_trajectory is True:
-        compiled = compile_problem(
-            problem, unfixed, solver=options.solver,
-            schur_family=options.schur_family, w_impl=w_impl,
-        )
-        vars0 = problem.stacked_variables()
+    stepped = callback is not None or options.store_trajectory is True
+    with profiling.span("nt.optimize"), profiling.setup_record() as setup:
+        with profiling.setup_span("nt.setup"):
+            if not any(m.any() for m in engine.resolve_unfixed(problem, unfixed).values()):
+                raise ValueError("no unfixed variables to optimize")
+            t0 = time.perf_counter()
+            if stepped:
+                compiled = compile_problem(
+                    problem, unfixed, solver=options.solver,
+                    schur_family=options.schur_family, w_impl=w_impl,
+                )
+                vars0 = problem.stacked_variables()
+            else:
+                runner = _cached_entry(problem, options, unfixed, w_impl).runner(
+                    problem.stacked_variables())
         t1 = time.perf_counter()
-        final = run_stepped(compiled, options, vars0, callback=callback, problem=problem)
-        times = [final["seconds"].get(k, 0.0) for k in ("cost", "assemble", "solve")]
-        trajectory = final["trajectory"]
-    else:
-        runner = _cached_entry(problem, options, unfixed, w_impl).runner(
-            problem.stacked_variables())
-        t1 = time.perf_counter()
-        final = runner.run()
-        times = [nan, nan, nan]
-        trajectory = _graph_trajectory(final, options)
-    problem.set_values(final["variables"])
-    return _result(final, t0, t1, times, trajectory)
+        if stepped:
+            final = run_stepped(compiled, options, vars0, callback=callback, problem=problem)
+            times = [final["seconds"].get(k, 0.0) for k in ("cost", "assemble", "solve")]
+            trajectory = final["trajectory"]
+        else:
+            final = runner.run()
+            nan = float("nan")
+            times = [nan, nan, nan]
+            trajectory = _graph_trajectory(final, options)
+        with profiling.span("nt.finish"):
+            problem.set_values(final["variables"])
+            return _result(final, t0, t1, times, trajectory, setup)
 
 
 class SubproblemView:
@@ -1168,19 +1236,24 @@ class SubproblemView:
 
     def optimize(self, options: Options = None) -> Result:
         """Optimize the active subset in place on the parent problem: one
-        graph runner per ``Options`` value, reset for every later call."""
+        graph runner per ``Options`` value, reset for every later call.
+        Spans and counters as :func:`optimize`'s."""
         options = options or Options()
-        t0 = time.perf_counter()
-        vars0 = self.problem.stacked_variables()
-        runner = self._runners.get(options)
-        if runner is None:
-            runner = _GraphRunner(self.compiled, options, vars0)
-            self._runners[options] = runner
-            self.capture_count += bool(runner.graphs)
-        else:
-            runner.reset(vars0)
-        t1 = time.perf_counter()
-        final = runner.run()
-        self.problem.set_values(final["variables"])
-        nan = float("nan")
-        return _result(final, t0, t1, [nan, nan, nan], _graph_trajectory(final, options))
+        with profiling.span("nt.optimize"), profiling.setup_record() as setup:
+            with profiling.setup_span("nt.setup"):
+                t0 = time.perf_counter()
+                vars0 = self.problem.stacked_variables()
+                runner = self._runners.get(options)
+                if runner is None:
+                    runner = _GraphRunner(self.compiled, options, vars0)
+                    self._runners[options] = runner
+                    self.capture_count += bool(runner.graphs)
+                else:
+                    runner.reset(vars0)
+            t1 = time.perf_counter()
+            final = runner.run()
+            with profiling.span("nt.finish"):
+                self.problem.set_values(final["variables"])
+                nan = float("nan")
+                return _result(final, t0, t1, [nan, nan, nan], _graph_trajectory(final, options),
+                               setup)

@@ -119,7 +119,17 @@ class Result:
     The graph driver replays whole trials, so they are NaN there ("not
     measured"), as in the JAX package's jit driver.  ``costs`` is the
     per-iteration cost trace; ``trajectory`` the :class:`CostTrajectory`
-    when one was asked for."""
+    when one was asked for.
+
+    The call's counters: ``replays``, the graph driver's replays per piece
+    (``"assemble"``, ``"trial"``, ``"trial_lu"`` — a Cholesky that fell to
+    LU —, ``"pcg_chunk"``, ...; on the CPU its eager runs; empty on the
+    stepped driver); ``pcg_iterations``, the PCG iterations of each PCG
+    solve (cg and implicit backends, both drivers); ``setup_seconds``, the
+    host seconds of each set-up span (``"setup"``, ``"compile.layout"``,
+    ``"compile.tables"``, ``"compile.build"``, ``"compile.upload"``,
+    ``"graph.warmup"``, ``"graph.capture"``, ``"graph.upload"``; a cache
+    hit's holds ``"setup"`` alone)."""
 
     start_cost: float
     best_cost: float
@@ -135,6 +145,9 @@ class Result:
     linear_solves: int
     costs: Optional[list] = None
     trajectory: Optional[Any] = None  # CostTrajectory when requested
+    replays: dict = dataclasses.field(default_factory=dict)
+    pcg_iterations: list = dataclasses.field(default_factory=list)
+    setup_seconds: dict = dataclasses.field(default_factory=dict)
 
     def termination_reasons(self) -> list:
         reasons = [msg for bit, msg in _TERM_MESSAGES if self.termination & bit]

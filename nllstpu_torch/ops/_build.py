@@ -25,6 +25,8 @@ import re
 import subprocess
 import time
 
+from ..utils import profiling
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext"
 NVCC_FLAGS = [
@@ -108,45 +110,46 @@ def library():
     global _lib, _so, BUILD_LOG, BUILD_SECONDS
     if _lib is not None:
         return _lib
-    t0 = time.perf_counter()
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(_CSRC.glob("*.cuh")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = _OUT / f"libnllstpu_kernels_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        _OUT.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        objs = [so.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
-        jobs = [
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(sources, objs)
-        ]
-        procs = [
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for cmd in jobs
-        ]
-        logs = [pr.communicate()[0] for pr in procs]
-        BUILD_LOG = "".join(logs)
-        for cmd, pr, log in zip(jobs, procs, logs):
-            _check_nvcc(cmd, pr.returncode, log)
-        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
-        pr = subprocess.run(link, capture_output=True, text=True)
-        _check_nvcc(link, pr.returncode, pr.stdout + pr.stderr)
-        for obj in objs:
-            obj.unlink()
-        so.with_suffix(".log").write_text(BUILD_LOG)
-        os.replace(tmp, so)
-        BUILD_SECONDS = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+    with profiling.setup_span("nt.compile.build"):
+        t0 = time.perf_counter()
+        sources = sorted(_CSRC.glob("*.cu"))
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources + sorted(_CSRC.glob("*.cuh")):
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        so = _OUT / f"libnllstpu_kernels_{digest.hexdigest()[:16]}.so"
+        if not so.exists():
+            _OUT.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            nvcc = _nvcc()
+            objs = [so.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
+            jobs = [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)
+            ]
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for cmd in jobs
+            ]
+            logs = [pr.communicate()[0] for pr in procs]
+            BUILD_LOG = "".join(logs)
+            for cmd, pr, log in zip(jobs, procs, logs):
+                _check_nvcc(cmd, pr.returncode, log)
+            link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+            pr = subprocess.run(link, capture_output=True, text=True)
+            _check_nvcc(link, pr.returncode, pr.stdout + pr.stderr)
+            for obj in objs:
+                obj.unlink()
+            so.with_suffix(".log").write_text(BUILD_LOG)
+            os.replace(tmp, so)
+            BUILD_SECONDS = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
     _lib, _so = lib, so
     return lib
 

@@ -83,6 +83,7 @@ from ..core.linearsolver import (
     pcg_chunk, pcg_start,
 )
 from ..core.problem import family_name
+from ..utils import profiling
 from . import fused_obs, schur_reduce, w_place
 from .segment_sum import segment_block_sum
 
@@ -658,31 +659,32 @@ def fill_tables(info: SchurInfo, layout, batches, buckets=None, route=None) -> N
     numbering (``num_elim``, ``elim_ids``) the batches are laid out in: the
     second half of :func:`build_schur_info`, also run on a rank's shard
     with its local numbering (``parallel.schur_shard``)."""
-    implicit = info.implicit
-    per_batch = buckets if buckets is not None else [None] * len(batches)
-    fast = []
-    for bi, (b, bk) in enumerate(zip(batches, per_batch)):
-        f = None
-        if bi == route and not implicit:
-            f = _fast_batch_data(b, layout, info, buckets=bk)
-        elif b.batched == "cm" and b.adaptive != implicit:
-            # The direct path's adaptive batch; a components-major
-            # camera/landmark batch of the implicit one.
-            f = _run_batch_data(b, layout, info)
-        fast.append(f if f is not None else _gen_batch_data(b, layout, info))
-    info.fast = tuple(fast)
-    info.plan = _generic_plan(info)
-    if implicit:
-        info.cg = _implicit_plan(info)
-        info.cluster_src = _cluster_source(info, batches, layout)
-    else:
-        t0 = time.perf_counter()
-        tables = w_structure(info)
-        if route is None:
-            info.w_pairs = tables
+    with profiling.setup_span("nt.compile.tables"):
+        implicit = info.implicit
+        per_batch = buckets if buckets is not None else [None] * len(batches)
+        fast = []
+        for bi, (b, bk) in enumerate(zip(batches, per_batch)):
+            f = None
+            if bi == route and not implicit:
+                f = _fast_batch_data(b, layout, info, buckets=bk)
+            elif b.batched == "cm" and b.adaptive != implicit:
+                # The direct path's adaptive batch; a components-major
+                # camera/landmark batch of the implicit one.
+                f = _run_batch_data(b, layout, info)
+            fast.append(f if f is not None else _gen_batch_data(b, layout, info))
+        info.fast = tuple(fast)
+        info.plan = _generic_plan(info)
+        if implicit:
+            info.cg = _implicit_plan(info)
+            info.cluster_src = _cluster_source(info, batches, layout)
         else:
-            info.w_rows = tables
-        info.table_seconds += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tables = w_structure(info)
+            if route is None:
+                info.w_pairs = tables
+            else:
+                info.w_rows = tables
+            info.table_seconds += time.perf_counter() - t0
 
 
 def w_structure(info: SchurInfo) -> schur_reduce.RowTables:

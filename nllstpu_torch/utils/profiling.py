@@ -1,14 +1,26 @@
 """Profiling and timing helpers (port of ``nllstpu/utils/profiling.py``):
 a fence that waits for the device and reads a value back, a best-of-N
-wall timer fenced by it, and a ``torch.profiler`` trace.
+wall timer fenced by it, a ``torch.profiler`` trace, and the program's own
+spans and counters.
+
+Spans (:func:`span`) mark the graph driver's pieces and the set-up's phases
+under names that start with ``nt.`` (``docs/API.md`` lists them).  While a
+``torch.profiler`` session records, a span is a ``record_function``: its
+event lands in the same trace, on the same clock, as the card's kernels.
+While none records, a span costs one flag check.  Set-up spans
+(:func:`setup_span`) also time themselves on the host clock, into the
+record of the ``optimize`` call in flight (``Result.setup_seconds``).
+Every call's counters add up in :func:`totals`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _leaves(tree):
@@ -60,3 +72,73 @@ def trace(log_dir: str):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
     ) as prof:
         yield prof
+
+
+_NULL = contextlib.nullcontext()
+#: What a span is while the profiler records.
+_record_function = torch.profiler.record_function
+#: The set-up seconds of the ``optimize`` call in flight (:func:`setup_record`).
+_setup = None
+_TOTALS = collections.Counter()
+
+
+class _Span:
+    """A span that the profiler records while it is on, and that times
+    itself: ``seconds`` after it closes, added into ``into`` (a dict, or
+    None) under its name without the ``nt.`` prefix."""
+
+    __slots__ = ("name", "into", "seconds", "_event", "_t0")
+
+    def __init__(self, name: str, into):
+        self.name, self.into, self.seconds, self._event = name, into, 0.0, None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._event = _record_function(self.name)
+            self._event.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        if self.into is not None:
+            key = self.name.removeprefix("nt.")
+            self.into[key] = self.into.get(key, 0.0) + self.seconds
+        if self._event is not None:
+            self._event.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A named span of the program: a ``torch.profiler.record_function``
+    while a profiler records, else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name, None)
+
+
+def setup_span(name: str) -> _Span:
+    """A set-up phase's span, timed always (its ``seconds``) and added
+    into the set-up record open (:func:`setup_record`), if any, under
+    ``name`` without the ``nt.`` prefix."""
+    return _Span(name, _setup)
+
+
+@contextlib.contextmanager
+def setup_record():
+    """Collects the set-up spans' seconds of the block into the dict it
+    yields (the innermost record open takes them)."""
+    global _setup
+    outer, _setup = _setup, {}
+    try:
+        yield _setup
+    finally:
+        _setup = outer
+
+
+def totals() -> collections.Counter:
+    """The process totals of every ``optimize`` call's counters (the same
+    Counter, live): ``optimize_calls``, ``iterations``, ``linear_solves``,
+    ``replays.<piece>`` (graph pieces), ``pcg_solves``,
+    ``pcg_iterations`` and ``setup.<phase>`` (seconds)."""
+    return _TOTALS

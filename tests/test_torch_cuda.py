@@ -815,7 +815,8 @@ def test_captured_trial_replays_the_eager_trial(cuda):
     """The graph driver's captured assembly and damped trials (through the
     reduced system's Cholesky and through LU), replayed at two λ, give the
     eager pieces' bits; the launch counters count the warm-up's launches,
-    none at capture, and at every replay what its capture counted."""
+    none at capture, none at a replay, and when the run returns what each
+    capture counted once per replay of the run."""
     from nllstpu_torch.core import optimize
 
     problem, opts, comp = _driver_case(cuda)
@@ -845,11 +846,19 @@ def test_captured_trial_replays_the_eager_trial(cuda):
         assert torch.equal(x_glu, -x_lu)
     torch.cuda.synchronize()
     after = (fused_obs.LAUNCHES, segment_sum.LAUNCHES, schur_reduce.LAUNCHES)
-    # One assembly replay (B1 and its B6) and four trial replays (B3 each),
-    # beside the eager calls' own launches (one assembly, two trials and two
-    # LU solves).
-    assert [b - a for a, b in zip(warm, after)] == [1 + 1, 1 + 1, 4 + 4]
+    # The eager calls' own launches (one assembly: B1 and its B6; two trials
+    # and two LU solves: B3 each); the replays are not counted yet.
+    assert [b - a for a, b in zip(warm, after)] == [1, 1, 4]
     assert runner.replays == 5
+    assert dict(runner.piece_replays) == {"assemble": 1, "trial": 2, "trial_lu": 2}
+    # The run goes on from these replays; when it returns, every replay of
+    # it is counted: an assembly B1 and its B6, a trial B3.
+    final = runner.run()
+    done = (fused_obs.LAUNCHES, segment_sum.LAUNCHES, schur_reduce.LAUNCHES)
+    r = final["replays"]
+    assert r == dict(runner.piece_replays) and r["assemble"] > 1
+    assert [b - a for a, b in zip(after, done)] == [
+        r["assemble"], r["assemble"], r["trial"] + r.get("trial_lu", 0)]
 
 
 @pytest.mark.cuda

@@ -77,7 +77,9 @@ def test_graph_body_matches_run_loop(case):
         assert [c.tobytes() for c in got["trace"]] == [c.tobytes() for c in ref["trace"]]
         for k, v in ref["variables"].items():
             assert torch.equal(got["variables"][k], v), k
-    assert runs[0]["replays"] == 0 and runs[0]["capture_seconds"] == 0.0
+    # Nothing captured on the CPU; the pieces' eager runs are counted.
+    assert runs[0]["capture_seconds"] == 0.0
+    assert runs[0]["replays"]["assemble"] == ref["iternum"]
     assert set(runs[1]["seconds"]) == {"assemble", "solve", "cost"}
     if comp.schur_info.implicit:
         assert len(ctx.linops.cg_iters) == ref["nsolve"]
